@@ -4,20 +4,39 @@
     python3 chip_smoke.py
 
 Phases, in order (every failure raises and exits non-zero):
-  device   card name, power limit; TF32 off for f32 products and convolutions
-  build    nvcc builds the kernels from sgaligner_tpu_torch/csrc
-  kernels  each of the four kernels against its plain PyTorch version on the
-           card: full width (P=512, C=128, da=32, K=1024), O=67 objects
-           (ragged, not a multiple of 8), float32 and bfloat16, SA and OA;
-           again at P=200 (not a multiple of the kernels' 64-row tiles)
-  parity   the serving path on the CPU (plain versions) against the card
-           (kernels): same seeded weights, one pooled B=8 batch, float32
-  serve    the serving configuration of bench.py (B=512 pairs, 32 object
-           slots per graph, 512 points, bfloat16, pooled bucket 128): four
-           requests with distinct seeds through make_serving_step; launch
-           counts 1/1/4/1 per request
-  time     each kernel at the serving shapes against its plain version (and
-           torch.matmul for the tail), with its bound from the shapes
+  device       card name, power limit; TF32 off for f32 products and
+               convolutions
+  build        nvcc builds the kernels from sgaligner_tpu_torch/csrc
+  kernels      each of the six kernels against its plain PyTorch version on
+               the card: full width (P=512, C=128, da=32, K=1024, PointNet
+               3 -> 64 -> 128 -> 256), O=67 objects (ragged, not a multiple
+               of 8), float32 and bfloat16, SA and OA; again at P=200 (not a
+               multiple of the kernels' row tiles). The PointNet forward's
+               argmax is held by value: at the kernel's index the plain
+               activation must equal the plain max
+  parity       the pct serving path on the CPU (plain versions) against the
+               card (kernels): same seeded weights, one pooled B=8 batch, f32
+  train_parity the point configuration's train step on the CPU against the
+               card: same seeded weights, one pooled B=8 batch, f32, three
+               steps; every gradient of the first step (worst leaf,
+               normwise), the losses per step and the parameters' drift.
+               Then the card again with faults planted in the backward
+               kernel's output, each of which the checks must catch
+  serve        the pct serving configuration of bench.py (B=512 pairs, 32
+               object slots per graph, 512 points, bfloat16, pooled bucket
+               128): four requests with distinct seeds through
+               make_serving_step; launch counts 1/1/4/1 per request
+  train        bench.py's point training configuration (B=32, 32 slots,
+               P=512, bf16, pooled bucket 128, one synthetic batch, seed 0):
+               warm-up, then 3 windows of 20 steps; ms per step, pairs/s,
+               1 forward and 1 backward PointNet launch per step, a finite
+               loss that falls on the fixed batch
+  serve_point  the point configuration serving the four B=512 requests;
+               1 PointNet forward launch per request
+  time         each kernel against its plain version (and torch.matmul for
+               the tail): the pct kernels at the serving O, the PointNet
+               kernels at the training O (the forward also at the serving
+               O), with each bound from the shapes
 
 The last two lines are the {"kernels": [...]} record and
 {"ok": true, "device": {...}}. Nothing of JAX or of the JAX package is
@@ -42,22 +61,43 @@ BF16_TENSOR_FLOPS = 989e12
 F32_FLOPS = 67e12
 
 P, C, DA, K = 512, 128, 32, 1024
+PN = (64, 128, 256)            # PointNet widths (conv1, conv2, conv3 = pt_out_dim)
 SMALL_O = 67
 RAGGED_P = 200
 MODULES = ("pct", "gat", "rel", "attr")
+POINT_MODULES = ("point", "gat", "rel", "attr")
+TRAIN_B, WARMUP_STEPS, WINDOW_STEPS, N_WINDOWS = 32, 5, 20, 3
 
 # Normwise tolerance, max|kernel - plain| / max|plain| per output. float32:
 # the same f32 arithmetic summed in another order. bfloat16: an output may
 # round to the neighbouring bf16 value (2^-8 relative); pct_block_eval also
 # exponentiates differently (f32 log-sum-exp in the kernel, bf16 exp against a
-# column max in the plain version, as on the TPU).
+# column max in the plain version, as on the TPU). pointnet_bwd, bfloat16:
+# its gradients sum O·P products of values that may each sit one bf16 step
+# apart, and a relu mask may flip where a pre-activation is near 0.
 TOL = {("embed_first", "f32"): 1e-5, ("embed_first", "bf16"): 1e-2,
        ("embed_second", "f32"): 1e-4, ("embed_second", "bf16"): 1e-2,
        ("pct_block_eval", "f32"): 1e-4, ("pct_block_eval", "bf16"): 5e-2,
-       ("pct_tail", "f32"): 1e-4, ("pct_tail", "bf16"): 1e-2}
+       ("pct_tail", "f32"): 1e-4, ("pct_tail", "bf16"): 1e-2,
+       ("pointnet_fwd", "f32"): 1e-5, ("pointnet_fwd", "bf16"): 1e-2,
+       ("pointnet_bwd", "f32"): 1e-4, ("pointnet_bwd", "bf16"): 2e-2}
 # main path, CPU against the card at float32: relative drift of the joint
 # embeddings (the JAX suite measured 0.0077 f32 drift from max-pool ties)
 PARITY_DRIFT = 0.02
+# point training, CPU against the card at float32, three Adam steps: each
+# gradient leaf of the first step, ||card - CPU|| / ||CPU|| (worst leaf); the
+# losses' relative difference per step; the parameters' difference relative
+# to how far they moved. Sound readings on an H100 (PERF.md): 1.1e-6, 1.0e-7,
+# 6.6e-6. The bounds sit between those and the planted faults' readings
+# (PLANTED below): the gradient check reads 0.1 to 1 for each of them. The
+# loss and parameter checks alone miss some (Adam's first steps move every
+# parameter by about lr whatever the gradient's size)
+TRAIN_GRAD_DRIFT = 1e-4
+TRAIN_LOSS_DRIFT = 1e-6
+TRAIN_PARAM_DRIFT = 1e-4
+# faults planted in pointnet_bwd's output on the card: (label, gradient
+# index (dw1, db1, dw2, db2, dw3, db3), factor)
+PLANTED = (("dw3 x2", 4, 2.0), ("db1 zeroed", 1, 0.0), ("dw1 x1.1", 0, 1.1))
 
 KERNELS = {
     "embed_first": ("sgaligner_tpu_torch/csrc/pct_embed.cu",
@@ -68,12 +108,19 @@ KERNELS = {
                        "sgaligner_tpu/ops/pct_attention.py:833"),
     "pct_tail": ("sgaligner_tpu_torch/csrc/pct_tail.cu",
                  "sgaligner_tpu/ops/pct_tail.py:83"),
+    "pointnet_fwd": ("sgaligner_tpu_torch/csrc/pointnet.cu",
+                     "sgaligner_tpu/ops/pointnet_fused.py:62"),
+    "pointnet_bwd": ("sgaligner_tpu_torch/csrc/pointnet.cu",
+                     "sgaligner_tpu/ops/pointnet_fused.py:72"),
 }
+PCT_KERNELS = ("embed_first", "embed_second", "pct_block_eval", "pct_tail")
+POINT_KERNELS = ("pointnet_fwd", "pointnet_bwd")
 # positions of the per-object arguments of each op (the rest are weights)
 PER_OBJECT_ARGS = {"embed_first": (0, 2), "embed_second": (0, 4),
                    "pct_block_eval": (0,), "pct_tail": (0, 1, 2, 3, 5)}
 PER_REQUEST = {"embed_first": 1, "embed_second": 1, "pct_block_eval": 4,
                "pct_tail": 1}
+PER_TRAIN_STEP = {"pointnet_fwd": 1, "pointnet_bwd": 1}
 
 
 def log(msg: str) -> None:
@@ -117,6 +164,18 @@ def op_inputs(name: str, o: int, dtype, seed: int, p: int = P) -> tuple:
     def rnd(*shape, scale=1.0):
         return (torch.randn(*shape, generator=g) * scale).to("cuda", dtype)
 
+    if name in POINT_KERNELS:
+        from sgaligner_tpu_torch.ops.pointnet_fused import pointnet_fwd_plain
+
+        x = rnd(o, 3, p)
+        ws = []
+        for cin, cout in zip((3, *PN[:-1]), PN):
+            ws += [rnd(cin, cout, scale=cin ** -0.5), rnd(1, cout, scale=0.1)]
+        if name == "pointnet_fwd":
+            return (x, *ws)
+        # the backward routes to the plain forward's argmax (both sides get it)
+        amax = pointnet_fwd_plain(x, *ws, with_argmax=True)[1]
+        return (x, rnd(o, PN[-1]), amax, *ws)
     mask = (torch.rand(o, 1, generator=g) < 0.85).float()
     mask[0] = 1.0
     mask = mask.to("cuda", dtype)
@@ -137,8 +196,14 @@ def op_inputs(name: str, o: int, dtype, seed: int, p: int = P) -> tuple:
 
 def op_fns(name: str, flags=(True, False)):
     """(kernel wrapper, plain version) of one op."""
-    from sgaligner_tpu_torch.ops import pct_attention, pct_embed, pct_tail
+    from sgaligner_tpu_torch.ops import (pct_attention, pct_embed, pct_tail,
+                                         pointnet_fused)
 
+    if name == "pointnet_fwd":
+        return (lambda *a: pointnet_fused.pointnet_fwd(*a, with_argmax=True),
+                lambda *a: pointnet_fused.pointnet_fwd_plain(*a, with_argmax=True))
+    if name == "pointnet_bwd":
+        return pointnet_fused.pointnet_bwd, pointnet_fused.pointnet_bwd_plain
     if name == "embed_first":
         return pct_embed.embed_first, pct_embed.embed_first_plain
     if name == "embed_second":
@@ -174,6 +239,44 @@ def compare(got, want) -> tuple[float, float]:
             worst_abs = max(worst_abs, err)
         worst_rel = max(worst_rel, err / max(float(w.abs().max()), 1e-30))
     return worst_abs, worst_rel
+
+
+def argmax_error(args, amax) -> float:
+    """The PointNet forward's argmax, held by value (near-ties are not ties:
+    the kernel and the plain version sum in other orders): max over (object,
+    channel) of |plain max - plain activation at the kernel's index|,
+    relative to the largest max."""
+    import torch
+
+    from sgaligner_tpu_torch.ops.pointnet_fused import stack_plain
+
+    h3 = torch.relu(stack_plain(*args)[0])                  # [O, P, C3] f32
+    at = torch.gather(h3, 1, amax.long()[:, None, :])[:, 0]
+    peak = h3.amax(dim=1)
+    return float((peak - at).abs().max() / peak.abs().max().clamp_min(1e-30))
+
+
+def check_op(name: str, args: tuple, dt_name: str, flags=(True, False),
+             what: str = "") -> tuple[float, float]:
+    """One kernel call against its plain version on the same inputs;
+    raises past the tolerance. Returns (max abs, max normwise rel)."""
+    import torch
+
+    kern, plain = op_fns(name, flags)
+    got, want = kern(*args), plain(*args)
+    torch.cuda.synchronize()
+    tol = TOL[(name, dt_name)]
+    if name == "pointnet_fwd":
+        (got, amax), (want, _) = got, want
+        arg_err = argmax_error(args, amax)
+        if not arg_err <= tol:
+            raise AssertionError(f"{what or name}: argmax points off the max "
+                                 f"({arg_err:.3e} > {tol:g})")
+    err_abs, err_rel = compare(got, want)
+    if not err_rel <= tol:
+        raise AssertionError(f"{what or name}: kernel disagrees with the plain "
+                             f"version ({err_rel:.3e} > {tol:g})")
+    return err_abs, err_rel
 
 
 # ------------------------------- phases --------------------------------------
@@ -219,26 +322,20 @@ def phase_kernels(state: dict) -> None:
             for tag, flags in variants:
                 kern, plain = op_fns(name, flags or (True, False))
                 args = op_inputs(name, SMALL_O, dtype, seed=1, p=p)
-                got = kern(*args)
-                want = plain(*args)
-                torch.cuda.synchronize()
-                err_abs, err_rel = compare(got, want)
+                label = f"{name}{'/' + tag if tag else ''}/{dt_name}"
+                err_abs, err_rel = check_op(name, args, dt_name,
+                                            flags or (True, False), label)
                 ms = cuda_ms(lambda: kern(*args))
                 plain_ms = cuda_ms(lambda: plain(*args), warmup=1, reps=3)
-                tol = TOL[(name, dt_name)]
-                label = f"{name}{'/' + tag if tag else ''}/{dt_name}"
                 log(f"[kernels] {label:24s} O={SMALL_O} P={p} max_abs={err_abs:.3e} "
-                    f"max_rel={err_rel:.3e} (tol {tol:g}) kernel {ms:.3f} ms "
-                    f"plain {plain_ms:.3f} ms")
-                if not err_rel <= tol:
-                    raise AssertionError(f"{label}: kernel disagrees with the "
-                                         f"plain version ({err_rel:.3e} > {tol:g})")
+                    f"max_rel={err_rel:.3e} (tol {TOL[(name, dt_name)]:g}) "
+                    f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms")
 
 
-def _cfg(dtype: str, max_objects: int):
+def _cfg(dtype: str, max_objects: int, modules=MODULES):
     from sgaligner_tpu_torch.core.config import make_cfg
 
-    cfg = make_cfg(modules=list(MODULES))
+    cfg = make_cfg(modules=list(modules))
     cfg.tpu.max_objects = max_objects
     cfg.tpu.points_per_object = P
     cfg.tpu.compute_dtype = dtype
@@ -325,6 +422,7 @@ def phase_serve(state: dict) -> None:
     os_ = [h["obj_points_pooled"].shape[0] for h in hosts]
     log(f"[serve] set-up {time.perf_counter() - t0:.1f} s; pooled objects O per request {os_}")
     state["serve_o"] = max(os_)
+    state["serve_batches"] = batches          # served again by serve_point
 
     with torch.inference_mode():                     # warm-up (not counted)
         embs = model(batches[0])
@@ -363,10 +461,281 @@ def phase_serve(state: dict) -> None:
         f"(B={b}, bf16) | launches {launches} | {state['card']}")
 
 
-def bound(name: str, o: int) -> tuple[float, str]:
-    """Least time (ms) for the work of one call at O objects, bf16."""
+def _train_three(cfg, host, dev: str) -> dict:
+    """Three point-config train steps from the seeded weights: the losses,
+    the first step's gradients, the starting and final parameters."""
+    import torch
+
+    from sgaligner_tpu_torch.data.batch import to_device
+    from sgaligner_tpu_torch.engine.factory import build_model
+    from sgaligner_tpu_torch.engine.train_step import create_train_state, make_train_step
+
+    model = build_model(cfg, dev, torch.Generator().manual_seed(11))
+    start = {k: v.detach().double().cpu() for k, v in model.state_dict().items()}
+    train = create_train_state(model, cfg)
+    step = make_train_step(POINT_MODULES)
+    batch = to_device(host, dev)
+    t0 = time.perf_counter()
+    losses = [step(train, batch)]
+    # the first step's gradients (the next step clears them)
+    grads = {k: v.grad.double().cpu() for k, v in
+             [*model.named_parameters(),
+              *(("loss." + n, q) for n, q in train.objective.named_parameters())]}
+    losses += [step(train, batch) for _ in range(2)]
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    if train.updates != 3:
+        raise AssertionError(f"train_parity: {dev} applied {train.updates} of 3 updates")
+    return {"losses": [{k: float(v) for k, v in o.items()} for o in losses],
+            "grads": grads, "start": start, "seconds": time.perf_counter() - t0,
+            "params": {k: v.detach().double().cpu() for k, v in model.state_dict().items()}}
+
+
+def _train_readings(ref: dict, got: dict) -> dict:
+    """The card run against the CPU run: worst gradient leaf, worst loss,
+    parameter drift; and which checks fail."""
+    for i, losses in enumerate(got["losses"]):
+        if not all(abs(v) < float("inf") and v == v for v in losses.values()):
+            raise AssertionError(f"train_parity: step {i} loss not finite on the card: {losses}")
+    loss = max(abs(b[k] - a[k]) / max(abs(a[k]), 1e-30)
+               for a, b in zip(ref["losses"], got["losses"]) for k in a)
+    grad = {k: float((got["grads"][k] - g).norm() / g.norm().clamp_min(1e-30))
+            for k, g in ref["grads"].items()}
+    leaf = max(grad, key=grad.get)
+    start, p_ref, p_got = ref["start"], ref["params"], got["params"]
+    moved = sum(float((p_ref[k] - start[k]).norm() ** 2) for k in start) ** 0.5
+    apart = sum(float((p_got[k] - p_ref[k]).norm() ** 2) for k in start) ** 0.5
+    r = {"leaf": leaf, "grad": grad[leaf], "loss": loss, "param": apart / moved}
+    r["failed"] = [name for name, bound in (("grad", TRAIN_GRAD_DRIFT),
+                                           ("loss", TRAIN_LOSS_DRIFT),
+                                           ("param", TRAIN_PARAM_DRIFT))
+                   if not r[name] <= bound]
+    return r
+
+
+def phase_train_parity(state: dict) -> None:
+    from sgaligner_tpu_torch.data.batch import BatchSpec, pool_compact
+    from sgaligner_tpu_torch.data.synthetic import make_synthetic_batch
+    from sgaligner_tpu_torch.ops import pointnet_fused
+
+    cfg = _cfg("float32", 32, POINT_MODULES)
+    host = pool_compact(make_synthetic_batch(
+        BatchSpec(8, 32, P), seed=3, bow_noise=1.0, resample=True), 128)
+    o = host["obj_points_pooled"].shape[0]
+    runs = {dev: _train_three(cfg, host, dev) for dev in ("cpu", "cuda")}
+    for dev, run in runs.items():
+        log(f"[train_parity] {dev}: 3 train steps {run['seconds']:.1f} s; loss "
+            + ", ".join(f"{v['loss']:.6f}" for v in run["losses"]))
+    r = _train_readings(runs["cpu"], runs["cuda"])
+    log(f"[train_parity] O={o} worst gradient leaf {r['leaf']} {r['grad']:.3e} (bound "
+        f"{TRAIN_GRAD_DRIFT:g}); losses: max relative difference {r['loss']:.3e} (bound "
+        f"{TRAIN_LOSS_DRIFT:g}); parameters: card-CPU distance / distance moved "
+        f"{r['param']:.3e} (bound {TRAIN_PARAM_DRIFT:g})")
+    if r["failed"]:
+        raise AssertionError(f"train_parity: the card's training differs from the "
+                             f"CPU's ({', '.join(r['failed'])}): {r}")
+
+    kernel = pointnet_fused.pointnet_bwd
+    for label, index, factor in PLANTED:
+        def planted(*args):
+            grads = list(kernel(*args))
+            grads[index] = grads[index] * factor
+            return tuple(grads)
+
+        pointnet_fused.pointnet_bwd = planted
+        try:
+            f = _train_readings(runs["cpu"], _train_three(cfg, host, "cuda"))
+        finally:
+            pointnet_fused.pointnet_bwd = kernel
+        log(f"[train_parity] planted fault {label}: gradient {f['leaf']} {f['grad']:.3e}, "
+            f"loss {f['loss']:.3e}, parameters {f['param']:.3e}; caught by {f['failed']}")
+        if not f["failed"]:
+            raise AssertionError(f"train_parity: the planted fault {label} went unseen")
+
+
+def phase_train(state: dict) -> None:
+    import torch
+
+    from sgaligner_tpu_torch.data.batch import BatchSpec, pool_compact, to_device
+    from sgaligner_tpu_torch.data.synthetic import make_synthetic_batch
+    from sgaligner_tpu_torch.engine.factory import build_model
+    from sgaligner_tpu_torch.engine.train_step import create_train_state, make_train_step
+    from sgaligner_tpu_torch.ops import _build
+
+    cfg = _cfg("bfloat16", 32, POINT_MODULES)
+    cfg.model.dropout = 0.0
+    host = pool_compact(make_synthetic_batch(BatchSpec(TRAIN_B, 32, P), seed=0), 128)
+    batch = to_device(host, "cuda")
+    o = host["obj_points_pooled"].shape[0]
+    state["train_o"] = o
+    model = build_model(cfg, "cuda", torch.Generator().manual_seed(0))
+    train = create_train_state(model, cfg)
+    step = make_train_step(POINT_MODULES)
+    t0 = time.perf_counter()
+    first = step(train, batch)
+    for _ in range(WARMUP_STEPS - 1):
+        step(train, batch)
+    torch.cuda.synchronize()
+    log(f"[train] O={o} pooled objects; warm-up {WARMUP_STEPS} steps "
+        f"{time.perf_counter() - t0:.1f} s; loss at step 1 {float(first['loss']):.6f}")
+
+    _build.reset_launches()
+    windows = []
+    for _ in range(N_WINDOWS):
+        t0 = time.perf_counter()
+        for _ in range(WINDOW_STEPS):
+            out = step(train, batch)
+        torch.cuda.synchronize()
+        windows.append(time.perf_counter() - t0)
+    launches = dict(_build.LAUNCHES)
+    steps = N_WINDOWS * WINDOW_STEPS
+    state["launches_train"] = launches
+    for name in KERNELS:
+        want = PER_TRAIN_STEP.get(name, 0) * steps
+        if launches[name] != want:
+            raise AssertionError(f"train: {name} launched {launches[name]} times in "
+                                 f"{steps} steps, expected {want}")
+    last = {k: float(v) for k, v in out.items()}
+    if not all(v == v and abs(v) < float("inf") for v in last.values()):
+        raise AssertionError(f"train: loss not finite: {last}")
+    if not last["loss"] < float(first["loss"]):
+        raise AssertionError(f"train: loss did not fall ({float(first['loss'])} -> "
+                             f"{last['loss']})")
+    if train.skipped:
+        raise AssertionError(f"train: {train.skipped} steps skipped as non-finite")
+    for i, w in enumerate(windows):
+        log(f"[train] window {i}: {w / WINDOW_STEPS * 1e3:.2f} ms/step, "
+            f"{TRAIN_B * WINDOW_STEPS / w:.1f} pairs/s | {state['card']}")
+    profile_train(state, step, train, batch)
+    med = statistics.median(windows)
+    state["train_step_ms"] = med / WINDOW_STEPS * 1e3
+    log(f"[train] median window {state['train_step_ms']:.2f} ms/step, "
+        f"{TRAIN_B * WINDOW_STEPS / med:.1f} pairs/s (B={TRAIN_B}, bf16, point config); "
+        f"launches per step: pointnet_fwd {launches['pointnet_fwd'] / steps:g}, "
+        f"pointnet_bwd {launches['pointnet_bwd'] / steps:g}; loss {float(first['loss']):.6f} "
+        f"at step 1 -> {last['loss']:.6f} after {WARMUP_STEPS + steps} | {state['card']}")
+
+
+def profile_train(state: dict, step, train, batch, steps: int = 5) -> None:
+    """torch.profiler over a few train steps (not the timed windows): the
+    device's busy share (sum of kernel times over the wall time) and where
+    the device and the host spend the step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(train, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+
+    # device-side events only (kernels, copies, sets): an operator's own
+    # device time repeats the time of the kernels it launched
+    on_device = [e for e in events if e.device_type != torch.autograd.DeviceType.CPU]
+    busy_ms = sum(dev_us(e) for e in on_device) / 1e3
+    if busy_ms <= 0:
+        log("[train] profiler: no device time recorded; busy share not measured")
+        return
+    kernels = sum(e.count for e in on_device)
+    log(f"[train] profiler, {steps} steps: wall {wall_ms / steps:.2f} ms/step, device busy "
+        f"{busy_ms / steps:.2f} ms/step ({busy_ms / wall_ms:.1%}, so idle "
+        f"{1 - busy_ms / wall_ms:.1%}), {kernels / steps:.0f} device ops/step | {state['card']}")
+    top = sorted(on_device, key=dev_us, reverse=True)[:10]
+    for e in top:
+        log(f"[train]   device {dev_us(e) / 1e3 / steps:8.3f} ms/step  x{e.count // steps:<4d} "
+            f"{e.key[:90]}")
+    top = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:10]
+    for e in top:
+        log(f"[train]   host   {e.self_cpu_time_total / 1e3 / steps:8.3f} ms/step  "
+            f"x{e.count // steps:<4d} {e.key[:90]}")
+
+
+def phase_serve_point(state: dict) -> None:
+    import torch
+
+    from sgaligner_tpu_torch.engine.factory import build_model
+    from sgaligner_tpu_torch.engine.train_step import make_serving_step
+    from sgaligner_tpu_torch.ops import _build
+
+    batches = state.pop("serve_batches")
+    model = build_model(_cfg("bfloat16", 32, POINT_MODULES), "cuda",
+                        torch.Generator().manual_seed(0))
+    step = make_serving_step(model, POINT_MODULES)
+    step(batches[0])                                  # warm-up (not counted)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    times, outs = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        outs.append(step(batch))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = dict(_build.LAUNCHES)
+    state["launches_serve_point"] = launches
+    for name in KERNELS:
+        want = len(batches) if name == "pointnet_fwd" else 0
+        if launches[name] != want:
+            raise AssertionError(f"serve_point: {name} launched {launches[name]} times, "
+                                 f"expected {want}")
+    b = batches[0]["obj_mask"].shape[0]
+    for i, out in enumerate(outs):
+        for k, v in out.items():
+            for t in (v if isinstance(v, tuple) else (v,)):
+                if not bool(torch.as_tensor(t).double().isfinite().all()):
+                    raise AssertionError(f"serve_point: request {i} {k} not finite")
+    med = statistics.median(times)
+    log(f"[serve_point] requests " + ", ".join(f"{t * 1e3:.1f}" for t in times)
+        + f" ms; median {med * 1e3:.1f} ms, {b / med:.1f} pairs/s (B={b}, bf16, point "
+        f"config); MRR {float(outs[0]['rr_sum']) / int(outs[0]['rr_count']):.4f}; "
+        f"launches {launches} | {state['card']}")
+
+
+def bwd_work(args) -> tuple[int, int]:
+    """The gradient-carrying work of one pointnet_bwd call on its inputs:
+    (rows, channels) summed over objects. A channel carries gradient when
+    its max is positive and its cotangent non-zero, at its argmax point
+    alone; rows counts the distinct points those channels pick."""
+    import torch
+
+    from sgaligner_tpu_torch.ops.pointnet_fused import pointnet_fwd_plain
+
+    x, dout, amax, *ws = args
+    out = pointnet_fwd_plain(x, *ws)[0]
+    live = ((out > 0) & (dout != 0)).float()
+    hit = torch.zeros(x.shape[0], x.shape[-1], device=x.device)
+    hit.scatter_add_(1, amax.long(), live)
+    return int((hit > 0).sum()), int(live.sum())
+
+
+def bound(name: str, o: int, p: int = P, work: tuple[int, int] | None = None
+          ) -> tuple[float, str]:
+    """Least time (ms) for the work of one call at O objects, bf16.
+    pointnet_bwd counts only the work its data needs (``work`` from
+    ``bwd_work``)."""
     e = 2  # bytes per bf16 element
-    if name == "embed_first":
+    c1, c2, c3 = PN
+    w_elems = 3 * c1 + c1 + c1 * c2 + c2 + c2 * c3 + c3
+    stack_flops = 2 * (3 * c1 + c1 * c2 + c2 * c3)          # per point
+    if name == "pointnet_fwd":
+        nbytes = o * 3 * p * e + w_elems * e + o * c3 * e + o * c3 * 4
+        ops, rate = o * p * stack_flops, BF16_TENSOR_FLOPS
+    elif name == "pointnet_bwd":
+        # inputs x, dout, amax, weights; outputs f32 gradients. Operations:
+        # at each picked row, h1 and h2 again, g1 = g2·w2ᵀ, dW2 and dW1;
+        # for each live channel, its a3 at its row (the relu mask), its
+        # column of dW3 and its share of g2 = g3·w3ᵀ
+        rows, chans = work
+        nbytes = o * 3 * p * e + o * c3 * (e + 4) + w_elems * e + w_elems * 4
+        ops = (rows * 2 * (3 * c1 + c1 * c2 + 2 * c1 * c2 + 3 * c1)
+               + chans * 3 * 2 * c2)
+        rate = BF16_TENSOR_FLOPS
+    elif name == "embed_first":
         nbytes = o * 3 * P * e + 3 * C * e + o * e + o * P * C * e + 2 * C * 4
         ops, rate = 2 * 3 * C * o * P, F32_FLOPS
     elif name == "embed_second":
@@ -389,7 +758,8 @@ def phase_time(state: dict) -> None:
     o = state["serve_o"]
     chunk = 1024
     rows = []
-    for name, (source, replaces) in KERNELS.items():
+    for name in PCT_KERNELS:
+        source, replaces = KERNELS[name]
         kern, plain = op_fns(name)
         args = op_inputs(name, o, torch.bfloat16, seed=2)
         got = as_tuple(kern(*args))
@@ -431,7 +801,47 @@ def phase_time(state: dict) -> None:
     log(f"[time] the kernels at O={o} take {per_req:.1f} ms per request "
         f"({PER_REQUEST}); median request {state['serve_ms']:.1f} ms, so "
         f"{per_req / state['serve_ms']:.1%} of it | {state['card']}")
+    rows += time_pointnet(state)
     state["rows"] = rows
+
+
+def time_pointnet(state: dict) -> list[dict]:
+    """The PointNet kernels at the training O (one launch each per step),
+    and the forward at the serving O. No single PyTorch call computes
+    either, so library_ms is null."""
+    import torch
+
+    rows = []
+    for name, o in (("pointnet_fwd", state["train_o"]), ("pointnet_bwd", state["train_o"]),
+                    ("pointnet_fwd", state["serve_o"])):
+        source, replaces = KERNELS[name]
+        kern, plain = op_fns(name)
+        args = op_inputs(name, o, torch.bfloat16, seed=2)
+        err_abs, err_rel = check_op(name, args, "bf16", what=f"time: {name} at O={o}")
+        ms = cuda_ms(lambda: kern(*args))
+        plain_ms = cuda_ms(lambda: plain(*args), warmup=1, reps=3)
+        work = bwd_work(args) if name == "pointnet_bwd" else None
+        b_ms, b_by = bound(name, o, work=work)
+        if work:
+            log(f"[time] pointnet_bwd O={o}: {work[0]} rows and {work[1]} channels "
+                f"carry gradient (of {o * P} and {o * PN[-1]})")
+        log(f"[time] {name:15s} O={o} bf16 kernel {ms:.3f} ms | plain {plain_ms:.3f} ms | "
+            f"bound {b_ms:.4f} ms ({b_by}) | library None | max_abs {err_abs:.3e} "
+            f"max_rel {err_rel:.3e} | {state['card']}")
+        if o == state["train_o"]:
+            rows.append({"name": name, "route": "cuda", "source": source,
+                         "replaces": replaces,
+                         "launches": state["launches_train"][name],
+                         "max_abs_err": err_abs, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        del args
+        torch.cuda.empty_cache()
+    kern_ms = sum(r["ms"] for r in rows)
+    step_ms = state["train_step_ms"]
+    log(f"[time] point train step {step_ms:.2f} ms: the two PointNet kernels "
+        f"{kern_ms:.3f} ms ({kern_ms / step_ms:.1%}), the rest (GAT, embeddings, "
+        f"losses, Adam, the finite check, host) {step_ms - kern_ms:.2f} ms | {state['card']}")
+    return rows
 
 
 def main() -> int:
@@ -451,8 +861,9 @@ def main() -> int:
     state: dict = {}
     phase_device(state)
     for name, phase in (("build", phase_build), ("kernels", phase_kernels),
-                        ("parity", phase_parity), ("serve", phase_serve),
-                        ("time", phase_time)):
+                        ("parity", phase_parity), ("train_parity", phase_train_parity),
+                        ("serve", phase_serve), ("train", phase_train),
+                        ("serve_point", phase_serve_point), ("time", phase_time)):
         t0 = time.perf_counter()
         phase(state)
         log(f"[{name}] done in {time.perf_counter() - t0:.1f} s")

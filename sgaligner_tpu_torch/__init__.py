@@ -7,8 +7,9 @@ with nvcc at first use, see ``ops/_build.py``). Entry points run on the card
 unless the caller passes ``device="cpu"``, where the kernels' plain PyTorch
 versions run instead.
 
-Ported so far: the inference (serving) path of the 4-modality
-``('pct', 'gat', 'rel', 'attr')`` aligner.
+Ported so far: the serving path of the 4-modality ``('pct', 'gat', 'rel',
+'attr')`` aligner, and training, evaluation and serving of the point
+configuration ``('point', 'gat', 'rel', 'attr')``.
 """
 
 __version__ = "0.1.0"
@@ -28,7 +29,8 @@ def __getattr__(name):
         from sgaligner_tpu_torch.engine.factory import build_model
 
         return build_model
-    if name in ("make_serving_step", "serve_queue"):
+    if name in ("make_serving_step", "serve_queue", "make_train_step",
+                "make_eval_step", "create_train_state"):
         from sgaligner_tpu_torch.engine import train_step
 
         return getattr(train_step, name)

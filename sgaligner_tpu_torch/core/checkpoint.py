@@ -5,7 +5,7 @@
 (as nested dicts of numpy arrays) and returns a state_dict with upstream
 SGAligner's torch names and shapes — the port's own parameter names. It is
 the inverse of ``sgaligner_tpu/core/checkpoint.py::torch_state_dict_to_params``
-for the pct / gat / rel / attr modules:
+for the point / pct / gat / rel / attr modules:
 
 * Dense ``kernel [in, out]`` -> Linear ``weight [out, in]``;
   Conv1d(k=1) weights -> ``[out, in, 1]``;
@@ -13,6 +13,11 @@ for the pct / gat / rel / attr modules:
   running_mean / running_var``;
 * GATConv ``weight [in, H, out]`` -> ``lin_src.weight [H·out, in]``,
   ``att_src / att_dst [H, out]`` -> ``[1, H, out]``.
+
+``loss_state_dict_from_flax(params["loss"])`` gives the objective's
+(``ops.objective.OverallLoss``) state_dict from the JAX train state's loss
+parameters. Leaves come back as float32, or float64 where the tree holds
+float64 (so a float64 tree, or its gradients, maps without rounding).
 """
 
 from __future__ import annotations
@@ -22,7 +27,9 @@ import torch
 
 
 def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, dtype=np.float32))
+    a = np.asarray(a)
+    return torch.from_numpy(np.array(
+        a, dtype=np.float64 if a.dtype == np.float64 else np.float32))
 
 
 def _conv(kernel) -> torch.Tensor:
@@ -67,6 +74,12 @@ def state_dict_from_flax(params: dict, batch_stats: dict,
         _bn(sd, f"{p}.bn1", enc["bn1"], st["bn1"])
         _linear(sd, f"{p}.linear2", enc["linear2"])
         _bn(sd, f"{p}.bn2", enc["bn2"], st["bn2"])
+    elif "point" in modules:
+        enc = params["object_encoder"]
+        for i in (1, 2, 3):
+            sd[f"object_encoder.conv{i}.weight"] = _conv(enc[f"conv{i}"]["kernel"])
+            sd[f"object_encoder.conv{i}.bias"] = _t(enc[f"conv{i}"]["bias"])
+    if "pct" in modules or "point" in modules:
         _linear(sd, "object_embedding", params["object_embedding"])
     if "gat" in modules:
         se = params["structure_encoder"]
@@ -87,3 +100,9 @@ def state_dict_from_flax(params: dict, batch_stats: dict,
     if "fusion" in params:
         sd["fusion.weight"] = _t(params["fusion"]["weight"])
     return sd
+
+
+def loss_state_dict_from_flax(loss_params: dict) -> dict[str, torch.Tensor]:
+    """``{"ial_log_vars": [M], "icl_log_vars": [M]}`` -> the same names as
+    the objective's parameters."""
+    return {k: _t(loss_params[k]) for k in ("ial_log_vars", "icl_log_vars")}

@@ -1,4 +1,4 @@
-"""Config: the fields ``build_model`` and the serving step read.
+"""Config: the fields ``build_model``, the optimizer and the steps read.
 
 A trimmed copy of ``sgaligner_tpu/core/config.py``'s dataclasses with the same
 key names, so a config dict written for the JAX package merges unchanged
@@ -22,6 +22,30 @@ class ModelConfig:
     hidden_units: list[int] = field(default_factory=lambda: [3, 128, 128])
     heads: list[int] = field(default_factory=lambda: [2, 2])
     dropout: float = 0.0
+    # "parity": upstream PointNet computes its BatchNorms and drops them
+    # (the only mode ported)
+    pointnet_bn_mode: str = "parity"
+
+
+@dataclass
+class OptimConfig:
+    lr: float = 1e-3
+    lr_decay: float = 0.95
+    lr_decay_steps: int = 1
+    weight_decay: float = 1e-6
+    max_epoch: int = 50
+    grad_acc_steps: int = 1
+    # "none" (constant, upstream's choice), "exponential", "cosine",
+    # "warmup-cosine"
+    scheduler: str = "none"
+    warmup_steps: int = 0
+    # steps per epoch for epoch-denominated schedules; 0 = decay per step
+    steps_per_epoch: int = 0
+
+
+@dataclass
+class LossConfig:
+    zoom: float = 0.1
 
 
 @dataclass
@@ -39,6 +63,8 @@ class Config:
     seed: int = 42
     modules: list[str] = field(default_factory=list)
     model: ModelConfig = field(default_factory=ModelConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    loss: LossConfig = field(default_factory=LossConfig)
     tpu: TpuConfig = field(default_factory=TpuConfig)
 
 

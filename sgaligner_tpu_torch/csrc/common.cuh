@@ -1,4 +1,4 @@
-// Shared device helpers for the PCT kernels (sm_90a).
+// Shared device helpers for the port's kernels (sm_90a).
 //
 // Every kernel here keeps its operand tiles in shared memory and multiplies
 // them with `block_gemm`: bf16 tiles go through the tensor cores as WMMA
@@ -70,18 +70,24 @@ __device__ __forceinline__ void load_tile(T* dst, int ld_s, const T* __restrict_
   }
 }
 
-// C[M,N] (f32, shared, row stride ldc) = (accumulate ? C : 0) + A[M,K] * B.
-// A is row-major (lda). B is K x N row-major (ldb) or, with B_COL, given as
-// its transpose: N x K row-major (ldb), i.e. C = A * Bᵀ.
-// M, N, K must be multiples of 16. Called by every thread of the block; the
-// caller synchronises before (operands ready) and after (C complete).
-template <typename T, bool B_COL>
+// C[M,N] (f32, row stride ldc) = (accumulate ? C : 0) + A[M,K] * B.
+// A is M x K row-major (lda) or, with A_COL, given as its transpose: K x M
+// row-major (lda), i.e. C = Aᵀ * B for a stored [K, M] A (a weight gradient
+// hᵀ·g). B is K x N row-major (ldb) or, with B_COL, given as its transpose:
+// N x K row-major (ldb), i.e. C = A * Bᵀ.
+// Operands and C are generic pointers: shared memory, or global memory (the
+// bf16 path then needs 32-byte aligned tile pointers: base aligned and every
+// leading dimension a multiple of 16 elements). M, N, K must be multiples
+// of 16. Called by every thread of the block; the caller synchronises before
+// (operands ready) and after (C complete).
+template <typename T, bool B_COL, bool A_COL = false>
 __device__ void block_gemm(const T* A, int lda, const T* B, int ldb, float* C, int ldc,
                            int M, int N, int K, bool accumulate) {
   if constexpr (std::is_same<T, bf16>::value) {
     using namespace nvcuda;
     const int warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
     const int tn = N / 16, tiles = (M / 16) * tn;
+    using ALayout = typename std::conditional<A_COL, wmma::col_major, wmma::row_major>::type;
     using BLayout = typename std::conditional<B_COL, wmma::col_major, wmma::row_major>::type;
     for (int t = warp; t < tiles; t += nwarps) {
       const int i = t / tn, j = t % tn;
@@ -92,9 +98,12 @@ __device__ void block_gemm(const T* A, int lda, const T* B, int ldb, float* C, i
       else
         wmma::fill_fragment(acc, 0.0f);
       for (int k = 0; k < K; k += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, ALayout> a;
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> b;
-        wmma::load_matrix_sync(a, A + i * 16 * lda + k, lda);
+        if constexpr (A_COL)
+          wmma::load_matrix_sync(a, A + k * lda + i * 16, lda);
+        else
+          wmma::load_matrix_sync(a, A + i * 16 * lda + k, lda);
         if constexpr (B_COL)
           wmma::load_matrix_sync(b, B + j * 16 * ldb + k, ldb);
         else
@@ -107,10 +116,10 @@ __device__ void block_gemm(const T* A, int lda, const T* B, int ldb, float* C, i
     for (int idx = threadIdx.x; idx < M * N; idx += blockDim.x) {
       const int m = idx / N, n = idx % N;
       float s = accumulate ? C[m * ldc + n] : 0.0f;
-      const T* a = A + m * lda;
       for (int k = 0; k < K; ++k) {
+        const float a = A_COL ? to_f<T>(A[k * lda + m]) : to_f<T>(A[m * lda + k]);
         const float b = B_COL ? to_f<T>(B[n * ldb + k]) : to_f<T>(B[k * ldb + n]);
-        s = fmaf(to_f<T>(a[k]), b, s);
+        s = fmaf(a, b, s);
       }
       C[m * ldc + n] = s;
     }

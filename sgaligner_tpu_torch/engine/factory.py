@@ -1,14 +1,17 @@
-"""Model factory: ``build_model(cfg, device, generator)``.
+"""Factories: ``build_model``, ``build_lr_schedule``, ``build_optimizer``.
 
-Counterpart of ``sgaligner_tpu/engine/factory.py::build_model`` for the
-SGAligner encoder. The weights are drawn on the CPU from ``generator`` (so
-one seed gives the same weights on every device) and then moved to
-``device``, which is the card unless the caller asks for ``"cpu"``.
+Counterpart of ``sgaligner_tpu/engine/factory.py`` for the SGAligner
+encoder. The weights are drawn on the CPU from ``generator`` (so one seed
+gives the same weights on every device) and then moved to ``device``, which
+is the card unless the caller asks for ``"cpu"``. The optimizer is
+``torch.optim.Adam`` with upstream's settings, over the model's and the
+objective's parameters.
 """
 
 from __future__ import annotations
 
 import math
+from collections.abc import Callable, Iterable
 
 import torch
 
@@ -60,7 +63,58 @@ def build_model(cfg: Config, device: str | torch.device = "cuda",
         pt_out_dim=cfg.model.pt_out_dim,
         hidden_units=tuple(cfg.model.hidden_units),
         heads=tuple(cfg.model.heads),
+        dropout=cfg.model.dropout,
+        pointnet_bn_mode=cfg.model.pointnet_bn_mode,
         dtype=DTYPES[cfg.tpu.compute_dtype],
     )
     init_weights(model, generator)
     return model.to(device)
+
+
+def build_lr_schedule(cfg: Config) -> Callable[[int], float]:
+    """Learning rate as a function of the number of updates applied so far
+    (optax's schedule count, which a skipped non-finite step does not
+    advance). "none" is upstream's constant rate; "exponential" is
+    ``lr · lr_decay^(count // (steps_per_epoch · lr_decay_steps))``;
+    "cosine" and "warmup-cosine" are optax's ``cosine_decay_schedule`` and
+    ``warmup_cosine_decay_schedule`` (from 0 to lr, then down to 0) over
+    ``steps_per_epoch · max_epoch`` updates."""
+    o = cfg.optim
+    if o.scheduler in ("none", "", None):
+        return lambda count: o.lr
+    if o.scheduler == "exponential":
+        per = max(o.steps_per_epoch, 1) * max(o.lr_decay_steps, 1)
+        return lambda count: o.lr * (o.lr_decay ** (count // per))
+    total = max(o.steps_per_epoch, 1) * o.max_epoch
+
+    def cosine(count: int, steps: int) -> float:
+        frac = min(max(count, 0), steps) / steps
+        return 0.5 * (1.0 + math.cos(math.pi * frac))
+
+    if o.scheduler == "cosine":
+        decay = max(total, 1)
+        return lambda count: o.lr * cosine(count, decay)
+    if o.scheduler == "warmup-cosine":
+        warm = max(o.warmup_steps, 1)
+        decay = max(total, o.warmup_steps + 1)
+
+        def schedule(count: int) -> float:
+            if count < warm:
+                return o.lr * count / warm
+            return o.lr * cosine(count - warm, decay - warm)
+
+        return schedule
+    raise ValueError(f"unknown scheduler {o.scheduler!r}")
+
+
+def build_optimizer(cfg: Config, params: Iterable[torch.nn.Parameter]
+                    ) -> torch.optim.Adam:
+    """Adam with upstream's settings; its weight decay is L2 added to the
+    gradient before the moments (optax ``add_decayed_weights`` then
+    ``scale_by_adam``, which covers the loss parameters too). The skip of
+    steps with a non-finite gradient is the train step's
+    (``engine/train_step.py``)."""
+    if cfg.optim.grad_acc_steps > 1:
+        raise NotImplementedError("grad_acc_steps > 1 is not ported yet")
+    return torch.optim.Adam(params, lr=cfg.optim.lr, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=cfg.optim.weight_decay)

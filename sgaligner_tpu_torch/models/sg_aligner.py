@@ -1,9 +1,13 @@
-"""MultiModalEncoder — the SGAligner model, inference form.
+"""MultiModalEncoder — the SGAligner model.
 
 Counterpart of ``sgaligner_tpu/models/sg_aligner.py`` for the modules
-``pct``, ``gat``, ``rel`` and ``attr``: per-object embeddings, each a Linear
-to ``emb_dim``, and the ``joint`` softmax-weighted concat of the
-L2-normalised modal embeddings. Embeddings come back flat ``[B·2N, D]``.
+``point`` or ``pct``, ``gat``, ``rel`` and ``attr``: per-object embeddings,
+each a Linear to ``emb_dim``, and the ``joint`` softmax-weighted concat of
+the L2-normalised modal embeddings. Embeddings come back flat ``[B·2N, D]``.
+
+Training (``train(True)``) is ported for the ``point`` configuration; with
+``pct`` it raises, since NaivePCT's training form (batch-statistics
+BatchNorm and its backward kernels) is a later slice.
 
 Two point layouts: batch-pooled (``obj_points_pooled``, ``pooled_mask``,
 ``pooled_flat_idx`` from ``data.batch.pool_compact``; the encoder sees only
@@ -19,6 +23,7 @@ import torch
 from torch import nn
 
 from sgaligner_tpu_torch.models.pct import Linear, NaivePCT
+from sgaligner_tpu_torch.models.pointnet import PointNetEncoder
 from sgaligner_tpu_torch.models.structure import MultiGAT
 from sgaligner_tpu_torch.ops.losses import l2_normalize
 
@@ -39,26 +44,33 @@ class MultiModalFusion(nn.Module):
 
 
 class MultiModalEncoder(nn.Module):
-    """Inference only: ``train(True)`` raises (training is a later slice)."""
+    """Built in eval mode. ``train(True)`` raises while the modules hold
+    ``pct`` (its training form is not ported yet)."""
 
     def __init__(self, modules: Sequence[str] = ("pct", "gat", "rel", "attr"),
                  rel_dim: int = 41, attr_dim: int = 164, emb_dim: int = 100,
                  pt_out_dim: int = 256,
                  hidden_units: Sequence[int] = (3, 128, 128),
-                 heads: Sequence[int] = (2, 2),
+                 heads: Sequence[int] = (2, 2), dropout: float = 0.0,
+                 pointnet_bn_mode: str = "parity",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.modal_names = tuple(modules)
         self.dtype = dtype
         for m in self.modal_names:
-            if m not in ("pct", "gat", "rel", "attr"):
+            if m not in ("point", "pct", "gat", "rel", "attr"):
                 raise NotImplementedError(
-                    f"module {m!r} is not ported yet (pct, gat, rel, attr are)")
+                    f"module {m!r} is not ported yet "
+                    "(point, pct, gat, rel, attr are)")
         if "pct" in self.modal_names:
             self.object_encoder = NaivePCT(pt_out_dim, dtype=dtype)
+        elif "point" in self.modal_names:
+            self.object_encoder = PointNetEncoder(pt_out_dim, pointnet_bn_mode,
+                                                  dtype=dtype)
+        if "pct" in self.modal_names or "point" in self.modal_names:
             self.object_embedding = Linear(pt_out_dim, emb_dim)
         if "gat" in self.modal_names:
-            self.structure_encoder = MultiGAT(hidden_units, heads)
+            self.structure_encoder = MultiGAT(hidden_units, heads, dropout)
             self.structure_embedding = Linear(hidden_units[-1] * heads[-1], emb_dim)
         if "rel" in self.modal_names:
             self.meta_embedding_rel = Linear(rel_dim, emb_dim)
@@ -69,10 +81,12 @@ class MultiModalEncoder(nn.Module):
         self.eval()
 
     def train(self, mode: bool = True):
-        if mode:
-            raise NotImplementedError("the port's MultiModalEncoder runs "
-                                      "inference only so far")
-        return super().train(False)
+        if mode and "pct" in self.modal_names:
+            raise NotImplementedError(
+                "training the pct configuration is port slice 3 (NaivePCT's "
+                "batch-statistics BatchNorm and backward kernels); the point "
+                "configuration trains")
+        return super().train(mode)
 
     def _points(self, batch: dict, b: int, two_n: int) -> torch.Tensor:
         dt = self.dtype
@@ -95,19 +109,22 @@ class MultiModalEncoder(nn.Module):
             emb = out.index_add_(0, batch["pooled_flat_idx"].long(), emb)
         return emb
 
-    def forward(self, batch: dict) -> dict[str, torch.Tensor]:
+    def forward(self, batch: dict, generator: torch.Generator | None = None
+                ) -> dict[str, torch.Tensor]:
+        """``generator`` draws the dropout masks in training mode."""
         dt = self.dtype
         b, two_n = batch["obj_mask"].shape
         n = two_n // 2
         embs: dict[str, torch.Tensor] = {}
         for module in self.modal_names:
-            if module == "pct":
+            if module in ("point", "pct"):
                 emb = self._points(batch, b, two_n)
             elif module == "gat":
                 rel_pose = batch["rel_pose"].to(dt).reshape(2 * b, n, 3)
                 node_mask = batch["obj_mask"].reshape(2 * b, n)
                 adj = batch["adj"].reshape(2 * b, n, n)
-                feat = self.structure_encoder(rel_pose, adj, node_mask)
+                feat = self.structure_encoder(rel_pose, adj, node_mask,
+                                              generator)
                 emb = self.structure_embedding(feat.reshape(b * two_n, -1), dt)
             elif module == "rel":
                 emb = self.meta_embedding_rel(batch["bow_rel"], dt)

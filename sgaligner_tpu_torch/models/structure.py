@@ -4,7 +4,9 @@ Counterpart of ``sgaligner_tpu/models/structure.py`` (``GATConvLayer``,
 ``MultiGAT``) with torch-geometric GATConv's parameter names and shapes
 (``lin_src.weight [H·out, in]``, ``att_src / att_dst [1, H, out]``,
 ``bias [H·out]``). Layer i > 0 takes ``n_units[i] · n_heads[i-1]`` inputs;
-ELU between layers; dropout is the identity at inference.
+ELU between layers. In training mode each layer's input goes through
+dropout (p = ``dropout``) drawn from the generator the caller passes; at
+p = 0 and at inference it is the identity, as flax's ``nn.Dropout`` is.
 """
 
 from __future__ import annotations
@@ -41,18 +43,33 @@ class GATConvLayer(nn.Module):
                         self.att_dst[0].to(dt), self.bias.to(dt))
 
 
+def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None
+            ) -> torch.Tensor:
+    """Inverted dropout: keep each value with probability 1 - p and scale
+    the kept ones by 1 / (1 - p) (flax ``nn.Dropout``'s form)."""
+    if p == 0.0:
+        return x
+    if p >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
+
 class MultiGAT(nn.Module):
     def __init__(self, n_units: Sequence[int] = (3, 128, 128),
-                 n_heads: Sequence[int] = (2, 2)):
+                 n_heads: Sequence[int] = (2, 2), dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         layers = []
         for i in range(len(n_units) - 1):
             in_dim = n_units[i] * n_heads[i - 1] if i else n_units[i]
             layers.append(GATConvLayer(in_dim, n_units[i + 1], n_heads[i]))
         self.layer_stack = nn.ModuleList(layers)
 
-    def forward(self, x, adj, node_mask):
+    def forward(self, x, adj, node_mask, generator=None):
         for i, layer in enumerate(self.layer_stack):
+            if self.training:
+                x = dropout(x, self.dropout, generator)
             x = layer(x, adj, node_mask)
             if i + 1 < len(self.layer_stack):
                 x = F.elu(x)

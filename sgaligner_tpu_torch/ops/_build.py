@@ -29,7 +29,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES: dict[str, int] = {"embed_first": 0, "embed_second": 0,
-                            "pct_block_eval": 0, "pct_tail": 0}
+                            "pct_block_eval": 0, "pct_tail": 0,
+                            "pointnet_fwd": 0, "pointnet_bwd": 0}
 
 _lib: ctypes.CDLL | None = None
 build_info: dict = {}
@@ -111,6 +112,14 @@ _SIGNATURES = {
                            _I, _I, _I, _I, _P],
     "sga_pct_tail": [_P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _I, _I, _I, _I,
                      _P],
+    "sga_pointnet_fwd": [_P, _P, _P, _P, _P, _P, _P, _F, _P, _I, _I, _I, _I,
+                         _P],
+    "sga_pointnet_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _F, _I,
+                         _I, _I, _I, _P],
+    # queries (no launch): scratch sizes and the backward's block count
+    "sga_pointnet_grad_stride": [_I],
+    "sga_pointnet_grad_total": [_I],
+    "sga_pointnet_bwd_blocks": [_I, _I, _I],
 }
 
 

@@ -1,6 +1,7 @@
 """Alignment metrics on padded pair batches.
 
-Counterpart of ``sgaligner_tpu/ops/metrics.py`` (the serving subset). Ranks
+Counterpart of ``sgaligner_tpu/ops/metrics.py`` (the serving and eval
+subset: similarities, ranks, MRR / Hits@K, SGAR, alignment score). Ranks
 follow numpy's stable argsort with the self column removed: the rank of
 candidate t in row r is 1 + #{k valid, k != r: sim[r,k] < sim[r,t]} +
 #{k valid, k != r: sim[r,k] == sim[r,t] and k < t}.
@@ -60,3 +61,37 @@ def alignment_score(sim, n_src, n_ref, max_objects: int):
     aligned = (pred >= max_objects) & row_valid
     return (aligned.sum(-1).to(torch.float64)
             / torch.clamp(n_ref, min=1).to(torch.float64))
+
+
+def top1_predictions(sim, e1i):
+    """Top-1 candidate and its similarity per anchor row (argmin ties go to
+    the lowest index)."""
+    s = sim.shape[-1]
+    rows = torch.gather(sim, 1, e1i.long()[:, :, None].expand(-1, -1, s))  # [B, A, S]
+    pred_sim, _ = rows.min(dim=-1)
+    return torch.argmin(rows, dim=-1), pred_sim
+
+
+def sgar(sim, e1i, e2i, anchor_mask) -> dict[str, torch.Tensor]:
+    """Scene-graph alignment recall, upstream's compute_sgar: per pair, sort
+    the anchors by their top-1 similarity (ascending, stable), then mode '2'
+    asks the first two to be matched correctly, '50' the first half, '100'
+    all of them. Returns {mode: [B] float32}; a pair with no anchors scores
+    1.0 (callers mask it out with ``pair_valid``)."""
+    pred, pred_sim = top1_predictions(sim, e1i)
+    correct = (pred == e2i.long()) | ~anchor_mask
+    key = torch.where(anchor_mask, pred_sim, torch.full_like(pred_sim, BIG))
+    order = torch.argsort(key, dim=-1, stable=True)
+    correct_sorted = torch.gather(correct, 1, order)
+    prefix_ok = torch.cumprod(correct_sorted.to(torch.int32), dim=-1)
+    n_valid = anchor_mask.sum(-1)
+    a = anchor_mask.shape[1]
+
+    def all_first(m):
+        idx = torch.clamp(m - 1, 0, a - 1)
+        val = torch.gather(prefix_ok, 1, idx[:, None])[:, 0]
+        return torch.where(m > 0, val, torch.ones_like(val)).to(torch.float32)
+
+    return {"2": all_first(torch.clamp(n_valid, max=2)),
+            "50": all_first(n_valid // 2),
+            "100": all_first(n_valid)}

@@ -47,7 +47,12 @@ def test_port_modules_are_listed():
     names = _port_modules()
     for expected in ("sgaligner_tpu_torch.ops.pct_attention",
                      "sgaligner_tpu_torch.engine.train_step",
-                     "sgaligner_tpu_torch.core.checkpoint"):
+                     "sgaligner_tpu_torch.core.checkpoint",
+                     "sgaligner_tpu_torch.ops.pointnet_fused",
+                     "sgaligner_tpu_torch.ops.objective",
+                     "sgaligner_tpu_torch.ops.losses",
+                     "sgaligner_tpu_torch.models.pointnet",
+                     "sgaligner_tpu_torch.engine.factory"):
         assert expected in names
 
 

@@ -22,13 +22,17 @@ from sgaligner_tpu.core.checkpoint import torch_state_dict_to_params
 from sgaligner_tpu.data import batch as jax_batch
 from sgaligner_tpu.data import synthetic as jax_synth
 from sgaligner_tpu.models.sg_aligner import MultiModalEncoder as JaxEncoder
-from sgaligner_tpu_torch.core.checkpoint import state_dict_from_flax
+from sgaligner_tpu_torch.core.checkpoint import (loss_state_dict_from_flax,
+                                                 state_dict_from_flax)
 from sgaligner_tpu_torch.data import batch as port_batch
 from sgaligner_tpu_torch.data import synthetic as port_synth
 from sgaligner_tpu_torch.data.batch import to_device
 from sgaligner_tpu_torch.models.sg_aligner import MultiModalEncoder
+from sgaligner_tpu_torch.ops.objective import OverallLoss
+from tests.test_torch_ops import x64  # noqa: F401  (fixture)
 
 MODULES = ("pct", "gat", "rel", "attr")
+POINT_MODULES = ("point", "gat", "rel", "attr")
 SPEC_ARGS = dict(batch_size=3, max_objects=10, points_per_object=32)
 BUCKET = 16
 
@@ -114,9 +118,9 @@ def scaled_pct_state_dict(rng, scale=0.08):
     return sd
 
 
-def port_model_from(params, batch_stats, dtype=torch.float64):
-    model = MultiModalEncoder(MODULES, dtype=dtype)
-    model.load_state_dict(state_dict_from_flax(params, batch_stats, MODULES))
+def port_model_from(params, batch_stats, dtype=torch.float64, modules=MODULES):
+    model = MultiModalEncoder(modules, dtype=dtype)
+    model.load_state_dict(state_dict_from_flax(params, batch_stats, modules))
     return model
 
 
@@ -164,11 +168,14 @@ def test_data_copies_match_jax_package(compact_slots):
 
 # ------------------------------- weight bridge ------------------------------
 
-def test_weight_bridge_round_trip():
-    """flax tree -> port state_dict -> torch_state_dict_to_params == tree."""
+@pytest.mark.parametrize("modules", [MODULES, POINT_MODULES],
+                         ids=["pct", "point"])
+def test_weight_bridge_round_trip(modules):
+    """flax tree -> port state_dict -> torch_state_dict_to_params == tree;
+    the loss parameters through the objective's state_dict likewise."""
     batch = port_synth.make_synthetic_batch(port_batch.BatchSpec(**SPEC_ARGS),
                                             seed=1)
-    variables = JaxEncoder(modules=MODULES).init(jax.random.key(0), batch,
+    variables = JaxEncoder(modules=modules).init(jax.random.key(0), batch,
                                                  train=False)
     rng = np.random.default_rng(4)
     # random values everywhere (init leaves BN stats at 0 / 1)
@@ -177,14 +184,24 @@ def test_weight_bridge_round_trip():
         variables["params"])
     stats = jax.tree.map(
         lambda a: rng.random(a.shape).astype(np.float32) + 0.5,
-        variables["batch_stats"])
+        variables.get("batch_stats", {}))
 
-    model = port_model_from(params, stats, dtype=torch.float32)
+    model = port_model_from(params, stats, dtype=torch.float32, modules=modules)
     sd = model.state_dict()
-    assert sd["object_encoder.sa1.q_conv.weight"].shape == (32, 128, 1)
+    if "pct" in modules:
+        assert sd["object_encoder.sa1.q_conv.weight"].shape == (32, 128, 1)
+    else:
+        assert sd["object_encoder.conv3.weight"].shape == (256, 128, 1)
+        assert sd["object_encoder.conv1.bias"].shape == (64,)
     assert sd["structure_encoder.layer_stack.0.lin_src.weight"].shape == (256, 3)
     assert sd["structure_encoder.layer_stack.1.att_src"].shape == (1, 2, 128)
-    back_p, back_s = torch_state_dict_to_params(sd, MODULES)
+    loss = {"ial_log_vars": rng.normal(size=4).astype(np.float32),
+            "icl_log_vars": rng.normal(size=4).astype(np.float32)}
+    objective = OverallLoss(modules)
+    objective.load_state_dict(loss_state_dict_from_flax(loss))
+    for k, v in objective.state_dict().items():
+        np.testing.assert_array_equal(v.numpy(), loss[k])
+    back_p, back_s = torch_state_dict_to_params(sd, modules)
     for want, got in ((params, back_p), (stats, back_s)):
         flat_w = jax.tree_util.tree_flatten_with_path(want)[0]
         flat_g = dict(jax.tree_util.tree_flatten_with_path(got)[0])
@@ -198,7 +215,7 @@ def test_weight_bridge_round_trip():
 
 # ------------------------------ encoder forward -----------------------------
 
-def test_encoder_eval_forward_matches_jax_f64():
+def test_encoder_eval_forward_matches_jax_f64(x64):
     rng = np.random.default_rng(12)
     sd = scaled_pct_state_dict(rng)
     params, stats = torch_state_dict_to_params(sd, MODULES)
@@ -216,20 +233,38 @@ def test_encoder_eval_forward_matches_jax_f64():
     with torch.inference_mode():
         got_unpooled = model(to_device(plain, "cpu"))
 
-    jax.config.update("jax_enable_x64", True)
-    try:
-        p64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), params)
-        s64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), stats)
-        jb = jax_inputs(batch)
-        for fused in ("always", "never"):
-            want = JaxEncoder(modules=MODULES, pointnet_fused=fused,
-                              dtype=jnp.float64).apply(
-                {"params": p64, "batch_stats": s64}, jb, train=False)
-            for m in (*MODULES, "joint"):
-                for name, out in (("pooled", got), ("unpooled", got_unpooled)):
-                    np.testing.assert_allclose(
-                        valid_rows(batch, out[m].numpy()),
-                        valid_rows(batch, want[m]), rtol=1e-5, atol=1e-7,
-                        err_msg=f"{m} ({name}, JAX fused={fused})")
-    finally:
-        jax.config.update("jax_enable_x64", False)
+    p64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), params)
+    s64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), stats)
+    jb = jax_inputs(batch)
+    for fused in ("always", "never"):
+        want = JaxEncoder(modules=MODULES, pointnet_fused=fused,
+                          dtype=jnp.float64).apply(
+            {"params": p64, "batch_stats": s64}, jb, train=False)
+        for m in (*MODULES, "joint"):
+            for name, out in (("pooled", got), ("unpooled", got_unpooled)):
+                np.testing.assert_allclose(
+                    valid_rows(batch, out[m].numpy()),
+                    valid_rows(batch, want[m]), rtol=1e-5, atol=1e-7,
+                    err_msg=f"{m} ({name}, JAX fused={fused})")
+
+
+# ------------------------------ training guards -----------------------------
+
+def test_training_mode_guards():
+    """The point configuration trains; pct raises (its training form is a
+    later slice) and so do the options the port does not have yet."""
+    from sgaligner_tpu_torch.core.config import make_cfg
+    from sgaligner_tpu_torch.engine.factory import build_optimizer
+    from sgaligner_tpu_torch.models.pointnet import PointNetEncoder
+
+    point = MultiModalEncoder(POINT_MODULES)
+    assert not point.training
+    assert point.train(True).training and point.structure_encoder.training
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        MultiModalEncoder(MODULES).train(True)
+    MultiModalEncoder(MODULES).train(False)
+    with pytest.raises(NotImplementedError, match="active"):
+        PointNetEncoder(bn_mode="active")
+    cfg = make_cfg(modules=list(POINT_MODULES), optim={"grad_acc_steps": 2})
+    with pytest.raises(NotImplementedError, match="grad_acc_steps"):
+        build_optimizer(cfg, point.parameters())

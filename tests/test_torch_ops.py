@@ -31,11 +31,17 @@ RTOL, ATOL = 1e-9, 1e-8
 
 @pytest.fixture
 def x64():
+    """float64 JAX for one test, shared by the port's test files. JAX's
+    trace and compile caches are cleared on entry and on exit, so nothing
+    traced under one setting of ``jax_enable_x64`` is reused under the
+    other."""
+    jax.clear_caches()
     jax.config.update("jax_enable_x64", True)
     try:
         yield
     finally:
         jax.config.update("jax_enable_x64", False)
+        jax.clear_caches()
 
 
 def _mask(rng):

@@ -21,6 +21,7 @@ from sgaligner_tpu_torch.engine.train_step import make_serving_step, serve_queue
 from sgaligner_tpu_torch.ops import metrics as M
 from tests.test_torch_model import (MODULES, jax_inputs, port_model_from,
                                     scaled_pct_state_dict)
+from tests.test_torch_ops import x64  # noqa: F401  (fixture)
 
 KS = (1, 2, 3, 4, 5)
 
@@ -36,7 +37,7 @@ def _assert_components(got, want):
             tuple(int(v) for v in want[f"hits@{k}"]), k
 
 
-def test_serving_step_matches_jax_f64():
+def test_serving_step_matches_jax_f64(x64):
     """Pooled batches with noisy BoW and resampled anchor shapes (so the
     ranks are not all 1); a two-batch queue sums like make_serving_queue."""
     rng = np.random.default_rng(21)
@@ -52,26 +53,22 @@ def test_serving_step_matches_jax_f64():
     queue = serve_queue(model, MODULES, [to_device(b, "cpu") for b in batches],
                         KS)
 
-    jax.config.update("jax_enable_x64", True)
-    try:
-        p64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), params)
-        s64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), stats)
-        jstep = jax_serving_step(
-            JaxEncoder(modules=MODULES, pointnet_fused="never",
-                       dtype=jnp.float64), MODULES, KS)
-        want = [jstep({"model": p64}, s64, jax_inputs(b)) for b in batches]
-        for g, w in zip(got, want):
-            _assert_components(g, w)
-        assert any(float(w["rr_sum"]) < int(w["rr_count"]) for w in want)
-        np.testing.assert_allclose(
-            queue["rr_sum"].item(), sum(float(w["rr_sum"]) for w in want),
-            rtol=1e-9)
-        assert queue["alignment_score"].shape == (2, 3)
-        for k in KS:
-            assert int(queue[f"hits@{k}"][0]) == sum(
-                int(w[f"hits@{k}"][0]) for w in want)
-    finally:
-        jax.config.update("jax_enable_x64", False)
+    p64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), params)
+    s64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), stats)
+    jstep = jax_serving_step(
+        JaxEncoder(modules=MODULES, pointnet_fused="never",
+                   dtype=jnp.float64), MODULES, KS)
+    want = [jstep({"model": p64}, s64, jax_inputs(b)) for b in batches]
+    for g, w in zip(got, want):
+        _assert_components(g, w)
+    assert any(float(w["rr_sum"]) < int(w["rr_count"]) for w in want)
+    np.testing.assert_allclose(
+        queue["rr_sum"].item(), sum(float(w["rr_sum"]) for w in want),
+        rtol=1e-9)
+    assert queue["alignment_score"].shape == (2, 3)
+    for k in KS:
+        assert int(queue[f"hits@{k}"][0]) == sum(
+            int(w[f"hits@{k}"][0]) for w in want)
 
 
 # ---- crafted cases (copied from tests/test_metrics_golden.py) ----
@@ -114,7 +111,7 @@ def golden_mrr_hits(sim_valid, e1i, e2i, ks):
 
 
 @pytest.mark.parametrize("ties", [False, True], ids=["no_ties", "ties"])
-def test_metrics_match_jax_and_reference_on_crafted_cases(ties):
+def test_metrics_match_jax_and_reference_on_crafted_cases(x64, ties):
     rng = np.random.default_rng(0 if not ties else 5)
     n_src, n_ref, n_max = 6, 7, 10
     emb = make_case(rng, n_src, n_ref, ties=ties)
@@ -140,21 +137,17 @@ def test_metrics_match_jax_and_reference_on_crafted_cases(ties):
     score = M.alignment_score(sim, torch.tensor([n_src]), torch.tensor([n_ref]),
                               n_max)
 
-    jax.config.update("jax_enable_x64", True)
-    try:
-        jsim = JM.cosine_sim_matrix(jnp.asarray(padded), jnp.asarray(mask))
-        np.testing.assert_allclose(sim.numpy(), np.asarray(jsim), rtol=1e-12,
-                                   atol=1e-12)
-        jranks, jmask = JM.anchor_ranks(jsim, jnp.asarray(e1i_s),
-                                        jnp.asarray(e2i_s), jnp.asarray(am))
-        np.testing.assert_array_equal(ranks.numpy(), np.asarray(jranks))
-        rr, cnt = M.mrr_from_ranks(ranks, rmask)
-        jrr, jcnt = JM.mrr_from_ranks(jranks, jmask)
-        np.testing.assert_allclose(rr.item(), float(jrr), rtol=1e-9)
-        assert int(cnt) == int(jcnt)
-        jscore = JM.alignment_score(jsim, jnp.array([n_src]),
-                                    jnp.array([n_ref]), n_max)
-        np.testing.assert_allclose(score.numpy(), np.asarray(jscore),
-                                   rtol=1e-9)
-    finally:
-        jax.config.update("jax_enable_x64", False)
+    jsim = JM.cosine_sim_matrix(jnp.asarray(padded), jnp.asarray(mask))
+    np.testing.assert_allclose(sim.numpy(), np.asarray(jsim), rtol=1e-12,
+                               atol=1e-12)
+    jranks, jmask = JM.anchor_ranks(jsim, jnp.asarray(e1i_s),
+                                    jnp.asarray(e2i_s), jnp.asarray(am))
+    np.testing.assert_array_equal(ranks.numpy(), np.asarray(jranks))
+    rr, cnt = M.mrr_from_ranks(ranks, rmask)
+    jrr, jcnt = JM.mrr_from_ranks(jranks, jmask)
+    np.testing.assert_allclose(rr.item(), float(jrr), rtol=1e-9)
+    assert int(cnt) == int(jcnt)
+    jscore = JM.alignment_score(jsim, jnp.array([n_src]),
+                                jnp.array([n_ref]), n_max)
+    np.testing.assert_allclose(score.numpy(), np.asarray(jscore),
+                               rtol=1e-9)
