@@ -7,13 +7,15 @@ Phases, in order (every failure raises and exits non-zero):
   device       card name, power limit; TF32 off for f32 products and
                convolutions
   build        nvcc builds the kernels from sgaligner_tpu_torch/csrc
-  kernels      each of the six kernels against its plain PyTorch version on
-               the card: full width (P=512, C=128, da=32, K=1024, PointNet
+  kernels      each of the twelve kernels against its plain PyTorch version
+               on the card: full width (P=512, C=128, da=32, K=1024, PointNet
                3 -> 64 -> 128 -> 256), O=67 objects (ragged, not a multiple
-               of 8), float32 and bfloat16, SA and OA; again at P=200 (not a
-               multiple of the kernels' row tiles). The PointNet forward's
-               argmax is held by value: at the kernel's index the plain
-               activation must equal the plain max
+               of 8), float32 and bfloat16, SA and OA (pct_block_eval); again
+               at P=200 (not a multiple of the kernels' row tiles). The
+               PointNet forward's argmax and the tail's argmax / argmin are
+               held by value: at the kernel's index the plain activation must
+               equal the plain max (min). Each new backward kernel twice on
+               the same inputs: the same bits
   parity       the pct serving path on the CPU (plain versions) against the
                card (kernels): same seeded weights, one pooled B=8 batch, f32
   train_parity the point configuration's train step on the CPU against the
@@ -22,6 +24,16 @@ Phases, in order (every failure raises and exits non-zero):
                normwise), the losses per step and the parameters' drift.
                Then the card again with faults planted in the backward
                kernel's output, each of which the checks must catch
+  train_pct_parity  the pct configuration's train step on the card at f32
+               and on the CPU at f32 and f64: same seeded weights, one
+               pooled B=4 batch (O=128), head dropout off, three steps, the
+               CPU runs routed through the card's tail argmax / argmin. The
+               card must sit no further from the f64 run than PCT_VS_CPU
+               times the CPU's f32 run does: every gradient of the first
+               step, the losses, the parameters' drift and the BN running
+               statistics. Then faults planted in the outputs of the block,
+               embedding and tail backward kernels, each of which the checks
+               must catch
   serve        the pct serving configuration of bench.py (B=512 pairs, 32
                object slots per graph, 512 points, bfloat16, pooled bucket
                128): four requests with distinct seeds through
@@ -31,12 +43,20 @@ Phases, in order (every failure raises and exits non-zero):
                warm-up, then 3 windows of 20 steps; ms per step, pairs/s,
                1 forward and 1 backward PointNet launch per step, a finite
                loss that falls on the fixed batch
+  train_pct    bench.py's pct training configuration (B=32, 32 slots, P=512,
+               bf16, pooled bucket 128, O=896, Adam lr 1e-3, head dropout
+               0.5, one synthetic batch, seed 0): warm-up, 3 windows of 20
+               steps, ms per step, pairs/s, the launches per step of every
+               kernel, a torch.profiler pass
   serve_point  the point configuration serving the four B=512 requests;
                1 PointNet forward launch per request
   time         each kernel against its plain version (and torch.matmul for
-               the tail): the pct kernels at the serving O, the PointNet
-               kernels at the training O (the forward also at the serving
-               O), with each bound from the shapes
+               the tail): the pct serving kernels at the serving O, the pct
+               training and PointNet kernels at the training O (the PointNet
+               forward also at the serving O), with each bound from the
+               shapes; scaled_dot_product_attention(q, q, v) at the serving
+               and training shapes as a same-work yardstick of the attention
+               core
 
 The last two lines are the {"kernels": [...]} record and
 {"ok": true, "device": {...}}. Nothing of JAX or of the JAX package is
@@ -45,6 +65,7 @@ imported.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -80,7 +101,25 @@ TOL = {("embed_first", "f32"): 1e-5, ("embed_first", "bf16"): 1e-2,
        ("pct_block_eval", "f32"): 1e-4, ("pct_block_eval", "bf16"): 5e-2,
        ("pct_tail", "f32"): 1e-4, ("pct_tail", "bf16"): 1e-2,
        ("pointnet_fwd", "f32"): 1e-5, ("pointnet_fwd", "bf16"): 1e-2,
-       ("pointnet_bwd", "f32"): 1e-4, ("pointnet_bwd", "bf16"): 2e-2}
+       ("pointnet_bwd", "f32"): 1e-4, ("pointnet_bwd", "bf16"): 2e-2,
+       # training kernels. Backward sums run over O·P rows; bf16: the same
+       # roundings, a relu mask may flip near 0 (embed_second, the block's
+       # epilogue). The block forward is pct_block_eval's computation. Its
+       # backward at bf16: the bound holds the weight gradients (dWqk, dWv,
+       # dbv, dWt, dbt); dx is held by BLOCK_DX_VS_PLAIN below
+       ("embed_first_bwd", "f32"): 1e-4, ("embed_first_bwd", "bf16"): 1e-2,
+       ("embed_second_bwd", "f32"): 1e-4, ("embed_second_bwd", "bf16"): 2e-2,
+       ("pct_block_fwd", "f32"): 1e-4, ("pct_block_fwd", "bf16"): 5e-2,
+       ("pct_epi_sums", "f32"): 1e-4, ("pct_epi_sums", "bf16"): 1e-2,
+       ("pct_block_res_bwd", "f32"): 1e-4, ("pct_block_res_bwd", "bf16"): 5e-2,
+       ("pct_tail_bwd", "f32"): 1e-4, ("pct_tail_bwd", "bf16"): 2e-2}
+# pct_block_res_bwd's dx at bfloat16: the softmax gradient G∘(dY·vᵀ − D)
+# cancels, and the kernel and the plain version (bf16 exponentials and bf16
+# autograd through them, as the TPU kernel) each sit ≈ 0.18 (normwise) from
+# the plain version at f32 on the same inputs, in different directions. So
+# the kernel's dx is held to the f32 plain: its distance at most this many
+# times the bf16 plain version's own
+BLOCK_DX_VS_PLAIN = 1.25
 # main path, CPU against the card at float32: relative drift of the joint
 # embeddings (the JAX suite measured 0.0077 f32 drift from max-pool ties)
 PARITY_DRIFT = 0.02
@@ -98,6 +137,28 @@ TRAIN_PARAM_DRIFT = 1e-4
 # faults planted in pointnet_bwd's output on the card: (label, gradient
 # index (dw1, db1, dw2, db2, dw3, db3), factor)
 PLANTED = (("dw3 x2", 4, 2.0), ("db1 zeroed", 1, 0.0), ("dw1 x1.1", 0, 1.1))
+# pct training, three Adam steps from the same seeded weights on one B=4
+# batch: the card at float32 and the CPU at float32, each against the CPU at
+# float64. The pct configuration's BatchNorms fold from one-pass batch
+# moments, so float32 rounding alone moves its gradients by about 1e-4 to
+# 1e-3 relative (PERF.md); the card is held to PCT_VS_CPU times the CPU's
+# own float32 distance, reading by reading (worst gradient leaf, losses,
+# parameters against the distance moved, BN running statistics). The tail's
+# max / min pool routes each channel's gradient to one point, and where two
+# points nearly tie the two sides may pick different ones: both CPU runs
+# take the card's argmax / argmin instead, and PCT_INDEX_APART bounds the
+# share of (object, channel) indices the CPU's own forward would pick
+# otherwise at step 1. On an H100 the card's worst gradient leaf read 2.1,
+# 3.1 and 4.5 times the CPU's in three runs (the card's own forward sums
+# vary from run to run: atomicAdd), the other readings 0.5 to 2.8 times;
+# the planted faults read 600 times and more on the gradient
+PCT_VS_CPU = 20.0
+PCT_INDEX_APART = 1e-3
+# faults planted in the pct backward kernels' outputs: (label, module, wrapper,
+# output index, factor)
+PCT_PLANTED = (("block dWt x2", "pct_attention", "block_res_bwd", 4, 2.0),
+               ("embed_first dW zeroed", "pct_embed", "embed_first_bwd", None, 0.0),
+               ("tail dx x1.1", "pct_tail", "pct_tail_bwd", (0, 1, 2, 3), 1.1))
 
 KERNELS = {
     "embed_first": ("sgaligner_tpu_torch/csrc/pct_embed.cu",
@@ -112,9 +173,28 @@ KERNELS = {
                      "sgaligner_tpu/ops/pointnet_fused.py:62"),
     "pointnet_bwd": ("sgaligner_tpu_torch/csrc/pointnet.cu",
                      "sgaligner_tpu/ops/pointnet_fused.py:72"),
+    "embed_first_bwd": ("sgaligner_tpu_torch/csrc/pct_embed.cu",
+                        "sgaligner_tpu/ops/pct_embed.py:66"),
+    "embed_second_bwd": ("sgaligner_tpu_torch/csrc/pct_embed.cu",
+                         "sgaligner_tpu/ops/pct_embed.py:221"),
+    "pct_block_fwd": ("sgaligner_tpu_torch/csrc/pct_attention.cu",
+                      "sgaligner_tpu/ops/pct_attention.py:320"),
+    "pct_epi_sums": ("sgaligner_tpu_torch/csrc/pct_attention.cu",
+                     "sgaligner_tpu/ops/pct_attention.py:569"),
+    "pct_block_res_bwd": ("sgaligner_tpu_torch/csrc/pct_attention.cu",
+                          "sgaligner_tpu/ops/pct_attention.py:599"),
+    "pct_tail_bwd": ("sgaligner_tpu_torch/csrc/pct_tail.cu",
+                     "sgaligner_tpu/ops/pct_tail.py:124"),
 }
 PCT_KERNELS = ("embed_first", "embed_second", "pct_block_eval", "pct_tail")
 POINT_KERNELS = ("pointnet_fwd", "pointnet_bwd")
+TRAIN_KERNELS = ("embed_first_bwd", "embed_second_bwd", "pct_block_fwd",
+                 "pct_epi_sums", "pct_block_res_bwd", "pct_tail_bwd")
+# launches per pct train step: every kernel of the training path
+PER_PCT_TRAIN_STEP = {"embed_first": 1, "embed_second": 1, "pct_tail": 1,
+                      "embed_first_bwd": 1, "embed_second_bwd": 1,
+                      "pct_block_fwd": 4, "pct_epi_sums": 4,
+                      "pct_block_res_bwd": 4, "pct_tail_bwd": 1}
 # positions of the per-object arguments of each op (the rest are weights)
 PER_OBJECT_ARGS = {"embed_first": (0, 2), "embed_second": (0, 4),
                    "pct_block_eval": (0,), "pct_tail": (0, 1, 2, 3, 5)}
@@ -179,6 +259,12 @@ def op_inputs(name: str, o: int, dtype, seed: int, p: int = P) -> tuple:
     mask = (torch.rand(o, 1, generator=g) < 0.85).float()
     mask[0] = 1.0
     mask = mask.to("cuda", dtype)
+
+    def f32(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to("cuda", torch.float32)
+
+    if name in TRAIN_KERNELS:
+        return train_op_inputs(name, o, p, rnd, f32, mask)
     if name == "embed_first":
         return rnd(o, 3, p), rnd(3, C), mask
     if name == "embed_second":
@@ -194,11 +280,49 @@ def op_inputs(name: str, o: int, dtype, seed: int, p: int = P) -> tuple:
             mask)
 
 
+def train_op_inputs(name: str, o: int, p: int, rnd, f32, mask) -> tuple:
+    """Inputs of the training kernels: activations and weights as the
+    forward ops take them, cotangents in the compute dtype (per point) or
+    f32 (the BN sums' and the pool's), the tail's indices from the plain
+    forward (both sides get them)."""
+    ds = (f32(1, C, scale=0.1), f32(1, C, scale=0.01))
+    if name == "embed_first_bwd":
+        return (rnd(o, 3, p), rnd(3, C), mask, rnd(o, p, C), *ds)
+    if name == "embed_second_bwd":
+        return (rnd(o, p, C), rnd(1, C, scale=0.5), rnd(1, C, scale=0.1),
+                rnd(C, C, scale=C ** -0.5), mask, rnd(o, p, C), *ds)
+    if name == "pct_epi_sums":
+        return rnd(o, p, C), f32(C), f32(C, scale=0.1), rnd(o, p, C)
+    if name in ("pct_block_fwd", "pct_block_res_bwd"):
+        block = (rnd(o, p, C), rnd(C, DA, scale=C ** -0.5), rnd(C, C, scale=C ** -0.5),
+                 rnd(C, scale=0.1), rnd(C, C, scale=C ** -0.5), rnd(C, scale=0.1), mask)
+        if name == "pct_block_fwd":
+            return block
+        return (*block, rnd(o, p, C), f32(C), f32(C, scale=0.1), *ds)
+    from sgaligner_tpu_torch.ops.pct_tail import pct_tail_plain
+
+    xs = tuple(rnd(o, p, C) for _ in range(4))
+    w = rnd(4 * C, K, scale=(4 * C) ** -0.5)
+    amax, amin = pct_tail_plain(*xs, w, mask, with_index=True)[4:]
+    return (*xs, w, mask, f32(o, K), f32(o, K), f32(1, K, scale=0.01),
+            f32(1, K, scale=0.001), amax, amin)
+
+
 def op_fns(name: str, flags=(True, False)):
-    """(kernel wrapper, plain version) of one op."""
+    """(kernel wrapper, plain version) of one op. ``flags``: SA / OA for
+    pct_block_eval, "idx" for pct_tail's training form."""
     from sgaligner_tpu_torch.ops import (pct_attention, pct_embed, pct_tail,
                                          pointnet_fused)
 
+    if name in TRAIN_KERNELS:
+        module = pct_tail if name == "pct_tail_bwd" else (
+            pct_embed if name.startswith("embed") else pct_attention)
+        short = {"pct_block_fwd": "block_fwd", "pct_epi_sums": "epi_sums",
+                 "pct_block_res_bwd": "block_res_bwd"}.get(name, name)
+        return getattr(module, short), getattr(module, short + "_plain")
+    if name == "pct_tail" and flags == "idx":
+        return (lambda *a: pct_tail.pct_tail(*a, with_index=True),
+                lambda *a: pct_tail.pct_tail_plain(*a, with_index=True))
     if name == "pointnet_fwd":
         return (lambda *a: pointnet_fused.pointnet_fwd(*a, with_argmax=True),
                 lambda *a: pointnet_fused.pointnet_fwd_plain(*a, with_argmax=True))
@@ -256,6 +380,22 @@ def argmax_error(args, amax) -> float:
     return float((peak - at).abs().max() / peak.abs().max().clamp_min(1e-30))
 
 
+def tail_index_error(args, amax, amin) -> float:
+    """The tail's argmax / argmin, held by value as the PointNet argmax is:
+    max over (object, channel) of |plain max - plain z at the kernel's
+    index| (and the same for the min), relative to the largest |z|."""
+    import torch
+
+    from sgaligner_tpu_torch.ops.pct_tail import _z
+
+    z = _z(list(args[:4]), args[4]).float()                   # [O, P, K]
+    err = 0.0
+    for idx, peak in ((amax, z.amax(dim=1)), (amin, z.amin(dim=1))):
+        at = torch.gather(z, 1, idx.long()[:, None, :])[:, 0]
+        err = max(err, float((peak - at).abs().max()))
+    return err / max(float(z.abs().max()), 1e-30)
+
+
 def check_op(name: str, args: tuple, dt_name: str, flags=(True, False),
              what: str = "") -> tuple[float, float]:
     """One kernel call against its plain version on the same inputs;
@@ -266,17 +406,49 @@ def check_op(name: str, args: tuple, dt_name: str, flags=(True, False),
     got, want = kern(*args), plain(*args)
     torch.cuda.synchronize()
     tol = TOL[(name, dt_name)]
+    if (name, dt_name) == ("pct_block_res_bwd", "bf16"):
+        return check_block_bwd_bf16(args, got, want, plain, tol, what or name)
     if name == "pointnet_fwd":
         (got, amax), (want, _) = got, want
         arg_err = argmax_error(args, amax)
         if not arg_err <= tol:
             raise AssertionError(f"{what or name}: argmax points off the max "
                                  f"({arg_err:.3e} > {tol:g})")
+    if name == "pct_tail" and flags == "idx":
+        arg_err = tail_index_error(args, got[4], got[5])
+        got, want = got[:4], want[:4]
+        if not arg_err <= tol:
+            raise AssertionError(f"{what or name}: argmax / argmin point off the "
+                                 f"max / min ({arg_err:.3e} > {tol:g})")
     err_abs, err_rel = compare(got, want)
     if not err_rel <= tol:
         raise AssertionError(f"{what or name}: kernel disagrees with the plain "
                              f"version ({err_rel:.3e} > {tol:g})")
     return err_abs, err_rel
+
+
+def check_block_bwd_bf16(args, got, want, plain, tol: float, what: str
+                         ) -> tuple[float, float]:
+    """pct_block_res_bwd at bf16: the weight gradients against the plain
+    version within ``tol``; dx against the plain version at f32 on the same
+    values, no further from it than BLOCK_DX_VS_PLAIN times the bf16 plain
+    version's dx. Returns (max abs, max normwise rel of the weight
+    gradients)."""
+    rel = max(compare(g, w)[1] for g, w in zip(got[1:], want[1:]))
+    if not rel <= tol:
+        raise AssertionError(f"{what}: kernel's weight gradients disagree with the "
+                             f"plain version ({rel:.3e} > {tol:g})")
+    ref = plain(*(a.float() for a in args))[0]
+    kern_d, plain_d = compare(got[0], ref)[1], compare(want[0], ref)[1]
+    log(f"[kernels] {what}: dx normwise from the plain version at f32: kernel "
+        f"{kern_d:.3e}, plain at bf16 {plain_d:.3e} (ratio bound {BLOCK_DX_VS_PLAIN}); "
+        f"kernel against plain at bf16: dx {compare(got[0], want[0])[1]:.3e}, weight "
+        f"gradients " + ", ".join(f"{compare(g, w)[1]:.2e}" for g, w in zip(got[1:], want[1:])))
+    if not kern_d <= BLOCK_DX_VS_PLAIN * plain_d:
+        raise AssertionError(f"{what}: kernel's dx is {kern_d:.3e} from the f32 plain "
+                             f"version, more than {BLOCK_DX_VS_PLAIN} x the bf16 plain "
+                             f"version's {plain_d:.3e}")
+    return compare(got, want)[0], rel
 
 
 # ------------------------------- phases --------------------------------------
@@ -318,13 +490,19 @@ def phase_kernels(state: dict) -> None:
     for dt_name, dtype, p in cases:
         for name in KERNELS:
             variants = ([("SA", (True, False)), ("OA", (False, True))]
-                        if name == "pct_block_eval" else [("", None)])
+                        if name == "pct_block_eval" else
+                        [("", None), ("idx", "idx")] if name == "pct_tail" else [("", None)])
             for tag, flags in variants:
                 kern, plain = op_fns(name, flags or (True, False))
                 args = op_inputs(name, SMALL_O, dtype, seed=1, p=p)
                 label = f"{name}{'/' + tag if tag else ''}/{dt_name}"
                 err_abs, err_rel = check_op(name, args, dt_name,
                                             flags or (True, False), label)
+                if name in TRAIN_KERNELS:
+                    first, second = as_tuple(kern(*args)), as_tuple(kern(*args))
+                    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+                        raise AssertionError(f"{label}: two runs on the same inputs "
+                                             "differ (the kernel must be deterministic)")
                 ms = cuda_ms(lambda: kern(*args))
                 plain_ms = cuda_ms(lambda: plain(*args), warmup=1, reps=3)
                 log(f"[kernels] {label:24s} O={SMALL_O} P={p} max_abs={err_abs:.3e} "
@@ -461,19 +639,28 @@ def phase_serve(state: dict) -> None:
         f"(B={b}, bf16) | launches {launches} | {state['card']}")
 
 
-def _train_three(cfg, host, dev: str) -> dict:
-    """Three point-config train steps from the seeded weights: the losses,
-    the first step's gradients, the starting and final parameters."""
+def _train_three(cfg, host, dev: str, modules=POINT_MODULES) -> dict:
+    """Three train steps from the seeded weights (pct: head dropout off, so
+    the CPU and the card draw no masks): the losses, the first step's
+    gradients, the starting and final parameters and buffers. A float64
+    ``cfg`` keeps the parameters, Adam and the loss at float64 too."""
     import torch
 
     from sgaligner_tpu_torch.data.batch import to_device
     from sgaligner_tpu_torch.engine.factory import build_model
     from sgaligner_tpu_torch.engine.train_step import create_train_state, make_train_step
+    from sgaligner_tpu_torch.ops.objective import OverallLoss
 
     model = build_model(cfg, dev, torch.Generator().manual_seed(11))
-    start = {k: v.detach().double().cpu() for k, v in model.state_dict().items()}
-    train = create_train_state(model, cfg)
-    step = make_train_step(POINT_MODULES)
+    objective = None
+    if cfg.tpu.compute_dtype == "float64":
+        model = model.double()
+        objective = OverallLoss(modules, zoom=cfg.loss.zoom).double()
+    if "pct" in modules:
+        model.object_encoder.dropout = 0.0
+    start = {k: v.detach().double().cpu().clone() for k, v in model.state_dict().items()}
+    train = create_train_state(model, cfg, objective)
+    step = make_train_step(modules)
     batch = to_device(host, dev)
     t0 = time.perf_counter()
     losses = [step(train, batch)]
@@ -491,25 +678,51 @@ def _train_three(cfg, host, dev: str) -> dict:
             "params": {k: v.detach().double().cpu() for k, v in model.state_dict().items()}}
 
 
-def _train_readings(ref: dict, got: dict) -> dict:
+# A leaf whose first-step gradient on the CPU is under QUIET_GRAD times the
+# median leaf's is zero up to rounding: in the pct configuration the biases
+# right before a batch-statistics BatchNorm (its batch mean removes them),
+# 3e-10 to 1.5e-7 against 1.5e-2 for the smallest other leaf and a median of
+# about 0.4. Adam moves such a leaf by noise, so it is left out of the
+# gradient and parameter readings
+QUIET_GRAD = 1e-4
+
+
+def _norm(tensors) -> float:
+    return sum(float(t.norm() ** 2) for t in tensors) ** 0.5
+
+
+def quiet_leaves(grads: dict) -> set:
+    norms = {k: float(g.norm()) for k, g in grads.items()}
+    floor = QUIET_GRAD * statistics.median(norms.values())
+    return {k for k, n in norms.items() if n < floor}
+
+
+def _train_readings(ref: dict, got: dict, bounds: dict) -> dict:
     """The card run against the CPU run: worst gradient leaf, worst loss,
-    parameter drift; and which checks fail."""
+    parameter drift and (pct) the running statistics' drift; and which
+    checks fail. Quiet leaves (``quiet_leaves`` of the CPU's gradients) are
+    left out of the gradient and parameter readings."""
     for i, losses in enumerate(got["losses"]):
         if not all(abs(v) < float("inf") and v == v for v in losses.values()):
             raise AssertionError(f"train_parity: step {i} loss not finite on the card: {losses}")
+    quiet = quiet_leaves(ref["grads"])
     loss = max(abs(b[k] - a[k]) / max(abs(a[k]), 1e-30)
                for a, b in zip(ref["losses"], got["losses"]) for k in a)
     grad = {k: float((got["grads"][k] - g).norm() / g.norm().clamp_min(1e-30))
-            for k, g in ref["grads"].items()}
+            for k, g in ref["grads"].items() if k not in quiet}
     leaf = max(grad, key=grad.get)
     start, p_ref, p_got = ref["start"], ref["params"], got["params"]
-    moved = sum(float((p_ref[k] - start[k]).norm() ** 2) for k in start) ** 0.5
-    apart = sum(float((p_got[k] - p_ref[k]).norm() ** 2) for k in start) ** 0.5
-    r = {"leaf": leaf, "grad": grad[leaf], "loss": loss, "param": apart / moved}
-    r["failed"] = [name for name, bound in (("grad", TRAIN_GRAD_DRIFT),
-                                           ("loss", TRAIN_LOSS_DRIFT),
-                                           ("param", TRAIN_PARAM_DRIFT))
-                   if not r[name] <= bound]
+    keys = [k for k in start if "running_" not in k and k not in quiet]
+    moved = _norm(p_ref[k] - start[k] for k in keys)
+    apart = {k: float((p_got[k] - p_ref[k]).norm()) for k in keys}
+    r = {"leaf": leaf, "grad": grad[leaf], "loss": loss,
+         "param": sum(v * v for v in apart.values()) ** 0.5 / moved,
+         "param_leaf": max(apart, key=apart.get), "quiet": sorted(quiet)}
+    stats = [k for k in start if "running_" in k]
+    if stats:
+        r["stats"] = (_norm(p_got[k] - p_ref[k] for k in stats)
+                      / _norm(p_ref[k] for k in stats))
+    r["failed"] = [name for name, bound in bounds.items() if not r[name] <= bound]
     return r
 
 
@@ -518,6 +731,7 @@ def phase_train_parity(state: dict) -> None:
     from sgaligner_tpu_torch.data.synthetic import make_synthetic_batch
     from sgaligner_tpu_torch.ops import pointnet_fused
 
+    bounds = {"grad": TRAIN_GRAD_DRIFT, "loss": TRAIN_LOSS_DRIFT, "param": TRAIN_PARAM_DRIFT}
     cfg = _cfg("float32", 32, POINT_MODULES)
     host = pool_compact(make_synthetic_batch(
         BatchSpec(8, 32, P), seed=3, bow_noise=1.0, resample=True), 128)
@@ -526,11 +740,11 @@ def phase_train_parity(state: dict) -> None:
     for dev, run in runs.items():
         log(f"[train_parity] {dev}: 3 train steps {run['seconds']:.1f} s; loss "
             + ", ".join(f"{v['loss']:.6f}" for v in run["losses"]))
-    r = _train_readings(runs["cpu"], runs["cuda"])
+    r = _train_readings(runs["cpu"], runs["cuda"], bounds)
     log(f"[train_parity] O={o} worst gradient leaf {r['leaf']} {r['grad']:.3e} (bound "
         f"{TRAIN_GRAD_DRIFT:g}); losses: max relative difference {r['loss']:.3e} (bound "
         f"{TRAIN_LOSS_DRIFT:g}); parameters: card-CPU distance / distance moved "
-        f"{r['param']:.3e} (bound {TRAIN_PARAM_DRIFT:g})")
+        f"{r['param']:.3e} (bound {TRAIN_PARAM_DRIFT:g}); quiet leaves left out: {r['quiet']}")
     if r["failed"]:
         raise AssertionError(f"train_parity: the card's training differs from the "
                              f"CPU's ({', '.join(r['failed'])}): {r}")
@@ -544,7 +758,7 @@ def phase_train_parity(state: dict) -> None:
 
         pointnet_fused.pointnet_bwd = planted
         try:
-            f = _train_readings(runs["cpu"], _train_three(cfg, host, "cuda"))
+            f = _train_readings(runs["cpu"], _train_three(cfg, host, "cuda"), bounds)
         finally:
             pointnet_fused.pointnet_bwd = kernel
         log(f"[train_parity] planted fault {label}: gradient {f['leaf']} {f['grad']:.3e}, "
@@ -553,7 +767,117 @@ def phase_train_parity(state: dict) -> None:
             raise AssertionError(f"train_parity: the planted fault {label} went unseen")
 
 
-def phase_train(state: dict) -> None:
+def _planted(kernel, index, factor):
+    """kernel with one output (or several, or its only one) scaled."""
+    def fn(*args):
+        out = kernel(*args)
+        if index is None:
+            return out * factor
+        out = list(out)
+        for i in (index if isinstance(index, tuple) else (index,)):
+            out[i] = out[i] * factor
+        return tuple(out)
+
+    return fn
+
+
+@contextlib.contextmanager
+def tail_indices(record: list, replay: list | None = None):
+    """Patch the tail op the training forward calls (``PctTail``): append
+    the argmax / argmin that each indexed call computes to ``record`` (on
+    the host) and, with ``replay``, route the call to the recorded indices
+    instead, in call order, pmax / pmin taken at them."""
+    import torch
+
+    from sgaligner_tpu_torch.ops import pct_tail as mod
+
+    op, queue = mod.pct_tail, iter(replay or ())
+
+    def fn(x1, x2, x3, x4, w, mask, with_index=False):
+        out = op(x1, x2, x3, x4, w, mask, with_index)
+        if not with_index:
+            return out
+        record.append((out[4].cpu(), out[5].cpu()))
+        if replay is not None:
+            amax, amin = (t.to(x1.device) for t in next(queue))
+            z = mod._z([x1, x2, x3, x4], w).to(out[0].dtype)
+            pmax, pmin = (torch.gather(z, 1, i.long()[:, None, :])[:, 0] for i in (amax, amin))
+            out = (pmax, pmin, out[2], out[3], amax, amin)
+        return out
+
+    mod.pct_tail = fn
+    try:
+        yield
+    finally:
+        mod.pct_tail = op
+
+
+def phase_train_pct_parity(state: dict) -> None:
+    import importlib
+
+    from sgaligner_tpu_torch.data.batch import BatchSpec, pool_compact
+    from sgaligner_tpu_torch.data.synthetic import make_synthetic_batch
+
+    host = pool_compact(make_synthetic_batch(
+        BatchSpec(4, 32, P), seed=3, bow_noise=1.0, resample=True), 128)
+    o = host["obj_points_pooled"].shape[0]
+    idx = {"cuda": [], "cpu": [], "cpu64": []}
+    runs = {}
+    for name, dev, dtype in (("cuda", "cuda", "float32"), ("cpu", "cpu", "float32"),
+                             ("cpu64", "cpu", "float64")):
+        # the CPU runs route the tail to the card's indices
+        with tail_indices(idx[name], None if dev == "cuda" else idx["cuda"]):
+            runs[name] = _train_three(_cfg(dtype, 32, MODULES), host, dev, MODULES)
+        log(f"[train_pct_parity] {name}: 3 train steps {runs[name]['seconds']:.1f} s; loss "
+            + ", ".join(f"{v['loss']:.6f}" for v in runs[name]["losses"]))
+    apart = [int((a != b).sum()) + int((c != d).sum())
+             for (a, c), (b, d) in zip(idx["cpu"], idx["cuda"])]
+    total = 2 * idx["cuda"][0][0].numel()
+    # the CPU at float32 against float64 sets the bounds of the card's run
+    ref = _train_readings(runs["cpu64"], runs["cpu"], {})
+    bounds = {k: PCT_VS_CPU * ref[k] for k in ("grad", "loss", "param", "stats")}
+    r = _train_readings(runs["cpu64"], runs["cuda"], bounds)
+    log(f"[train_pct_parity] O={o} tail argmax / argmin the CPU at f32 picks apart from the "
+        f"card, per step: {apart} of {total} (bound {PCT_INDEX_APART:g} of them at step 1); "
+        f"quiet leaves left out: {r['quiet']}")
+    direct = _train_readings(runs["cpu"], runs["cuda"], {})
+    for who, x in (("CPU at f32 against the CPU at f64", ref),
+                   ("card at f32 against the CPU at f64", r),
+                   ("card at f32 against the CPU at f32", direct)):
+        log(f"[train_pct_parity] O={o} {who}: worst gradient leaf "
+            f"{x['leaf']} {x['grad']:.3e}; losses {x['loss']:.3e}; parameters "
+            f"{x['param']:.3e} (most in {x['param_leaf']}); running statistics {x['stats']:.3e}")
+    failed = list(r["failed"])
+    if not apart[0] <= PCT_INDEX_APART * total:
+        failed.append("index")
+    if failed:
+        raise AssertionError(f"train_pct_parity: the card's training is further from the "
+                             f"f64 run than {PCT_VS_CPU} x the CPU's ({', '.join(failed)}): {r}")
+    unseen = []
+    for label, module, fn_name, index, factor in PCT_PLANTED:
+        mod = importlib.import_module(f"sgaligner_tpu_torch.ops.{module}")
+        kernel = getattr(mod, fn_name)
+        setattr(mod, fn_name, _planted(kernel, index, factor))
+        try:
+            f = _train_readings(runs["cpu64"], _train_three(_cfg("float32", 32, MODULES),
+                                                            host, "cuda", MODULES), bounds)
+        finally:
+            setattr(mod, fn_name, kernel)
+        log(f"[train_pct_parity] planted fault {label}: gradient {f['leaf']} {f['grad']:.3e}, "
+            f"loss {f['loss']:.3e}, parameters {f['param']:.3e}, statistics "
+            f"{f['stats']:.3e}; caught by {f['failed']}")
+        if not f["failed"]:
+            unseen.append(label)
+    if unseen:
+        raise AssertionError(f"train_pct_parity: the planted faults {unseen} went unseen")
+
+
+def _bench_train(state: dict, modules, tag: str, per_step: dict) -> tuple[int, float, dict]:
+    """bench.py's training configuration for ``modules`` (B=32, 32 slots,
+    P=512, bf16, pooled bucket 128, Adam lr 1e-3, one seed-0 batch):
+    warm-up, N_WINDOWS synchronised windows of WINDOW_STEPS steps with the
+    launch counts checked against ``per_step``, then a profiler pass.
+    Returns (O, median ms per step, launches over the windows)."""
     import torch
 
     from sgaligner_tpu_torch.data.batch import BatchSpec, pool_compact, to_device
@@ -562,21 +886,20 @@ def phase_train(state: dict) -> None:
     from sgaligner_tpu_torch.engine.train_step import create_train_state, make_train_step
     from sgaligner_tpu_torch.ops import _build
 
-    cfg = _cfg("bfloat16", 32, POINT_MODULES)
+    cfg = _cfg("bfloat16", 32, modules)
     cfg.model.dropout = 0.0
     host = pool_compact(make_synthetic_batch(BatchSpec(TRAIN_B, 32, P), seed=0), 128)
     batch = to_device(host, "cuda")
     o = host["obj_points_pooled"].shape[0]
-    state["train_o"] = o
     model = build_model(cfg, "cuda", torch.Generator().manual_seed(0))
     train = create_train_state(model, cfg)
-    step = make_train_step(POINT_MODULES)
+    step = make_train_step(modules)
     t0 = time.perf_counter()
     first = step(train, batch)
     for _ in range(WARMUP_STEPS - 1):
         step(train, batch)
     torch.cuda.synchronize()
-    log(f"[train] O={o} pooled objects; warm-up {WARMUP_STEPS} steps "
+    log(f"[{tag}] O={o} pooled objects; warm-up {WARMUP_STEPS} steps "
         f"{time.perf_counter() - t0:.1f} s; loss at step 1 {float(first['loss']):.6f}")
 
     _build.reset_launches()
@@ -589,34 +912,45 @@ def phase_train(state: dict) -> None:
         windows.append(time.perf_counter() - t0)
     launches = dict(_build.LAUNCHES)
     steps = N_WINDOWS * WINDOW_STEPS
-    state["launches_train"] = launches
     for name in KERNELS:
-        want = PER_TRAIN_STEP.get(name, 0) * steps
+        want = per_step.get(name, 0) * steps
         if launches[name] != want:
-            raise AssertionError(f"train: {name} launched {launches[name]} times in "
+            raise AssertionError(f"{tag}: {name} launched {launches[name]} times in "
                                  f"{steps} steps, expected {want}")
     last = {k: float(v) for k, v in out.items()}
     if not all(v == v and abs(v) < float("inf") for v in last.values()):
-        raise AssertionError(f"train: loss not finite: {last}")
+        raise AssertionError(f"{tag}: loss not finite: {last}")
     if not last["loss"] < float(first["loss"]):
-        raise AssertionError(f"train: loss did not fall ({float(first['loss'])} -> "
+        raise AssertionError(f"{tag}: loss did not fall ({float(first['loss'])} -> "
                              f"{last['loss']})")
     if train.skipped:
-        raise AssertionError(f"train: {train.skipped} steps skipped as non-finite")
+        raise AssertionError(f"{tag}: {train.skipped} steps skipped as non-finite")
     for i, w in enumerate(windows):
-        log(f"[train] window {i}: {w / WINDOW_STEPS * 1e3:.2f} ms/step, "
+        log(f"[{tag}] window {i}: {w / WINDOW_STEPS * 1e3:.2f} ms/step, "
             f"{TRAIN_B * WINDOW_STEPS / w:.1f} pairs/s | {state['card']}")
-    profile_train(state, step, train, batch)
+    profile_train(state, step, train, batch, tag)
     med = statistics.median(windows)
-    state["train_step_ms"] = med / WINDOW_STEPS * 1e3
-    log(f"[train] median window {state['train_step_ms']:.2f} ms/step, "
-        f"{TRAIN_B * WINDOW_STEPS / med:.1f} pairs/s (B={TRAIN_B}, bf16, point config); "
-        f"launches per step: pointnet_fwd {launches['pointnet_fwd'] / steps:g}, "
-        f"pointnet_bwd {launches['pointnet_bwd'] / steps:g}; loss {float(first['loss']):.6f} "
-        f"at step 1 -> {last['loss']:.6f} after {WARMUP_STEPS + steps} | {state['card']}")
+    ms = med / WINDOW_STEPS * 1e3
+    per = ", ".join(f"{k} {v / steps:g}" for k, v in launches.items() if v)
+    log(f"[{tag}] median window {ms:.2f} ms/step, {TRAIN_B * WINDOW_STEPS / med:.1f} "
+        f"pairs/s (B={TRAIN_B}, bf16, {modules[0]} config); launches per step: {per}; "
+        f"loss {float(first['loss']):.6f} at step 1 -> {last['loss']:.6f} after "
+        f"{WARMUP_STEPS + steps} | {state['card']}")
+    return o, ms, launches
 
 
-def profile_train(state: dict, step, train, batch, steps: int = 5) -> None:
+def phase_train(state: dict) -> None:
+    o, ms, launches = _bench_train(state, POINT_MODULES, "train", PER_TRAIN_STEP)
+    state["train_o"], state["train_step_ms"], state["launches_train"] = o, ms, launches
+
+
+def phase_train_pct(state: dict) -> None:
+    o, ms, launches = _bench_train(state, MODULES, "train_pct", PER_PCT_TRAIN_STEP)
+    state["train_pct_o"], state["train_pct_ms"] = o, ms
+    state["launches_train_pct"] = launches
+
+
+def profile_train(state: dict, step, train, batch, tag: str, steps: int = 5) -> None:
     """torch.profiler over a few train steps (not the timed windows): the
     device's busy share (sum of kernel times over the wall time) and where
     the device and the host spend the step."""
@@ -640,19 +974,19 @@ def profile_train(state: dict, step, train, batch, steps: int = 5) -> None:
     on_device = [e for e in events if e.device_type != torch.autograd.DeviceType.CPU]
     busy_ms = sum(dev_us(e) for e in on_device) / 1e3
     if busy_ms <= 0:
-        log("[train] profiler: no device time recorded; busy share not measured")
+        log(f"[{tag}] profiler: no device time recorded; busy share not measured")
         return
     kernels = sum(e.count for e in on_device)
-    log(f"[train] profiler, {steps} steps: wall {wall_ms / steps:.2f} ms/step, device busy "
+    log(f"[{tag}] profiler, {steps} steps: wall {wall_ms / steps:.2f} ms/step, device busy "
         f"{busy_ms / steps:.2f} ms/step ({busy_ms / wall_ms:.1%}, so idle "
         f"{1 - busy_ms / wall_ms:.1%}), {kernels / steps:.0f} device ops/step | {state['card']}")
     top = sorted(on_device, key=dev_us, reverse=True)[:10]
     for e in top:
-        log(f"[train]   device {dev_us(e) / 1e3 / steps:8.3f} ms/step  x{e.count // steps:<4d} "
+        log(f"[{tag}]   device {dev_us(e) / 1e3 / steps:8.3f} ms/step  x{e.count // steps:<4d} "
             f"{e.key[:90]}")
     top = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:10]
     for e in top:
-        log(f"[train]   host   {e.self_cpu_time_total / 1e3 / steps:8.3f} ms/step  "
+        log(f"[{tag}]   host   {e.self_cpu_time_total / 1e3 / steps:8.3f} ms/step  "
             f"x{e.count // steps:<4d} {e.key[:90]}")
 
 
@@ -713,6 +1047,12 @@ def bwd_work(args) -> tuple[int, int]:
     return int((hit > 0).sum()), int(live.sum())
 
 
+def block_flops() -> int:
+    """Operations of one object's SA block forward: q, v, E = q qᵀ, y = G v,
+    t = u Wt (122 MFLOP at P=512)."""
+    return 2 * P * C * (DA + C) + 2 * P * P * DA + 2 * P * P * C + 2 * P * C * C
+
+
 def bound(name: str, o: int, p: int = P, work: tuple[int, int] | None = None
           ) -> tuple[float, str]:
     """Least time (ms) for the work of one call at O objects, bf16.
@@ -741,10 +1081,38 @@ def bound(name: str, o: int, p: int = P, work: tuple[int, int] | None = None
     elif name == "embed_second":
         nbytes = 2 * o * P * C * e + C * C * e + 2 * C * e + o * e + 2 * C * 4
         ops, rate = 2 * o * P * C * C, BF16_TENSOR_FLOPS
-    elif name == "pct_block_eval":
+    elif name in ("pct_block_eval", "pct_block_fwd"):
+        # q, v, E = q qᵀ, y = G v, t = u Wt; x read, the output written
         nbytes = 2 * o * P * C * e + (C * DA + 2 * C * C + 2 * C) * e + 2 * C * 4
-        ops = o * (2 * P * C * (DA + C) + 2 * P * P * DA + 2 * P * P * C + 2 * P * C * C)
+        ops = o * block_flops()
         rate = BF16_TENSOR_FLOPS
+    elif name == "pct_block_res_bwd":
+        # the forward again; dWt and dY = dz Wtᵀ; dv = Gᵀ dY and dG = dY vᵀ;
+        # dq = (dE + dEᵀ) q; dWqk, dWv and dx = dq Wqkᵀ + dv Wvᵀ. x, dxn read,
+        # dx written, f32 weight gradients
+        back = (2 * 2 * P * C * C + 2 * 2 * P * P * C + 2 * 2 * P * P * DA
+                + 2 * 2 * P * C * DA + 2 * 2 * P * C * C)
+        nbytes = (3 * o * P * C * e + (C * DA + 2 * C * C + 2 * C) * e + o * e + 4 * C * 4
+                  + (C * DA + 2 * C * C + 2 * C) * 4)
+        ops, rate = o * (block_flops() + back), BF16_TENSOR_FLOPS
+    elif name == "pct_epi_sums":
+        nbytes = 2 * o * P * C * e + 2 * C * 4 + 2 * C * 4
+        ops, rate = 4 * o * P * C, F32_FLOPS
+    elif name == "embed_first_bwd":
+        # h recomputed (3 FMAs), dz, dW (3 FMAs) per element; x and dh read
+        nbytes = o * 3 * P * e + o * P * C * e + 3 * C * e + o * e + 2 * C * 4 + 3 * C * 4
+        ops, rate = 2 * 2 * 3 * C * o * P, F32_FLOPS
+    elif name == "embed_second_bwd":
+        # h recomputed, dW1 and dx0: three [P, C] x [C, C] products per object;
+        # h0 and dh read, dh0 written
+        nbytes = 3 * o * P * C * e + C * C * e + 2 * C * e + o * e + 2 * C * 4 + (C * C + 2 * C) * 4
+        ops, rate = 3 * 2 * o * P * C * C, BF16_TENSOR_FLOPS
+    elif name == "pct_tail_bwd":
+        # z recomputed, dx = g Wᵀ and dW = xᵀ g: three 2·P·512·K products per
+        # object; x1..x4 read and dx1..dx4 written, W read, f32 dW written
+        nbytes = (8 * o * P * C * e + 4 * C * K * e + o * e + 2 * o * K * (4 + 4) + 2 * K * 4
+                  + 4 * C * K * 4)
+        ops, rate = 3 * 2 * o * P * 4 * C * K, BF16_TENSOR_FLOPS
     else:
         nbytes = 4 * o * P * C * e + 4 * C * K * e + o * e + 2 * o * K * 4 + 2 * K * 4
         ops, rate = 2 * o * P * 4 * C * K, BF16_TENSOR_FLOPS
@@ -802,6 +1170,8 @@ def phase_time(state: dict) -> None:
         f"({PER_REQUEST}); median request {state['serve_ms']:.1f} ms, so "
         f"{per_req / state['serve_ms']:.1%} of it | {state['card']}")
     rows += time_pointnet(state)
+    rows += time_train_pct(state)
+    time_attention_yardstick(state)
     state["rows"] = rows
 
 
@@ -844,6 +1214,86 @@ def time_pointnet(state: dict) -> list[dict]:
     return rows
 
 
+def time_train_pct(state: dict) -> list[dict]:
+    """The pct training kernels at the training O, each with its launches
+    over the train_pct windows, and the tail's indexed forward. No single
+    PyTorch call computes any of them (library_ms null); for the tail's
+    backward the dx product alone, one torch.matmul, is timed and logged."""
+    import torch
+
+    o = state["train_pct_o"]
+    launches = state["launches_train_pct"]
+    steps = N_WINDOWS * WINDOW_STEPS
+    rows, per_step_ms = [], 0.0
+    for name, flags in [(n, None) for n in TRAIN_KERNELS] + [("pct_tail", "idx")]:
+        source, replaces = KERNELS[name]
+        kern, plain = op_fns(name, flags or (True, False))
+        args = op_inputs(name, o, torch.bfloat16, seed=2)
+        err_abs, err_rel = check_op(name, args, "bf16", flags or (True, False),
+                                    what=f"time: {name} at O={o}")
+        ms = cuda_ms(lambda: kern(*args))
+        plain_ms = cuda_ms(lambda: plain(*args), warmup=1, reps=3)
+        b_ms, b_by = bound(name, o)
+        extra = ""
+        if name == "pct_tail_bwd":
+            g = torch.randn(o * P, K, device="cuda", dtype=torch.bfloat16)
+            w_t = args[4].t()
+            extra = (f" | dx product alone (one torch.matmul [O·P,{K}]·[{K},{4 * C}]) "
+                     f"{cuda_ms(lambda: torch.matmul(g, w_t)):.3f} ms")
+            del g
+        per_step_ms += PER_PCT_TRAIN_STEP.get(name, 0) * ms if flags is None else ms
+        label = name + ("/idx" if flags else "")
+        log(f"[time] {label:17s} O={o} bf16 kernel {ms:.3f} ms | plain {plain_ms:.3f} ms | "
+            f"bound {b_ms:.4f} ms ({b_by}) | library None{extra} | launches per step "
+            f"{launches[name] / steps:g} | max_abs {err_abs:.3e} max_rel {err_rel:.3e} | "
+            f"{state['card']}")
+        if flags is None:
+            rows.append({"name": name, "route": "cuda", "source": source,
+                         "replaces": replaces, "launches": launches[name],
+                         "max_abs_err": err_abs, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        del args
+        torch.cuda.empty_cache()
+    step_ms = state["train_pct_ms"]
+    log(f"[time] pct train step {step_ms:.2f} ms: the training kernels and the indexed "
+        f"tail forward {per_step_ms:.2f} ms per step ({per_step_ms / step_ms:.1%}; the "
+        f"embedding forwards not counted) | {state['card']}")
+    return rows
+
+
+def time_attention_yardstick(state: dict) -> None:
+    """scaled_dot_product_attention(q, q, v, scale=1) at the block's shapes
+    (per object: q [P, 32], v [P, 128], bf16), forward and forward plus
+    backward. It does the attention core's work (E = q qᵀ, softmax, times v)
+    but normalises each row by its own log-sum-exp, where the core
+    normalises by the key's: a yardstick of a library flash attention on
+    the same work, not the same function and on no path."""
+    import torch
+    import torch.nn.functional as F
+
+    for tag, o in (("serving", state["serve_o"]), ("training", state["train_pct_o"])):
+        g = torch.Generator().manual_seed(3)
+        q = (torch.randn(o, 1, P, DA, generator=g) * DA ** -0.25).to("cuda", torch.bfloat16)
+        v = torch.randn(o, 1, P, C, generator=g).to("cuda", torch.bfloat16)
+        dy = torch.randn(o, 1, P, C, generator=g).to("cuda", torch.bfloat16)
+        try:
+            fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, q, v, scale=1.0))
+            qg, vg = q.clone().requires_grad_(True), v.clone().requires_grad_(True)
+
+            def both():
+                out = F.scaled_dot_product_attention(qg, qg, vg, scale=1.0)
+                torch.autograd.grad(out, (qg, vg), dy)
+
+            fb = cuda_ms(both)
+            log(f"[time] attention yardstick ({tag}, O={o}): scaled_dot_product_attention"
+                f"(q, q, v) forward {fwd:.3f} ms, forward + backward {fb:.3f} ms | "
+                f"{state['card']}")
+        except (RuntimeError, torch.OutOfMemoryError) as err:
+            log(f"[time] attention yardstick ({tag}, O={o}): not measured ({err})")
+        del q, v, dy
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -862,8 +1312,10 @@ def main() -> int:
     phase_device(state)
     for name, phase in (("build", phase_build), ("kernels", phase_kernels),
                         ("parity", phase_parity), ("train_parity", phase_train_parity),
+                        ("train_pct_parity", phase_train_pct_parity),
                         ("serve", phase_serve), ("train", phase_train),
-                        ("serve_point", phase_serve_point), ("time", phase_time)):
+                        ("train_pct", phase_train_pct), ("serve_point", phase_serve_point),
+                        ("time", phase_time)):
         t0 = time.perf_counter()
         phase(state)
         log(f"[{name}] done in {time.perf_counter() - t0:.1f} s")

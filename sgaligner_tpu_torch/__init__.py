@@ -7,9 +7,10 @@ with nvcc at first use, see ``ops/_build.py``). Entry points run on the card
 unless the caller passes ``device="cpu"``, where the kernels' plain PyTorch
 versions run instead.
 
-Ported so far: the serving path of the 4-modality ``('pct', 'gat', 'rel',
-'attr')`` aligner, and training, evaluation and serving of the point
-configuration ``('point', 'gat', 'rel', 'attr')``.
+Ported so far: training, evaluation and serving of the 4-modality
+``('pct', 'gat', 'rel', 'attr')`` aligner and of the point configuration
+``('point', 'gat', 'rel', 'attr')``. Each module names its JAX counterpart
+in ``sgaligner_tpu/`` in its docstring.
 """
 
 __version__ = "0.1.0"

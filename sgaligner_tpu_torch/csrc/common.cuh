@@ -140,4 +140,49 @@ inline int resident_grid(K kernel, int threads, size_t smem, long long work) {
   return (int)(g < 1 ? 1 : g);
 }
 
+// Allow `bytes` of dynamic shared memory for `kernel` (needed above 48 KB).
+template <typename K>
+inline int allow_smem(K kernel, size_t bytes) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)bytes);
+}
+
+// Floats of one block's slice of a partial-sum scratch buffer: rounded up to
+// 64, so every slice starts 256-byte aligned (WMMA accumulates into them).
+__host__ __device__ constexpr long long slice_stride(long long n) { return (n + 63) & ~63LL; }
+
+// The training kernels keep no atomics: each block adds its share of a
+// weight gradient or BN sum into its own f32 slice of a scratch buffer
+// (`blocks` slices of `stride` floats), and this second pass sums the slices
+// in block order, so the result has the same bits from run to run.
+namespace {
+__global__ void reduce_slices_kernel(const float* __restrict__ scratch, long long stride,
+                                     int blocks, float* __restrict__ out, int total) {
+  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < total; j += gridDim.x * blockDim.x) {
+    float sum = 0.f;
+    for (int b = 0; b < blocks; ++b) sum += scratch[(size_t)b * stride + j];
+    out[j] = sum;
+  }
+}
+
+inline int reduce_slices(const float* scratch, long long stride, int blocks, float* out,
+                         int total, cudaStream_t st) {
+  const int grid = (total + 255) / 256;
+  reduce_slices_kernel<<<grid < 1 ? 1 : grid, 256, 0, st>>>(scratch, stride, blocks, out, total);
+  return (int)cudaGetLastError();
+}
+}  // namespace
+
+// Per-channel partial sums of a 256-thread block whose thread t owns channel
+// t % 128 in row lane t / 128: the two lanes' values of `v` are added (lane 0
+// first) and written to out[0..128). Called by every thread.
+__device__ __forceinline__ void store_channel_sums(float v, float* out) {
+  __shared__ float lanes[2][128];
+  const int c = threadIdx.x % 128, half = threadIdx.x / 128;
+  lanes[half][c] = v;
+  __syncthreads();
+  if (half == 0) out[c] = lanes[0][c] + lanes[1][c];
+  __syncthreads();
+}
+
 }  // namespace sga

@@ -1,7 +1,8 @@
-// PCT self-attention block, inference form (SA and OA).
+// PCT self-attention block: inference form (SA and OA), training forward and
+// training backward (SA).
 //
-// Replaces sgaligner_tpu/ops/pct_attention.py::pct_block_eval (Pallas kernel
-// _block_eval_kernel). Per object, with x [P, 128]:
+// pct_block_eval replaces sgaligner_tpu/ops/pct_attention.py::pct_block_eval
+// (Pallas kernel _block_eval_kernel). Per object, with x [P, 128]:
 //   q = x·Wqk (Wqk already scaled by da^-1/4 for SA), v = x·Wv + bv, both
 //   rounded to the compute dtype;
 //   E = q·qᵀ [P, P] (symmetric: q doubles as k);
@@ -28,6 +29,52 @@
 //   E is computed twice (passes 2 and 3), 2·P²·da extra FLOP, an eighth of
 //   the 2·P²·C of the y product. The normaliser is an f32 log-sum-exp where
 //   the TPU kernel exponentiated in the compute dtype against a column max.
+//
+// pct_block_fwd replaces ops/pct_attention.py::pct_block_fused (Pallas kernel
+// _block_fwd_kernel), the training forward: the same three passes, with the
+// apply pass's epilogue writing t_out = round(u·Wt + bt) [O, P, 128] and the
+// masked BN sums Σ m·t, Σ m·t² [1, 128] (f32) instead of folding. Each block
+// keeps its channel sums in registers and writes them to its scratch slice;
+// reduce_slices adds the slices in block order.
+//   Bound on the H100: operations, as pct_block_eval.
+//
+// pct_epi_sums replaces the Pallas kernel _epi_sums_kernel of
+// ops/pct_attention.py::_block_res_bwd_rule: with g = dy where
+// t·wbn + bbn > 0 (compared in f32 after the compute-dtype multiply-add, as
+// the reference), dwbn = Σ g·t and dbbn = Σ g over every row (f32).
+//   Bound on the H100: bytes (t_out and dy read once).
+//   Design: thread c owns channel c over a grid-stride walk of the rows;
+//   per-block slices and reduce_slices.
+//
+// pct_block_res_bwd replaces the Pallas kernel _block_res_bwd_kernel (same
+// rule): the block's backward with the BN epilogue's routing and the
+// residual. Given dxn (the next layer's cotangent), the fold (wbn, bbn) and
+// the batch-statistics cotangents (dsum, dsumsq; from the fold's vjp and
+// pct_epi_sums, so they must be complete first):
+//   recompute q, v, lse, y, u = y, t_out;
+//   dz = dxn·[t_out·wbn + bbn > 0]·wbn + m·dsum + 2·t_out·m·dsumsq, rounded;
+//   dWt = Σ uᵀ·dz, dbt = Σ dz, dY = dz·Wtᵀ;
+//   the attention core's backward at dY (column softmax G, keys = queries):
+//     dv = Gᵀ·dY;  D_i = v_i·dv_i;
+//     dE[j,i] = G[j,i]·(dY_j·v_i − D_i);  dq = (dE + dEᵀ)·q;
+//   dWqk = s·Σ xᵀ·dq, dWv = Σ xᵀ·dv, dbv = Σ dv,
+//   dx = dq·Wqk_sᵀ + dv·Wvᵀ + dxn (the residual), rounded.
+//   Bound on the H100: operations, about 3 x the forward.
+//   Design: four grid-stride passes over 64-row tiles after projection and
+//   lse, with the tile intermediates of one pass handed to the next through
+//   device memory (q, v, lse, dY, dv, D, dq: O(P·C) per object, never
+//   [P, P]):
+//     dz pass: the apply loop recomputes y; the epilogue builds dz, adds
+//       uᵀ·dz into the block's scratch slice and writes dY (rounded);
+//     dv pass: per key tile, walk the rows: G recomputed from q and lse,
+//       dv += Gᵀ·dY (transposed-A block_gemm); then D;
+//     dq pass: per row tile I, walk the tiles J: with S = q_I·q_Jᵀ,
+//       F = exp(S − lse_I)·(v_I·dY_Jᵀ − D_I) + exp(S − lse_J)·(dY_I·v_Jᵀ − D_J)
+//       is the tile of dE + dEᵀ, and dq_I += F·q_J: the block owns dq_I, so
+//       no atomics;
+//     dx pass: dx and the projection gradients, into the scratch slice.
+//   reduce_slices then adds the slices in block order. The OA flags have no
+//   backward kernel (no model on the ported paths trains OA blocks).
 #include "common.cuh"
 
 namespace sga {
@@ -37,6 +84,14 @@ constexpr int kC = 128;       // channels
 constexpr int kDa = 32;       // q/k width (C / 4)
 constexpr int kRows = 64;     // rows per tile, keys per chunk
 constexpr int kThreads = 256;
+
+// per-block scratch layout of the backward (floats)
+constexpr int kOffDwqk = 0;
+constexpr int kOffDwv = kOffDwqk + kC * kDa;
+constexpr int kOffDbv = kOffDwv + kC * kC;
+constexpr int kOffDwt = kOffDbv + kC;
+constexpr int kOffDbt = kOffDwt + kC * kC;
+constexpr int kBwdGrad = kOffDbt + kC;
 
 // ----------------------------- pass 1: project -----------------------------
 
@@ -163,7 +218,8 @@ struct ApplySmem {
   static constexpr size_t y_off = align128(qt_off + sizeof(T) * kRows * ldq);
   static constexpr size_t rs_off = align128(y_off + sizeof(float) * kRows * ldy);
   static constexpr size_t lc_off = align128(rs_off + sizeof(float) * kRows);
-  // key-loop buffers; the epilogue's U tile reuses this region
+  // key-loop buffers; the epilogue's U tile (and the backward's dz tile)
+  // reuse this region
   static constexpr size_t qc_off = align128(lc_off + sizeof(float) * kRows);
   static constexpr size_t vc_off = align128(qc_off + sizeof(T) * kRows * ldq);
   static constexpr size_t s_off = align128(vc_off + sizeof(T) * kRows * ldv);
@@ -171,60 +227,81 @@ struct ApplySmem {
   static constexpr size_t loop_end = align128(g_off + sizeof(T) * kRows * ldg);
   static constexpr size_t u_off = qc_off;
   static constexpr size_t u_end = align128(u_off + sizeof(T) * kRows * ldu);
+  static constexpr size_t dz_off = u_end;
+  static constexpr size_t dz_end = align128(dz_off + sizeof(T) * kRows * ldu);
   static constexpr size_t bytes = loop_end > u_end ? loop_end : u_end;
+  static constexpr size_t bwd_bytes = loop_end > dz_end ? loop_end : dz_end;
 };
 
+// y of one 64-row tile (rows r0.. of the object starting at row ob):
+// sy[r, c] = Σ_k G[r, k]·v[k, c] with G = exp(E − lse_k) rounded to T, and
+// srs[r] = Σ_k G[r, k] (OA's row sums). Ends synchronised.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-apply_kernel(const T* __restrict__ x, const T* __restrict__ q, const T* __restrict__ v,
-             const float* __restrict__ lse, const T* __restrict__ wt, const T* __restrict__ bt,
-             const float* __restrict__ wbn, const float* __restrict__ bbn, T* __restrict__ out,
-             int o, int p, int oa) {
+__device__ void attend_tile(unsigned char* smem, const T* __restrict__ q, const T* __restrict__ v,
+                            const float* __restrict__ lse, size_t ob, int r0, int valid, int p) {
   using L = ApplySmem<T>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* swt = reinterpret_cast<T*>(smem + L::wt_off);
   T* sqt = reinterpret_cast<T*>(smem + L::qt_off);
-  float* sy = reinterpret_cast<float*>(smem + L::y_off);  // y, then t
+  float* sy = reinterpret_cast<float*>(smem + L::y_off);
   float* srs = reinterpret_cast<float*>(smem + L::rs_off);
   float* slc = reinterpret_cast<float*>(smem + L::lc_off);
   T* sqc = reinterpret_cast<T*>(smem + L::qc_off);
   T* svc = reinterpret_cast<T*>(smem + L::vc_off);
   float* ss = reinterpret_cast<float*>(smem + L::s_off);
   T* sg = reinterpret_cast<T*>(smem + L::g_off);
+
+  const int row = threadIdx.x / 4, sub = threadIdx.x % 4;
+  load_tile<T>(sqt, L::ldq, q + (ob + r0) * kDa, kDa, kRows, kDa, valid);
+  if (threadIdx.x < kRows) srs[threadIdx.x] = 0.f;
+  for (int c0 = 0; c0 < p; c0 += kRows) {
+    const int kv = min(kRows, p - c0);
+    load_tile<T>(sqc, L::ldq, q + (ob + c0) * kDa, kDa, kRows, kDa, kv);
+    load_tile<T>(svc, L::ldv, v + (ob + c0) * kC, kC, kRows, kC, kv);
+    if (threadIdx.x < kRows) slc[threadIdx.x] = threadIdx.x < kv ? lse[ob + c0 + threadIdx.x] : 0.f;
+    __syncthreads();
+    block_gemm<T, true>(sqt, L::ldq, sqc, L::ldq, ss, L::lds, kRows, kRows, kDa, false);
+    __syncthreads();
+    float part = 0.f;
+    for (int j = sub; j < kRows; j += 4) {
+      const float g = j < kv ? expf(ss[row * L::lds + j] - slc[j]) : 0.f;
+      const T gt = from_f<T>(g);
+      sg[row * L::ldg + j] = gt;
+      part += to_f<T>(gt);
+    }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    part += __shfl_xor_sync(0xffffffffu, part, 2);
+    if (sub == 0) srs[row] += part;
+    __syncthreads();
+    block_gemm<T, false>(sg, L::ldg, svc, L::ldv, sy, L::ldy, kRows, kC, kRows, c0 > 0);
+    __syncthreads();
+  }
+}
+
+// TRAIN = false: out = x + relu(t·wbn + bbn) (pct_block_eval).
+// TRAIN = true: out = t (pct_block_fwd) and the block's masked channel sums
+// into part[0..128) and part[128..256).
+template <typename T, bool TRAIN>
+__global__ void __launch_bounds__(kThreads)
+apply_kernel(const T* __restrict__ x, const T* __restrict__ q, const T* __restrict__ v,
+             const float* __restrict__ lse, const T* __restrict__ wt, const T* __restrict__ bt,
+             const float* __restrict__ wbn, const float* __restrict__ bbn,
+             const T* __restrict__ mask, T* __restrict__ out, float* __restrict__ scratch,
+             int o, int p, int oa) {
+  using L = ApplySmem<T>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* swt = reinterpret_cast<T*>(smem + L::wt_off);
+  float* sy = reinterpret_cast<float*>(smem + L::y_off);  // y, then t
+  float* srs = reinterpret_cast<float*>(smem + L::rs_off);
   T* su = reinterpret_cast<T*>(smem + L::u_off);
 
   load_tile<T>(swt, L::ldw, wt, kC, kC, kC, kC);
-  const int row = threadIdx.x / 4, sub = threadIdx.x % 4;
+  float s1 = 0.f, s2 = 0.f;  // TRAIN: this thread's channel, masked
   const int per_obj = (p + kRows - 1) / kRows;
   const long long tiles = (long long)o * per_obj;
   for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
     const int obj = (int)(t / per_obj), r0 = (int)(t % per_obj) * kRows;
     const int valid = min(kRows, p - r0);
     const size_t ob = (size_t)obj * p;
-    load_tile<T>(sqt, L::ldq, q + (ob + r0) * kDa, kDa, kRows, kDa, valid);
-    if (threadIdx.x < kRows) srs[threadIdx.x] = 0.f;
-    for (int c0 = 0; c0 < p; c0 += kRows) {
-      const int kv = min(kRows, p - c0);
-      load_tile<T>(sqc, L::ldq, q + (ob + c0) * kDa, kDa, kRows, kDa, kv);
-      load_tile<T>(svc, L::ldv, v + (ob + c0) * kC, kC, kRows, kC, kv);
-      if (threadIdx.x < kRows) slc[threadIdx.x] = threadIdx.x < kv ? lse[ob + c0 + threadIdx.x] : 0.f;
-      __syncthreads();
-      block_gemm<T, true>(sqt, L::ldq, sqc, L::ldq, ss, L::lds, kRows, kRows, kDa, false);
-      __syncthreads();
-      float part = 0.f;
-      for (int j = sub; j < kRows; j += 4) {
-        const float g = j < kv ? expf(ss[row * L::lds + j] - slc[j]) : 0.f;
-        const T gt = from_f<T>(g);
-        sg[row * L::ldg + j] = gt;
-        part += to_f<T>(gt);
-      }
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
-      if (sub == 0) srs[row] += part;
-      __syncthreads();
-      block_gemm<T, false>(sg, L::ldg, svc, L::ldv, sy, L::ldy, kRows, kC, kRows, c0 > 0);
-      __syncthreads();
-    }
+    attend_tile<T>(smem, q, v, lse, ob, r0, valid, p);
     // u = y (SA) or x − y (OA), each rounded to T
     for (int idx = threadIdx.x; idx < kRows * kC; idx += blockDim.x) {
       const int r = idx / kC, c = idx % kC;
@@ -240,57 +317,471 @@ apply_kernel(const T* __restrict__ x, const T* __restrict__ q, const T* __restri
     __syncthreads();
     block_gemm<T, false>(su, L::ldu, swt, L::ldw, sy, L::ldy, kRows, kC, kC, false);
     __syncthreads();
+    const float m = TRAIN ? to_f<T>(mask[obj]) : 0.f;
     for (int idx = threadIdx.x; idx < valid * kC; idx += blockDim.x) {
       const int r = idx / kC, c = idx % kC;
       const size_t at = (ob + r0 + r) * kC + c;
       const float tv = round_to<T>(sy[r * L::ldy + c] + to_f<T>(bt[c]));
-      const float z = tv * wbn[c] + bbn[c];
-      out[at] = from_f<T>(to_f<T>(x[at]) + fmaxf(z, 0.f));
+      if constexpr (TRAIN) {
+        out[at] = from_f<T>(tv);
+        s1 += m * tv;
+        s2 += m * (tv * tv);
+      } else {
+        const float z = tv * wbn[c] + bbn[c];
+        out[at] = from_f<T>(to_f<T>(x[at]) + fmaxf(z, 0.f));
+      }
+    }
+    __syncthreads();
+  }
+  if constexpr (TRAIN) {
+    float* part = scratch + (size_t)blockIdx.x * slice_stride(2 * kC);
+    store_channel_sums(s1, part);
+    store_channel_sums(s2, part + kC);
+  }
+}
+
+// --------------------------- training: epilogue sums ------------------------
+
+// relu routing of the training epilogue x + relu(t·wbn + bbn): the multiply
+// and add in the compute dtype (rounded after each, no fused multiply-add),
+// compared in f32
+template <typename T>
+__device__ __forceinline__ bool epi_live(float t, float w_t, float b_t) {
+  return round_to<T>(__fadd_rn(round_to<T>(__fmul_rn(t, w_t)), b_t)) > 0.f;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+epi_sums_kernel(const T* __restrict__ tout, const float* __restrict__ wbn,
+                const float* __restrict__ bbn, const T* __restrict__ dy,
+                float* __restrict__ scratch, long long rows) {
+  const int c = threadIdx.x % kC, half = threadIdx.x / kC;
+  const float w_t = round_to<T>(wbn[c]), b_t = round_to<T>(bbn[c]);
+  float a = 0.f, b = 0.f;
+  for (long long r = (long long)blockIdx.x * 2 + half; r < rows; r += (long long)gridDim.x * 2) {
+    const float tv = to_f<T>(tout[r * kC + c]);
+    const float g = epi_live<T>(tv, w_t, b_t) ? to_f<T>(dy[r * kC + c]) : 0.f;
+    a = fmaf(g, tv, a);
+    b += g;
+  }
+  float* part = scratch + (size_t)blockIdx.x * slice_stride(2 * kC);
+  store_channel_sums(a, part);
+  store_channel_sums(b, part + kC);
+}
+
+// ------------------------------ training: backward --------------------------
+
+// dz pass: recompute y and t_out per row tile, build dz, add uᵀ·dz and Σ dz
+// into the block's slice, write dY = dz·Wtᵀ (rounded).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bwd_dz_kernel(const T* __restrict__ q, const T* __restrict__ v, const float* __restrict__ lse,
+              const T* __restrict__ wt, const T* __restrict__ bt, const T* __restrict__ mask,
+              const T* __restrict__ dxn, const float* __restrict__ wbn,
+              const float* __restrict__ bbn, const float* __restrict__ dsum,
+              const float* __restrict__ dsumsq, T* __restrict__ dy, float* __restrict__ scratch,
+              int o, int p) {
+  using L = ApplySmem<T>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* swt = reinterpret_cast<T*>(smem + L::wt_off);
+  float* sy = reinterpret_cast<float*>(smem + L::y_off);  // y, t, then dY
+  T* su = reinterpret_cast<T*>(smem + L::u_off);
+  T* sdz = reinterpret_cast<T*>(smem + L::dz_off);
+
+  float* part = scratch + (size_t)blockIdx.x * slice_stride(kBwdGrad);
+  for (int i = threadIdx.x; i < kC * kC; i += blockDim.x) part[kOffDwt + i] = 0.f;
+  load_tile<T>(swt, L::ldw, wt, kC, kC, kC, kC);
+  const int c = threadIdx.x % kC;
+  const float wc = wbn[c], w_t = round_to<T>(wc), b_t = round_to<T>(bbn[c]);
+  const float btc = to_f<T>(bt[c]), d1 = dsum[c], d2 = dsumsq[c];
+  float rdbt = 0.f;
+  __syncthreads();
+
+  const int per_obj = (p + kRows - 1) / kRows;
+  const long long tiles = (long long)o * per_obj;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int obj = (int)(t / per_obj), r0 = (int)(t % per_obj) * kRows;
+    const int valid = min(kRows, p - r0);
+    const size_t ob = (size_t)obj * p;
+    attend_tile<T>(smem, q, v, lse, ob, r0, valid, p);
+    for (int idx = threadIdx.x; idx < kRows * kC; idx += blockDim.x) {
+      const int r = idx / kC, cc = idx % kC;
+      su[r * L::ldu + cc] = from_f<T>(r < valid ? sy[r * L::ldy + cc] : 0.f);  // u = y (SA)
+    }
+    __syncthreads();
+    block_gemm<T, false>(su, L::ldu, swt, L::ldw, sy, L::ldy, kRows, kC, kC, false);
+    __syncthreads();
+    const float m = to_f<T>(mask[obj]);
+    for (int idx = threadIdx.x; idx < kRows * kC; idx += blockDim.x) {
+      const int r = idx / kC;  // channel c (idx % kC) throughout
+      float dz = 0.f;
+      if (r < valid) {
+        const float tv = round_to<T>(sy[r * L::ldy + c] + btc);
+        const float g = epi_live<T>(tv, w_t, b_t) ? to_f<T>(dxn[(ob + r0 + r) * kC + c]) : 0.f;
+        dz = round_to<T>((g * wc + m * d1) + 2.f * tv * (m * d2));
+      }
+      sdz[r * L::ldu + c] = from_f<T>(dz);
+      rdbt += dz;
+    }
+    __syncthreads();
+    block_gemm<T, false, true>(su, L::ldu, sdz, L::ldu, part + kOffDwt, kC, kC, kC, kRows, true);
+    block_gemm<T, true>(sdz, L::ldu, swt, L::ldw, sy, L::ldy, kRows, kC, kC, false);
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < valid * kC; idx += blockDim.x) {
+      const int r = idx / kC, cc = idx % kC;
+      dy[(ob + r0 + r) * kC + cc] = from_f<T>(sy[r * L::ldy + cc]);
+    }
+    __syncthreads();
+  }
+  store_channel_sums(rdbt, part + kOffDbt);
+}
+
+template <typename T>
+struct DvSmem {
+  static constexpr int ldq = pad_ld<T>(kDa), ldc = pad_ld<T>(kC), ldg = pad_ld<T>(kRows);
+  static constexpr int lds = pad_ldf(kRows), ldv = pad_ldf(kC);
+  static constexpr size_t qi_off = 0;
+  static constexpr size_t qj_off = align128(qi_off + sizeof(T) * kRows * ldq);
+  static constexpr size_t dy_off = align128(qj_off + sizeof(T) * kRows * ldq);
+  static constexpr size_t s_off = align128(dy_off + sizeof(T) * kRows * ldc);
+  static constexpr size_t g_off = align128(s_off + sizeof(float) * kRows * lds);
+  static constexpr size_t dv_off = align128(g_off + sizeof(T) * kRows * ldg);
+  static constexpr size_t l_off = align128(dv_off + sizeof(float) * kRows * ldv);
+  static constexpr size_t bytes = align128(l_off + sizeof(float) * kRows);
+};
+
+// dv pass: per key tile I, dv_I = Σ_J G_JIᵀ·dY_J with G[j, i] = exp(E[j,i] −
+// lse_i); writes dv (rounded) and D_i = v_i·dv_i (f32).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bwd_dv_kernel(const T* __restrict__ q, const T* __restrict__ v, const float* __restrict__ lse,
+              const T* __restrict__ dy, T* __restrict__ dv, float* __restrict__ dd, int o,
+              int p) {
+  using L = DvSmem<T>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* sqi = reinterpret_cast<T*>(smem + L::qi_off);
+  T* sqj = reinterpret_cast<T*>(smem + L::qj_off);
+  T* sdy = reinterpret_cast<T*>(smem + L::dy_off);
+  float* ss = reinterpret_cast<float*>(smem + L::s_off);
+  T* sg = reinterpret_cast<T*>(smem + L::g_off);
+  float* sdv = reinterpret_cast<float*>(smem + L::dv_off);
+  float* sl = reinterpret_cast<float*>(smem + L::l_off);
+
+  const int row = threadIdx.x / 4, sub = threadIdx.x % 4;
+  const int per_obj = (p + kRows - 1) / kRows;
+  const long long tiles = (long long)o * per_obj;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int obj = (int)(t / per_obj), i0 = (int)(t % per_obj) * kRows;
+    const int valid = min(kRows, p - i0);
+    const size_t ob = (size_t)obj * p;
+    load_tile<T>(sqi, L::ldq, q + (ob + i0) * kDa, kDa, kRows, kDa, valid);
+    if (threadIdx.x < kRows) sl[threadIdx.x] = threadIdx.x < valid ? lse[ob + i0 + threadIdx.x] : 0.f;
+    for (int j0 = 0; j0 < p; j0 += kRows) {
+      const int kv = min(kRows, p - j0);
+      load_tile<T>(sqj, L::ldq, q + (ob + j0) * kDa, kDa, kRows, kDa, kv);
+      load_tile<T>(sdy, L::ldc, dy + (ob + j0) * kC, kC, kRows, kC, kv);
+      __syncthreads();
+      block_gemm<T, true>(sqj, L::ldq, sqi, L::ldq, ss, L::lds, kRows, kRows, kDa, false);
+      __syncthreads();
+      for (int idx = threadIdx.x; idx < kRows * kRows; idx += blockDim.x) {
+        const int j = idx / kRows, i = idx % kRows;
+        const float g = j < kv ? expf(ss[j * L::lds + i] - sl[i]) : 0.f;
+        sg[j * L::ldg + i] = from_f<T>(g);
+      }
+      __syncthreads();
+      block_gemm<T, false, true>(sg, L::ldg, sdy, L::ldc, sdv, L::ldv, kRows, kC, kRows, j0 > 0);
+      __syncthreads();
+    }
+    for (int idx = threadIdx.x; idx < valid * kC; idx += blockDim.x) {
+      const int r = idx / kC, cc = idx % kC;
+      dv[(ob + i0 + r) * kC + cc] = from_f<T>(sdv[r * L::ldv + cc]);
+    }
+    float d = 0.f;
+    if (row < valid)
+      for (int cc = sub; cc < kC; cc += 4)
+        d = fmaf(sdv[row * L::ldv + cc], to_f<T>(v[(ob + i0 + row) * kC + cc]), d);
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    d += __shfl_xor_sync(0xffffffffu, d, 2);
+    if (sub == 0 && row < valid) dd[ob + i0 + row] = d;
+    __syncthreads();
+  }
+}
+
+template <typename T>
+struct DqSmem {
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  static constexpr int ldq = pad_ld<T>(kDa), ldc = pad_ld<T>(kC), ldf = pad_ld<T>(kRows);
+  static constexpr int lds = pad_ldf(kRows), lda = pad_ldf(kDa);
+  static constexpr size_t qi_off = 0;
+  static constexpr size_t qj_off = align128(qi_off + sizeof(T) * kRows * ldq);
+  static constexpr size_t vi_off = align128(qj_off + sizeof(T) * kRows * ldq);
+  static constexpr size_t yi_off = align128(vi_off + sizeof(T) * kRows * ldc);
+  static constexpr size_t vj_off = align128(yi_off + sizeof(T) * kRows * ldc);
+  static constexpr size_t yj_off = align128(vj_off + sizeof(T) * kRows * ldc);
+  static constexpr size_t s_off = align128(yj_off + sizeof(T) * kRows * ldc);
+  static constexpr size_t pp_off = align128(s_off + sizeof(float) * kRows * lds);
+  static constexpr size_t f_off = align128(pp_off + sizeof(float) * kRows * lds);
+  static constexpr size_t f_end = align128(f_off + sizeof(float) * kRows * lds);
+  // the rounded F tile: its own buffer in bf16, the f32 F itself in f32
+  static constexpr size_t ft_off = kF32 ? f_off : f_end;
+  static constexpr size_t ft_end = kF32 ? f_end : align128(ft_off + sizeof(T) * kRows * ldf);
+  static constexpr size_t dq_off = ft_end;
+  static constexpr size_t vec_off = align128(dq_off + sizeof(float) * kRows * lda);
+  static constexpr size_t bytes = align128(vec_off + sizeof(float) * 4 * kRows);
+};
+
+// dq pass: per row tile I, dq_I = Σ_J F_IJ·q_J with F the (I, J) tile of
+// dE + dEᵀ.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ v, const float* __restrict__ lse,
+              const T* __restrict__ dy, const float* __restrict__ dd, T* __restrict__ dq, int o,
+              int p) {
+  using L = DqSmem<T>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* sqi = reinterpret_cast<T*>(smem + L::qi_off);
+  T* sqj = reinterpret_cast<T*>(smem + L::qj_off);
+  T* svi = reinterpret_cast<T*>(smem + L::vi_off);
+  T* syi = reinterpret_cast<T*>(smem + L::yi_off);
+  T* svj = reinterpret_cast<T*>(smem + L::vj_off);
+  T* syj = reinterpret_cast<T*>(smem + L::yj_off);
+  float* ss = reinterpret_cast<float*>(smem + L::s_off);
+  float* spp = reinterpret_cast<float*>(smem + L::pp_off);
+  float* sf = reinterpret_cast<float*>(smem + L::f_off);
+  T* sft = reinterpret_cast<T*>(smem + L::ft_off);
+  float* sdq = reinterpret_cast<float*>(smem + L::dq_off);
+  float* li = reinterpret_cast<float*>(smem + L::vec_off);
+  float* di = li + kRows;
+  float* lj = li + 2 * kRows;
+  float* dj = li + 3 * kRows;
+
+  const int per_obj = (p + kRows - 1) / kRows;
+  const long long tiles = (long long)o * per_obj;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int obj = (int)(t / per_obj), i0 = (int)(t % per_obj) * kRows;
+    const int valid = min(kRows, p - i0);
+    const size_t ob = (size_t)obj * p;
+    load_tile<T>(sqi, L::ldq, q + (ob + i0) * kDa, kDa, kRows, kDa, valid);
+    load_tile<T>(svi, L::ldc, v + (ob + i0) * kC, kC, kRows, kC, valid);
+    load_tile<T>(syi, L::ldc, dy + (ob + i0) * kC, kC, kRows, kC, valid);
+    if (threadIdx.x < kRows) {
+      const bool in = threadIdx.x < valid;
+      li[threadIdx.x] = in ? lse[ob + i0 + threadIdx.x] : 0.f;
+      di[threadIdx.x] = in ? dd[ob + i0 + threadIdx.x] : 0.f;
+    }
+    for (int j0 = 0; j0 < p; j0 += kRows) {
+      const int kv = min(kRows, p - j0);
+      load_tile<T>(sqj, L::ldq, q + (ob + j0) * kDa, kDa, kRows, kDa, kv);
+      load_tile<T>(svj, L::ldc, v + (ob + j0) * kC, kC, kRows, kC, kv);
+      load_tile<T>(syj, L::ldc, dy + (ob + j0) * kC, kC, kRows, kC, kv);
+      if (threadIdx.x < kRows) {
+        const bool in = threadIdx.x < kv;
+        lj[threadIdx.x] = in ? lse[ob + j0 + threadIdx.x] : 0.f;
+        dj[threadIdx.x] = in ? dd[ob + j0 + threadIdx.x] : 0.f;
+      }
+      __syncthreads();
+      block_gemm<T, true>(sqi, L::ldq, sqj, L::ldq, ss, L::lds, kRows, kRows, kDa, false);
+      block_gemm<T, true>(svi, L::ldc, syj, L::ldc, spp, L::lds, kRows, kRows, kC, false);
+      __syncthreads();
+      // dE[j, i] term: G[j, i] = exp(E[i, j] − lse_i), dY_j·v_i = (v_I·dY_Jᵀ)[i, j]
+      for (int idx = threadIdx.x; idx < kRows * kRows; idx += blockDim.x) {
+        const int i = idx / kRows, j = idx % kRows;
+        sf[i * L::lds + j] = expf(ss[i * L::lds + j] - li[i]) * (spp[i * L::lds + j] - di[i]);
+      }
+      __syncthreads();
+      block_gemm<T, true>(syi, L::ldc, svj, L::ldc, spp, L::lds, kRows, kRows, kC, false);
+      __syncthreads();
+      // dE[i, j] term: G[i, j] = exp(E[i, j] − lse_j), dY_i·v_j
+      for (int idx = threadIdx.x; idx < kRows * kRows; idx += blockDim.x) {
+        const int i = idx / kRows, j = idx % kRows;
+        float f = 0.f;
+        if (j < kv)
+          f = sf[i * L::lds + j] + expf(ss[i * L::lds + j] - lj[j]) * (spp[i * L::lds + j] - dj[j]);
+        sft[i * L::ldf + j] = from_f<T>(f);
+      }
+      __syncthreads();
+      block_gemm<T, false>(sft, L::ldf, sqj, L::ldq, sdq, L::lda, kRows, kDa, kRows, j0 > 0);
+      __syncthreads();
+    }
+    for (int idx = threadIdx.x; idx < valid * kDa; idx += blockDim.x) {
+      const int r = idx / kDa, d = idx % kDa;
+      dq[(ob + i0 + r) * kDa + d] = from_f<T>(sdq[r * L::lda + d]);
     }
     __syncthreads();
   }
 }
 
-template <typename K>
-size_t prepare(K kernel, size_t smem) {
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  return smem;
+template <typename T>
+struct DxSmem {
+  static constexpr int ldwq = pad_ld<T>(kDa), ldw = pad_ld<T>(kC), ldx = pad_ld<T>(kC);
+  static constexpr int ldq = pad_ld<T>(kDa), ldc = pad_ldf(kC);
+  static constexpr size_t wq_off = 0;
+  static constexpr size_t wv_off = align128(wq_off + sizeof(T) * kC * ldwq);
+  static constexpr size_t x_off = align128(wv_off + sizeof(T) * kC * ldw);
+  static constexpr size_t dq_off = align128(x_off + sizeof(T) * kRows * ldx);
+  static constexpr size_t dv_off = align128(dq_off + sizeof(T) * kRows * ldq);
+  static constexpr size_t c_off = align128(dv_off + sizeof(T) * kRows * ldx);
+  static constexpr size_t bytes = align128(c_off + sizeof(float) * kRows * ldc);
+};
+
+// dx pass: dx = dq·Wqk_sᵀ + dv·Wvᵀ + dxn; xᵀ·dq, xᵀ·dv and Σ dv into the
+// block's slice.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ wqk, const T* __restrict__ wv,
+              const T* __restrict__ dq, const T* __restrict__ dv, const T* __restrict__ dxn,
+              T* __restrict__ dx, float* __restrict__ scratch, long long rows) {
+  using L = DxSmem<T>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* swq = reinterpret_cast<T*>(smem + L::wq_off);
+  T* swv = reinterpret_cast<T*>(smem + L::wv_off);
+  T* sx = reinterpret_cast<T*>(smem + L::x_off);
+  T* sdq = reinterpret_cast<T*>(smem + L::dq_off);
+  T* sdv = reinterpret_cast<T*>(smem + L::dv_off);
+  float* sc = reinterpret_cast<float*>(smem + L::c_off);
+
+  float* part = scratch + (size_t)blockIdx.x * slice_stride(kBwdGrad);
+  for (int i = threadIdx.x; i < kOffDbv; i += blockDim.x) part[i] = 0.f;  // dWqk, dWv
+  load_tile<T>(swq, L::ldwq, wqk, kDa, kC, kDa, kC);
+  load_tile<T>(swv, L::ldw, wv, kC, kC, kC, kC);
+  const int c = threadIdx.x % kC;
+  float rdbv = 0.f;
+  __syncthreads();
+
+  const long long tiles = (rows + kRows - 1) / kRows;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const long long row0 = t * kRows;
+    const int valid = (int)min((long long)kRows, rows - row0);
+    load_tile<T>(sx, L::ldx, x + row0 * kC, kC, kRows, kC, valid);
+    load_tile<T>(sdq, L::ldq, dq + row0 * kDa, kDa, kRows, kDa, valid);
+    load_tile<T>(sdv, L::ldx, dv + row0 * kC, kC, kRows, kC, valid);
+    __syncthreads();
+    block_gemm<T, true>(sdq, L::ldq, swq, L::ldwq, sc, L::ldc, kRows, kC, kDa, false);
+    __syncthreads();
+    block_gemm<T, true>(sdv, L::ldx, swv, L::ldw, sc, L::ldc, kRows, kC, kC, true);
+    block_gemm<T, false, true>(sx, L::ldx, sdq, L::ldq, part + kOffDwqk, kDa, kC, kDa, kRows,
+                               true);
+    block_gemm<T, false, true>(sx, L::ldx, sdv, L::ldx, part + kOffDwv, kC, kC, kC, kRows, true);
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < valid * kC; idx += blockDim.x) {
+      const int r = idx / kC;  // channel c throughout
+      const long long at = (row0 + r) * kC + c;
+      dx[at] = from_f<T>(sc[r * L::ldc + c] + to_f<T>(dxn[at]));
+      rdbv += to_f<T>(sdv[r * L::ldx + c]);
+    }
+    __syncthreads();
+  }
+  store_channel_sums(rdbv, part + kOffDbv);
+}
+
+// ---------------------------------- launch ----------------------------------
+
+template <typename T>
+int project_and_lse(const void* x, const void* wqk, const void* wv, const void* bv, void* q,
+                    void* v, float* lse, int o, int p, cudaStream_t st) {
+  const long long tiles = (long long)o * ((p + kRows - 1) / kRows);
+  const size_t s1 = ProjSmem<T>::bytes;
+  if (int rc = allow_smem(project_kernel<T>, s1)) return rc;
+  const int g1 = resident_grid(project_kernel<T>, kThreads, s1, tiles);
+  project_kernel<T><<<g1, kThreads, s1, st>>>((const T*)x, (const T*)wqk, (const T*)wv,
+                                              (const T*)bv, (T*)q, (T*)v, o, p);
+  if (int rc = (int)cudaGetLastError()) return rc;
+
+  const size_t s2 = LseSmem<T>::bytes;
+  if (int rc = allow_smem(lse_kernel<T>, s2)) return rc;
+  const int g2 = resident_grid(lse_kernel<T>, kThreads, s2, tiles);
+  lse_kernel<T><<<g2, kThreads, s2, st>>>((const T*)q, lse, o, p);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_block(const void* x, const void* wqk, const void* wv, const void* bv, const void* wt,
                  const void* bt, const float* wbn, const float* bbn, void* q, void* v, float* lse,
                  void* out, int o, int p, int oa, cudaStream_t st) {
+  if (int rc = project_and_lse<T>(x, wqk, wv, bv, q, v, lse, o, p, st)) return rc;
+  const long long tiles = (long long)o * ((p + kRows - 1) / kRows);
+  const size_t s3 = ApplySmem<T>::bytes;
+  if (int rc = allow_smem(apply_kernel<T, false>, s3)) return rc;
+  const int g3 = resident_grid(apply_kernel<T, false>, kThreads, s3, tiles);
+  apply_kernel<T, false><<<g3, kThreads, s3, st>>>(
+      (const T*)x, (const T*)q, (const T*)v, lse, (const T*)wt, (const T*)bt, wbn, bbn, nullptr,
+      (T*)out, nullptr, o, p, oa);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_block_fwd(const void* x, const void* wqk, const void* wv, const void* bv,
+                     const void* wt, const void* bt, const void* mask, void* q, void* v,
+                     float* lse, void* tout, float* scratch, int blocks, float* sums, int o,
+                     int p, cudaStream_t st) {
+  if (int rc = project_and_lse<T>(x, wqk, wv, bv, q, v, lse, o, p, st)) return rc;
+  const size_t s3 = ApplySmem<T>::bytes;
+  if (int rc = allow_smem(apply_kernel<T, true>, s3)) return rc;
+  apply_kernel<T, true><<<blocks, kThreads, s3, st>>>(
+      (const T*)x, (const T*)q, (const T*)v, lse, (const T*)wt, (const T*)bt, nullptr, nullptr,
+      (const T*)mask, (T*)tout, scratch, o, p, 0);
+  if (int rc = (int)cudaGetLastError()) return rc;
+  return reduce_slices(scratch, slice_stride(2 * kC), blocks, sums, 2 * kC, st);
+}
+
+template <typename T>
+int launch_epi_sums(const void* tout, const float* wbn, const float* bbn, const void* dy,
+                    float* scratch, int blocks, float* sums, long long rows, cudaStream_t st) {
+  epi_sums_kernel<T><<<blocks, kThreads, 0, st>>>((const T*)tout, wbn, bbn, (const T*)dy,
+                                                  scratch, rows);
+  if (int rc = (int)cudaGetLastError()) return rc;
+  return reduce_slices(scratch, slice_stride(2 * kC), blocks, sums, 2 * kC, st);
+}
+
+template <typename T>
+int launch_block_bwd(const void* x, const void* wqk, const void* wv, const void* bv,
+                     const void* wt, const void* bt, const void* mask, const void* dxn,
+                     const float* wbn, const float* bbn, const float* dsum, const float* dsumsq,
+                     void* q, void* v, float* lse, void* dy, void* dv, float* dd, void* dq,
+                     void* dx, float* scratch, int blocks, float* grads, int o, int p,
+                     cudaStream_t st) {
+  if (int rc = project_and_lse<T>(x, wqk, wv, bv, q, v, lse, o, p, st)) return rc;
   const long long tiles = (long long)o * ((p + kRows - 1) / kRows);
 
-  const size_t s1 = prepare(project_kernel<T>, ProjSmem<T>::bytes);
-  const int g1 = resident_grid(project_kernel<T>, kThreads, s1, tiles);
-  project_kernel<T><<<g1, kThreads, s1, st>>>((const T*)x, (const T*)wqk, (const T*)wv,
-                                              (const T*)bv, (T*)q, (T*)v, o, p);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
+  const size_t s1 = ApplySmem<T>::bwd_bytes;
+  if (int rc = allow_smem(bwd_dz_kernel<T>, s1)) return rc;
+  bwd_dz_kernel<T><<<blocks, kThreads, s1, st>>>(
+      (const T*)q, (const T*)v, lse, (const T*)wt, (const T*)bt, (const T*)mask, (const T*)dxn,
+      wbn, bbn, dsum, dsumsq, (T*)dy, scratch, o, p);
+  if (int rc = (int)cudaGetLastError()) return rc;
 
-  const size_t s2 = prepare(lse_kernel<T>, LseSmem<T>::bytes);
-  const int g2 = resident_grid(lse_kernel<T>, kThreads, s2, tiles);
-  lse_kernel<T><<<g2, kThreads, s2, st>>>((const T*)q, lse, o, p);
-  err = (int)cudaGetLastError();
-  if (err) return err;
+  const size_t s2 = DvSmem<T>::bytes;
+  if (int rc = allow_smem(bwd_dv_kernel<T>, s2)) return rc;
+  const int g2 = resident_grid(bwd_dv_kernel<T>, kThreads, s2, tiles);
+  bwd_dv_kernel<T><<<g2, kThreads, s2, st>>>((const T*)q, (const T*)v, lse, (const T*)dy, (T*)dv,
+                                             dd, o, p);
+  if (int rc = (int)cudaGetLastError()) return rc;
 
-  const size_t s3 = prepare(apply_kernel<T>, ApplySmem<T>::bytes);
-  const int g3 = resident_grid(apply_kernel<T>, kThreads, s3, tiles);
-  apply_kernel<T><<<g3, kThreads, s3, st>>>((const T*)x, (const T*)q, (const T*)v, lse,
-                                            (const T*)wt, (const T*)bt, wbn, bbn, (T*)out, o, p,
-                                            oa);
-  return (int)cudaGetLastError();
+  const size_t s3 = DqSmem<T>::bytes;
+  if (int rc = allow_smem(bwd_dq_kernel<T>, s3)) return rc;
+  const int g3 = resident_grid(bwd_dq_kernel<T>, kThreads, s3, tiles);
+  bwd_dq_kernel<T><<<g3, kThreads, s3, st>>>((const T*)q, (const T*)v, lse, (const T*)dy, dd,
+                                             (T*)dq, o, p);
+  if (int rc = (int)cudaGetLastError()) return rc;
+
+  const size_t s4 = DxSmem<T>::bytes;
+  if (int rc = allow_smem(bwd_dx_kernel<T>, s4)) return rc;
+  bwd_dx_kernel<T><<<blocks, kThreads, s4, st>>>((const T*)x, (const T*)wqk, (const T*)wv,
+                                                 (const T*)dq, (const T*)dv, (const T*)dxn,
+                                                 (T*)dx, scratch, (long long)o * p);
+  if (int rc = (int)cudaGetLastError()) return rc;
+  return reduce_slices(scratch, slice_stride(kBwdGrad), blocks, grads, kBwdGrad, st);
 }
 
 }  // namespace
 }  // namespace sga
 
-extern "C" int sga_pct_block_eval(const void* x, const void* wqk, const void* wv, const void* bv,
-                                  const void* wt, const void* bt, const float* wbn,
-                                  const float* bbn, void* q, void* v, float* lse, void* out,
-                                  int o, int p, int oa, int dtype, void* stream) {
+extern "C" {
+
+int sga_pct_block_eval(const void* x, const void* wqk, const void* wv, const void* bv,
+                       const void* wt, const void* bt, const float* wbn, const float* bbn,
+                       void* q, void* v, float* lse, void* out, int o, int p, int oa, int dtype,
+                       void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == sga::kBF16)
     return sga::launch_block<sga::bf16>(x, wqk, wv, bv, wt, bt, wbn, bbn, q, v, lse, out, o, p,
@@ -298,3 +789,49 @@ extern "C" int sga_pct_block_eval(const void* x, const void* wqk, const void* wv
   return sga::launch_block<float>(x, wqk, wv, bv, wt, bt, wbn, bbn, q, v, lse, out, o, p, oa,
                                   st);
 }
+
+// SA training forward: t_out [O, P, 128], sums [2, 128] (Σ m·t, Σ m·t²) f32;
+// scratch: `blocks` slices of slice_stride(256) floats
+int sga_pct_block_fwd(const void* x, const void* wqk, const void* wv, const void* bv,
+                      const void* wt, const void* bt, const void* mask, void* q, void* v,
+                      float* lse, void* tout, float* scratch, int blocks, float* sums, int o,
+                      int p, int dtype, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == sga::kBF16)
+    return sga::launch_block_fwd<sga::bf16>(x, wqk, wv, bv, wt, bt, mask, q, v, lse, tout,
+                                            scratch, blocks, sums, o, p, st);
+  return sga::launch_block_fwd<float>(x, wqk, wv, bv, wt, bt, mask, q, v, lse, tout, scratch,
+                                      blocks, sums, o, p, st);
+}
+
+// sums [2, 128]: Σ g·t, Σ g; scratch: `blocks` slices of slice_stride(256)
+int sga_pct_epi_sums(const void* tout, const float* wbn, const float* bbn, const void* dy,
+                     float* scratch, int blocks, float* sums, long long rows, int dtype,
+                     void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == sga::kBF16)
+    return sga::launch_epi_sums<sga::bf16>(tout, wbn, bbn, dy, scratch, blocks, sums, rows, st);
+  return sga::launch_epi_sums<float>(tout, wbn, bbn, dy, scratch, blocks, sums, rows, st);
+}
+
+// SA training backward. grads f32: dWqk_s [128, 32] (the gradient of the
+// scaled weight), dWv [128, 128], dbv [128], dWt [128, 128], dbt [128];
+// q, v, lse, dy, dv, dd, dq: work buffers of the shapes of q, v, lse, x, x,
+// lse, q; scratch: `blocks` slices of slice_stride(37120) floats
+int sga_pct_block_res_bwd(const void* x, const void* wqk, const void* wv, const void* bv,
+                          const void* wt, const void* bt, const void* mask, const void* dxn,
+                          const float* wbn, const float* bbn, const float* dsum,
+                          const float* dsumsq, void* q, void* v, float* lse, void* dy, void* dv,
+                          float* dd, void* dq, void* dx, float* scratch, int blocks,
+                          float* grads, int o, int p, int dtype, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == sga::kBF16)
+    return sga::launch_block_bwd<sga::bf16>(x, wqk, wv, bv, wt, bt, mask, dxn, wbn, bbn, dsum,
+                                            dsumsq, q, v, lse, dy, dv, dd, dq, dx, scratch,
+                                            blocks, grads, o, p, st);
+  return sga::launch_block_bwd<float>(x, wqk, wv, bv, wt, bt, mask, dxn, wbn, bbn, dsum, dsumsq,
+                                      q, v, lse, dy, dv, dd, dq, dx, scratch, blocks, grads, o, p,
+                                      st);
+}
+
+}  // extern "C"

@@ -126,6 +126,175 @@ embed_second_kernel(const T* __restrict__ h0, const T* __restrict__ wf, const T*
   add_channel_sums(a1, a2, s1, s2);
 }
 
+// ------------------------------- backward ----------------------------------
+//
+// embed_first_bwd replaces ops/pct_embed.py::_e1_bwd_rule (Pallas kernel
+// _e1_bwd_kernel): given the cotangents dh [O, P, 128] of h0 and ds1, ds2
+// [1, 128] of its masked sums, recompute h = x_cfᵀ·W0 (same expression as
+// the forward, rounded), dz = dh + m·ds1 + 2·h·m·ds2 rounded to the compute
+// dtype, and dW0 [3, 128] = Σ x·dz (f32). No gradient for the points: they
+// are data.
+//   Bound on the H100: bytes (dh read once, 6 FLOP per element).
+//   Design: as the forward, one block walks whole objects and thread c owns
+//   channel c, keeping its three dW0 sums in registers; each block writes
+//   its [3, 128] partial to its own scratch slice and reduce_slices adds the
+//   slices in block order (no atomics, the same bits every run).
+//
+// embed_second_bwd replaces ops/pct_embed.py::_e2_bwd_rule (Pallas kernel
+// _e2_bwd_kernel): recompute pre = h0·wf + bf (f32), x0 = relu(pre) rounded,
+// h = x0·W1 rounded; dz = dh + m·ds1 + 2·h·m·ds2 rounded; then
+//   dW1 = Σ x0ᵀ·dz, dx0 = dz·W1ᵀ (f32), g0 = dx0 where pre > 0,
+//   dh0 = g0·wf (rounded), dwf = Σ g0·h0, dbf = Σ g0 (f32).
+//   Bound on the H100: bytes (h0 and dh read, dh0 written; 768 FLOP per
+//   row of 256 bytes in bf16, below the ridge).
+//   Design: the forward's grid-stride walk over 64-row tiles with W1
+//   resident in shared memory; the recomputed x0 and dz tiles stay in
+//   shared memory for the three products (h, dW1 with the transposed-A
+//   block_gemm straight into the block's scratch slice, dx0); dwf and dbf
+//   are per-thread channel sums. Slices are summed by reduce_slices.
+
+constexpr int kE1Grad = 3 * kC;                        // dW0
+constexpr int kE2Grad = kC * kC + 2 * kC;              // dW1, dwf, dbf
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+embed_first_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                       const T* __restrict__ mask, const T* __restrict__ dh,
+                       const float* __restrict__ ds1, const float* __restrict__ ds2,
+                       float* __restrict__ scratch, long long stride, int o, int p) {
+  const int c = threadIdx.x % kC, half = threadIdx.x / kC;
+  const float w0 = to_f<T>(w[c]), w1 = to_f<T>(w[kC + c]), w2 = to_f<T>(w[2 * kC + c]);
+  const float d1 = ds1[c], d2 = ds2[c];
+  float g0 = 0.f, g1 = 0.f, g2 = 0.f;
+  for (int obj = blockIdx.x; obj < o; obj += gridDim.x) {
+    const T* xo = x + (size_t)obj * 3 * p;
+    const T* dho = dh + (size_t)obj * p * kC;
+    const float m = to_f<T>(mask[obj]);
+    const float a1 = m * d1, a2 = m * d2;
+    for (int r = half; r < p; r += 2) {
+      const float x0 = to_f<T>(xo[r]), x1 = to_f<T>(xo[p + r]), x2 = to_f<T>(xo[2 * p + r]);
+      const float h = round_to<T>(x0 * w0 + x1 * w1 + x2 * w2);
+      const float dz = round_to<T>(to_f<T>(dho[(size_t)r * kC + c]) + a1 + 2.f * h * a2);
+      g0 = fmaf(x0, dz, g0);
+      g1 = fmaf(x1, dz, g1);
+      g2 = fmaf(x2, dz, g2);
+    }
+  }
+  float* part = scratch + (size_t)blockIdx.x * stride;
+  store_channel_sums(g0, part);
+  store_channel_sums(g1, part + kC);
+  store_channel_sums(g2, part + 2 * kC);
+}
+
+template <typename T>
+struct E2BwdSmem {
+  static constexpr int ldw = pad_ld<T>(kC), lda = pad_ld<T>(kC), ldc = pad_ldf(kC);
+  static constexpr size_t w_off = 0;
+  static constexpr size_t a_off = align128(w_off + sizeof(T) * kC * ldw);   // x0 tile
+  static constexpr size_t z_off = align128(a_off + sizeof(T) * kRows * lda);  // dz tile
+  static constexpr size_t c_off = align128(z_off + sizeof(T) * kRows * lda);  // h, then dx0
+  static constexpr size_t bytes = align128(c_off + sizeof(float) * kRows * ldc);
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+embed_second_bwd_kernel(const T* __restrict__ h0, const T* __restrict__ wf,
+                        const T* __restrict__ bf, const T* __restrict__ w,
+                        const T* __restrict__ mask, const T* __restrict__ dh,
+                        const float* __restrict__ ds1, const float* __restrict__ ds2,
+                        T* __restrict__ dh0, float* __restrict__ scratch, long long stride,
+                        int o, int p) {
+  using L = E2BwdSmem<T>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* sw = reinterpret_cast<T*>(smem + L::w_off);
+  T* sa = reinterpret_cast<T*>(smem + L::a_off);
+  T* sz = reinterpret_cast<T*>(smem + L::z_off);
+  float* sc = reinterpret_cast<float*>(smem + L::c_off);
+
+  float* part = scratch + (size_t)blockIdx.x * stride;   // dW1 [128, 128], dwf, dbf
+  for (int i = threadIdx.x; i < kC * kC; i += blockDim.x) part[i] = 0.f;
+  load_tile<T>(sw, L::ldw, w, kC, kC, kC, kC);
+  const int c = threadIdx.x % kC;
+  const float wfc = to_f<T>(wf[c]), bfc = to_f<T>(bf[c]), d1 = ds1[c], d2 = ds2[c];
+  const long long rows = (long long)o * p;
+  const long long tiles = (rows + kRows - 1) / kRows;
+  float rwf = 0.f, rbf = 0.f;
+  __syncthreads();
+
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const long long row0 = t * kRows;
+    const int valid = (int)min((long long)kRows, rows - row0);
+    // x0 = relu(h0·wf + bf) rounded: the forward's prologue, same expression
+    for (int idx = threadIdx.x; idx < kRows * kC; idx += blockDim.x) {
+      const int r = idx / kC, k = idx % kC;
+      float v = 0.f;
+      if (r < valid) {
+        const float pre = to_f<T>(h0[(row0 + r) * kC + k]) * to_f<T>(wf[k]) + to_f<T>(bf[k]);
+        v = fmaxf(pre, 0.f);
+      }
+      sa[r * L::lda + k] = from_f<T>(v);
+    }
+    __syncthreads();
+    block_gemm<T, false>(sa, L::lda, sw, L::ldw, sc, L::ldc, kRows, kC, kC, false);
+    __syncthreads();
+    // dz = dh + m·ds1 + 2·h·m·ds2, rounded (thread owns channel c throughout)
+    for (int idx = threadIdx.x; idx < kRows * kC; idx += blockDim.x) {
+      const int r = idx / kC;
+      float dz = 0.f;
+      if (r < valid) {
+        const float h = round_to<T>(sc[r * L::ldc + c]);
+        const float m = to_f<T>(mask[(row0 + r) / p]);
+        dz = round_to<T>(to_f<T>(dh[(row0 + r) * kC + c]) + m * d1 + 2.f * h * (m * d2));
+      }
+      sz[r * L::lda + c] = from_f<T>(dz);
+    }
+    __syncthreads();
+    // dW1 += x0ᵀ·dz into this block's slice; dx0 = dz·W1ᵀ
+    block_gemm<T, false, true>(sa, L::lda, sz, L::lda, part, kC, kC, kC, kRows, true);
+    block_gemm<T, true>(sz, L::lda, sw, L::ldw, sc, L::ldc, kRows, kC, kC, false);
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < valid * kC; idx += blockDim.x) {
+      const int r = idx / kC;
+      const size_t at = (row0 + r) * kC + c;
+      const float hv = to_f<T>(h0[at]);
+      const float pre = hv * wfc + bfc;
+      const float g0 = pre > 0.f ? sc[r * L::ldc + c] : 0.f;
+      dh0[at] = from_f<T>(g0 * wfc);
+      rwf = fmaf(g0, hv, rwf);
+      rbf += g0;
+    }
+    __syncthreads();
+  }
+  store_channel_sums(rwf, part + kC * kC);
+  store_channel_sums(rbf, part + kC * kC + kC);
+}
+
+template <typename T>
+int launch_first_bwd(const void* x, const void* w, const void* mask, const void* dh,
+                     const float* ds1, const float* ds2, float* scratch, int blocks, float* dw,
+                     int o, int p, cudaStream_t st) {
+  const long long stride = slice_stride(kE1Grad);
+  embed_first_bwd_kernel<T><<<blocks, kThreads, 0, st>>>(
+      (const T*)x, (const T*)w, (const T*)mask, (const T*)dh, ds1, ds2, scratch, stride, o, p);
+  if (int rc = (int)cudaGetLastError()) return rc;
+  return reduce_slices(scratch, stride, blocks, dw, kE1Grad, st);
+}
+
+template <typename T>
+int launch_second_bwd(const void* h0, const void* wf, const void* bf, const void* w,
+                      const void* mask, const void* dh, const float* ds1, const float* ds2,
+                      void* dh0, float* scratch, int blocks, float* grads, int o, int p,
+                      cudaStream_t st) {
+  const size_t smem = E2BwdSmem<T>::bytes;
+  if (int rc = allow_smem(embed_second_bwd_kernel<T>, smem)) return rc;
+  const long long stride = slice_stride(kE2Grad);
+  embed_second_bwd_kernel<T><<<blocks, kThreads, smem, st>>>(
+      (const T*)h0, (const T*)wf, (const T*)bf, (const T*)w, (const T*)mask, (const T*)dh, ds1,
+      ds2, (T*)dh0, scratch, stride, o, p);
+  if (int rc = (int)cudaGetLastError()) return rc;
+  return reduce_slices(scratch, stride, blocks, grads, kE2Grad, st);
+}
+
 template <typename T>
 int launch_first(const void* x, const void* w, const void* mask, void* h, float* s1, float* s2,
                  int o, int p, cudaStream_t st) {
@@ -169,6 +338,31 @@ int sga_embed_second(const void* h0, const void* wf, const void* bf, const void*
   if (dtype == sga::kBF16)
     return sga::launch_second<sga::bf16>(h0, wf, bf, w, mask, h1, s1, s2, o, p, st);
   return sga::launch_second<float>(h0, wf, bf, w, mask, h1, s1, s2, o, p, st);
+}
+
+// dW0 [3, 128] f32; scratch holds `blocks` slices of slice_stride(384)
+// floats, one per block of the launch
+int sga_embed_first_bwd(const void* x, const void* w, const void* mask, const void* dh,
+                        const float* ds1, const float* ds2, float* scratch, int blocks, float* dw,
+                        int o, int p, int dtype, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == sga::kBF16)
+    return sga::launch_first_bwd<sga::bf16>(x, w, mask, dh, ds1, ds2, scratch, blocks, dw, o, p,
+                                            st);
+  return sga::launch_first_bwd<float>(x, w, mask, dh, ds1, ds2, scratch, blocks, dw, o, p, st);
+}
+
+// grads: dW1 [128, 128], dwf [128], dbf [128] back to back, f32
+int sga_embed_second_bwd(const void* h0, const void* wf, const void* bf, const void* w,
+                         const void* mask, const void* dh, const float* ds1, const float* ds2,
+                         void* dh0, float* scratch, int blocks, float* grads, int o, int p,
+                         int dtype, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == sga::kBF16)
+    return sga::launch_second_bwd<sga::bf16>(h0, wf, bf, w, mask, dh, ds1, ds2, dh0, scratch,
+                                             blocks, grads, o, p, st);
+  return sga::launch_second_bwd<float>(h0, wf, bf, w, mask, dh, ds1, ds2, dh0, scratch, blocks,
+                                       grads, o, p, st);
 }
 
 const char* sga_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

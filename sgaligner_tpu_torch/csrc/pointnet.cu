@@ -54,7 +54,7 @@ constexpr int kOffDb2 = kOffDw2 + kC1 * kC2;
 constexpr int kOffDw3 = kOffDb2 + kC2;
 __host__ __device__ inline int off_db3(int c3) { return kOffDw3 + kC2 * c3; }
 __host__ __device__ inline int grad_total(int c3) { return off_db3(c3) + c3; }
-__host__ __device__ inline int grad_stride(int c3) { return (grad_total(c3) + 63) & ~63; }
+__host__ __device__ inline int grad_stride(int c3) { return (int)slice_stride(grad_total(c3)); }
 
 __device__ __forceinline__ float relu_nan(float a) { return (a > 0.f || a != a) ? a : 0.f; }
 
@@ -291,25 +291,10 @@ pointnet_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dout,
   if (t < 4 * kC1) part[t] = r1;  // dw1 then db1: offsets 0 and 192
 }
 
-__global__ void pointnet_reduce_kernel(const float* __restrict__ scratch, int stride, int blocks,
-                                       float* __restrict__ grads, int total) {
-  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < total; j += gridDim.x * blockDim.x) {
-    float sum = 0.f;
-    for (int b = 0; b < blocks; ++b) sum += scratch[(size_t)b * stride + j];
-    grads[j] = sum;
-  }
-}
-
-template <typename K>
-int set_smem(K kernel, size_t bytes) {
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)bytes);
-}
-
 template <typename T>
 int bwd_blocks(int o, int c3) {
   const size_t smem = Layout<T>(c3, true).bytes;
-  if (int rc = set_smem(pointnet_bwd_kernel<T>, smem)) return -rc;
+  if (int rc = allow_smem(pointnet_bwd_kernel<T>, smem)) return -rc;
   return resident_grid(pointnet_bwd_kernel<T>, kThreads, smem, o);
 }
 
@@ -319,13 +304,13 @@ int launch_fwd(const void* x, const void* w1, const void* b1, const void* w2, co
                cudaStream_t st) {
   const size_t smem = Layout<T>(c3, false).bytes;
   if (amax != nullptr) {
-    if (int rc = set_smem(pointnet_fwd_kernel<T, true>, smem)) return rc;
+    if (int rc = allow_smem(pointnet_fwd_kernel<T, true>, smem)) return rc;
     const int grid = resident_grid(pointnet_fwd_kernel<T, true>, kThreads, smem, o);
     pointnet_fwd_kernel<T, true><<<grid, kThreads, smem, st>>>(
         (const T*)x, (const T*)w1, (const T*)b1, (const T*)w2, (const T*)b2, (const T*)w3,
         (const T*)b3, out, amax, o, p, c3);
   } else {
-    if (int rc = set_smem(pointnet_fwd_kernel<T, false>, smem)) return rc;
+    if (int rc = allow_smem(pointnet_fwd_kernel<T, false>, smem)) return rc;
     const int grid = resident_grid(pointnet_fwd_kernel<T, false>, kThreads, smem, o);
     pointnet_fwd_kernel<T, false><<<grid, kThreads, smem, st>>>(
         (const T*)x, (const T*)w1, (const T*)b1, (const T*)w2, (const T*)b2, (const T*)w3,
@@ -339,15 +324,12 @@ int launch_bwd(const void* x, const void* dout, const int* amax, const void* w1,
                const void* w2, const void* b2, const void* w3, const void* b3, float* scratch,
                int blocks, float* grads, int o, int p, int c3, cudaStream_t st) {
   const size_t smem = Layout<T>(c3, true).bytes;
-  if (int rc = set_smem(pointnet_bwd_kernel<T>, smem)) return rc;
+  if (int rc = allow_smem(pointnet_bwd_kernel<T>, smem)) return rc;
   pointnet_bwd_kernel<T><<<blocks, kThreads, smem, st>>>(
       (const T*)x, (const T*)dout, amax, (const T*)w1, (const T*)b1, (const T*)w2, (const T*)b2,
       (const T*)w3, (const T*)b3, scratch, o, p, c3);
   if (int rc = (int)cudaGetLastError()) return rc;
-  const int total = grad_total(c3);
-  pointnet_reduce_kernel<<<(total + 255) / 256, 256, 0, st>>>(scratch, grad_stride(c3), blocks,
-                                                             grads, total);
-  return (int)cudaGetLastError();
+  return reduce_slices(scratch, grad_stride(c3), blocks, grads, grad_total(c3), st);
 }
 
 }  // namespace

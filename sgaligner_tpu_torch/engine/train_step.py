@@ -67,7 +67,9 @@ def make_train_step(modules: tuple[str, ...]):
     ``icl_loss_unimodal``, ``icl_loss_multimodal``, ``ial_loss``
     (detached). The update is skipped when any gradient is non-finite
     (optax ``apply_if_finite``): parameters and Adam's state stay as they
-    were. Deciding that reads one flag back from the device per step."""
+    were. Deciding that reads one flag back from the device per step.
+    BatchNorm running statistics move in the forward, on a skipped step too,
+    as the JAX step assigns the new ``batch_stats`` either way."""
 
     def step(state: TrainState, batch: dict) -> dict[str, torch.Tensor]:
         if tuple(modules) != state.objective.modal_names:

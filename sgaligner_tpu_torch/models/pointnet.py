@@ -34,11 +34,11 @@ class PointNetEncoder(nn.Module):
         self.conv2 = Conv1x1(64, 128)
         self.conv3 = Conv1x1(128, out_size)
 
-    def forward(self, points: torch.Tensor, mask: torch.Tensor | None = None
-                ) -> torch.Tensor:
+    def forward(self, points: torch.Tensor, mask: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         """points: channel-first ``[O, 3, P]`` -> ``[O, out_size]``. ``mask``
-        is unused (parity mode has no batch statistics); it keeps the call
-        the same as NaivePCT's."""
+        and ``generator`` are unused (parity mode has no batch statistics and
+        no dropout); they keep the call the same as NaivePCT's."""
         dt = self.dtype
         x = points.to(dt).contiguous()
         args = []

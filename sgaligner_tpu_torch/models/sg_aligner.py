@@ -5,9 +5,10 @@ Counterpart of ``sgaligner_tpu/models/sg_aligner.py`` for the modules
 each a Linear to ``emb_dim``, and the ``joint`` softmax-weighted concat of
 the L2-normalised modal embeddings. Embeddings come back flat ``[B·2N, D]``.
 
-Training (``train(True)``) is ported for the ``point`` configuration; with
-``pct`` it raises, since NaivePCT's training form (batch-statistics
-BatchNorm and its backward kernels) is a later slice.
+Both configurations train (``train(True)``): NaivePCT's training form
+(batch-statistics BatchNorm, the head's dropout, the backward kernels) and
+the point encoder's. The caller's generator draws every dropout mask (the
+GAT's and NaivePCT's head's).
 
 Two point layouts: batch-pooled (``obj_points_pooled``, ``pooled_mask``,
 ``pooled_flat_idx`` from ``data.batch.pool_compact``; the encoder sees only
@@ -44,8 +45,8 @@ class MultiModalFusion(nn.Module):
 
 
 class MultiModalEncoder(nn.Module):
-    """Built in eval mode. ``train(True)`` raises while the modules hold
-    ``pct`` (its training form is not ported yet)."""
+    """Built in eval mode; ``train(True)`` switches every module to its
+    training form."""
 
     def __init__(self, modules: Sequence[str] = ("pct", "gat", "rel", "attr"),
                  rel_dim: int = 41, attr_dim: int = 164, emb_dim: int = 100,
@@ -80,15 +81,8 @@ class MultiModalEncoder(nn.Module):
             self.fusion = MultiModalFusion(len(self.modal_names))
         self.eval()
 
-    def train(self, mode: bool = True):
-        if mode and "pct" in self.modal_names:
-            raise NotImplementedError(
-                "training the pct configuration is port slice 3 (NaivePCT's "
-                "batch-statistics BatchNorm and backward kernels); the point "
-                "configuration trains")
-        return super().train(mode)
-
-    def _points(self, batch: dict, b: int, two_n: int) -> torch.Tensor:
+    def _points(self, batch: dict, b: int, two_n: int,
+                generator: torch.Generator | None) -> torch.Tensor:
         dt = self.dtype
         if "obj_points_pooled" in batch:
             pts = batch["obj_points_pooled"]
@@ -100,7 +94,7 @@ class MultiModalEncoder(nn.Module):
             raise NotImplementedError("per-pair compacted points are not "
                                       "ported yet; use pool_compact")
         pts = pts.reshape(-1, 3, pts.shape[-1])
-        feat = self.object_encoder(pts, mask)
+        feat = self.object_encoder(pts, mask, generator)
         emb = self.object_embedding(feat, dt)
         if "obj_points_pooled" in batch:
             emb = emb * batch["pooled_mask"][:, None].to(emb.dtype)
@@ -118,7 +112,7 @@ class MultiModalEncoder(nn.Module):
         embs: dict[str, torch.Tensor] = {}
         for module in self.modal_names:
             if module in ("point", "pct"):
-                emb = self._points(batch, b, two_n)
+                emb = self._points(batch, b, two_n, generator)
             elif module == "gat":
                 rel_pose = batch["rel_pose"].to(dt).reshape(2 * b, n, 3)
                 node_mask = batch["obj_mask"].reshape(2 * b, n)

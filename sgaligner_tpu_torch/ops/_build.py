@@ -30,7 +30,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES: dict[str, int] = {"embed_first": 0, "embed_second": 0,
                             "pct_block_eval": 0, "pct_tail": 0,
-                            "pointnet_fwd": 0, "pointnet_bwd": 0}
+                            "pointnet_fwd": 0, "pointnet_bwd": 0,
+                            "embed_first_bwd": 0, "embed_second_bwd": 0,
+                            "pct_block_fwd": 0, "pct_epi_sums": 0,
+                            "pct_block_res_bwd": 0, "pct_tail_bwd": 0}
 
 _lib: ctypes.CDLL | None = None
 build_info: dict = {}
@@ -104,18 +107,30 @@ def build() -> Path:
     return lib_path
 
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
 _SIGNATURES = {
     "sga_embed_first": [_P, _P, _P, _P, _F, _F, _I, _I, _I, _P],
     "sga_embed_second": [_P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _P],
     "sga_pct_block_eval": [_P, _P, _P, _P, _P, _P, _F, _F, _P, _P, _F, _P,
                            _I, _I, _I, _I, _P],
-    "sga_pct_tail": [_P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _I, _I, _I, _I,
-                     _P],
+    "sga_pct_tail": [_P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _P, _P, _I, _I,
+                     _I, _I, _P],
     "sga_pointnet_fwd": [_P, _P, _P, _P, _P, _P, _P, _F, _P, _I, _I, _I, _I,
                          _P],
     "sga_pointnet_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _F, _I,
                          _I, _I, _I, _P],
+    "sga_embed_first_bwd": [_P, _P, _P, _P, _F, _F, _F, _I, _F, _I, _I, _I,
+                            _P],
+    "sga_embed_second_bwd": [_P, _P, _P, _P, _P, _P, _F, _F, _P, _F, _I, _F,
+                             _I, _I, _I, _P],
+    "sga_pct_block_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _P, _F, _I,
+                          _F, _I, _I, _I, _P],
+    "sga_pct_epi_sums": [_P, _F, _F, _P, _F, _I, _F, _L, _I, _P],
+    "sga_pct_block_res_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F,
+                              _P, _P, _F, _P, _P, _F, _P, _P, _F, _I, _F, _I,
+                              _I, _I, _P],
+    "sga_pct_tail_bwd": [_P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _P, _P, _P,
+                         _P, _P, _P, _P, _F, _I, _F, _I, _I, _I, _I, _P],
     # queries (no launch): scratch sizes and the backward's block count
     "sga_pointnet_grad_stride": [_I],
     "sga_pointnet_grad_total": [_I],
@@ -159,6 +174,26 @@ def check_cuda(name: str, tensors: dict, dtype: torch.dtype | None = None) -> No
     if dtype is not None and dtype not in DTYPE_CODE:
         raise ValueError(f"{name}: dtype {dtype} has no kernel "
                          "(float32 and bfloat16 only)")
+
+
+def slice_stride(n: int) -> int:
+    """Floats of one block's slice of a partial-sum scratch buffer
+    (``slice_stride`` in csrc/common.cuh)."""
+    return (n + 63) // 64 * 64
+
+
+def grid_blocks(device: torch.device, work: int, per_sm: int = 2) -> int:
+    """Blocks for a grid-stride launch that keeps one scratch slice per
+    block: ``per_sm`` per multiprocessor, at most one per work item."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(int(work), sms * per_sm))
+
+
+def scratch(device: torch.device, blocks: int, n: int) -> torch.Tensor:
+    """``blocks`` partial-sum slices of ``n`` floats (uninitialised: every
+    kernel writes or zeroes its own slice before adding to it)."""
+    return torch.empty((blocks, slice_stride(n)), dtype=torch.float32,
+                       device=device)
 
 
 def check_shape(name: str, key: str, t: torch.Tensor, shape: tuple) -> None:

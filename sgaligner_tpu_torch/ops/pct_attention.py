@@ -1,8 +1,13 @@
-"""PCT self-attention block, inference form (SA and OA flags).
+"""PCT self-attention block: inference form (SA and OA flags) and the
+training op with its backward.
 
-Counterpart of ``sgaligner_tpu/ops/pct_attention.py::pct_block_eval`` and of
-the plain composition it is defined by (``_qk_scale``, ``_project``,
-``_attn_core``, ``_block_math``, ``_block_eval_ref``). Reference quirks kept:
+Counterpart of ``sgaligner_tpu/ops/pct_attention.py``: ``pct_block_eval``,
+and ``pct_block_residual`` (the training block: ``pct_block_fused``'s forward,
+the batch-statistics BN fold ``_fold_from_sums`` and the relu / residual
+epilogue, with the two-kernel backward ``_epi_sums_kernel`` then
+``_block_res_bwd_kernel``), and the plain composition they are defined by
+(``_qk_scale``, ``_project``, ``_attn_core``, ``_block_math``). Reference
+quirks kept:
 
 * q and k share one projection of the same input, so ``E = q qᵀ`` is
   symmetric;
@@ -13,9 +18,12 @@ the plain composition it is defined by (``_qk_scale``, ``_project``,
 * SA scales E by ``1/sqrt(da)``, folded into the q/k weight as ``da^-1/4``.
 
 A CUDA tensor goes through ``csrc/pct_attention.cu``; a CPU tensor through
-``block_eval_plain``, which repeats the JAX composition op for op (its
-exponentials run in the compute dtype against a column max, as the TPU
-kernel's do; the CUDA kernel uses an f32 log-sum-exp instead).
+the plain versions (``block_eval_plain``, ``block_fwd_plain``,
+``epi_sums_plain``, ``block_res_bwd_plain``), which repeat the JAX kernels op
+for op (their exponentials run in the compute dtype against a column max, as
+the TPU kernels' do; the CUDA kernels use an f32 log-sum-exp instead). The
+training kernels take the SA flags only: the OA flags (SPCT / FullPCT, not
+ported) run on CPU tensors alone.
 """
 
 from __future__ import annotations
@@ -23,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from sgaligner_tpu_torch.ops import _build
-from sgaligner_tpu_torch.ops.pct_embed import acc_dtype
+from sgaligner_tpu_torch.ops.pct_embed import acc_dtype, masked_sums
 
 
 def qk_scale(wqk, scale: bool):
@@ -117,3 +125,247 @@ def pct_block_eval(x, wqk, wv, bv, wt, bt, wbn, bbn, scale=True,
                       v.data_ptr(), lse.data_ptr(), out.data_ptr(), o, p,
                       int(double_norm), _build.DTYPE_CODE[dt])
     return out
+
+
+# ------------------------------- training ------------------------------------
+
+C, DA = 128, 32
+
+
+def _check_sa(name, scale, double_norm):
+    if (scale, double_norm) != (True, False):
+        raise ValueError(f"{name}: the CUDA kernel takes the SA flags only "
+                         "(scale=True, double_norm=False); the OA flags belong "
+                         "to SPCT / FullPCT, not ported yet (ROADMAP.md)")
+
+
+def _check_block(name, x, wqk, wv, bv, wt, bt, mask):
+    dt = x.dtype
+    _build.check_cuda(name, {"x": x, "wqk": wqk, "wv": wv, "bv": bv, "wt": wt,
+                             "bt": bt, "mask": mask}, dt)
+    o, p, _ = x.shape
+    _build.check_shape(name, "x", x, (o, p, C))
+    _build.check_shape(name, "wqk", wqk, (C, DA))
+    for key, t in (("wv", wv), ("wt", wt)):
+        _build.check_shape(name, key, t, (C, C))
+    for key, t in (("bv", bv), ("bt", bt)):
+        _build.check_shape(name, key, t, (C,))
+    _build.check_shape(name, "mask", mask, (o, 1))
+    return o, p
+
+
+def block_fwd_plain(x, wqk, wv, bv, wt, bt, mask, scale=True, double_norm=False):
+    t_out = block_math(x, wqk, wv, bv, wt, bt, scale, double_norm)
+    return (t_out, *masked_sums(t_out, mask))
+
+
+def block_fwd(x, wqk, wv, bv, wt, bt, mask, scale=True, double_norm=False):
+    """Training forward of the SA/OA block: ``(t_out [O, P, 128] in x's
+    dtype, ssum [1, 128], ssumsq [1, 128])``, the sums masked by
+    ``mask [O, 1]`` at f32 (f64 for f64 inputs). Weights as in
+    ``pct_block_eval``, in x's dtype."""
+    if x.device.type == "cpu":
+        return block_fwd_plain(x, wqk, wv, bv, wt, bt, mask, scale, double_norm)
+    name = "pct_block_fwd"
+    _check_sa(name, scale, double_norm)
+    wqk_s = qk_scale(wqk, scale).contiguous()
+    o, p = _check_block(name, x, wqk_s, wv, bv, wt, bt, mask)
+    dev, dt = x.device, x.dtype
+    t_out = torch.empty_like(x)
+    sums = torch.zeros((2, C), dtype=torch.float32, device=dev)
+    if o:
+        q = torch.empty((o, p, DA), dtype=dt, device=dev)
+        v = torch.empty_like(x)
+        lse = torch.empty((o, p), dtype=torch.float32, device=dev)
+        blocks = _build.grid_blocks(dev, o * ((p + 63) // 64), per_sm=1)
+        part = _build.scratch(dev, blocks, 2 * C)
+        _build.launch(name, "sga_pct_block_fwd", dev,
+                      *(t.data_ptr() for t in (x, wqk_s, wv, bv, wt, bt, mask,
+                                               q, v, lse, t_out, part)),
+                      blocks, sums.data_ptr(), o, p, _build.DTYPE_CODE[dt])
+    return t_out, sums[:1], sums[1:]
+
+
+def fold_from_sums(bn_scale, bn_bias, ssum, ssumsq, count, eps):
+    """MaskedBatchNorm's batch-statistics fold from the masked sums:
+    ``w = scale / sqrt(var + eps)``, ``b = bias - mean·w`` at >= f32."""
+    sdt = acc_dtype(bn_scale.dtype)
+    mean = ssum[0].to(sdt) / count
+    var = torch.clamp_min(ssumsq[0].to(sdt) / count - mean * mean, 0.0)
+    w = bn_scale.to(sdt) / torch.sqrt(var + eps)
+    return w, bn_bias.to(sdt) - mean * w
+
+
+def epilogue(x, t_out, w, b):
+    """``x + relu(t_out·w + b)`` in x's dtype (the fold rounded to it)."""
+    return x + torch.relu(t_out * w.to(t_out.dtype) + b.to(t_out.dtype))
+
+
+def _live(t_out, wbn, bbn):
+    """The epilogue's relu routing: multiply-add in the compute dtype,
+    compared at the accumulation dtype."""
+    dt = t_out.dtype
+    return (t_out * wbn.to(dt) + bbn.to(dt)).to(acc_dtype(dt)) > 0
+
+
+def epi_sums_plain(t_out, wbn, bbn, dy):
+    acc = acc_dtype(t_out.dtype)
+    zero = torch.zeros((), dtype=acc, device=t_out.device)
+    g = torch.where(_live(t_out, wbn, bbn), dy.to(acc), zero)
+    return ((g * t_out.to(acc)).sum(dim=(0, 1))[None], g.sum(dim=(0, 1))[None])
+
+
+def epi_sums(t_out, wbn, bbn, dy):
+    """The fold's gradient sums of the training epilogue for its cotangent
+    ``dy``: ``(Σ g·t_out, Σ g)`` [1, 128] each, ``g = dy`` where
+    ``t_out·wbn + bbn > 0``; f32 (f64 for f64 inputs). wbn, bbn [128] at
+    f32."""
+    if t_out.device.type == "cpu":
+        return epi_sums_plain(t_out, wbn, bbn, dy)
+    name = "pct_epi_sums"
+    wbn32 = wbn.to(torch.float32).reshape(-1).contiguous()
+    bbn32 = bbn.to(torch.float32).reshape(-1).contiguous()
+    _build.check_cuda(name, {"t_out": t_out, "dy": dy}, t_out.dtype)
+    _build.check_cuda(name, {"t_out": t_out, "wbn": wbn32, "bbn": bbn32})
+    o, p, _ = t_out.shape
+    for key, t in (("t_out", t_out), ("dy", dy)):
+        _build.check_shape(name, key, t, (o, p, C))
+    for key, t in (("wbn", wbn32), ("bbn", bbn32)):
+        _build.check_shape(name, key, t, (C,))
+    dev = t_out.device
+    sums = torch.zeros((2, C), dtype=torch.float32, device=dev)
+    if o:
+        blocks = _build.grid_blocks(dev, (o * p + 1) // 2, per_sm=4)
+        part = _build.scratch(dev, blocks, 2 * C)
+        _build.launch(name, "sga_pct_epi_sums", dev,
+                      t_out.data_ptr(), wbn32.data_ptr(), bbn32.data_ptr(),
+                      dy.data_ptr(), part.data_ptr(), blocks, sums.data_ptr(),
+                      o * p, _build.DTYPE_CODE[t_out.dtype])
+    return sums[:1], sums[1:]
+
+
+def block_res_bwd_plain(x, wqk, wv, bv, wt, bt, mask, dxn, wbn, bbn, dsum,
+                        dsumsq, scale=True, double_norm=False):
+    acc, dt = acc_dtype(x.dtype), x.dtype
+    q, v = project(x, wqk, wv, bv, scale)
+    with torch.enable_grad():
+        qg, vg = q.detach().requires_grad_(True), v.detach().requires_grad_(True)
+        y_acc = attn_core(qg, vg, double_norm)
+    y = y_acc.detach().to(dt)
+    u = (x - y) if double_norm else y
+    t_out = (torch.matmul(u.to(acc), wt.to(acc)) + bt.to(acc)).to(dt)
+    # epilogue backward: dt = dxn·1{t_out·w + b > 0}·w, then the BN sums' path
+    zero = torch.zeros((), dtype=acc, device=x.device)
+    g = torch.where(_live(t_out, wbn, bbn), dxn.to(acc), zero)
+    m = mask.to(acc)
+    a1, a2 = m * dsum.to(acc), m * dsumsq.to(acc)                   # [O, C]
+    dz = (g * wbn.to(acc) + a1[:, None]
+          + 2.0 * t_out.to(acc) * a2[:, None]).to(dt).to(acc)
+    dwt = torch.einsum("opc,opd->cd", u.to(acc), dz)
+    dbt = dz.sum(dim=(0, 1))[None]
+    du = torch.matmul(dz, wt.to(acc).t())
+    dq, dv = torch.autograd.grad(y_acc, (qg, vg), -du if double_norm else du)
+    dq, dv = dq.to(acc), dv.to(acc)
+    s = float(wqk.shape[-1]) ** -0.25 if scale else 1.0
+    dwqk = s * torch.einsum("opc,opd->cd", x.to(acc), dq)
+    dwv = torch.einsum("opc,opd->cd", x.to(acc), dv)
+    dx = (torch.matmul(dq, qk_scale(wqk, scale).to(acc).t())
+          + torch.matmul(dv, wv.to(acc).t()))
+    if double_norm:
+        dx = dx + du
+    dx = (dx + dxn.to(acc)).to(dt)
+    return dx, dwqk, dwv, dv.sum(dim=(0, 1))[None], dwt, dbt
+
+
+def block_res_bwd(x, wqk, wv, bv, wt, bt, mask, dxn, wbn, bbn, dsum, dsumsq,
+                  scale=True, double_norm=False):
+    """Backward of the training block for the cotangent ``dxn`` of its
+    output, given the fold ``(wbn, bbn)`` [128] and the totals ``dsum,
+    dsumsq`` [1, 128] of the BN sums' cotangents (f32): ``(dx [O, P, 128] in
+    x's dtype (the residual included), dwqk [128, 32], dwv [128, 128],
+    dbv [1, 128], dwt [128, 128], dbt [1, 128])``, the weight gradients at
+    the accumulation dtype."""
+    if x.device.type == "cpu":
+        return block_res_bwd_plain(x, wqk, wv, bv, wt, bt, mask, dxn, wbn, bbn,
+                                   dsum, dsumsq, scale, double_norm)
+    name = "pct_block_res_bwd"
+    _check_sa(name, scale, double_norm)
+    wqk_s = qk_scale(wqk, scale).contiguous()
+    o, p = _check_block(name, x, wqk_s, wv, bv, wt, bt, mask)
+    dev, dt = x.device, x.dtype
+    vecs = {k: t.to(torch.float32).reshape(-1).contiguous()
+            for k, t in (("wbn", wbn), ("bbn", bbn), ("dsum", dsum),
+                         ("dsumsq", dsumsq))}
+    _build.check_cuda(name, {"dxn": dxn}, dt)
+    _build.check_cuda(name, {"x": x, **vecs})
+    _build.check_shape(name, "dxn", dxn, (o, p, C))
+    for key, t in vecs.items():
+        _build.check_shape(name, key, t, (C,))
+    n_grad = C * DA + 2 * C * C + 2 * C
+    grads = torch.zeros(n_grad, dtype=torch.float32, device=dev)
+    dx = torch.empty_like(x)
+    if o:
+        q = torch.empty((o, p, DA), dtype=dt, device=dev)
+        lse = torch.empty((o, p), dtype=torch.float32, device=dev)
+        v, dy, dv = (torch.empty_like(x) for _ in range(3))
+        dd = torch.empty_like(lse)
+        dq = torch.empty_like(q)
+        blocks = _build.grid_blocks(dev, o * ((p + 63) // 64), per_sm=1)
+        part = _build.scratch(dev, blocks, n_grad)
+        _build.launch(name, "sga_pct_block_res_bwd", dev,
+                      *(t.data_ptr() for t in (x, wqk_s, wv, bv, wt, bt, mask, dxn,
+                                               vecs["wbn"], vecs["bbn"],
+                                               vecs["dsum"], vecs["dsumsq"], q, v,
+                                               lse, dy, dv, dd, dq, dx, part)),
+                      blocks, grads.data_ptr(), o, p, _build.DTYPE_CODE[dt])
+    dwqk, dwv, dbv, dwt, dbt = torch.split(grads, (C * DA, C * C, C, C * C, C))
+    s = float(DA) ** -0.25 if scale else 1.0
+    return (dx, s * dwqk.view(C, DA), dwv.view(C, C), dbv.view(1, C),
+            dwt.view(C, C), dbt.view(1, C))
+
+
+class BlockResidual(torch.autograd.Function):
+    """Counterpart of ``pct_block_residual``: the training SA/OA block with
+    the batch-statistics BN fold and the relu / residual epilogue. Returns
+    ``(x_next, ssum, ssumsq)``; the caller updates the running statistics
+    from the sums.
+
+    Forward: ``block_fwd`` (kernel), ``fold_from_sums``, ``epilogue`` (plain
+    torch elementwise). Backward: ``epi_sums`` (kernel); the fold's vjp on
+    [128] vectors (torch autograd), giving the BN parameters' gradients and,
+    with the sums' own cotangents, ``dsum`` / ``dsumsq``; then
+    ``block_res_bwd`` (kernel). The two kernels must run in this order: the
+    fold's vjp needs the first one's sums."""
+
+    @staticmethod
+    def forward(ctx, x, wqk, wv, bv, wt, bt, bn_scale, bn_bias, mask, count,
+                scale=True, double_norm=False, eps=1e-5):
+        t_out, ssum, ssumsq = block_fwd(x, wqk, wv, bv, wt, bt, mask, scale,
+                                        double_norm)
+        w, b = fold_from_sums(bn_scale, bn_bias, ssum, ssumsq, count, eps)
+        ctx.save_for_backward(x, wqk, wv, bv, wt, bt, bn_scale, bn_bias, mask,
+                              count, t_out, ssum, ssumsq)
+        ctx.flags = (scale, double_norm, eps)
+        return epilogue(x, t_out, w, b), ssum, ssumsq
+
+    @staticmethod
+    def backward(ctx, dxn, dsum_ct, dsumsq_ct):
+        (x, wqk, wv, bv, wt, bt, bn_scale, bn_bias, mask, count, t_out, ssum,
+         ssumsq) = ctx.saved_tensors
+        scale, double_norm, eps = ctx.flags
+        dxn = dxn.contiguous()
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True)
+                      for t in (bn_scale, bn_bias, ssum, ssumsq)]
+            wbn, bbn = fold_from_sums(*leaves, count, eps)
+        dwbn, dbbn = epi_sums(t_out, wbn.detach(), bbn.detach(), dxn)
+        d_scale, d_bias, dssum, dssumsq = torch.autograd.grad(
+            (wbn, bbn), leaves, (dwbn[0].to(wbn.dtype), dbbn[0].to(bbn.dtype)))
+        acc = dsum_ct.dtype
+        dx, dwqk, dwv, dbv, dwt, dbt = block_res_bwd(
+            x, wqk, wv, bv, wt, bt, mask, dxn, wbn.detach(), bbn.detach(),
+            dssum.to(acc) + dsum_ct, dssumsq.to(acc) + dsumsq_ct, scale,
+            double_norm)
+        return (dx, dwqk.to(wqk.dtype), dwv.to(wv.dtype), dbv[0].to(bv.dtype),
+                dwt.to(wt.dtype), dbt[0].to(bt.dtype), d_scale, d_bias, None,
+                None, None, None, None)

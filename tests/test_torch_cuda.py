@@ -16,7 +16,20 @@ pytestmark = pytest.mark.cuda
 
 CASES = [("embed_first", None), ("embed_second", None),
          ("pct_block_eval", (True, False)), ("pct_block_eval", (False, True)),
-         ("pct_tail", None), ("pointnet_fwd", None), ("pointnet_bwd", None)]
+         ("pct_tail", None), ("pct_tail", "idx"), ("pointnet_fwd", None),
+         ("pointnet_bwd", None), ("embed_first_bwd", None),
+         ("embed_second_bwd", None), ("pct_block_fwd", None),
+         ("pct_epi_sums", None), ("pct_block_res_bwd", None),
+         ("pct_tail_bwd", None)]
+
+# The autograd Functions on the card, at f32, are held to the CPU's plain
+# versions at f64: no further than the last kernel's f32 tolerance plus
+# CHAIN_VS_CPU times the CPU's own f32 distance from f64. The block's
+# Function runs the BN fold's vjp between its kernels, where the one-pass
+# variance cancels, so f32 on either side sits far from f64 there (on an
+# H100: the card 4.8e-3, the CPU 4.1e-3); the other chains are well
+# conditioned (below 2e-6 on both sides) and the kernel tolerance dominates
+CHAIN_VS_CPU = 4.0
 
 
 @pytest.fixture
@@ -33,11 +46,13 @@ def card():
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("name,flags", CASES,
                          ids=["embed_first", "embed_second", "block_SA",
-                              "block_OA", "pct_tail", "pointnet_fwd",
-                              "pointnet_bwd"])
+                              "block_OA", "pct_tail", "pct_tail_idx",
+                              "pointnet_fwd", "pointnet_bwd", "embed_first_bwd",
+                              "embed_second_bwd", "block_fwd", "epi_sums",
+                              "block_res_bwd", "pct_tail_bwd"])
 def test_kernel_matches_plain_version(card, name, flags, dtype, points):
-    """check_op raises past the tolerance (and, for the PointNet forward,
-    when its argmax points off the max)."""
+    """check_op raises past the tolerance (and, for the PointNet forward
+    and the tail's indexed form, when an index points off the max / min)."""
     from sgaligner_tpu_torch.ops import _build
 
     dt = torch.float32 if dtype == "f32" else torch.bfloat16
@@ -77,6 +92,72 @@ def test_pointnet_autograd_and_determinism(card):
         first = pointnet_bwd(x, dout, amax, *ws)
         second = pointnet_bwd(x, dout, amax, *ws)
         assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_pct_autograd_functions_and_determinism(card):
+    """The pct training Functions on the card: one forward and one backward
+    launch each, gradients held to the plain versions' at f64 on the same
+    inputs (CHAIN_VS_CPU); every backward kernel gives the same bits twice
+    (no atomics)."""
+    from sgaligner_tpu_torch.ops import _build
+    from sgaligner_tpu_torch.ops.pct_attention import BlockResidual
+    from sgaligner_tpu_torch.ops.pct_embed import EmbedFirst, EmbedSecond
+    from sgaligner_tpu_torch.ops.pct_tail import PctTail
+
+    o = 37
+    x, w, mask = card.op_inputs("embed_first", o, torch.float32, seed=7)
+    h0, wf, bf, w1, _ = card.op_inputs("embed_second", o, torch.float32, seed=7)
+    blk = card.op_inputs("pct_block_fwd", o, torch.float32, seed=7)
+    tail = card.op_inputs("pct_tail", o, torch.float32, seed=7)
+    count = torch.clamp_min(mask.sum() * card.P, 1.0)
+    g = torch.Generator().manual_seed(7)
+    bn = (torch.rand(card.C, generator=g) + 0.5, torch.randn(card.C, generator=g) * 0.1)
+
+    def cases(dev, dtype):
+        """label -> (Function call, its differentiable inputs, kernels in
+        launch order); every tensor on ``dev`` in ``dtype``."""
+        m, cnt, tm = (t.to(dev, dtype) for t in (mask, count, tail[5]))
+        return {
+            "embed_first": (lambda *a: EmbedFirst.apply(*a, m), (x, w),
+                            ("embed_first", "embed_first_bwd")),
+            "embed_second": (lambda *a: EmbedSecond.apply(*a, m), (h0, wf, bf, w1),
+                             ("embed_second", "embed_second_bwd")),
+            "block": (lambda *a: BlockResidual.apply(*a, m, cnt), (*blk[:6], *bn),
+                      ("pct_block_fwd", "pct_epi_sums", "pct_block_res_bwd")),
+            "tail": (lambda *a: PctTail.apply(*a, tm), tail[:5],
+                     ("pct_tail", "pct_tail_bwd")),
+        }
+
+    for label in cases("cpu", torch.float32):
+        grads = {}
+        for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
+                           ("cpu", torch.float64)):
+            fn, inputs, kernels = cases(dev, dtype)[label]
+            leaves = [t.detach().to(dev, dtype).requires_grad_(True) for t in inputs]
+            before = dict(_build.LAUNCHES)
+            outs = fn(*leaves)
+            # the [1, C] sums' cotangents at 1/count, as in the model, where
+            # the sums reach the loss as moments (sums / count)
+            gen = torch.Generator().manual_seed(1)
+            cts = [torch.randn(t.shape, generator=gen).to(t)
+                   / (float(count) if t.shape[0] == 1 else 1.0) for t in outs]
+            grads[dev, dtype] = tuple(t.cpu().double() for t in
+                                      torch.autograd.grad(outs, leaves, cts))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                for name in kernels:
+                    assert _build.LAUNCHES[name] == before[name] + 1, (label, name)
+        ref = grads["cpu", torch.float64]
+        _, card_rel = card.compare(grads["cuda", torch.float32], ref)
+        _, cpu_rel = card.compare(grads["cpu", torch.float32], ref)
+        bound = card.TOL[(kernels[-1], "f32")] + CHAIN_VS_CPU * cpu_rel
+        assert card_rel <= bound, (label, card_rel, cpu_rel)
+    for name in ("embed_first_bwd", "embed_second_bwd", "pct_epi_sums",
+                 "pct_block_res_bwd", "pct_tail_bwd"):
+        kern, _ = card.op_fns(name)
+        args = card.op_inputs(name, o, torch.bfloat16, seed=8)
+        first, second = card.as_tuple(kern(*args)), card.as_tuple(kern(*args))
+        assert all(torch.equal(a, b) for a, b in zip(first, second)), name
 
 
 def test_wrappers_raise_instead_of_falling_back(card):

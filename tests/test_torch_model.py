@@ -29,7 +29,7 @@ from sgaligner_tpu_torch.data import synthetic as port_synth
 from sgaligner_tpu_torch.data.batch import to_device
 from sgaligner_tpu_torch.models.sg_aligner import MultiModalEncoder
 from sgaligner_tpu_torch.ops.objective import OverallLoss
-from tests.test_torch_ops import x64  # noqa: F401  (fixture)
+from tests.test_torch_ops import expect_dtype, x64  # noqa: F401  (fixture)
 
 MODULES = ("pct", "gat", "rel", "attr")
 POINT_MODULES = ("point", "gat", "rel", "attr")
@@ -125,9 +125,11 @@ def port_model_from(params, batch_stats, dtype=torch.float64, modules=MODULES):
 
 
 def jax_inputs(batch):
-    return {k: (jnp.asarray(v, jnp.float64)
-                if np.issubdtype(np.asarray(v).dtype, np.floating) else
-                jnp.asarray(v)) for k, v in batch.items()}
+    """The batch as JAX arrays, floating ones at float64 (asserted)."""
+    return expect_dtype({k: (jnp.asarray(v, jnp.float64)
+                             if np.issubdtype(np.asarray(v).dtype, np.floating) else
+                             jnp.asarray(v)) for k, v in batch.items()},
+                        what="JAX batch")
 
 
 def valid_rows(batch, emb_flat):
@@ -233,13 +235,13 @@ def test_encoder_eval_forward_matches_jax_f64(x64):
     with torch.inference_mode():
         got_unpooled = model(to_device(plain, "cpu"))
 
-    p64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), params)
-    s64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), stats)
+    p64 = expect_dtype(jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), params))
+    s64 = expect_dtype(jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), stats))
     jb = jax_inputs(batch)
     for fused in ("always", "never"):
-        want = JaxEncoder(modules=MODULES, pointnet_fused=fused,
-                          dtype=jnp.float64).apply(
-            {"params": p64, "batch_stats": s64}, jb, train=False)
+        want = expect_dtype(JaxEncoder(modules=MODULES, pointnet_fused=fused,
+                                       dtype=jnp.float64).apply(
+            {"params": p64, "batch_stats": s64}, jb, train=False))
         for m in (*MODULES, "joint"):
             for name, out in (("pooled", got), ("unpooled", got_unpooled)):
                 np.testing.assert_allclose(
@@ -251,8 +253,8 @@ def test_encoder_eval_forward_matches_jax_f64(x64):
 # ------------------------------ training guards -----------------------------
 
 def test_training_mode_guards():
-    """The point configuration trains; pct raises (its training form is a
-    later slice) and so do the options the port does not have yet."""
+    """Both configurations switch to their training form; the options the
+    port does not have yet raise."""
     from sgaligner_tpu_torch.core.config import make_cfg
     from sgaligner_tpu_torch.engine.factory import build_optimizer
     from sgaligner_tpu_torch.models.pointnet import PointNetEncoder
@@ -260,9 +262,10 @@ def test_training_mode_guards():
     point = MultiModalEncoder(POINT_MODULES)
     assert not point.training
     assert point.train(True).training and point.structure_encoder.training
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        MultiModalEncoder(MODULES).train(True)
-    MultiModalEncoder(MODULES).train(False)
+    pct = MultiModalEncoder(MODULES)
+    assert not pct.training
+    assert pct.train(True).training and pct.object_encoder.sa4.after_norm.training
+    assert not pct.train(False).object_encoder.training
     with pytest.raises(NotImplementedError, match="active"):
         PointNetEncoder(bn_mode="active")
     cfg = make_cfg(modules=list(POINT_MODULES), optim={"grad_acc_steps": 2})

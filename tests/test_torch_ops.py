@@ -9,6 +9,11 @@ covers the ~1.4e-9 absolute differences seen once, on a few small outputs of
 the SA block, in a run with several workers (not reproduced since; listed in
 ROADMAP.md under the port's faults). A wrong axis, scale or rounding step
 gives errors of 1e-3 and more.
+
+``to_jax`` and ``expect_dtype`` guard every f64 comparison of the port's
+tests against a silent float32 on the JAX side: ``jnp.asarray`` of a
+float64 array gives float32 when x64 is off, and an f64 tolerance would then
+hold f32 results.
 """
 
 import numpy as np
@@ -44,6 +49,22 @@ def x64():
         jax.clear_caches()
 
 
+def expect_dtype(tree, dtype=jnp.float64, what: str = "JAX"):
+    """Assert that every floating leaf of a JAX tree (arrays made for an f64
+    comparison, or the outputs compared) has ``dtype``; returns the tree."""
+    for leaf in jax.tree.leaves(tree):
+        dt = np.asarray(leaf).dtype if not hasattr(leaf, "dtype") else leaf.dtype
+        if jnp.issubdtype(dt, jnp.floating):
+            assert dt == dtype, (f"{what}: {dt} where {jnp.dtype(dtype)} was "
+                                 "expected (jax_enable_x64 off?)")
+    return tree
+
+
+def to_jax(*arrays):
+    """numpy arrays -> JAX arrays, each floating one asserted float64."""
+    return expect_dtype([jnp.asarray(a) for a in arrays], what="JAX input")
+
+
 def _mask(rng):
     m = (rng.random((O, 1)) < 0.75).astype(np.float64)
     m[0] = 1.0
@@ -51,6 +72,7 @@ def _mask(rng):
 
 
 def _close(got, want, what):
+    expect_dtype(list(want), what=what)
     for i, (g, w) in enumerate(zip(got, want)):
         np.testing.assert_allclose(
             g.numpy(), np.asarray(w), rtol=RTOL, atol=ATOL,
@@ -62,8 +84,7 @@ def test_embed_first_matches_jax(x64):
     x = rng.normal(size=(O, 3, P))
     w = rng.normal(size=(3, C)) * 0.5
     m = _mask(rng)
-    want = embed_first_fused(jnp.asarray(x), jnp.asarray(w), jnp.asarray(m),
-                             True)
+    want = embed_first_fused(*to_jax(x, w, m), True)
     got = embed_first(torch.from_numpy(x), torch.from_numpy(w),
                       torch.from_numpy(m))
     _close(got, want, "embed_first")
@@ -76,8 +97,7 @@ def test_embed_second_matches_jax(x64):
     bf = rng.normal(size=(1, C)) * 0.1
     w = rng.normal(size=(C, C)) / np.sqrt(C)
     m = _mask(rng)
-    want = embed_second_fused(*(jnp.asarray(a) for a in (h0, wf, bf, w, m)),
-                              True)
+    want = embed_second_fused(*to_jax(h0, wf, bf, w, m), True)
     got = embed_second(*(torch.from_numpy(a) for a in (h0, wf, bf, w, m)))
     _close(got, want, "embed_second")
 
@@ -97,8 +117,7 @@ def test_pct_block_eval_matches_jax(x64, flags):
     wbn = rng.uniform(-1.5, 1.5, size=(C,))
     bbn = rng.normal(size=(C,)) * 0.1
     args = (x, wqk, wv, bv, wt, bt, wbn, bbn)
-    want = jax_block_eval(*(jnp.asarray(a) for a in args), scale, double_norm,
-                          True)
+    want = jax_block_eval(*to_jax(*args), scale, double_norm, True)
     got = pct_block_eval(*(torch.from_numpy(a) for a in args), scale=scale,
                          double_norm=double_norm)
     _close([got], [want], f"pct_block_eval scale={scale}")
@@ -109,6 +128,6 @@ def test_pct_tail_matches_jax(x64):
     xs = [rng.normal(size=(O, P, C)) for _ in range(4)]
     w = rng.normal(size=(4 * C, K)) / np.sqrt(4 * C)
     m = _mask(rng)
-    want = pct_tail_fused(*(jnp.asarray(a) for a in (*xs, w, m)), True)
+    want = pct_tail_fused(*to_jax(*xs, w, m), True)
     got = pct_tail(*(torch.from_numpy(a) for a in (*xs, w, m)))
     _close(got, want, "pct_tail")

@@ -11,6 +11,9 @@ O=16 objects of P=32 points, C3=256 (the op's widths are fixed at 64 and
   input dtype (``preferred_element_type=jnp.float32``, ``out_shape``
   float32), where the port accumulates f64 inputs in f64. Its argmax must
   equal the port's, or point at a value within 1e-6 of the port's max.
+  That f32 step is inside the JAX function: the output is cast back to
+  float64, so the dtype guard (``expect_dtype``) passes it like the others
+  and the 1e-6 tolerance is what records it.
 * float64 gradients against the JAX backward, which at itemsize > 2 is
   ``jax.grad`` of the unfused composition (its tile picker gives the Pallas
   backward no tile there): rtol 1e-10 / atol 1e-12.
@@ -32,7 +35,7 @@ import jax.numpy as jnp
 from sgaligner_tpu.ops import pointnet_fused as jpf
 from sgaligner_tpu_torch.ops.pointnet_fused import (pointnet_bwd, pointnet_fused,
                                                     pointnet_fwd, stack_plain)
-from tests.test_torch_ops import x64  # noqa: F401  (fixture)
+from tests.test_torch_ops import expect_dtype, x64  # noqa: F401  (fixture)
 
 O, P, C3 = 16, 32, 256
 BF16_NORMWISE = 2e-2
@@ -50,7 +53,8 @@ def _inputs(seed):
 
 
 def _jax(arrays, dtype):
-    return [jnp.asarray(a, dtype) for a in arrays]
+    return expect_dtype([jnp.asarray(a, dtype) for a in arrays], dtype,
+                        what="JAX input")
 
 
 def _torch(arrays, dtype):
@@ -68,10 +72,11 @@ def test_forward_and_argmax_match_jax_f64(x64):
     out_j, amax_j = jpf._forward(*_jax([x, *ws], jnp.float64), True,
                                  with_argmax=True)
     assert jpf._pick_tile(O, P, 8, bwd=False) is not None   # the Pallas kernel ran
+    expect_dtype(out_j, what="Pallas PointNet forward (f32 inside, cast back)")
     args = _torch([x, *ws], torch.float64)
     out, amax = pointnet_fwd(*args, with_argmax=True)
-    np.testing.assert_allclose(out.numpy(), np.asarray(jpf._unfused(
-        *_jax([x, *ws], jnp.float64))), rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(out.numpy(), np.asarray(expect_dtype(jpf._unfused(
+        *_jax([x, *ws], jnp.float64)))), rtol=1e-12, atol=1e-12)
     np.testing.assert_allclose(out.numpy(), np.asarray(out_j), rtol=0,
                                atol=1e-6)
     h3 = torch.relu(stack_plain(*args)[0])
@@ -88,7 +93,7 @@ def test_gradients_match_jax_f64(x64):
     x, ws, dout = _inputs(1)
     xj, *wj = _jax([x, *ws], jnp.float64)
     _, vjp = jax.vjp(lambda *w: jpf.pointnet_fused(xj, *w, True), *wj)
-    want = vjp(jnp.asarray(dout))
+    want = expect_dtype(vjp(*_jax([dout], jnp.float64)))
 
     xt = torch.from_numpy(x).requires_grad_(True)
     wt = [torch.from_numpy(w).requires_grad_(True) for w in ws]

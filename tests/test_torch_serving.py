@@ -21,12 +21,13 @@ from sgaligner_tpu_torch.engine.train_step import make_serving_step, serve_queue
 from sgaligner_tpu_torch.ops import metrics as M
 from tests.test_torch_model import (MODULES, jax_inputs, port_model_from,
                                     scaled_pct_state_dict)
-from tests.test_torch_ops import x64  # noqa: F401  (fixture)
+from tests.test_torch_ops import expect_dtype, to_jax, x64  # noqa: F401  (fixture)
 
 KS = (1, 2, 3, 4, 5)
 
 
 def _assert_components(got, want):
+    expect_dtype(want, what="JAX serving step")
     assert int(got["rr_count"]) == int(want["rr_count"])
     np.testing.assert_allclose(float(got["rr_sum"]), float(want["rr_sum"]),
                                rtol=1e-9)
@@ -53,8 +54,8 @@ def test_serving_step_matches_jax_f64(x64):
     queue = serve_queue(model, MODULES, [to_device(b, "cpu") for b in batches],
                         KS)
 
-    p64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), params)
-    s64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), stats)
+    p64 = expect_dtype(jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), params))
+    s64 = expect_dtype(jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), stats))
     jstep = jax_serving_step(
         JaxEncoder(modules=MODULES, pointnet_fused="never",
                    dtype=jnp.float64), MODULES, KS)
@@ -137,17 +138,17 @@ def test_metrics_match_jax_and_reference_on_crafted_cases(x64, ties):
     score = M.alignment_score(sim, torch.tensor([n_src]), torch.tensor([n_ref]),
                               n_max)
 
-    jsim = JM.cosine_sim_matrix(jnp.asarray(padded), jnp.asarray(mask))
+    jsim = expect_dtype(JM.cosine_sim_matrix(*to_jax(padded, mask)))
     np.testing.assert_allclose(sim.numpy(), np.asarray(jsim), rtol=1e-12,
                                atol=1e-12)
     jranks, jmask = JM.anchor_ranks(jsim, jnp.asarray(e1i_s),
                                     jnp.asarray(e2i_s), jnp.asarray(am))
     np.testing.assert_array_equal(ranks.numpy(), np.asarray(jranks))
     rr, cnt = M.mrr_from_ranks(ranks, rmask)
-    jrr, jcnt = JM.mrr_from_ranks(jranks, jmask)
+    jrr, jcnt = expect_dtype(JM.mrr_from_ranks(jranks, jmask))
     np.testing.assert_allclose(rr.item(), float(jrr), rtol=1e-9)
     assert int(cnt) == int(jcnt)
-    jscore = JM.alignment_score(jsim, jnp.array([n_src]),
-                                jnp.array([n_ref]), n_max)
+    jscore = expect_dtype(JM.alignment_score(jsim, jnp.array([n_src]),
+                                             jnp.array([n_ref]), n_max))
     np.testing.assert_allclose(score.numpy(), np.asarray(jscore),
                                rtol=1e-9)

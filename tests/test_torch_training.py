@@ -54,7 +54,7 @@ from sgaligner_tpu_torch.models.structure import dropout
 from sgaligner_tpu_torch.ops import losses as L
 from sgaligner_tpu_torch.ops.objective import OverallLoss, overall_loss
 from tests.test_torch_model import jax_inputs
-from tests.test_torch_ops import x64  # noqa: F401  (fixture)
+from tests.test_torch_ops import expect_dtype, to_jax, x64  # noqa: F401  (fixture)
 
 MODULES = ("point", "gat", "rel", "attr")
 WIDTHS = dict(pt_out_dim=32, emb_dim=16, hidden_units=(3, 16, 16), heads=(2, 2))
@@ -138,6 +138,7 @@ def _named_params(state):
 
 
 def _flax_named(tree):
+    expect_dtype(tree, what="JAX parameters / gradients")
     out = dict(state_dict_from_flax(tree["model"], {}, MODULES))
     out.update({f"loss.{k}": v
                 for k, v in loss_state_dict_from_flax(tree["loss"]).items()})
@@ -162,7 +163,7 @@ def test_losses_match_jax_f64(x64):
     np_args = (*idx, *masks)
 
     def jx(*arrs):
-        return [jnp.asarray(v) for v in arrs]
+        return to_jax(*arrs)
 
     def tx(*arrs):
         return [torch.from_numpy(np.asarray(v)) for v in arrs]
@@ -189,9 +190,9 @@ def test_losses_match_jax_f64(x64):
     got = overall_loss({k: torch.from_numpy(v) for k, v in embs.items()},
                        to_device(batch, "cpu"),
                        {k: torch.from_numpy(v) for k, v in lp.items()}, MODULES)
-    want = jax_overall_loss({k: jnp.asarray(v) for k, v in embs.items()},
-                            jax_inputs(batch),
-                            {k: jnp.asarray(v) for k, v in lp.items()}, MODULES)
+    want = expect_dtype(jax_overall_loss(
+        {k: to_jax(v)[0] for k, v in embs.items()}, jax_inputs(batch),
+        {k: to_jax(v)[0] for k, v in lp.items()}, MODULES))
     for k in LOSS_KEYS:
         np.testing.assert_allclose(got[k].item(), float(want[k]),
                                    rtol=LOSS_RTOL, err_msg=k)
@@ -217,7 +218,7 @@ def test_train_step_matches_jax_f64(jax_side):
     want_losses = []
     for _ in range(2):
         state, metrics = side["train_step"](state, jb)
-        want_losses.append({k: float(v) for k, v in metrics.items()})
+        want_losses.append({k: float(expect_dtype(v)) for k, v in metrics.items()})
     want_params = _flax_named(jax.tree.map(np.asarray, state.params))
 
     port = _port_state(side)
@@ -285,6 +286,9 @@ def test_eval_and_serving_steps_match_jax_f64(jax_side):
     jb = jax_inputs(host)
     want = side["eval_step"](side["params"], {}, jb)
     want_serve = side["serving_step"](side["params"], {}, jb)
+    expect_dtype([want[k] for k in ("loss", "sim", "rr_sum", "alignment_score")]
+                 + [want_serve[k] for k in ("rr_sum", "alignment_score")],
+                 what="JAX eval / serving")
 
     port = _port_state(side)
     got = make_eval_step(port.model, port.objective, MODULES, with_sim=True)(
