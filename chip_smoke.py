@@ -7,15 +7,16 @@ Phases, in order (every failure raises and exits non-zero):
   device       card name, power limit; TF32 off for f32 products and
                convolutions
   build        nvcc builds the kernels from sgaligner_tpu_torch/csrc
-  kernels      each of the twelve kernels against its plain PyTorch version
+  kernels      each of the fifteen kernels against its plain PyTorch version
                on the card: full width (P=512, C=128, da=32, K=1024, PointNet
                3 -> 64 -> 128 -> 256), O=67 objects (ragged, not a multiple
-               of 8), float32 and bfloat16, SA and OA (pct_block_eval); again
-               at P=200 (not a multiple of the kernels' row tiles). The
+               of 8), float32 and bfloat16, SA and OA (the six kernels of the
+               attention family); again at P=200 (not a multiple of the
+               kernels' row tiles). The
                PointNet forward's argmax and the tail's argmax / argmin are
                held by value: at the kernel's index the plain activation must
-               equal the plain max (min). Each new backward kernel twice on
-               the same inputs: the same bits
+               equal the plain max (min). Each training and op kernel twice
+               on the same inputs: the same bits
   parity       the pct serving path on the CPU (plain versions) against the
                card (kernels): same seeded weights, one pooled B=8 batch, f32
   train_parity the point configuration's train step on the CPU against the
@@ -34,6 +35,14 @@ Phases, in order (every failure raises and exits non-zero):
                statistics. Then faults planted in the outputs of the block,
                embedding and tail backward kernels, each of which the checks
                must catch
+  oa_parity    SPCT (four OA blocks) in train mode, three Adam steps on a
+               seeded-cotangent loss over its three outputs, on the card at
+               f32 and on the CPU at f32 and f64 (the pooled B=4 batch,
+               O=128), held by train_pct_parity's rule, the first step's
+               outputs too; then pct_attention_fused's and pct_block_fused's
+               gradients (SA and OA) on the card against the CPU at f64; then
+               faults planted in the OA block backward and the ops' backward
+               kernels, each of which a check must catch
   serve        the pct serving configuration of bench.py (B=512 pairs, 32
                object slots per graph, 512 points, bfloat16, pooled bucket
                128): four requests with distinct seeds through
@@ -50,12 +59,21 @@ Phases, in order (every failure raises and exits non-zero):
                kernel, a torch.profiler pass
   serve_point  the point configuration serving the four B=512 requests;
                1 PointNet forward launch per request
+  spct         SPCT at full width on bench.py's pct training batch (B=32,
+               O=896, bf16): eval forward and train-mode forward plus
+               backward, ms per call, launches per call (eval: 4 OA
+               pct_block_eval; train: 4/4/4 of the OA block forward, epilogue
+               sums and block backward; the embedding kernels)
+  ops          pct_attention_fused and pct_block_fused forward plus backward
+               through autograd at O=896, SA and OA, against the plain
+               versions; one launch of each of their kernels per call
   time         each kernel against its plain version (and torch.matmul for
                the tail): the pct serving kernels at the serving O, the pct
                training and PointNet kernels at the training O (the PointNet
-               forward also at the serving O), with each bound from the
-               shapes; scaled_dot_product_attention(q, q, v) at the serving
-               and training shapes as a same-work yardstick of the attention
+               forward also at the serving O), the ops' kernels and the OA
+               variants at O=896, with each bound from the shapes;
+               scaled_dot_product_attention(q, q, v) at the serving and
+               training shapes as a same-work yardstick of the attention
                core
 
 The last two lines are the {"kernels": [...]} record and
@@ -82,6 +100,7 @@ BF16_TENSOR_FLOPS = 989e12
 F32_FLOPS = 67e12
 
 P, C, DA, K = 512, 128, 32, 1024
+SA, OA = (True, False), (False, True)   # (scale, double_norm) of the attention ops
 PN = (64, 128, 256)            # PointNet widths (conv1, conv2, conv3 = pt_out_dim)
 SMALL_O = 67
 RAGGED_P = 200
@@ -112,7 +131,21 @@ TOL = {("embed_first", "f32"): 1e-5, ("embed_first", "bf16"): 1e-2,
        ("pct_block_fwd", "f32"): 1e-4, ("pct_block_fwd", "bf16"): 5e-2,
        ("pct_epi_sums", "f32"): 1e-4, ("pct_epi_sums", "bf16"): 1e-2,
        ("pct_block_res_bwd", "f32"): 1e-4, ("pct_block_res_bwd", "bf16"): 5e-2,
-       ("pct_tail_bwd", "f32"): 1e-4, ("pct_tail_bwd", "bf16"): 2e-2}
+       ("pct_tail_bwd", "f32"): 1e-4, ("pct_tail_bwd", "bf16"): 2e-2,
+       # the ops' own kernels: the attention forward is the block's apply
+       # without trans; the two backwards are pct_block_res_bwd's passes
+       # (their dx at bf16 held by BLOCK_DX_VS_PLAIN too)
+       ("pct_attn_fwd", "f32"): 1e-4, ("pct_attn_fwd", "bf16"): 5e-2,
+       ("pct_attn_bwd", "f32"): 1e-4, ("pct_attn_bwd", "bf16"): 5e-2,
+       ("pct_block_bwd", "f32"): 1e-4, ("pct_block_bwd", "bf16"): 5e-2,
+       # OA at bf16: the row normalisation divides by s_j, which amplifies
+       # bf16 error where s_j is small; on an H100 the weight gradients of
+       # the OA block backward read 3.8e-2 and 5.5e-2 at O = 67 (P = 512,
+       # 200) and 3.8e-2 at O = 896, the SA ones up to 3.6e-2 (PERF.md §6)
+       ("pct_block_res_bwd/OA", "bf16"): 1e-1,
+       # the OA attention backward's gradients read 2.2e-2 at O = 67 and
+       # 4.7e-2 at O = 896 (PERF.md §6)
+       ("pct_attn_bwd/OA", "bf16"): 1e-1}
 # pct_block_res_bwd's dx at bfloat16: the softmax gradient G∘(dY·vᵀ − D)
 # cancels, and the kernel and the plain version (bf16 exponentials and bf16
 # autograd through them, as the TPU kernel) each sit ≈ 0.18 (normwise) from
@@ -159,6 +192,30 @@ PCT_INDEX_APART = 1e-3
 PCT_PLANTED = (("block dWt x2", "pct_attention", "block_res_bwd", 4, 2.0),
                ("embed_first dW zeroed", "pct_embed", "embed_first_bwd", None, 0.0),
                ("tail dx x1.1", "pct_tail", "pct_tail_bwd", (0, 1, 2, 3), 1.1))
+# OA training (SPCT): the same rule as the pct training, reading by reading,
+# plus the first step's outputs. Then the two ops' gradients at the parity
+# batch's O on the card at f32, against the CPU at f64: no further than
+# their backward kernel's f32 tolerance plus PCT_VS_CPU times the CPU's own
+# f32 distance. Faults planted in the OA block backward's outputs (SPCT's
+# training) and in the ops' backward kernels: (label, wrapper in
+# ops/pct_attention.py, output index, factor, the check that runs)
+OA_PLANTED = (("block_res_bwd/OA dWv x2", "block_res_bwd", 2, 2.0, "spct"),
+              ("block_res_bwd/OA dx x1.1", "block_res_bwd", 0, 1.1, "spct"),
+              ("pct_block_bwd dWt x2", "block_bwd", 4, 2.0, "block"),
+              ("pct_attn_bwd dx x1.1", "attn_bwd", 0, 1.1, "attention"))
+# launches per SPCT call at O = 896 (phase spct)
+PER_SPCT_EVAL = {"embed_first": 1, "embed_second": 1, "pct_block_eval": 4}
+PER_SPCT_TRAIN = {"embed_first": 1, "embed_second": 1, "embed_first_bwd": 1,
+                  "embed_second_bwd": 1, "pct_block_fwd": 4, "pct_epi_sums": 4,
+                  "pct_block_res_bwd": 4}
+SPCT_EVAL_CALLS, SPCT_TRAIN_CALLS = 5, 3
+# the ops' kernels and the OA variants timed at the training O (phase time):
+# (kernel, flags, where its launches were counted)
+OA_ROWS = (("pct_attn_fwd", SA, "ops"), ("pct_attn_fwd", OA, "ops"),
+           ("pct_attn_bwd", SA, "ops"), ("pct_attn_bwd", OA, "ops"),
+           ("pct_block_bwd", SA, "ops"), ("pct_block_bwd", OA, "ops"),
+           ("pct_block_eval", OA, "spct_eval"), ("pct_block_fwd", OA, "spct_train"),
+           ("pct_block_res_bwd", OA, "spct_train"))
 
 KERNELS = {
     "embed_first": ("sgaligner_tpu_torch/csrc/pct_embed.cu",
@@ -185,11 +242,39 @@ KERNELS = {
                           "sgaligner_tpu/ops/pct_attention.py:599"),
     "pct_tail_bwd": ("sgaligner_tpu_torch/csrc/pct_tail.cu",
                      "sgaligner_tpu/ops/pct_tail.py:124"),
+    "pct_attn_fwd": ("sgaligner_tpu_torch/csrc/pct_attention.cu",
+                     "sgaligner_tpu/ops/pct_attention.py:103"),
+    "pct_attn_bwd": ("sgaligner_tpu_torch/csrc/pct_attention.cu",
+                     "sgaligner_tpu/ops/pct_attention.py:108"),
+    "pct_block_bwd": ("sgaligner_tpu_torch/csrc/pct_attention.cu",
+                      "sgaligner_tpu/ops/pct_attention.py:341"),
 }
 PCT_KERNELS = ("embed_first", "embed_second", "pct_block_eval", "pct_tail")
 POINT_KERNELS = ("pointnet_fwd", "pointnet_bwd")
 TRAIN_KERNELS = ("embed_first_bwd", "embed_second_bwd", "pct_block_fwd",
                  "pct_epi_sums", "pct_block_res_bwd", "pct_tail_bwd")
+# the kernels of the ops pct_attention_fused and pct_block_fused (no model
+# calls them; phase ops drives them)
+OP_KERNELS = ("pct_attn_fwd", "pct_attn_bwd", "pct_block_bwd")
+# the attention family: each runs with the SA and the OA flags. Wrapper and
+# plain version in ops/pct_attention.py
+ATTN_FNS = {"pct_block_eval": ("pct_block_eval", "block_eval_plain"),
+            "pct_block_fwd": ("block_fwd", "block_fwd_plain"),
+            "pct_block_res_bwd": ("block_res_bwd", "block_res_bwd_plain"),
+            "pct_block_bwd": ("block_bwd", "block_bwd_plain"),
+            "pct_attn_fwd": ("attn_fwd", "attn_fwd_plain"),
+            "pct_attn_bwd": ("attn_bwd", "attn_bwd_plain")}
+# the backward kernel whose dx at bf16 is held against the f32 plain version
+# (BLOCK_DX_VS_PLAIN); pct_block_bwd and pct_attn_bwd (no residual, no relu
+# routing) hold their dx to the bf16 plain version within their tolerance
+BLOCK_BWD = ("pct_block_res_bwd",)
+
+
+def tol(name: str, dt_name: str, flags=SA) -> float:
+    """The tolerance of one kernel: its OA entry where there is one."""
+    if flags == OA and (f"{name}/OA", dt_name) in TOL:
+        return TOL[(f"{name}/OA", dt_name)]
+    return TOL[(name, dt_name)]
 # launches per pct train step: every kernel of the training path
 PER_PCT_TRAIN_STEP = {"embed_first": 1, "embed_second": 1, "pct_tail": 1,
                       "embed_first_bwd": 1, "embed_second_bwd": 1,
@@ -263,7 +348,7 @@ def op_inputs(name: str, o: int, dtype, seed: int, p: int = P) -> tuple:
     def f32(*shape, scale=1.0):
         return (torch.randn(*shape, generator=g) * scale).to("cuda", torch.float32)
 
-    if name in TRAIN_KERNELS:
+    if name in TRAIN_KERNELS or name in OP_KERNELS:
         return train_op_inputs(name, o, p, rnd, f32, mask)
     if name == "embed_first":
         return rnd(o, 3, p), rnd(3, C), mask
@@ -293,11 +378,18 @@ def train_op_inputs(name: str, o: int, p: int, rnd, f32, mask) -> tuple:
                 rnd(C, C, scale=C ** -0.5), mask, rnd(o, p, C), *ds)
     if name == "pct_epi_sums":
         return rnd(o, p, C), f32(C), f32(C, scale=0.1), rnd(o, p, C)
-    if name in ("pct_block_fwd", "pct_block_res_bwd"):
-        block = (rnd(o, p, C), rnd(C, DA, scale=C ** -0.5), rnd(C, C, scale=C ** -0.5),
-                 rnd(C, scale=0.1), rnd(C, C, scale=C ** -0.5), rnd(C, scale=0.1), mask)
+    attn = (rnd(o, p, C), rnd(C, DA, scale=C ** -0.5), rnd(C, C, scale=C ** -0.5),
+            rnd(C, scale=0.1))
+    if name == "pct_attn_fwd":
+        return attn
+    if name == "pct_attn_bwd":
+        return (*attn, rnd(o, p, C))
+    if name in ("pct_block_fwd", "pct_block_res_bwd", "pct_block_bwd"):
+        block = (*attn, rnd(C, C, scale=C ** -0.5), rnd(C, scale=0.1), mask)
         if name == "pct_block_fwd":
             return block
+        if name == "pct_block_bwd":
+            return (*block, rnd(o, p, C), *ds)
         return (*block, rnd(o, p, C), f32(C), f32(C, scale=0.1), *ds)
     from sgaligner_tpu_torch.ops.pct_tail import pct_tail_plain
 
@@ -308,17 +400,21 @@ def train_op_inputs(name: str, o: int, p: int, rnd, f32, mask) -> tuple:
             f32(1, K, scale=0.001), amax, amin)
 
 
-def op_fns(name: str, flags=(True, False)):
+def op_fns(name: str, flags=SA):
     """(kernel wrapper, plain version) of one op. ``flags``: SA / OA for
-    pct_block_eval, "idx" for pct_tail's training form."""
+    the attention family (ATTN_FNS), "idx" for pct_tail's training form."""
     from sgaligner_tpu_torch.ops import (pct_attention, pct_embed, pct_tail,
                                          pointnet_fused)
 
+    if name in ATTN_FNS:
+        scale, double_norm = flags
+        kern, plain = (getattr(pct_attention, f) for f in ATTN_FNS[name])
+        return (lambda *a: kern(*a, scale=scale, double_norm=double_norm),
+                lambda *a: plain(*a, scale=scale, double_norm=double_norm))
     if name in TRAIN_KERNELS:
         module = pct_tail if name == "pct_tail_bwd" else (
             pct_embed if name.startswith("embed") else pct_attention)
-        short = {"pct_block_fwd": "block_fwd", "pct_epi_sums": "epi_sums",
-                 "pct_block_res_bwd": "block_res_bwd"}.get(name, name)
+        short = {"pct_epi_sums": "epi_sums"}.get(name, name)
         return getattr(module, short), getattr(module, short + "_plain")
     if name == "pct_tail" and flags == "idx":
         return (lambda *a: pct_tail.pct_tail(*a, with_index=True),
@@ -332,17 +428,7 @@ def op_fns(name: str, flags=(True, False)):
         return pct_embed.embed_first, pct_embed.embed_first_plain
     if name == "embed_second":
         return pct_embed.embed_second, pct_embed.embed_second_plain
-    if name == "pct_tail":
-        return pct_tail.pct_tail, pct_tail.pct_tail_plain
-    scale, double_norm = flags
-
-    def kern(*a):
-        return pct_attention.pct_block_eval(*a, scale=scale, double_norm=double_norm)
-
-    def plain(*a):
-        return pct_attention.block_eval_plain(*a, scale=scale, double_norm=double_norm)
-
-    return kern, plain
+    return pct_tail.pct_tail, pct_tail.pct_tail_plain
 
 
 def as_tuple(out) -> tuple:
@@ -396,7 +482,7 @@ def tail_index_error(args, amax, amin) -> float:
     return err / max(float(z.abs().max()), 1e-30)
 
 
-def check_op(name: str, args: tuple, dt_name: str, flags=(True, False),
+def check_op(name: str, args: tuple, dt_name: str, flags=SA,
              what: str = "") -> tuple[float, float]:
     """One kernel call against its plain version on the same inputs;
     raises past the tolerance. Returns (max abs, max normwise rel)."""
@@ -405,25 +491,33 @@ def check_op(name: str, args: tuple, dt_name: str, flags=(True, False),
     kern, plain = op_fns(name, flags)
     got, want = kern(*args), plain(*args)
     torch.cuda.synchronize()
-    tol = TOL[(name, dt_name)]
-    if (name, dt_name) == ("pct_block_res_bwd", "bf16"):
-        return check_block_bwd_bf16(args, got, want, plain, tol, what or name)
+    return judge(name, dt_name, flags, args, got, want, plain, what)
+
+
+def judge(name: str, dt_name: str, flags, args: tuple, got, want, plain,
+          what: str = "") -> tuple[float, float]:
+    """A kernel's outputs ``got`` against its plain version's ``want`` on
+    ``args``; raises past the tolerance. Returns (max abs, max normwise
+    rel)."""
+    limit = tol(name, dt_name, flags)
+    if name in BLOCK_BWD and dt_name == "bf16":
+        return check_block_bwd_bf16(args, got, want, plain, limit, what or name)
     if name == "pointnet_fwd":
         (got, amax), (want, _) = got, want
         arg_err = argmax_error(args, amax)
-        if not arg_err <= tol:
+        if not arg_err <= limit:
             raise AssertionError(f"{what or name}: argmax points off the max "
-                                 f"({arg_err:.3e} > {tol:g})")
+                                 f"({arg_err:.3e} > {limit:g})")
     if name == "pct_tail" and flags == "idx":
         arg_err = tail_index_error(args, got[4], got[5])
         got, want = got[:4], want[:4]
-        if not arg_err <= tol:
+        if not arg_err <= limit:
             raise AssertionError(f"{what or name}: argmax / argmin point off the "
-                                 f"max / min ({arg_err:.3e} > {tol:g})")
+                                 f"max / min ({arg_err:.3e} > {limit:g})")
     err_abs, err_rel = compare(got, want)
-    if not err_rel <= tol:
+    if not err_rel <= limit:
         raise AssertionError(f"{what or name}: kernel disagrees with the plain "
-                             f"version ({err_rel:.3e} > {tol:g})")
+                             f"version ({err_rel:.3e} > {limit:g})")
     return err_abs, err_rel
 
 
@@ -489,16 +583,14 @@ def phase_kernels(state: dict) -> None:
              for dt_name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))]
     for dt_name, dtype, p in cases:
         for name in KERNELS:
-            variants = ([("SA", (True, False)), ("OA", (False, True))]
-                        if name == "pct_block_eval" else
+            variants = ([("SA", SA), ("OA", OA)] if name in ATTN_FNS else
                         [("", None), ("idx", "idx")] if name == "pct_tail" else [("", None)])
             for tag, flags in variants:
-                kern, plain = op_fns(name, flags or (True, False))
+                kern, plain = op_fns(name, flags or SA)
                 args = op_inputs(name, SMALL_O, dtype, seed=1, p=p)
                 label = f"{name}{'/' + tag if tag else ''}/{dt_name}"
-                err_abs, err_rel = check_op(name, args, dt_name,
-                                            flags or (True, False), label)
-                if name in TRAIN_KERNELS:
+                err_abs, err_rel = check_op(name, args, dt_name, flags or SA, label)
+                if name in TRAIN_KERNELS or name in OP_KERNELS:
                     first, second = as_tuple(kern(*args)), as_tuple(kern(*args))
                     if not all(torch.equal(a, b) for a, b in zip(first, second)):
                         raise AssertionError(f"{label}: two runs on the same inputs "
@@ -506,7 +598,7 @@ def phase_kernels(state: dict) -> None:
                 ms = cuda_ms(lambda: kern(*args))
                 plain_ms = cuda_ms(lambda: plain(*args), warmup=1, reps=3)
                 log(f"[kernels] {label:24s} O={SMALL_O} P={p} max_abs={err_abs:.3e} "
-                    f"max_rel={err_rel:.3e} (tol {TOL[(name, dt_name)]:g}) "
+                    f"max_rel={err_rel:.3e} (tol {tol(name, dt_name, flags or SA):g}) "
                     f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms")
 
 
@@ -872,6 +964,174 @@ def phase_train_pct_parity(state: dict) -> None:
         raise AssertionError(f"train_pct_parity: the planted faults {unseen} went unseen")
 
 
+def _spct_three(dtype, dev: str, pts, mask) -> dict:
+    """Three Adam steps (lr 1e-3) of SPCT in train mode from the seeded
+    weights (``init_weights``, seed 11) on the loss Σ_k <out_k, ct_k> over
+    its three outputs, with seeded cotangents: the losses, the first step's
+    outputs and gradients, the starting and final parameters and running
+    statistics (``_train_readings``' form)."""
+    import torch
+
+    from sgaligner_tpu_torch.engine.factory import init_weights
+    from sgaligner_tpu_torch.models.pct import SPCT
+
+    net = SPCT(dtype)
+    init_weights(net, torch.Generator().manual_seed(11))
+    net = net.to(dev, torch.float64) if dtype == torch.float64 else net.to(dev)
+    net.train()
+    start = {k: v.detach().double().cpu().clone() for k, v in net.state_dict().items()}
+    opt = torch.optim.Adam(net.parameters(), lr=1e-3)
+    o, p = pts.shape[:2]
+    g = torch.Generator().manual_seed(5)
+    cts = [torch.randn(*shape, generator=g).to(dev, dtype)
+           for shape in ((o, p, 1024), (o, 1024), (o, 1024))]
+    pts, mask = pts.to(dev), mask.to(dev)
+    losses, t0 = [], time.perf_counter()
+    for step in range(3):
+        opt.zero_grad(set_to_none=True)
+        outs = net(pts, mask)
+        loss = sum((a * c).sum() for a, c in zip(outs, cts))
+        loss.backward()
+        if step == 0:
+            outputs = [t.detach().double().cpu() for t in outs]
+            grads = {k: q.grad.double().cpu() for k, q in net.named_parameters()}
+        opt.step()
+        losses.append({"loss": float(loss.detach())})
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return {"losses": losses, "grads": grads, "outputs": outputs, "start": start,
+            "seconds": time.perf_counter() - t0,
+            "params": {k: v.detach().double().cpu() for k, v in net.state_dict().items()}}
+
+
+def _spct_readings(ref: dict, got: dict, bounds: dict) -> dict:
+    """_train_readings plus "outputs": the first step's worst output,
+    ||got - ref|| / ||ref||."""
+    r = _train_readings(ref, got, {k: v for k, v in bounds.items() if k != "outputs"})
+    r["outputs"] = max(float((a - b).norm() / b.norm().clamp_min(1e-30))
+                       for a, b in zip(got["outputs"], ref["outputs"]))
+    if "outputs" in bounds and not r["outputs"] <= bounds["outputs"]:
+        r["failed"].append("outputs")
+    return r
+
+
+def _op_grads(op: str, flags, dev: str, dtype, args) -> tuple:
+    """Gradients of pct_attention_fused / pct_block_fused (autograd) for
+    seeded cotangents, on ``dev`` in ``dtype``: (x, then the weights),
+    double on the CPU. ``args``: op_inputs of its backward kernel."""
+    import torch
+
+    from sgaligner_tpu_torch.ops import pct_attention
+
+    n = 4 if op == "attention" else 6
+    leaves = [a.detach().to(dev, dtype).requires_grad_(True) for a in args[:n]]
+    extra = [] if op == "attention" else [args[n].to(dev, dtype)]
+    fn = pct_attention.pct_attention_fused if op == "attention" else pct_attention.pct_block_fused
+    outs = as_tuple(fn(*leaves, *extra, *flags))
+    g = torch.Generator().manual_seed(6)
+    rows = args[0].shape[0] * args[0].shape[1]
+    # the [1, C] sums' cotangents at 1/(O·P), as moments reach a loss
+    cts = [(torch.randn(t.shape, generator=g) / (rows if t.shape[0] == 1 else 1)).to(dev, t.dtype)
+           for t in outs]
+    grads = torch.autograd.grad(outs, leaves, cts)
+    return tuple(t.double().cpu() for t in grads)
+
+
+def _op_readings(ops: dict, kernels: dict | None = None) -> dict:
+    """Each op's gradients on the card at f32 against the CPU at f64, with
+    its bound (the backward kernel's f32 tolerance plus PCT_VS_CPU times the
+    CPU's own f32 distance). ``kernels`` replaces the card's run."""
+    out = {}
+    for key, run in ops.items():
+        card = (kernels or {}).get(key, run["cuda"])
+        cpu_rel = compare(run["cpu"], run["cpu64"])[1]
+        bwd = "pct_attn_bwd" if key[0] == "attention" else "pct_block_bwd"
+        out[key] = (compare(card, run["cpu64"])[1], TOL[(bwd, "f32")] + PCT_VS_CPU * cpu_rel,
+                    cpu_rel)
+    return out
+
+
+def phase_oa_parity(state: dict) -> None:
+    import importlib
+
+    import torch
+
+    from sgaligner_tpu_torch.data.batch import BatchSpec, pool_compact, to_device
+    from sgaligner_tpu_torch.data.synthetic import make_synthetic_batch
+
+    host = to_device(pool_compact(make_synthetic_batch(
+        BatchSpec(4, 32, P), seed=3, bow_noise=1.0, resample=True), 128), "cpu")
+    pts = host["obj_points_pooled"].transpose(1, 2).contiguous()      # [O, P, 3]
+    mask = host["pooled_mask"]
+    o = pts.shape[0]
+    runs = {}
+    for name, dev, dtype in (("cuda", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                             ("cpu64", "cpu", torch.float64)):
+        runs[name] = _spct_three(dtype, dev, pts, mask)
+        log(f"[oa_parity] SPCT {name}: 3 train steps {runs[name]['seconds']:.1f} s; loss "
+            + ", ".join(f"{v['loss']:.6f}" for v in runs[name]["losses"]))
+    ref = _spct_readings(runs["cpu64"], runs["cpu"], {})
+    bounds = {k: PCT_VS_CPU * ref[k] for k in ("grad", "loss", "param", "stats", "outputs")}
+    r = _spct_readings(runs["cpu64"], runs["cuda"], bounds)
+    for who, x in (("CPU at f32 against the CPU at f64", ref),
+                   ("card at f32 against the CPU at f64", r)):
+        log(f"[oa_parity] SPCT O={o} {who}: outputs {x['outputs']:.3e}; worst gradient leaf "
+            f"{x['leaf']} {x['grad']:.3e}; losses {x['loss']:.3e}; parameters "
+            f"{x['param']:.3e} (most in {x['param_leaf']}); running statistics "
+            f"{x['stats']:.3e}; quiet leaves left out: {x['quiet']}")
+    if r["failed"]:
+        raise AssertionError(f"oa_parity: the card's SPCT training is further from the f64 "
+                             f"run than {PCT_VS_CPU} x the CPU's ({', '.join(r['failed'])}): {r}")
+
+    # the ops' gradients at the same O
+    ops = {}
+    for op, bwd in (("attention", "pct_attn_bwd"), ("block", "pct_block_bwd")):
+        args = op_inputs(bwd, o, torch.float32, seed=7)
+        for tag, flags in (("SA", SA), ("OA", OA)):
+            ops[op, tag] = {name: _op_grads(op, flags, dev, dtype, args)
+                            for name, dev, dtype in (("cuda", "cuda", torch.float32),
+                                                     ("cpu", "cpu", torch.float32),
+                                                     ("cpu64", "cpu", torch.float64))}
+    failed = []
+    for (op, tag), (rel, bound_, cpu_rel) in _op_readings(ops).items():
+        log(f"[oa_parity] {op}/{tag} O={o}: gradients, card at f32 against the CPU at f64 "
+            f"{rel:.3e} (bound {bound_:.3e}; the CPU at f32 {cpu_rel:.3e})")
+        if not rel <= bound_:
+            failed.append(f"{op}/{tag}")
+    if failed:
+        raise AssertionError(f"oa_parity: the ops' gradients on the card are off: {failed}")
+
+    mod = importlib.import_module("sgaligner_tpu_torch.ops.pct_attention")
+    unseen = []
+    for label, fn_name, index, factor, check in OA_PLANTED:
+        kernel = getattr(mod, fn_name)
+        setattr(mod, fn_name, _planted(kernel, index, factor))
+        try:
+            if check == "spct":
+                f = _spct_readings(runs["cpu64"], _spct_three(torch.float32, "cuda", pts, mask),
+                                   bounds)
+                caught = f["failed"]
+                what = (f"outputs {f['outputs']:.3e}, gradient {f['leaf']} {f['grad']:.3e}, "
+                        f"loss {f['loss']:.3e}, parameters {f['param']:.3e}, statistics "
+                        f"{f['stats']:.3e}")
+            else:
+                bwd = "pct_attn_bwd" if check == "attention" else "pct_block_bwd"
+                args = op_inputs(bwd, o, torch.float32, seed=7)
+                faulty = {(check, tag): _op_grads(check, flags, "cuda", torch.float32, args)
+                          for tag, flags in (("SA", SA), ("OA", OA))}
+                read = _op_readings({k: ops[k] for k in faulty}, faulty)
+                caught = [f"{k[0]}/{k[1]}" for k, (rel, b, _) in read.items() if not rel <= b]
+                what = ", ".join(f"{k[0]}/{k[1]} {rel:.3e} (bound {b:.3e})"
+                                 for k, (rel, b, _) in read.items())
+        finally:
+            setattr(mod, fn_name, kernel)
+        log(f"[oa_parity] planted fault {label}: {what}; caught by {caught}")
+        if not caught:
+            unseen.append(label)
+    if unseen:
+        raise AssertionError(f"oa_parity: the planted faults {unseen} went unseen")
+
+
 def _bench_train(state: dict, modules, tag: str, per_step: dict) -> tuple[int, float, dict]:
     """bench.py's training configuration for ``modules`` (B=32, 32 slots,
     P=512, bf16, pooled bucket 128, Adam lr 1e-3, one seed-0 batch):
@@ -951,9 +1211,14 @@ def phase_train_pct(state: dict) -> None:
 
 
 def profile_train(state: dict, step, train, batch, tag: str, steps: int = 5) -> None:
-    """torch.profiler over a few train steps (not the timed windows): the
-    device's busy share (sum of kernel times over the wall time) and where
-    the device and the host spend the step."""
+    """torch.profiler over a few train steps (not the timed windows)."""
+    profile_calls(state, lambda: step(train, batch), tag, steps, "step")
+
+
+def profile_calls(state: dict, fn, tag: str, steps: int, unit: str) -> None:
+    """torch.profiler over ``steps`` calls of ``fn`` (not the timed ones):
+    the device's busy share (sum of kernel times over the wall time) and
+    where the device and the host spend a call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -961,7 +1226,7 @@ def profile_train(state: dict, step, train, batch, tag: str, steps: int = 5) -> 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            step(train, batch)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
@@ -977,16 +1242,16 @@ def profile_train(state: dict, step, train, batch, tag: str, steps: int = 5) -> 
         log(f"[{tag}] profiler: no device time recorded; busy share not measured")
         return
     kernels = sum(e.count for e in on_device)
-    log(f"[{tag}] profiler, {steps} steps: wall {wall_ms / steps:.2f} ms/step, device busy "
-        f"{busy_ms / steps:.2f} ms/step ({busy_ms / wall_ms:.1%}, so idle "
-        f"{1 - busy_ms / wall_ms:.1%}), {kernels / steps:.0f} device ops/step | {state['card']}")
+    log(f"[{tag}] profiler, {steps} {unit}s: wall {wall_ms / steps:.2f} ms/{unit}, device busy "
+        f"{busy_ms / steps:.2f} ms/{unit} ({busy_ms / wall_ms:.1%}, so idle "
+        f"{1 - busy_ms / wall_ms:.1%}), {kernels / steps:.0f} device ops/{unit} | {state['card']}")
     top = sorted(on_device, key=dev_us, reverse=True)[:10]
     for e in top:
-        log(f"[{tag}]   device {dev_us(e) / 1e3 / steps:8.3f} ms/step  x{e.count // steps:<4d} "
+        log(f"[{tag}]   device {dev_us(e) / 1e3 / steps:8.3f} ms/{unit}  x{e.count // steps:<4d} "
             f"{e.key[:90]}")
     top = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:10]
     for e in top:
-        log(f"[{tag}]   host   {e.self_cpu_time_total / 1e3 / steps:8.3f} ms/step  "
+        log(f"[{tag}]   host   {e.self_cpu_time_total / 1e3 / steps:8.3f} ms/{unit}  "
             f"x{e.count // steps:<4d} {e.key[:90]}")
 
 
@@ -1030,6 +1295,142 @@ def phase_serve_point(state: dict) -> None:
         f"launches {launches} | {state['card']}")
 
 
+def _check_launches(tag: str, launches: dict, per_call: dict, calls: int) -> None:
+    for name in KERNELS:
+        want = per_call.get(name, 0) * calls
+        if launches[name] != want:
+            raise AssertionError(f"{tag}: {name} launched {launches[name]} times in "
+                                 f"{calls} calls, expected {want}")
+
+
+def phase_spct(state: dict) -> None:
+    """SPCT at full width on bench.py's pct training batch (B=32, 32 slots,
+    P=512, bf16, pooled bucket 128, seed 0): the eval forward, and the
+    train-mode forward plus backward of a seeded-cotangent loss over its
+    three outputs; ms per call and the launches per call."""
+    import torch
+
+    from sgaligner_tpu_torch.data.batch import BatchSpec, pool_compact, to_device
+    from sgaligner_tpu_torch.data.synthetic import make_synthetic_batch
+    from sgaligner_tpu_torch.engine.factory import init_weights
+    from sgaligner_tpu_torch.models.pct import SPCT
+    from sgaligner_tpu_torch.ops import _build
+
+    host = pool_compact(make_synthetic_batch(BatchSpec(TRAIN_B, 32, P), seed=0), 128)
+    batch = to_device(host, "cuda")
+    pts = batch["obj_points_pooled"].transpose(1, 2)                 # [O, P, 3]
+    mask = batch["pooled_mask"]
+    o = pts.shape[0]
+    net = SPCT(torch.bfloat16)
+    init_weights(net, torch.Generator().manual_seed(0))
+    net.cuda()
+
+    def finite(outs, what):
+        for t in outs:
+            if not bool(t.isfinite().all()):
+                raise AssertionError(f"spct: {what} not finite")
+
+    net.eval()
+    with torch.inference_mode():
+        outs = net(pts, mask)                                        # warm-up
+        shapes = [tuple(t.shape) for t in outs]
+        if shapes != [(o, P, 1024), (o, 1024), (o, 1024)]:
+            raise AssertionError(f"spct: output shapes {shapes}")
+        finite(outs, "eval outputs")
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        eval_times = []
+        for _ in range(SPCT_EVAL_CALLS):
+            t0 = time.perf_counter()
+            net(pts, mask)
+            torch.cuda.synchronize()
+            eval_times.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(_build.LAUNCHES)
+    _check_launches("spct eval", launches, PER_SPCT_EVAL, SPCT_EVAL_CALLS)
+    state["launches_spct_eval"] = launches
+    eval_ms = statistics.median(eval_times)
+
+    net.train()
+    g = torch.Generator().manual_seed(5)
+    cts = [torch.randn(*shape, generator=g).to("cuda", torch.bfloat16)
+           for shape in ((o, P, 1024), (o, 1024), (o, 1024))]
+
+    def fwd_bwd():
+        net.zero_grad(set_to_none=True)
+        outs = net(pts, mask)
+        torch.autograd.backward(outs, cts)
+        return outs
+
+    finite(fwd_bwd(), "train outputs")                               # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    times = []
+    for _ in range(SPCT_TRAIN_CALLS):
+        t0 = time.perf_counter()
+        fwd_bwd()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(_build.LAUNCHES)
+    _check_launches("spct train", launches, PER_SPCT_TRAIN, SPCT_TRAIN_CALLS)
+    state["launches_spct_train"] = launches
+    finite([q.grad for q in net.parameters()], "gradients")
+    train_ms = statistics.median(times)
+    profile_calls(state, fwd_bwd, "spct", 3, "call")
+    state["spct_o"], state["spct_ms"] = o, (eval_ms, train_ms)
+    log(f"[spct] O={o} bf16: eval forward {', '.join(f'{t:.2f}' for t in eval_times)} ms, "
+        f"median {eval_ms:.2f} ms; train forward + backward "
+        f"{', '.join(f'{t:.2f}' for t in times)} ms, median {train_ms:.2f} ms; launches per "
+        f"call: eval {PER_SPCT_EVAL}, train {PER_SPCT_TRAIN} | {state['card']}")
+
+
+def phase_ops(state: dict) -> None:
+    """pct_attention_fused and pct_block_fused, forward plus backward
+    through autograd at the training O, SA then OA, on the card (bf16)
+    against their plain versions on the same inputs. The launches of each
+    flag set are counted from 0 over its two op calls."""
+    import torch
+
+    from sgaligner_tpu_torch.ops import _build, pct_attention
+
+    o = state["spct_o"]
+    state["launches_ops"] = {}
+    for tag, flags in (("SA", SA), ("OA", OA)):
+        runs = {}
+        _build.reset_launches()
+        for op, fwd, bwd in (("attention", "pct_attn_fwd", "pct_attn_bwd"),
+                             ("block", "pct_block_fwd", "pct_block_bwd")):
+            args = op_inputs(bwd, o, torch.bfloat16, seed=4)
+            n = 4 if op == "attention" else 6
+            extra = args[n:n + 1] if op == "block" else ()
+            leaves = [a.clone().requires_grad_(True) for a in args[:n]]
+            fn = pct_attention.pct_attention_fused if op == "attention" else \
+                pct_attention.pct_block_fused
+            t0 = time.perf_counter()
+            outs = as_tuple(fn(*leaves, *extra, *flags))
+            grads = torch.autograd.grad(outs, leaves, args[n + len(extra):])
+            torch.cuda.synchronize()
+            runs[op] = (args, n, extra, outs, grads, fwd, bwd, time.perf_counter() - t0)
+        launches = dict(_build.LAUNCHES)
+        _check_launches(f"ops/{tag}", launches, {"pct_attn_fwd": 1, "pct_attn_bwd": 1,
+                                                 "pct_block_fwd": 1, "pct_block_bwd": 1}, 1)
+        state["launches_ops"][tag] = launches
+        for op, (args, n, extra, outs, grads, fwd, bwd, secs) in runs.items():
+            plain_f, plain_b = op_fns(fwd, flags)[1], op_fns(bwd, flags)[1]
+            f_abs, f_rel = judge(fwd, "bf16", flags, args[:n] + tuple(extra),
+                                 tuple(t.detach() for t in outs),
+                                 as_tuple(plain_f(*args[:n], *extra)), plain_f,
+                                 f"ops: {fwd}/{tag}")
+            want_b = as_tuple(plain_b(*args))
+            got_b = tuple(g.reshape(w.shape) for g, w in zip(grads, want_b))
+            b_abs, b_rel = judge(bwd, "bf16", flags, args, got_b, want_b, plain_b,
+                                 f"ops: {bwd}/{tag}")
+            log(f"[ops] {op}/{tag} O={o} bf16: forward + backward {secs * 1e3:.1f} ms "
+                f"(first call); against the plain versions: forward max_rel {f_rel:.3e}, "
+                f"gradients max_rel {b_rel:.3e} | {state['card']}")
+        del runs
+        torch.cuda.empty_cache()
+
+
 def bwd_work(args) -> tuple[int, int]:
     """The gradient-carrying work of one pointnet_bwd call on its inputs:
     (rows, channels) summed over objects. A channel carries gradient when
@@ -1053,11 +1454,23 @@ def block_flops() -> int:
     return 2 * P * C * (DA + C) + 2 * P * P * DA + 2 * P * P * C + 2 * P * C * C
 
 
-def bound(name: str, o: int, p: int = P, work: tuple[int, int] | None = None
-          ) -> tuple[float, str]:
+def attn_flops(oa: bool = False, bwd: bool = False) -> int:
+    """Operations of one object's attention op (row 10: q, v, E = q qᵀ,
+    y = G v; 105 MFLOP at P=512). Its backward (row 11): the projections and
+    E again (and y for OA's c), dv = Gᵀ dŶ and dG = dŶ vᵀ, dq = (dE + dEᵀ) q,
+    dWqk and dWv, dx = dq Wqkᵀ + dv Wvᵀ."""
+    proj_e = 2 * P * C * (DA + C) + 2 * P * P * DA
+    if not bwd:
+        return proj_e + 2 * P * P * C
+    return (proj_e + (2 * P * P * C if oa else 0) + 2 * 2 * P * P * C + 2 * 2 * P * P * DA
+            + 2 * 2 * P * C * (DA + C))
+
+
+def bound(name: str, o: int, p: int = P, work: tuple[int, int] | None = None,
+          oa: bool = False) -> tuple[float, str]:
     """Least time (ms) for the work of one call at O objects, bf16.
     pointnet_bwd counts only the work its data needs (``work`` from
-    ``bwd_work``)."""
+    ``bwd_work``); ``oa``: the OA flags (the attention backward's y)."""
     e = 2  # bytes per bf16 element
     c1, c2, c3 = PN
     w_elems = 3 * c1 + c1 + c1 * c2 + c2 + c2 * c3 + c3
@@ -1086,15 +1499,24 @@ def bound(name: str, o: int, p: int = P, work: tuple[int, int] | None = None
         nbytes = 2 * o * P * C * e + (C * DA + 2 * C * C + 2 * C) * e + 2 * C * 4
         ops = o * block_flops()
         rate = BF16_TENSOR_FLOPS
-    elif name == "pct_block_res_bwd":
+    elif name in ("pct_block_res_bwd", "pct_block_bwd"):
         # the forward again; dWt and dY = dz Wtᵀ; dv = Gᵀ dY and dG = dY vᵀ;
-        # dq = (dE + dEᵀ) q; dWqk, dWv and dx = dq Wqkᵀ + dv Wvᵀ. x, dxn read,
-        # dx written, f32 weight gradients
+        # dq = (dE + dEᵀ) q; dWqk, dWv and dx = dq Wqkᵀ + dv Wvᵀ. x and dxn (or
+        # dt) read, dx written, f32 weight gradients
         back = (2 * 2 * P * C * C + 2 * 2 * P * P * C + 2 * 2 * P * P * DA
                 + 2 * 2 * P * C * DA + 2 * 2 * P * C * C)
-        nbytes = (3 * o * P * C * e + (C * DA + 2 * C * C + 2 * C) * e + o * e + 4 * C * 4
+        vecs = 4 if name == "pct_block_res_bwd" else 2
+        nbytes = (3 * o * P * C * e + (C * DA + 2 * C * C + 2 * C) * e + o * e + vecs * C * 4
                   + (C * DA + 2 * C * C + 2 * C) * 4)
         ops, rate = o * (block_flops() + back), BF16_TENSOR_FLOPS
+    elif name == "pct_attn_fwd":
+        # x read, y written
+        nbytes = 2 * o * P * C * e + (C * DA + C * C + C) * e
+        ops, rate = o * attn_flops(), BF16_TENSOR_FLOPS
+    elif name == "pct_attn_bwd":
+        # x and dy read, dx written, f32 weight gradients
+        nbytes = 3 * o * P * C * e + (C * DA + C * C + C) * (e + 4)
+        ops, rate = o * attn_flops(oa, bwd=True), BF16_TENSOR_FLOPS
     elif name == "pct_epi_sums":
         nbytes = 2 * o * P * C * e + 2 * C * 4 + 2 * C * 4
         ops, rate = 4 * o * P * C, F32_FLOPS
@@ -1171,6 +1593,7 @@ def phase_time(state: dict) -> None:
         f"{per_req / state['serve_ms']:.1%} of it | {state['card']}")
     rows += time_pointnet(state)
     rows += time_train_pct(state)
+    rows += time_oa(state)
     time_attention_yardstick(state)
     state["rows"] = rows
 
@@ -1261,6 +1684,42 @@ def time_train_pct(state: dict) -> list[dict]:
     return rows
 
 
+def time_oa(state: dict) -> list[dict]:
+    """The ops' kernels (rows 7, 10, 11) with both flag sets and the OA
+    variants of the block kernels (rows 5, 6, 9) at the training O, each
+    with its launches (phases ops and spct) and its bound. No single PyTorch
+    call computes any of them (library_ms null); time_attention_yardstick
+    logs the same-work yardstick of rows 10 and 11."""
+    import torch
+
+    o = state["spct_o"]
+    counted = {"ops/SA": state["launches_ops"]["SA"], "ops/OA": state["launches_ops"]["OA"],
+               "spct_eval": state["launches_spct_eval"],
+               "spct_train": state["launches_spct_train"]}
+    rows = []
+    for name, flags, where in OA_ROWS:
+        tag = "OA" if flags == OA else "SA"
+        label = name if flags == SA else f"{name}/OA"
+        source, replaces = KERNELS[name]
+        kern, plain = op_fns(name, flags)
+        args = op_inputs(name, o, torch.bfloat16, seed=2)
+        err_abs, err_rel = check_op(name, args, "bf16", flags, what=f"time: {label} at O={o}")
+        ms = cuda_ms(lambda: kern(*args))
+        plain_ms = cuda_ms(lambda: plain(*args), warmup=1, reps=3)
+        b_ms, b_by = bound(name, o, oa=flags == OA)
+        launches = counted[f"ops/{tag}" if where == "ops" else where][name]
+        log(f"[time] {label:20s} O={o} bf16 kernel {ms:.3f} ms | plain {plain_ms:.3f} ms | "
+            f"bound {b_ms:.4f} ms ({b_by}) | library None | launches {launches} ({where}) | "
+            f"max_abs {err_abs:.3e} max_rel {err_rel:.3e} | {state['card']}")
+        rows.append({"name": label, "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": launches, "max_abs_err": err_abs, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": None})
+        del args
+        torch.cuda.empty_cache()
+    return rows
+
+
 def time_attention_yardstick(state: dict) -> None:
     """scaled_dot_product_attention(q, q, v, scale=1) at the block's shapes
     (per object: q [P, 32], v [P, 128], bf16), forward and forward plus
@@ -1313,9 +1772,10 @@ def main() -> int:
     for name, phase in (("build", phase_build), ("kernels", phase_kernels),
                         ("parity", phase_parity), ("train_parity", phase_train_parity),
                         ("train_pct_parity", phase_train_pct_parity),
+                        ("oa_parity", phase_oa_parity),
                         ("serve", phase_serve), ("train", phase_train),
                         ("train_pct", phase_train_pct), ("serve_point", phase_serve_point),
-                        ("time", phase_time)):
+                        ("spct", phase_spct), ("ops", phase_ops), ("time", phase_time)):
         t0 = time.perf_counter()
         phase(state)
         log(f"[{name}] done in {time.perf_counter() - t0:.1f} s")

@@ -9,8 +9,12 @@ versions run instead.
 
 Ported so far: training, evaluation and serving of the 4-modality
 ``('pct', 'gat', 'rel', 'attr')`` aligner and of the point configuration
-``('point', 'gat', 'rel', 'attr')``. Each module names its JAX counterpart
-in ``sgaligner_tpu/`` in its docstring.
+``('point', 'gat', 'rel', 'attr')``; the offset-attention encoder family
+(``models.pct.OABlock`` and ``SPCT``, eval and train); and the attention
+ops ``ops.pct_attention.pct_attention_fused`` and ``pct_block_fused`` with
+their gradients. Every Pallas kernel of the JAX package has its CUDA
+counterpart at C = 128. Each module names its JAX counterpart in
+``sgaligner_tpu/`` in its docstring.
 """
 
 __version__ = "0.1.0"

@@ -14,6 +14,12 @@ for the point / pct / gat / rel / attr modules:
 * GATConv ``weight [in, H, out]`` -> ``lin_src.weight [H·out, in]``,
   ``att_src / att_dst [H, out]`` -> ``[1, H, out]``.
 
+``spct_state_dict_from_flax(params, batch_stats)`` maps the tree of a flax
+``SPCT`` (``emb0``, ``emb0_bn``, ``emb1``, ``emb1_bn``, ``sa1``..``sa4``,
+``linear``, ``linear_bn``) onto the port's ``SPCT``, and the tree of a lone
+``OABlock`` (``qk``, ``v``, ``trans``, ``after_norm``) onto the port's
+``OABlock``.
+
 ``loss_state_dict_from_flax(params["loss"])`` gives the objective's
 (``ops.objective.OverallLoss``) state_dict from the JAX train state's loss
 parameters. Leaves come back as float32, or float64 where the tree holds
@@ -50,26 +56,36 @@ def _bn(sd: dict, prefix: str, params: dict, stats: dict) -> None:
     sd[f"{prefix}.running_var"] = _t(stats["var"])
 
 
+def _attention_block(sd: dict, pre: str, blk: dict, st: dict) -> None:
+    """An SA / OA block's ``qk``, ``v``, ``trans`` and ``after_norm`` under
+    the key prefix ``pre`` ("" or ending in ".")."""
+    sd[f"{pre}q_conv.weight"] = _conv(blk["qk"]["kernel"])
+    sd[f"{pre}v_conv.weight"] = _conv(blk["v"]["kernel"])
+    sd[f"{pre}v_conv.bias"] = _t(blk["v"]["bias"])
+    sd[f"{pre}trans_conv.weight"] = _conv(blk["trans"]["kernel"])
+    sd[f"{pre}trans_conv.bias"] = _t(blk["trans"]["bias"])
+    _bn(sd, f"{pre}after_norm", blk["after_norm"], st["after_norm"])
+
+
+def _pct_trunk(sd: dict, pre: str, enc: dict, st: dict) -> None:
+    """The embedding, the four blocks and the 1024-wide linear that NaivePCT
+    and SPCT share, under the key prefix ``pre``."""
+    for i in (1, 2):
+        sd[f"{pre}embedding.conv{i}.weight"] = _conv(enc[f"emb{i - 1}"]["kernel"])
+        _bn(sd, f"{pre}embedding.bn{i}", enc[f"emb{i - 1}_bn"], st[f"emb{i - 1}_bn"])
+    for s in (1, 2, 3, 4):
+        _attention_block(sd, f"{pre}sa{s}.", enc[f"sa{s}"], st[f"sa{s}"])
+    sd[f"{pre}linear.0.weight"] = _conv(enc["linear"]["kernel"])
+    _bn(sd, f"{pre}linear.1", enc["linear_bn"], st["linear_bn"])
+
+
 def state_dict_from_flax(params: dict, batch_stats: dict,
                          modules: tuple[str, ...]) -> dict[str, torch.Tensor]:
     sd: dict[str, torch.Tensor] = {}
     if "pct" in modules:
         enc, st = params["object_encoder"], batch_stats["object_encoder"]
         p = "object_encoder"
-        for i in (1, 2):
-            sd[f"{p}.embedding.conv{i}.weight"] = _conv(enc[f"emb{i - 1}"]["kernel"])
-            _bn(sd, f"{p}.embedding.bn{i}", enc[f"emb{i - 1}_bn"], st[f"emb{i - 1}_bn"])
-        for s in (1, 2, 3, 4):
-            sa, sa_st = enc[f"sa{s}"], st[f"sa{s}"]
-            q = f"{p}.sa{s}"
-            sd[f"{q}.q_conv.weight"] = _conv(sa["qk"]["kernel"])
-            sd[f"{q}.v_conv.weight"] = _conv(sa["v"]["kernel"])
-            sd[f"{q}.v_conv.bias"] = _t(sa["v"]["bias"])
-            sd[f"{q}.trans_conv.weight"] = _conv(sa["trans"]["kernel"])
-            sd[f"{q}.trans_conv.bias"] = _t(sa["trans"]["bias"])
-            _bn(sd, f"{q}.after_norm", sa["after_norm"], sa_st["after_norm"])
-        sd[f"{p}.linear.0.weight"] = _conv(enc["linear"]["kernel"])
-        _bn(sd, f"{p}.linear.1", enc["linear_bn"], st["linear_bn"])
+        _pct_trunk(sd, f"{p}.", enc, st)
         _linear(sd, f"{p}.linear1", enc["linear1"])
         _bn(sd, f"{p}.bn1", enc["bn1"], st["bn1"])
         _linear(sd, f"{p}.linear2", enc["linear2"])
@@ -99,6 +115,18 @@ def state_dict_from_flax(params: dict, batch_stats: dict,
         _linear(sd, "meta_embedding_attr", params["meta_embedding_attr"])
     if "fusion" in params:
         sd["fusion.weight"] = _t(params["fusion"]["weight"])
+    return sd
+
+
+def spct_state_dict_from_flax(params: dict, batch_stats: dict
+                              ) -> dict[str, torch.Tensor]:
+    """A flax ``SPCT`` tree, or a lone ``OABlock``'s (told apart by its
+    ``qk`` entry), -> the port module's state_dict."""
+    sd: dict[str, torch.Tensor] = {}
+    if "qk" in params:
+        _attention_block(sd, "", params, batch_stats)
+    else:
+        _pct_trunk(sd, "", params, batch_stats)
     return sd
 
 

@@ -1,18 +1,21 @@
-// PCT self-attention block: inference form (SA and OA), training forward and
-// training backward (SA).
+// PCT self-attention: the SA / OA block in its inference form, its training
+// forward and backward, the block op's own backward, and the bare attention
+// op (projections and core, no trans) with its backward.
 //
-// pct_block_eval replaces sgaligner_tpu/ops/pct_attention.py::pct_block_eval
-// (Pallas kernel _block_eval_kernel). Per object, with x [P, 128]:
+// Notation, per object, with x [P, 128]:
 //   q = x·Wqk (Wqk already scaled by da^-1/4 for SA), v = x·Wv + bv, both
 //   rounded to the compute dtype;
 //   E = q·qᵀ [P, P] (symmetric: q doubles as k);
-//   y[p] = Σ_q exp(E[p,q] − lse_q)·v[q], lse_q = log Σ_p exp(E[p,q]) — the
-//   column softmax of E applied to v (the reference's transposed apply);
-//   OA divides each row by 1e-9 + Σ_q exp(E[p,q] − lse_q);
-//   u = y (SA) or x − y (OA); t = u·Wt + bt (rounded);
-//   out = x + relu(t·wbn + bbn), with (wbn, bbn) the BN affine folded from
-//   running statistics.
+//   G[j, i] = exp(E[j, i] − lse_i), lse_i = log Σ_j exp(E[j, i]): the column
+//   softmax of E (the reference's transposed apply), rounded to the compute
+//   dtype;
+//   y_j = Σ_i G[j, i]·v_i (SA); OA divides each row by s_j = 1e-9 + Σ_i G[j, i];
+//   u = y (SA) or x − y (OA); t = u·Wt + bt (rounded).
 // The [P, P] energies never reach device memory.
+//
+// pct_block_eval replaces sgaligner_tpu/ops/pct_attention.py::pct_block_eval
+// (Pallas kernel _block_eval_kernel): out = x + relu(t·wbn + bbn), with
+// (wbn, bbn) the BN affine folded from running statistics.
 //   Bound on the H100: operations. 2·P·C·(da + C) for the projections,
 //   2·P²·da for E and 2·P²·C for y, 2·P·C² for t: 126 MFLOP per object at
 //   P = 512, C = 128, da = 32, against 2·P·C elements in and out.
@@ -29,13 +32,15 @@
 //   E is computed twice (passes 2 and 3), 2·P²·da extra FLOP, an eighth of
 //   the 2·P²·C of the y product. The normaliser is an f32 log-sum-exp where
 //   the TPU kernel exponentiated in the compute dtype against a column max.
+//   OA divides y by s after the apply (f32), where the TPU kernel rounds
+//   G·(1/s) to the compute dtype before it: the same at f32.
 //
 // pct_block_fwd replaces ops/pct_attention.py::pct_block_fused (Pallas kernel
-// _block_fwd_kernel), the training forward: the same three passes, with the
-// apply pass's epilogue writing t_out = round(u·Wt + bt) [O, P, 128] and the
-// masked BN sums Σ m·t, Σ m·t² [1, 128] (f32) instead of folding. Each block
-// keeps its channel sums in registers and writes them to its scratch slice;
-// reduce_slices adds the slices in block order.
+// _block_fwd_kernel), the training forward, SA or OA: the same three passes,
+// with the apply pass's epilogue writing t_out = round(u·Wt + bt)
+// [O, P, 128] and the masked BN sums Σ m·t, Σ m·t² [1, 128] (f32) instead of
+// folding. Each block keeps its channel sums in registers and writes them to
+// its scratch slice; reduce_slices adds the slices in block order.
 //   Bound on the H100: operations, as pct_block_eval.
 //
 // pct_epi_sums replaces the Pallas kernel _epi_sums_kernel of
@@ -48,33 +53,69 @@
 //
 // pct_block_res_bwd replaces the Pallas kernel _block_res_bwd_kernel (same
 // rule): the block's backward with the BN epilogue's routing and the
-// residual. Given dxn (the next layer's cotangent), the fold (wbn, bbn) and
-// the batch-statistics cotangents (dsum, dsumsq; from the fold's vjp and
-// pct_epi_sums, so they must be complete first):
-//   recompute q, v, lse, y, u = y, t_out;
+// residual, SA or OA. Given dxn (the next layer's cotangent), the fold
+// (wbn, bbn) and the batch-statistics cotangents (dsum, dsumsq; from the
+// fold's vjp and pct_epi_sums, so they must be complete first):
+//   recompute q, v, lse, y, u, t_out;
 //   dz = dxn·[t_out·wbn + bbn > 0]·wbn + m·dsum + 2·t_out·m·dsumsq, rounded;
-//   dWt = Σ uᵀ·dz, dbt = Σ dz, dY = dz·Wtᵀ;
-//   the attention core's backward at dY (column softmax G, keys = queries):
-//     dv = Gᵀ·dY;  D_i = v_i·dv_i;
-//     dE[j,i] = G[j,i]·(dY_j·v_i − D_i);  dq = (dE + dEᵀ)·q;
+//   dWt = Σ uᵀ·dz, dbt = Σ dz, du = dz·Wtᵀ; dY = du (SA) or −du (OA);
+//   the attention core's backward at dY (column softmax G, keys = queries),
+//   with dŶ_j = dY_j / s_j and c_j = dŶ_j·y_j for OA (s = 1, c = 0 for SA):
+//     dv_i = Σ_j G[j, i]·dŶ_j;  D_i = v_i·dv_i − Σ_j G[j, i]·c_j;
+//     dE[j, i] = G[j, i]·(dŶ_j·v_i − c_j − D_i);  dq = (dE + dEᵀ)·q;
 //   dWqk = s·Σ xᵀ·dq, dWv = Σ xᵀ·dv, dbv = Σ dv,
-//   dx = dq·Wqk_sᵀ + dv·Wvᵀ + dxn (the residual), rounded.
+//   dx = dq·Wqk_sᵀ + dv·Wvᵀ (+ du for OA) + dxn (the residual), rounded.
 //   Bound on the H100: operations, about 3 x the forward.
 //   Design: four grid-stride passes over 64-row tiles after projection and
 //   lse, with the tile intermediates of one pass handed to the next through
-//   device memory (q, v, lse, dY, dv, D, dq: O(P·C) per object, never
-//   [P, P]):
+//   device memory (q, v, lse, dY, dv, D, dq, and for OA 1/s and c:
+//   O(P·C) per object, never [P, P]):
 //     dz pass: the apply loop recomputes y; the epilogue builds dz, adds
-//       uᵀ·dz into the block's scratch slice and writes dY (rounded);
+//       uᵀ·dz into the block's scratch slice and writes dY (rounded); OA
+//       keeps the f32 y tile beside t and dY in shared memory and writes
+//       1/s_j and c_j per row;
 //     dv pass: per key tile, walk the rows: G recomputed from q and lse,
-//       dv += Gᵀ·dY (transposed-A block_gemm); then D;
+//       dv += Gᵀ·dŶ (transposed-A block_gemm; dŶ = dY·(1/s) rounded as the
+//       tile is loaded); then D, less the column sums of G·c for OA;
 //     dq pass: per row tile I, walk the tiles J: with S = q_I·q_Jᵀ,
-//       F = exp(S − lse_I)·(v_I·dY_Jᵀ − D_I) + exp(S − lse_J)·(dY_I·v_Jᵀ − D_J)
-//       is the tile of dE + dEᵀ, and dq_I += F·q_J: the block owns dq_I, so
-//       no atomics;
+//       F = exp(S − lse_I)·(v_I·dŶ_Jᵀ − c_J − D_I) + exp(S − lse_J)·(dŶ_I·v_Jᵀ
+//       − c_I − D_J) is the tile of dE + dEᵀ, and dq_I += F·q_J: the block
+//       owns dq_I, so no atomics;
 //     dx pass: dx and the projection gradients, into the scratch slice.
-//   reduce_slices then adds the slices in block order. The OA flags have no
-//   backward kernel (no model on the ported paths trains OA blocks).
+//   reduce_slices then adds the slices in block order. The OA variant is a
+//   compile-time template flag: the SA launches keep their code.
+//
+// pct_block_bwd replaces ops/pct_attention.py::_block_bwd_rule (Pallas kernel
+// _block_bwd_kernel): pct_block_fused's own backward, for the cotangents
+// (dt, dsum, dsumsq) of (t_out, ssum, ssumsq):
+//   dz = dt + m·dsum + 2·t_out·m·dsumsq, rounded (no relu routing), then
+//   pct_block_res_bwd's passes; dx has no residual (+du for OA).
+//   Bound on the H100: operations, as pct_block_res_bwd.
+//   Design: pct_block_res_bwd's passes, the dz pass's and dx pass's
+//   epilogues chosen at compile time.
+//
+// pct_attn_fwd replaces ops/pct_attention.py::pct_attention_fused (Pallas
+// kernel _fwd_kernel): y [O, P, 128], rounded to the compute dtype, with no
+// trans, epilogue or sums. The scale flag is folded into Wqk by the wrapper,
+// so SA and OA normalisation each pair with either scale.
+//   Bound on the H100: operations. 2·P·C·(da + C) + 2·P²·da + 2·P²·C per
+//   object: 105 MFLOP at P = 512.
+//   Design: projection and lse as pct_block_eval, then an apply pass that
+//   writes y (OA divides by s) instead of running the trans epilogue; Wt is
+//   not resident, so the apply pass's shared memory is the key loop's alone.
+//
+// pct_attn_bwd replaces ops/pct_attention.py::_bwd_rule (Pallas kernel
+// _bwd_kernel): for the cotangent dY of y, dx = dq·Wqk_sᵀ + dv·Wvᵀ (no
+// residual, no du), dWqk_s, dWv, dbv (f32).
+//   Bound on the H100: operations. The projections again, E, dv = Gᵀ·dŶ,
+//   dG = dŶ·vᵀ, dq = (dE + dEᵀ)·q, the projection gradients and dx (for OA
+//   also y, for s and c).
+//   Design: projection and lse; for OA only, a pass per row tile that
+//   recomputes y and s (the apply loop) and writes 1/s_j and c_j; then the
+//   dv, dq and dx passes of pct_block_res_bwd (the dx pass without the
+//   residual and du). Each block sums its weight gradients into its own
+//   scratch slice; reduce_slices adds them in block order: the same bits
+//   twice.
 #include "common.cuh"
 
 namespace sga {
@@ -85,13 +126,27 @@ constexpr int kDa = 32;       // q/k width (C / 4)
 constexpr int kRows = 64;     // rows per tile, keys per chunk
 constexpr int kThreads = 256;
 
-// per-block scratch layout of the backward (floats)
+// per-block scratch layout of the backward (floats); the attention op's
+// backward uses the first three (dWqk, dWv, dbv)
 constexpr int kOffDwqk = 0;
 constexpr int kOffDwv = kOffDwqk + kC * kDa;
 constexpr int kOffDbv = kOffDwv + kC * kC;
 constexpr int kOffDwt = kOffDbv + kC;
 constexpr int kOffDbt = kOffDwt + kC * kC;
 constexpr int kBwdGrad = kOffDbt + kC;
+
+// Copy a [rows, cols] tile of dY, each row r scaled by scale[r] (1/s, OA's
+// dŶ) and rounded to T; rows >= valid_rows are zero-filled.
+template <typename T>
+__device__ __forceinline__ void load_rows_scaled(T* dst, int ld_s, const T* __restrict__ src,
+                                                 long long ld_g, int rows, int cols, int valid_rows,
+                                                 const float* __restrict__ scale) {
+  for (int idx = threadIdx.x; idx < rows * cols; idx += blockDim.x) {
+    const int r = idx / cols, c = idx % cols;
+    const float val = r < valid_rows ? to_f<T>(src[r * ld_g + c]) * scale[r] : 0.f;
+    dst[r * ld_s + c] = from_f<T>(val);
+  }
+}
 
 // ----------------------------- pass 1: project -----------------------------
 
@@ -167,6 +222,12 @@ __device__ __forceinline__ void merge_lse(float& m, float& l) {
   }
 }
 
+// sum over the 4 lanes of a row (lanes sub = 0..3 of one quad)
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 lse_kernel(const T* __restrict__ q, float* __restrict__ lse, int o, int p) {
@@ -208,13 +269,15 @@ lse_kernel(const T* __restrict__ q, float* __restrict__ lse, int o, int p) {
 
 // ------------------------------ pass 3: apply ------------------------------
 
-template <typename T>
+// kWt: Wt resident ahead of the apply region (the block kernels); the
+// attention op's passes leave it out
+template <typename T, bool kWt = true>
 struct ApplySmem {
   static constexpr int ldq = pad_ld<T>(kDa), ldv = pad_ld<T>(kC), ldg = pad_ld<T>(kRows);
   static constexpr int ldw = pad_ld<T>(kC), ldu = pad_ld<T>(kC);
   static constexpr int lds = pad_ldf(kRows), ldy = pad_ldf(kC);
   static constexpr size_t wt_off = 0;
-  static constexpr size_t qt_off = align128(wt_off + sizeof(T) * kC * ldw);
+  static constexpr size_t qt_off = kWt ? align128(wt_off + sizeof(T) * kC * ldw) : 0;
   static constexpr size_t y_off = align128(qt_off + sizeof(T) * kRows * ldq);
   static constexpr size_t rs_off = align128(y_off + sizeof(float) * kRows * ldy);
   static constexpr size_t lc_off = align128(rs_off + sizeof(float) * kRows);
@@ -231,15 +294,18 @@ struct ApplySmem {
   static constexpr size_t dz_end = align128(dz_off + sizeof(T) * kRows * ldu);
   static constexpr size_t bytes = loop_end > u_end ? loop_end : u_end;
   static constexpr size_t bwd_bytes = loop_end > dz_end ? loop_end : dz_end;
+  // the OA backward's dz pass keeps the f32 y tile in y_off and puts t,
+  // then dY, in a tile of its own
+  static constexpr size_t t_off = bwd_bytes;
+  static constexpr size_t oa_bwd_bytes = align128(t_off + sizeof(float) * kRows * ldy);
 };
 
 // y of one 64-row tile (rows r0.. of the object starting at row ob):
 // sy[r, c] = Σ_k G[r, k]·v[k, c] with G = exp(E − lse_k) rounded to T, and
 // srs[r] = Σ_k G[r, k] (OA's row sums). Ends synchronised.
-template <typename T>
+template <typename T, typename L>
 __device__ void attend_tile(unsigned char* smem, const T* __restrict__ q, const T* __restrict__ v,
                             const float* __restrict__ lse, size_t ob, int r0, int valid, int p) {
-  using L = ApplySmem<T>;
   T* sqt = reinterpret_cast<T*>(smem + L::qt_off);
   float* sy = reinterpret_cast<float*>(smem + L::y_off);
   float* srs = reinterpret_cast<float*>(smem + L::rs_off);
@@ -267,8 +333,7 @@ __device__ void attend_tile(unsigned char* smem, const T* __restrict__ q, const 
       sg[row * L::ldg + j] = gt;
       part += to_f<T>(gt);
     }
-    part += __shfl_xor_sync(0xffffffffu, part, 1);
-    part += __shfl_xor_sync(0xffffffffu, part, 2);
+    part = quad_sum(part);
     if (sub == 0) srs[row] += part;
     __syncthreads();
     block_gemm<T, false>(sg, L::ldg, svc, L::ldv, sy, L::ldy, kRows, kC, kRows, c0 > 0);
@@ -301,7 +366,7 @@ apply_kernel(const T* __restrict__ x, const T* __restrict__ q, const T* __restri
     const int obj = (int)(t / per_obj), r0 = (int)(t % per_obj) * kRows;
     const int valid = min(kRows, p - r0);
     const size_t ob = (size_t)obj * p;
-    attend_tile<T>(smem, q, v, lse, ob, r0, valid, p);
+    attend_tile<T, L>(smem, q, v, lse, ob, r0, valid, p);
     // u = y (SA) or x − y (OA), each rounded to T
     for (int idx = threadIdx.x; idx < kRows * kC; idx += blockDim.x) {
       const int r = idx / kC, c = idx % kC;
@@ -340,6 +405,68 @@ apply_kernel(const T* __restrict__ x, const T* __restrict__ q, const T* __restri
   }
 }
 
+// The attention op's apply pass: y = Σ G·v (OA: divided by s), rounded.
+template <typename T, bool OA>
+__global__ void __launch_bounds__(kThreads)
+attn_out_kernel(const T* __restrict__ q, const T* __restrict__ v, const float* __restrict__ lse,
+                T* __restrict__ y, int o, int p) {
+  using L = ApplySmem<T, false>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const float* sy = reinterpret_cast<const float*>(smem + L::y_off);
+  const float* srs = reinterpret_cast<const float*>(smem + L::rs_off);
+
+  const int per_obj = (p + kRows - 1) / kRows;
+  const long long tiles = (long long)o * per_obj;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int obj = (int)(t / per_obj), r0 = (int)(t % per_obj) * kRows;
+    const int valid = min(kRows, p - r0);
+    const size_t ob = (size_t)obj * p;
+    attend_tile<T, L>(smem, q, v, lse, ob, r0, valid, p);
+    for (int idx = threadIdx.x; idx < valid * kC; idx += blockDim.x) {
+      const int r = idx / kC, c = idx % kC;
+      float val = sy[r * L::ldy + c];
+      if constexpr (OA) val = val / (1e-9f + srs[r]);
+      y[(ob + r0 + r) * kC + c] = from_f<T>(val);
+    }
+    __syncthreads();
+  }
+}
+
+// The attention op's OA pass: per row, 1/s_j into sc[0..rows) and
+// c_j = (dY_j / s_j)·y_j into sc[rows..2·rows), y recomputed by the apply
+// loop (f32).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+attn_sc_kernel(const T* __restrict__ q, const T* __restrict__ v, const float* __restrict__ lse,
+               const T* __restrict__ dy, float* __restrict__ sc, int o, int p) {
+  using L = ApplySmem<T, false>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const float* sy = reinterpret_cast<const float*>(smem + L::y_off);
+  const float* srs = reinterpret_cast<const float*>(smem + L::rs_off);
+
+  const long long rows = (long long)o * p;
+  const int row = threadIdx.x / 4, sub = threadIdx.x % 4;
+  const int per_obj = (p + kRows - 1) / kRows;
+  const long long tiles = (long long)o * per_obj;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int obj = (int)(t / per_obj), r0 = (int)(t % per_obj) * kRows;
+    const int valid = min(kRows, p - r0);
+    const size_t ob = (size_t)obj * p;
+    attend_tile<T, L>(smem, q, v, lse, ob, r0, valid, p);
+    const float inv = 1.f / (1e-9f + srs[row]);
+    float c = 0.f;
+    if (row < valid)
+      for (int cc = sub; cc < kC; cc += 4)
+        c += (to_f<T>(dy[(ob + r0 + row) * kC + cc]) * inv) * (sy[row * L::ldy + cc] * inv);
+    c = quad_sum(c);
+    if (sub == 0 && row < valid) {
+      sc[ob + r0 + row] = inv;
+      sc[rows + ob + r0 + row] = c;
+    }
+    __syncthreads();
+  }
+}
+
 // --------------------------- training: epilogue sums ------------------------
 
 // relu routing of the training epilogue x + relu(t·wbn + bbn): the multiply
@@ -372,19 +499,25 @@ epi_sums_kernel(const T* __restrict__ tout, const float* __restrict__ wbn,
 // ------------------------------ training: backward --------------------------
 
 // dz pass: recompute y and t_out per row tile, build dz, add uᵀ·dz and Σ dz
-// into the block's slice, write dY = dz·Wtᵀ (rounded).
-template <typename T>
+// into the block's slice, write dY = ±dz·Wtᵀ (rounded).
+// EPI: dz from the epilogue's routing of dxn (pct_block_res_bwd); otherwise
+// dxn is the cotangent dt of t_out (pct_block_bwd). OA: u = x − y, dY = −du,
+// and the row vectors 1/s, c into sc.
+template <typename T, bool EPI, bool OA>
 __global__ void __launch_bounds__(kThreads)
-bwd_dz_kernel(const T* __restrict__ q, const T* __restrict__ v, const float* __restrict__ lse,
-              const T* __restrict__ wt, const T* __restrict__ bt, const T* __restrict__ mask,
-              const T* __restrict__ dxn, const float* __restrict__ wbn,
-              const float* __restrict__ bbn, const float* __restrict__ dsum,
-              const float* __restrict__ dsumsq, T* __restrict__ dy, float* __restrict__ scratch,
-              int o, int p) {
+bwd_dz_kernel(const T* __restrict__ x, const T* __restrict__ q, const T* __restrict__ v,
+              const float* __restrict__ lse, const T* __restrict__ wt, const T* __restrict__ bt,
+              const T* __restrict__ mask, const T* __restrict__ dxn,
+              const float* __restrict__ wbn, const float* __restrict__ bbn,
+              const float* __restrict__ dsum, const float* __restrict__ dsumsq,
+              T* __restrict__ dy, float* __restrict__ sc, float* __restrict__ scratch, int o,
+              int p) {
   using L = ApplySmem<T>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* swt = reinterpret_cast<T*>(smem + L::wt_off);
-  float* sy = reinterpret_cast<float*>(smem + L::y_off);  // y, t, then dY
+  float* sy = reinterpret_cast<float*>(smem + L::y_off);  // y (SA: then t, then dY)
+  const float* srs = reinterpret_cast<const float*>(smem + L::rs_off);
+  float* st = OA ? reinterpret_cast<float*>(smem + L::t_off) : sy;  // t, then du
   T* su = reinterpret_cast<T*>(smem + L::u_off);
   T* sdz = reinterpret_cast<T*>(smem + L::dz_off);
 
@@ -392,8 +525,15 @@ bwd_dz_kernel(const T* __restrict__ q, const T* __restrict__ v, const float* __r
   for (int i = threadIdx.x; i < kC * kC; i += blockDim.x) part[kOffDwt + i] = 0.f;
   load_tile<T>(swt, L::ldw, wt, kC, kC, kC, kC);
   const int c = threadIdx.x % kC;
-  const float wc = wbn[c], w_t = round_to<T>(wc), b_t = round_to<T>(bbn[c]);
+  float wc = 0.f, w_t = 0.f, b_t = 0.f;
+  if constexpr (EPI) {
+    wc = wbn[c];
+    w_t = round_to<T>(wc);
+    b_t = round_to<T>(bbn[c]);
+  }
   const float btc = to_f<T>(bt[c]), d1 = dsum[c], d2 = dsumsq[c];
+  const long long rows = (long long)o * p;
+  const int row = threadIdx.x / 4, sub = threadIdx.x % 4;
   float rdbt = 0.f;
   __syncthreads();
 
@@ -403,40 +543,68 @@ bwd_dz_kernel(const T* __restrict__ q, const T* __restrict__ v, const float* __r
     const int obj = (int)(t / per_obj), r0 = (int)(t % per_obj) * kRows;
     const int valid = min(kRows, p - r0);
     const size_t ob = (size_t)obj * p;
-    attend_tile<T>(smem, q, v, lse, ob, r0, valid, p);
+    attend_tile<T, L>(smem, q, v, lse, ob, r0, valid, p);
     for (int idx = threadIdx.x; idx < kRows * kC; idx += blockDim.x) {
       const int r = idx / kC, cc = idx % kC;
-      su[r * L::ldu + cc] = from_f<T>(r < valid ? sy[r * L::ldy + cc] : 0.f);  // u = y (SA)
+      if constexpr (OA) {
+        float u = 0.f;
+        if (r < valid) {
+          const float y = sy[r * L::ldy + cc] / (1e-9f + srs[r]);
+          sy[r * L::ldy + cc] = y;  // kept for c
+          u = to_f<T>(x[(ob + r0 + r) * kC + cc]) - round_to<T>(y);
+        }
+        su[r * L::ldu + cc] = from_f<T>(u);
+      } else {
+        su[r * L::ldu + cc] = from_f<T>(r < valid ? sy[r * L::ldy + cc] : 0.f);  // u = y
+      }
     }
     __syncthreads();
-    block_gemm<T, false>(su, L::ldu, swt, L::ldw, sy, L::ldy, kRows, kC, kC, false);
+    block_gemm<T, false>(su, L::ldu, swt, L::ldw, st, L::ldy, kRows, kC, kC, false);
     __syncthreads();
     const float m = to_f<T>(mask[obj]);
     for (int idx = threadIdx.x; idx < kRows * kC; idx += blockDim.x) {
       const int r = idx / kC;  // channel c (idx % kC) throughout
       float dz = 0.f;
       if (r < valid) {
-        const float tv = round_to<T>(sy[r * L::ldy + c] + btc);
-        const float g = epi_live<T>(tv, w_t, b_t) ? to_f<T>(dxn[(ob + r0 + r) * kC + c]) : 0.f;
-        dz = round_to<T>((g * wc + m * d1) + 2.f * tv * (m * d2));
+        const float tv = round_to<T>(st[r * L::ldy + c] + btc);
+        const float g = to_f<T>(dxn[(ob + r0 + r) * kC + c]);
+        if constexpr (EPI)
+          dz = round_to<T>(((epi_live<T>(tv, w_t, b_t) ? g : 0.f) * wc + m * d1) +
+                           2.f * tv * (m * d2));
+        else
+          dz = round_to<T>((g + m * d1) + 2.f * tv * (m * d2));
       }
       sdz[r * L::ldu + c] = from_f<T>(dz);
       rdbt += dz;
     }
     __syncthreads();
     block_gemm<T, false, true>(su, L::ldu, sdz, L::ldu, part + kOffDwt, kC, kC, kC, kRows, true);
-    block_gemm<T, true>(sdz, L::ldu, swt, L::ldw, sy, L::ldy, kRows, kC, kC, false);
+    block_gemm<T, true>(sdz, L::ldu, swt, L::ldw, st, L::ldy, kRows, kC, kC, false);
     __syncthreads();
+    if constexpr (OA) {
+      // dY = −du; c_j = (dY_j / s_j)·y_j
+      const float inv = 1.f / (1e-9f + srs[row]);
+      float cr = 0.f;
+      if (row < valid)
+        for (int cc = sub; cc < kC; cc += 4)
+          cr += (-st[row * L::ldy + cc] * inv) * sy[row * L::ldy + cc];
+      cr = quad_sum(cr);
+      if (sub == 0 && row < valid) {
+        sc[ob + r0 + row] = inv;
+        sc[rows + ob + r0 + row] = cr;
+      }
+    }
     for (int idx = threadIdx.x; idx < valid * kC; idx += blockDim.x) {
       const int r = idx / kC, cc = idx % kC;
-      dy[(ob + r0 + r) * kC + cc] = from_f<T>(sy[r * L::ldy + cc]);
+      const float d = st[r * L::ldy + cc];
+      dy[(ob + r0 + r) * kC + cc] = from_f<T>(OA ? -d : d);
     }
     __syncthreads();
   }
   store_channel_sums(rdbt, part + kOffDbt);
 }
 
-template <typename T>
+template <typename T, bool OA>
 struct DvSmem {
   static constexpr int ldq = pad_ld<T>(kDa), ldc = pad_ld<T>(kC), ldg = pad_ld<T>(kRows);
   static constexpr int lds = pad_ldf(kRows), ldv = pad_ldf(kC);
@@ -447,17 +615,19 @@ struct DvSmem {
   static constexpr size_t g_off = align128(s_off + sizeof(float) * kRows * lds);
   static constexpr size_t dv_off = align128(g_off + sizeof(T) * kRows * ldg);
   static constexpr size_t l_off = align128(dv_off + sizeof(float) * kRows * ldv);
-  static constexpr size_t bytes = align128(l_off + sizeof(float) * kRows);
+  // lse of the key tile; OA: c of the row tile too
+  static constexpr size_t bytes = align128(l_off + sizeof(float) * (OA ? 2 : 1) * kRows);
 };
 
-// dv pass: per key tile I, dv_I = Σ_J G_JIᵀ·dY_J with G[j, i] = exp(E[j,i] −
-// lse_i); writes dv (rounded) and D_i = v_i·dv_i (f32).
-template <typename T>
+// dv pass: per key tile I, dv_I = Σ_J G_JIᵀ·dŶ_J with G[j, i] = exp(E[j,i] −
+// lse_i); writes dv (rounded) and D_i = v_i·dv_i (f32), less Σ_j G[j, i]·c_j
+// for OA.
+template <typename T, bool OA>
 __global__ void __launch_bounds__(kThreads)
 bwd_dv_kernel(const T* __restrict__ q, const T* __restrict__ v, const float* __restrict__ lse,
-              const T* __restrict__ dy, T* __restrict__ dv, float* __restrict__ dd, int o,
-              int p) {
-  using L = DvSmem<T>;
+              const T* __restrict__ dy, const float* __restrict__ sc, T* __restrict__ dv,
+              float* __restrict__ dd, int o, int p) {
+  using L = DvSmem<T, OA>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sqi = reinterpret_cast<T*>(smem + L::qi_off);
   T* sqj = reinterpret_cast<T*>(smem + L::qj_off);
@@ -466,7 +636,9 @@ bwd_dv_kernel(const T* __restrict__ q, const T* __restrict__ v, const float* __r
   T* sg = reinterpret_cast<T*>(smem + L::g_off);
   float* sdv = reinterpret_cast<float*>(smem + L::dv_off);
   float* sl = reinterpret_cast<float*>(smem + L::l_off);
+  float* scj = sl + kRows;  // OA
 
+  const long long rows = (long long)o * p;
   const int row = threadIdx.x / 4, sub = threadIdx.x % 4;
   const int per_obj = (p + kRows - 1) / kRows;
   const long long tiles = (long long)o * per_obj;
@@ -476,10 +648,16 @@ bwd_dv_kernel(const T* __restrict__ q, const T* __restrict__ v, const float* __r
     const size_t ob = (size_t)obj * p;
     load_tile<T>(sqi, L::ldq, q + (ob + i0) * kDa, kDa, kRows, kDa, valid);
     if (threadIdx.x < kRows) sl[threadIdx.x] = threadIdx.x < valid ? lse[ob + i0 + threadIdx.x] : 0.f;
+    float gc = 0.f;  // OA: Σ_j G[j, i]·c_j of column i = row, this lane's rows
     for (int j0 = 0; j0 < p; j0 += kRows) {
       const int kv = min(kRows, p - j0);
       load_tile<T>(sqj, L::ldq, q + (ob + j0) * kDa, kDa, kRows, kDa, kv);
-      load_tile<T>(sdy, L::ldc, dy + (ob + j0) * kC, kC, kRows, kC, kv);
+      if constexpr (OA) {
+        load_rows_scaled<T>(sdy, L::ldc, dy + (ob + j0) * kC, kC, kRows, kC, kv, sc + ob + j0);
+        if (threadIdx.x < kRows) scj[threadIdx.x] = threadIdx.x < kv ? sc[rows + ob + j0 + threadIdx.x] : 0.f;
+      } else {
+        load_tile<T>(sdy, L::ldc, dy + (ob + j0) * kC, kC, kRows, kC, kv);
+      }
       __syncthreads();
       block_gemm<T, true>(sqj, L::ldq, sqi, L::ldq, ss, L::lds, kRows, kRows, kDa, false);
       __syncthreads();
@@ -489,6 +667,8 @@ bwd_dv_kernel(const T* __restrict__ q, const T* __restrict__ v, const float* __r
         sg[j * L::ldg + i] = from_f<T>(g);
       }
       __syncthreads();
+      if constexpr (OA)
+        for (int j = sub; j < kv; j += 4) gc += to_f<T>(sg[j * L::ldg + row]) * scj[j];
       block_gemm<T, false, true>(sg, L::ldg, sdy, L::ldc, sdv, L::ldv, kRows, kC, kRows, j0 > 0);
       __syncthreads();
     }
@@ -500,14 +680,14 @@ bwd_dv_kernel(const T* __restrict__ q, const T* __restrict__ v, const float* __r
     if (row < valid)
       for (int cc = sub; cc < kC; cc += 4)
         d = fmaf(sdv[row * L::ldv + cc], to_f<T>(v[(ob + i0 + row) * kC + cc]), d);
-    d += __shfl_xor_sync(0xffffffffu, d, 1);
-    d += __shfl_xor_sync(0xffffffffu, d, 2);
+    d = quad_sum(d);
+    if constexpr (OA) d -= quad_sum(gc);
     if (sub == 0 && row < valid) dd[ob + i0 + row] = d;
     __syncthreads();
   }
 }
 
-template <typename T>
+template <typename T, bool OA>
 struct DqSmem {
   static constexpr bool kF32 = std::is_same<T, float>::value;
   static constexpr int ldq = pad_ld<T>(kDa), ldc = pad_ld<T>(kC), ldf = pad_ld<T>(kRows);
@@ -527,17 +707,18 @@ struct DqSmem {
   static constexpr size_t ft_end = kF32 ? f_end : align128(ft_off + sizeof(T) * kRows * ldf);
   static constexpr size_t dq_off = ft_end;
   static constexpr size_t vec_off = align128(dq_off + sizeof(float) * kRows * lda);
-  static constexpr size_t bytes = align128(vec_off + sizeof(float) * 4 * kRows);
+  // lse and D of tiles I and J; OA: c of both too
+  static constexpr size_t bytes = align128(vec_off + sizeof(float) * (OA ? 6 : 4) * kRows);
 };
 
 // dq pass: per row tile I, dq_I = Σ_J F_IJ·q_J with F the (I, J) tile of
 // dE + dEᵀ.
-template <typename T>
+template <typename T, bool OA>
 __global__ void __launch_bounds__(kThreads)
 bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ v, const float* __restrict__ lse,
-              const T* __restrict__ dy, const float* __restrict__ dd, T* __restrict__ dq, int o,
-              int p) {
-  using L = DqSmem<T>;
+              const T* __restrict__ dy, const float* __restrict__ dd,
+              const float* __restrict__ sc, T* __restrict__ dq, int o, int p) {
+  using L = DqSmem<T, OA>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sqi = reinterpret_cast<T*>(smem + L::qi_off);
   T* sqj = reinterpret_cast<T*>(smem + L::qj_off);
@@ -554,7 +735,10 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ v, const float* __r
   float* di = li + kRows;
   float* lj = li + 2 * kRows;
   float* dj = li + 3 * kRows;
+  float* ci = li + 4 * kRows;  // OA
+  float* cj = li + 5 * kRows;  // OA
 
+  const long long rows = (long long)o * p;
   const int per_obj = (p + kRows - 1) / kRows;
   const long long tiles = (long long)o * per_obj;
   for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
@@ -563,40 +747,53 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ v, const float* __r
     const size_t ob = (size_t)obj * p;
     load_tile<T>(sqi, L::ldq, q + (ob + i0) * kDa, kDa, kRows, kDa, valid);
     load_tile<T>(svi, L::ldc, v + (ob + i0) * kC, kC, kRows, kC, valid);
-    load_tile<T>(syi, L::ldc, dy + (ob + i0) * kC, kC, kRows, kC, valid);
+    if constexpr (OA)
+      load_rows_scaled<T>(syi, L::ldc, dy + (ob + i0) * kC, kC, kRows, kC, valid, sc + ob + i0);
+    else
+      load_tile<T>(syi, L::ldc, dy + (ob + i0) * kC, kC, kRows, kC, valid);
     if (threadIdx.x < kRows) {
       const bool in = threadIdx.x < valid;
       li[threadIdx.x] = in ? lse[ob + i0 + threadIdx.x] : 0.f;
       di[threadIdx.x] = in ? dd[ob + i0 + threadIdx.x] : 0.f;
+      if constexpr (OA) ci[threadIdx.x] = in ? sc[rows + ob + i0 + threadIdx.x] : 0.f;
     }
     for (int j0 = 0; j0 < p; j0 += kRows) {
       const int kv = min(kRows, p - j0);
       load_tile<T>(sqj, L::ldq, q + (ob + j0) * kDa, kDa, kRows, kDa, kv);
       load_tile<T>(svj, L::ldc, v + (ob + j0) * kC, kC, kRows, kC, kv);
-      load_tile<T>(syj, L::ldc, dy + (ob + j0) * kC, kC, kRows, kC, kv);
+      if constexpr (OA)
+        load_rows_scaled<T>(syj, L::ldc, dy + (ob + j0) * kC, kC, kRows, kC, kv, sc + ob + j0);
+      else
+        load_tile<T>(syj, L::ldc, dy + (ob + j0) * kC, kC, kRows, kC, kv);
       if (threadIdx.x < kRows) {
         const bool in = threadIdx.x < kv;
         lj[threadIdx.x] = in ? lse[ob + j0 + threadIdx.x] : 0.f;
         dj[threadIdx.x] = in ? dd[ob + j0 + threadIdx.x] : 0.f;
+        if constexpr (OA) cj[threadIdx.x] = in ? sc[rows + ob + j0 + threadIdx.x] : 0.f;
       }
       __syncthreads();
       block_gemm<T, true>(sqi, L::ldq, sqj, L::ldq, ss, L::lds, kRows, kRows, kDa, false);
       block_gemm<T, true>(svi, L::ldc, syj, L::ldc, spp, L::lds, kRows, kRows, kC, false);
       __syncthreads();
-      // dE[j, i] term: G[j, i] = exp(E[i, j] − lse_i), dY_j·v_i = (v_I·dY_Jᵀ)[i, j]
+      // dE[j, i] term: G[j, i] = exp(E[i, j] − lse_i), dŶ_j·v_i = (v_I·dŶ_Jᵀ)[i, j]
       for (int idx = threadIdx.x; idx < kRows * kRows; idx += blockDim.x) {
         const int i = idx / kRows, j = idx % kRows;
-        sf[i * L::lds + j] = expf(ss[i * L::lds + j] - li[i]) * (spp[i * L::lds + j] - di[i]);
+        float a = spp[i * L::lds + j];
+        if constexpr (OA) a -= cj[j];
+        sf[i * L::lds + j] = expf(ss[i * L::lds + j] - li[i]) * (a - di[i]);
       }
       __syncthreads();
       block_gemm<T, true>(syi, L::ldc, svj, L::ldc, spp, L::lds, kRows, kRows, kC, false);
       __syncthreads();
-      // dE[i, j] term: G[i, j] = exp(E[i, j] − lse_j), dY_i·v_j
+      // dE[i, j] term: G[i, j] = exp(E[i, j] − lse_j), dŶ_i·v_j
       for (int idx = threadIdx.x; idx < kRows * kRows; idx += blockDim.x) {
         const int i = idx / kRows, j = idx % kRows;
         float f = 0.f;
-        if (j < kv)
-          f = sf[i * L::lds + j] + expf(ss[i * L::lds + j] - lj[j]) * (spp[i * L::lds + j] - dj[j]);
+        if (j < kv) {
+          float a = spp[i * L::lds + j];
+          if constexpr (OA) a -= ci[i];
+          f = sf[i * L::lds + j] + expf(ss[i * L::lds + j] - lj[j]) * (a - dj[j]);
+        }
         sft[i * L::ldf + j] = from_f<T>(f);
       }
       __syncthreads();
@@ -624,13 +821,14 @@ struct DxSmem {
   static constexpr size_t bytes = align128(c_off + sizeof(float) * kRows * ldc);
 };
 
-// dx pass: dx = dq·Wqk_sᵀ + dv·Wvᵀ + dxn; xᵀ·dq, xᵀ·dv and Σ dv into the
-// block's slice.
-template <typename T>
+// dx pass: dx = dq·Wqk_sᵀ + dv·Wvᵀ (+ du = −dY with DU) (+ dxn with RESID);
+// xᵀ·dq, xᵀ·dv and Σ dv into the block's slice.
+template <typename T, bool RESID, bool DU>
 __global__ void __launch_bounds__(kThreads)
 bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ wqk, const T* __restrict__ wv,
               const T* __restrict__ dq, const T* __restrict__ dv, const T* __restrict__ dxn,
-              T* __restrict__ dx, float* __restrict__ scratch, long long rows) {
+              const T* __restrict__ dy, T* __restrict__ dx, float* __restrict__ scratch,
+              long long rows) {
   using L = DxSmem<T>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* swq = reinterpret_cast<T*>(smem + L::wq_off);
@@ -666,7 +864,10 @@ bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ wqk, const T* __res
     for (int idx = threadIdx.x; idx < valid * kC; idx += blockDim.x) {
       const int r = idx / kC;  // channel c throughout
       const long long at = (row0 + r) * kC + c;
-      dx[at] = from_f<T>(sc[r * L::ldc + c] + to_f<T>(dxn[at]));
+      float d = sc[r * L::ldc + c];
+      if constexpr (DU) d -= to_f<T>(dy[at]);
+      if constexpr (RESID) d += to_f<T>(dxn[at]);
+      dx[at] = from_f<T>(d);
       rdbv += to_f<T>(sdv[r * L::ldx + c]);
     }
     __syncthreads();
@@ -713,13 +914,13 @@ template <typename T>
 int launch_block_fwd(const void* x, const void* wqk, const void* wv, const void* bv,
                      const void* wt, const void* bt, const void* mask, void* q, void* v,
                      float* lse, void* tout, float* scratch, int blocks, float* sums, int o,
-                     int p, cudaStream_t st) {
+                     int p, int oa, cudaStream_t st) {
   if (int rc = project_and_lse<T>(x, wqk, wv, bv, q, v, lse, o, p, st)) return rc;
   const size_t s3 = ApplySmem<T>::bytes;
   if (int rc = allow_smem(apply_kernel<T, true>, s3)) return rc;
   apply_kernel<T, true><<<blocks, kThreads, s3, st>>>(
       (const T*)x, (const T*)q, (const T*)v, lse, (const T*)wt, (const T*)bt, nullptr, nullptr,
-      (const T*)mask, (T*)tout, scratch, o, p, 0);
+      (const T*)mask, (T*)tout, scratch, o, p, oa);
   if (int rc = (int)cudaGetLastError()) return rc;
   return reduce_slices(scratch, slice_stride(2 * kC), blocks, sums, 2 * kC, st);
 }
@@ -733,44 +934,114 @@ int launch_epi_sums(const void* tout, const float* wbn, const float* bbn, const 
   return reduce_slices(scratch, slice_stride(2 * kC), blocks, sums, 2 * kC, st);
 }
 
-template <typename T>
+// The dv, dq and dx passes shared by the three backwards (dY, and for OA
+// 1/s and c, already in device memory). RESID / DU: the dx pass's residual
+// and du terms.
+template <typename T, bool OA, bool RESID, bool DU>
+int launch_core_bwd(const void* x, const void* wqk, const void* wv, const void* dxn,
+                    const void* q, const void* v, const float* lse, const void* dy,
+                    const float* sc, void* dv, float* dd, void* dq, void* dx, float* scratch,
+                    int blocks, int o, int p, cudaStream_t st) {
+  const long long tiles = (long long)o * ((p + kRows - 1) / kRows);
+  const size_t s2 = DvSmem<T, OA>::bytes;
+  if (int rc = allow_smem(bwd_dv_kernel<T, OA>, s2)) return rc;
+  const int g2 = resident_grid(bwd_dv_kernel<T, OA>, kThreads, s2, tiles);
+  bwd_dv_kernel<T, OA><<<g2, kThreads, s2, st>>>((const T*)q, (const T*)v, lse, (const T*)dy,
+                                                 sc, (T*)dv, dd, o, p);
+  if (int rc = (int)cudaGetLastError()) return rc;
+
+  const size_t s3 = DqSmem<T, OA>::bytes;
+  if (int rc = allow_smem(bwd_dq_kernel<T, OA>, s3)) return rc;
+  const int g3 = resident_grid(bwd_dq_kernel<T, OA>, kThreads, s3, tiles);
+  bwd_dq_kernel<T, OA><<<g3, kThreads, s3, st>>>((const T*)q, (const T*)v, lse, (const T*)dy,
+                                                 dd, sc, (T*)dq, o, p);
+  if (int rc = (int)cudaGetLastError()) return rc;
+
+  const size_t s4 = DxSmem<T>::bytes;
+  if (int rc = allow_smem(bwd_dx_kernel<T, RESID, DU>, s4)) return rc;
+  bwd_dx_kernel<T, RESID, DU><<<blocks, kThreads, s4, st>>>(
+      (const T*)x, (const T*)wqk, (const T*)wv, (const T*)dq, (const T*)dv, (const T*)dxn,
+      (const T*)dy, (T*)dx, scratch, (long long)o * p);
+  return (int)cudaGetLastError();
+}
+
+// pct_block_res_bwd (EPI) and pct_block_bwd: dxn is the next layer's
+// cotangent (EPI) or t_out's (not EPI)
+template <typename T, bool EPI, bool OA>
 int launch_block_bwd(const void* x, const void* wqk, const void* wv, const void* bv,
                      const void* wt, const void* bt, const void* mask, const void* dxn,
                      const float* wbn, const float* bbn, const float* dsum, const float* dsumsq,
                      void* q, void* v, float* lse, void* dy, void* dv, float* dd, void* dq,
-                     void* dx, float* scratch, int blocks, float* grads, int o, int p,
+                     float* sc, void* dx, float* scratch, int blocks, float* grads, int o, int p,
                      cudaStream_t st) {
   if (int rc = project_and_lse<T>(x, wqk, wv, bv, q, v, lse, o, p, st)) return rc;
-  const long long tiles = (long long)o * ((p + kRows - 1) / kRows);
 
-  const size_t s1 = ApplySmem<T>::bwd_bytes;
-  if (int rc = allow_smem(bwd_dz_kernel<T>, s1)) return rc;
-  bwd_dz_kernel<T><<<blocks, kThreads, s1, st>>>(
-      (const T*)q, (const T*)v, lse, (const T*)wt, (const T*)bt, (const T*)mask, (const T*)dxn,
-      wbn, bbn, dsum, dsumsq, (T*)dy, scratch, o, p);
+  const size_t s1 = OA ? ApplySmem<T>::oa_bwd_bytes : ApplySmem<T>::bwd_bytes;
+  if (int rc = allow_smem(bwd_dz_kernel<T, EPI, OA>, s1)) return rc;
+  bwd_dz_kernel<T, EPI, OA><<<blocks, kThreads, s1, st>>>(
+      (const T*)x, (const T*)q, (const T*)v, lse, (const T*)wt, (const T*)bt, (const T*)mask,
+      (const T*)dxn, wbn, bbn, dsum, dsumsq, (T*)dy, sc, scratch, o, p);
   if (int rc = (int)cudaGetLastError()) return rc;
 
-  const size_t s2 = DvSmem<T>::bytes;
-  if (int rc = allow_smem(bwd_dv_kernel<T>, s2)) return rc;
-  const int g2 = resident_grid(bwd_dv_kernel<T>, kThreads, s2, tiles);
-  bwd_dv_kernel<T><<<g2, kThreads, s2, st>>>((const T*)q, (const T*)v, lse, (const T*)dy, (T*)dv,
-                                             dd, o, p);
-  if (int rc = (int)cudaGetLastError()) return rc;
-
-  const size_t s3 = DqSmem<T>::bytes;
-  if (int rc = allow_smem(bwd_dq_kernel<T>, s3)) return rc;
-  const int g3 = resident_grid(bwd_dq_kernel<T>, kThreads, s3, tiles);
-  bwd_dq_kernel<T><<<g3, kThreads, s3, st>>>((const T*)q, (const T*)v, lse, (const T*)dy, dd,
-                                             (T*)dq, o, p);
-  if (int rc = (int)cudaGetLastError()) return rc;
-
-  const size_t s4 = DxSmem<T>::bytes;
-  if (int rc = allow_smem(bwd_dx_kernel<T>, s4)) return rc;
-  bwd_dx_kernel<T><<<blocks, kThreads, s4, st>>>((const T*)x, (const T*)wqk, (const T*)wv,
-                                                 (const T*)dq, (const T*)dv, (const T*)dxn,
-                                                 (T*)dx, scratch, (long long)o * p);
-  if (int rc = (int)cudaGetLastError()) return rc;
+  if (int rc = launch_core_bwd<T, OA, EPI, OA>(x, wqk, wv, dxn, q, v, lse, dy, sc, dv, dd, dq,
+                                                dx, scratch, blocks, o, p, st))
+    return rc;
   return reduce_slices(scratch, slice_stride(kBwdGrad), blocks, grads, kBwdGrad, st);
+}
+
+template <typename T>
+int launch_attn_fwd(const void* x, const void* wqk, const void* wv, const void* bv, void* q,
+                    void* v, float* lse, void* y, int o, int p, int oa, cudaStream_t st) {
+  if (int rc = project_and_lse<T>(x, wqk, wv, bv, q, v, lse, o, p, st)) return rc;
+  const long long tiles = (long long)o * ((p + kRows - 1) / kRows);
+  const size_t s3 = ApplySmem<T, false>::bytes;
+  auto kernel = oa ? attn_out_kernel<T, true> : attn_out_kernel<T, false>;
+  if (int rc = allow_smem(kernel, s3)) return rc;
+  const int g3 = resident_grid(kernel, kThreads, s3, tiles);
+  kernel<<<g3, kThreads, s3, st>>>((const T*)q, (const T*)v, lse, (T*)y, o, p);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool OA>
+int launch_attn_bwd(const void* x, const void* wqk, const void* wv, const void* bv,
+                    const void* dy, void* q, void* v, float* lse, void* dv, float* dd, void* dq,
+                    float* sc, void* dx, float* scratch, int blocks, float* grads, int o, int p,
+                    cudaStream_t st) {
+  if (int rc = project_and_lse<T>(x, wqk, wv, bv, q, v, lse, o, p, st)) return rc;
+  if constexpr (OA) {
+    const long long tiles = (long long)o * ((p + kRows - 1) / kRows);
+    const size_t s1 = ApplySmem<T, false>::bytes;
+    if (int rc = allow_smem(attn_sc_kernel<T>, s1)) return rc;
+    const int g1 = resident_grid(attn_sc_kernel<T>, kThreads, s1, tiles);
+    attn_sc_kernel<T><<<g1, kThreads, s1, st>>>((const T*)q, (const T*)v, lse, (const T*)dy, sc,
+                                                o, p);
+    if (int rc = (int)cudaGetLastError()) return rc;
+  }
+  if (int rc = launch_core_bwd<T, OA, false, false>(x, wqk, wv, nullptr, q, v, lse, dy, sc, dv,
+                                                     dd, dq, dx, scratch, blocks, o, p, st))
+    return rc;
+  return reduce_slices(scratch, slice_stride(kBwdGrad), blocks, grads, kOffDwt, st);
+}
+
+// (dtype, oa) -> one instantiation of a backward launcher
+template <bool EPI>
+int block_bwd_entry(const void* x, const void* wqk, const void* wv, const void* bv,
+                    const void* wt, const void* bt, const void* mask, const void* dxn,
+                    const float* wbn, const float* bbn, const float* dsum, const float* dsumsq,
+                    void* q, void* v, float* lse, void* dy, void* dv, float* dd, void* dq,
+                    float* sc, void* dx, float* scratch, int blocks, float* grads, int o, int p,
+                    int oa, int dtype, cudaStream_t st) {
+#define SGA_BLOCK_BWD(T, OA)                                                                    \
+  return launch_block_bwd<T, EPI, OA>(x, wqk, wv, bv, wt, bt, mask, dxn, wbn, bbn, dsum, dsumsq, \
+                                      q, v, lse, dy, dv, dd, dq, sc, dx, scratch, blocks, grads, \
+                                      o, p, st)
+  if (dtype == kBF16) {
+    if (oa) SGA_BLOCK_BWD(bf16, true);
+    SGA_BLOCK_BWD(bf16, false);
+  }
+  if (oa) SGA_BLOCK_BWD(float, true);
+  SGA_BLOCK_BWD(float, false);
+#undef SGA_BLOCK_BWD
 }
 
 }  // namespace
@@ -790,18 +1061,18 @@ int sga_pct_block_eval(const void* x, const void* wqk, const void* wv, const voi
                                   st);
 }
 
-// SA training forward: t_out [O, P, 128], sums [2, 128] (Σ m·t, Σ m·t²) f32;
-// scratch: `blocks` slices of slice_stride(256) floats
+// Training forward (SA, or OA with oa = 1): t_out [O, P, 128], sums [2, 128]
+// (Σ m·t, Σ m·t²) f32; scratch: `blocks` slices of slice_stride(256) floats
 int sga_pct_block_fwd(const void* x, const void* wqk, const void* wv, const void* bv,
                       const void* wt, const void* bt, const void* mask, void* q, void* v,
                       float* lse, void* tout, float* scratch, int blocks, float* sums, int o,
-                      int p, int dtype, void* stream) {
+                      int p, int oa, int dtype, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == sga::kBF16)
     return sga::launch_block_fwd<sga::bf16>(x, wqk, wv, bv, wt, bt, mask, q, v, lse, tout,
-                                            scratch, blocks, sums, o, p, st);
+                                            scratch, blocks, sums, o, p, oa, st);
   return sga::launch_block_fwd<float>(x, wqk, wv, bv, wt, bt, mask, q, v, lse, tout, scratch,
-                                      blocks, sums, o, p, st);
+                                      blocks, sums, o, p, oa, st);
 }
 
 // sums [2, 128]: Σ g·t, Σ g; scratch: `blocks` slices of slice_stride(256)
@@ -814,24 +1085,65 @@ int sga_pct_epi_sums(const void* tout, const float* wbn, const float* bbn, const
   return sga::launch_epi_sums<float>(tout, wbn, bbn, dy, scratch, blocks, sums, rows, st);
 }
 
-// SA training backward. grads f32: dWqk_s [128, 32] (the gradient of the
-// scaled weight), dWv [128, 128], dbv [128], dWt [128, 128], dbt [128];
-// q, v, lse, dy, dv, dd, dq: work buffers of the shapes of q, v, lse, x, x,
-// lse, q; scratch: `blocks` slices of slice_stride(37120) floats
+// Training backward with the epilogue (SA, or OA with oa = 1). grads f32:
+// dWqk_s [128, 32] (the gradient of the scaled weight), dWv [128, 128],
+// dbv [128], dWt [128, 128], dbt [128]; q, v, lse, dy, dv, dd, dq: work
+// buffers of the shapes of q, v, lse, x, x, lse, q; sc: [2, O·P] f32 (OA's
+// 1/s and c); scratch: `blocks` slices of slice_stride(37120) floats
 int sga_pct_block_res_bwd(const void* x, const void* wqk, const void* wv, const void* bv,
                           const void* wt, const void* bt, const void* mask, const void* dxn,
                           const float* wbn, const float* bbn, const float* dsum,
                           const float* dsumsq, void* q, void* v, float* lse, void* dy, void* dv,
-                          float* dd, void* dq, void* dx, float* scratch, int blocks,
-                          float* grads, int o, int p, int dtype, void* stream) {
+                          float* dd, void* dq, float* sc, void* dx, float* scratch, int blocks,
+                          float* grads, int o, int p, int oa, int dtype, void* stream) {
+  return sga::block_bwd_entry<true>(x, wqk, wv, bv, wt, bt, mask, dxn, wbn, bbn, dsum, dsumsq, q,
+                                    v, lse, dy, dv, dd, dq, sc, dx, scratch, blocks, grads, o, p,
+                                    oa, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// pct_block_fused's backward for the cotangents dt [O, P, 128] (compute
+// dtype) and dsum, dsumsq [128] (f32): dx without a residual, grads and
+// buffers as sga_pct_block_res_bwd
+int sga_pct_block_bwd(const void* x, const void* wqk, const void* wv, const void* bv,
+                      const void* wt, const void* bt, const void* mask, const void* dt,
+                      const float* dsum, const float* dsumsq, void* q, void* v, float* lse,
+                      void* dy, void* dv, float* dd, void* dq, float* sc, void* dx,
+                      float* scratch, int blocks, float* grads, int o, int p, int oa, int dtype,
+                      void* stream) {
+  return sga::block_bwd_entry<false>(x, wqk, wv, bv, wt, bt, mask, dt, nullptr, nullptr, dsum,
+                                     dsumsq, q, v, lse, dy, dv, dd, dq, sc, dx, scratch, blocks,
+                                     grads, o, p, oa, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// pct_attention_fused's forward: y [O, P, 128] in the compute dtype (OA row
+// normalisation with oa = 1); q, v, lse work buffers
+int sga_pct_attn_fwd(const void* x, const void* wqk, const void* wv, const void* bv, void* q,
+                     void* v, float* lse, void* y, int o, int p, int oa, int dtype,
+                     void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == sga::kBF16)
-    return sga::launch_block_bwd<sga::bf16>(x, wqk, wv, bv, wt, bt, mask, dxn, wbn, bbn, dsum,
-                                            dsumsq, q, v, lse, dy, dv, dd, dq, dx, scratch,
-                                            blocks, grads, o, p, st);
-  return sga::launch_block_bwd<float>(x, wqk, wv, bv, wt, bt, mask, dxn, wbn, bbn, dsum, dsumsq,
-                                      q, v, lse, dy, dv, dd, dq, dx, scratch, blocks, grads, o, p,
-                                      st);
+    return sga::launch_attn_fwd<sga::bf16>(x, wqk, wv, bv, q, v, lse, y, o, p, oa, st);
+  return sga::launch_attn_fwd<float>(x, wqk, wv, bv, q, v, lse, y, o, p, oa, st);
+}
+
+// pct_attention_fused's backward for dY [O, P, 128]: dx, and grads f32
+// dWqk_s [128, 32], dWv [128, 128], dbv [128]; buffers as
+// sga_pct_block_res_bwd (the same scratch slices)
+int sga_pct_attn_bwd(const void* x, const void* wqk, const void* wv, const void* bv,
+                     const void* dy, void* q, void* v, float* lse, void* dv, float* dd, void* dq,
+                     float* sc, void* dx, float* scratch, int blocks, float* grads, int o, int p,
+                     int oa, int dtype, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+#define SGA_ATTN_BWD(T, OA)                                                                       \
+  return sga::launch_attn_bwd<T, OA>(x, wqk, wv, bv, dy, q, v, lse, dv, dd, dq, sc, dx, scratch, \
+                                     blocks, grads, o, p, st)
+  if (dtype == sga::kBF16) {
+    if (oa) SGA_ATTN_BWD(sga::bf16, true);
+    SGA_ATTN_BWD(sga::bf16, false);
+  }
+  if (oa) SGA_ATTN_BWD(float, true);
+  SGA_ATTN_BWD(float, false);
+#undef SGA_ATTN_BWD
 }
 
 }  // extern "C"

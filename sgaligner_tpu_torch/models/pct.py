@@ -1,23 +1,27 @@
-"""NaivePCT object encoder, inference and training forms.
+"""PCT object encoders, inference and training forms: NaivePCT (SA blocks)
+and SPCT (OA blocks).
 
 Counterpart of ``sgaligner_tpu/models/pct.py`` (``MaskedBatchNorm`` with its
-running-statistics and masked batch-statistics forms, ``SABlock`` fused form
-(``_fused_block``), ``NaivePCT`` with channel-first input, the fused
-embedding / block / tail ops and the head's two ``Dropout(0.5)``).
+running-statistics and masked batch-statistics forms, ``SABlock`` and
+``OABlock`` in their fused form (``_fused_block``), ``NaivePCT`` with
+channel-first input, the fused embedding / block / tail ops and the head's
+two ``Dropout(0.5)``, and ``SPCT``: the embedding, four OA blocks and the
+1024-wide tail with its max and mean pools).
 Parameters carry upstream SGAligner's torch names and shapes
 (``object_encoder.sa1.q_conv.weight`` is ``[32, 128, 1]``), the names
 ``sgaligner_tpu/core/checkpoint.py::torch_state_dict_to_params`` maps from.
 Parameters are stored in float32; the forward computes in the module's
 ``dtype``.
 
-In eval mode the four inference ops run (``embed_first``, ``embed_second``,
+In eval mode the inference ops run (``embed_first``, ``embed_second``,
 ``pct_block_eval``, ``pct_tail``) with the running-statistics folds. In
 train mode the autograd Functions run (``EmbedFirst``, ``EmbedSecond``,
 ``BlockResidual``, ``PctTail``), the BatchNorms fold from the batch's masked
 moments and update their running statistics (decay 0.9, the unbiased
-variance), and the head draws its dropout from the caller's generator. The
-ops dispatch on the tensors' device: CUDA tensors launch the kernels of
-``csrc/``, CPU tensors take the plain versions.
+variance), and the head draws its dropout from the caller's generator.
+SPCT's tail is plain torch in both modes, as the JAX package leaves it to
+XLA. The ops dispatch on the tensors' device: CUDA tensors launch the
+kernels of ``csrc/``, CPU tensors take the plain versions.
 """
 
 from __future__ import annotations
@@ -176,6 +180,8 @@ class SABlock(nn.Module):
     """Self-attention block (upstream pct.py SA): shared q/k weight,
     1/sqrt(da) scale, column softmax, ``x + relu(BN(trans(attn(x))))``."""
 
+    scale, double_norm = True, False
+
     def __init__(self, channels: int = 128):
         super().__init__()
         self.q_conv = Conv1x1(channels, channels // 4, bias=False)
@@ -194,12 +200,21 @@ class SABlock(nn.Module):
         bn = self.after_norm
         if not self.training:
             wbn, bbn = bn.fold(dt)
-            return pct_block_eval(x, *weights, wbn, bbn, scale=True,
-                                  double_norm=False)
+            return pct_block_eval(x, *weights, wbn, bbn, scale=self.scale,
+                                  double_norm=self.double_norm)
         x_next, ssum, ssumsq = BlockResidual.apply(
-            x, *weights, bn.weight, bn.bias, kmask, count, True, False, bn.eps)
+            x, *weights, bn.weight, bn.bias, kmask, count, self.scale,
+            self.double_norm, bn.eps)
         bn.update_running(*moments_from_sums(ssum.detach(), ssumsq.detach(), count))
         return x_next
+
+
+class OABlock(SABlock):
+    """Offset-attention block (upstream pct.py OA): SABlock's parameters and
+    forms without the energy scale, the rows re-normalised by ``1e-9 + Σ``
+    after the column softmax, and ``x + relu(BN(trans(x - attn(x))))``."""
+
+    scale, double_norm = False, True
 
 
 class NaivePCT(nn.Module):
@@ -256,3 +271,35 @@ class NaivePCT(nn.Module):
         if train:
             x = dropout(x, self.dropout, generator)
         return x
+
+
+class SPCT(nn.Module):
+    """SPCT (upstream pct.py SPCT): NaivePCT's embedding, four OA blocks and
+    the 1024-wide tail, with no head: a feature extractor.
+
+    Input: points-last ``[O, P, 3]`` (the JAX layout) and the object mask
+    ``[O]``. Returns ``(x [O, P, 1024], max over P [O, 1024], mean over P
+    [O, 1024])`` in the module's dtype, pads included."""
+
+    def __init__(self, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.embedding = Embedding()
+        self.sa1, self.sa2, self.sa3, self.sa4 = (OABlock(128) for _ in range(4))
+        self.linear = nn.ModuleList([Conv1x1(512, 1024, bias=False),
+                                     MaskedBatchNorm(1024)])
+
+    def forward(self, points: torch.Tensor, mask: torch.Tensor):
+        dt = self.dtype
+        pts = points.to(dt).transpose(1, 2).contiguous()             # [O, 3, P]
+        kmask = mask.to(dt)[:, None].contiguous()
+        count = (torch.clamp_min(mask.to(torch.float32).sum() * pts.shape[-1], 1.0)
+                 if self.training else None)
+        x = self.embedding(pts, kmask, dt, count)
+        feats = []
+        for sa in (self.sa1, self.sa2, self.sa3, self.sa4):
+            x = sa(x, kmask, count)
+            feats.append(x)
+        z = torch.matmul(torch.cat(feats, dim=-1), self.linear[0].kernel(dt))
+        x = F.leaky_relu(self.linear[1](z, mask[:, None]), 0.2)      # [O, P, 1024]
+        return x, x.amax(dim=1), x.mean(dim=1)

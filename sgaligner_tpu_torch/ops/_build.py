@@ -33,7 +33,9 @@ LAUNCHES: dict[str, int] = {"embed_first": 0, "embed_second": 0,
                             "pointnet_fwd": 0, "pointnet_bwd": 0,
                             "embed_first_bwd": 0, "embed_second_bwd": 0,
                             "pct_block_fwd": 0, "pct_epi_sums": 0,
-                            "pct_block_res_bwd": 0, "pct_tail_bwd": 0}
+                            "pct_block_res_bwd": 0, "pct_tail_bwd": 0,
+                            "pct_attn_fwd": 0, "pct_attn_bwd": 0,
+                            "pct_block_bwd": 0}
 
 _lib: ctypes.CDLL | None = None
 build_info: dict = {}
@@ -124,11 +126,17 @@ _SIGNATURES = {
     "sga_embed_second_bwd": [_P, _P, _P, _P, _P, _P, _F, _F, _P, _F, _I, _F,
                              _I, _I, _I, _P],
     "sga_pct_block_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _P, _F, _I,
-                          _F, _I, _I, _I, _P],
+                          _F, _I, _I, _I, _I, _P],
     "sga_pct_epi_sums": [_P, _F, _F, _P, _F, _I, _F, _L, _I, _P],
     "sga_pct_block_res_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F,
-                              _P, _P, _F, _P, _P, _F, _P, _P, _F, _I, _F, _I,
-                              _I, _I, _P],
+                              _P, _P, _F, _P, _P, _F, _P, _F, _P, _F, _I, _F,
+                              _I, _I, _I, _I, _P],
+    "sga_pct_block_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _P, _P, _F,
+                          _P, _P, _F, _P, _F, _P, _F, _I, _F, _I, _I, _I, _I,
+                          _P],
+    "sga_pct_attn_fwd": [_P, _P, _P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _P],
+    "sga_pct_attn_bwd": [_P, _P, _P, _P, _P, _P, _P, _F, _P, _F, _P, _F, _P,
+                         _F, _I, _F, _I, _I, _I, _I, _P],
     "sga_pct_tail_bwd": [_P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _P, _P, _P,
                          _P, _P, _P, _P, _F, _I, _F, _I, _I, _I, _I, _P],
     # queries (no launch): scratch sizes and the backward's block count

@@ -1,11 +1,14 @@
-"""PCT self-attention block: inference form (SA and OA flags) and the
-training op with its backward.
+"""PCT self-attention: the SA / OA block's inference form, its training op
+with the backward, the block op ``pct_block_fused`` with its own backward,
+and the bare attention op ``pct_attention_fused`` with its backward.
 
-Counterpart of ``sgaligner_tpu/ops/pct_attention.py``: ``pct_block_eval``,
-and ``pct_block_residual`` (the training block: ``pct_block_fused``'s forward,
+Counterpart of ``sgaligner_tpu/ops/pct_attention.py``: ``pct_block_eval``;
+``pct_block_residual`` (the training block: ``pct_block_fused``'s forward,
 the batch-statistics BN fold ``_fold_from_sums`` and the relu / residual
 epilogue, with the two-kernel backward ``_epi_sums_kernel`` then
-``_block_res_bwd_kernel``), and the plain composition they are defined by
+``_block_res_bwd_kernel``); ``pct_block_fused`` (its forward and
+``_block_bwd_kernel``); ``pct_attention_fused`` (``_fwd_kernel`` and
+``_bwd_kernel``); and the plain composition they are defined by
 (``_qk_scale``, ``_project``, ``_attn_core``, ``_block_math``). Reference
 quirks kept:
 
@@ -17,13 +20,15 @@ quirks kept:
   residual branch is ``trans(x - attn(x))``;
 * SA scales E by ``1/sqrt(da)``, folded into the q/k weight as ``da^-1/4``.
 
-A CUDA tensor goes through ``csrc/pct_attention.cu``; a CPU tensor through
-the plain versions (``block_eval_plain``, ``block_fwd_plain``,
-``epi_sums_plain``, ``block_res_bwd_plain``), which repeat the JAX kernels op
-for op (their exponentials run in the compute dtype against a column max, as
-the TPU kernels' do; the CUDA kernels use an f32 log-sum-exp instead). The
-training kernels take the SA flags only: the OA flags (SPCT / FullPCT, not
-ported) run on CPU tensors alone.
+Every op takes both flag sets, SA (``scale=True, double_norm=False``) and OA
+(``False, True``); the block ops take ``double_norm`` as the OA residual
+too, as the JAX ops do. A CUDA tensor goes through ``csrc/pct_attention.cu``;
+a CPU tensor through the plain versions (``block_eval_plain``,
+``block_fwd_plain``, ``epi_sums_plain``, ``block_res_bwd_plain``,
+``block_bwd_plain``, ``attn_fwd_plain``, ``attn_bwd_plain``), which repeat
+the JAX kernels op for op (their exponentials run in the compute dtype
+against a column max, as the TPU kernels' do; the CUDA kernels use an f32
+log-sum-exp instead).
 """
 
 from __future__ import annotations
@@ -132,24 +137,21 @@ def pct_block_eval(x, wqk, wv, bv, wt, bt, wbn, bbn, scale=True,
 C, DA = 128, 32
 
 
-def _check_sa(name, scale, double_norm):
-    if (scale, double_norm) != (True, False):
-        raise ValueError(f"{name}: the CUDA kernel takes the SA flags only "
-                         "(scale=True, double_norm=False); the OA flags belong "
-                         "to SPCT / FullPCT, not ported yet (ROADMAP.md)")
-
-
-def _check_block(name, x, wqk, wv, bv, wt, bt, mask):
-    dt = x.dtype
-    _build.check_cuda(name, {"x": x, "wqk": wqk, "wv": wv, "bv": bv, "wt": wt,
-                             "bt": bt, "mask": mask}, dt)
+def _check_attn(name, x, wqk, wv, bv):
+    _build.check_cuda(name, {"x": x, "wqk": wqk, "wv": wv, "bv": bv}, x.dtype)
     o, p, _ = x.shape
     _build.check_shape(name, "x", x, (o, p, C))
     _build.check_shape(name, "wqk", wqk, (C, DA))
-    for key, t in (("wv", wv), ("wt", wt)):
-        _build.check_shape(name, key, t, (C, C))
-    for key, t in (("bv", bv), ("bt", bt)):
-        _build.check_shape(name, key, t, (C,))
+    _build.check_shape(name, "wv", wv, (C, C))
+    _build.check_shape(name, "bv", bv, (C,))
+    return o, p
+
+
+def _check_block(name, x, wqk, wv, bv, wt, bt, mask):
+    o, p = _check_attn(name, x, wqk, wv, bv)
+    _build.check_cuda(name, {"x": x, "wt": wt, "bt": bt, "mask": mask}, x.dtype)
+    _build.check_shape(name, "wt", wt, (C, C))
+    _build.check_shape(name, "bt", bt, (C,))
     _build.check_shape(name, "mask", mask, (o, 1))
     return o, p
 
@@ -167,7 +169,6 @@ def block_fwd(x, wqk, wv, bv, wt, bt, mask, scale=True, double_norm=False):
     if x.device.type == "cpu":
         return block_fwd_plain(x, wqk, wv, bv, wt, bt, mask, scale, double_norm)
     name = "pct_block_fwd"
-    _check_sa(name, scale, double_norm)
     wqk_s = qk_scale(wqk, scale).contiguous()
     o, p = _check_block(name, x, wqk_s, wv, bv, wt, bt, mask)
     dev, dt = x.device, x.dtype
@@ -182,7 +183,8 @@ def block_fwd(x, wqk, wv, bv, wt, bt, mask, scale=True, double_norm=False):
         _build.launch(name, "sga_pct_block_fwd", dev,
                       *(t.data_ptr() for t in (x, wqk_s, wv, bv, wt, bt, mask,
                                                q, v, lse, t_out, part)),
-                      blocks, sums.data_ptr(), o, p, _build.DTYPE_CODE[dt])
+                      blocks, sums.data_ptr(), o, p, int(double_norm),
+                      _build.DTYPE_CODE[dt])
     return t_out, sums[:1], sums[1:]
 
 
@@ -244,37 +246,119 @@ def epi_sums(t_out, wbn, bbn, dy):
     return sums[:1], sums[1:]
 
 
-def block_res_bwd_plain(x, wqk, wv, bv, wt, bt, mask, dxn, wbn, bbn, dsum,
-                        dsumsq, scale=True, double_norm=False):
-    acc, dt = acc_dtype(x.dtype), x.dtype
+def _recompute(x, wqk, wv, bv, scale, double_norm):
+    """The forward again for a backward: the core's output at the
+    accumulation dtype with its graph over fresh leaves (qg, vg)."""
     q, v = project(x, wqk, wv, bv, scale)
     with torch.enable_grad():
         qg, vg = q.detach().requires_grad_(True), v.detach().requires_grad_(True)
-        y_acc = attn_core(qg, vg, double_norm)
-    y = y_acc.detach().to(dt)
-    u = (x - y) if double_norm else y
-    t_out = (torch.matmul(u.to(acc), wt.to(acc)) + bt.to(acc)).to(dt)
-    # epilogue backward: dt = dxn·1{t_out·w + b > 0}·w, then the BN sums' path
-    zero = torch.zeros((), dtype=acc, device=x.device)
-    g = torch.where(_live(t_out, wbn, bbn), dxn.to(acc), zero)
-    m = mask.to(acc)
-    a1, a2 = m * dsum.to(acc), m * dsumsq.to(acc)                   # [O, C]
-    dz = (g * wbn.to(acc) + a1[:, None]
-          + 2.0 * t_out.to(acc) * a2[:, None]).to(dt).to(acc)
-    dwt = torch.einsum("opc,opd->cd", u.to(acc), dz)
-    dbt = dz.sum(dim=(0, 1))[None]
-    du = torch.matmul(dz, wt.to(acc).t())
-    dq, dv = torch.autograd.grad(y_acc, (qg, vg), -du if double_norm else du)
+        return qg, vg, attn_core(qg, vg, double_norm)
+
+
+def _through_core(x, wqk, wv, scale, qg, vg, y_acc, dy):
+    """The attention core's and the projections' backward for the core
+    output's cotangent dy (accumulation dtype): (dx, dwqk, dwv, dbv [1, C]),
+    dx before any residual, all at the accumulation dtype."""
+    acc = acc_dtype(x.dtype)
+    dq, dv = torch.autograd.grad(y_acc, (qg, vg), dy)
     dq, dv = dq.to(acc), dv.to(acc)
     s = float(wqk.shape[-1]) ** -0.25 if scale else 1.0
     dwqk = s * torch.einsum("opc,opd->cd", x.to(acc), dq)
     dwv = torch.einsum("opc,opd->cd", x.to(acc), dv)
     dx = (torch.matmul(dq, qk_scale(wqk, scale).to(acc).t())
           + torch.matmul(dv, wv.to(acc).t()))
-    if double_norm:
+    return dx, dwqk, dwv, dv.sum(dim=(0, 1))[None]
+
+
+def _block_bwd_math(x, wqk, wv, bv, wt, bt, mask, dsum, dsumsq, scale,
+                    double_norm, dt_of):
+    """The block backward both block ops share: with ``dt_of(t_out)`` the
+    cotangent reaching t_out (accumulation dtype), dz = dt + m·dsum +
+    2·t_out·m·dsumsq rounded, then trans and the core. Returns (dx at the
+    accumulation dtype, +du for OA, no residual; dwqk, dwv, dbv, dwt, dbt)."""
+    acc, dt = acc_dtype(x.dtype), x.dtype
+    qg, vg, y_acc = _recompute(x, wqk, wv, bv, scale, double_norm)
+    y = y_acc.detach().to(dt)
+    u = (x - y) if double_norm else y
+    t_out = (torch.matmul(u.to(acc), wt.to(acc)) + bt.to(acc)).to(dt)
+    m = mask.to(acc)
+    a1, a2 = m * dsum.to(acc), m * dsumsq.to(acc)                   # [O, C]
+    dz = (dt_of(t_out) + a1[:, None]
+          + 2.0 * t_out.to(acc) * a2[:, None]).to(dt).to(acc)
+    dwt = torch.einsum("opc,opd->cd", u.to(acc), dz)
+    dbt = dz.sum(dim=(0, 1))[None]
+    du = torch.matmul(dz, wt.to(acc).t())
+    dx, dwqk, dwv, dbv = _through_core(x, wqk, wv, scale, qg, vg, y_acc,
+                                       -du if double_norm else du)
+    if double_norm:  # u = x - y: dx gets +du directly
         dx = dx + du
-    dx = (dx + dxn.to(acc)).to(dt)
-    return dx, dwqk, dwv, dv.sum(dim=(0, 1))[None], dwt, dbt
+    return dx, dwqk, dwv, dbv, dwt, dbt
+
+
+def block_res_bwd_plain(x, wqk, wv, bv, wt, bt, mask, dxn, wbn, bbn, dsum,
+                        dsumsq, scale=True, double_norm=False):
+    acc = acc_dtype(x.dtype)
+    zero = torch.zeros((), dtype=acc, device=x.device)
+
+    def dt_of(t_out):  # epilogue backward: dt = dxn·1{t_out·w + b > 0}·w
+        return torch.where(_live(t_out, wbn, bbn), dxn.to(acc), zero) * wbn.to(acc)
+
+    dx, *grads = _block_bwd_math(x, wqk, wv, bv, wt, bt, mask, dsum, dsumsq,
+                                 scale, double_norm, dt_of)
+    return ((dx + dxn.to(acc)).to(x.dtype), *grads)
+
+
+def block_bwd_plain(x, wqk, wv, bv, wt, bt, mask, dt, dsum, dsumsq, scale=True,
+                    double_norm=False):
+    acc = acc_dtype(x.dtype)
+    dx, *grads = _block_bwd_math(x, wqk, wv, bv, wt, bt, mask, dsum, dsumsq,
+                                 scale, double_norm, lambda t_out: dt.to(acc))
+    return (dx.to(x.dtype), *grads)
+
+
+def _work(x):
+    """Device buffers of the backward passes: q, v, lse, dY, dv, D, dq and
+    OA's row vectors (1/s, c)."""
+    o, p, _ = x.shape
+    dev, dt = x.device, x.dtype
+    lse = torch.empty((o, p), dtype=torch.float32, device=dev)
+    return (torch.empty((o, p, DA), dtype=dt, device=dev), torch.empty_like(x), lse,
+            torch.empty_like(x), torch.empty_like(x), torch.empty_like(lse),
+            torch.empty((o, p, DA), dtype=dt, device=dev),
+            torch.empty((2, o, p), dtype=torch.float32, device=dev))
+
+
+N_GRAD = C * DA + 2 * C * C + 2 * C  # dWqk, dWv, dbv, dWt, dbt (f32)
+
+
+def _block_backward(name, fn_name, x, wqk, wv, bv, wt, bt, mask, cot, vecs,
+                    scale, double_norm):
+    """Launch one block backward: ``cot`` is dxn (pct_block_res_bwd) or dt
+    (pct_block_bwd), ``vecs`` its [128] f32 inputs in the C entry's order."""
+    wqk_s = qk_scale(wqk, scale).contiguous()
+    o, p = _check_block(name, x, wqk_s, wv, bv, wt, bt, mask)
+    dev, dt = x.device, x.dtype
+    vecs = {k: t.to(torch.float32).reshape(-1).contiguous() for k, t in vecs}
+    _build.check_cuda(name, {"cotangent": cot}, dt)
+    _build.check_cuda(name, {"x": x, **vecs})
+    _build.check_shape(name, "cotangent", cot, (o, p, C))
+    for key, t in vecs.items():
+        _build.check_shape(name, key, t, (C,))
+    grads = torch.zeros(N_GRAD, dtype=torch.float32, device=dev)
+    dx = torch.empty_like(x)
+    if o:
+        blocks = _build.grid_blocks(dev, o * ((p + 63) // 64), per_sm=1)
+        part = _build.scratch(dev, blocks, N_GRAD)
+        work = _work(x)
+        _build.launch(name, fn_name, dev,
+                      *(t.data_ptr() for t in (x, wqk_s, wv, bv, wt, bt, mask, cot,
+                                               *vecs.values(), *work, dx, part)),
+                      blocks, grads.data_ptr(), o, p, int(double_norm),
+                      _build.DTYPE_CODE[dt])
+    dwqk, dwv, dbv, dwt, dbt = torch.split(grads, (C * DA, C * C, C, C * C, C))
+    s = float(DA) ** -0.25 if scale else 1.0
+    return (dx, s * dwqk.view(C, DA), dwv.view(C, C), dbv.view(1, C),
+            dwt.view(C, C), dbt.view(1, C))
 
 
 def block_res_bwd(x, wqk, wv, bv, wt, bt, mask, dxn, wbn, bbn, dsum, dsumsq,
@@ -288,40 +372,23 @@ def block_res_bwd(x, wqk, wv, bv, wt, bt, mask, dxn, wbn, bbn, dsum, dsumsq,
     if x.device.type == "cpu":
         return block_res_bwd_plain(x, wqk, wv, bv, wt, bt, mask, dxn, wbn, bbn,
                                    dsum, dsumsq, scale, double_norm)
-    name = "pct_block_res_bwd"
-    _check_sa(name, scale, double_norm)
-    wqk_s = qk_scale(wqk, scale).contiguous()
-    o, p = _check_block(name, x, wqk_s, wv, bv, wt, bt, mask)
-    dev, dt = x.device, x.dtype
-    vecs = {k: t.to(torch.float32).reshape(-1).contiguous()
-            for k, t in (("wbn", wbn), ("bbn", bbn), ("dsum", dsum),
-                         ("dsumsq", dsumsq))}
-    _build.check_cuda(name, {"dxn": dxn}, dt)
-    _build.check_cuda(name, {"x": x, **vecs})
-    _build.check_shape(name, "dxn", dxn, (o, p, C))
-    for key, t in vecs.items():
-        _build.check_shape(name, key, t, (C,))
-    n_grad = C * DA + 2 * C * C + 2 * C
-    grads = torch.zeros(n_grad, dtype=torch.float32, device=dev)
-    dx = torch.empty_like(x)
-    if o:
-        q = torch.empty((o, p, DA), dtype=dt, device=dev)
-        lse = torch.empty((o, p), dtype=torch.float32, device=dev)
-        v, dy, dv = (torch.empty_like(x) for _ in range(3))
-        dd = torch.empty_like(lse)
-        dq = torch.empty_like(q)
-        blocks = _build.grid_blocks(dev, o * ((p + 63) // 64), per_sm=1)
-        part = _build.scratch(dev, blocks, n_grad)
-        _build.launch(name, "sga_pct_block_res_bwd", dev,
-                      *(t.data_ptr() for t in (x, wqk_s, wv, bv, wt, bt, mask, dxn,
-                                               vecs["wbn"], vecs["bbn"],
-                                               vecs["dsum"], vecs["dsumsq"], q, v,
-                                               lse, dy, dv, dd, dq, dx, part)),
-                      blocks, grads.data_ptr(), o, p, _build.DTYPE_CODE[dt])
-    dwqk, dwv, dbv, dwt, dbt = torch.split(grads, (C * DA, C * C, C, C * C, C))
-    s = float(DA) ** -0.25 if scale else 1.0
-    return (dx, s * dwqk.view(C, DA), dwv.view(C, C), dbv.view(1, C),
-            dwt.view(C, C), dbt.view(1, C))
+    return _block_backward("pct_block_res_bwd", "sga_pct_block_res_bwd", x, wqk, wv,
+                           bv, wt, bt, mask, dxn,
+                           (("wbn", wbn), ("bbn", bbn), ("dsum", dsum),
+                            ("dsumsq", dsumsq)), scale, double_norm)
+
+
+def block_bwd(x, wqk, wv, bv, wt, bt, mask, dt, dsum, dsumsq, scale=True,
+              double_norm=False):
+    """Backward of ``block_fwd`` for the cotangents ``dt [O, P, 128]`` (x's
+    dtype) of t_out and ``dsum, dsumsq [1, 128]`` (f32) of the sums:
+    ``(dx (no residual), dwqk, dwv, dbv, dwt, dbt)`` as ``block_res_bwd``."""
+    if x.device.type == "cpu":
+        return block_bwd_plain(x, wqk, wv, bv, wt, bt, mask, dt, dsum, dsumsq,
+                               scale, double_norm)
+    return _block_backward("pct_block_bwd", "sga_pct_block_bwd", x, wqk, wv, bv, wt,
+                           bt, mask, dt, (("dsum", dsum), ("dsumsq", dsumsq)),
+                           scale, double_norm)
 
 
 class BlockResidual(torch.autograd.Function):
@@ -369,3 +436,122 @@ class BlockResidual(torch.autograd.Function):
         return (dx, dwqk.to(wqk.dtype), dwv.to(wv.dtype), dbv[0].to(bv.dtype),
                 dwt.to(wt.dtype), dbt[0].to(bt.dtype), d_scale, d_bias, None,
                 None, None, None, None)
+
+
+class BlockFused(torch.autograd.Function):
+    """Counterpart of ``pct_block_fused``: the SA/OA block's ``(t_out, ssum,
+    ssumsq)`` with its own backward (``block_fwd``, then ``block_bwd`` for
+    the cotangents of all three). The mask gets a zero gradient, as JAX's
+    ``jnp.zeros_like(mask)``."""
+
+    @staticmethod
+    def forward(ctx, x, wqk, wv, bv, wt, bt, mask, scale=True, double_norm=False):
+        ctx.save_for_backward(x, wqk, wv, bv, wt, bt, mask)
+        ctx.flags = (scale, double_norm)
+        return block_fwd(x, wqk, wv, bv, wt, bt, mask, scale, double_norm)
+
+    @staticmethod
+    def backward(ctx, dt, dsum, dsumsq):
+        x, wqk, wv, bv, wt, bt, mask = ctx.saved_tensors
+        dx, dwqk, dwv, dbv, dwt, dbt = block_bwd(
+            x, wqk, wv, bv, wt, bt, mask, dt.contiguous(), dsum, dsumsq, *ctx.flags)
+        dmask = torch.zeros_like(mask) if ctx.needs_input_grad[6] else None
+        return (dx, dwqk.to(wqk.dtype), dwv.to(wv.dtype), dbv[0].to(bv.dtype),
+                dwt.to(wt.dtype), dbt[0].to(bt.dtype), dmask, None, None)
+
+
+def pct_block_fused(x, wqk, wv, bv, wt, bt, mask, scale=True, double_norm=False):
+    """The SA/OA block op: ``(t_out [O, P, 128], ssum [1, 128], ssumsq
+    [1, 128])`` with gradients for x and the five weights. Arguments as
+    ``block_fwd``; ``double_norm`` selects the OA normalisation and
+    residual direction."""
+    return BlockFused.apply(x, wqk, wv, bv, wt, bt, mask, scale, double_norm)
+
+
+# --------------------------- the attention op --------------------------------
+
+def attn_fwd_plain(x, wqk, wv, bv, scale=True, double_norm=False):
+    q, v = project(x, wqk, wv, bv, scale)
+    return attn_core(q, v, double_norm).to(x.dtype)
+
+
+def attn_fwd(x, wqk, wv, bv, scale=True, double_norm=False):
+    """The attention op's forward: ``y [O, P, 128]`` in x's dtype, the
+    projections and the core with no trans. ``scale`` and ``double_norm``
+    are independent: each of the four pairs runs. Weights as in
+    ``pct_block_eval``."""
+    if x.device.type == "cpu":
+        return attn_fwd_plain(x, wqk, wv, bv, scale, double_norm)
+    name = "pct_attn_fwd"
+    wqk_s = qk_scale(wqk, scale).contiguous()
+    o, p = _check_attn(name, x, wqk_s, wv, bv)
+    y = torch.empty_like(x)
+    if o:
+        q, v, lse = _work(x)[:3]
+        _build.launch(name, "sga_pct_attn_fwd", x.device,
+                      *(t.data_ptr() for t in (x, wqk_s, wv, bv, q, v, lse, y)),
+                      o, p, int(double_norm), _build.DTYPE_CODE[x.dtype])
+    return y
+
+
+def attn_bwd_plain(x, wqk, wv, bv, dy, scale=True, double_norm=False):
+    qg, vg, y_acc = _recompute(x, wqk, wv, bv, scale, double_norm)
+    dx, dwqk, dwv, dbv = _through_core(x, wqk, wv, scale, qg, vg, y_acc,
+                                       dy.to(acc_dtype(x.dtype)))
+    return dx.to(x.dtype), dwqk, dwv, dbv
+
+
+def attn_bwd(x, wqk, wv, bv, dy, scale=True, double_norm=False):
+    """The attention op's backward for the cotangent ``dy [O, P, 128]`` (x's
+    dtype) of y: ``(dx [O, P, 128] in x's dtype, dwqk [128, 32],
+    dwv [128, 128], dbv [1, 128])``, the weight gradients at the
+    accumulation dtype."""
+    if x.device.type == "cpu":
+        return attn_bwd_plain(x, wqk, wv, bv, dy, scale, double_norm)
+    name = "pct_attn_bwd"
+    wqk_s = qk_scale(wqk, scale).contiguous()
+    o, p = _check_attn(name, x, wqk_s, wv, bv)
+    _build.check_cuda(name, {"x": x, "dy": dy}, x.dtype)
+    _build.check_shape(name, "dy", dy, (o, p, C))
+    dev = x.device
+    n = C * DA + C * C + C
+    grads = torch.zeros(n, dtype=torch.float32, device=dev)
+    dx = torch.empty_like(x)
+    if o:
+        q, v, lse, _, dv, dd, dq, sc = _work(x)
+        blocks = _build.grid_blocks(dev, o * ((p + 63) // 64), per_sm=1)
+        part = _build.scratch(dev, blocks, N_GRAD)
+        _build.launch(name, "sga_pct_attn_bwd", dev,
+                      *(t.data_ptr() for t in (x, wqk_s, wv, bv, dy, q, v, lse, dv,
+                                               dd, dq, sc, dx, part)),
+                      blocks, grads.data_ptr(), o, p, int(double_norm),
+                      _build.DTYPE_CODE[x.dtype])
+    dwqk, dwv, dbv = torch.split(grads, (C * DA, C * C, C))
+    s = float(DA) ** -0.25 if scale else 1.0
+    return dx, s * dwqk.view(C, DA), dwv.view(C, C), dbv.view(1, C)
+
+
+class AttentionFused(torch.autograd.Function):
+    """Counterpart of ``pct_attention_fused``'s custom VJP: ``attn_fwd``,
+    then ``attn_bwd`` for the cotangent of y."""
+
+    @staticmethod
+    def forward(ctx, x, wqk, wv, bv, scale=True, double_norm=False):
+        ctx.save_for_backward(x, wqk, wv, bv)
+        ctx.flags = (scale, double_norm)
+        return attn_fwd(x, wqk, wv, bv, scale, double_norm)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, wqk, wv, bv = ctx.saved_tensors
+        dx, dwqk, dwv, dbv = attn_bwd(x, wqk, wv, bv, dy.contiguous(), *ctx.flags)
+        return (dx, dwqk.to(wqk.dtype), dwv.to(wv.dtype), dbv[0].to(bv.dtype),
+                None, None)
+
+
+def pct_attention_fused(x, wqk, wv, bv, scale=True, double_norm=False):
+    """SA (``scale=True``) / OA (``scale=False, double_norm=True``)
+    attention: ``y [O, P, 128]``, the attended features before trans, with
+    gradients for x and the three weights. x [O, P, 128]; wqk [128, 32]
+    (shared q/k, unscaled); wv [128, 128]; bv [128]; all in x's dtype."""
+    return AttentionFused.apply(x, wqk, wv, bv, scale, double_norm)

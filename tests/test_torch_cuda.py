@@ -14,13 +14,16 @@ import torch
 
 pytestmark = pytest.mark.cuda
 
+SA, OA = (True, False), (False, True)
 CASES = [("embed_first", None), ("embed_second", None),
-         ("pct_block_eval", (True, False)), ("pct_block_eval", (False, True)),
+         ("pct_block_eval", SA), ("pct_block_eval", OA),
          ("pct_tail", None), ("pct_tail", "idx"), ("pointnet_fwd", None),
          ("pointnet_bwd", None), ("embed_first_bwd", None),
          ("embed_second_bwd", None), ("pct_block_fwd", None),
          ("pct_epi_sums", None), ("pct_block_res_bwd", None),
-         ("pct_tail_bwd", None)]
+         ("pct_tail_bwd", None), ("pct_block_fwd", OA), ("pct_block_res_bwd", OA),
+         ("pct_attn_fwd", SA), ("pct_attn_fwd", OA), ("pct_attn_bwd", SA),
+         ("pct_attn_bwd", OA), ("pct_block_bwd", SA), ("pct_block_bwd", OA)]
 
 # The autograd Functions on the card, at f32, are held to the CPU's plain
 # versions at f64: no further than the last kernel's f32 tolerance plus
@@ -49,7 +52,10 @@ def card():
                               "block_OA", "pct_tail", "pct_tail_idx",
                               "pointnet_fwd", "pointnet_bwd", "embed_first_bwd",
                               "embed_second_bwd", "block_fwd", "epi_sums",
-                              "block_res_bwd", "pct_tail_bwd"])
+                              "block_res_bwd", "pct_tail_bwd", "block_fwd_OA",
+                              "block_res_bwd_OA", "attn_fwd_SA", "attn_fwd_OA",
+                              "attn_bwd_SA", "attn_bwd_OA", "block_bwd_SA",
+                              "block_bwd_OA"])
 def test_kernel_matches_plain_version(card, name, flags, dtype, points):
     """check_op raises past the tolerance (and, for the PointNet forward
     and the tail's indexed form, when an index points off the max / min)."""
@@ -58,7 +64,7 @@ def test_kernel_matches_plain_version(card, name, flags, dtype, points):
     dt = torch.float32 if dtype == "f32" else torch.bfloat16
     args = card.op_inputs(name, 37, dt, seed=5, p=points)
     before = _build.LAUNCHES[name]
-    card.check_op(name, args, dtype, flags or (True, False))
+    card.check_op(name, args, dtype, flags or SA)
     assert _build.LAUNCHES[name] == before + 1
 
 
@@ -158,6 +164,87 @@ def test_pct_autograd_functions_and_determinism(card):
         args = card.op_inputs(name, o, torch.bfloat16, seed=8)
         first, second = card.as_tuple(kern(*args)), card.as_tuple(kern(*args))
         assert all(torch.equal(a, b) for a, b in zip(first, second)), name
+
+
+@pytest.mark.parametrize("flags", [SA, OA], ids=["SA", "OA"])
+def test_attention_ops_autograd_and_determinism(card, flags):
+    """AttentionFused and BlockFused on the card at f32: one launch of each
+    of their kernels, gradients held to the plain versions' at f64 on the
+    same inputs (their backward kernel's f32 tolerance plus CHAIN_VS_CPU
+    times the CPU's own f32 distance); each backward gives the same bits
+    twice."""
+    from sgaligner_tpu_torch.ops import _build
+
+    o = 37
+    for op, fwd, bwd in (("attention", "pct_attn_fwd", "pct_attn_bwd"),
+                         ("block", "pct_block_fwd", "pct_block_bwd")):
+        args = card.op_inputs(bwd, o, torch.float32, seed=9)
+        grads = {}
+        for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
+                           ("cpu", torch.float64)):
+            before = dict(_build.LAUNCHES)
+            grads[dev, dtype] = card._op_grads(op, flags, dev, dtype, args)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                for name in (fwd, bwd):
+                    assert _build.LAUNCHES[name] == before[name] + 1, (op, name)
+        ref = grads["cpu", torch.float64]
+        _, card_rel = card.compare(grads["cuda", torch.float32], ref)
+        _, cpu_rel = card.compare(grads["cpu", torch.float32], ref)
+        assert card_rel <= card.TOL[(bwd, "f32")] + CHAIN_VS_CPU * cpu_rel, (op, card_rel)
+        kern, _ = card.op_fns(bwd, flags)
+        bf = card.op_inputs(bwd, o, torch.bfloat16, seed=10)
+        first, second = card.as_tuple(kern(*bf)), card.as_tuple(kern(*bf))
+        assert all(torch.equal(a, b) for a, b in zip(first, second)), bwd
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+def test_spct_on_the_card_matches_the_cpu(card, train):
+    """SPCT on the card at f32 against its CPU path (plain versions) at f32
+    and f64, the same seeded weights and points: the three outputs, and in
+    train mode the running statistics and every parameter gradient for
+    seeded cotangents (quiet leaves, ``quiet_leaves``, left out: the biases
+    right before a batch-statistics BatchNorm). Each reading of the card,
+    its distance from the f64 run, is held to chip_smoke's PCT_VS_CPU times
+    the CPU's own f32 distance (one-pass BatchNorm moments cancel in f32)."""
+    from sgaligner_tpu_torch.engine.factory import init_weights
+    from sgaligner_tpu_torch.models.pct import SPCT
+    from sgaligner_tpu_torch.ops import _build
+
+    g = torch.Generator().manual_seed(12)
+    pts = torch.randn(37, card.P, 3, generator=g)
+    mask = torch.rand(37, generator=g) < 0.85
+    runs = {}
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
+                       ("cpu", torch.float64)):
+        net = SPCT(dtype)
+        init_weights(net, torch.Generator().manual_seed(13))
+        net = net.to(dev, dtype).train(train)
+        before = dict(_build.LAUNCHES)
+        with torch.set_grad_enabled(train):
+            outs = net(pts.to(dev, dtype), mask.to(dev))
+        read = {f"output {i}": t.detach() for i, t in enumerate(outs)}
+        if train:
+            gc = torch.Generator().manual_seed(14)
+            cts = [torch.randn(t.shape, generator=gc).to(dev, dtype) for t in outs]
+            names, prms = zip(*net.named_parameters())
+            read.update(zip(names, torch.autograd.grad(outs, prms, cts)))
+            read.update((k, v) for k, v in net.state_dict().items() if "running_" in k)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            blocks = "pct_block_fwd" if train else "pct_block_eval"
+            assert _build.LAUNCHES[blocks] == before[blocks] + 4
+        runs[dev, dtype] = {k: v.double().cpu() for k, v in read.items()}
+    ref = runs["cpu", torch.float64]
+    quiet = card.quiet_leaves({k: v for k, v in ref.items() if "." in k
+                               and "running_" not in k}) if train else set()
+    for k, v in ref.items():
+        if k in quiet:
+            continue
+        dist = {key: float((run[k] - v).norm() / v.norm().clamp_min(1e-30))
+                for key, run in runs.items() if key != ("cpu", torch.float64)}
+        assert dist["cuda", torch.float32] <= card.PCT_VS_CPU * dist["cpu", torch.float32] + 1e-6, \
+            (k, dist)
 
 
 def test_wrappers_raise_instead_of_falling_back(card):
