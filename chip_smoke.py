@@ -15,8 +15,9 @@ Phases, in order (every failure raises and exits non-zero):
                kernels' row tiles). The
                PointNet forward's argmax and the tail's argmax / argmin are
                held by value: at the kernel's index the plain activation must
-               equal the plain max (min). Each training and op kernel twice
-               on the same inputs: the same bits
+               equal the plain max (min). Each training and op kernel, and
+               the tail in both forms, twice on the same inputs: the same
+               bits
   parity       the pct serving path on the CPU (plain versions) against the
                card (kernels): same seeded weights, one pooled B=8 batch, f32
   train_parity the point configuration's train step on the CPU against the
@@ -68,7 +69,9 @@ Phases, in order (every failure raises and exits non-zero):
                through autograd at O=896, SA and OA, against the plain
                versions; one launch of each of their kernels per call
   time         each kernel against its plain version (and torch.matmul for
-               the tail): the pct serving kernels at the serving O, the pct
+               the tail): the pct serving kernels at the serving O (the two
+               wgmma kernels beside the replaced WMMA design's times and their
+               bounds, the block's three passes under torch.profiler), the pct
                training and PointNet kernels at the training O (the PointNet
                forward also at the serving O), the ops' kernels and the OA
                variants at O=896, with each bound from the shapes;
@@ -222,9 +225,9 @@ KERNELS = {
                     "sgaligner_tpu/ops/pct_embed.py:46"),
     "embed_second": ("sgaligner_tpu_torch/csrc/pct_embed.cu",
                      "sgaligner_tpu/ops/pct_embed.py:195"),
-    "pct_block_eval": ("sgaligner_tpu_torch/csrc/pct_attention.cu",
+    "pct_block_eval": ("sgaligner_tpu_torch/csrc/pct_block_eval_sm90.cu",
                        "sgaligner_tpu/ops/pct_attention.py:833"),
-    "pct_tail": ("sgaligner_tpu_torch/csrc/pct_tail.cu",
+    "pct_tail": ("sgaligner_tpu_torch/csrc/pct_tail_sm90.cu",
                  "sgaligner_tpu/ops/pct_tail.py:83"),
     "pointnet_fwd": ("sgaligner_tpu_torch/csrc/pointnet.cu",
                      "sgaligner_tpu/ops/pointnet_fused.py:62"),
@@ -286,6 +289,14 @@ PER_OBJECT_ARGS = {"embed_first": (0, 2), "embed_second": (0, 4),
 PER_REQUEST = {"embed_first": 1, "embed_second": 1, "pct_block_eval": 4,
                "pct_tail": 1}
 PER_TRAIN_STEP = {"pointnet_fwd": 1, "pointnet_bwd": 1}
+# The two kernels' earlier design (shared-memory WMMA tiles, before wgmma),
+# at the serving O = 13,440, bf16 (NVIDIA H100 80GB HBM3, 700.00 W): CUDA
+# events, and pct_block_eval's passes under torch.profiler (pass_split)
+WMMA_MS = {"pct_block_eval": 61.854, "pct_tail": 90.253}
+WMMA_SPLIT = {"project": 4.159, "lse": 4.838, "apply": 52.996}
+# the kernel names of pct_block_eval's three bf16 passes
+BLOCK_EVAL_PASSES = {"project": "project_wgmma_kernel", "lse": "lse_wgmma_kernel",
+                     "apply": "apply_wgmma_kernel"}
 
 
 def log(msg: str) -> None:
@@ -590,7 +601,7 @@ def phase_kernels(state: dict) -> None:
                 args = op_inputs(name, SMALL_O, dtype, seed=1, p=p)
                 label = f"{name}{'/' + tag if tag else ''}/{dt_name}"
                 err_abs, err_rel = check_op(name, args, dt_name, flags or SA, label)
-                if name in TRAIN_KERNELS or name in OP_KERNELS:
+                if name in TRAIN_KERNELS or name in OP_KERNELS or name == "pct_tail":
                     first, second = as_tuple(kern(*args)), as_tuple(kern(*args))
                     if not all(torch.equal(a, b) for a, b in zip(first, second)):
                         raise AssertionError(f"{label}: two runs on the same inputs "
@@ -1255,6 +1266,30 @@ def profile_calls(state: dict, fn, tag: str, steps: int, unit: str) -> None:
             f"x{e.count // steps:<4d} {e.key[:90]}")
 
 
+def pass_split(fn, passes: tuple, calls: int = 3) -> dict:
+    """torch.profiler over ``calls`` calls of ``fn``: device ms per call of
+    each kernel whose name contains one of ``passes`` (empty where the
+    profiler saw no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            continue
+        us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+        for name in passes:
+            if name in e.key and us > 0:
+                split[name] = split.get(name, 0.0) + us / 1e3 / calls
+    return split
+
+
 def phase_serve_point(state: dict) -> None:
     import torch
 
@@ -1577,6 +1612,14 @@ def phase_time(state: dict) -> None:
             library_ms = cuda_ms(lambda: torch.matmul(cat_x, args[4]))
             del cat_x
         b_ms, b_by = bound(name, o)
+        if name in WMMA_MS:
+            log(f"[time] {name} O={o} bf16: {ms:.3f} ms, {b_ms / ms:.1%} of its bound; the "
+                f"WMMA design {WMMA_MS[name]} ms ({b_ms / WMMA_MS[name]:.1%}) | {state['card']}")
+        if name == "pct_block_eval":
+            split = pass_split(lambda: kern(*args), tuple(BLOCK_EVAL_PASSES.values()))
+            log(f"[time] pct_block_eval O={o} passes (torch.profiler, ms a launch): " + ", ".join(
+                f"{key} {split.get(kname, 0.0):.3f} (WMMA design {WMMA_SPLIT[key]})"
+                for key, kname in BLOCK_EVAL_PASSES.items()) + f" | {state['card']}")
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": state["launches"][name],
                "max_abs_err": err_abs, "ms": ms, "plain_ms": plain_total,

@@ -126,6 +126,20 @@ __device__ void block_gemm(const T* A, int lda, const T* B, int ldb, float* C, i
   }
 }
 
+// The pool's first-index rule (jnp.argmax): (v, i) beats the running
+// (bv, bi) for the max if larger, or equal at an earlier index; a NaN beats
+// any number and a later NaN.
+__device__ __forceinline__ bool beats_max(float v, int i, float bv, int bi) {
+  if (v != v) return bv == bv || i < bi;
+  if (bv != bv) return false;
+  return v > bv || (v == bv && i < bi);
+}
+__device__ __forceinline__ bool beats_min(float v, int i, float bv, int bi) {
+  if (v != v) return bv == bv || i < bi;
+  if (bv != bv) return false;
+  return v < bv || (v == bv && i < bi);
+}
+
 // Grid for a grid-stride kernel: as many blocks as can be resident at once,
 // capped by the number of work items.
 template <typename K>

@@ -22,7 +22,9 @@
 //   Design: the softmax normaliser runs over the KEY axis (columns), so an
 //   online (flash-style) row softmax does not apply. By symmetry of E the
 //   column log-sum-exp of key q equals the row log-sum-exp of row q, which
-//   gives three grid-stride passes over 64-row tiles:
+//   gives three passes over 64-row tiles. bf16 runs them as the wgmma
+//   design of pct_block_eval_sm90.cu; f32 (and the training and attention-op
+//   kernels below, in both dtypes) as these grid-stride passes:
 //     1. project: q and v of a tile, Wqk and Wv resident in shared memory;
 //     2. lse: for a tile of rows, an online max / sum-exp over all P columns
 //        of E, recomputing E from q in 64-column chunks (f32);
@@ -1045,18 +1047,28 @@ int block_bwd_entry(const void* x, const void* wqk, const void* wv, const void* 
 }
 
 }  // namespace
+
+int launch_block_eval_sm90(const void* x, const void* wqk, const void* wv, const void* bv,
+                           const void* wt, const void* bt, const float* wbn, const float* bbn,
+                           void* q, void* vt, float* lse2, void* out, int o, int p, int oa,
+                           cudaStream_t st);
+
 }  // namespace sga
 
 extern "C" {
 
+// bf16 takes the wgmma design (pct_block_eval_sm90.cu): v is then the
+// transposed work buffer [O, 128, pp] and lse [O, pp] (pp = P rounded up to
+// a multiple of 8); f32 takes the three passes below with v [O, P, 128] and
+// lse [O, P]
 int sga_pct_block_eval(const void* x, const void* wqk, const void* wv, const void* bv,
                        const void* wt, const void* bt, const float* wbn, const float* bbn,
                        void* q, void* v, float* lse, void* out, int o, int p, int oa, int dtype,
                        void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == sga::kBF16)
-    return sga::launch_block<sga::bf16>(x, wqk, wv, bv, wt, bt, wbn, bbn, q, v, lse, out, o, p,
-                                        oa, st);
+    return sga::launch_block_eval_sm90(x, wqk, wv, bv, wt, bt, wbn, bbn, q, v, lse, out, o, p, oa,
+                                       st);
   return sga::launch_block<float>(x, wqk, wv, bv, wt, bt, wbn, bbn, q, v, lse, out, o, p, oa,
                                   st);
 }

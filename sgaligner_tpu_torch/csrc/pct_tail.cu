@@ -13,18 +13,20 @@
 // The [O, P, K] activation never reaches device memory.
 //   Bound on the H100: operations. 2·P·512·K FLOP per object (0.54 GFLOP at
 //   P = 512, K = 1024) against 4·P·128 inputs read once.
-//   Design: one block per (object, 128-column slice of K). It walks P in
-//   64-row chunks; for each chunk it stages the four [64, 128] input tiles
-//   and the matching [128, 128] slices of W in shared memory and accumulates
-//   z on the tensor cores (bf16 WMMA, f32 accumulators) or with f32 FMAs.
-//   The epilogue rounds z, then keeps the running max / min (and, in the
-//   training form only, a compile-time variant, their indices) and sums of
-//   its column in registers, so the pool over P never
-//   leaves the block; the BN sums cross blocks through one f32 atomicAdd per
-//   column. The block index runs over column slices fastest, so the K/128
-//   blocks of one object run together and read its inputs from L2 after the
-//   first (one flat grid of O·K/128 blocks, so O is not bound by the 65535
-//   limit of grid.y).
+//   bf16: the wgmma design in pct_tail_sm90.cu (W resident, a TMA ring
+//   for x, accumulators in registers, the pool in the epilogue).
+//   f32 (full f32, no TF32: wgmma has no such form): blocks of 256 threads,
+//   block b owning the 128-column slice b % (K/128) and walking objects in
+//   a fixed stride. Per object it walks P in 64-row chunks, stages the four
+//   [64, 128] input tiles and the matching [128, 128] slices of W in shared
+//   memory and accumulates z with f32 FMAs; the epilogue keeps the running
+//   max / min (and, in the training form only, a compile-time variant, their
+//   indices) and sums of its column in registers, so the pool over P never
+//   leaves the block.
+//   Both dtypes: each block (bf16: each consumer warpgroup) adds its
+//   objects' masked sums in registers and writes them once into its own
+//   slice of a scratch buffer; reduce_slices adds the slices in order. No
+//   atomics: the same bits from run to run, in both forms.
 //
 // pct_tail_bwd replaces ops/pct_tail.py::_bwd_rule with the forward-saved
 // indices (Pallas kernel _bwd_kernel_idx). With cotangents dpmax, dpmin
@@ -87,83 +89,83 @@ __device__ __forceinline__ void z_chunk(const T* const (&xs)[4], const T* __rest
   }
 }
 
-// (v, i) beats the running (bv, bi) for the max: larger, or equal at an
-// earlier index; a NaN beats any number and a later NaN.
-__device__ __forceinline__ bool beats_max(float v, int i, float bv, int bi) {
-  if (v != v) return bv == bv || i < bi;
-  if (bv != bv) return false;
-  return v > bv || (v == bv && i < bi);
-}
-__device__ __forceinline__ bool beats_min(float v, int i, float bv, int bi) {
-  if (v != v) return bv == bv || i < bi;
-  if (bv != bv) return false;
-  return v < bv || (v == bv && i < bi);
-}
-
-// kIndex: also keep the first index of each max / min (the training
-// forward); without it the running max / min is a plain fmaxf / fminf.
-template <typename T, bool kIndex>
+// The f32 forward (bf16 runs pct_tail_sm90.cu). Block b owns the column
+// slice (b % (K/128)) and walks objects g, g + groups, ... with
+// g = b / (K/128). kIndex: also keep the first index of each max / min (the
+// training forward); without it the running max / min is a plain fmaxf /
+// fminf. Each block adds its objects' masked sums in registers and writes
+// them into its slice g of `sums` (Σz at [0, K), Σz² at [K, 2K)).
+template <bool kIndex>
 __global__ void __launch_bounds__(kThreads)
-pct_tail_kernel(const T* __restrict__ x1, const T* __restrict__ x2, const T* __restrict__ x3,
-                const T* __restrict__ x4, const T* __restrict__ w, const T* __restrict__ mask,
-                float* __restrict__ pmax, float* __restrict__ pmin, float* s1, float* s2,
-                int* __restrict__ amax, int* __restrict__ amin, int o, int p, int k) {
-  using L = TailSmem<T>;
+pct_tail_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
+                const float* __restrict__ x3, const float* __restrict__ x4,
+                const float* __restrict__ w, const float* __restrict__ mask,
+                float* __restrict__ pmax, float* __restrict__ pmin, float* __restrict__ sums,
+                long long slice, int* __restrict__ amax, int* __restrict__ amin, int o, int p,
+                int k, int groups) {
+  using L = TailSmem<float>;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* sa = reinterpret_cast<T*>(smem + L::a_off);
-  T* sb = reinterpret_cast<T*>(smem + L::b_off);
+  float* sa = reinterpret_cast<float*>(smem + L::a_off);
+  float* sb = reinterpret_cast<float*>(smem + L::b_off);
   float* sc = reinterpret_cast<float*>(smem + L::c_off);
   __shared__ float red[4][2][kN];
   __shared__ int ridx[2][2][kN];
 
   const int slices = k / kN;
-  const int n0 = (blockIdx.x % slices) * kN, obj = blockIdx.x / slices;
+  const int n0 = (blockIdx.x % slices) * kN, g = blockIdx.x / slices;
   const int c = threadIdx.x % kN, half = threadIdx.x / kN;
-  const T* const xs[4] = {x1, x2, x3, x4};
-  float mx = -INFINITY, mn = INFINITY, b1 = 0.f, b2 = 0.f;
-  int imx = INT_MAX, imn = INT_MAX;
+  const float* const xs[4] = {x1, x2, x3, x4};
+  float u1 = 0.f, u2 = 0.f;  // half 0: the block's masked sums of column n0 + c
 
-  for (int r0 = 0; r0 < p; r0 += kRows) {
-    const int valid = min(kRows, p - r0);
-    z_chunk<T>(xs, w, sa, sb, sc, obj, p, k, n0, r0, valid);
-    for (int r = half; r < valid; r += 2) {
-      const float z = round_to<T>(sc[r * L::ldc + c]);
-      if constexpr (kIndex) {
-        if (beats_max(z, r0 + r, mx, imx)) { mx = z; imx = r0 + r; }
-        if (beats_min(z, r0 + r, mn, imn)) { mn = z; imn = r0 + r; }
-      } else {
-        mx = fmaxf(mx, z);
-        mn = fminf(mn, z);
+  for (int obj = g; obj < o; obj += groups) {
+    float mx = -INFINITY, mn = INFINITY, b1 = 0.f, b2 = 0.f;
+    int imx = INT_MAX, imn = INT_MAX;
+    for (int r0 = 0; r0 < p; r0 += kRows) {
+      const int valid = min(kRows, p - r0);
+      z_chunk<float>(xs, w, sa, sb, sc, obj, p, k, n0, r0, valid);
+      for (int r = half; r < valid; r += 2) {
+        const float z = sc[r * L::ldc + c];
+        if constexpr (kIndex) {
+          if (beats_max(z, r0 + r, mx, imx)) { mx = z; imx = r0 + r; }
+          if (beats_min(z, r0 + r, mn, imn)) { mn = z; imn = r0 + r; }
+        } else {
+          mx = fmaxf(mx, z);
+          mn = fminf(mn, z);
+        }
+        b1 += z;
+        b2 += z * z;
       }
-      b1 += z;
-      b2 += z * z;
     }
-  }
-  red[0][half][c] = mx;
-  red[1][half][c] = mn;
-  red[2][half][c] = b1;
-  red[3][half][c] = b2;
-  if constexpr (kIndex) {
-    ridx[0][half][c] = imx;
-    ridx[1][half][c] = imn;
-  }
-  __syncthreads();
-  if (half == 0) {
-    const size_t out = (size_t)obj * k + n0 + c;
+    red[0][half][c] = mx;
+    red[1][half][c] = mn;
+    red[2][half][c] = b1;
+    red[3][half][c] = b2;
     if constexpr (kIndex) {
-      const bool hi = beats_max(red[0][1][c], ridx[0][1][c], red[0][0][c], ridx[0][0][c]);
-      const bool lo = beats_min(red[1][1][c], ridx[1][1][c], red[1][0][c], ridx[1][0][c]);
-      pmax[out] = red[0][hi][c];
-      pmin[out] = red[1][lo][c];
-      amax[out] = ridx[0][hi][c];
-      amin[out] = ridx[1][lo][c];
-    } else {
-      pmax[out] = fmaxf(red[0][0][c], red[0][1][c]);
-      pmin[out] = fminf(red[1][0][c], red[1][1][c]);
+      ridx[0][half][c] = imx;
+      ridx[1][half][c] = imn;
     }
-    const float m = to_f<T>(mask[obj]);
-    atomicAdd(&s1[n0 + c], m * (red[2][0][c] + red[2][1][c]));
-    atomicAdd(&s2[n0 + c], m * (red[3][0][c] + red[3][1][c]));
+    __syncthreads();
+    if (half == 0) {
+      const size_t out = (size_t)obj * k + n0 + c;
+      if constexpr (kIndex) {
+        const bool hi = beats_max(red[0][1][c], ridx[0][1][c], red[0][0][c], ridx[0][0][c]);
+        const bool lo = beats_min(red[1][1][c], ridx[1][1][c], red[1][0][c], ridx[1][0][c]);
+        pmax[out] = red[0][hi][c];
+        pmin[out] = red[1][lo][c];
+        amax[out] = ridx[0][hi][c];
+        amin[out] = ridx[1][lo][c];
+      } else {
+        pmax[out] = fmaxf(red[0][0][c], red[0][1][c]);
+        pmin[out] = fminf(red[1][0][c], red[1][1][c]);
+      }
+      u1 += mask[obj] * (red[2][0][c] + red[2][1][c]);
+      u2 += mask[obj] * (red[3][0][c] + red[3][1][c]);
+    }
+    __syncthreads();
+  }
+  if (half == 0) {
+    sums[(size_t)g * slice + n0 + c] = u1;
+    sums[(size_t)g * slice + k + n0 + c] = u2;
   }
 }
 
@@ -292,24 +294,22 @@ tail_dw_kernel(const T* __restrict__ x1, const T* __restrict__ x2, const T* __re
     out[(size_t)(idx / kN) * k + idx % kN] = sc[(idx / kN) * L::ldc + idx % kN];
 }
 
-template <typename T>
-int launch_tail(const void* x1, const void* x2, const void* x3, const void* x4, const void* w,
-                const void* mask, float* pmax, float* pmin, float* s1, float* s2, int* amax,
-                int* amin, int o, int p, int k, cudaStream_t st) {
-  const size_t smem = TailSmem<T>::bytes;
-  const unsigned grid = (unsigned)(k / kN) * (unsigned)o;
-  if (amax != nullptr) {
-    if (int rc = allow_smem(pct_tail_kernel<T, true>, smem)) return rc;
-    pct_tail_kernel<T, true><<<grid, kThreads, smem, st>>>(
-        (const T*)x1, (const T*)x2, (const T*)x3, (const T*)x4, (const T*)w, (const T*)mask, pmax,
-        pmin, s1, s2, amax, amin, o, p, k);
-  } else {
-    if (int rc = allow_smem(pct_tail_kernel<T, false>, smem)) return rc;
-    pct_tail_kernel<T, false><<<grid, kThreads, smem, st>>>(
-        (const T*)x1, (const T*)x2, (const T*)x3, (const T*)x4, (const T*)w, (const T*)mask, pmax,
-        pmin, s1, s2, nullptr, nullptr, o, p, k);
-  }
-  return (int)cudaGetLastError();
+// f32 forward; work: `groups` slices of slice_stride(2K) floats
+int launch_tail_f32(const void* x1, const void* x2, const void* x3, const void* x4,
+                    const void* w, const void* mask, float* pmax, float* pmin, float* s1,
+                    float* s2, int* amax, int* amin, float* work, int groups, int o, int p, int k,
+                    cudaStream_t st) {
+  const size_t smem = TailSmem<float>::bytes;
+  const unsigned grid = (unsigned)(k / kN) * (unsigned)groups;
+  const long long slice = slice_stride(2LL * k);
+  auto kernel = amax != nullptr ? pct_tail_kernel<true> : pct_tail_kernel<false>;
+  if (int rc = allow_smem(kernel, smem)) return rc;
+  kernel<<<grid, kThreads, smem, st>>>((const float*)x1, (const float*)x2, (const float*)x3,
+                                       (const float*)x4, (const float*)w, (const float*)mask,
+                                       pmax, pmin, work, slice, amax, amin, o, p, k, groups);
+  if (int rc = (int)cudaGetLastError()) return rc;
+  if (int rc = reduce_slices(work, slice, groups, s1, k, st)) return rc;
+  return reduce_slices(work + k, slice, groups, s2, k, st);
 }
 
 template <typename T>
@@ -344,20 +344,30 @@ int launch_tail_bwd(const void* x1, const void* x2, const void* x3, const void* 
 }
 
 }  // namespace
+
+int launch_tail_sm90(const void* x1, const void* x2, const void* x3, const void* x4,
+                     const void* w, const void* mask, float* pmax, float* pmin, float* s1,
+                     float* s2, int* amax, int* amin, void* work, int groups, int o, int p, int k,
+                     cudaStream_t st);
+
 }  // namespace sga
 
 extern "C" {
 
-// amax / amin may be null (the serving forward does not ask for them)
+// amax / amin may be null (the serving forward does not ask for them).
+// work: `groups` blocks per column slice each keep their masked sums in a
+// slice of it (f32: `groups` slices of slice_stride(2K) floats; bf16: the
+// transposed W, 512·K bf16, then 2·groups slices)
 int sga_pct_tail(const void* x1, const void* x2, const void* x3, const void* x4, const void* w,
                  const void* mask, float* pmax, float* pmin, float* s1, float* s2, int* amax,
-                 int* amin, int o, int p, int k, int dtype, void* stream) {
+                 int* amin, void* work, int groups, int o, int p, int k, int dtype,
+                 void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == sga::kBF16)
-    return sga::launch_tail<sga::bf16>(x1, x2, x3, x4, w, mask, pmax, pmin, s1, s2, amax, amin, o,
-                                       p, k, st);
-  return sga::launch_tail<float>(x1, x2, x3, x4, w, mask, pmax, pmin, s1, s2, amax, amin, o, p, k,
-                                 st);
+    return sga::launch_tail_sm90(x1, x2, x3, x4, w, mask, pmax, pmin, s1, s2, amax, amin, work,
+                                 groups, o, p, k, st);
+  return sga::launch_tail_f32(x1, x2, x3, x4, w, mask, pmax, pmin, s1, s2, amax, amin,
+                              static_cast<float*>(work), groups, o, p, k, st);
 }
 
 // g: [O·P, K] work buffer in the compute dtype; scratch: `splits` slices of

@@ -96,7 +96,7 @@ def build() -> Path:
                 raise RuntimeError(f"nvcc failed on {src.name}:\n{text}")
         tmp_lib = Path(tmp) / lib_path.name
         link = subprocess.run(
-            [nvcc, "-shared", "-o", str(tmp_lib), *(str(o) for _, o, _ in procs)],
+            [nvcc, "-shared", "-o", str(tmp_lib), *(str(o) for _, o, _ in procs), "-lcuda"],
             capture_output=True, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
@@ -115,8 +115,8 @@ _SIGNATURES = {
     "sga_embed_second": [_P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _P],
     "sga_pct_block_eval": [_P, _P, _P, _P, _P, _P, _F, _F, _P, _P, _F, _P,
                            _I, _I, _I, _I, _P],
-    "sga_pct_tail": [_P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _P, _P, _I, _I,
-                     _I, _I, _P],
+    "sga_pct_tail": [_P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _P, _P, _P, _I,
+                     _I, _I, _I, _I, _P],
     "sga_pointnet_fwd": [_P, _P, _P, _P, _P, _P, _P, _F, _P, _I, _I, _I, _I,
                          _P],
     "sga_pointnet_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _F, _I,

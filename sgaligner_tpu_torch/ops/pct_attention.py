@@ -22,7 +22,8 @@ quirks kept:
 
 Every op takes both flag sets, SA (``scale=True, double_norm=False``) and OA
 (``False, True``); the block ops take ``double_norm`` as the OA residual
-too, as the JAX ops do. A CUDA tensor goes through ``csrc/pct_attention.cu``;
+too, as the JAX ops do. A CUDA tensor goes through ``csrc/pct_attention.cu``
+(the bf16 ``pct_block_eval`` through ``csrc/pct_block_eval_sm90.cu``);
 a CPU tensor through the plain versions (``block_eval_plain``,
 ``block_fwd_plain``, ``epi_sums_plain``, ``block_res_bwd_plain``,
 ``block_bwd_plain``, ``attn_fwd_plain``, ``attn_bwd_plain``), which repeat
@@ -120,8 +121,15 @@ def pct_block_eval(x, wqk, wv, bv, wt, bt, wbn, bbn, scale=True,
         _build.check_shape(name, key, t, (128,))
     out = torch.empty_like(x)
     q = torch.empty((o, p, 32), dtype=dt, device=x.device)
-    v = torch.empty_like(x)
-    lse = torch.empty((o, p), dtype=torch.float32, device=x.device)
+    if dt == torch.bfloat16:
+        # the wgmma design's work buffers: vᵀ [O, 128, pp] and lse [O, pp],
+        # the key axis padded to a multiple of 8 (16-byte rows for TMA)
+        pp = (p + 7) // 8 * 8
+        v = torch.empty((o, 128, pp), dtype=dt, device=x.device)
+        lse = torch.empty((o, pp), dtype=torch.float32, device=x.device)
+    else:
+        v = torch.empty_like(x)
+        lse = torch.empty((o, p), dtype=torch.float32, device=x.device)
     if o:
         _build.launch(name, "sga_pct_block_eval", x.device,
                       x.data_ptr(), wqk_s.data_ptr(), wv.data_ptr(),

@@ -16,8 +16,8 @@ default there):
   ``m·(dssum + 2 z dssumsq)``, then ``dx_i = g·W_iᵀ`` and ``dW = Σ xᵀ·g``.
 * ``PctTail``: the ``torch.autograd.Function`` NaivePCT trains through.
 
-A CUDA tensor goes through ``csrc/pct_tail.cu``; a CPU tensor through the
-plain versions.
+A CUDA tensor goes through ``csrc/pct_tail.cu`` (the bf16 forward through
+``csrc/pct_tail_sm90.cu``); a CPU tensor through the plain versions.
 """
 
 from __future__ import annotations
@@ -65,14 +65,34 @@ def pct_tail(x1, x2, x3, x4, w, mask, with_index=False):
             torch.empty((o, k), dtype=torch.int32, device=dev))
            if with_index else (None, None))
     if o:
+        groups, work = _tail_work(dev, o, k, x1.dtype)
         _build.launch(name, "sga_pct_tail", dev,
                       x1.data_ptr(), x2.data_ptr(), x3.data_ptr(),
                       x4.data_ptr(), w.data_ptr(), mask.data_ptr(),
                       pmax.data_ptr(), pmin.data_ptr(), s1.data_ptr(),
                       s2.data_ptr(), *(t.data_ptr() if t is not None else None
                                        for t in idx),
-                      o, p, k, _build.DTYPE_CODE[x1.dtype])
+                      work.data_ptr(), groups, o, p, k,
+                      _build.DTYPE_CODE[x1.dtype])
     return (pmax, pmin, s1, s2, *idx) if with_index else (pmax, pmin, s1, s2)
+
+
+def _tail_work(device, o: int, k: int, dtype):
+    """Blocks per 128-column slice and the forward's work buffer
+    (``sga_pct_tail`` in csrc/pct_tail.cu). bf16: one block of two
+    objects-walking warpgroups per multiprocessor, a slice of sums per
+    warpgroup, after the transposed W; f32: two blocks per multiprocessor,
+    a slice each."""
+    slices = k // 128
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sums = _build.slice_stride(2 * k)
+    if dtype == torch.bfloat16:
+        groups = max(1, min(sms // slices, (o + 1) // 2))
+        n = 512 * k // 2 + 2 * groups * sums
+    else:
+        groups = max(1, min(2 * sms // slices, o))
+        n = groups * sums
+    return groups, torch.empty(n, dtype=torch.float32, device=device)
 
 
 def _check(name, xs, w, mask):

@@ -267,3 +267,73 @@ def test_wrappers_raise_instead_of_falling_back(card):
                      ws[5][:, :100].contiguous())
     with pytest.raises(ValueError):                  # weights on the CPU
         pointnet_fwd(x, *(w.cpu() for w in ws))
+
+
+@pytest.mark.parametrize("points", [64, 200, 512])
+@pytest.mark.parametrize("objects", [1, 3, 67])
+@pytest.mark.parametrize("name,flags", [("pct_block_eval", SA), ("pct_block_eval", OA),
+                                        ("pct_tail", None), ("pct_tail", "idx")],
+                         ids=["block_SA", "block_OA", "pct_tail", "pct_tail_idx"])
+def test_wgmma_kernels_match_plain_version(card, name, flags, objects, points):
+    """The two wgmma kernels (bf16) at few objects (a block with one or no
+    object for one of its warpgroups) and at P a multiple of the 64-row
+    tile, ragged, and the main path's."""
+    args = card.op_inputs(name, objects, torch.bfloat16, seed=7, p=points)
+    card.check_op(name, args, "bf16", flags or SA)
+
+
+def _tail_with_ties_and_nans(dtype):
+    """Tail inputs (O=5, P=200) whose object 0 repeats row 5 at row 70
+    (another 64-row tile), scaled up so that every column's max or min lies
+    on that pair, and whose object 2 holds a NaN in rows 7 and 140."""
+    import chip_smoke
+
+    x1, x2, x3, x4, w, mask = chip_smoke.op_inputs("pct_tail", 5, torch.float32, seed=3,
+                                                   p=200)
+    xs = [x1, x2, x3, x4]
+    for x in xs:
+        x[0, 5] *= 8.0
+        x[0, 70] = x[0, 5]
+    x1[2, 7, 3] = float("nan")
+    x1[2, 140, 0] = float("nan")
+    return [x.to(dtype) for x in xs] + [w.to(dtype), mask.to(dtype)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_pct_tail_first_index_and_nan(card, dtype):
+    """Ties go to the first row, across tiles; a NaN beats every number and
+    the first NaN wins; the max / min equal the plain version's."""
+    from sgaligner_tpu_torch.ops.pct_tail import pct_tail, pct_tail_plain
+
+    args = _tail_with_ties_and_nans(dtype)
+    pmax, pmin, _, _, amax, amin = pct_tail(*args, with_index=True)
+    want = pct_tail_plain(*args, with_index=True)
+    torch.cuda.synchronize()
+    # object 0: the repeated row's z is the same bits at rows 5 and 70, and
+    # it holds most columns' max or min
+    for got, ref in ((amax[0], want[4][0]), (amin[0], want[5][0])):
+        tied = (ref == 5) | (ref == 70)
+        assert bool(tied.float().mean() > 0.2)
+        assert bool((got[tied] == 5).all()) and not bool((got == 70).any())
+    torch.testing.assert_close(pmax[0], want[0][0], rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(pmin[0], want[1][0], rtol=1e-2, atol=1e-2)
+    # object 2: every column's max and min are the NaN of row 7
+    assert bool(pmax[2].isnan().all()) and bool(pmin[2].isnan().all())
+    assert bool((amax[2] == 7).all()) and bool((amin[2] == 7).all())
+    # the other objects agree with the plain version
+    for i in (1, 3, 4):
+        torch.testing.assert_close(pmax[i], want[0][i], rtol=1e-2, atol=1e-2)
+        torch.testing.assert_close(pmin[i], want[1][i], rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("with_index", [False, True], ids=["serve", "train"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_pct_tail_same_bits_twice(card, dtype, with_index):
+    """No atomics: the BN sums (and every other output) repeat bit for bit."""
+    from sgaligner_tpu_torch.ops.pct_tail import pct_tail
+
+    args = card.op_inputs("pct_tail", 67, dtype, seed=4, p=512)
+    first = pct_tail(*args, with_index=with_index)
+    second = pct_tail(*args, with_index=with_index)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
