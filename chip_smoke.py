@@ -185,9 +185,9 @@ PLANTED = (("dw3 x2", 4, 2.0), ("db1 zeroed", 1, 0.0), ("dw1 x1.1", 0, 1.1))
 # take the card's argmax / argmin instead, and PCT_INDEX_APART bounds the
 # share of (object, channel) indices the CPU's own forward would pick
 # otherwise at step 1. On an H100 the card's worst gradient leaf read 2.1,
-# 3.1 and 4.5 times the CPU's in three runs (the card's own forward sums
-# vary from run to run: atomicAdd), the other readings 0.5 to 2.8 times;
-# the planted faults read 600 times and more on the gradient
+# 3.1 and 4.5 times the CPU's in three runs (while the embedding kernels
+# still added their BN sums with atomics), the other readings 0.5 to 2.8
+# times; the planted faults read 600 times and more on the gradient
 PCT_VS_CPU = 20.0
 PCT_INDEX_APART = 1e-3
 # faults planted in the pct backward kernels' outputs: (label, module, wrapper,
@@ -241,18 +241,29 @@ KERNELS = {
                       "sgaligner_tpu/ops/pct_attention.py:320"),
     "pct_epi_sums": ("sgaligner_tpu_torch/csrc/pct_attention.cu",
                      "sgaligner_tpu/ops/pct_attention.py:569"),
-    "pct_block_res_bwd": ("sgaligner_tpu_torch/csrc/pct_attention.cu",
+    "pct_block_res_bwd": ("sgaligner_tpu_torch/csrc/pct_block_bwd_sm90.cu",
                           "sgaligner_tpu/ops/pct_attention.py:599"),
-    "pct_tail_bwd": ("sgaligner_tpu_torch/csrc/pct_tail.cu",
+    "pct_tail_bwd": ("sgaligner_tpu_torch/csrc/pct_tail_bwd_sm90.cu",
                      "sgaligner_tpu/ops/pct_tail.py:124"),
     "pct_attn_fwd": ("sgaligner_tpu_torch/csrc/pct_attention.cu",
                      "sgaligner_tpu/ops/pct_attention.py:103"),
-    "pct_attn_bwd": ("sgaligner_tpu_torch/csrc/pct_attention.cu",
+    "pct_attn_bwd": ("sgaligner_tpu_torch/csrc/pct_block_bwd_sm90.cu",
                      "sgaligner_tpu/ops/pct_attention.py:108"),
-    "pct_block_bwd": ("sgaligner_tpu_torch/csrc/pct_attention.cu",
+    "pct_block_bwd": ("sgaligner_tpu_torch/csrc/pct_block_bwd_sm90.cu",
                       "sgaligner_tpu/ops/pct_attention.py:341"),
 }
 PCT_KERNELS = ("embed_first", "embed_second", "pct_block_eval", "pct_tail")
+# forward kernels held to the same bits twice too (their BN sums: per-block
+# slices, no atomics); the training and op kernels all are
+SAME_BITS = ("embed_first", "embed_second", "pct_tail")
+# faults planted in the wgmma backwards' outputs in the kernels phase (bf16,
+# P = 512), each of which the comparison with the plain version must
+# catch: (output index, factor)
+KERNEL_PLANTED = {"pct_block_res_bwd": ((0, 2.0), (2, 2.0)),
+                  "pct_tail_bwd": ((0, 1.1), (4, 2.0))}
+# pct_block_eval's mixed flag pairs, which no model uses but the JAX op
+# computes: SA's scale with OA's normalisation, and neither
+MIXED_FLAGS = [("both", (True, True)), ("neither", (False, False))]
 POINT_KERNELS = ("pointnet_fwd", "pointnet_bwd")
 TRAIN_KERNELS = ("embed_first_bwd", "embed_second_bwd", "pct_block_fwd",
                  "pct_epi_sums", "pct_block_res_bwd", "pct_tail_bwd")
@@ -297,6 +308,17 @@ WMMA_SPLIT = {"project": 4.159, "lse": 4.838, "apply": 52.996}
 # the kernel names of pct_block_eval's three bf16 passes
 BLOCK_EVAL_PASSES = {"project": "project_wgmma_kernel", "lse": "lse_wgmma_kernel",
                      "apply": "apply_wgmma_kernel"}
+# The bf16 backwards' earlier design (shared-memory WMMA passes) at O = 896
+# (NVIDIA H100 80GB HBM3, 700.00 W; CUDA events, median of 5), and the
+# kernel names of the wgmma design's passes (pass_split)
+WMMA_BWD_MS = {"pct_block_res_bwd": 12.418, "pct_block_res_bwd/OA": 18.983,
+               "pct_tail_bwd": 21.747, "pct_block_bwd": 11.488, "pct_block_bwd/OA": 18.854,
+               "pct_attn_bwd": 7.199, "pct_attn_bwd/OA": 14.933}
+BLOCK_BWD_PASSES = ("::project_wgmma_kernel", "::lse_wgmma_kernel", "::dz_wgmma_kernel",
+                    "::dv_wgmma_kernel", "::dq_wgmma_kernel", "::dx_wgmma_kernel",
+                    "::wgrad_wgmma_kernel", "::reduce_slices_kernel")
+TAIL_BWD_PASSES = ("::transpose_w_kernel", "::tail_g_wgmma_kernel", "::tail_dx_wgmma_kernel",
+                   "::wgrad_wgmma_kernel", "::reduce_slices_kernel")
 
 
 def log(msg: str) -> None:
@@ -596,12 +618,16 @@ def phase_kernels(state: dict) -> None:
         for name in KERNELS:
             variants = ([("SA", SA), ("OA", OA)] if name in ATTN_FNS else
                         [("", None), ("idx", "idx")] if name == "pct_tail" else [("", None)])
+            if name == "pct_block_eval":
+                variants += MIXED_FLAGS
             for tag, flags in variants:
                 kern, plain = op_fns(name, flags or SA)
                 args = op_inputs(name, SMALL_O, dtype, seed=1, p=p)
                 label = f"{name}{'/' + tag if tag else ''}/{dt_name}"
                 err_abs, err_rel = check_op(name, args, dt_name, flags or SA, label)
-                if name in TRAIN_KERNELS or name in OP_KERNELS or name == "pct_tail":
+                if dt_name == "bf16" and p == P:
+                    check_planted(name, args, flags or SA, label)
+                if name in TRAIN_KERNELS or name in OP_KERNELS or name in SAME_BITS:
                     first, second = as_tuple(kern(*args)), as_tuple(kern(*args))
                     if not all(torch.equal(a, b) for a, b in zip(first, second)):
                         raise AssertionError(f"{label}: two runs on the same inputs "
@@ -611,6 +637,25 @@ def phase_kernels(state: dict) -> None:
                 log(f"[kernels] {label:24s} O={SMALL_O} P={p} max_abs={err_abs:.3e} "
                     f"max_rel={err_rel:.3e} (tol {tol(name, dt_name, flags or SA):g}) "
                     f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms")
+
+
+def check_planted(name: str, args: tuple, flags, label: str) -> None:
+    """Faults planted in the outputs of the wgmma backwards (KERNEL_PLANTED)
+    must each fail the comparison with the plain version."""
+    import torch
+
+    kern, plain = op_fns(name, flags)
+    got, want = as_tuple(kern(*args)), as_tuple(plain(*args))
+    torch.cuda.synchronize()
+    for index, factor in KERNEL_PLANTED.get(name, ()):
+        faulty = list(got)
+        faulty[index] = faulty[index] * factor
+        try:
+            judge(name, "bf16", flags, args, tuple(faulty), want, plain, f"{label} planted")
+        except AssertionError:
+            log(f"[kernels] {label}: planted fault (output {index} x{factor}) caught")
+            continue
+        raise AssertionError(f"{label}: planted fault (output {index} x{factor}) went unseen")
 
 
 def _cfg(dtype: str, max_objects: int, modules=MODULES):
@@ -1680,6 +1725,18 @@ def time_pointnet(state: dict) -> list[dict]:
     return rows
 
 
+def log_bwd_redesign(state: dict, label: str, o: int, ms: float, b_ms: float, kern,
+                     args) -> None:
+    """A redesigned backward beside its earlier design's time (WMMA_BWD_MS)
+    and its passes' device time under torch.profiler (pass_split)."""
+    passes = TAIL_BWD_PASSES if label == "pct_tail_bwd" else BLOCK_BWD_PASSES
+    split = pass_split(lambda: kern(*args), passes)
+    log(f"[time] {label} O={o} bf16: {ms:.3f} ms, {b_ms / ms:.1%} of its bound; the WMMA "
+        f"design {WMMA_BWD_MS[label]} ms | passes (torch.profiler, ms a call): "
+        + ", ".join(f"{k[2:].replace('_wgmma_kernel', '').replace('_kernel', '')} "
+                    f"{split.get(k, 0.0):.3f}" for k in passes) + f" | {state['card']}")
+
+
 def time_train_pct(state: dict) -> list[dict]:
     """The pct training kernels at the training O, each with its launches
     over the train_pct windows, and the tail's indexed forward. No single
@@ -1709,6 +1766,8 @@ def time_train_pct(state: dict) -> list[dict]:
             del g
         per_step_ms += PER_PCT_TRAIN_STEP.get(name, 0) * ms if flags is None else ms
         label = name + ("/idx" if flags else "")
+        if label in WMMA_BWD_MS:
+            log_bwd_redesign(state, label, o, ms, b_ms, kern, args)
         log(f"[time] {label:17s} O={o} bf16 kernel {ms:.3f} ms | plain {plain_ms:.3f} ms | "
             f"bound {b_ms:.4f} ms ({b_by}) | library None{extra} | launches per step "
             f"{launches[name] / steps:g} | max_abs {err_abs:.3e} max_rel {err_rel:.3e} | "
@@ -1751,6 +1810,8 @@ def time_oa(state: dict) -> list[dict]:
         plain_ms = cuda_ms(lambda: plain(*args), warmup=1, reps=3)
         b_ms, b_by = bound(name, o, oa=flags == OA)
         launches = counted[f"ops/{tag}" if where == "ops" else where][name]
+        if label in WMMA_BWD_MS:
+            log_bwd_redesign(state, label, o, ms, b_ms, kern, args)
         log(f"[time] {label:20s} O={o} bf16 kernel {ms:.3f} ms | plain {plain_ms:.3f} ms | "
             f"bound {b_ms:.4f} ms ({b_by}) | library None | launches {launches} ({where}) | "
             f"max_abs {err_abs:.3e} max_rel {err_rel:.3e} | {state['card']}")

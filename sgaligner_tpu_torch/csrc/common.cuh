@@ -187,6 +187,16 @@ inline int reduce_slices(const float* scratch, long long stride, int blocks, flo
 }
 }  // namespace
 
+// One block slice of the block backwards' weight gradients (floats; the
+// attention op's backward uses the first three): dWqk [128, 32], dWv
+// [128, 128], dbv [128], dWt [128, 128], dbt [128]
+constexpr int kOffDwqk = 0;
+constexpr int kOffDwv = kOffDwqk + 128 * 32;
+constexpr int kOffDbv = kOffDwv + 128 * 128;
+constexpr int kOffDwt = kOffDbv + 128;
+constexpr int kOffDbt = kOffDwt + 128 * 128;
+constexpr int kBwdGrad = kOffDbt + 128;
+
 // Per-channel partial sums of a 256-thread block whose thread t owns channel
 // t % 128 in row lane t / 128: the two lanes' values of `v` are added (lane 0
 // first) and written to out[0..128). Called by every thread.

@@ -239,6 +239,106 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
+// ------------------------- wgmma with transposed operands --------------------
+//
+// An MN-major operand (the reduction axis strided) is what a TMA box of a
+// row-major [K rows, MN cols] tile gives: 64 MN values (128-byte swizzle)
+// or 32 (64-byte) per row of k. Its descriptor's stride byte offset steps
+// 8 k-rows (one swizzle atom), its leading byte offset one MN atom (64 or
+// 32 values; unused when the instruction's M or N is one atom wide), and
+// a 16-deep k-step advances the start by 16 rows.
+__device__ __forceinline__ uint64_t desc_mn(const void* tile, int swizzle, uint32_t k_rows,
+                                            uint32_t lbo_bytes) {
+  const uint32_t row_bytes = swizzle == kSw128 ? 128u : 64u;
+  const uint32_t addr = smem_u32(tile) + k_rows * row_bytes;
+  uint64_t d = (uint64_t)((addr & 0x3FFFFu) >> 4);
+  d |= (uint64_t)((lbo_bytes >> 4) & 0x3FFFu) << 16;
+  d |= (uint64_t)((8u * row_bytes) >> 4) << 32;
+  d |= (uint64_t)swizzle << 62;
+  return d;
+}
+
+// D[64, 64] (+)= A[64, 16]·B[16, 64], both in shared memory; TA / TB = 1:
+// that operand is MN-major (transposed; desc_mn) instead of K-major
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss_t(float* d, uint64_t a, uint64_t b,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// D[64, 32] (+)= A[64, 16]·B[16, 32], both in shared memory; TA / TB = 1:
+// that operand is MN-major (transposed; desc_mn) instead of K-major
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n32k16_ss_t(float* d, uint64_t a, uint64_t b,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// D[64, 64] (+)= A[64, 16]·B[16, 64], A in registers (the A fragment), B in
+// shared memory, MN-major with TB = 1
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs_t(float* d, const uint32_t (&a)[4],
+                                                    uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB));
+}
+
+// D[64, 32] (+)= A[64, 16]·B[16, 32], A in registers (the A fragment), B in
+// shared memory, MN-major with TB = 1
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n32k16_rs_t(float* d, const uint32_t (&a)[4],
+                                                    uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB));
+}
+
+// Write a row-major [rows, cols] bf16 weight transposed into K-major
+// 128-byte-swizzled boxes of 64 k: element (k, n) to box k / 64, row n
+// (the B operand of x·W). Called by every thread; fence_proxy_async and a
+// barrier follow before a wgmma reads it.
+__device__ __forceinline__ void stage_transposed(__nv_bfloat16* dst,
+                                                 const __nv_bfloat16* __restrict__ w, int rows,
+                                                 int cols) {
+  for (int idx = threadIdx.x; idx < rows * cols; idx += blockDim.x) {
+    const int k = idx / cols, n = idx % cols, kin = k % 64;
+    dst[(k / 64) * (cols * 64) + n * 64 + (((kin / 8) ^ (n % 8)) * 8) + kin % 8] = w[idx];
+  }
+}
+
+// sum over the 4 lanes that hold one accumulator row
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ float lo_bf16(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float hi_bf16(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
+
+// word of (row r, even column col) in a [64, 128] bf16 tile held as two
+// 128-byte-swizzled TMA boxes of 64 columns (a row tile of x, or a staging
+// tile for 16-byte row stores)
+__device__ __forceinline__ int x_word(int r, int col) {
+  return ((col / 64) * (64 * 64) + r * 64 + ((((col % 64) / 8) ^ (r % 8)) * 8) + col % 8) / 2;
+}
+
 // ------------------------------------ host -----------------------------------
 
 // Tensor map of a `rank`-dimensional tensor at `base`: dims innermost first,

@@ -23,8 +23,9 @@
 //   online (flash-style) row softmax does not apply. By symmetry of E the
 //   column log-sum-exp of key q equals the row log-sum-exp of row q, which
 //   gives three passes over 64-row tiles. bf16 runs them as the wgmma
-//   design of pct_block_eval_sm90.cu; f32 (and the training and attention-op
-//   kernels below, in both dtypes) as these grid-stride passes:
+//   design of pct_block_eval_sm90.cu; f32 (and the training forward and the
+//   attention op's forward below, in both dtypes) as these grid-stride
+//   passes:
 //     1. project: q and v of a tile, Wqk and Wv resident in shared memory;
 //     2. lse: for a tile of rows, an online max / sum-exp over all P columns
 //        of E, recomputing E from q in 64-column chunks (f32);
@@ -68,6 +69,8 @@
 //   dWqk = s·Σ xᵀ·dq, dWv = Σ xᵀ·dv, dbv = Σ dv,
 //   dx = dq·Wqk_sᵀ + dv·Wvᵀ (+ du for OA) + dxn (the residual), rounded.
 //   Bound on the H100: operations, about 3 x the forward.
+//   bf16 (this op, pct_block_bwd and pct_attn_bwd): the wgmma design of
+//   pct_block_bwd_sm90.cu. f32 (full f32, no TF32):
 //   Design: four grid-stride passes over 64-row tiles after projection and
 //   lse, with the tile intermediates of one pass handed to the next through
 //   device memory (q, v, lse, dY, dv, D, dq, and for OA 1/s and c:
@@ -128,14 +131,6 @@ constexpr int kDa = 32;       // q/k width (C / 4)
 constexpr int kRows = 64;     // rows per tile, keys per chunk
 constexpr int kThreads = 256;
 
-// per-block scratch layout of the backward (floats); the attention op's
-// backward uses the first three (dWqk, dWv, dbv)
-constexpr int kOffDwqk = 0;
-constexpr int kOffDwv = kOffDwqk + kC * kDa;
-constexpr int kOffDbv = kOffDwv + kC * kC;
-constexpr int kOffDwt = kOffDbv + kC;
-constexpr int kOffDbt = kOffDwt + kC * kC;
-constexpr int kBwdGrad = kOffDbt + kC;
 
 // Copy a [rows, cols] tile of dY, each row r scaled by scale[r] (1/s, OA's
 // dŶ) and rounded to T; rows >= valid_rows are zero-filled.
@@ -1025,24 +1020,48 @@ int launch_attn_bwd(const void* x, const void* wqk, const void* wv, const void* 
   return reduce_slices(scratch, slice_stride(kBwdGrad), blocks, grads, kOffDwt, st);
 }
 
-// (dtype, oa) -> one instantiation of a backward launcher
+// The f32 backwards' buffers, carved from one work buffer: q, v, lse, dY,
+// dv, D, dq and OA's [2, O·P] row vectors (1/s, c)
+struct F32Work {
+  float *q, *v, *lse, *dy, *dv, *dd, *dq, *sc;
+};
+
+inline size_t carve_f32(void* base, int o, int p, F32Work* w) {
+  const size_t rows = (size_t)o * p;
+  size_t off = 0;
+  auto take = [&](size_t floats) {
+    float* at = reinterpret_cast<float*>(static_cast<char*>(base) + off);
+    off += (floats * 4 + 255) & ~size_t(255);
+    return at;
+  };
+  F32Work tmp;
+  F32Work& r = w ? *w : tmp;
+  r.q = take(rows * kDa);
+  r.v = take(rows * kC);
+  r.lse = take(rows);
+  r.dy = take(rows * kC);
+  r.dv = take(rows * kC);
+  r.dd = take(rows);
+  r.dq = take(rows * kDa);
+  r.sc = take(2 * rows);
+  return off;
+}
+
+// the f32 block backwards: oa -> one instantiation
 template <bool EPI>
-int block_bwd_entry(const void* x, const void* wqk, const void* wv, const void* bv,
-                    const void* wt, const void* bt, const void* mask, const void* dxn,
-                    const float* wbn, const float* bbn, const float* dsum, const float* dsumsq,
-                    void* q, void* v, float* lse, void* dy, void* dv, float* dd, void* dq,
-                    float* sc, void* dx, float* scratch, int blocks, float* grads, int o, int p,
-                    int oa, int dtype, cudaStream_t st) {
-#define SGA_BLOCK_BWD(T, OA)                                                                    \
-  return launch_block_bwd<T, EPI, OA>(x, wqk, wv, bv, wt, bt, mask, dxn, wbn, bbn, dsum, dsumsq, \
-                                      q, v, lse, dy, dv, dd, dq, sc, dx, scratch, blocks, grads, \
-                                      o, p, st)
-  if (dtype == kBF16) {
-    if (oa) SGA_BLOCK_BWD(bf16, true);
-    SGA_BLOCK_BWD(bf16, false);
-  }
-  if (oa) SGA_BLOCK_BWD(float, true);
-  SGA_BLOCK_BWD(float, false);
+int block_bwd_f32(const void* x, const void* wqk, const void* wv, const void* bv, const void* wt,
+                  const void* bt, const void* mask, const void* dxn, const float* wbn,
+                  const float* bbn, const float* dsum, const float* dsumsq, void* work, void* dx,
+                  float* scratch, int blocks, float* grads, int o, int p, int oa,
+                  cudaStream_t st) {
+  F32Work w;
+  carve_f32(work, o, p, &w);
+#define SGA_BLOCK_BWD(OA)                                                                       \
+  return launch_block_bwd<float, EPI, OA>(x, wqk, wv, bv, wt, bt, mask, dxn, wbn, bbn, dsum,    \
+                                          dsumsq, w.q, w.v, w.lse, w.dy, w.dv, w.dd, w.dq, w.sc, \
+                                          dx, scratch, blocks, grads, o, p, st)
+  if (oa) SGA_BLOCK_BWD(true);
+  SGA_BLOCK_BWD(false);
 #undef SGA_BLOCK_BWD
 }
 
@@ -1052,6 +1071,12 @@ int launch_block_eval_sm90(const void* x, const void* wqk, const void* wv, const
                            const void* wt, const void* bt, const float* wbn, const float* bbn,
                            void* q, void* vt, float* lse2, void* out, int o, int p, int oa,
                            cudaStream_t st);
+size_t block_bwd_work_bytes_sm90(int o, int p);
+int launch_block_bwd_sm90(int kind, const void* x, const void* wqk, const void* wv,
+                          const void* bv, const void* wt, const void* bt, const void* mask,
+                          const void* cot, const float* wbn, const float* bbn, const float* dsum,
+                          const float* dsumsq, void* work, void* dx, float* scratch, int blocks,
+                          float* grads, int o, int p, int oa, cudaStream_t st);
 
 }  // namespace sga
 
@@ -1097,20 +1122,28 @@ int sga_pct_epi_sums(const void* tout, const float* wbn, const float* bbn, const
   return sga::launch_epi_sums<float>(tout, wbn, bbn, dy, scratch, blocks, sums, rows, st);
 }
 
+// Bytes of the work buffer of the three backwards below
+long long sga_pct_bwd_work_bytes(int o, int p, int dtype) {
+  if (dtype == sga::kBF16) return (long long)sga::block_bwd_work_bytes_sm90(o, p);
+  return (long long)sga::carve_f32(nullptr, o, p, nullptr);
+}
+
 // Training backward with the epilogue (SA, or OA with oa = 1). grads f32:
 // dWqk_s [128, 32] (the gradient of the scaled weight), dWv [128, 128],
-// dbv [128], dWt [128, 128], dbt [128]; q, v, lse, dy, dv, dd, dq: work
-// buffers of the shapes of q, v, lse, x, x, lse, q; sc: [2, O·P] f32 (OA's
-// 1/s and c); scratch: `blocks` slices of slice_stride(37120) floats
+// dbv [128], dWt [128, 128], dbt [128]; work: sga_pct_bwd_work_bytes bytes
+// (bf16 runs the wgmma design of pct_block_bwd_sm90.cu); scratch: `blocks`
+// slices of slice_stride(37120) floats
 int sga_pct_block_res_bwd(const void* x, const void* wqk, const void* wv, const void* bv,
                           const void* wt, const void* bt, const void* mask, const void* dxn,
                           const float* wbn, const float* bbn, const float* dsum,
-                          const float* dsumsq, void* q, void* v, float* lse, void* dy, void* dv,
-                          float* dd, void* dq, float* sc, void* dx, float* scratch, int blocks,
+                          const float* dsumsq, void* work, void* dx, float* scratch, int blocks,
                           float* grads, int o, int p, int oa, int dtype, void* stream) {
-  return sga::block_bwd_entry<true>(x, wqk, wv, bv, wt, bt, mask, dxn, wbn, bbn, dsum, dsumsq, q,
-                                    v, lse, dy, dv, dd, dq, sc, dx, scratch, blocks, grads, o, p,
-                                    oa, dtype, static_cast<cudaStream_t>(stream));
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == sga::kBF16)
+    return sga::launch_block_bwd_sm90(0, x, wqk, wv, bv, wt, bt, mask, dxn, wbn, bbn, dsum,
+                                      dsumsq, work, dx, scratch, blocks, grads, o, p, oa, st);
+  return sga::block_bwd_f32<true>(x, wqk, wv, bv, wt, bt, mask, dxn, wbn, bbn, dsum, dsumsq,
+                                  work, dx, scratch, blocks, grads, o, p, oa, st);
 }
 
 // pct_block_fused's backward for the cotangents dt [O, P, 128] (compute
@@ -1118,13 +1151,16 @@ int sga_pct_block_res_bwd(const void* x, const void* wqk, const void* wv, const 
 // buffers as sga_pct_block_res_bwd
 int sga_pct_block_bwd(const void* x, const void* wqk, const void* wv, const void* bv,
                       const void* wt, const void* bt, const void* mask, const void* dt,
-                      const float* dsum, const float* dsumsq, void* q, void* v, float* lse,
-                      void* dy, void* dv, float* dd, void* dq, float* sc, void* dx,
+                      const float* dsum, const float* dsumsq, void* work, void* dx,
                       float* scratch, int blocks, float* grads, int o, int p, int oa, int dtype,
                       void* stream) {
-  return sga::block_bwd_entry<false>(x, wqk, wv, bv, wt, bt, mask, dt, nullptr, nullptr, dsum,
-                                     dsumsq, q, v, lse, dy, dv, dd, dq, sc, dx, scratch, blocks,
-                                     grads, o, p, oa, dtype, static_cast<cudaStream_t>(stream));
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == sga::kBF16)
+    return sga::launch_block_bwd_sm90(1, x, wqk, wv, bv, wt, bt, mask, dt, nullptr, nullptr,
+                                      dsum, dsumsq, work, dx, scratch, blocks, grads, o, p, oa,
+                                      st);
+  return sga::block_bwd_f32<false>(x, wqk, wv, bv, wt, bt, mask, dt, nullptr, nullptr, dsum,
+                                   dsumsq, work, dx, scratch, blocks, grads, o, p, oa, st);
 }
 
 // pct_attention_fused's forward: y [O, P, 128] in the compute dtype (OA row
@@ -1139,22 +1175,23 @@ int sga_pct_attn_fwd(const void* x, const void* wqk, const void* wv, const void*
 }
 
 // pct_attention_fused's backward for dY [O, P, 128]: dx, and grads f32
-// dWqk_s [128, 32], dWv [128, 128], dbv [128]; buffers as
-// sga_pct_block_res_bwd (the same scratch slices)
+// dWqk_s [128, 32], dWv [128, 128], dbv [128]; work and scratch as
+// sga_pct_block_res_bwd
 int sga_pct_attn_bwd(const void* x, const void* wqk, const void* wv, const void* bv,
-                     const void* dy, void* q, void* v, float* lse, void* dv, float* dd, void* dq,
-                     float* sc, void* dx, float* scratch, int blocks, float* grads, int o, int p,
-                     int oa, int dtype, void* stream) {
+                     const void* dy, void* work, void* dx, float* scratch, int blocks,
+                     float* grads, int o, int p, int oa, int dtype, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-#define SGA_ATTN_BWD(T, OA)                                                                       \
-  return sga::launch_attn_bwd<T, OA>(x, wqk, wv, bv, dy, q, v, lse, dv, dd, dq, sc, dx, scratch, \
-                                     blocks, grads, o, p, st)
-  if (dtype == sga::kBF16) {
-    if (oa) SGA_ATTN_BWD(sga::bf16, true);
-    SGA_ATTN_BWD(sga::bf16, false);
-  }
-  if (oa) SGA_ATTN_BWD(float, true);
-  SGA_ATTN_BWD(float, false);
+  if (dtype == sga::kBF16)
+    return sga::launch_block_bwd_sm90(2, x, wqk, wv, bv, nullptr, nullptr, nullptr, dy, nullptr,
+                                      nullptr, nullptr, nullptr, work, dx, scratch, blocks, grads,
+                                      o, p, oa, st);
+  sga::F32Work w;
+  sga::carve_f32(work, o, p, &w);
+#define SGA_ATTN_BWD(OA)                                                                      \
+  return sga::launch_attn_bwd<float, OA>(x, wqk, wv, bv, dy, w.q, w.v, w.lse, w.dv, w.dd, w.dq, \
+                                         w.sc, dx, scratch, blocks, grads, o, p, st)
+  if (oa) SGA_ATTN_BWD(true);
+  SGA_ATTN_BWD(false);
 #undef SGA_ATTN_BWD
 }
 

@@ -59,12 +59,6 @@ constexpr size_t kXTile = (size_t)kTile * kC * 2;    // 16 KB, x rows [64, 128]
 
 using BlockRing = Ring<kStages>;
 
-// sum over the 4 lanes that hold one accumulator row
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
 // ------------------------------ pass 1: project ------------------------------
 
 struct ProjSmem {
@@ -73,19 +67,11 @@ struct ProjSmem {
   static constexpr size_t x_off = wq_off + 2 * (size_t)kDa * 64 * 2;  // 2 x [two [64, 64] boxes]
   static constexpr size_t vs_off = x_off + 2 * 2 * (size_t)kTile * 64 * 2;
   static constexpr int ldvs = kTile + 8;                      // vᵀ staging row (bf16)
-  static constexpr size_t bar_off = vs_off + (size_t)kC * ldvs * 2;
+  static constexpr size_t vr_off = vs_off + (size_t)kC * ldvs * 2;  // row-major v staging
+  static constexpr int ldvr = kC + 8;
+  static constexpr size_t bar_off = vr_off + (size_t)kTile * ldvr * 2;
   static constexpr size_t bytes = bar_off + 2 * 8 + 1024;
 };
-
-// Write a row-major [rows, cols] bf16 weight transposed into K-major
-// 128-byte-swizzled boxes of 64 k: element (k, n) to box k / 64, row n.
-__device__ __forceinline__ void stage_transposed(bf16* dst, const bf16* __restrict__ w, int rows,
-                                                 int cols) {
-  for (int idx = threadIdx.x; idx < rows * cols; idx += blockDim.x) {
-    const int k = idx / cols, n = idx % cols, kin = k % 64;
-    dst[(k / 64) * (cols * 64) + n * 64 + (((kin / 8) ^ (n % 8)) * 8) + kin % 8] = w[idx];
-  }
-}
 
 // rows r0.. of object obj of x, as two [64, 64] boxes
 __device__ __forceinline__ void load_x_tile(unsigned char* dst, const CUtensorMap* xm,
@@ -96,19 +82,22 @@ __device__ __forceinline__ void load_x_tile(unsigned char* dst, const CUtensorMa
 }
 
 // q = x·Wqk and v = x·Wv + bv (rounded) of 64-row tiles, v written
-// transposed: vt[obj, c, r]. One warpgroup a block, two blocks an SM; the
-// x tile arrives by TMA (next tile in flight during this one), the two
-// products are wgmma m64n32k16 and m64n128k16 over Wqkᵀ and Wvᵀ resident,
-// and vᵀ leaves through a padded shared tile in 16-byte stores.
+// transposed: vt[obj, c, r] (and, where vrow is not null, row-major too).
+// One warpgroup a block, two blocks an SM; the x tile arrives by TMA (next
+// tile in flight during this one), the two products are wgmma m64n32k16
+// and m64n128k16 over Wqkᵀ and Wvᵀ resident, and v leaves through padded
+// shared tiles in 16-byte stores.
 __global__ void __launch_bounds__(128)
 project_wgmma_kernel(const __grid_constant__ CUtensorMap xm, const bf16* __restrict__ wqk,
                      const bf16* __restrict__ wv, const bf16* __restrict__ bv,
-                     bf16* __restrict__ q, bf16* __restrict__ vt, int o, int p, int pp) {
+                     bf16* __restrict__ q, bf16* __restrict__ vt, bf16* __restrict__ vrow,
+                     int o, int p, int pp) {
   using L = ProjSmem;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bar_off);
   bf16* vs = reinterpret_cast<bf16*>(smem + L::vs_off);
+  bf16* vr = reinterpret_cast<bf16*>(smem + L::vr_off);
   stage_transposed(reinterpret_cast<bf16*>(smem + L::wv_off), wv, kC, kC);
   stage_transposed(reinterpret_cast<bf16*>(smem + L::wq_off), wqk, kC, kDa);
   fence_proxy_async();
@@ -162,10 +151,27 @@ project_wgmma_kernel(const __grid_constant__ CUtensorMap xm, const bf16* __restr
 #pragma unroll
     for (int i = 0; i < 64; i += 2) {
       const int row = rl + 8 * ((i / 2) % 2), col = 8 * (i / 4) + 2 * (lane % 4);
-      vs[col * L::ldvs + row] = __float2bfloat16_rn(va[i] + __bfloat162float(bv[col]));
-      vs[(col + 1) * L::ldvs + row] = __float2bfloat16_rn(va[i + 1] + __bfloat162float(bv[col + 1]));
+      const bf16 v0 = __float2bfloat16_rn(va[i] + __bfloat162float(bv[col]));
+      const bf16 v1 = __float2bfloat16_rn(va[i + 1] + __bfloat162float(bv[col + 1]));
+      vs[col * L::ldvs + row] = v0;
+      vs[(col + 1) * L::ldvs + row] = v1;
+      if (vrow != nullptr) {
+        __nv_bfloat162 pair;
+        pair.x = v0;
+        pair.y = v1;
+        *reinterpret_cast<__nv_bfloat162*>(vr + row * L::ldvr + col) = pair;
+      }
     }
     __syncthreads();
+    if (vrow != nullptr) {
+      bf16* vro = vrow + ((size_t)obj * p + r0) * kC;
+      for (int idx = t; idx < kTile * (kC / 8); idx += 128) {
+        const int r = idx / (kC / 8), chunk = idx % (kC / 8);
+        if (r0 + r < p)
+          *reinterpret_cast<uint4*>(vro + (size_t)r * kC + 8 * chunk) =
+              *reinterpret_cast<const uint4*>(vr + r * L::ldvr + 8 * chunk);
+      }
+    }
     bf16* vo = vt + (size_t)obj * kC * pp + r0;
     for (int idx = t; idx < kC * (kTile / 8); idx += 128) {
       const int c = idx / (kTile / 8), chunk = idx % (kTile / 8);
@@ -356,15 +362,6 @@ struct ApplySmem {
   static constexpr size_t bytes = bar_off + sizeof(Barriers) + 1024;
 };
 
-// word of (row r, even column col) in a [64, 128] bf16 tile held as two
-// 128-byte-swizzled TMA boxes of 64 columns (the apply pass's x / out tile)
-__device__ __forceinline__ int x_word(int r, int col) {
-  return ((col / 64) * (kTile * 64) + r * 64 + ((((col % 64) / 8) ^ (r % 8)) * 8) + col % 8) / 2;
-}
-
-__device__ __forceinline__ float lo_bf16(uint32_t v) { return __uint_as_float(v << 16); }
-__device__ __forceinline__ float hi_bf16(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
-
 template <bool OA>
 __global__ void __launch_bounds__(kThreads, 1)
 apply_wgmma_kernel(const __grid_constant__ CUtensorMap qm, const __grid_constant__ CUtensorMap vm,
@@ -545,40 +542,39 @@ apply_wgmma_kernel(const __grid_constant__ CUtensorMap qm, const __grid_constant
 
 }  // namespace
 
-// bf16 pct_block_eval: q [O, P, 32], vt [O, 128, pp], lse2 [O, pp] work
-// buffers (pp = P rounded up to a multiple of 8)
-int launch_block_eval_sm90(const void* x, const void* wqk, const void* wv, const void* bv,
-                           const void* wt, const void* bt, const float* wbn, const float* bbn,
-                           void* q, void* vt, float* lse2, void* out, int o, int p, int oa,
-                           cudaStream_t st) {
+// The projection and lse passes of the bf16 block (pct_block_eval here, and
+// the backward passes of pct_block_bwd_sm90.cu): q [O, P, 32], vt [O, 128,
+// pp] and, where vrow is not null, v row-major [O, P, 128]; lse2 [O, pp]
+// (log2 units). qm, vm, lm, xm: the tensor maps the apply passes read them
+// through (x as two [64, 64] boxes of 64 rows)
+int launch_project_lse_sm90(const void* x, const void* wqk, const void* wv, const void* bv,
+                            void* q, void* vt, void* vrow, float* lse2, int o, int p,
+                            CUtensorMap* xm, CUtensorMap* qm, CUtensorMap* vm, CUtensorMap* lm,
+                            cudaStream_t st) {
   const int pp = (p + 7) / 8 * 8;
   int dev = 0, sms = 1;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-
-  CUtensorMap xm;
   {
     const uint64_t dims[3] = {kC, (uint64_t)p, (uint64_t)o};
     const uint64_t strides[2] = {kC * 2, (uint64_t)p * kC * 2};
     const uint32_t box[3] = {64, kTile, 1};
-    if (int rc = make_map(&xm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, x, dims, strides, box,
+    if (int rc = make_map(xm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, x, dims, strides, box,
                           CU_TENSOR_MAP_SWIZZLE_128B))
       return rc;
     const long long tiles = (long long)o * ((p + kTile - 1) / kTile);
     if (int rc = allow_smem(project_wgmma_kernel, ProjSmem::bytes)) return rc;
     const int g1 = resident_grid(project_wgmma_kernel, 128, ProjSmem::bytes, tiles);
-    project_wgmma_kernel<<<g1, 128, ProjSmem::bytes, st>>>(xm, (const bf16*)wqk, (const bf16*)wv,
+    project_wgmma_kernel<<<g1, 128, ProjSmem::bytes, st>>>(*xm, (const bf16*)wqk, (const bf16*)wv,
                                                            (const bf16*)bv, (bf16*)q, (bf16*)vt,
-                                                           o, p, pp);
+                                                           (bf16*)vrow, o, p, pp);
     if (int rc = (int)cudaGetLastError()) return rc;
   }
-
-  CUtensorMap qm, vm, lm;
   {
     const uint64_t dims[3] = {kDa, (uint64_t)p, (uint64_t)o};
     const uint64_t strides[2] = {kDa * 2, (uint64_t)p * kDa * 2};
     const uint32_t box[3] = {kDa, kTile, 1};
-    if (int rc = make_map(&qm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, q, dims, strides, box,
+    if (int rc = make_map(qm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, q, dims, strides, box,
                           CU_TENSOR_MAP_SWIZZLE_64B))
       return rc;
   }
@@ -586,7 +582,7 @@ int launch_block_eval_sm90(const void* x, const void* wqk, const void* wv, const
     const uint64_t dims[3] = {(uint64_t)p, kC, (uint64_t)o};
     const uint64_t strides[2] = {(uint64_t)pp * 2, (uint64_t)kC * pp * 2};
     const uint32_t box[3] = {kTile, kC, 1};
-    if (int rc = make_map(&vm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, vt, dims, strides, box,
+    if (int rc = make_map(vm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, vt, dims, strides, box,
                           CU_TENSOR_MAP_SWIZZLE_128B))
       return rc;
   }
@@ -594,17 +590,32 @@ int launch_block_eval_sm90(const void* x, const void* wqk, const void* wv, const
     const uint64_t dims[2] = {(uint64_t)p, (uint64_t)o};
     const uint64_t strides[1] = {(uint64_t)pp * 4};
     const uint32_t box[2] = {kTile, 1};
-    if (int rc = make_map(&lm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, lse2, dims, strides, box,
+    if (int rc = make_map(lm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, lse2, dims, strides, box,
                           CU_TENSOR_MAP_SWIZZLE_NONE))
       return rc;
   }
-
   const long long items = (long long)o * (((p + kTile - 1) / kTile + 1) / 2);
   const int grid = (int)(items < sms ? items : sms);
   if (int rc = allow_smem(lse_wgmma_kernel, LseSmem::bytes)) return rc;
-  lse_wgmma_kernel<<<grid, kThreads, LseSmem::bytes, st>>>(qm, lse2, o, p, pp);
-  if (int rc = (int)cudaGetLastError()) return rc;
+  lse_wgmma_kernel<<<grid, kThreads, LseSmem::bytes, st>>>(*qm, lse2, o, p, pp);
+  return (int)cudaGetLastError();
+}
 
+// bf16 pct_block_eval: q [O, P, 32], vt [O, 128, pp], lse2 [O, pp] work
+// buffers (pp = P rounded up to a multiple of 8)
+int launch_block_eval_sm90(const void* x, const void* wqk, const void* wv, const void* bv,
+                           const void* wt, const void* bt, const float* wbn, const float* bbn,
+                           void* q, void* vt, float* lse2, void* out, int o, int p, int oa,
+                           cudaStream_t st) {
+  CUtensorMap xm, qm, vm, lm;
+  if (int rc = launch_project_lse_sm90(x, wqk, wv, bv, q, vt, nullptr, lse2, o, p, &xm, &qm, &vm,
+                                       &lm, st))
+    return rc;
+  int dev = 0, sms = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long items = (long long)o * (((p + kTile - 1) / kTile + 1) / 2);
+  const int grid = (int)(items < sms ? items : sms);
   auto apply = oa ? apply_wgmma_kernel<true> : apply_wgmma_kernel<false>;
   if (int rc = allow_smem(apply, ApplySmem::bytes)) return rc;
   apply<<<grid, kThreads, ApplySmem::bytes, st>>>(qm, vm, lm, xm, (const bf16*)wt,

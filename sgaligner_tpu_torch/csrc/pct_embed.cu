@@ -10,8 +10,9 @@
 //   on the card); thread c owns channel c, so W0's column sits in registers,
 //   the points are warp-broadcast loads and each output row is one coalesced
 //   store. The TPU kernel carried the sums across its sequential grid; here
-//   each block keeps them in registers over all its objects and adds them to
-//   the [1, 128] totals with one f32 atomicAdd per channel at the end.
+//   each block keeps them in registers over all its objects and writes them
+//   once into its own slice of a scratch buffer; reduce_slices adds the
+//   slices in block order (no atomics: the same bits from run to run).
 //
 // embed_second replaces ops/pct_embed.py::embed_second_fused (Pallas kernel
 // _e2_fwd_kernel): prologue x0 = relu(h0·wf0 + bf0) at f32, rounded (layer 0's
@@ -24,6 +25,8 @@
 //   prologue is applied while the tile is staged; the product runs on the
 //   tensor cores (bf16 WMMA) or as f32 FMAs; sums as in embed_first. Tiles
 //   may straddle objects: each row looks up its own object's mask.
+//   Both kernels take a fixed grid (`blocks`, chosen by the wrapper) so that
+//   the scratch holds one slice per block.
 #include "common.cuh"
 
 namespace sga {
@@ -33,22 +36,19 @@ constexpr int kC = 128;       // embedding width
 constexpr int kThreads = 256;  // 2 row lanes x 128 channels
 constexpr int kRows = 64;      // rows per tile in embed_second
 
-__device__ void add_channel_sums(float a1, float a2, float* s1, float* s2) {
-  __shared__ float red[2][2][kC];
-  const int c = threadIdx.x % kC, half = threadIdx.x / kC;
-  red[0][half][c] = a1;
-  red[1][half][c] = a2;
-  __syncthreads();
-  if (half == 0) {
-    atomicAdd(&s1[c], red[0][0][c] + red[0][1][c]);
-    atomicAdd(&s2[c], red[1][0][c] + red[1][1][c]);
-  }
+constexpr long long kSumStride = slice_stride(2 * kC);  // Σh, Σh² of one block
+
+// this block's masked channel sums into its slice of the scratch
+__device__ __forceinline__ void write_channel_sums(float a1, float a2, float* scratch) {
+  float* part = scratch + (size_t)blockIdx.x * kSumStride;
+  store_channel_sums(a1, part);
+  store_channel_sums(a2, part + kC);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 embed_first_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ mask,
-                   T* __restrict__ h, float* s1, float* s2, int o, int p) {
+                   T* __restrict__ h, float* __restrict__ scratch, int o, int p) {
   const int c = threadIdx.x % kC, half = threadIdx.x / kC;
   const float w0 = to_f<T>(w[c]), w1 = to_f<T>(w[kC + c]), w2 = to_f<T>(w[2 * kC + c]);
   float a1 = 0.f, a2 = 0.f;
@@ -68,7 +68,7 @@ embed_first_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __
     a1 += m * b1;
     a2 += m * b2;
   }
-  add_channel_sums(a1, a2, s1, s2);
+  write_channel_sums(a1, a2, scratch);
 }
 
 template <typename T>
@@ -84,7 +84,7 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 embed_second_kernel(const T* __restrict__ h0, const T* __restrict__ wf, const T* __restrict__ bf,
                     const T* __restrict__ w, const T* __restrict__ mask, T* __restrict__ h1,
-                    float* s1, float* s2, int o, int p) {
+                    float* __restrict__ scratch, int o, int p) {
   using L = E2Smem<T>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sw = reinterpret_cast<T*>(smem + L::w_off);
@@ -123,7 +123,7 @@ embed_second_kernel(const T* __restrict__ h0, const T* __restrict__ wf, const T*
     }
     __syncthreads();
   }
-  add_channel_sums(a1, a2, s1, s2);
+  write_channel_sums(a1, a2, scratch);
 }
 
 // ------------------------------- backward ----------------------------------
@@ -296,26 +296,25 @@ int launch_second_bwd(const void* h0, const void* wf, const void* bf, const void
 }
 
 template <typename T>
-int launch_first(const void* x, const void* w, const void* mask, void* h, float* s1, float* s2,
-                 int o, int p, cudaStream_t st) {
-  const int grid = resident_grid(embed_first_kernel<T>, kThreads, 0, o);
-  embed_first_kernel<T><<<grid, kThreads, 0, st>>>(
-      (const T*)x, (const T*)w, (const T*)mask, (T*)h, s1, s2, o, p);
-  return (int)cudaGetLastError();
+int launch_first(const void* x, const void* w, const void* mask, void* h, float* scratch,
+                 int blocks, float* sums, int o, int p, cudaStream_t st) {
+  embed_first_kernel<T><<<blocks, kThreads, 0, st>>>((const T*)x, (const T*)w, (const T*)mask,
+                                                     (T*)h, scratch, o, p);
+  if (int rc = (int)cudaGetLastError()) return rc;
+  return reduce_slices(scratch, kSumStride, blocks, sums, 2 * kC, st);
 }
 
 template <typename T>
 int launch_second(const void* h0, const void* wf, const void* bf, const void* w, const void* mask,
-                  void* h1, float* s1, float* s2, int o, int p, cudaStream_t st) {
+                  void* h1, float* scratch, int blocks, float* sums, int o, int p,
+                  cudaStream_t st) {
   const size_t smem = E2Smem<T>::bytes;
-  cudaFuncSetAttribute(embed_second_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  const long long tiles = ((long long)o * p + kRows - 1) / kRows;
-  const int grid = resident_grid(embed_second_kernel<T>, kThreads, smem, tiles);
-  embed_second_kernel<T><<<grid, kThreads, smem, st>>>(
-      (const T*)h0, (const T*)wf, (const T*)bf, (const T*)w, (const T*)mask, (T*)h1, s1, s2, o,
+  if (int rc = allow_smem(embed_second_kernel<T>, smem)) return rc;
+  embed_second_kernel<T><<<blocks, kThreads, smem, st>>>(
+      (const T*)h0, (const T*)wf, (const T*)bf, (const T*)w, (const T*)mask, (T*)h1, scratch, o,
       p);
-  return (int)cudaGetLastError();
+  if (int rc = (int)cudaGetLastError()) return rc;
+  return reduce_slices(scratch, kSumStride, blocks, sums, 2 * kC, st);
 }
 
 }  // namespace
@@ -323,21 +322,25 @@ int launch_second(const void* h0, const void* wf, const void* bf, const void* w,
 
 extern "C" {
 
-int sga_embed_first(const void* x, const void* w, const void* mask, void* h, float* s1, float* s2,
-                    int o, int p, int dtype, void* stream) {
+// sums [2, 128] f32: Σh, Σh² masked; scratch: `blocks` slices of
+// slice_stride(256) floats, one per block of the launch
+int sga_embed_first(const void* x, const void* w, const void* mask, void* h, float* scratch,
+                    int blocks, float* sums, int o, int p, int dtype, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == sga::kBF16)
-    return sga::launch_first<sga::bf16>(x, w, mask, h, s1, s2, o, p, st);
-  return sga::launch_first<float>(x, w, mask, h, s1, s2, o, p, st);
+    return sga::launch_first<sga::bf16>(x, w, mask, h, scratch, blocks, sums, o, p, st);
+  return sga::launch_first<float>(x, w, mask, h, scratch, blocks, sums, o, p, st);
 }
 
+// as sga_embed_first
 int sga_embed_second(const void* h0, const void* wf, const void* bf, const void* w,
-                     const void* mask, void* h1, float* s1, float* s2, int o, int p, int dtype,
-                     void* stream) {
+                     const void* mask, void* h1, float* scratch, int blocks, float* sums, int o,
+                     int p, int dtype, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == sga::kBF16)
-    return sga::launch_second<sga::bf16>(h0, wf, bf, w, mask, h1, s1, s2, o, p, st);
-  return sga::launch_second<float>(h0, wf, bf, w, mask, h1, s1, s2, o, p, st);
+    return sga::launch_second<sga::bf16>(h0, wf, bf, w, mask, h1, scratch, blocks, sums, o, p,
+                                         st);
+  return sga::launch_second<float>(h0, wf, bf, w, mask, h1, scratch, blocks, sums, o, p, st);
 }
 
 // dW0 [3, 128] f32; scratch holds `blocks` slices of slice_stride(384)

@@ -38,7 +38,8 @@
 // all of z, and only the pool term is sparse.
 //   Bound on the H100: operations, 3 x 2·P·512·K per object (recompute z,
 //   the dx product, the dW product): 1.6 GFLOP per object.
-//   Design: three launches and a fixed-order sum, no atomics.
+//   bf16: the wgmma design in pct_tail_bwd_sm90.cu. f32 (full f32, no
+//   TF32): three launches and a fixed-order sum, no atomics.
 //     1. tail_g: the forward's blocks again, (object, 128-column slice);
 //        its epilogue builds g2 and writes it to a [O·P, K] buffer (a round
 //        trip through device memory that the TPU kernel kept in VMEM: 2
@@ -349,6 +350,12 @@ int launch_tail_sm90(const void* x1, const void* x2, const void* x3, const void*
                      const void* w, const void* mask, float* pmax, float* pmin, float* s1,
                      float* s2, int* amax, int* amin, void* work, int groups, int o, int p, int k,
                      cudaStream_t st);
+int launch_tail_bwd_sm90(const void* x1, const void* x2, const void* x3, const void* x4,
+                         const void* w, const void* mask, const float* dpmax, const float* dpmin,
+                         const float* dsum, const float* dsumsq, const int* amax, const int* amin,
+                         void* g, void* wt, void* dx1, void* dx2, void* dx3, void* dx4,
+                         float* scratch, int splits, float* dw, int o, int p, int k,
+                         cudaStream_t st);
 
 }  // namespace sga
 
@@ -370,18 +377,20 @@ int sga_pct_tail(const void* x1, const void* x2, const void* x3, const void* x4,
                               static_cast<float*>(work), groups, o, p, k, st);
 }
 
-// g: [O·P, K] work buffer in the compute dtype; scratch: `splits` slices of
-// 512·K floats; dw [512, K] f32
+// g: [O·P, K] work buffer in the compute dtype; wt: bf16 only, [K, 512]
+// (the transposed W); scratch: `splits` slices of 512·K floats; dw [512, K]
+// f32. bf16 runs the wgmma design of pct_tail_bwd_sm90.cu
 int sga_pct_tail_bwd(const void* x1, const void* x2, const void* x3, const void* x4,
                      const void* w, const void* mask, const float* dpmax, const float* dpmin,
                      const float* dsum, const float* dsumsq, const int* amax, const int* amin,
-                     void* g, void* dx1, void* dx2, void* dx3, void* dx4, float* scratch,
-                     int splits, float* dw, int o, int p, int k, int dtype, void* stream) {
+                     void* g, void* wt, void* dx1, void* dx2, void* dx3, void* dx4,
+                     float* scratch, int splits, float* dw, int o, int p, int k, int dtype,
+                     void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == sga::kBF16)
-    return sga::launch_tail_bwd<sga::bf16>(x1, x2, x3, x4, w, mask, dpmax, dpmin, dsum, dsumsq,
-                                           amax, amin, g, dx1, dx2, dx3, dx4, scratch, splits, dw,
-                                           o, p, k, st);
+    return sga::launch_tail_bwd_sm90(x1, x2, x3, x4, w, mask, dpmax, dpmin, dsum, dsumsq, amax,
+                                     amin, g, wt, dx1, dx2, dx3, dx4, scratch, splits, dw, o, p,
+                                     k, st);
   return sga::launch_tail_bwd<float>(x1, x2, x3, x4, w, mask, dpmax, dpmin, dsum, dsumsq, amax,
                                      amin, g, dx1, dx2, dx3, dx4, scratch, splits, dw, o, p, k,
                                      st);

@@ -246,6 +246,13 @@ tail_wgmma_kernel(const __grid_constant__ CUtensorMap xm1, const __grid_constant
 
 }  // namespace
 
+// wt [K, 512] = wᵀ (bf16): the K-major B operand of x·W, which the backward
+// (pct_tail_bwd_sm90.cu) keeps resident too
+int launch_transpose_w_sm90(const void* w, void* wt, int k, cudaStream_t st) {
+  transpose_w_kernel<<<dim3(kKin / 32, k / 32), dim3(32, 8), 0, st>>>((const bf16*)w, (bf16*)wt, k);
+  return (int)cudaGetLastError();
+}
+
 // bf16 forward of sga_pct_tail. work: the transposed W (512·K bf16), then
 // 2·groups slices of `slice` floats (the per-warpgroup sums)
 int launch_tail_sm90(const void* x1, const void* x2, const void* x3, const void* x4,
@@ -255,8 +262,7 @@ int launch_tail_sm90(const void* x1, const void* x2, const void* x3, const void*
   bf16* wt = static_cast<bf16*>(work);
   float* sums = reinterpret_cast<float*>(wt + (size_t)kKin * k);
   const long long slice = slice_stride(2LL * k);
-  transpose_w_kernel<<<dim3(kKin / 32, k / 32), dim3(32, 8), 0, st>>>((const bf16*)w, wt, k);
-  if (int rc = (int)cudaGetLastError()) return rc;
+  if (int rc = launch_transpose_w_sm90(w, wt, k, st)) return rc;
 
   CUtensorMap xm[4], wm;
   const void* xs[4] = {x1, x2, x3, x4};

@@ -13,10 +13,12 @@ Parameters carry upstream SGAligner's torch names and shapes
 Parameters are stored in float32; the forward computes in the module's
 ``dtype``.
 
-In eval mode the inference ops run (``embed_first``, ``embed_second``,
-``pct_block_eval``, ``pct_tail``) with the running-statistics folds. In
-train mode the autograd Functions run (``EmbedFirst``, ``EmbedSecond``,
-``BlockResidual``, ``PctTail``), the BatchNorms fold from the batch's masked
+In eval mode the inference ops run with the running-statistics folds, each
+differentiable as its JAX custom VJP is (``EmbedFirst``, ``EmbedSecond``,
+``BlockEval``, ``pct_tail_pool``: the tail's indexed form and backward
+kernel only when an input asks for a gradient). In train mode the autograd
+Functions run (``EmbedFirst``, ``EmbedSecond``, ``BlockResidual``,
+``PctTail``), the BatchNorms fold from the batch's masked
 moments and update their running statistics (decay 0.9, the unbiased
 variance), and the head draws its dropout from the caller's generator.
 SPCT's tail is plain torch in both modes, as the JAX package leaves it to
@@ -31,10 +33,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from sgaligner_tpu_torch.models.structure import dropout
-from sgaligner_tpu_torch.ops.pct_attention import BlockResidual, pct_block_eval
-from sgaligner_tpu_torch.ops.pct_embed import (EmbedFirst, EmbedSecond,
-                                               embed_first, embed_second)
-from sgaligner_tpu_torch.ops.pct_tail import PctTail, pct_tail
+from sgaligner_tpu_torch.ops.pct_attention import BlockEval, BlockResidual
+from sgaligner_tpu_torch.ops.pct_embed import EmbedFirst, EmbedSecond
+from sgaligner_tpu_torch.ops.pct_tail import PctTail, pct_tail_pool
 
 
 def _fold_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -163,15 +164,12 @@ class Embedding(nn.Module):
                 w, b = bn.fold(dtype)
             return (w.to(dtype)[None].contiguous(), b.to(dtype)[None].contiguous())
 
+        # both modes run the autograd Functions (the JAX ops carry the same
+        # custom VJP in either mode); with gradients off they save nothing
         w0, w1 = self.conv1.kernel(dtype), self.conv2.kernel(dtype)
-        if self.training:
-            h0, s0a, s0b = EmbedFirst.apply(pts_cf.detach(), w0, kmask)
-            wf0, bf0 = fold(self.bn1, s0a, s0b)
-            h1, s1a, s1b = EmbedSecond.apply(h0, wf0, bf0, w1, kmask)
-        else:
-            h0, s0a, s0b = embed_first(pts_cf, w0, kmask)
-            wf0, bf0 = fold(self.bn1, s0a, s0b)
-            h1, s1a, s1b = embed_second(h0, wf0, bf0, w1, kmask)
+        h0, s0a, s0b = EmbedFirst.apply(pts_cf.detach(), w0, kmask)
+        wf0, bf0 = fold(self.bn1, s0a, s0b)
+        h1, s1a, s1b = EmbedSecond.apply(h0, wf0, bf0, w1, kmask)
         wf1, bf1 = fold(self.bn2, s1a, s1b)
         return torch.relu(h1 * wf1 + bf1)
 
@@ -200,8 +198,8 @@ class SABlock(nn.Module):
         bn = self.after_norm
         if not self.training:
             wbn, bbn = bn.fold(dt)
-            return pct_block_eval(x, *weights, wbn, bbn, scale=self.scale,
-                                  double_norm=self.double_norm)
+            return BlockEval.apply(x, *weights, wbn, bbn, self.scale,
+                                   self.double_norm)
         x_next, ssum, ssumsq = BlockResidual.apply(
             x, *weights, bn.weight, bn.bias, kmask, count, self.scale,
             self.double_norm, bn.eps)
@@ -260,7 +258,7 @@ class NaivePCT(nn.Module):
             wbn, bbn = self.linear[1].train_fold(
                 moments_from_sums(ssum, ssumsq, count), pmax.dtype)
         else:
-            pmax, pmin, _, _ = pct_tail(*feats, w, kmask)
+            pmax, pmin, _, _ = pct_tail_pool(*feats, w, kmask)
             wbn, bbn = self.linear[1].fold(pmax.dtype)
         pooled = torch.where(wbn > 0, pmax.to(wbn.dtype), pmin.to(wbn.dtype)) * wbn + bbn
         x = F.leaky_relu(pooled, 0.2).to(dt)                           # [O, 1024]

@@ -111,8 +111,8 @@ def build() -> Path:
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
 _SIGNATURES = {
-    "sga_embed_first": [_P, _P, _P, _P, _F, _F, _I, _I, _I, _P],
-    "sga_embed_second": [_P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _P],
+    "sga_embed_first": [_P, _P, _P, _P, _F, _I, _F, _I, _I, _I, _P],
+    "sga_embed_second": [_P, _P, _P, _P, _P, _P, _F, _I, _F, _I, _I, _I, _P],
     "sga_pct_block_eval": [_P, _P, _P, _P, _P, _P, _F, _F, _P, _P, _F, _P,
                            _I, _I, _I, _I, _P],
     "sga_pct_tail": [_P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _P, _P, _P, _I,
@@ -129,21 +129,21 @@ _SIGNATURES = {
                           _F, _I, _I, _I, _I, _P],
     "sga_pct_epi_sums": [_P, _F, _F, _P, _F, _I, _F, _L, _I, _P],
     "sga_pct_block_res_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F,
-                              _P, _P, _F, _P, _P, _F, _P, _F, _P, _F, _I, _F,
-                              _I, _I, _I, _I, _P],
+                              _P, _P, _F, _I, _F, _I, _I, _I, _I, _P],
     "sga_pct_block_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _P, _P, _F,
-                          _P, _P, _F, _P, _F, _P, _F, _I, _F, _I, _I, _I, _I,
-                          _P],
+                          _I, _F, _I, _I, _I, _I, _P],
     "sga_pct_attn_fwd": [_P, _P, _P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _P],
-    "sga_pct_attn_bwd": [_P, _P, _P, _P, _P, _P, _P, _F, _P, _F, _P, _F, _P,
-                         _F, _I, _F, _I, _I, _I, _I, _P],
+    "sga_pct_attn_bwd": [_P, _P, _P, _P, _P, _P, _P, _F, _I, _F, _I, _I, _I,
+                         _I, _P],
     "sga_pct_tail_bwd": [_P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _P, _P, _P,
-                         _P, _P, _P, _P, _F, _I, _F, _I, _I, _I, _I, _P],
+                         _P, _P, _P, _P, _P, _F, _I, _F, _I, _I, _I, _I, _P],
     # queries (no launch): scratch sizes and the backward's block count
     "sga_pointnet_grad_stride": [_I],
     "sga_pointnet_grad_total": [_I],
     "sga_pointnet_bwd_blocks": [_I, _I, _I],
+    "sga_pct_bwd_work_bytes": [_I, _I, _I],
 }
+_RESTYPES = {"sga_pct_bwd_work_bytes": ctypes.c_longlong}
 
 
 def lib() -> ctypes.CDLL:
@@ -154,7 +154,7 @@ def lib() -> ctypes.CDLL:
         for name, args in _SIGNATURES.items():
             fn = getattr(handle, name)
             fn.argtypes = args
-            fn.restype = ctypes.c_int
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
         handle.sga_error_string.argtypes = [ctypes.c_int]
         handle.sga_error_string.restype = ctypes.c_char_p
         _lib = handle

@@ -22,9 +22,12 @@ quirks kept:
 
 Every op takes both flag sets, SA (``scale=True, double_norm=False``) and OA
 (``False, True``); the block ops take ``double_norm`` as the OA residual
-too, as the JAX ops do. A CUDA tensor goes through ``csrc/pct_attention.cu``
-(the bf16 ``pct_block_eval`` through ``csrc/pct_block_eval_sm90.cu``);
-a CPU tensor through the plain versions (``block_eval_plain``,
+too, as the JAX ops do; ``pct_block_eval`` also the mixed pairs, and
+``BlockEval`` makes it differentiable. A CUDA tensor goes through
+``csrc/pct_attention.cu`` (in bf16, ``pct_block_eval`` through
+``csrc/pct_block_eval_sm90.cu`` and the three backwards through
+``csrc/pct_block_bwd_sm90.cu``); a CPU tensor through the plain versions
+(``block_eval_plain``,
 ``block_fwd_plain``, ``epi_sums_plain``, ``block_res_bwd_plain``,
 ``block_bwd_plain``, ``attn_fwd_plain``, ``attn_bwd_plain``), which repeat
 the JAX kernels op for op (their exponentials run in the compute dtype
@@ -97,14 +100,13 @@ def pct_block_eval(x, wqk, wv, bv, wt, bt, wbn, bbn, scale=True,
     x: [O, P, 128]; wqk [128, 32] (unscaled); wv, wt [128, 128]; bv, bt [128]
     in x's dtype; wbn, bbn [128]: the BN affine folded from running
     statistics (at >= f32). ``scale=True, double_norm=False`` is SA,
-    ``scale=False, double_norm=True`` OA."""
+    ``scale=False, double_norm=True`` OA; the mixed pairs run too (the
+    scale is folded into Wqk before the launch). No gradient: ``BlockEval``
+    is the differentiable form."""
     if x.device.type == "cpu":
         return block_eval_plain(x, wqk, wv, bv, wt, bt, wbn, bbn, scale,
                                 double_norm)
     name = "pct_block_eval"
-    if scale == double_norm:
-        raise ValueError(f"{name}: takes the SA flags (scale=True, "
-                         "double_norm=False) or the OA flags (False, True)")
     dt = x.dtype
     wqk_s = qk_scale(wqk, scale).contiguous()
     wbn32 = wbn.to(torch.float32).reshape(-1).contiguous()
@@ -138,6 +140,29 @@ def pct_block_eval(x, wqk, wv, bv, wt, bt, wbn, bbn, scale=True,
                       v.data_ptr(), lse.data_ptr(), out.data_ptr(), o, p,
                       int(double_norm), _build.DTYPE_CODE[dt])
     return out
+
+
+class BlockEval(torch.autograd.Function):
+    """``pct_block_eval`` with gradients, the counterpart of its JAX custom
+    VJP: the forward is the kernel, the backward differentiates the plain
+    version ``block_eval_plain`` (frozen-BN fine-tuning, a cold path). With
+    gradients off nothing is saved."""
+
+    @staticmethod
+    def forward(ctx, x, wqk, wv, bv, wt, bt, wbn, bbn, scale=True,
+                double_norm=False):
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(x, wqk, wv, bv, wt, bt, wbn, bbn)
+        ctx.flags = (scale, double_norm)
+        return pct_block_eval(x, wqk, wv, bv, wt, bt, wbn, bbn, scale,
+                              double_norm)
+
+    @staticmethod
+    def backward(ctx, dy):
+        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = block_eval_plain(*inputs, *ctx.flags)
+        return (*torch.autograd.grad(out, inputs, dy), None, None)
 
 
 # ------------------------------- training ------------------------------------
@@ -324,16 +349,12 @@ def block_bwd_plain(x, wqk, wv, bv, wt, bt, mask, dt, dsum, dsumsq, scale=True,
     return (dx.to(x.dtype), *grads)
 
 
-def _work(x):
-    """Device buffers of the backward passes: q, v, lse, dY, dv, D, dq and
-    OA's row vectors (1/s, c)."""
+def _bwd_work(x):
+    """The block and attention backwards' device buffers, one byte buffer
+    the C entry carves (``sga_pct_bwd_work_bytes``)."""
     o, p, _ = x.shape
-    dev, dt = x.device, x.dtype
-    lse = torch.empty((o, p), dtype=torch.float32, device=dev)
-    return (torch.empty((o, p, DA), dtype=dt, device=dev), torch.empty_like(x), lse,
-            torch.empty_like(x), torch.empty_like(x), torch.empty_like(lse),
-            torch.empty((o, p, DA), dtype=dt, device=dev),
-            torch.empty((2, o, p), dtype=torch.float32, device=dev))
+    n = _build.lib().sga_pct_bwd_work_bytes(o, p, _build.DTYPE_CODE[x.dtype])
+    return torch.empty(n, dtype=torch.uint8, device=x.device)
 
 
 N_GRAD = C * DA + 2 * C * C + 2 * C  # dWqk, dWv, dbv, dWt, dbt (f32)
@@ -357,10 +378,9 @@ def _block_backward(name, fn_name, x, wqk, wv, bv, wt, bt, mask, cot, vecs,
     if o:
         blocks = _build.grid_blocks(dev, o * ((p + 63) // 64), per_sm=1)
         part = _build.scratch(dev, blocks, N_GRAD)
-        work = _work(x)
         _build.launch(name, fn_name, dev,
                       *(t.data_ptr() for t in (x, wqk_s, wv, bv, wt, bt, mask, cot,
-                                               *vecs.values(), *work, dx, part)),
+                                               *vecs.values(), _bwd_work(x), dx, part)),
                       blocks, grads.data_ptr(), o, p, int(double_norm),
                       _build.DTYPE_CODE[dt])
     dwqk, dwv, dbv, dwt, dbt = torch.split(grads, (C * DA, C * C, C, C * C, C))
@@ -495,7 +515,9 @@ def attn_fwd(x, wqk, wv, bv, scale=True, double_norm=False):
     o, p = _check_attn(name, x, wqk_s, wv, bv)
     y = torch.empty_like(x)
     if o:
-        q, v, lse = _work(x)[:3]
+        q = torch.empty((o, p, DA), dtype=x.dtype, device=x.device)
+        v = torch.empty_like(x)
+        lse = torch.empty((o, p), dtype=torch.float32, device=x.device)
         _build.launch(name, "sga_pct_attn_fwd", x.device,
                       *(t.data_ptr() for t in (x, wqk_s, wv, bv, q, v, lse, y)),
                       o, p, int(double_norm), _build.DTYPE_CODE[x.dtype])
@@ -526,12 +548,11 @@ def attn_bwd(x, wqk, wv, bv, dy, scale=True, double_norm=False):
     grads = torch.zeros(n, dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
     if o:
-        q, v, lse, _, dv, dd, dq, sc = _work(x)
         blocks = _build.grid_blocks(dev, o * ((p + 63) // 64), per_sm=1)
         part = _build.scratch(dev, blocks, N_GRAD)
         _build.launch(name, "sga_pct_attn_bwd", dev,
-                      *(t.data_ptr() for t in (x, wqk_s, wv, bv, dy, q, v, lse, dv,
-                                               dd, dq, sc, dx, part)),
+                      *(t.data_ptr() for t in (x, wqk_s, wv, bv, dy, _bwd_work(x), dx,
+                                               part)),
                       blocks, grads.data_ptr(), o, p, int(double_norm),
                       _build.DTYPE_CODE[x.dtype])
     dwqk, dwv, dbv = torch.split(grads, (C * DA, C * C, C))

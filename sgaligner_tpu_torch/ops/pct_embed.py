@@ -13,7 +13,8 @@ Counterpart of ``sgaligner_tpu/ops/pct_embed.py`` (``embed_first_fused``,
   cotangents of ``(h, ssum, ssumsq)`` (the Pallas kernels ``_e1_bwd_kernel``
   and ``_e2_bwd_kernel``); the points get no gradient (they are data).
 * ``EmbedFirst`` / ``EmbedSecond``: the ``torch.autograd.Function``s of the
-  pairs, which NaivePCT trains through.
+  pairs, which NaivePCT runs in both modes (the JAX ops carry one custom
+  VJP for both); with gradients off they save nothing.
 
 A CUDA tensor goes through the kernels of ``csrc/pct_embed.cu``; a CPU tensor
 through the plain versions below, which repeat the kernels' arithmetic
@@ -67,14 +68,23 @@ def embed_first(x_cf, w, mask):
     _build.check_shape(name, "w", w, (three, 128))
     _build.check_shape(name, "mask", mask, (o, 1))
     h = torch.empty((o, p, 128), dtype=x_cf.dtype, device=x_cf.device)
-    s1 = torch.zeros((1, 128), dtype=torch.float32, device=x_cf.device)
-    s2 = torch.zeros_like(s1)
+    sums = _launch_with_sums(name, "sga_embed_first", x_cf.device, o, o, 4,
+                             x_cf, w, mask, h, p=p, dtype=x_cf.dtype)
+    return h, sums[:1], sums[1:]
+
+
+def _launch_with_sums(name, fn_name, dev, o, work, per_sm, *tensors, p, dtype):
+    """Launch one embedding forward over a fixed grid with a scratch slice
+    per block; returns its masked sums [2, 128] (f32), which reduce_slices
+    adds in block order: the same bits from run to run."""
+    sums = torch.zeros((2, 128), dtype=torch.float32, device=dev)
     if o:
-        _build.launch(name, "sga_embed_first", x_cf.device,
-                      x_cf.data_ptr(), w.data_ptr(), mask.data_ptr(),
-                      h.data_ptr(), s1.data_ptr(), s2.data_ptr(), o, p,
-                      _build.DTYPE_CODE[x_cf.dtype])
-    return h, s1, s2
+        blocks = _build.grid_blocks(dev, work, per_sm=per_sm)
+        part = _build.scratch(dev, blocks, 2 * 128)
+        _build.launch(name, fn_name, dev, *(t.data_ptr() for t in tensors),
+                      part.data_ptr(), blocks, sums.data_ptr(), o, p,
+                      _build.DTYPE_CODE[dtype])
+    return sums
 
 
 def embed_second(h0, wf, bf, w, mask):
@@ -92,15 +102,10 @@ def embed_second(h0, wf, bf, w, mask):
     _build.check_shape(name, "w", w, (128, 128))
     _build.check_shape(name, "mask", mask, (o, 1))
     h1 = torch.empty_like(h0)
-    s1 = torch.zeros((1, 128), dtype=torch.float32, device=h0.device)
-    s2 = torch.zeros_like(s1)
-    if o:
-        _build.launch(name, "sga_embed_second", h0.device,
-                      h0.data_ptr(), wf.data_ptr(), bf.data_ptr(),
-                      w.data_ptr(), mask.data_ptr(), h1.data_ptr(),
-                      s1.data_ptr(), s2.data_ptr(), o, p,
-                      _build.DTYPE_CODE[h0.dtype])
-    return h1, s1, s2
+    sums = _launch_with_sums(name, "sga_embed_second", h0.device, o,
+                             (o * p + 63) // 64, 2, h0, wf, bf, w, mask, h1,
+                             p=p, dtype=h0.dtype)
+    return h1, sums[:1], sums[1:]
 
 
 # --------------------------------- backward ----------------------------------
@@ -210,7 +215,8 @@ class EmbedFirst(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x_cf, w, mask):
         h, s1, s2 = embed_first(x_cf, w, mask)
-        ctx.save_for_backward(x_cf, w, mask)
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(x_cf, w, mask)
         return h, s1, s2
 
     @staticmethod
@@ -229,7 +235,8 @@ class EmbedSecond(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h0, wf, bf, w, mask):
         h, s1, s2 = embed_second(h0, wf, bf, w, mask)
-        ctx.save_for_backward(h0, wf, bf, w, mask)
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(h0, wf, bf, w, mask)
         return h, s1, s2
 
     @staticmethod

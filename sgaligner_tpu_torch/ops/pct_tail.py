@@ -16,8 +16,9 @@ default there):
   ``m·(dssum + 2 z dssumsq)``, then ``dx_i = g·W_iᵀ`` and ``dW = Σ xᵀ·g``.
 * ``PctTail``: the ``torch.autograd.Function`` NaivePCT trains through.
 
-A CUDA tensor goes through ``csrc/pct_tail.cu`` (the bf16 forward through
-``csrc/pct_tail_sm90.cu``); a CPU tensor through the plain versions.
+A CUDA tensor goes through ``csrc/pct_tail.cu`` (bf16 through the wgmma
+designs of ``csrc/pct_tail_sm90.cu`` and, the backward,
+``csrc/pct_tail_bwd_sm90.cu``); a CPU tensor through the plain versions.
 """
 
 from __future__ import annotations
@@ -152,15 +153,29 @@ def pct_tail_bwd(x1, x2, x3, x4, w, mask, dpmax, dpmin, dsum, dsumsq, amax,
     dxs = [torch.empty_like(x1) for _ in range(4)]
     dw = torch.zeros((512, k), dtype=torch.float32, device=dev)
     if o:
+        bf16 = x1.dtype == torch.bfloat16
         g = torch.empty((o * p, k), dtype=x1.dtype, device=dev)
-        splits = 8
+        # bf16: W transposed for the g pass; the weight gradient's rows
+        # split over 32 blocks per 256 columns of K
+        wt = torch.empty((k, 512), dtype=x1.dtype, device=dev) if bf16 else None
+        splits = 32 if bf16 else 8
         part = torch.empty((splits, 512 * k), dtype=torch.float32, device=dev)
         _build.launch(name, "sga_pct_tail_bwd", dev,
-                      *(t.data_ptr() for t in (x1, x2, x3, x4, w, mask, dpmax,
-                                               dpmin, dsum, dsumsq, amax, amin,
-                                               g, *dxs, part)),
+                      *(t.data_ptr() if t is not None else None
+                        for t in (x1, x2, x3, x4, w, mask, dpmax, dpmin, dsum,
+                                  dsumsq, amax, amin, g, wt, *dxs, part)),
                       splits, dw.data_ptr(), o, p, k, _build.DTYPE_CODE[x1.dtype])
     return (*dxs, dw)
+
+
+def pct_tail_pool(x1, x2, x3, x4, w, mask):
+    """``(pmax, pmin, ssum, ssumsq)`` of ``pct_tail`` with gradients where an
+    input asks for them: then ``PctTail`` (the indexed forward and the
+    backward kernel, as the JAX op's custom VJP in either mode), otherwise
+    the serving form without indices."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x1, x2, x3, x4, w)):
+        return PctTail.apply(x1, x2, x3, x4, w, mask)
+    return pct_tail(x1, x2, x3, x4, w, mask)
 
 
 class PctTail(torch.autograd.Function):

@@ -1,8 +1,9 @@
 """The port's pct training ops (plain versions, CPU) against the JAX package.
 
 Forward and backward of each autograd Function (``EmbedFirst``,
-``EmbedSecond``, ``PctTail``, ``BlockResidual``) against the JAX op's custom
-VJP with the same cotangents, the tail's saved argmax / argmin, and
+``EmbedSecond``, ``PctTail``, ``BlockResidual``, and the eval ops' ``BlockEval``
+and ``pct_tail_pool``) against the JAX op's custom VJP with the same
+cotangents, the tail's saved argmax / argmin, and
 ``MaskedBatchNorm``'s forms. Widths are NaivePCT's (C=128, da=32; the tail
 at K=256), O=16 objects of P=32 points (P=16 with duplicated points for the
 tie test), so that every JAX tile picker takes its Pallas kernel; each test
@@ -34,9 +35,9 @@ from sgaligner_tpu.ops import pct_attention as jpa
 from sgaligner_tpu.ops import pct_embed as jpe
 from sgaligner_tpu.ops import pct_tail as jpt
 from sgaligner_tpu_torch.models.pct import MaskedBatchNorm
-from sgaligner_tpu_torch.ops.pct_attention import BlockResidual
+from sgaligner_tpu_torch.ops.pct_attention import BlockEval, BlockResidual
 from sgaligner_tpu_torch.ops.pct_embed import EmbedFirst, EmbedSecond
-from sgaligner_tpu_torch.ops.pct_tail import PctTail, pct_tail
+from sgaligner_tpu_torch.ops.pct_tail import PctTail, pct_tail, pct_tail_pool
 from tests.test_torch_ops import expect_dtype, to_jax, x64  # noqa: F401  (fixture)
 
 O, P, C, DA, K = 16, 32, 128, 32, 256
@@ -76,6 +77,46 @@ def _block_weights(rng):
             rng.normal(size=(C,)) * 0.1, rng.normal(size=(C, C)) / np.sqrt(C),
             rng.normal(size=(C,)) * 0.1, 1.0 + 0.2 * rng.normal(size=(C,)),
             rng.normal(size=(C,)) * 0.1)
+
+
+# ---------------------------------- eval ops ---------------------------------
+
+@pytest.mark.parametrize("flags", [(True, False), (False, True), (True, True), (False, False)],
+                         ids=["SA", "OA", "both", "neither"])
+def test_block_eval_grads_match_jax(x64, flags):
+    """BlockEval (the eval block with gradients) against the JAX
+    pct_block_eval and its custom VJP (the reference composition's vjp),
+    every flag pair, the mixed ones included."""
+    rng = np.random.default_rng(20)
+    wqk, wv, bv, wt, bt, wbn, bbn = _block_weights(rng)
+    x = rng.normal(size=(O, P, C))
+    args = (x, wqk, wv, bv, wt, bt, wbn, bbn)
+    ct = rng.normal(size=(O, P, C))
+    want, vjp = jax.vjp(lambda *a: jpa.pct_block_eval(*a, *flags, True), *to_jax(*args))
+    want_g = vjp(to_jax(ct)[0])
+    outs, grads = _grads(lambda *a: BlockEval.apply(*a, *flags), args, [ct])
+    _close([outs], [want], f"pct_block_eval {flags} forward")
+    _close(grads, want_g, f"pct_block_eval {flags} grads")
+
+
+def test_pct_tail_pool_matches_jax(x64):
+    """The eval tail: with gradients, PctTail's indexed form against the JAX
+    op's custom VJP; without, the serving form, the same outputs."""
+    rng = np.random.default_rng(21)
+    xs, w, m = _tail_inputs(rng)
+    cts = (rng.normal(size=(O, K)), rng.normal(size=(O, K)), rng.normal(size=(1, K)),
+           rng.normal(size=(1, K)) * 0.05)
+    mj = to_jax(m)[0]
+    want, vjp = jax.vjp(lambda *a: jpt.pct_tail_fused(*a, mj, True), *to_jax(*xs, w))
+    want_g = vjp(tuple(to_jax(*cts)))
+    outs, grads = _grads(lambda *a: pct_tail_pool(*a, torch.from_numpy(m)), (*xs, w), cts)
+    assert outs[0].grad_fn is not None
+    _close(outs, want, "pct_tail_pool forward")
+    _close(grads, want_g, "pct_tail_pool grads (dx1..dx4, dw)")
+    with torch.no_grad():
+        plain = pct_tail_pool(*(torch.from_numpy(a) for a in (*xs, w, m)))
+    assert plain[0].grad_fn is None
+    _close(plain, want, "pct_tail_pool without gradients")
 
 
 # ---------------------------------- embedding --------------------------------

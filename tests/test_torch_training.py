@@ -122,11 +122,12 @@ def _jax_state(side):
                          rng=jax.random.key(1))
 
 
-def _port_state(side):
+def _port_state(side, params=None):
+    params = side["params"] if params is None else params
     model = MultiModalEncoder(MODULES, dtype=torch.float64, **WIDTHS).double()
-    model.load_state_dict(state_dict_from_flax(side["params"]["model"], {}, MODULES))
+    model.load_state_dict(state_dict_from_flax(params["model"], {}, MODULES))
     objective = OverallLoss(MODULES).double()
-    objective.load_state_dict(loss_state_dict_from_flax(side["params"]["loss"]))
+    objective.load_state_dict(loss_state_dict_from_flax(params["loss"]))
     return create_train_state(model, make_cfg(modules=list(MODULES)), objective)
 
 
@@ -241,6 +242,38 @@ def test_train_step_matches_jax_f64(jax_side):
     _assert_named_close(_named_params(port), want_params, param_tol,
                         "params after 2 steps")
     assert (port.step, port.updates, port.skipped) == (2, 2, 0)
+
+
+@pytest.mark.parametrize("jax_side", ["never"], indirect=True)
+def test_attr_bias_gradient_on_empty_rows_matches_jax(jax_side):
+    """Objects with no attribute at all and meta_embedding_attr's bias at
+    zero (its initial value): those objects' attribute embeddings are exact
+    zeros, and l2_normalize's clamp (x·rsqrt(max(|x|², 1e-24))) scales
+    their cotangent by 1e12 into the bias's gradient. The JAX train step's
+    gradient does the same: the port matches it, huge value included (a
+    reference quirk, README "Quirk parity")."""
+    side = jax_side
+    host = _batch(3)
+    attr = host["bow_attr"].reshape(-1, host["bow_attr"].shape[-1])
+    attr[np.flatnonzero(host["obj_mask"].reshape(-1))[:3]] = 0.0
+    jb = jax_inputs(host)
+    params = jax.tree.map(jnp.copy, side["params"])
+    bias = params["model"]["meta_embedding_attr"]["bias"]
+    params["model"]["meta_embedding_attr"]["bias"] = jnp.zeros_like(bias)
+
+    def loss_fn(params):
+        embs = side["model"].apply({"params": params["model"]}, jb, train=True,
+                                   rngs={"dropout": jax.random.key(2)})
+        return jax_overall_loss(embs, jb, params["loss"], MODULES)["loss"]
+
+    want = _flax_named(jax.jit(jax.grad(loss_fn))(params))
+    port = _port_state(side, params)
+    make_train_step(MODULES)(port, to_device(host, "cpu"))
+    got = {k: p.grad.clone() for k, p in port.model.named_parameters()}
+    got.update({f"loss.{k}": p.grad.clone() for k, p in port.objective.named_parameters()})
+    _assert_named_close(got, want, TOLS["never"][1], "gradients, empty attribute rows")
+    key = "meta_embedding_attr.bias"
+    assert float(want[key].abs().max()) > 1e9 and float(got[key].abs().max()) > 1e9
 
 
 @pytest.mark.parametrize("jax_side", ["never"], indirect=True)
