@@ -15,9 +15,11 @@ Phases, in order (every failure raises and exits non-zero):
                kernels' row tiles). The
                PointNet forward's argmax and the tail's argmax / argmin are
                held by value: at the kernel's index the plain activation must
-               equal the plain max (min). Each training and op kernel, and
-               the tail in both forms, twice on the same inputs: the same
-               bits
+               equal the plain max (min). Each training and op kernel, the
+               tail in both forms and the embedding forwards twice on the
+               same inputs: the same bits. Faults planted in the wgmma
+               kernels' outputs (KERNEL_PLANTED), each of which the
+               comparison must catch
   parity       the pct serving path on the CPU (plain versions) against the
                card (kernels): same seeded weights, one pooled B=8 batch, f32
   train_parity the point configuration's train step on the CPU against the
@@ -69,12 +71,15 @@ Phases, in order (every failure raises and exits non-zero):
                through autograd at O=896, SA and OA, against the plain
                versions; one launch of each of their kernels per call
   time         each kernel against its plain version (and torch.matmul for
-               the tail): the pct serving kernels at the serving O (the two
+               the tail): the pct serving kernels at the serving O (the three
                wgmma kernels beside the replaced WMMA design's times and their
                bounds, the block's three passes under torch.profiler), the pct
                training and PointNet kernels at the training O (the PointNet
-               forward also at the serving O), the ops' kernels and the OA
-               variants at O=896, with each bound from the shapes;
+               forward also at the serving O, embed_second also at the
+               training O; the redesigned training kernels beside their
+               earlier times, with their passes under torch.profiler), the
+               ops' kernels and the OA variants at O=896, with each bound
+               from the shapes;
                scaled_dot_product_attention(q, q, v) at the serving and
                training shapes as a same-work yardstick of the attention
                core
@@ -223,7 +228,7 @@ OA_ROWS = (("pct_attn_fwd", SA, "ops"), ("pct_attn_fwd", OA, "ops"),
 KERNELS = {
     "embed_first": ("sgaligner_tpu_torch/csrc/pct_embed.cu",
                     "sgaligner_tpu/ops/pct_embed.py:46"),
-    "embed_second": ("sgaligner_tpu_torch/csrc/pct_embed.cu",
+    "embed_second": ("sgaligner_tpu_torch/csrc/pct_embed_sm90.cu",
                      "sgaligner_tpu/ops/pct_embed.py:195"),
     "pct_block_eval": ("sgaligner_tpu_torch/csrc/pct_block_eval_sm90.cu",
                        "sgaligner_tpu/ops/pct_attention.py:833"),
@@ -237,7 +242,7 @@ KERNELS = {
                         "sgaligner_tpu/ops/pct_embed.py:66"),
     "embed_second_bwd": ("sgaligner_tpu_torch/csrc/pct_embed.cu",
                          "sgaligner_tpu/ops/pct_embed.py:221"),
-    "pct_block_fwd": ("sgaligner_tpu_torch/csrc/pct_attention.cu",
+    "pct_block_fwd": ("sgaligner_tpu_torch/csrc/pct_block_eval_sm90.cu",
                       "sgaligner_tpu/ops/pct_attention.py:320"),
     "pct_epi_sums": ("sgaligner_tpu_torch/csrc/pct_attention.cu",
                      "sgaligner_tpu/ops/pct_attention.py:569"),
@@ -256,11 +261,34 @@ PCT_KERNELS = ("embed_first", "embed_second", "pct_block_eval", "pct_tail")
 # forward kernels held to the same bits twice too (their BN sums: per-block
 # slices, no atomics); the training and op kernels all are
 SAME_BITS = ("embed_first", "embed_second", "pct_tail")
-# faults planted in the wgmma backwards' outputs in the kernels phase (bf16,
+
+
+def _scaled(index: int, factor: float):
+    """A planted fault: output ``index`` times ``factor``."""
+    def fault(outs, args):
+        return tuple(t * factor if i == index else t for i, t in enumerate(outs))
+    return f"output {index} x{factor}", fault
+
+
+def _unmasked_sums(outs, args):
+    """A planted fault of the embeddings' forwards: the BN sums taken over
+    every object, the mask ignored (the kernel's own h)."""
+    import torch
+
+    from sgaligner_tpu_torch.ops.pct_embed import masked_sums
+
+    h, mask = outs[0], args[-1]
+    return (h, *masked_sums(h, torch.ones_like(mask)))
+
+
+# faults planted in the wgmma kernels' outputs in the kernels phase (bf16,
 # P = 512), each of which the comparison with the plain version must
-# catch: (output index, factor)
-KERNEL_PLANTED = {"pct_block_res_bwd": ((0, 2.0), (2, 2.0)),
-                  "pct_tail_bwd": ((0, 1.1), (4, 2.0))}
+# catch: (label, fault(outputs, inputs) -> faulty outputs)
+KERNEL_PLANTED = {"pct_block_res_bwd": (_scaled(0, 2.0), _scaled(2, 2.0)),
+                  "pct_tail_bwd": (_scaled(0, 1.1), _scaled(4, 2.0)),
+                  "pct_block_fwd": (_scaled(2, 2.0),),
+                  "embed_second": (("sums with the mask ignored", _unmasked_sums),
+                                   _scaled(0, 1.1))}
 # pct_block_eval's mixed flag pairs, which no model uses but the JAX op
 # computes: SA's scale with OA's normalisation, and neither
 MIXED_FLAGS = [("both", (True, True)), ("neither", (False, False))]
@@ -300,10 +328,10 @@ PER_OBJECT_ARGS = {"embed_first": (0, 2), "embed_second": (0, 4),
 PER_REQUEST = {"embed_first": 1, "embed_second": 1, "pct_block_eval": 4,
                "pct_tail": 1}
 PER_TRAIN_STEP = {"pointnet_fwd": 1, "pointnet_bwd": 1}
-# The two kernels' earlier design (shared-memory WMMA tiles, before wgmma),
-# at the serving O = 13,440, bf16 (NVIDIA H100 80GB HBM3, 700.00 W): CUDA
-# events, and pct_block_eval's passes under torch.profiler (pass_split)
-WMMA_MS = {"pct_block_eval": 61.854, "pct_tail": 90.253}
+# The serving kernels' earlier design (shared-memory WMMA tiles, before
+# wgmma), at the serving O = 13,440, bf16 (NVIDIA H100 80GB HBM3, 700.00 W):
+# CUDA events, and pct_block_eval's passes under torch.profiler (pass_split)
+WMMA_MS = {"pct_block_eval": 61.854, "pct_tail": 90.253, "embed_second": 9.624}
 WMMA_SPLIT = {"project": 4.159, "lse": 4.838, "apply": 52.996}
 # the kernel names of pct_block_eval's three bf16 passes
 BLOCK_EVAL_PASSES = {"project": "project_wgmma_kernel", "lse": "lse_wgmma_kernel",
@@ -314,6 +342,15 @@ BLOCK_EVAL_PASSES = {"project": "project_wgmma_kernel", "lse": "lse_wgmma_kernel
 WMMA_BWD_MS = {"pct_block_res_bwd": 12.418, "pct_block_res_bwd/OA": 18.983,
                "pct_tail_bwd": 21.747, "pct_block_bwd": 11.488, "pct_block_bwd/OA": 18.854,
                "pct_attn_bwd": 7.199, "pct_attn_bwd/OA": 14.933}
+# The bf16 forwards redesigned in the wgmma design, in their earlier design
+# (shared-memory WMMA passes) at O = 896 (NVIDIA H100 80GB HBM3, 700.00 W;
+# CUDA events: the block as chip_smoke.py read it, embed_second the mean
+# of two readings of scripts/chip_fwd_check.py on the earlier design), and
+# the kernel names of their passes (pass_split)
+WMMA_FWD_MS = {"pct_block_fwd": 3.913, "pct_block_fwd/OA": 4.544, "embed_second": 0.752}
+BLOCK_FWD_PASSES = ("::project_wgmma_kernel", "::lse_wgmma_kernel", "::apply_wgmma_kernel",
+                    "::reduce_slices_kernel")
+EMBED_SECOND_PASSES = ("::embed_second_wgmma_kernel", "::reduce_slices_kernel")
 BLOCK_BWD_PASSES = ("::project_wgmma_kernel", "::lse_wgmma_kernel", "::dz_wgmma_kernel",
                     "::dv_wgmma_kernel", "::dq_wgmma_kernel", "::dx_wgmma_kernel",
                     "::wgrad_wgmma_kernel", "::reduce_slices_kernel")
@@ -640,22 +677,20 @@ def phase_kernels(state: dict) -> None:
 
 
 def check_planted(name: str, args: tuple, flags, label: str) -> None:
-    """Faults planted in the outputs of the wgmma backwards (KERNEL_PLANTED)
+    """Faults planted in the outputs of the wgmma kernels (KERNEL_PLANTED)
     must each fail the comparison with the plain version."""
     import torch
 
     kern, plain = op_fns(name, flags)
     got, want = as_tuple(kern(*args)), as_tuple(plain(*args))
     torch.cuda.synchronize()
-    for index, factor in KERNEL_PLANTED.get(name, ()):
-        faulty = list(got)
-        faulty[index] = faulty[index] * factor
+    for what, fault in KERNEL_PLANTED.get(name, ()):
         try:
-            judge(name, "bf16", flags, args, tuple(faulty), want, plain, f"{label} planted")
+            judge(name, "bf16", flags, args, fault(got, args), want, plain, f"{label} planted")
         except AssertionError:
-            log(f"[kernels] {label}: planted fault (output {index} x{factor}) caught")
+            log(f"[kernels] {label}: planted fault ({what}) caught")
             continue
-        raise AssertionError(f"{label}: planted fault (output {index} x{factor}) went unseen")
+        raise AssertionError(f"{label}: planted fault ({what}) went unseen")
 
 
 def _cfg(dtype: str, max_objects: int, modules=MODULES):
@@ -1311,27 +1346,38 @@ def profile_calls(state: dict, fn, tag: str, steps: int, unit: str) -> None:
             f"x{e.count // steps:<4d} {e.key[:90]}")
 
 
-def pass_split(fn, passes: tuple, calls: int = 3) -> dict:
+def pass_split(fn, passes: tuple, calls: int = 3, attempts: int = 3) -> dict:
     """torch.profiler over ``calls`` calls of ``fn``: device ms per call of
     each kernel whose name contains one of ``passes`` (empty where the
-    profiler saw no device time)."""
+    profiler saw no device time). Late in a long process the profiler's
+    counts of some kernels fall short of their launches: a window in which
+    no pass, or a pass fewer times than a whole number of calls, was seen
+    is profiled again, up to ``attempts`` times, and the last window is
+    kept with a note."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    split = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CPU:
-            continue
-        us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-        for name in passes:
-            if name in e.key and us > 0:
-                split[name] = split.get(name, 0.0) + us / 1e3 / calls
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        split, counts = {}, {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CPU:
+                continue
+            us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+            for name in passes:
+                if name in e.key and us > 0:
+                    split[name] = split.get(name, 0.0) + us / 1e3 / calls
+                    counts[name] = counts.get(name, 0) + e.count
+        if counts and all(n % calls == 0 for n in counts.values()):
+            return split
+    log(f"[time] pass_split: in {attempts} windows the profiler counted launches that no "
+        f"whole number of calls makes ({counts} over {calls} calls); the split below is "
+        f"not reliable")
     return split
 
 
@@ -1725,21 +1771,25 @@ def time_pointnet(state: dict) -> list[dict]:
     return rows
 
 
-def log_bwd_redesign(state: dict, label: str, o: int, ms: float, b_ms: float, kern,
-                     args) -> None:
-    """A redesigned backward beside its earlier design's time (WMMA_BWD_MS)
-    and its passes' device time under torch.profiler (pass_split)."""
-    passes = TAIL_BWD_PASSES if label == "pct_tail_bwd" else BLOCK_BWD_PASSES
+def log_redesign(state: dict, label: str, o: int, ms: float, b_ms: float, kern,
+                 args) -> None:
+    """A redesigned training kernel beside its earlier design's time
+    (WMMA_BWD_MS, WMMA_FWD_MS) and its passes' device time under
+    torch.profiler (pass_split)."""
+    passes = {"pct_tail_bwd": TAIL_BWD_PASSES, "embed_second": EMBED_SECOND_PASSES,
+              "pct_block_fwd": BLOCK_FWD_PASSES}.get(label.split("/")[0], BLOCK_BWD_PASSES)
+    earlier = {**WMMA_BWD_MS, **WMMA_FWD_MS}[label]
     split = pass_split(lambda: kern(*args), passes)
     log(f"[time] {label} O={o} bf16: {ms:.3f} ms, {b_ms / ms:.1%} of its bound; the WMMA "
-        f"design {WMMA_BWD_MS[label]} ms | passes (torch.profiler, ms a call): "
+        f"design {earlier} ms | passes (torch.profiler, ms a call): "
         + ", ".join(f"{k[2:].replace('_wgmma_kernel', '').replace('_kernel', '')} "
                     f"{split.get(k, 0.0):.3f}" for k in passes) + f" | {state['card']}")
 
 
 def time_train_pct(state: dict) -> list[dict]:
     """The pct training kernels at the training O, each with its launches
-    over the train_pct windows, and the tail's indexed forward. No single
+    over the train_pct windows, the tail's indexed forward and embed_second
+    (the bf16 forward's redesigns beside their earlier times). No single
     PyTorch call computes any of them (library_ms null); for the tail's
     backward the dx product alone, one torch.matmul, is timed and logged."""
     import torch
@@ -1748,7 +1798,10 @@ def time_train_pct(state: dict) -> list[dict]:
     launches = state["launches_train_pct"]
     steps = N_WINDOWS * WINDOW_STEPS
     rows, per_step_ms = [], 0.0
-    for name, flags in [(n, None) for n in TRAIN_KERNELS] + [("pct_tail", "idx")]:
+    # besides the rows: the tail's indexed forward and embed_second, one
+    # launch each per step (embed_second's row is at the serving O)
+    extra_fwd = [("pct_tail", "idx"), ("embed_second", "step")]
+    for name, flags in [(n, None) for n in TRAIN_KERNELS] + extra_fwd:
         source, replaces = KERNELS[name]
         kern, plain = op_fns(name, flags or (True, False))
         args = op_inputs(name, o, torch.bfloat16, seed=2)
@@ -1765,9 +1818,9 @@ def time_train_pct(state: dict) -> list[dict]:
                      f"{cuda_ms(lambda: torch.matmul(g, w_t)):.3f} ms")
             del g
         per_step_ms += PER_PCT_TRAIN_STEP.get(name, 0) * ms if flags is None else ms
-        label = name + ("/idx" if flags else "")
-        if label in WMMA_BWD_MS:
-            log_bwd_redesign(state, label, o, ms, b_ms, kern, args)
+        label = name + ("/idx" if flags == "idx" else "")
+        if label in WMMA_BWD_MS or label in WMMA_FWD_MS:
+            log_redesign(state, label, o, ms, b_ms, kern, args)
         log(f"[time] {label:17s} O={o} bf16 kernel {ms:.3f} ms | plain {plain_ms:.3f} ms | "
             f"bound {b_ms:.4f} ms ({b_by}) | library None{extra} | launches per step "
             f"{launches[name] / steps:g} | max_abs {err_abs:.3e} max_rel {err_rel:.3e} | "
@@ -1780,9 +1833,9 @@ def time_train_pct(state: dict) -> list[dict]:
         del args
         torch.cuda.empty_cache()
     step_ms = state["train_pct_ms"]
-    log(f"[time] pct train step {step_ms:.2f} ms: the training kernels and the indexed "
-        f"tail forward {per_step_ms:.2f} ms per step ({per_step_ms / step_ms:.1%}; the "
-        f"embedding forwards not counted) | {state['card']}")
+    log(f"[time] pct train step {step_ms:.2f} ms: the training kernels, the indexed "
+        f"tail forward and embed_second {per_step_ms:.2f} ms per step "
+        f"({per_step_ms / step_ms:.1%}; embed_first not counted) | {state['card']}")
     return rows
 
 
@@ -1810,8 +1863,8 @@ def time_oa(state: dict) -> list[dict]:
         plain_ms = cuda_ms(lambda: plain(*args), warmup=1, reps=3)
         b_ms, b_by = bound(name, o, oa=flags == OA)
         launches = counted[f"ops/{tag}" if where == "ops" else where][name]
-        if label in WMMA_BWD_MS:
-            log_bwd_redesign(state, label, o, ms, b_ms, kern, args)
+        if label in WMMA_BWD_MS or label in WMMA_FWD_MS:
+            log_redesign(state, label, o, ms, b_ms, kern, args)
         log(f"[time] {label:20s} O={o} bf16 kernel {ms:.3f} ms | plain {plain_ms:.3f} ms | "
             f"bound {b_ms:.4f} ms ({b_by}) | library None | launches {launches} ({where}) | "
             f"max_abs {err_abs:.3e} max_rel {err_rel:.3e} | {state['card']}")

@@ -339,6 +339,74 @@ __device__ __forceinline__ int x_word(int r, int col) {
   return ((col / 64) * (64 * 64) + r * 64 + ((((col % 64) / 8) ^ (r % 8)) * 8) + col % 8) / 2;
 }
 
+// --------------------- channel sums of accumulator tiles --------------------
+//
+// The training forwards' masked BN sums Σ m·t and Σ m·t² of [64, 128]
+// accumulator tiles, reduced over lanes by shuffles and over tiles in a
+// per-warp share of shared memory, in a fixed order: no atomics, the same
+// bits twice.
+
+// One column pair's masked sums over a thread's two accumulator rows:
+// w[h] packs the bf16 values of row h (columns 2j', 2j' + 1 of the pair),
+// weighted by m[h] (0 for rows outside the data); s1 / s2 get Σ m·t and
+// Σ m·t² of each column
+__device__ __forceinline__ void row_pair_sums(const uint32_t (&w)[2], const float (&m)[2],
+                                              float* s1, float* s2) {
+  const float a0 = lo_bf16(w[0]), a1 = hi_bf16(w[0]), b0 = lo_bf16(w[1]), b1 = hi_bf16(w[1]);
+  s1[0] = m[0] * a0 + m[1] * b0;
+  s1[1] = m[0] * a1 + m[1] * b1;
+  s2[0] = m[0] * (a0 * a0) + m[1] * (b0 * b0);
+  s2[1] = m[0] * (a1 * a1) + m[1] * (b1 * b1);
+}
+
+// Sum 32 per-thread values over the 8 lanes that share lane % 4 (the rows
+// of an accumulator's columns): a halving butterfly of 28 shuffles, after
+// which lane l holds the sums of values 4·(l / 4) + k, k < 4
+__device__ __forceinline__ void lane_column_sums(const float (&v)[32], float (&out)[4], int lane) {
+  float a[16], b[8];
+  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
+#pragma unroll
+  for (int k = 0; k < 16; ++k)
+    a[k] = (b4 ? v[k + 16] : v[k]) + __shfl_xor_sync(0xffffffffu, b4 ? v[k] : v[k + 16], 16);
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    b[k] = (b3 ? a[k + 8] : a[k]) + __shfl_xor_sync(0xffffffffu, b3 ? a[k] : a[k + 8], 8);
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    out[k] = (b2 ? b[k + 4] : b[k]) + __shfl_xor_sync(0xffffffffu, b2 ? b[k] : b[k + 4], 4);
+}
+
+// Add one row tile's column sums into this warp's share `wred` ([2][4][32]
+// floats: Σt then Σt², entry k·32 + lane of each). s1 / s2: this thread's
+// sums over its two rows, value j at accumulator column 8·(j / 2) +
+// 2·(lane % 4) + j % 2. Each entry is one lane's: no races, no atomics.
+__device__ __forceinline__ void add_column_sums(float* wred, const float (&s1)[32],
+                                                const float (&s2)[32], int lane) {
+  float c1[4], c2[4];
+  lane_column_sums(s1, c1, lane);
+  lane_column_sums(s2, c2, lane);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    wred[k * 32 + lane] += c1[k];
+    wred[128 + k * 32 + lane] += c2[k];
+  }
+}
+
+// A warpgroup's four warp shares `red` added in warp order into its scratch
+// slice `part` (Σt [128], then Σt² [128]); thread t of the warpgroup owns
+// channel t. Entry (k, lane) of a share holds channel 16·(lane / 4) +
+// 8·(k / 2) + 2·(lane % 4) + k % 2 (lane_column_sums).
+__device__ __forceinline__ void store_column_sums(const float* red, float* part, int t) {
+  const int rem = t % 16, k = 2 * (rem / 8) + rem % 2, ln = 4 * (t / 16) + (rem % 8) / 2;
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) sum += red[w * 256 + s * 128 + k * 32 + ln];
+    part[s * 128 + t] = sum;
+  }
+}
+
 // ------------------------------------ host -----------------------------------
 
 // Tensor map of a `rank`-dimensional tensor at `base`: dims innermost first,

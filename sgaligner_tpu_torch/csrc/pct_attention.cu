@@ -23,9 +23,9 @@
 //   online (flash-style) row softmax does not apply. By symmetry of E the
 //   column log-sum-exp of key q equals the row log-sum-exp of row q, which
 //   gives three passes over 64-row tiles. bf16 runs them as the wgmma
-//   design of pct_block_eval_sm90.cu; f32 (and the training forward and the
-//   attention op's forward below, in both dtypes) as these grid-stride
-//   passes:
+//   design of pct_block_eval_sm90.cu (the training forward below too); f32
+//   (and the attention op's forward below, in both dtypes) as these
+//   grid-stride passes:
 //     1. project: q and v of a tile, Wqk and Wv resident in shared memory;
 //     2. lse: for a tile of rows, an online max / sum-exp over all P columns
 //        of E, recomputing E from q in 64-column chunks (f32);
@@ -42,9 +42,14 @@
 // _block_fwd_kernel), the training forward, SA or OA: the same three passes,
 // with the apply pass's epilogue writing t_out = round(u·Wt + bt)
 // [O, P, 128] and the masked BN sums Σ m·t, Σ m·t² [1, 128] (f32) instead of
-// folding. Each block keeps its channel sums in registers and writes them to
-// its scratch slice; reduce_slices adds the slices in block order.
+// folding.
 //   Bound on the H100: operations, as pct_block_eval.
+//   bf16: pct_block_eval's wgmma passes, the apply pass with a training
+//   epilogue chosen at compile time (pct_block_eval_sm90.cu): t stays in
+//   registers, its sums reduce over lanes by shuffles into per-warpgroup
+//   slices. f32: the passes below; each block keeps its channel sums in
+//   registers and writes them to its scratch slice. reduce_slices adds the
+//   slices in order.
 //
 // pct_epi_sums replaces the Pallas kernel _epi_sums_kernel of
 // ops/pct_attention.py::_block_res_bwd_rule: with g = dy where
@@ -1071,6 +1076,10 @@ int launch_block_eval_sm90(const void* x, const void* wqk, const void* wv, const
                            const void* wt, const void* bt, const float* wbn, const float* bbn,
                            void* q, void* vt, float* lse2, void* out, int o, int p, int oa,
                            cudaStream_t st);
+int launch_block_fwd_sm90(const void* x, const void* wqk, const void* wv, const void* bv,
+                          const void* wt, const void* bt, const void* mask, void* q, void* vt,
+                          float* lse2, void* tout, float* scratch, int slices, float* sums,
+                          int o, int p, int oa, cudaStream_t st);
 size_t block_bwd_work_bytes_sm90(int o, int p);
 int launch_block_bwd_sm90(int kind, const void* x, const void* wqk, const void* wv,
                           const void* bv, const void* wt, const void* bt, const void* mask,
@@ -1099,15 +1108,19 @@ int sga_pct_block_eval(const void* x, const void* wqk, const void* wv, const voi
 }
 
 // Training forward (SA, or OA with oa = 1): t_out [O, P, 128], sums [2, 128]
-// (Σ m·t, Σ m·t²) f32; scratch: `blocks` slices of slice_stride(256) floats
+// (Σ m·t, Σ m·t²) f32; scratch: `blocks` slices of slice_stride(256) floats.
+// bf16 takes the wgmma design (pct_block_eval_sm90.cu) with v and lse the
+// eval block's work buffers vᵀ [O, 128, pp] and [O, pp], and `blocks` even:
+// one slice per consumer warpgroup of blocks / 2 persistent blocks; f32
+// takes the three passes below, one slice per block
 int sga_pct_block_fwd(const void* x, const void* wqk, const void* wv, const void* bv,
                       const void* wt, const void* bt, const void* mask, void* q, void* v,
                       float* lse, void* tout, float* scratch, int blocks, float* sums, int o,
                       int p, int oa, int dtype, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == sga::kBF16)
-    return sga::launch_block_fwd<sga::bf16>(x, wqk, wv, bv, wt, bt, mask, q, v, lse, tout,
-                                            scratch, blocks, sums, o, p, oa, st);
+    return sga::launch_block_fwd_sm90(x, wqk, wv, bv, wt, bt, mask, q, v, lse, tout, scratch,
+                                      blocks, sums, o, p, oa, st);
   return sga::launch_block_fwd<float>(x, wqk, wv, bv, wt, bt, mask, q, v, lse, tout, scratch,
                                       blocks, sums, o, p, oa, st);
 }

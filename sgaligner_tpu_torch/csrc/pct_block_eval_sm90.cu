@@ -1,8 +1,11 @@
-// PCT SA / OA block, inference form, bf16: the wgmma design of
-// pct_block_eval (see pct_attention.cu for the function and its f32 path).
+// PCT SA / OA block, bf16: the wgmma design of pct_block_eval and of the
+// training forward pct_block_fwd (see pct_attention.cu for the functions and
+// their f32 paths).
 //
 // Replaces sgaligner_tpu/ops/pct_attention.py::pct_block_eval (Pallas kernel
-// _block_eval_kernel) for bf16 inputs: out = x + relu(t·wbn + bbn).
+// _block_eval_kernel) for bf16 inputs: out = x + relu(t·wbn + bbn); and
+// ::pct_block_fused (Pallas kernel _block_fwd_kernel): t_out = round(t) and
+// the masked sums Σ m·t, Σ m·t² (f32).
 //   Bound on the H100: operations on the tensor cores (126 MFLOP per object
 //   at P = 512: 1.65 ms at O = 13,440), and beside them the exponentials:
 //   the softmax normaliser runs over the key axis, so the design takes two
@@ -31,6 +34,13 @@
 //        K-major), then out = x + relu(round(t + bt)·wbn + bbn), written over
 //        the warpgroup's x tile (brought by TMA during the key loop) and
 //        stored from there in 16-byte rows.
+//   The training forward runs the same three passes; its apply pass's
+//   epilogue (a compile-time variant) writes t through the staging tile
+//   and takes the sums from the registers: per thread over its two rows
+//   (rows past P weigh 0), over the 8 lanes of each column by shuffles,
+//   into one shared-memory share per warp, and once per warpgroup into its
+//   scratch slice, which reduce_slices adds in order (no atomics). SA's
+//   training epilogue reads no x, so its x tile is not loaded.
 //   Overlap: the lse pass starts S of the next chunk before this chunk's
 //   exponentials. In the apply pass each warpgroup runs S, exponentials
 //   and G·v of a chunk in turn; the two warpgroups overlap only as the
@@ -351,6 +361,8 @@ lse_wgmma_kernel(const __grid_constant__ CUtensorMap qm, float* __restrict__ lse
 
 // ------------------------------- pass 3: apply -------------------------------
 
+constexpr long long kSumStride = slice_stride(2 * kC);  // one warpgroup's Σt, Σt²
+
 struct ApplySmem {
   static constexpr size_t stage_bytes = align128(kVTile + kQTile + kLseChunk + 1023) & ~size_t(1023);
   static constexpr size_t wt_off = 0;                            // Wtᵀ, two [128, 64] boxes
@@ -358,30 +370,43 @@ struct ApplySmem {
   static constexpr size_t ring_off = qi_off + 4 * kQTile;        // stage: vᵀ, q_J, lse_J
   static constexpr size_t out_off = ring_off + kStages * stage_bytes;  // [2] x / out tiles
   static constexpr size_t vec_off = out_off + 2 * kXTile;    // bt, wbn, bbn f32
-  static constexpr size_t bar_off = vec_off + 3 * kC * 4;
+  static constexpr size_t red_off = vec_off + 3 * kC * 4;    // training: [8 warps][256] sums
+  static constexpr size_t bar_off = red_off + 8 * 2 * kC * 4;
   static constexpr size_t bytes = bar_off + sizeof(Barriers) + 1024;
 };
 
-template <bool OA>
+// TRAIN = false: out = x + relu(round(t + bt)·wbn + bbn) (pct_block_eval).
+// TRAIN = true: out = t_out = round(u·Wt + bt) (pct_block_fwd), and the
+// masked channel sums Σ m·t, Σ m·t² of each consumer warpgroup into its
+// scratch slice 2·blockIdx + c (slice_stride(256) floats); SA then loads no
+// x tile (its epilogue does not read x).
+template <bool OA, bool TRAIN>
 __global__ void __launch_bounds__(kThreads, 1)
 apply_wgmma_kernel(const __grid_constant__ CUtensorMap qm, const __grid_constant__ CUtensorMap vm,
                    const __grid_constant__ CUtensorMap lm, const __grid_constant__ CUtensorMap xm,
                    const bf16* __restrict__ wt, const bf16* __restrict__ bt,
                    const float* __restrict__ wbn, const float* __restrict__ bbn,
-                   bf16* __restrict__ out, int o, int p) {
+                   const bf16* __restrict__ mask, bf16* __restrict__ out,
+                   float* __restrict__ scratch, int o, int p) {
   using L = ApplySmem;
+  constexpr bool kX = !TRAIN || OA;  // the epilogue reads the x tile
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   Barriers& b = *reinterpret_cast<Barriers*>(smem + L::bar_off);
   float* vec = reinterpret_cast<float*>(smem + L::vec_off);
+  float* red = reinterpret_cast<float*>(smem + L::red_off);
 
   // Wtᵀ resident (the B operand of u·Wt); the epilogue vectors as f32
   stage_transposed(reinterpret_cast<bf16*>(smem + L::wt_off), wt, kC, kC);
   for (int i = threadIdx.x; i < kC; i += blockDim.x) {
     vec[i] = __bfloat162float(bt[i]);
-    vec[kC + i] = wbn[i];
-    vec[2 * kC + i] = bbn[i];
+    if constexpr (!TRAIN) {
+      vec[kC + i] = wbn[i];
+      vec[2 * kC + i] = bbn[i];
+    }
   }
+  if constexpr (TRAIN)
+    for (int i = threadIdx.x; i < 8 * 2 * kC; i += blockDim.x) red[i] = 0.f;
   fence_proxy_async();
   if (threadIdx.x == 0) b.init();
   __syncthreads();
@@ -410,7 +435,7 @@ apply_wgmma_kernel(const __grid_constant__ CUtensorMap qm, const __grid_constant
       }
       // each consumer's x tile, for its epilogue (the previous item's
       // output has left the tile by then)
-      for (int h = 0; h < 2; ++h) {
+      for (int h = 0; h < 2 && kX; ++h) {
         unsigned char* xt = smem + L::out_off + h * kXTile;
         mbar_wait(b.xempty + h, (qn & 1u) ^ 1u);
         mbar_expect_tx(b.xfull + h, (uint32_t)kXTile);
@@ -485,7 +510,7 @@ apply_wgmma_kernel(const __grid_constant__ CUtensorMap qm, const __grid_constant
       inv[0] = 1.f / (1e-9f + quad_sum(rs[0]));
       inv[1] = 1.f / (1e-9f + quad_sum(rs[1]));
     }
-    mbar_wait(b.xfull + c, qn & 1u);
+    if constexpr (kX) mbar_wait(b.xfull + c, qn & 1u);
     uint32_t* xt = reinterpret_cast<uint32_t*>(smem + L::out_off + c * kXTile);
     uint32_t ua[8][4];
 #pragma unroll
@@ -513,21 +538,42 @@ apply_wgmma_kernel(const __grid_constant__ CUtensorMap qm, const __grid_constant
     wgmma_wait<0>();
     fence_regs(tacc);
 
-    // out = x + relu(round(t + bt)·wbn + bbn), written over x in the tile,
-    // then to device memory in 16-byte rows
+    if constexpr (TRAIN) {
+      // t = round(u·Wt + bt), written over the tile; its masked column sums
+      // (rows past P out: TMA zero-filled them) into this warp's share
+      if constexpr (!kX) bar_sync(1 + c, 128);  // the last item's rows have left the tile
+      const float m = __bfloat162float(mask[obj]);
+      const float mh[2] = {r0 + rl < p ? m : 0.f, r0 + rl + 8 < p ? m : 0.f};
+      float s1[32], s2[32];
 #pragma unroll
-    for (int i = 0; i < 64; i += 2) {
-      const int h = (i / 2) % 2, col = 8 * (i / 4) + 2 * (lane % 4);
-      uint32_t& xo = xt[x_word(rl + 8 * h, col)];
-      float ov[2];
+      for (int g = 0; g < 16; ++g) {  // columns 8g + 2·(lane % 4) and + 1
+        const int col = 8 * g + 2 * (lane % 4);
+        uint32_t tw[2];
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float tv = __bfloat162float(__float2bfloat16_rn(tacc[i + e] + vec[col + e]));
-        const float z = tv * vec[kC + col + e] + vec[2 * kC + col + e];
-        ov[e] = (e == 0 ? lo_bf16(xo) : hi_bf16(xo)) + fmaxf(z, 0.f);
+        for (int h = 0; h < 2; ++h) {
+          tw[h] = pack_bf16(tacc[4 * g + 2 * h] + vec[col], tacc[4 * g + 2 * h + 1] + vec[col + 1]);
+          xt[x_word(rl + 8 * h, col)] = tw[h];
+        }
+        row_pair_sums(tw, mh, s1 + 2 * g, s2 + 2 * g);
       }
-      xo = pack_bf16(ov[0], ov[1]);
+      add_column_sums(red + (4 * c + warp) * 2 * kC, s1, s2, lane);
+    } else {
+      // out = x + relu(round(t + bt)·wbn + bbn), written over x in the tile
+#pragma unroll
+      for (int i = 0; i < 64; i += 2) {
+        const int h = (i / 2) % 2, col = 8 * (i / 4) + 2 * (lane % 4);
+        uint32_t& xo = xt[x_word(rl + 8 * h, col)];
+        float ov[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float tv = __bfloat162float(__float2bfloat16_rn(tacc[i + e] + vec[col + e]));
+          const float z = tv * vec[kC + col + e] + vec[2 * kC + col + e];
+          ov[e] = (e == 0 ? lo_bf16(xo) : hi_bf16(xo)) + fmaxf(z, 0.f);
+        }
+        xo = pack_bf16(ov[0], ov[1]);
+      }
     }
+    // the tile to device memory in 16-byte rows
     bar_sync(1 + c, 128);
     for (int idx = t; idx < kTile * (kC / 8); idx += 128) {
       const int r = idx / (kC / 8), q = idx % (kC / 8);
@@ -535,8 +581,15 @@ apply_wgmma_kernel(const __grid_constant__ CUtensorMap qm, const __grid_constant
         *reinterpret_cast<uint4*>(out + ((size_t)obj * p + r0 + r) * kC + 8 * q) =
             *reinterpret_cast<const uint4*>(xt + x_word(r, 8 * q));
     }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(b.xempty + c);  // the tile may take the next x
+    if constexpr (kX) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(b.xempty + c);  // the tile may take the next x
+    }
+  }
+  if constexpr (TRAIN) {
+    bar_sync(1 + c, 128);
+    store_column_sums(red + 4 * c * 2 * kC, scratch + (size_t)(2 * blockIdx.x + c) * kSumStride,
+                      t);
   }
 }
 
@@ -616,11 +669,36 @@ int launch_block_eval_sm90(const void* x, const void* wqk, const void* wv, const
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const long long items = (long long)o * (((p + kTile - 1) / kTile + 1) / 2);
   const int grid = (int)(items < sms ? items : sms);
-  auto apply = oa ? apply_wgmma_kernel<true> : apply_wgmma_kernel<false>;
+  auto apply = oa ? apply_wgmma_kernel<true, false> : apply_wgmma_kernel<false, false>;
   if (int rc = allow_smem(apply, ApplySmem::bytes)) return rc;
   apply<<<grid, kThreads, ApplySmem::bytes, st>>>(qm, vm, lm, xm, (const bf16*)wt,
-                                                  (const bf16*)bt, wbn, bbn, (bf16*)out, o, p);
+                                                  (const bf16*)bt, wbn, bbn, nullptr, (bf16*)out,
+                                                  nullptr, o, p);
   return (int)cudaGetLastError();
+}
+
+// bf16 pct_block_fwd: the eval block's projection, lse and apply passes,
+// the apply pass with the training epilogue. Work buffers as
+// launch_block_eval_sm90; scratch: `slices` slices of slice_stride(256)
+// floats, two per block of the apply pass's grid (one per consumer
+// warpgroup), which reduce_slices adds in order into sums [2, 128]
+int launch_block_fwd_sm90(const void* x, const void* wqk, const void* wv, const void* bv,
+                          const void* wt, const void* bt, const void* mask, void* q, void* vt,
+                          float* lse2, void* tout, float* scratch, int slices, float* sums,
+                          int o, int p, int oa, cudaStream_t st) {
+  if (slices < 2 || slices % 2) return (int)cudaErrorInvalidValue;
+  CUtensorMap xm, qm, vm, lm;
+  if (int rc = launch_project_lse_sm90(x, wqk, wv, bv, q, vt, nullptr, lse2, o, p, &xm, &qm, &vm,
+                                       &lm, st))
+    return rc;
+  auto apply = oa ? apply_wgmma_kernel<true, true> : apply_wgmma_kernel<false, true>;
+  if (int rc = allow_smem(apply, ApplySmem::bytes)) return rc;
+  apply<<<slices / 2, kThreads, ApplySmem::bytes, st>>>(qm, vm, lm, xm, (const bf16*)wt,
+                                                        (const bf16*)bt, nullptr, nullptr,
+                                                        (const bf16*)mask, (bf16*)tout, scratch,
+                                                        o, p);
+  if (int rc = (int)cudaGetLastError()) return rc;
+  return reduce_slices(scratch, kSumStride, slices, sums, 2 * kC, st);
 }
 
 }  // namespace sga

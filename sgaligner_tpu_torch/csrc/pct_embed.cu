@@ -20,11 +20,13 @@
 // accumulation, rounded, plus the masked sums of h1.
 //   Bound on the H100: bytes (256 FLOP per 4 bytes of bf16 traffic is below
 //   the card's ~295 FLOP/B ridge).
-//   Design: grid-stride over 64-row tiles of the flat [O·P, 128] activation;
-//   W1 stays resident in shared memory for all of a block's tiles; the
-//   prologue is applied while the tile is staged; the product runs on the
-//   tensor cores (bf16 WMMA) or as f32 FMAs; sums as in embed_first. Tiles
-//   may straddle objects: each row looks up its own object's mask.
+//   bf16 runs the Hopper design of pct_embed_sm90.cu (TMA ring, wgmma with
+//   the prologue applied on the register-A fragments, sums from the
+//   accumulators). f32: grid-stride over 64-row tiles of the flat [O·P, 128]
+//   activation; W1 stays resident in shared memory for all of a block's
+//   tiles; the prologue is applied while the tile is staged; the product
+//   runs as f32 FMAs; sums as in embed_first. Tiles may straddle objects:
+//   each row looks up its own object's mask.
 //   Both kernels take a fixed grid (`blocks`, chosen by the wrapper) so that
 //   the scratch holds one slice per block.
 #include "common.cuh"
@@ -318,6 +320,11 @@ int launch_second(const void* h0, const void* wf, const void* bf, const void* w,
 }
 
 }  // namespace
+
+int launch_embed_second_sm90(const void* h0, const void* wf, const void* bf, const void* w,
+                             const void* mask, void* h1, float* scratch, int slices, float* sums,
+                             int o, int p, cudaStream_t st);
+
 }  // namespace sga
 
 extern "C" {
@@ -332,13 +339,15 @@ int sga_embed_first(const void* x, const void* w, const void* mask, void* h, flo
   return sga::launch_first<float>(x, w, mask, h, scratch, blocks, sums, o, p, st);
 }
 
-// as sga_embed_first
+// as sga_embed_first; bf16 takes the wgmma design (pct_embed_sm90.cu), with
+// `blocks` even: one slice per consumer warpgroup of blocks / 2 persistent
+// blocks
 int sga_embed_second(const void* h0, const void* wf, const void* bf, const void* w,
                      const void* mask, void* h1, float* scratch, int blocks, float* sums, int o,
                      int p, int dtype, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == sga::kBF16)
-    return sga::launch_second<sga::bf16>(h0, wf, bf, w, mask, h1, scratch, blocks, sums, o, p,
+    return sga::launch_embed_second_sm90(h0, wf, bf, w, mask, h1, scratch, blocks, sums, o, p,
                                          st);
   return sga::launch_second<float>(h0, wf, bf, w, mask, h1, scratch, blocks, sums, o, p, st);
 }

@@ -197,6 +197,13 @@ def grid_blocks(device: torch.device, work: int, per_sm: int = 2) -> int:
     return max(1, min(int(work), sms * per_sm))
 
 
+def warpgroup_slices(device: torch.device, items: int) -> int:
+    """Sum slices of a persistent wgmma launch (one block per
+    multiprocessor, at most one per work item) whose two consumer
+    warpgroups each keep a slice."""
+    return 2 * grid_blocks(device, items, per_sm=1)
+
+
 def scratch(device: torch.device, blocks: int, n: int) -> torch.Tensor:
     """``blocks`` partial-sum slices of ``n`` floats (uninitialised: every
     kernel writes or zeroes its own slice before adding to it)."""

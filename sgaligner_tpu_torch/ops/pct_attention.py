@@ -24,8 +24,8 @@ Every op takes both flag sets, SA (``scale=True, double_norm=False``) and OA
 (``False, True``); the block ops take ``double_norm`` as the OA residual
 too, as the JAX ops do; ``pct_block_eval`` also the mixed pairs, and
 ``BlockEval`` makes it differentiable. A CUDA tensor goes through
-``csrc/pct_attention.cu`` (in bf16, ``pct_block_eval`` through
-``csrc/pct_block_eval_sm90.cu`` and the three backwards through
+``csrc/pct_attention.cu`` (in bf16, ``pct_block_eval`` and ``block_fwd``
+through ``csrc/pct_block_eval_sm90.cu`` and the three backwards through
 ``csrc/pct_block_bwd_sm90.cu``); a CPU tensor through the plain versions
 (``block_eval_plain``,
 ``block_fwd_plain``, ``epi_sums_plain``, ``block_res_bwd_plain``,
@@ -122,16 +122,7 @@ def pct_block_eval(x, wqk, wv, bv, wt, bt, wbn, bbn, scale=True,
     for key, t in (("bv", bv), ("bt", bt), ("wbn", wbn32), ("bbn", bbn32)):
         _build.check_shape(name, key, t, (128,))
     out = torch.empty_like(x)
-    q = torch.empty((o, p, 32), dtype=dt, device=x.device)
-    if dt == torch.bfloat16:
-        # the wgmma design's work buffers: vᵀ [O, 128, pp] and lse [O, pp],
-        # the key axis padded to a multiple of 8 (16-byte rows for TMA)
-        pp = (p + 7) // 8 * 8
-        v = torch.empty((o, 128, pp), dtype=dt, device=x.device)
-        lse = torch.empty((o, pp), dtype=torch.float32, device=x.device)
-    else:
-        v = torch.empty_like(x)
-        lse = torch.empty((o, p), dtype=torch.float32, device=x.device)
+    q, v, lse = _block_work(x)
     if o:
         _build.launch(name, "sga_pct_block_eval", x.device,
                       x.data_ptr(), wqk_s.data_ptr(), wv.data_ptr(),
@@ -140,6 +131,20 @@ def pct_block_eval(x, wqk, wv, bv, wt, bt, wbn, bbn, scale=True,
                       v.data_ptr(), lse.data_ptr(), out.data_ptr(), o, p,
                       int(double_norm), _build.DTYPE_CODE[dt])
     return out
+
+
+def _block_work(x):
+    """The block kernels' work buffers q [O, P, 32], v, lse. bf16 (the
+    wgmma design): vᵀ [O, 128, pp] and lse [O, pp], the key axis padded to
+    a multiple of 8 (16-byte rows for TMA); f32: v [O, P, 128], lse [O, P]."""
+    o, p, _ = x.shape
+    q = torch.empty((o, p, 32), dtype=x.dtype, device=x.device)
+    if x.dtype == torch.bfloat16:
+        pp = (p + 7) // 8 * 8
+        return (q, torch.empty((o, 128, pp), dtype=x.dtype, device=x.device),
+                torch.empty((o, pp), dtype=torch.float32, device=x.device))
+    return (q, torch.empty_like(x),
+            torch.empty((o, p), dtype=torch.float32, device=x.device))
 
 
 class BlockEval(torch.autograd.Function):
@@ -208,10 +213,13 @@ def block_fwd(x, wqk, wv, bv, wt, bt, mask, scale=True, double_norm=False):
     t_out = torch.empty_like(x)
     sums = torch.zeros((2, C), dtype=torch.float32, device=dev)
     if o:
-        q = torch.empty((o, p, DA), dtype=dt, device=dev)
-        v = torch.empty_like(x)
-        lse = torch.empty((o, p), dtype=torch.float32, device=dev)
-        blocks = _build.grid_blocks(dev, o * ((p + 63) // 64), per_sm=1)
+        q, v, lse = _block_work(x)
+        if dt == torch.bfloat16:
+            # one sum slice per consumer warpgroup of the persistent apply
+            # pass (two a block, one block per SM, one per pair of row tiles)
+            blocks = _build.warpgroup_slices(dev, o * (((p + 63) // 64 + 1) // 2))
+        else:
+            blocks = _build.grid_blocks(dev, o * ((p + 63) // 64), per_sm=1)
         part = _build.scratch(dev, blocks, 2 * C)
         _build.launch(name, "sga_pct_block_fwd", dev,
                       *(t.data_ptr() for t in (x, wqk_s, wv, bv, wt, bt, mask,

@@ -16,7 +16,8 @@ Counterpart of ``sgaligner_tpu/ops/pct_embed.py`` (``embed_first_fused``,
   pairs, which NaivePCT runs in both modes (the JAX ops carry one custom
   VJP for both); with gradients off they save nothing.
 
-A CUDA tensor goes through the kernels of ``csrc/pct_embed.cu``; a CPU tensor
+A CUDA tensor goes through the kernels of ``csrc/pct_embed.cu`` (the bf16
+``embed_second`` through ``csrc/pct_embed_sm90.cu``); a CPU tensor
 through the plain versions below, which repeat the kernels' arithmetic
 (f64 accumulation for f64 inputs, f32 otherwise).
 """
@@ -68,21 +69,22 @@ def embed_first(x_cf, w, mask):
     _build.check_shape(name, "w", w, (three, 128))
     _build.check_shape(name, "mask", mask, (o, 1))
     h = torch.empty((o, p, 128), dtype=x_cf.dtype, device=x_cf.device)
-    sums = _launch_with_sums(name, "sga_embed_first", x_cf.device, o, o, 4,
+    sums = _launch_with_sums(name, "sga_embed_first", x_cf.device, o,
+                             _build.grid_blocks(x_cf.device, o, per_sm=4),
                              x_cf, w, mask, h, p=p, dtype=x_cf.dtype)
     return h, sums[:1], sums[1:]
 
 
-def _launch_with_sums(name, fn_name, dev, o, work, per_sm, *tensors, p, dtype):
-    """Launch one embedding forward over a fixed grid with a scratch slice
-    per block; returns its masked sums [2, 128] (f32), which reduce_slices
-    adds in block order: the same bits from run to run."""
+def _launch_with_sums(name, fn_name, dev, o, slices, *tensors, p, dtype):
+    """Launch one embedding forward with ``slices`` scratch slices of
+    partial sums (one per block, or per consumer warpgroup of the bf16
+    embed_second); returns its masked sums [2, 128] (f32), which
+    reduce_slices adds in slice order: the same bits from run to run."""
     sums = torch.zeros((2, 128), dtype=torch.float32, device=dev)
     if o:
-        blocks = _build.grid_blocks(dev, work, per_sm=per_sm)
-        part = _build.scratch(dev, blocks, 2 * 128)
+        part = _build.scratch(dev, slices, 2 * 128)
         _build.launch(name, fn_name, dev, *(t.data_ptr() for t in tensors),
-                      part.data_ptr(), blocks, sums.data_ptr(), o, p,
+                      part.data_ptr(), slices, sums.data_ptr(), o, p,
                       _build.DTYPE_CODE[dtype])
     return sums
 
@@ -102,9 +104,13 @@ def embed_second(h0, wf, bf, w, mask):
     _build.check_shape(name, "w", w, (128, 128))
     _build.check_shape(name, "mask", mask, (o, 1))
     h1 = torch.empty_like(h0)
-    sums = _launch_with_sums(name, "sga_embed_second", h0.device, o,
-                             (o * p + 63) // 64, 2, h0, wf, bf, w, mask, h1,
-                             p=p, dtype=h0.dtype)
+    tiles = (o * p + 63) // 64
+    if h0.dtype == torch.bfloat16:   # the wgmma design: persistent, 2 slices a block
+        slices = _build.warpgroup_slices(h0.device, tiles)
+    else:
+        slices = _build.grid_blocks(h0.device, tiles, per_sm=2)
+    sums = _launch_with_sums(name, "sga_embed_second", h0.device, o, slices,
+                             h0, wf, bf, w, mask, h1, p=p, dtype=h0.dtype)
     return h1, sums[:1], sums[1:]
 
 

@@ -272,14 +272,26 @@ def test_wrappers_raise_instead_of_falling_back(card):
 @pytest.mark.parametrize("points", [64, 200, 512])
 @pytest.mark.parametrize("objects", [1, 3, 67])
 @pytest.mark.parametrize("name,flags", [("pct_block_eval", SA), ("pct_block_eval", OA),
-                                        ("pct_tail", None), ("pct_tail", "idx")],
-                         ids=["block_SA", "block_OA", "pct_tail", "pct_tail_idx"])
+                                        ("pct_tail", None), ("pct_tail", "idx"),
+                                        ("pct_block_fwd", SA), ("pct_block_fwd", OA),
+                                        ("embed_second", None)],
+                         ids=["block_SA", "block_OA", "pct_tail", "pct_tail_idx",
+                              "block_fwd_SA", "block_fwd_OA", "embed_second"])
 def test_wgmma_kernels_match_plain_version(card, name, flags, objects, points):
-    """The two wgmma kernels (bf16) at few objects (a block with one or no
+    """The wgmma forwards (bf16) at few objects (a block with one or no
     object for one of its warpgroups) and at P a multiple of the 64-row
     tile, ragged, and the main path's."""
     args = card.op_inputs(name, objects, torch.bfloat16, seed=7, p=points)
     card.check_op(name, args, "bf16", flags or SA)
+
+
+def test_embed_second_sums_across_straddling_tiles(card):
+    """embed_second at P = 200 with object masks alternating 0 / 1: its flat
+    64-row tiles straddle objects of different masks, and each row must
+    count under its own object's mask."""
+    args = list(card.op_inputs("embed_second", 67, torch.bfloat16, seed=19, p=200))
+    args[4] = (torch.arange(67, device="cuda") % 2).to(torch.bfloat16).reshape(67, 1)
+    card.check_op("embed_second", tuple(args), "bf16")
 
 
 def _tail_with_ties_and_nans(dtype):
@@ -399,9 +411,11 @@ def test_wgmma_backwards_few_objects(card, name, flags, objects, points):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("name,flags", [("embed_first", SA), ("embed_second", SA),
                                         ("pct_block_res_bwd", SA), ("pct_block_res_bwd", OA),
-                                        ("pct_tail_bwd", SA)],
+                                        ("pct_tail_bwd", SA), ("pct_block_fwd", SA),
+                                        ("pct_block_fwd", OA)],
                          ids=["embed_first", "embed_second", "block_res_bwd_SA",
-                              "block_res_bwd_OA", "pct_tail_bwd"])
+                              "block_res_bwd_OA", "pct_tail_bwd", "block_fwd_SA",
+                              "block_fwd_OA"])
 def test_same_bits_twice(card, name, flags, dtype):
     """No atomics: every output, the embeddings' BN sums included, repeats
     bit for bit on the same inputs."""
