@@ -234,13 +234,13 @@ KERNELS = {
                        "sgaligner_tpu/ops/pct_attention.py:833"),
     "pct_tail": ("sgaligner_tpu_torch/csrc/pct_tail_sm90.cu",
                  "sgaligner_tpu/ops/pct_tail.py:83"),
-    "pointnet_fwd": ("sgaligner_tpu_torch/csrc/pointnet.cu",
+    "pointnet_fwd": ("sgaligner_tpu_torch/csrc/pointnet_sm90.cu",
                      "sgaligner_tpu/ops/pointnet_fused.py:62"),
     "pointnet_bwd": ("sgaligner_tpu_torch/csrc/pointnet.cu",
                      "sgaligner_tpu/ops/pointnet_fused.py:72"),
     "embed_first_bwd": ("sgaligner_tpu_torch/csrc/pct_embed.cu",
                         "sgaligner_tpu/ops/pct_embed.py:66"),
-    "embed_second_bwd": ("sgaligner_tpu_torch/csrc/pct_embed.cu",
+    "embed_second_bwd": ("sgaligner_tpu_torch/csrc/pct_embed_bwd_sm90.cu",
                          "sgaligner_tpu/ops/pct_embed.py:221"),
     "pct_block_fwd": ("sgaligner_tpu_torch/csrc/pct_block_eval_sm90.cu",
                       "sgaligner_tpu/ops/pct_attention.py:320"),
@@ -259,8 +259,9 @@ KERNELS = {
 }
 PCT_KERNELS = ("embed_first", "embed_second", "pct_block_eval", "pct_tail")
 # forward kernels held to the same bits twice too (their BN sums: per-block
-# slices, no atomics); the training and op kernels all are
-SAME_BITS = ("embed_first", "embed_second", "pct_tail")
+# slices, no atomics; the PointNet forward's max and argmax); the training
+# and op kernels all are
+SAME_BITS = ("embed_first", "embed_second", "pct_tail", "pointnet_fwd")
 
 
 def _scaled(index: int, factor: float):
@@ -268,6 +269,13 @@ def _scaled(index: int, factor: float):
     def fault(outs, args):
         return tuple(t * factor if i == index else t for i, t in enumerate(outs))
     return f"output {index} x{factor}", fault
+
+
+def _moved_argmax(outs, args):
+    """A planted fault of the PointNet forward: each channel's index moved
+    to the next point (the kernel's own max)."""
+    out, amax = outs
+    return out, (amax + 1) % args[0].shape[-1]
 
 
 def _unmasked_sums(outs, args):
@@ -288,7 +296,10 @@ KERNEL_PLANTED = {"pct_block_res_bwd": (_scaled(0, 2.0), _scaled(2, 2.0)),
                   "pct_tail_bwd": (_scaled(0, 1.1), _scaled(4, 2.0)),
                   "pct_block_fwd": (_scaled(2, 2.0),),
                   "embed_second": (("sums with the mask ignored", _unmasked_sums),
-                                   _scaled(0, 1.1))}
+                                   _scaled(0, 1.1)),
+                  "pointnet_fwd": (_scaled(0, 1.1),
+                                   ("argmax moved to the next point", _moved_argmax)),
+                  "embed_second_bwd": (_scaled(0, 1.1), _scaled(3, 2.0))}
 # pct_block_eval's mixed flag pairs, which no model uses but the JAX op
 # computes: SA's scale with OA's normalisation, and neither
 MIXED_FLAGS = [("both", (True, True)), ("neither", (False, False))]
@@ -341,7 +352,7 @@ BLOCK_EVAL_PASSES = {"project": "project_wgmma_kernel", "lse": "lse_wgmma_kernel
 # kernel names of the wgmma design's passes (pass_split)
 WMMA_BWD_MS = {"pct_block_res_bwd": 12.418, "pct_block_res_bwd/OA": 18.983,
                "pct_tail_bwd": 21.747, "pct_block_bwd": 11.488, "pct_block_bwd/OA": 18.854,
-               "pct_attn_bwd": 7.199, "pct_attn_bwd/OA": 14.933}
+               "pct_attn_bwd": 7.199, "pct_attn_bwd/OA": 14.933, "embed_second_bwd": 3.088}
 # The bf16 forwards redesigned in the wgmma design, in their earlier design
 # (shared-memory WMMA passes) at O = 896 (NVIDIA H100 80GB HBM3, 700.00 W;
 # CUDA events: the block as chip_smoke.py read it, embed_second the mean
@@ -351,6 +362,11 @@ WMMA_FWD_MS = {"pct_block_fwd": 3.913, "pct_block_fwd/OA": 4.544, "embed_second"
 BLOCK_FWD_PASSES = ("::project_wgmma_kernel", "::lse_wgmma_kernel", "::apply_wgmma_kernel",
                     "::reduce_slices_kernel")
 EMBED_SECOND_PASSES = ("::embed_second_wgmma_kernel", "::reduce_slices_kernel")
+EMBED_SECOND_BWD_PASSES = ("::embed_second_bwd_wgmma_kernel", "::reduce_slices_kernel")
+# The PointNet forward's earlier design (shared-memory WMMA chunks) at the
+# training O = 896 and the serving O = 13,440, bf16 (NVIDIA H100 80GB HBM3,
+# 700.00 W; CUDA events, median of 5, chip_smoke.py)
+POINTNET_WMMA_MS = {896: 1.100, 13440: 11.408}
 BLOCK_BWD_PASSES = ("::project_wgmma_kernel", "::lse_wgmma_kernel", "::dz_wgmma_kernel",
                     "::dv_wgmma_kernel", "::dq_wgmma_kernel", "::dx_wgmma_kernel",
                     "::wgrad_wgmma_kernel", "::reduce_slices_kernel")
@@ -1752,6 +1768,10 @@ def time_pointnet(state: dict) -> list[dict]:
         if work:
             log(f"[time] pointnet_bwd O={o}: {work[0]} rows and {work[1]} channels "
                 f"carry gradient (of {o * P} and {o * PN[-1]})")
+        if name == "pointnet_fwd" and o in POINTNET_WMMA_MS:
+            earlier = POINTNET_WMMA_MS[o]
+            log(f"[time] pointnet_fwd O={o} bf16: {ms:.3f} ms, {b_ms / ms:.1%} of its bound; "
+                f"the WMMA design {earlier} ms ({b_ms / earlier:.1%}) | {state['card']}")
         log(f"[time] {name:15s} O={o} bf16 kernel {ms:.3f} ms | plain {plain_ms:.3f} ms | "
             f"bound {b_ms:.4f} ms ({b_by}) | library None | max_abs {err_abs:.3e} "
             f"max_rel {err_rel:.3e} | {state['card']}")
@@ -1777,7 +1797,9 @@ def log_redesign(state: dict, label: str, o: int, ms: float, b_ms: float, kern,
     (WMMA_BWD_MS, WMMA_FWD_MS) and its passes' device time under
     torch.profiler (pass_split)."""
     passes = {"pct_tail_bwd": TAIL_BWD_PASSES, "embed_second": EMBED_SECOND_PASSES,
-              "pct_block_fwd": BLOCK_FWD_PASSES}.get(label.split("/")[0], BLOCK_BWD_PASSES)
+              "pct_block_fwd": BLOCK_FWD_PASSES,
+              "embed_second_bwd": EMBED_SECOND_BWD_PASSES}.get(label.split("/")[0],
+                                                               BLOCK_BWD_PASSES)
     earlier = {**WMMA_BWD_MS, **WMMA_FWD_MS}[label]
     split = pass_split(lambda: kern(*args), passes)
     log(f"[time] {label} O={o} bf16: {ms:.3f} ms, {b_ms / ms:.1%} of its bound; the WMMA "

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""The bf16 forwards of the pct block (eval and training) and embed_second
-on one NVIDIA GPU: times at the training and serving O.
+"""The bf16 forwards of the pct block (eval and training), embed_second and
+the PointNet encoder on one NVIDIA GPU: times at the training and serving
+O.
 
     python3 scripts/chip_fwd_check.py [label]
 
@@ -12,10 +13,14 @@ two designs on the same seeded inputs. Prints, per line and prefixed by
 * the compiler's registers and spills of the forward kernels (the build's
   ptxas notes);
 * pct_block_fwd (SA, OA) and pct_block_eval (SA, OA) at O = 896,
-  embed_second at O = 896 and both at the serving O = 13,440 (P = 512):
+  embed_second and pointnet_fwd (with the argmax) at O = 896, and those
+  three at the serving O = 13,440 (P = 512):
   CUDA-event ms (median of 9), the bound from chip_smoke.bound, the error
   against the plain version (at O = 896), and the device ms of each kernel
-  under torch.profiler.
+  under torch.profiler;
+* the point configuration's four B = 512 requests, as chip_smoke.py's
+  serve_point phase serves them (after its serve phase, which makes the
+  requests), with their host-clock times.
 """
 
 from __future__ import annotations
@@ -33,7 +38,8 @@ import chip_smoke as cs  # noqa: E402
 # shared-memory WMMA design's), matched after the namespace
 PASSES = ("project_wgmma_kernel", "lse_wgmma_kernel", "apply_wgmma_kernel",
           "embed_second_wgmma_kernel", "project_kernel", "lse_kernel", "apply_kernel",
-          "embed_second_kernel", "reduce_slices_kernel")
+          "embed_second_kernel", "pointnet_fwd_wgmma_kernel", "pointnet_fwd_kernel",
+          "reduce_slices_kernel")
 
 
 def registers(tag: str) -> None:
@@ -42,7 +48,8 @@ def registers(tag: str) -> None:
     _build.lib()
     lines = (Path(_build.build_info["path"]).parent / "build.log").read_text().splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry" in line and ("apply_wgmma" in line or "embed_second" in line):
+        if "Compiling entry" in line and any(k in line for k in ("apply_wgmma", "embed_second",
+                                                                 "pointnet_fwd")):
             name = line.split("'")[1]
             notes = " | ".join(x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
                                if "Used" in x or "spill" in x)
@@ -52,8 +59,9 @@ def registers(tag: str) -> None:
 def times(tag: str) -> None:
     for name, flags, o in (("pct_block_fwd", cs.SA, 896), ("pct_block_fwd", cs.OA, 896),
                            ("pct_block_eval", cs.SA, 896), ("pct_block_eval", cs.OA, 896),
-                           ("embed_second", cs.SA, 896), ("embed_second", cs.SA, 13440),
-                           ("pct_block_eval", cs.SA, 13440)):
+                           ("embed_second", cs.SA, 896), ("pointnet_fwd", cs.SA, 896),
+                           ("embed_second", cs.SA, 13440), ("pct_block_eval", cs.SA, 13440),
+                           ("pointnet_fwd", cs.SA, 13440)):
         args = cs.op_inputs(name, o, torch.bfloat16, seed=2)
         kern, _ = cs.op_fns(name, flags)
         err = cs.check_op(name, args, "bf16", flags, what=name)[1] if o <= 896 else float("nan")
@@ -76,6 +84,10 @@ def main() -> int:
     tag = sys.argv[1] if len(sys.argv) > 1 else "this"
     registers(tag)
     times(tag)
+    print(f"{tag} serve_point:", flush=True)
+    state: dict = {}
+    for phase in (cs.phase_device, cs.phase_serve, cs.phase_serve_point):
+        phase(state)
     return 0
 
 

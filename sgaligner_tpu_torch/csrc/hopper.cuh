@@ -310,16 +310,28 @@ __device__ __forceinline__ void wgmma_m64n32k16_rs_t(float* d, const uint32_t (&
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB));
 }
 
-// Write a row-major [rows, cols] bf16 weight transposed into K-major
-// 128-byte-swizzled boxes of 64 k: element (k, n) to box k / 64, row n
-// (the B operand of x·W). Called by every thread; fence_proxy_async and a
-// barrier follow before a wgmma reads it.
+// Write a row-major [ROWS, COLS] bf16 weight (row stride ld, a multiple of
+// 8, as COLS is; w 16-byte aligned, which each launch checks) transposed
+// into K-major 128-byte-swizzled boxes of 64 k: element (k, n) to box
+// k / 64, row n (the B operand of x·W). 16-byte loads, four in flight a
+// thread, consecutive threads on consecutive rows k, so a warp's 2-byte
+// stores fill one swizzled row n without bank conflicts. Called by every
+// thread; fence_proxy_async and a barrier follow before a wgmma reads it.
+template <int ROWS, int COLS>
 __device__ __forceinline__ void stage_transposed(__nv_bfloat16* dst,
-                                                 const __nv_bfloat16* __restrict__ w, int rows,
-                                                 int cols) {
-  for (int idx = threadIdx.x; idx < rows * cols; idx += blockDim.x) {
-    const int k = idx / cols, n = idx % cols, kin = k % 64;
-    dst[(k / 64) * (cols * 64) + n * 64 + (((kin / 8) ^ (n % 8)) * 8) + kin % 8] = w[idx];
+                                                 const __nv_bfloat16* __restrict__ w,
+                                                 int ld = COLS) {
+  constexpr int kVecs = ROWS * COLS / 8;
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < kVecs; idx += blockDim.x) {
+    const int k = idx % ROWS, n0 = (idx / ROWS) * 8, kin = k % 64;
+    const uint4 v = *reinterpret_cast<const uint4*>(w + (size_t)k * ld + n0);
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = n0 + j;
+      dst[(k / 64) * (COLS * 64) + n * 64 + (((kin / 8) ^ (n % 8)) * 8) + kin % 8] = e[j];
+    }
   }
 }
 
@@ -359,21 +371,28 @@ __device__ __forceinline__ void row_pair_sums(const uint32_t (&w)[2], const floa
   s2[1] = m[0] * (a1 * a1) + m[1] * (b1 * b1);
 }
 
-// Sum 32 per-thread values over the 8 lanes that share lane % 4 (the rows
-// of an accumulator's columns): a halving butterfly of 28 shuffles, after
-// which lane l holds the sums of values 4·(l / 4) + k, k < 4
-__device__ __forceinline__ void lane_column_sums(const float (&v)[32], float (&out)[4], int lane) {
-  float a[16], b[8];
+// Combine 32 per-thread values with `op` over the 8 lanes that share
+// lane % 4 (the rows of an accumulator's columns): a halving butterfly of
+// 28 exchanges, after which lane l holds the results for values
+// 4·(l / 4) + k, k < 4 (op(own, other) at each step)
+template <typename T, typename Op>
+__device__ __forceinline__ void lane_column_reduce(const T (&v)[32], T (&out)[4], int lane, Op op) {
+  T a[16], b[8];
   const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
 #pragma unroll
   for (int k = 0; k < 16; ++k)
-    a[k] = (b4 ? v[k + 16] : v[k]) + __shfl_xor_sync(0xffffffffu, b4 ? v[k] : v[k + 16], 16);
+    a[k] = op(b4 ? v[k + 16] : v[k], __shfl_xor_sync(0xffffffffu, b4 ? v[k] : v[k + 16], 16));
 #pragma unroll
   for (int k = 0; k < 8; ++k)
-    b[k] = (b3 ? a[k + 8] : a[k]) + __shfl_xor_sync(0xffffffffu, b3 ? a[k] : a[k + 8], 8);
+    b[k] = op(b3 ? a[k + 8] : a[k], __shfl_xor_sync(0xffffffffu, b3 ? a[k] : a[k + 8], 8));
 #pragma unroll
   for (int k = 0; k < 4; ++k)
-    out[k] = (b2 ? b[k + 4] : b[k]) + __shfl_xor_sync(0xffffffffu, b2 ? b[k] : b[k + 4], 4);
+    out[k] = op(b2 ? b[k + 4] : b[k], __shfl_xor_sync(0xffffffffu, b2 ? b[k] : b[k + 4], 4));
+}
+
+// the sums of 32 per-thread values over the 8 lanes of each column
+__device__ __forceinline__ void lane_column_sums(const float (&v)[32], float (&out)[4], int lane) {
+  lane_column_reduce(v, out, lane, [](float x, float y) { return x + y; });
 }
 
 // Add one row tile's column sums into this warp's share `wred` ([2][4][32]

@@ -181,7 +181,7 @@ dz_wgmma_kernel(const __grid_constant__ CUtensorMap qm, const __grid_constant__ 
   float* vec = reinterpret_cast<float*>(smem + L::vec_off);
 
   if constexpr (!ATTN) {
-    stage_transposed(reinterpret_cast<bf16*>(smem + L::wtt_off), wt, kC, kC);
+    stage_transposed<kC, kC>(reinterpret_cast<bf16*>(smem + L::wtt_off), wt);
     for (int i = threadIdx.x; i < kC; i += blockDim.x) {
       vec[i] = __bfloat162float(bt[i]);
       vec[kC + i] = EPI ? wbn[i] : 0.f;
@@ -1087,6 +1087,8 @@ int launch_block_bwd_sm90(int kind, const void* x, const void* wqk, const void* 
                           const void* cot, const float* wbn, const float* bbn, const float* dsum,
                           const float* dsumsq, void* work, void* dx, float* scratch, int blocks,
                           float* grads, int o, int p, int oa, cudaStream_t st) {
+  // stage_transposed reads the weights in 16-byte vectors
+  if (kind != 2 && ((uintptr_t)wt & 15)) return (int)cudaErrorMisalignedAddress;
   Work w;
   carve(work, o, p, &w);
   const int pp = (p + 7) / 8 * 8;

@@ -108,8 +108,8 @@ project_wgmma_kernel(const __grid_constant__ CUtensorMap xm, const bf16* __restr
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bar_off);
   bf16* vs = reinterpret_cast<bf16*>(smem + L::vs_off);
   bf16* vr = reinterpret_cast<bf16*>(smem + L::vr_off);
-  stage_transposed(reinterpret_cast<bf16*>(smem + L::wv_off), wv, kC, kC);
-  stage_transposed(reinterpret_cast<bf16*>(smem + L::wq_off), wqk, kC, kDa);
+  stage_transposed<kC, kC>(reinterpret_cast<bf16*>(smem + L::wv_off), wv);
+  stage_transposed<kC, kDa>(reinterpret_cast<bf16*>(smem + L::wq_off), wqk);
   fence_proxy_async();
   if (threadIdx.x == 0) {
     mbar_init(full, 1);
@@ -397,7 +397,7 @@ apply_wgmma_kernel(const __grid_constant__ CUtensorMap qm, const __grid_constant
   float* red = reinterpret_cast<float*>(smem + L::red_off);
 
   // Wtᵀ resident (the B operand of u·Wt); the epilogue vectors as f32
-  stage_transposed(reinterpret_cast<bf16*>(smem + L::wt_off), wt, kC, kC);
+  stage_transposed<kC, kC>(reinterpret_cast<bf16*>(smem + L::wt_off), wt);
   for (int i = threadIdx.x; i < kC; i += blockDim.x) {
     vec[i] = __bfloat162float(bt[i]);
     if constexpr (!TRAIN) {
@@ -605,6 +605,8 @@ int launch_project_lse_sm90(const void* x, const void* wqk, const void* wv, cons
                             CUtensorMap* xm, CUtensorMap* qm, CUtensorMap* vm, CUtensorMap* lm,
                             cudaStream_t st) {
   const int pp = (p + 7) / 8 * 8;
+  // stage_transposed reads the weights in 16-byte vectors
+  if (((uintptr_t)wqk | (uintptr_t)wv) & 15) return (int)cudaErrorMisalignedAddress;
   int dev = 0, sms = 1;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -660,6 +662,8 @@ int launch_block_eval_sm90(const void* x, const void* wqk, const void* wv, const
                            const void* wt, const void* bt, const float* wbn, const float* bbn,
                            void* q, void* vt, float* lse2, void* out, int o, int p, int oa,
                            cudaStream_t st) {
+  // stage_transposed reads the weights in 16-byte vectors
+  if ((uintptr_t)wt & 15) return (int)cudaErrorMisalignedAddress;
   CUtensorMap xm, qm, vm, lm;
   if (int rc = launch_project_lse_sm90(x, wqk, wv, bv, q, vt, nullptr, lse2, o, p, &xm, &qm, &vm,
                                        &lm, st))
@@ -687,6 +691,8 @@ int launch_block_fwd_sm90(const void* x, const void* wqk, const void* wv, const 
                           float* lse2, void* tout, float* scratch, int slices, float* sums,
                           int o, int p, int oa, cudaStream_t st) {
   if (slices < 2 || slices % 2) return (int)cudaErrorInvalidValue;
+  // stage_transposed reads the weights in 16-byte vectors
+  if ((uintptr_t)wt & 15) return (int)cudaErrorMisalignedAddress;
   CUtensorMap xm, qm, vm, lm;
   if (int rc = launch_project_lse_sm90(x, wqk, wv, bv, q, vt, nullptr, lse2, o, p, &xm, &qm, &vm,
                                        &lm, st))

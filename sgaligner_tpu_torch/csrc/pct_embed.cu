@@ -149,11 +149,13 @@ embed_second_kernel(const T* __restrict__ h0, const T* __restrict__ wf, const T*
 //   dh0 = g0·wf (rounded), dwf = Σ g0·h0, dbf = Σ g0 (f32).
 //   Bound on the H100: bytes (h0 and dh read, dh0 written; 768 FLOP per
 //   row of 256 bytes in bf16, below the ridge).
-//   Design: the forward's grid-stride walk over 64-row tiles with W1
-//   resident in shared memory; the recomputed x0 and dz tiles stay in
-//   shared memory for the three products (h, dW1 with the transposed-A
-//   block_gemm straight into the block's scratch slice, dx0); dwf and dbf
-//   are per-thread channel sums. Slices are summed by reduce_slices.
+//   bf16 runs the Hopper design of pct_embed_bwd_sm90.cu (two warpgroups,
+//   each with its own TMA ring and all of its dW1 in registers). f32: the forward's grid-stride walk over
+//   64-row tiles with W1 resident in shared memory; the recomputed x0 and
+//   dz tiles stay in shared memory for the three products (h, dW1 with the
+//   transposed-A block_gemm straight into the block's scratch slice, dx0);
+//   dwf and dbf are per-thread channel sums. Slices are summed by
+//   reduce_slices.
 
 constexpr int kE1Grad = 3 * kC;                        // dW0
 constexpr int kE2Grad = kC * kC + 2 * kC;              // dW1, dwf, dbf
@@ -324,6 +326,10 @@ int launch_second(const void* h0, const void* wf, const void* bf, const void* w,
 int launch_embed_second_sm90(const void* h0, const void* wf, const void* bf, const void* w,
                              const void* mask, void* h1, float* scratch, int slices, float* sums,
                              int o, int p, cudaStream_t st);
+int launch_embed_second_bwd_sm90(const void* h0, const void* wf, const void* bf, const void* w,
+                                 const void* mask, const void* dh, const float* ds1,
+                                 const float* ds2, void* dh0, float* scratch, int slices,
+                                 float* grads, int o, int p, cudaStream_t st);
 
 }  // namespace sga
 
@@ -364,14 +370,16 @@ int sga_embed_first_bwd(const void* x, const void* w, const void* mask, const vo
   return sga::launch_first_bwd<float>(x, w, mask, dh, ds1, ds2, scratch, blocks, dw, o, p, st);
 }
 
-// grads: dW1 [128, 128], dwf [128], dbf [128] back to back, f32
+// grads: dW1 [128, 128], dwf [128], dbf [128] back to back, f32; bf16 takes
+// the wgmma design (pct_embed_bwd_sm90.cu), with `blocks` even: one slice
+// per warpgroup of blocks / 2 persistent blocks
 int sga_embed_second_bwd(const void* h0, const void* wf, const void* bf, const void* w,
                          const void* mask, const void* dh, const float* ds1, const float* ds2,
                          void* dh0, float* scratch, int blocks, float* grads, int o, int p,
                          int dtype, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == sga::kBF16)
-    return sga::launch_second_bwd<sga::bf16>(h0, wf, bf, w, mask, dh, ds1, ds2, dh0, scratch,
+    return sga::launch_embed_second_bwd_sm90(h0, wf, bf, w, mask, dh, ds1, ds2, dh0, scratch,
                                              blocks, grads, o, p, st);
   return sga::launch_second_bwd<float>(h0, wf, bf, w, mask, dh, ds1, ds2, dh0, scratch, blocks,
                                        grads, o, p, st);

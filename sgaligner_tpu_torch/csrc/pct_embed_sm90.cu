@@ -78,7 +78,7 @@ embed_second_wgmma_kernel(const __grid_constant__ CUtensorMap hm, const bf16* __
   // (wf, bf) of columns 2j, 2j + 1 as the packed word pair j
   uint2* wb = reinterpret_cast<uint2*>(smem + L::vec_off);
 
-  stage_transposed(reinterpret_cast<bf16*>(smem + L::w_off), w, kC, kC);
+  stage_transposed<kC, kC>(reinterpret_cast<bf16*>(smem + L::w_off), w);
   for (int i = threadIdx.x; i < 8 * 2 * kC; i += blockDim.x) red[i] = 0.f;
   for (int j = threadIdx.x; j < kC / 2; j += blockDim.x)
     wb[j] = make_uint2(pack_bf16(__bfloat162float(wf[2 * j]), __bfloat162float(wf[2 * j + 1])),
@@ -183,6 +183,8 @@ int launch_embed_second_sm90(const void* h0, const void* wf, const void* bf, con
                              int o, int p, cudaStream_t st) {
   const long long rows = (long long)o * p;
   if (slices < 2 || slices % 2 || rows >= (1LL << 31) - kTile) return (int)cudaErrorInvalidValue;
+  // stage_transposed reads the weights in 16-byte vectors
+  if ((uintptr_t)w & 15) return (int)cudaErrorMisalignedAddress;
   CUtensorMap hm;
   const uint64_t dims[2] = {kC, (uint64_t)rows};
   const uint64_t strides[1] = {kC * 2};

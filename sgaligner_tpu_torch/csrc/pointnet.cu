@@ -12,19 +12,22 @@
 // relu keeps a NaN, as jnp.maximum and torch.relu do.
 //   Bound on the H100: operations. 2·P·(3·64 + 64·128 + 128·C3) FLOP per
 //   object (42 MFLOP at P = 512, C3 = 256) against 3·P input values read.
-//   Design: a block walks whole objects (grid-stride, as many blocks as fit),
-//   so the max over P and its argmax never cross blocks. w2 and w3 stay in
-//   shared memory for all of a block's objects (bf16: 17 KB + 68 KB; the f32
-//   check path reads them from L2 instead, as they would not fit beside the
-//   tiles). Points go through in 32-row chunks: layer 1 (K = 3) as f32 FMAs,
+//   bf16 runs the Hopper design of pointnet_sm90.cu (wgmma, the max and
+//   argmax in registers). f32: a block walks whole objects (grid-stride, as
+//   many blocks as fit), so the max over P and its argmax never cross
+//   blocks; w2 and w3 are read from L2 (the bf16 backward's Stack keeps
+//   them in shared memory, 17 KB + 68 KB). Points go through in 32-row chunks: layer 1 (K = 3) as f32 FMAs,
 //   layers 2 and 3 through block_gemm (bf16 WMMA, f32 accumulators); the
 //   epilogue keeps each channel's running max and argmax in shared memory.
 //   The [O, P, 64/128/C3] activations never reach device memory.
 //
 // pointnet_bwd replaces ops/pointnet_fused.py::_bwd_rule (Pallas kernel
-// _bwd_kernel): recompute the stack with the same device code as the forward
-// (so no relu mask can flip between the passes), route dout [O, C3] to the
-// argmax point of each channel (g3 = dout where picked and a3 > 0), then
+// _bwd_kernel): recompute the stack (the f32 forward's device code, Stack
+// below; the bf16 forward runs the wgmma design of pointnet_sm90.cu, whose
+// sums may differ in the last bits, so a relu mask near 0 may flip between
+// the passes: the routed point then carries no gradient, as a3 <= 0 there),
+// route dout [O, C3] to the argmax point of each channel (g3 = dout where
+// picked and a3 > 0), then
 //   g2 = (g3·w3ᵀ) masked by a2 > 0, g1 = (g2·w2ᵀ) masked by a1 > 0, each
 //   rounded to the compute dtype; dw3 = Σ h2ᵀ·g3, dw2 = Σ h1ᵀ·g2,
 //   dw1 = Σ xᵀ·g1 (contracting P), db = Σ g, all f32. No dx: points are data.
@@ -333,6 +336,11 @@ int launch_bwd(const void* x, const void* dout, const int* amax, const void* w1,
 }
 
 }  // namespace
+
+int launch_pointnet_fwd_sm90(const void* x, const void* w1, const void* b1, const void* w2,
+                             const void* b2, const void* w3, const void* b3, float* out,
+                             int* amax, int o, int p, int c3, cudaStream_t st);
+
 }  // namespace sga
 
 extern "C" {
@@ -354,7 +362,7 @@ int sga_pointnet_fwd(const void* x, const void* w1, const void* b1, const void* 
                      int p, int c3, int dtype, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == sga::kBF16)
-    return sga::launch_fwd<sga::bf16>(x, w1, b1, w2, b2, w3, b3, out, amax, o, p, c3, st);
+    return sga::launch_pointnet_fwd_sm90(x, w1, b1, w2, b2, w3, b3, out, amax, o, p, c3, st);
   return sga::launch_fwd<float>(x, w1, b1, w2, b2, w3, b3, out, amax, o, p, c3, st);
 }
 

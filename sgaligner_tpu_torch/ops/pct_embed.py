@@ -17,7 +17,8 @@ Counterpart of ``sgaligner_tpu/ops/pct_embed.py`` (``embed_first_fused``,
   VJP for both); with gradients off they save nothing.
 
 A CUDA tensor goes through the kernels of ``csrc/pct_embed.cu`` (the bf16
-``embed_second`` through ``csrc/pct_embed_sm90.cu``); a CPU tensor
+``embed_second`` through ``csrc/pct_embed_sm90.cu``, its backward through
+``csrc/pct_embed_bwd_sm90.cu``); a CPU tensor
 through the plain versions below, which repeat the kernels' arithmetic
 (f64 accumulation for f64 inputs, f32 otherwise).
 """
@@ -202,7 +203,11 @@ def embed_second_bwd(h0, wf, bf, w, mask, dh, ds1, ds2):
     dh0 = torch.empty_like(h0)
     grads = torch.zeros(128 * 128 + 2 * 128, dtype=torch.float32, device=dev)
     if o:
-        blocks = _build.grid_blocks(dev, (o * p + 63) // 64, per_sm=1)
+        tiles = (o * p + 63) // 64
+        if h0.dtype == torch.bfloat16:   # the wgmma design: persistent, 2 slices a block
+            blocks = _build.warpgroup_slices(dev, tiles)
+        else:
+            blocks = _build.grid_blocks(dev, tiles, per_sm=1)
         part = _build.scratch(dev, blocks, grads.numel())
         _build.launch(name, "sga_embed_second_bwd", dev,
                       h0.data_ptr(), wf.data_ptr(), bf.data_ptr(), w.data_ptr(),

@@ -18,8 +18,10 @@ masks come from those pre-activations; h1 and h2 are rounded to the compute
 dtype; a3 stays f32 and the max and argmax run on relu(a3); the output is
 rounded to the compute dtype at the end.
 
-A CUDA tensor goes through ``csrc/pointnet.cu`` (float32 and bfloat16); a CPU
-tensor through the plain versions below.
+A CUDA tensor goes through ``csrc/pointnet.cu`` (float32 and bfloat16; the
+bfloat16 forward through its Hopper design, ``csrc/pointnet_sm90.cu``, which
+takes C3 = 128 or a multiple of 256: the wrapper pads other widths with zero
+channels and drops them); a CPU tensor through the plain versions below.
 """
 
 from __future__ import annotations
@@ -99,16 +101,27 @@ def pointnet_fwd(x, w1, b1, w2, b2, w3, b3, with_argmax=False):
         return pointnet_fwd_plain(x, w1, b1, w2, b2, w3, b3, with_argmax)
     name = "pointnet_fwd"
     o, p, c3 = _check(name, x, (w1, b1, w2, b2, w3, b3))
-    out = torch.empty((o, c3), dtype=torch.float32, device=x.device)
-    amax = (torch.empty((o, c3), dtype=torch.int32, device=x.device)
+    width = c3
+    if x.dtype == torch.bfloat16:
+        # the bf16 kernel takes 128 channels or groups of 256: other widths
+        # get zero channels, whose results are dropped
+        width = 128 if c3 <= 128 else -(-c3 // 256) * 256
+        if width != c3:
+            w3 = torch.nn.functional.pad(w3, (0, width - c3))
+            b3 = torch.nn.functional.pad(b3, (0, width - c3))
+    out = torch.empty((o, width), dtype=torch.float32, device=x.device)
+    amax = (torch.empty((o, width), dtype=torch.int32, device=x.device)
             if with_argmax else None)
     if o:
         _build.launch(name, "sga_pointnet_fwd", x.device,
                       x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                       w2.data_ptr(), b2.data_ptr(), w3.data_ptr(),
                       b3.data_ptr(), out.data_ptr(),
-                      amax.data_ptr() if with_argmax else None, o, p, c3,
+                      amax.data_ptr() if with_argmax else None, o, p, width,
                       _build.DTYPE_CODE[x.dtype])
+    if width != c3:
+        out = out[:, :c3]
+        amax = amax[:, :c3].contiguous() if with_argmax else None
     return out.to(x.dtype), amax
 
 

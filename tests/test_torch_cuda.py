@@ -274,15 +274,42 @@ def test_wrappers_raise_instead_of_falling_back(card):
 @pytest.mark.parametrize("name,flags", [("pct_block_eval", SA), ("pct_block_eval", OA),
                                         ("pct_tail", None), ("pct_tail", "idx"),
                                         ("pct_block_fwd", SA), ("pct_block_fwd", OA),
-                                        ("embed_second", None)],
+                                        ("embed_second", None), ("pointnet_fwd", None)],
                          ids=["block_SA", "block_OA", "pct_tail", "pct_tail_idx",
-                              "block_fwd_SA", "block_fwd_OA", "embed_second"])
+                              "block_fwd_SA", "block_fwd_OA", "embed_second", "pointnet_fwd"])
 def test_wgmma_kernels_match_plain_version(card, name, flags, objects, points):
     """The wgmma forwards (bf16) at few objects (a block with one or no
     object for one of its warpgroups) and at P a multiple of the 64-row
-    tile, ragged, and the main path's."""
+    tile, ragged, and the main path's. The PointNet forward runs with the
+    argmax (held by value) and without it (the same values)."""
     args = card.op_inputs(name, objects, torch.bfloat16, seed=7, p=points)
     card.check_op(name, args, "bf16", flags or SA)
+    if name == "pointnet_fwd":
+        from sgaligner_tpu_torch.ops.pointnet_fused import pointnet_fwd
+
+        out, amax = pointnet_fwd(*args, with_argmax=True)
+        alone, none = pointnet_fwd(*args, with_argmax=False)
+        torch.cuda.synchronize()
+        assert none is None and torch.equal(out, alone)
+
+
+@pytest.mark.parametrize("width", [32, 128, 208, 384, 512])
+def test_pointnet_fwd_bf16_widths(card, width):
+    """The bf16 PointNet forward at C3 other than the model's 256: one
+    group of 128 channels (32 padded with zero channels), one of 256 (208
+    padded), and groups of 256 across the grid (384 padded to 512, and 512),
+    held to the plain version as at 256, with the argmax."""
+    x, *ws = card.op_inputs("pointnet_fwd", 67, torch.bfloat16, seed=9, p=200)
+    g = torch.Generator().manual_seed(10)
+    w3 = (torch.randn(128, width, generator=g) * 128 ** -0.5).to("cuda", torch.bfloat16)
+    b3 = (torch.randn(1, width, generator=g) * 0.1).to("cuda", torch.bfloat16)
+    args = (x, *ws[:4], w3, b3)
+    card.check_op("pointnet_fwd", args, "bf16")
+    from sgaligner_tpu_torch.ops.pointnet_fused import pointnet_fwd
+
+    out, amax = pointnet_fwd(*args, with_argmax=True)
+    torch.cuda.synchronize()
+    assert out.shape == (67, width) and amax.shape == (67, width) and amax.is_contiguous()
 
 
 def test_embed_second_sums_across_straddling_tiles(card):
@@ -292,6 +319,57 @@ def test_embed_second_sums_across_straddling_tiles(card):
     args = list(card.op_inputs("embed_second", 67, torch.bfloat16, seed=19, p=200))
     args[4] = (torch.arange(67, device="cuda") % 2).to(torch.bfloat16).reshape(67, 1)
     card.check_op("embed_second", tuple(args), "bf16")
+
+
+def test_embed_second_bwd_sums_across_straddling_tiles(card):
+    """embed_second_bwd at P = 200 with object masks alternating 0 / 1: each
+    row's dz takes its own object's mask, in tiles that straddle objects."""
+    args = list(card.op_inputs("embed_second_bwd", 67, torch.bfloat16, seed=19, p=200))
+    args[4] = (torch.arange(67, device="cuda") % 2).to(torch.bfloat16).reshape(67, 1)
+    card.check_op("embed_second_bwd", tuple(args), "bf16")
+
+
+def test_pointnet_fwd_first_index_and_nan(card):
+    """The bf16 PointNet forward: object 0 repeats point 5 at point 70 (in
+    another 64-point tile), scaled up so that many channels' max lie on that
+    pair; the index must be the first one. Object 2 holds a NaN in x at
+    points 7 and 140: every channel's max is NaN, at point 7. Object 1
+    agrees with the plain version."""
+    from sgaligner_tpu_torch.ops.pointnet_fused import pointnet_fwd, pointnet_fwd_plain
+
+    x, *ws = card.op_inputs("pointnet_fwd", 3, torch.float32, seed=3, p=200)
+    x[0, :, 5] *= 8.0
+    x[0, :, 70] = x[0, :, 5]
+    x[2, 0, 7] = float("nan")
+    x[2, 1, 140] = float("nan")
+    args = [x.to(torch.bfloat16)] + [w.to(torch.bfloat16) for w in ws]
+    out, amax = pointnet_fwd(*args, with_argmax=True)
+    want, want_idx = pointnet_fwd_plain(*args, with_argmax=True)
+    torch.cuda.synchronize()
+    tied = (want_idx[0] == 5) | (want_idx[0] == 70)
+    assert bool(tied.float().mean() > 0.2)
+    assert bool((amax[0][tied] == 5).all()) and not bool((amax[0] == 70).any())
+    torch.testing.assert_close(out[0].float(), want[0].float(), rtol=1e-2, atol=1e-2)
+    assert bool(out[2].isnan().all()) and bool((amax[2] == 7).all())
+    torch.testing.assert_close(out[1].float(), want[1].float(), rtol=1e-2, atol=1e-2)
+
+
+def test_pointnet_bwd_takes_the_new_forwards_argmax(card):
+    """The bf16 forward's argmax fed to pointnet_bwd (its own recompute of
+    the stack) against the plain backward fed the same argmax, within
+    pointnet_bwd's bf16 tolerance."""
+    from sgaligner_tpu_torch.ops.pointnet_fused import (pointnet_bwd, pointnet_bwd_plain,
+                                                        pointnet_fwd)
+
+    x, *ws = card.op_inputs("pointnet_fwd", 67, torch.bfloat16, seed=21)
+    amax = pointnet_fwd(x, *ws, with_argmax=True)[1]
+    dout = torch.randn(67, ws[-1].shape[-1], generator=torch.Generator().manual_seed(22)).to(
+        "cuda", torch.bfloat16)
+    got = pointnet_bwd(x, dout, amax, *ws)
+    want = pointnet_bwd_plain(x, dout, amax, *ws)
+    torch.cuda.synchronize()
+    _, rel = card.compare(got, want)
+    assert rel <= card.TOL[("pointnet_bwd", "bf16")], rel
 
 
 def _tail_with_ties_and_nans(dtype):
@@ -353,13 +431,14 @@ def test_pct_tail_same_bits_twice(card, dtype, with_index):
 
 BWD_CASES = [("pct_block_res_bwd", SA), ("pct_block_res_bwd", OA), ("pct_tail_bwd", None),
              ("pct_block_bwd", SA), ("pct_block_bwd", OA), ("pct_attn_bwd", SA),
-             ("pct_attn_bwd", OA)]
+             ("pct_attn_bwd", OA), ("embed_second_bwd", None)]
 BWD_IDS = ["block_res_bwd_SA", "block_res_bwd_OA", "pct_tail_bwd", "block_bwd_SA",
-           "block_bwd_OA", "attn_bwd_SA", "attn_bwd_OA"]
+           "block_bwd_OA", "attn_bwd_SA", "attn_bwd_OA", "embed_second_bwd"]
 # the per-object inputs of each backward (the rest are weights and [1, ·]
 # vectors) and its per-object outputs (the rest are weight gradients)
 BWD_PER_OBJECT = {"pct_block_res_bwd": ((0, 6, 7), 1), "pct_block_bwd": ((0, 6, 7), 1),
-                  "pct_attn_bwd": ((0, 4), 1), "pct_tail_bwd": ((0, 1, 2, 3, 5, 6, 7, 10, 11), 4)}
+                  "pct_attn_bwd": ((0, 4), 1), "pct_tail_bwd": ((0, 1, 2, 3, 5, 6, 7, 10, 11), 4),
+                  "embed_second_bwd": ((0, 4, 5), 1)}
 # weight gradients of the few objects against the 67-object launch less the
 # other 64 objects' launch: f32 sums in other groupings, the difference of
 # two sums about 60x larger than it
@@ -412,13 +491,14 @@ def test_wgmma_backwards_few_objects(card, name, flags, objects, points):
 @pytest.mark.parametrize("name,flags", [("embed_first", SA), ("embed_second", SA),
                                         ("pct_block_res_bwd", SA), ("pct_block_res_bwd", OA),
                                         ("pct_tail_bwd", SA), ("pct_block_fwd", SA),
-                                        ("pct_block_fwd", OA)],
+                                        ("pct_block_fwd", OA), ("pointnet_fwd", SA),
+                                        ("embed_second_bwd", SA)],
                          ids=["embed_first", "embed_second", "block_res_bwd_SA",
                               "block_res_bwd_OA", "pct_tail_bwd", "block_fwd_SA",
-                              "block_fwd_OA"])
+                              "block_fwd_OA", "pointnet_fwd", "embed_second_bwd"])
 def test_same_bits_twice(card, name, flags, dtype):
-    """No atomics: every output, the embeddings' BN sums included, repeats
-    bit for bit on the same inputs."""
+    """No atomics: every output, the embeddings' BN sums and the PointNet
+    forward's argmax included, repeats bit for bit on the same inputs."""
     kern, _ = card.op_fns(name, flags)
     args = card.op_inputs(name, 67, dtype, seed=11)
     first, second = card.as_tuple(kern(*args)), card.as_tuple(kern(*args))

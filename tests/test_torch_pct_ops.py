@@ -36,7 +36,7 @@ from sgaligner_tpu.ops import pct_embed as jpe
 from sgaligner_tpu.ops import pct_tail as jpt
 from sgaligner_tpu_torch.models.pct import MaskedBatchNorm
 from sgaligner_tpu_torch.ops.pct_attention import BlockEval, BlockResidual
-from sgaligner_tpu_torch.ops.pct_embed import EmbedFirst, EmbedSecond
+from sgaligner_tpu_torch.ops.pct_embed import EmbedFirst, EmbedSecond, embed_second_bwd_plain
 from sgaligner_tpu_torch.ops.pct_tail import PctTail, pct_tail, pct_tail_pool
 from tests.test_torch_ops import expect_dtype, to_jax, x64  # noqa: F401  (fixture)
 
@@ -151,6 +151,26 @@ def test_embed_second_grads_match_jax(x64):
                          (h0, wf, bf, w), cts)
     _close(outs, want, "embed_second forward")
     _close(grads, want_g, "embed_second grads (dh0, dwf, dbf, dw)")
+
+
+def test_embed_second_bwd_plain_ragged_alternating_masks(x64):
+    """embed_second_bwd_plain, the semantics the card's kernel is held to, at
+    a ragged P (25: the card's 64-row tiles straddle objects) with object
+    masks alternating 0 / 1, against the JAX VJP (Pallas kernel, interpret
+    mode) at f64: rtol 1e-9 with the absolute floor."""
+    rng = np.random.default_rng(6)
+    o, p = 16, 25
+    h0 = rng.normal(size=(o, p, C))
+    wf, bf = rng.normal(size=(1, C)), rng.normal(size=(1, C)) * 0.1
+    w = rng.normal(size=(C, C)) / np.sqrt(C)
+    m = (np.arange(o) % 2).astype(np.float64).reshape(o, 1)
+    cts = (rng.normal(size=(o, p, C)), rng.normal(size=(1, C)), rng.normal(size=(1, C)) * 0.1)
+    assert jpe._pick_tile_e(o, p, C, 8, bwd=True) is not None
+    mj = to_jax(m)[0]
+    _, vjp = jax.vjp(lambda *a: jpe.embed_second_fused(*a, mj, True), *to_jax(h0, wf, bf, w))
+    want = vjp(tuple(to_jax(*cts)))
+    got = embed_second_bwd_plain(*(torch.from_numpy(a) for a in (h0, wf, bf, w, m, *cts)))
+    _close(got, want, "embed_second_bwd_plain (dh0, dwf, dbf, dw)")
 
 
 # ------------------------------------ tail -----------------------------------

@@ -17,6 +17,10 @@ O=16 objects of P=32 points, C3=256 (the op's widths are fixed at 64 and
 * float64 gradients against the JAX backward, which at itemsize > 2 is
   ``jax.grad`` of the unfused composition (its tile picker gives the Pallas
   backward no tile there): rtol 1e-10 / atol 1e-12.
+* float32 forward with a tie across a 64-point boundary (point 70 repeats
+  point 5) and a NaN point, against the Pallas forward: both take the
+  first index on the tie and a NaN wins every channel at its first point;
+  the values normwise within 1e-5 (f32 sums in another order).
 * bfloat16 forward and backward against the Pallas kernels: both round h1,
   h2 and the gradients at the same points, but sum in f32 in another order,
   so a value may land on the neighbouring bf16 number: normwise 2e-2
@@ -156,3 +160,36 @@ def test_argmax_is_first_index_on_ties(p):
     assert not bool(amax[dead].any())
     grads = pointnet_bwd(args[0], torch.from_numpy(dout), amax, *args[1:])
     assert not bool(grads[5][0][dead.all(dim=0)].any())
+
+
+def test_first_index_and_nan_match_pallas_f32():
+    """Object 0 repeats point 5 at point 70 (another 64-point tile of the
+    card's kernel), scaled so that many channels' max lie on that pair;
+    object 2 holds a NaN at points 7 and 40. The plain forward and the
+    Pallas kernel (interpret mode) agree on the values (1e-5 normwise), on
+    the first index of each tie, and on the NaN: every channel of object 2
+    is NaN at index 7. Elsewhere an index is held by value (the port's
+    activation at JAX's index equals the port's max within 1e-5)."""
+    p = 72
+    _, ws, _ = _inputs(5)
+    x = np.random.default_rng(6).normal(size=(O, 3, p))
+    x[0, :, 5] *= 8.0
+    x[0, :, 70] = x[0, :, 5]
+    x[2, 0, 7] = np.nan
+    x[2, 1, 40] = np.nan
+    assert jpf._pick_tile(O, p, 4, bwd=False) is not None    # the Pallas kernel ran
+    out_j, amax_j = jpf._forward(*_jax([x, *ws], jnp.float32), True, with_argmax=True)
+    out_j, amax_j = np.asarray(out_j), np.asarray(amax_j)
+    args = _torch([x, *ws], torch.float32)
+    out, amax = pointnet_fwd(*args, with_argmax=True)
+    out, amax = out.numpy(), amax.numpy()
+    tied = (amax_j[0] == 5) | (amax_j[0] == 70)
+    assert tied.mean() > 0.2
+    assert (amax_j[0][tied] == 5).all() and (amax[0][tied] == 5).all()
+    assert np.isnan(out[2]).all() and np.isnan(out_j[2]).all()
+    assert (amax[2] == 7).all() and (amax_j[2] == 7).all()
+    finite = np.arange(O) != 2
+    assert _normwise(out[finite], out_j[finite]) <= 1e-5
+    h3 = torch.relu(stack_plain(*args)[0])[finite]
+    at_jax = torch.gather(h3, 1, torch.from_numpy(amax_j[finite]).long()[:, None, :])[:, 0]
+    assert _normwise(at_jax.numpy(), out[finite]) <= 1e-5
