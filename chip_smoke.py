@@ -76,10 +76,13 @@ Phases, in order (every failure raises and exits non-zero):
                bounds, the block's three passes under torch.profiler), the pct
                training and PointNet kernels at the training O (the PointNet
                forward also at the serving O, embed_second also at the
-               training O; the redesigned training kernels beside their
-               earlier times, with their passes under torch.profiler), the
-               ops' kernels and the OA variants at O=896, with each bound
-               from the shapes;
+               training O; the redesigned training kernels and the PointNet
+               backward beside their earlier times, with their passes under
+               torch.profiler; the PointNet backward's routed rows beside the
+               row tiles its kernel ran, which must be the ones they fill),
+               the ops' kernels and the OA variants at O=896, with each bound
+               from the shapes (the PointNet backward's from the rows and
+               channels that carry gradient);
                scaled_dot_product_attention(q, q, v) at the serving and
                training shapes as a same-work yardstick of the attention
                core
@@ -236,7 +239,7 @@ KERNELS = {
                  "sgaligner_tpu/ops/pct_tail.py:83"),
     "pointnet_fwd": ("sgaligner_tpu_torch/csrc/pointnet_sm90.cu",
                      "sgaligner_tpu/ops/pointnet_fused.py:62"),
-    "pointnet_bwd": ("sgaligner_tpu_torch/csrc/pointnet.cu",
+    "pointnet_bwd": ("sgaligner_tpu_torch/csrc/pointnet_bwd_sm90.cu",
                      "sgaligner_tpu/ops/pointnet_fused.py:72"),
     "embed_first_bwd": ("sgaligner_tpu_torch/csrc/pct_embed.cu",
                         "sgaligner_tpu/ops/pct_embed.py:66"),
@@ -244,7 +247,7 @@ KERNELS = {
                          "sgaligner_tpu/ops/pct_embed.py:221"),
     "pct_block_fwd": ("sgaligner_tpu_torch/csrc/pct_block_eval_sm90.cu",
                       "sgaligner_tpu/ops/pct_attention.py:320"),
-    "pct_epi_sums": ("sgaligner_tpu_torch/csrc/pct_attention.cu",
+    "pct_epi_sums": ("sgaligner_tpu_torch/csrc/pct_epi_sums.cu",
                      "sgaligner_tpu/ops/pct_attention.py:569"),
     "pct_block_res_bwd": ("sgaligner_tpu_torch/csrc/pct_block_bwd_sm90.cu",
                           "sgaligner_tpu/ops/pct_attention.py:599"),
@@ -258,10 +261,10 @@ KERNELS = {
                       "sgaligner_tpu/ops/pct_attention.py:341"),
 }
 PCT_KERNELS = ("embed_first", "embed_second", "pct_block_eval", "pct_tail")
-# forward kernels held to the same bits twice too (their BN sums: per-block
-# slices, no atomics; the PointNet forward's max and argmax); the training
-# and op kernels all are
-SAME_BITS = ("embed_first", "embed_second", "pct_tail", "pointnet_fwd")
+# kernels held to the same bits twice besides the training and op kernels
+# (their BN sums: per-block slices, no atomics; the PointNet forward's max
+# and argmax; the PointNet backward's per-warpgroup slices)
+SAME_BITS = ("embed_first", "embed_second", "pct_tail", "pointnet_fwd", "pointnet_bwd")
 
 
 def _scaled(index: int, factor: float):
@@ -278,6 +281,21 @@ def _moved_argmax(outs, args):
     return out, (amax + 1) % args[0].shape[-1]
 
 
+def _misrouted(outs, args):
+    """A planted fault of the PointNet backward: the live channel with the
+    largest |dout| routed one point further (the kernel run again)."""
+    import torch
+
+    from sgaligner_tpu_torch.ops.pointnet_fused import pointnet_bwd
+
+    x, dout, amax, peak, *ws = args
+    score = torch.where(peak > 0, dout.float().abs(), torch.zeros_like(peak))
+    obj, ch = divmod(int(score.argmax()), dout.shape[1])
+    moved = amax.clone()
+    moved[obj, ch] = (moved[obj, ch] + 1) % x.shape[-1]
+    return pointnet_bwd(x, dout, moved, peak, *ws)
+
+
 def _unmasked_sums(outs, args):
     """A planted fault of the embeddings' forwards: the BN sums taken over
     every object, the mask ignored (the kernel's own h)."""
@@ -289,8 +307,8 @@ def _unmasked_sums(outs, args):
     return (h, *masked_sums(h, torch.ones_like(mask)))
 
 
-# faults planted in the wgmma kernels' outputs in the kernels phase (bf16,
-# P = 512), each of which the comparison with the plain version must
+# faults planted in the redesigned kernels' outputs in the kernels phase
+# (bf16, P = 512), each of which the comparison with the plain version must
 # catch: (label, fault(outputs, inputs) -> faulty outputs)
 KERNEL_PLANTED = {"pct_block_res_bwd": (_scaled(0, 2.0), _scaled(2, 2.0)),
                   "pct_tail_bwd": (_scaled(0, 1.1), _scaled(4, 2.0)),
@@ -299,7 +317,10 @@ KERNEL_PLANTED = {"pct_block_res_bwd": (_scaled(0, 2.0), _scaled(2, 2.0)),
                                    _scaled(0, 1.1)),
                   "pointnet_fwd": (_scaled(0, 1.1),
                                    ("argmax moved to the next point", _moved_argmax)),
-                  "embed_second_bwd": (_scaled(0, 1.1), _scaled(3, 2.0))}
+                  "embed_second_bwd": (_scaled(0, 1.1), _scaled(3, 2.0)),
+                  "pointnet_bwd": (_scaled(4, 1.1),
+                                   ("a live channel routed to the wrong point", _misrouted)),
+                  "pct_epi_sums": (_scaled(1, 1.1),)}
 # pct_block_eval's mixed flag pairs, which no model uses but the JAX op
 # computes: SA's scale with OA's normalisation, and neither
 MIXED_FLAGS = [("both", (True, True)), ("neither", (False, False))]
@@ -372,6 +393,15 @@ BLOCK_BWD_PASSES = ("::project_wgmma_kernel", "::lse_wgmma_kernel", "::dz_wgmma_
                     "::wgrad_wgmma_kernel", "::reduce_slices_kernel")
 TAIL_BWD_PASSES = ("::transpose_w_kernel", "::tail_g_wgmma_kernel", "::tail_dx_wgmma_kernel",
                    "::wgrad_wgmma_kernel", "::reduce_slices_kernel")
+# The first versions of the kernels redesigned after the wgmma ones, at
+# O = 896, bf16 (NVIDIA H100 80GB HBM3, 700.00 W; CUDA events, median of 5,
+# chip_smoke.py): the dense PointNet backward (shared-memory WMMA chunks)
+# and the epilogue sums (one 2-byte load a thread and row), with the
+# kernel names of the new designs' passes
+FIRST_MS = {"pointnet_bwd": 3.296, "pct_epi_sums": 0.435}
+POINTNET_BWD_PASSES = ("::pointnet_bwd_wgmma_kernel", "::pointnet_dw3_wgmma_kernel",
+                       "::reduce_slices_kernel")
+EPI_SUMS_PASSES = ("::epi_sums_stream_kernel", "::reduce_slices_kernel")
 
 
 def log(msg: str) -> None:
@@ -416,7 +446,7 @@ def op_inputs(name: str, o: int, dtype, seed: int, p: int = P) -> tuple:
         return (torch.randn(*shape, generator=g) * scale).to("cuda", dtype)
 
     if name in POINT_KERNELS:
-        from sgaligner_tpu_torch.ops.pointnet_fused import pointnet_fwd_plain
+        from sgaligner_tpu_torch.ops.pointnet_fused import pointnet_pool_plain
 
         x = rnd(o, 3, p)
         ws = []
@@ -424,9 +454,10 @@ def op_inputs(name: str, o: int, dtype, seed: int, p: int = P) -> tuple:
             ws += [rnd(cin, cout, scale=cin ** -0.5), rnd(1, cout, scale=0.1)]
         if name == "pointnet_fwd":
             return (x, *ws)
-        # the backward routes to the plain forward's argmax (both sides get it)
-        amax = pointnet_fwd_plain(x, *ws, with_argmax=True)[1]
-        return (x, rnd(o, PN[-1]), amax, *ws)
+        # the backward routes by the plain forward's argmax and max (both
+        # sides get them)
+        peak, amax = pointnet_pool_plain(x, *ws, with_argmax=True)
+        return (x, rnd(o, PN[-1]), amax, peak, *ws)
     mask = (torch.rand(o, 1, generator=g) < 0.85).float()
     mask[0] = 1.0
     mask = mask.to("cuda", dtype)
@@ -1573,21 +1604,20 @@ def phase_ops(state: dict) -> None:
         torch.cuda.empty_cache()
 
 
-def bwd_work(args) -> tuple[int, int]:
+def bwd_work(args) -> tuple[int, int, int]:
     """The gradient-carrying work of one pointnet_bwd call on its inputs:
-    (rows, channels) summed over objects. A channel carries gradient when
-    its max is positive and its cotangent non-zero, at its argmax point
-    alone; rows counts the distinct points those channels pick."""
+    (rows, channels, tiles) summed over objects. A channel carries gradient
+    when its max is positive and its cotangent non-zero, at its argmax point
+    alone; rows counts the distinct points those channels pick (and those
+    a NaN max marks), tiles the 64-row tiles they fill object by object."""
     import torch
 
-    from sgaligner_tpu_torch.ops.pointnet_fused import pointnet_fwd_plain
-
-    x, dout, amax, *ws = args
-    out = pointnet_fwd_plain(x, *ws)[0]
-    live = ((out > 0) & (dout != 0)).float()
+    x, dout, amax, peak, *ws = args
+    live = (peak > 0) & (dout != 0)
     hit = torch.zeros(x.shape[0], x.shape[-1], device=x.device)
-    hit.scatter_add_(1, amax.long(), live)
-    return int((hit > 0).sum()), int(live.sum())
+    hit.scatter_add_(1, amax.long(), (live | peak.isnan()).float())
+    per_obj = (hit > 0).sum(dim=1)
+    return (int(per_obj.sum()), int(live.sum()), int(((per_obj + 63) // 64).sum()))
 
 
 def block_flops() -> int:
@@ -1625,7 +1655,7 @@ def bound(name: str, o: int, p: int = P, work: tuple[int, int] | None = None,
         # at each picked row, h1 and h2 again, g1 = g2·w2ᵀ, dW2 and dW1;
         # for each live channel, its a3 at its row (the relu mask), its
         # column of dW3 and its share of g2 = g3·w3ᵀ
-        rows, chans = work
+        rows, chans = work[:2]
         nbytes = o * 3 * p * e + o * c3 * (e + 4) + w_elems * e + w_elems * 4
         ops = (rows * 2 * (3 * c1 + c1 * c2 + 2 * c1 * c2 + 3 * c1)
                + chans * 3 * 2 * c2)
@@ -1754,6 +1784,8 @@ def time_pointnet(state: dict) -> list[dict]:
     either, so library_ms is null."""
     import torch
 
+    from sgaligner_tpu_torch.ops import pointnet_fused
+
     rows = []
     for name, o in (("pointnet_fwd", state["train_o"]), ("pointnet_bwd", state["train_o"]),
                     ("pointnet_fwd", state["serve_o"])):
@@ -1766,8 +1798,14 @@ def time_pointnet(state: dict) -> list[dict]:
         work = bwd_work(args) if name == "pointnet_bwd" else None
         b_ms, b_by = bound(name, o, work=work)
         if work:
+            tiles = int(float(pointnet_fused.last_bwd_grads[-1]))
             log(f"[time] pointnet_bwd O={o}: {work[0]} rows and {work[1]} channels "
-                f"carry gradient (of {o * P} and {o * PN[-1]})")
+                f"carry gradient (of {o * P} and {o * PN[-1]}); the kernel ran {tiles} "
+                f"tiles of 64 rows, the routing fills {work[2]}")
+            if tiles != work[2]:
+                raise AssertionError(f"pointnet_bwd ran {tiles} row tiles, the routed rows "
+                                     f"fill {work[2]}")
+            log_redesign(state, name, o, ms, b_ms, kern, args)
         if name == "pointnet_fwd" and o in POINTNET_WMMA_MS:
             earlier = POINTNET_WMMA_MS[o]
             log(f"[time] pointnet_fwd O={o} bf16: {ms:.3f} ms, {b_ms / ms:.1%} of its bound; "
@@ -1798,11 +1836,12 @@ def log_redesign(state: dict, label: str, o: int, ms: float, b_ms: float, kern,
     torch.profiler (pass_split)."""
     passes = {"pct_tail_bwd": TAIL_BWD_PASSES, "embed_second": EMBED_SECOND_PASSES,
               "pct_block_fwd": BLOCK_FWD_PASSES,
-              "embed_second_bwd": EMBED_SECOND_BWD_PASSES}.get(label.split("/")[0],
-                                                               BLOCK_BWD_PASSES)
-    earlier = {**WMMA_BWD_MS, **WMMA_FWD_MS}[label]
+              "embed_second_bwd": EMBED_SECOND_BWD_PASSES,
+              "pointnet_bwd": POINTNET_BWD_PASSES,
+              "pct_epi_sums": EPI_SUMS_PASSES}.get(label.split("/")[0], BLOCK_BWD_PASSES)
+    earlier = {**WMMA_BWD_MS, **WMMA_FWD_MS, **FIRST_MS}[label]
     split = pass_split(lambda: kern(*args), passes)
-    log(f"[time] {label} O={o} bf16: {ms:.3f} ms, {b_ms / ms:.1%} of its bound; the WMMA "
+    log(f"[time] {label} O={o} bf16: {ms:.3f} ms, {b_ms / ms:.1%} of its bound; the earlier "
         f"design {earlier} ms | passes (torch.profiler, ms a call): "
         + ", ".join(f"{k[2:].replace('_wgmma_kernel', '').replace('_kernel', '')} "
                     f"{split.get(k, 0.0):.3f}" for k in passes) + f" | {state['card']}")
@@ -1841,7 +1880,7 @@ def time_train_pct(state: dict) -> list[dict]:
             del g
         per_step_ms += PER_PCT_TRAIN_STEP.get(name, 0) * ms if flags is None else ms
         label = name + ("/idx" if flags == "idx" else "")
-        if label in WMMA_BWD_MS or label in WMMA_FWD_MS:
+        if label in WMMA_BWD_MS or label in WMMA_FWD_MS or label in FIRST_MS:
             log_redesign(state, label, o, ms, b_ms, kern, args)
         log(f"[time] {label:17s} O={o} bf16 kernel {ms:.3f} ms | plain {plain_ms:.3f} ms | "
             f"bound {b_ms:.4f} ms ({b_by}) | library None{extra} | launches per step "

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""The bf16 block, tail and embedding backwards on one NVIDIA GPU: accuracy
-at few objects, and times at the training O.
+"""The bf16 backwards (block, tail, embedding, PointNet) and the epilogue
+sums on one NVIDIA GPU: accuracy at few objects, and times at the training
+O.
 
-    python3 scripts/chip_bwd_check.py [label]
+    python3 scripts/chip_bwd_check.py [label] [--times-only]
 
 Run from a checkout's root (it imports that checkout's chip_smoke.py and
 sgaligner_tpu_torch); running it from two checkouts on one card compares
@@ -11,14 +12,15 @@ two designs on the same seeded inputs. Prints, per line and prefixed by
 
 * the compiler's registers and spills of the backward kernels (the build's
   ptxas notes);
-* pct_block_res_bwd (SA, OA) at O in {1, 3, 37, 67} and P in {64, 200,
-  512}, two seeds: the normwise distance of the kernel's dx and weight
+* unless --times-only: pct_block_res_bwd (SA, OA) at O in {1, 3, 37, 67}
+  and P in {64, 200, 512}, two seeds: the normwise distance of the kernel's dx and weight
   gradients from the plain version at f32 on the same bf16 inputs, beside
   the bf16 plain version's own distance (chip_smoke.py's BLOCK_DX_VS_PLAIN
   rule reads their ratio);
-* the bf16 backwards (embed_second_bwd too) at O = 896 (P = 512):
-  CUDA-event ms (median of 5), the
-  bound from chip_smoke.bound, the error against the plain version, and
+* the bf16 backwards (embed_second_bwd and pointnet_bwd too) and
+  pct_epi_sums at O = 896 (P = 512): CUDA-event ms (median of 5), the
+  bound from chip_smoke.bound (pointnet_bwd's from the work its inputs
+  route, chip_smoke.bwd_work), the error against the plain version, and
   the device ms of each kernel under torch.profiler.
 """
 
@@ -40,7 +42,8 @@ def registers(tag: str) -> None:
     _build.lib()
     lines = (Path(_build.build_info["path"]).parent / "build.log").read_text().splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry" in line and ("bwd" in line or "wgrad" in line or "_dz_" in line):
+        if "Compiling entry" in line and any(k in line for k in ("bwd", "wgrad", "_dz_",
+                                                                  "epi_sums")):
             name = line.split("'")[1]
             notes = " | ".join(x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
                                if "Used" in x or "spill" in x)
@@ -72,7 +75,9 @@ PASSES = ("project_wgmma_kernel", "lse_wgmma_kernel", "dz_wgmma_kernel", "dv_wgm
           "tail_g_wgmma_kernel", "tail_dx_wgmma_kernel", "project_kernel", "lse_kernel",
           "bwd_dz_kernel", "bwd_dv_kernel", "bwd_dq_kernel", "bwd_dx_kernel", "attn_sc_kernel",
           "tail_g_kernel", "tail_dx_kernel", "tail_dw_kernel", "embed_second_bwd_wgmma_kernel",
-          "embed_second_bwd_kernel", "reduce_slices_kernel")
+          "embed_second_bwd_kernel", "pointnet_bwd_wgmma_kernel", "pointnet_dw3_wgmma_kernel",
+          "pointnet_bwd_kernel",
+          "epi_sums_stream_kernel", "epi_sums_kernel", "reduce_slices_kernel")
 
 
 def times(tag: str) -> None:
@@ -80,11 +85,13 @@ def times(tag: str) -> None:
     for name, flags in (("pct_block_res_bwd", cs.SA), ("pct_block_res_bwd", cs.OA),
                         ("pct_tail_bwd", None), ("pct_block_bwd", cs.SA),
                         ("pct_block_bwd", cs.OA), ("pct_attn_bwd", cs.SA),
-                        ("pct_attn_bwd", cs.OA), ("embed_second_bwd", None)):
+                        ("pct_attn_bwd", cs.OA), ("embed_second_bwd", None),
+                        ("pointnet_bwd", None), ("pct_epi_sums", None)):
         args = cs.op_inputs(name, o, torch.bfloat16, seed=2)
         kern, _ = cs.op_fns(name, flags or cs.SA)
         ms = cs.cuda_ms(lambda: kern(*args))
-        b_ms, _ = cs.bound(name, o, oa=flags == cs.OA)
+        work = cs.bwd_work(args) if name == "pointnet_bwd" else None
+        b_ms, _ = cs.bound(name, o, oa=flags == cs.OA, work=work)
         err = cs.check_op(name, args, "bf16", flags or cs.SA, what=name)[1]
         split = cs.pass_split(lambda: kern(*args), tuple(f"::{k}" for k in PASSES))
         print(f"{tag} {name}{'/OA' if flags == cs.OA else ''} O={o}: {ms:.3f} ms, bound "
@@ -100,9 +107,11 @@ def main() -> int:
         print("chip_bwd_check: needs an NVIDIA GPU", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
-    tag = sys.argv[1] if len(sys.argv) > 1 else "this"
+    args = [a for a in sys.argv[1:] if a != "--times-only"]
+    tag = args[0] if args else "this"
     registers(tag)
-    accuracy(tag)
+    if "--times-only" not in sys.argv:
+        accuracy(tag)
     times(tag)
     return 0
 

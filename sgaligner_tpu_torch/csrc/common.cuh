@@ -187,6 +187,29 @@ inline int reduce_slices(const float* scratch, long long stride, int blocks, flo
 }
 }  // namespace
 
+// The PointNet backward's flat gradient buffer (floats): dw1 [3, 64], db1,
+// dw2 [64, 128], db2, dw3 [128, C3], db3, then one float the bf16 kernel
+// sets to the row tiles it ran (pointnet_bwd_sm90.cu; 0 from the f32
+// kernel). Every scratch slice has this layout.
+namespace pointnet_grad {
+constexpr int kC1 = 64, kC2 = 128;
+constexpr int kOffDb1 = 3 * kC1;
+constexpr int kOffDw2 = kOffDb1 + kC1;
+constexpr int kOffDb2 = kOffDw2 + kC1 * kC2;
+constexpr int kOffDw3 = kOffDb2 + kC2;
+__host__ __device__ inline int off_db3(int c3) { return kOffDw3 + kC2 * c3; }
+__host__ __device__ inline int total(int c3) { return off_db3(c3) + c3 + 1; }
+__host__ __device__ inline int stride(int c3) { return (int)slice_stride(total(c3)); }
+}  // namespace pointnet_grad
+
+// relu routing of the pct block's training epilogue x + relu(t·wbn + bbn):
+// the multiply and add in the compute dtype (rounded after each, no fused
+// multiply-add), compared in f32
+template <typename T>
+__device__ __forceinline__ bool epi_live(float t, float w_t, float b_t) {
+  return round_to<T>(__fadd_rn(round_to<T>(__fmul_rn(t, w_t)), b_t)) > 0.f;
+}
+
 // One block slice of the block backwards' weight gradients (floats; the
 // attention op's backward uses the first three): dWqk [128, 32], dWv
 // [128, 128], dbv [128], dWt [128, 128], dbt [128]

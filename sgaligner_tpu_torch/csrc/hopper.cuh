@@ -335,6 +335,22 @@ __device__ __forceinline__ void stage_transposed(__nv_bfloat16* dst,
   }
 }
 
+// A bias as the K-major B operand of a bias k-step (one more k-step of a
+// product whose register-A fragment is 1 at k = 0): row n of a
+// 128-byte-swizzled [cols n][64 k] box holds b[n] at k = 0, zero elsewhere.
+// A thread takes whole rows: one load of b[n], eight 16-byte stores (k = 0
+// sits in the row's 16-byte chunk n % 8).
+__device__ __forceinline__ void stage_bias(__nv_bfloat16* dst, const __nv_bfloat16* __restrict__ b,
+                                           int cols) {
+  for (int n = threadIdx.x; n < cols; n += blockDim.x) {
+    const uint32_t bits = *reinterpret_cast<const uint16_t*>(b + n);
+    uint4* row = reinterpret_cast<uint4*>(dst + n * 64);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      row[j] = j == n % 8 ? make_uint4(bits, 0u, 0u, 0u) : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
 // sum over the 4 lanes that hold one accumulator row
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);

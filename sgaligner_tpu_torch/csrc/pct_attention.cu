@@ -51,13 +51,9 @@
 //   registers and writes them to its scratch slice. reduce_slices adds the
 //   slices in order.
 //
-// pct_epi_sums replaces the Pallas kernel _epi_sums_kernel of
-// ops/pct_attention.py::_block_res_bwd_rule: with g = dy where
-// t·wbn + bbn > 0 (compared in f32 after the compute-dtype multiply-add, as
-// the reference), dwbn = Σ g·t and dbbn = Σ g over every row (f32).
-//   Bound on the H100: bytes (t_out and dy read once).
-//   Design: thread c owns channel c over a grid-stride walk of the rows;
-//   per-block slices and reduce_slices.
+// pct_epi_sums (the Pallas kernel _epi_sums_kernel of
+// ops/pct_attention.py::_block_res_bwd_rule) is a streaming reduction of
+// its own: pct_epi_sums.cu.
 //
 // pct_block_res_bwd replaces the Pallas kernel _block_res_bwd_kernel (same
 // rule): the block's backward with the BN epilogue's routing and the
@@ -467,35 +463,6 @@ attn_sc_kernel(const T* __restrict__ q, const T* __restrict__ v, const float* __
     }
     __syncthreads();
   }
-}
-
-// --------------------------- training: epilogue sums ------------------------
-
-// relu routing of the training epilogue x + relu(t·wbn + bbn): the multiply
-// and add in the compute dtype (rounded after each, no fused multiply-add),
-// compared in f32
-template <typename T>
-__device__ __forceinline__ bool epi_live(float t, float w_t, float b_t) {
-  return round_to<T>(__fadd_rn(round_to<T>(__fmul_rn(t, w_t)), b_t)) > 0.f;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-epi_sums_kernel(const T* __restrict__ tout, const float* __restrict__ wbn,
-                const float* __restrict__ bbn, const T* __restrict__ dy,
-                float* __restrict__ scratch, long long rows) {
-  const int c = threadIdx.x % kC, half = threadIdx.x / kC;
-  const float w_t = round_to<T>(wbn[c]), b_t = round_to<T>(bbn[c]);
-  float a = 0.f, b = 0.f;
-  for (long long r = (long long)blockIdx.x * 2 + half; r < rows; r += (long long)gridDim.x * 2) {
-    const float tv = to_f<T>(tout[r * kC + c]);
-    const float g = epi_live<T>(tv, w_t, b_t) ? to_f<T>(dy[r * kC + c]) : 0.f;
-    a = fmaf(g, tv, a);
-    b += g;
-  }
-  float* part = scratch + (size_t)blockIdx.x * slice_stride(2 * kC);
-  store_channel_sums(a, part);
-  store_channel_sums(b, part + kC);
 }
 
 // ------------------------------ training: backward --------------------------
@@ -927,15 +894,6 @@ int launch_block_fwd(const void* x, const void* wqk, const void* wv, const void*
   return reduce_slices(scratch, slice_stride(2 * kC), blocks, sums, 2 * kC, st);
 }
 
-template <typename T>
-int launch_epi_sums(const void* tout, const float* wbn, const float* bbn, const void* dy,
-                    float* scratch, int blocks, float* sums, long long rows, cudaStream_t st) {
-  epi_sums_kernel<T><<<blocks, kThreads, 0, st>>>((const T*)tout, wbn, bbn, (const T*)dy,
-                                                  scratch, rows);
-  if (int rc = (int)cudaGetLastError()) return rc;
-  return reduce_slices(scratch, slice_stride(2 * kC), blocks, sums, 2 * kC, st);
-}
-
 // The dv, dq and dx passes shared by the three backwards (dY, and for OA
 // 1/s and c, already in device memory). RESID / DU: the dx pass's residual
 // and du terms.
@@ -1123,16 +1081,6 @@ int sga_pct_block_fwd(const void* x, const void* wqk, const void* wv, const void
                                       blocks, sums, o, p, oa, st);
   return sga::launch_block_fwd<float>(x, wqk, wv, bv, wt, bt, mask, q, v, lse, tout, scratch,
                                       blocks, sums, o, p, oa, st);
-}
-
-// sums [2, 128]: Σ g·t, Σ g; scratch: `blocks` slices of slice_stride(256)
-int sga_pct_epi_sums(const void* tout, const float* wbn, const float* bbn, const void* dy,
-                     float* scratch, int blocks, float* sums, long long rows, int dtype,
-                     void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == sga::kBF16)
-    return sga::launch_epi_sums<sga::bf16>(tout, wbn, bbn, dy, scratch, blocks, sums, rows, st);
-  return sga::launch_epi_sums<float>(tout, wbn, bbn, dy, scratch, blocks, sums, rows, st);
 }
 
 // Bytes of the work buffer of the three backwards below

@@ -15,29 +15,30 @@
 //   bf16 runs the Hopper design of pointnet_sm90.cu (wgmma, the max and
 //   argmax in registers). f32: a block walks whole objects (grid-stride, as
 //   many blocks as fit), so the max over P and its argmax never cross
-//   blocks; w2 and w3 are read from L2 (the bf16 backward's Stack keeps
-//   them in shared memory, 17 KB + 68 KB). Points go through in 32-row chunks: layer 1 (K = 3) as f32 FMAs,
-//   layers 2 and 3 through block_gemm (bf16 WMMA, f32 accumulators); the
-//   epilogue keeps each channel's running max and argmax in shared memory.
+//   blocks; w2 and w3 are read from L2. Points go through in 32-row
+//   chunks: layer 1 (K = 3) as f32 FMAs, layers 2 and 3 through block_gemm
+//   (f32 FMA tiles); the epilogue keeps each channel's running max and
+//   argmax in shared memory.
 //   The [O, P, 64/128/C3] activations never reach device memory.
 //
 // pointnet_bwd replaces ops/pointnet_fused.py::_bwd_rule (Pallas kernel
-// _bwd_kernel): recompute the stack (the f32 forward's device code, Stack
-// below; the bf16 forward runs the wgmma design of pointnet_sm90.cu, whose
-// sums may differ in the last bits, so a relu mask near 0 may flip between
-// the passes: the routed point then carries no gradient, as a3 <= 0 there),
-// route dout [O, C3] to the argmax point of each channel (g3 = dout where
-// picked and a3 > 0), then
+// _bwd_kernel): recompute the stack, route dout [O, C3] to the argmax
+// point of each channel (g3 = dout where picked and a3 > 0), then
 //   g2 = (g3·w3ᵀ) masked by a2 > 0, g1 = (g2·w2ᵀ) masked by a1 > 0, each
 //   rounded to the compute dtype; dw3 = Σ h2ᵀ·g3, dw2 = Σ h1ᵀ·g2,
 //   dw1 = Σ xᵀ·g1 (contracting P), db = Σ g, all f32. No dx: points are data.
+//   bf16 runs the Hopper design of pointnet_bwd_sm90.cu over the routed
+//   points only, routed by the forward's own maximum (peak > 0). f32 runs
+//   the kernel below, whose recompute is the f32 forward's device code
+//   (Stack), so its a3 > 0 at the argmax is the forward's peak > 0 bit for
+//   bit and it needs no peak.
 //   Bound on the H100: operations, ≈ 3x the forward (recompute, two data
 //   gradients, three weight gradients).
-//   Design: the TPU kernel summed the weight gradients across its sequential
+//   Design (f32): the TPU kernel summed the weight gradients across its sequential
 //   grid in VMEM; CUDA blocks run in no order. Each block owns a slice of a
 //   scratch buffer (one f32 copy of every gradient) and adds its objects'
-//   gradients to it: dw3 and dw2 straight from the WMMA accumulators
-//   (block_gemm with a transposed A, C in global memory), db by column sums,
+//   gradients to it: dw3 and dw2 straight from the block_gemm accumulators
+//   (a transposed A, C in global memory), db by column sums,
 //   dw1 and db1 in registers. A second launch sums the slices in a fixed
 //   order. No atomics, so the result is the same from run to run.
 #include "common.cuh"
@@ -45,19 +46,12 @@
 namespace sga {
 namespace {
 
-constexpr int kC1 = 64;        // conv1 width
-constexpr int kC2 = 128;       // conv2 width
+using namespace pointnet_grad;  // kC1, kC2 and the gradient slice layout
+
 constexpr int kR = 32;         // points per chunk
 constexpr int kThreads = 256;
-
-// gradient scratch layout (floats): dw1, db1, dw2, db2, dw3, db3
-constexpr int kOffDb1 = 3 * kC1;
-constexpr int kOffDw2 = kOffDb1 + kC1;
-constexpr int kOffDb2 = kOffDw2 + kC1 * kC2;
-constexpr int kOffDw3 = kOffDb2 + kC2;
-__host__ __device__ inline int off_db3(int c3) { return kOffDw3 + kC2 * c3; }
-__host__ __device__ inline int grad_total(int c3) { return off_db3(c3) + c3; }
-__host__ __device__ inline int grad_stride(int c3) { return (int)slice_stride(grad_total(c3)); }
+__host__ __device__ inline int grad_total(int c3) { return total(c3); }
+__host__ __device__ inline int grad_stride(int c3) { return stride(c3); }
 
 __device__ __forceinline__ float relu_nan(float a) { return (a > 0.f || a != a) ? a : 0.f; }
 
@@ -68,25 +62,19 @@ __host__ __device__ inline size_t take(size_t& o, size_t n) {
   return at;
 }
 
-// Shared-memory layout; bf16 keeps w2 and w3 resident (f32 reads them from
-// global memory).
+// Shared-memory layout (w2 and w3 are read from global memory).
 template <typename T>
 struct Layout {
-  static constexpr bool kStage = std::is_same<T, bf16>::value;
-  int ldw2, ldw3, ldh1, ldh2, ldacc, ldg, ldg2;
-  size_t w2, w3, xs, h1, h2, acc, best, idx, g, g2, m1, m2, bytes;
+  int ldh1, ldh2, ldacc, ldg, ldg2;
+  size_t xs, h1, h2, acc, best, idx, g, g2, m1, m2, bytes;
 
   __host__ __device__ Layout(int c3, bool bwd) {
-    ldw2 = pad_ld<T>(kC2);
-    ldw3 = pad_ld<T>(c3);
     ldh1 = pad_ld<T>(kC1);
     ldh2 = pad_ld<T>(kC2);
     ldacc = pad_ldf(c3 > kC2 ? c3 : kC2);
     ldg = pad_ld<T>(c3 > kC1 ? c3 : kC1);
     ldg2 = pad_ld<T>(kC2);
     size_t o = 0;
-    w2 = take(o, kStage ? sizeof(T) * kC1 * ldw2 : 0);
-    w3 = take(o, kStage ? sizeof(T) * kC2 * ldw3 : 0);
     xs = take(o, sizeof(float) * 3 * kR);
     h1 = take(o, sizeof(T) * kR * ldh1);
     h2 = take(o, sizeof(T) * kR * ldh2);
@@ -101,7 +89,7 @@ struct Layout {
   }
 };
 
-// Per-block view of the stack: operand pointers in shared (or global) memory.
+// Per-block view of the stack: tiles in shared memory, weights in global.
 template <typename T>
 struct Stack {
   const Layout<T> L;
@@ -111,23 +99,8 @@ struct Stack {
 
   __device__ Stack(unsigned char* smem, int c3_, bool bwd, const T* w1_, const T* b1_,
                    const T* w2, const T* b2_, const T* w3)
-      : L(c3_, bwd), base(smem), w1(w1_), b1(b1_), b2(b2_), c3(c3_) {
-    if constexpr (Layout<T>::kStage) {
-      T* sw2 = reinterpret_cast<T*>(smem + L.w2);
-      T* sw3 = reinterpret_cast<T*>(smem + L.w3);
-      load_tile<T>(sw2, L.ldw2, w2, kC2, kC1, kC2, kC1);
-      load_tile<T>(sw3, L.ldw3, w3, c3, kC2, c3, kC2);
-      w2s = sw2;
-      w3s = sw3;
-      ldw2s = L.ldw2;
-      ldw3s = L.ldw3;
-    } else {
-      w2s = w2;
-      w3s = w3;
-      ldw2s = kC2;
-      ldw3s = c3;
-    }
-  }
+      : L(c3_, bwd), base(smem), w1(w1_), b1(b1_), b2(b2_), w2s(w2), w3s(w3), ldw2s(kC2),
+        ldw3s(c3_), c3(c3_) {}
   __device__ float* xs() const { return reinterpret_cast<float*>(base + L.xs); }
   __device__ T* h1() const { return reinterpret_cast<T*>(base + L.h1); }
   __device__ T* h2() const { return reinterpret_cast<T*>(base + L.h2); }
@@ -294,11 +267,10 @@ pointnet_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dout,
   if (t < 4 * kC1) part[t] = r1;  // dw1 then db1: offsets 0 and 192
 }
 
-template <typename T>
 int bwd_blocks(int o, int c3) {
-  const size_t smem = Layout<T>(c3, true).bytes;
-  if (int rc = allow_smem(pointnet_bwd_kernel<T>, smem)) return -rc;
-  return resident_grid(pointnet_bwd_kernel<T>, kThreads, smem, o);
+  const size_t smem = Layout<float>(c3, true).bytes;
+  if (int rc = allow_smem(pointnet_bwd_kernel<float>, smem)) return -rc;
+  return resident_grid(pointnet_bwd_kernel<float>, kThreads, smem, o);
 }
 
 template <typename T>
@@ -340,21 +312,30 @@ int launch_bwd(const void* x, const void* dout, const int* amax, const void* w1,
 int launch_pointnet_fwd_sm90(const void* x, const void* w1, const void* b1, const void* w2,
                              const void* b2, const void* w3, const void* b3, float* out,
                              int* amax, int o, int p, int c3, cudaStream_t st);
+long long pointnet_bwd_sm90_work_bytes(int o, int p, int c3);
+int launch_pointnet_bwd_sm90(const void* x, const void* dout, const int* amax, const float* peak,
+                             const void* w1, const void* b1, const void* w2, const void* b2,
+                             const void* w3, void* work, float* grads, int o, int p, int c3,
+                             cudaStream_t st);
 
 }  // namespace sga
 
 extern "C" {
 
 // Floats of one block's gradient slice (the scratch row stride), and the
-// flat gradient buffer's length: dw1, db1, dw2, db2, dw3, db3 back to back.
+// flat gradient buffer's length: dw1, db1, dw2, db2, dw3, db3, then the
+// bf16 kernel's tile count (common.cuh, pointnet_grad).
 int sga_pointnet_grad_stride(int c3) { return sga::grad_stride(c3); }
 int sga_pointnet_grad_total(int c3) { return sga::grad_total(c3); }
 
-// Blocks the backward launches for O objects (the scratch holds one slice
-// each); a negative value is a CUDA error code.
-int sga_pointnet_bwd_blocks(int o, int c3, int dtype) {
-  if (dtype == sga::kBF16) return sga::bwd_blocks<sga::bf16>(o, c3);
-  return sga::bwd_blocks<float>(o, c3);
+// Scratch slices the f32 backward fills for O objects; a negative value is
+// a CUDA error code.
+int sga_pointnet_bwd_blocks(int o, int c3) { return sga::bwd_blocks(o, c3); }
+
+// Bytes of the bf16 backward's work buffer (pointnet_bwd_sm90.cu); a
+// negative value is a CUDA error code.
+long long sga_pointnet_bwd_work_bytes(int o, int p, int c3) {
+  return sga::pointnet_bwd_sm90_work_bytes(o, p, c3);
 }
 
 int sga_pointnet_fwd(const void* x, const void* w1, const void* b1, const void* w2,
@@ -366,14 +347,17 @@ int sga_pointnet_fwd(const void* x, const void* w1, const void* b1, const void* 
   return sga::launch_fwd<float>(x, w1, b1, w2, b2, w3, b3, out, amax, o, p, c3, st);
 }
 
-int sga_pointnet_bwd(const void* x, const void* dout, const int* amax, const void* w1,
-                     const void* b1, const void* w2, const void* b2, const void* w3,
-                     const void* b3, float* scratch, int blocks, float* grads, int o, int p,
-                     int c3, int dtype, void* stream) {
+// peak [O, C3] f32: the forward's maxima, whose sign routes the bf16
+// kernel (the f32 kernel recomputes the forward's own a3 instead). bf16:
+// scratch is the work buffer (sga_pointnet_bwd_work_bytes), blocks unused
+int sga_pointnet_bwd(const void* x, const void* dout, const int* amax, const float* peak,
+                     const void* w1, const void* b1, const void* w2, const void* b2,
+                     const void* w3, const void* b3, float* scratch, int blocks, float* grads,
+                     int o, int p, int c3, int dtype, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == sga::kBF16)
-    return sga::launch_bwd<sga::bf16>(x, dout, amax, w1, b1, w2, b2, w3, b3, scratch, blocks,
-                                      grads, o, p, c3, st);
+    return sga::launch_pointnet_bwd_sm90(x, dout, amax, peak, w1, b1, w2, b2, w3, scratch, grads,
+                                         o, p, c3, st);
   return sga::launch_bwd<float>(x, dout, amax, w1, b1, w2, b2, w3, b3, scratch, blocks, grads, o,
                                 p, c3, st);
 }

@@ -11,7 +11,8 @@
 // NaNs), as jnp.maximum / jnp.max / jnp.argmax do.
 //   Bound on the H100: operations. 2·P·(3·64 + 64·128 + 128·C3) FLOP per
 //   object against 6 bytes a point: 0.573 ms at O = 13,440, P = 512.
-//   Design: persistent, one block per SM, two warpgroups that each own
+//   Design (layers 1 and 2 in pointnet_sm90.cuh, which the bf16 backward
+//   shares): persistent, one block per SM, two warpgroups that each own
 //   whole objects (grid-stride over objects × warpgroups), so an object's
 //   max and argmax never leave one warpgroup. W2ᵀ (16 KB) and W3ᵀ (64 KB
 //   at 256 channels) stay resident as K-major, swizzled wgmma B operands,
@@ -40,30 +41,17 @@
 //   out / amax are written once. The two warpgroups share no barrier, so
 //   one's CUDA-core work overlaps the other's products.
 #include "common.cuh"
-#include "hopper.cuh"
+#include "pointnet_sm90.cuh"
 
 namespace sga {
 namespace {
 
 using namespace sm90;
 
-constexpr int kC1 = 64;
-constexpr int kC2 = 128;
+constexpr int kC1 = kPnC1;
+constexpr int kC2 = kPnC2;
 constexpr int kTile = 64;
 constexpr int kThreads = 256;  // two warpgroups, no producer (x is 6 bytes a point)
-
-// relu that keeps a NaN, on the bits: a non-negative float's bits order as
-// a non-negative int, a negative one's (-0.0 too) as a negative int, and the
-// card's arithmetic gives the canonical NaN 0x7FFFFFFF, above every number.
-// So max(bits, 0) is relu(a) with a NaN kept, and, read as unsigned, the max
-// key of relu(a), the one NaN the largest (no fmaxf: it drops a NaN)
-__device__ __forceinline__ uint32_t relu_bits(float a) {
-  return (uint32_t)max(__float_as_int(a), 0);
-}
-
-__device__ __forceinline__ uint32_t pack_relu(float lo, float hi) {
-  return pack_bf16(__uint_as_float(relu_bits(lo)), __uint_as_float(relu_bits(hi)));
-}
 
 __device__ __forceinline__ uint64_t key_of(uint32_t bits, int row) {
   return ((uint64_t)bits << 32) | (uint32_t)~row;
@@ -89,15 +77,6 @@ struct PnSmem {
   static constexpr size_t bytes = vec_off + 4 * kC1 * 4 + 1024;
 };
 
-// a bias as the K-major B operand of the bias k-step: row n of a
-// 128-byte-swizzled [cols n][64 k] box holds b[n] at k = 0
-__device__ __forceinline__ void stage_bias(bf16* dst, const bf16* __restrict__ b, int cols) {
-  for (int i = threadIdx.x; i < cols * 64; i += blockDim.x) {
-    const int n = i / 64, kin = i % 64;
-    dst[n * 64 + (((kin / 8) ^ (n % 8)) * 8) + kin % 8] = kin == 0 ? b[n] : __float2bfloat16(0.f);
-  }
-}
-
 // c3: the channels of w3, b3, out and amax (row stride); this block's
 // group of kCG starts at column kCG·blockIdx.y
 template <int NH, bool ARGMAX>
@@ -113,12 +92,9 @@ pointnet_fwd_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   float* w1s = reinterpret_cast<float*>(smem + L::vec_off);  // [3][64], then b1 [64]
-  stage_transposed<kC1, kC2>(reinterpret_cast<bf16*>(smem + L::w2_off), w2);
+  stage_layers12(smem + L::w2_off, w1s, w1, b1, w2, b2);
   stage_transposed<kC2, kCG>(reinterpret_cast<bf16*>(smem + L::w3_off), w3 + c0, c3);
-  stage_bias(reinterpret_cast<bf16*>(smem + L::b2_off), b2, kC2);
   stage_bias(reinterpret_cast<bf16*>(smem + L::b3_off), b3 + c0, kCG);
-  for (int i = threadIdx.x; i < 4 * kC1; i += blockDim.x)
-    w1s[i] = __bfloat162float(i < 3 * kC1 ? w1[i] : b1[i - 3 * kC1]);
   fence_proxy_async();
   __syncthreads();
 
@@ -128,7 +104,6 @@ pointnet_fwd_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w
   uint64_t* red = reinterpret_cast<uint64_t*>(smem + L::red_off) + (size_t)c * 4 * kCG;
   const unsigned char* w2s = smem + L::w2_off;
   const unsigned char* w3s = smem + L::w3_off;
-  const uint32_t one = q == 0 ? pack_bf16(1.f, 0.f) : 0u;  // the bias column k = 0
 
   for (int obj = blockIdx.x + c * gridDim.x; obj < o; obj += 2 * gridDim.x) {
     const bf16* xo = x + (size_t)obj * 3 * p;
@@ -152,49 +127,18 @@ pointnet_fwd_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w
 
     for (int p0 = 0; p0 < p; p0 += kTile) {
       const int row0 = p0 + rl, row1 = row0 + 8;
-      const bool v0 = row0 < p, v1 = row1 < p;
+      const bool v[2] = {row0 < p, row1 < p};
       float xr[2][3];
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
         for (int k = 0; k < 3; ++k) xr[h][k] = xn[h][k];
       if (p0 + kTile < p) load_x(p0 + kTile);
-      // layer 1 into layer 2's A fragments (a2[kk][r]: row rl + 8·(r % 2),
-      // columns 16kk + 8·(r / 2) + 2q and + 1; 0 for rows past P), and the
-      // bias k-step's fragment
+      // layers 1 and 2 (pointnet_sm90.cuh; rows past P give zeros)
       uint32_t a2[5][4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int col = 16 * kk + 8 * half + 2 * q;
-          const float2 wa = *reinterpret_cast<const float2*>(w1s + col);
-          const float2 wb = *reinterpret_cast<const float2*>(w1s + kC1 + col);
-          const float2 wc = *reinterpret_cast<const float2*>(w1s + 2 * kC1 + col);
-          const float2 bb = *reinterpret_cast<const float2*>(w1s + 3 * kC1 + col);
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const float* xv = xr[h];
-            float e0 = xv[0] * wa.x, e1 = xv[0] * wa.y;
-            e0 = fmaf(xv[1], wb.x, e0);
-            e1 = fmaf(xv[1], wb.y, e1);
-            e0 = fmaf(xv[2], wc.x, e0);
-            e1 = fmaf(xv[2], wc.y, e1);
-            a2[kk][2 * half + h] = (h ? v1 : v0) ? pack_relu(e0 + bb.x, e1 + bb.y) : 0u;
-          }
-        }
-      a2[4][0] = v0 ? one : 0u;
-      a2[4][1] = v1 ? one : 0u;
-      a2[4][2] = a2[4][3] = 0u;
+      layer1_fragments<false>(w1s, xr, v, q, a2, nullptr);
       float acc2[64];
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 5; ++kk)
-        wgmma_m64n128k16_rs(acc2, a2[kk], desc(w2s + (kk / 4) * (kC2 * 128), kSw128, (kk % 4) * 32),
-                            kk != 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(acc2);
+      layer2(acc2, a2, w2s);
       // h2 = round(relu(a2)) as layer 3's A fragments (accumulator columns
       // 16kk.. are k-step kk); k-step 8 is the bias
       uint32_t a3[9][4];

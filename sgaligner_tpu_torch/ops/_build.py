@@ -119,8 +119,8 @@ _SIGNATURES = {
                      _I, _I, _I, _I, _P],
     "sga_pointnet_fwd": [_P, _P, _P, _P, _P, _P, _P, _F, _P, _I, _I, _I, _I,
                          _P],
-    "sga_pointnet_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _F, _I,
-                         _I, _I, _I, _P],
+    "sga_pointnet_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _F,
+                         _I, _I, _I, _I, _P],
     "sga_embed_first_bwd": [_P, _P, _P, _P, _F, _F, _F, _I, _F, _I, _I, _I,
                             _P],
     "sga_embed_second_bwd": [_P, _P, _P, _P, _P, _P, _F, _F, _P, _F, _I, _F,
@@ -140,10 +140,13 @@ _SIGNATURES = {
     # queries (no launch): scratch sizes and the backward's block count
     "sga_pointnet_grad_stride": [_I],
     "sga_pointnet_grad_total": [_I],
-    "sga_pointnet_bwd_blocks": [_I, _I, _I],
+    "sga_pointnet_bwd_blocks": [_I, _I],
+    "sga_pointnet_bwd_work_bytes": [_I, _I, _I],
+    "sga_pct_epi_sums_rows_per_block": [_I],
     "sga_pct_bwd_work_bytes": [_I, _I, _I],
 }
-_RESTYPES = {"sga_pct_bwd_work_bytes": ctypes.c_longlong}
+_RESTYPES = {"sga_pct_bwd_work_bytes": ctypes.c_longlong,
+             "sga_pointnet_bwd_work_bytes": ctypes.c_longlong}
 
 
 def lib() -> ctypes.CDLL:

@@ -26,16 +26,19 @@ too, as the JAX ops do; ``pct_block_eval`` also the mixed pairs, and
 ``BlockEval`` makes it differentiable. A CUDA tensor goes through
 ``csrc/pct_attention.cu`` (in bf16, ``pct_block_eval`` and ``block_fwd``
 through ``csrc/pct_block_eval_sm90.cu`` and the three backwards through
-``csrc/pct_block_bwd_sm90.cu``); a CPU tensor through the plain versions
-(``block_eval_plain``,
-``block_fwd_plain``, ``epi_sums_plain``, ``block_res_bwd_plain``,
-``block_bwd_plain``, ``attn_fwd_plain``, ``attn_bwd_plain``), which repeat
+``csrc/pct_block_bwd_sm90.cu``; ``epi_sums`` at both dtypes through the
+streaming reduction of ``csrc/pct_epi_sums.cu``); a CPU tensor through the
+plain versions (``block_eval_plain``, ``block_fwd_plain``,
+``epi_sums_plain``, ``block_res_bwd_plain``, ``block_bwd_plain``,
+``attn_fwd_plain``, ``attn_bwd_plain``), which repeat
 the JAX kernels op for op (their exponentials run in the compute dtype
 against a column max, as the TPU kernels' do; the CUDA kernels use an f32
 log-sum-exp instead).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -258,6 +261,14 @@ def epi_sums_plain(t_out, wbn, bbn, dy):
     return ((g * t_out.to(acc)).sum(dim=(0, 1))[None], g.sum(dim=(0, 1))[None])
 
 
+@functools.lru_cache(maxsize=64)
+def _epi_blocks(rows, code, device):
+    """Blocks of one epi_sums launch: two per multiprocessor, at most one
+    per step of rows a block takes (its row lanes times its unroll)."""
+    step = _build.lib().sga_pct_epi_sums_rows_per_block(code)
+    return _build.grid_blocks(device, -(-rows // step))
+
+
 def epi_sums(t_out, wbn, bbn, dy):
     """The fold's gradient sums of the training epilogue for its cotangent
     ``dy``: ``(Σ g·t_out, Σ g)`` [1, 128] each, ``g = dy`` where
@@ -266,8 +277,8 @@ def epi_sums(t_out, wbn, bbn, dy):
     if t_out.device.type == "cpu":
         return epi_sums_plain(t_out, wbn, bbn, dy)
     name = "pct_epi_sums"
-    wbn32 = wbn.to(torch.float32).reshape(-1).contiguous()
-    bbn32 = bbn.to(torch.float32).reshape(-1).contiguous()
+    wbn32, bbn32 = (v if v.dtype == torch.float32 and v.dim() == 1 and v.is_contiguous()
+                    else v.to(torch.float32).reshape(-1).contiguous() for v in (wbn, bbn))
     _build.check_cuda(name, {"t_out": t_out, "dy": dy}, t_out.dtype)
     _build.check_cuda(name, {"t_out": t_out, "wbn": wbn32, "bbn": bbn32})
     o, p, _ = t_out.shape
@@ -276,14 +287,16 @@ def epi_sums(t_out, wbn, bbn, dy):
     for key, t in (("wbn", wbn32), ("bbn", bbn32)):
         _build.check_shape(name, key, t, (C,))
     dev = t_out.device
-    sums = torch.zeros((2, C), dtype=torch.float32, device=dev)
+    # the kernel's slice sum writes every entry
+    sums = (torch.empty if o else torch.zeros)((2, C), dtype=torch.float32, device=dev)
     if o:
-        blocks = _build.grid_blocks(dev, (o * p + 1) // 2, per_sm=4)
+        code = _build.DTYPE_CODE[t_out.dtype]
+        blocks = _epi_blocks(o * p, code, dev)
         part = _build.scratch(dev, blocks, 2 * C)
         _build.launch(name, "sga_pct_epi_sums", dev,
                       t_out.data_ptr(), wbn32.data_ptr(), bbn32.data_ptr(),
                       dy.data_ptr(), part.data_ptr(), blocks, sums.data_ptr(),
-                      o * p, _build.DTYPE_CODE[t_out.dtype])
+                      o * p, code)
     return sums[:1], sums[1:]
 
 

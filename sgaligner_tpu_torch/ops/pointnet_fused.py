@@ -5,12 +5,18 @@ Counterpart of ``sgaligner_tpu/ops/pointnet_fused.py``:
 * ``pointnet_fwd(x, w1, b1, w2, b2, w3, b3, with_argmax)``: channel-first
   points ``[O, 3, P]`` -> ``out [O, C3]`` in x's dtype and, with the flag,
   ``amax [O, C3]`` int32, the first point index of each channel's max (what
-  the training backward routes the gradient to);
-* ``pointnet_bwd(x, dout, amax, w1, b1, w2, b2, w3, b3)``: the weight and
-  bias gradients ``(dw1, db1, dw2, db2, dw3, db3)``, float32 (float64 for
-  float64 inputs). Points are data: there is no gradient for x;
+  the training backward routes the gradient to); ``pointnet_pool`` gives
+  the same max before its cast (``peak``, at the accumulation dtype);
+* ``pointnet_bwd(x, dout, amax, peak, w1, b1, w2, b2, w3, b3)``: the weight
+  and bias gradients ``(dw1, db1, dw2, db2, dw3, db3)``, float32 (float64
+  for float64 inputs). Channel c of object o carries ``dout[o, c]`` to its
+  point ``amax[o, c]`` where the forward's ``peak[o, c] > 0`` (a NaN max
+  carries nothing): the JAX kernel's ``a3 > 0`` at the argmax, which is
+  the forward's own test there because its forward and backward share
+  ``_stack_from_cf``. Points are data: there is no gradient for x;
 * ``PointNetFused``: the ``torch.autograd.Function`` of the two (its x
-  gradient is zero), and ``pointnet_fused`` to call it.
+  gradient is zero; it keeps the forward's peak for the backward), and
+  ``pointnet_fused`` to call it.
 
 Rounding points of the JAX kernel's ``_stack_from_cf``: every product
 accumulates in f32 (f64 for f64 inputs) and takes its bias there; the relu
@@ -18,13 +24,17 @@ masks come from those pre-activations; h1 and h2 are rounded to the compute
 dtype; a3 stays f32 and the max and argmax run on relu(a3); the output is
 rounded to the compute dtype at the end.
 
-A CUDA tensor goes through ``csrc/pointnet.cu`` (float32 and bfloat16; the
-bfloat16 forward through its Hopper design, ``csrc/pointnet_sm90.cu``, which
-takes C3 = 128 or a multiple of 256: the wrapper pads other widths with zero
-channels and drops them); a CPU tensor through the plain versions below.
+A CUDA tensor goes through ``csrc/pointnet.cu`` (float32) or the Hopper
+designs (bfloat16): the forward ``csrc/pointnet_sm90.cu``, which takes
+C3 = 128 or a multiple of 256 (the wrapper pads other widths with zero
+channels and drops them), and the backward ``csrc/pointnet_bwd_sm90.cu``,
+which runs over the routed points only and takes any C3 that is a multiple
+of 16. A CPU tensor goes through the plain versions below.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -46,23 +56,31 @@ def stack_plain(x, w1, b1, w2, b2, w3, b3):
     return a3, (a1 > 0, h1, a2 > 0, h2)
 
 
-def pointnet_fwd_plain(x, w1, b1, w2, b2, w3, b3, with_argmax=False):
+def pointnet_pool_plain(x, w1, b1, w2, b2, w3, b3, with_argmax=False):
+    """``(peak [O, C3] at the accumulation dtype, amax or None)``."""
     a3, _ = stack_plain(x, w1, b1, w2, b2, w3, b3)
     h3 = torch.relu(a3)
-    out = h3.amax(dim=1).to(x.dtype)
     # torch.argmax returns the first index of the max, as jnp.argmax does
     amax = h3.argmax(dim=1).to(torch.int32) if with_argmax else None
-    return out, amax
+    return h3.amax(dim=1), amax
 
 
-def pointnet_bwd_plain(x, dout, amax, w1, b1, w2, b2, w3, b3):
+def pointnet_fwd_plain(x, w1, b1, w2, b2, w3, b3, with_argmax=False):
+    peak, amax = pointnet_pool_plain(x, w1, b1, w2, b2, w3, b3, with_argmax)
+    return peak.to(x.dtype), amax
+
+
+def pointnet_bwd_plain(x, dout, amax, peak, w1, b1, w2, b2, w3, b3):
+    """The dense backward: every point recomputed, g3 zero but at the
+    routed (point, channel) pairs."""
     acc, dt = acc_dtype(x.dtype), x.dtype
-    a3, (m1, h1, m2, h2) = stack_plain(x, w1, b1, w2, b2, w3, b3)
+    _, (m1, h1, m2, h2) = stack_plain(x, w1, b1, w2, b2, w3, b3)
     p = x.shape[-1]
     picked = (torch.arange(p, device=x.device)[None, :, None]
               == amax.long()[:, None, :])
     zero = torch.zeros((), dtype=acc, device=x.device)
-    g3 = torch.where(picked & (a3 > 0), dout.to(acc)[:, None, :], zero).to(dt)
+    g3 = torch.where(picked & (peak > 0)[:, None, :], dout.to(acc)[:, None, :],
+                     zero).to(dt)
     g2 = torch.where(m2, torch.matmul(g3.to(acc), w3.to(acc).t()), zero).to(dt)
     g1 = torch.where(m1, torch.matmul(g2.to(acc), w2.to(acc).t()), zero).to(dt)
 
@@ -97,8 +115,15 @@ def pointnet_fwd(x, w1, b1, w2, b2, w3, b3, with_argmax=False):
     """x [O, 3, P]; w1 [3, 64], w2 [64, 128], w3 [128, C3]; biases [1, C];
     all in the compute dtype. Returns ``(out [O, C3] in x's dtype, amax
     [O, C3] int32 or None)``."""
+    peak, amax = pointnet_pool(x, w1, b1, w2, b2, w3, b3, with_argmax)
+    return peak.to(x.dtype), amax
+
+
+def pointnet_pool(x, w1, b1, w2, b2, w3, b3, with_argmax=False):
+    """``pointnet_fwd`` with its max before the cast: ``(peak [O, C3] at
+    the accumulation dtype (float32 on the card), amax or None)``."""
     if x.device.type == "cpu":
-        return pointnet_fwd_plain(x, w1, b1, w2, b2, w3, b3, with_argmax)
+        return pointnet_pool_plain(x, w1, b1, w2, b2, w3, b3, with_argmax)
     name = "pointnet_fwd"
     o, p, c3 = _check(name, x, (w1, b1, w2, b2, w3, b3))
     width = c3
@@ -120,61 +145,90 @@ def pointnet_fwd(x, w1, b1, w2, b2, w3, b3, with_argmax=False):
                       amax.data_ptr() if with_argmax else None, o, p, width,
                       _build.DTYPE_CODE[x.dtype])
     if width != c3:
-        out = out[:, :c3]
+        out = out[:, :c3].contiguous()
         amax = amax[:, :c3].contiguous() if with_argmax else None
-    return out.to(x.dtype), amax
+    return out, amax
 
 
-def pointnet_bwd(x, dout, amax, w1, b1, w2, b2, w3, b3):
+# the flat gradient buffer of the last bfloat16 pointnet_bwd launch: its
+# last float is the count of 64-row tiles the kernel ran (read it after the
+# call; keeping it costs no sync)
+last_bwd_grads: torch.Tensor | None = None
+
+
+@functools.lru_cache(maxsize=64)
+def _bwd_sizes(o, p, c3, bf16, device):
+    """(gradient buffer floats, f32 blocks, scratch shape) of one backward
+    launch: bf16 takes one byte work buffer (both passes' slices, the
+    routed rows' h2, the slots), f32 a slice per block."""
+    lib = _build.lib()
+    if not o:
+        return lib.sga_pointnet_grad_total(c3), 0, (0,)
+    with torch.cuda.device(device):
+        size = (lib.sga_pointnet_bwd_work_bytes(o, p, c3) if bf16
+                else lib.sga_pointnet_bwd_blocks(o, c3))
+    if size < 0:
+        raise RuntimeError(f"pointnet_bwd: {lib.sga_error_string(-size).decode()}")
+    if bf16:
+        return lib.sga_pointnet_grad_total(c3), 0, (size,)
+    return (lib.sga_pointnet_grad_total(c3), size,
+            (size, lib.sga_pointnet_grad_stride(c3)))
+
+
+def pointnet_bwd(x, dout, amax, peak, w1, b1, w2, b2, w3, b3):
     """Weight and bias gradients of ``pointnet_fwd`` for the cotangent
-    ``dout [O, C3]`` (x's dtype), routed to the points ``amax [O, C3]``:
-    ``(dw1 [3, 64], db1 [1, 64], dw2, db2, dw3, db3)`` at f32 (f64 for f64
-    inputs)."""
+    ``dout [O, C3]`` (x's dtype), routed to the points ``amax [O, C3]``
+    where the forward's max ``peak [O, C3]`` (``pointnet_pool``; float32
+    on the card) is positive: ``(dw1 [3, 64], db1 [1, 64], dw2, db2, dw3,
+    db3)`` at f32 (f64 for f64 inputs)."""
+    global last_bwd_grads
     if x.device.type == "cpu":
-        return pointnet_bwd_plain(x, dout, amax, w1, b1, w2, b2, w3, b3)
+        return pointnet_bwd_plain(x, dout, amax, peak, w1, b1, w2, b2, w3, b3)
     name = "pointnet_bwd"
     o, p, c3 = _check(name, x, (w1, b1, w2, b2, w3, b3))
-    _build.check_cuda(name, {"x": x, "dout": dout, "amax": amax})
-    if dout.dtype != x.dtype or amax.dtype != torch.int32:
+    _build.check_cuda(name, {"x": x, "dout": dout, "amax": amax, "peak": peak})
+    if (dout.dtype != x.dtype or amax.dtype != torch.int32
+            or peak.dtype != torch.float32):
         raise ValueError(f"{name}: dout is {dout.dtype} (expected {x.dtype}), "
-                         f"amax is {amax.dtype} (expected torch.int32)")
-    _build.check_shape(name, "dout", dout, (o, c3))
-    _build.check_shape(name, "amax", amax, (o, c3))
-    lib = _build.lib()
-    total = lib.sga_pointnet_grad_total(c3)
-    grads = torch.zeros(total, dtype=torch.float32, device=x.device)
+                         f"amax {amax.dtype} (expected torch.int32), peak "
+                         f"{peak.dtype} (expected torch.float32)")
+    for key, t in (("dout", dout), ("amax", amax), ("peak", peak)):
+        _build.check_shape(name, key, t, (o, c3))
+    bf16 = x.dtype == torch.bfloat16
+    total, blocks, scratch_shape = _bwd_sizes(o, p, c3, bf16, x.device)
+    # the kernels' slice sums write every entry
+    grads = (torch.empty if o else torch.zeros)(total, dtype=torch.float32, device=x.device)
     if o:
-        with torch.cuda.device(x.device):
-            blocks = lib.sga_pointnet_bwd_blocks(o, c3, _build.DTYPE_CODE[x.dtype])
-        if blocks < 0:
-            raise RuntimeError(f"{name}: {lib.sga_error_string(-blocks).decode()}")
-        scratch = torch.empty((blocks, lib.sga_pointnet_grad_stride(c3)),
-                              dtype=torch.float32, device=x.device)
+        scratch = torch.empty(scratch_shape, dtype=torch.uint8 if bf16 else torch.float32,
+                              device=x.device)
         _build.launch(name, "sga_pointnet_bwd", x.device,
                       x.data_ptr(), dout.data_ptr(), amax.data_ptr(),
-                      w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                      b2.data_ptr(), w3.data_ptr(), b3.data_ptr(),
-                      scratch.data_ptr(), blocks, grads.data_ptr(), o, p, c3,
-                      _build.DTYPE_CODE[x.dtype])
+                      peak.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                      w2.data_ptr(), b2.data_ptr(), w3.data_ptr(),
+                      b3.data_ptr(), scratch.data_ptr(), blocks,
+                      grads.data_ptr(), o, p, c3, _build.DTYPE_CODE[x.dtype])
+    if bf16:
+        last_bwd_grads = grads
     sizes = (3 * C1, C1, C1 * C2, C2, C2 * c3, c3)
     shapes = ((3, C1), (1, C1), (C1, C2), (1, C2), (C2, c3), (1, c3))
-    return tuple(g.view(s) for g, s in zip(torch.split(grads, sizes), shapes))
+    return tuple(g.view(s) for g, s in zip(torch.split(grads[:-1], sizes), shapes))
 
 
 class PointNetFused(torch.autograd.Function):
-    """Forward with the argmax output; backward through ``pointnet_bwd``.
-    The gradient of x is zero by design (points are data)."""
+    """Forward with the argmax output; backward through ``pointnet_bwd``,
+    routed by the forward's own max (kept at the accumulation dtype). The
+    gradient of x is zero by design (points are data)."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, w3, b3):
-        out, amax = pointnet_fwd(x, w1, b1, w2, b2, w3, b3, with_argmax=True)
-        ctx.save_for_backward(x, amax, w1, b1, w2, b2, w3, b3)
-        return out
+        peak, amax = pointnet_pool(x, w1, b1, w2, b2, w3, b3, with_argmax=True)
+        ctx.save_for_backward(x, amax, peak, w1, b1, w2, b2, w3, b3)
+        return peak.to(x.dtype)
 
     @staticmethod
     def backward(ctx, dout):
-        x, amax, *weights = ctx.saved_tensors
-        grads = pointnet_bwd(x, dout.contiguous(), amax, *weights)
+        x, amax, peak, *weights = ctx.saved_tensors
+        grads = pointnet_bwd(x, dout.contiguous(), amax, peak, *weights)
         dx = torch.zeros_like(x) if ctx.needs_input_grad[0] else None
         return (dx, *(g.to(w.dtype) for g, w in zip(grads, weights)))
 

@@ -77,7 +77,7 @@ def test_pointnet_autograd_and_determinism(card):
     from sgaligner_tpu_torch.ops.pointnet_fused import (pointnet_bwd,
                                                         pointnet_bwd_plain,
                                                         pointnet_fused,
-                                                        pointnet_fwd_plain)
+                                                        pointnet_pool_plain)
 
     x, *ws = card.op_inputs("pointnet_fwd", 37, torch.float32, seed=6)
     x.requires_grad_(True)
@@ -91,12 +91,12 @@ def test_pointnet_autograd_and_determinism(card):
     assert _build.LAUNCHES["pointnet_bwd"] == before["pointnet_bwd"] + 1
     assert not bool(grads[0].any())
     with torch.no_grad():
-        amax = pointnet_fwd_plain(x, *ws, with_argmax=True)[1]
-        want = pointnet_bwd_plain(x, dout, amax, *ws)
+        peak, amax = pointnet_pool_plain(x, *ws, with_argmax=True)
+        want = pointnet_bwd_plain(x, dout, amax, peak, *ws)
         _, rel = card.compare(tuple(grads[1:]), want)
         assert rel <= card.TOL[("pointnet_bwd", "f32")]
-        first = pointnet_bwd(x, dout, amax, *ws)
-        second = pointnet_bwd(x, dout, amax, *ws)
+        first = pointnet_bwd(x, dout, amax, peak, *ws)
+        second = pointnet_bwd(x, dout, amax, peak, *ws)
         assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
@@ -355,21 +355,164 @@ def test_pointnet_fwd_first_index_and_nan(card):
 
 
 def test_pointnet_bwd_takes_the_new_forwards_argmax(card):
-    """The bf16 forward's argmax fed to pointnet_bwd (its own recompute of
-    the stack) against the plain backward fed the same argmax, within
-    pointnet_bwd's bf16 tolerance."""
+    """The bf16 forward's argmax and max fed to pointnet_bwd against the
+    plain backward fed the same, within pointnet_bwd's bf16 tolerance."""
     from sgaligner_tpu_torch.ops.pointnet_fused import (pointnet_bwd, pointnet_bwd_plain,
-                                                        pointnet_fwd)
+                                                        pointnet_pool)
 
     x, *ws = card.op_inputs("pointnet_fwd", 67, torch.bfloat16, seed=21)
-    amax = pointnet_fwd(x, *ws, with_argmax=True)[1]
+    peak, amax = pointnet_pool(x, *ws, with_argmax=True)
     dout = torch.randn(67, ws[-1].shape[-1], generator=torch.Generator().manual_seed(22)).to(
         "cuda", torch.bfloat16)
-    got = pointnet_bwd(x, dout, amax, *ws)
-    want = pointnet_bwd_plain(x, dout, amax, *ws)
+    got = pointnet_bwd(x, dout, amax, peak, *ws)
+    want = pointnet_bwd_plain(x, dout, amax, peak, *ws)
     torch.cuda.synchronize()
     _, rel = card.compare(got, want)
     assert rel <= card.TOL[("pointnet_bwd", "bf16")], rel
+
+
+def _pointnet_bwd_args(card, x, ws, seed):
+    """pointnet_bwd's inputs on the card: a seeded cotangent, the plain
+    forward's argmax and max (both sides get them)."""
+    from sgaligner_tpu_torch.ops.pointnet_fused import pointnet_pool_plain
+
+    g = torch.Generator().manual_seed(seed)
+    dout = torch.randn(x.shape[0], ws[4].shape[1], generator=g).to("cuda", torch.bfloat16)
+    peak, amax = pointnet_pool_plain(x, *ws, with_argmax=True)
+    return (x, dout, amax, peak, *ws)
+
+
+def _bwd_tiles_match(card, args):
+    """The row tiles the bf16 kernel ran are the ones the routing fills."""
+    from sgaligner_tpu_torch.ops import pointnet_fused
+
+    pointnet_fused.pointnet_bwd(*args)
+    rows, _, tiles = card.bwd_work(args)
+    assert int(float(pointnet_fused.last_bwd_grads[-1])) == tiles
+    return rows
+
+
+@pytest.mark.parametrize("objects", [1, 3, 67])
+@pytest.mark.parametrize("points", [200, 512])
+@pytest.mark.parametrize("width", [32, 128, 208, 256, 384])
+def test_pointnet_bwd_bf16_widths(card, width, points, objects):
+    """The bf16 backward over the routed rows against the plain (dense)
+    version at C3 in {32, 128, 208, 256, 384} (W3 resident at two
+    warpgroups a block up to 256, at one above), P a multiple of 8 or not,
+    and 1, 3 or 67 objects; it runs as many 64-row tiles as the routed rows
+    fill."""
+    x, *ws = card.op_inputs("pointnet_fwd", objects, torch.bfloat16, seed=23, p=points)
+    g = torch.Generator().manual_seed(24)
+    ws[4] = (torch.randn(128, width, generator=g) * 128 ** -0.5).to("cuda", torch.bfloat16)
+    ws[5] = (torch.randn(1, width, generator=g) * 0.1).to("cuda", torch.bfloat16)
+    args = _pointnet_bwd_args(card, x, ws, seed=25)
+    card.check_op("pointnet_bwd", args, "bf16")
+    _bwd_tiles_match(card, args)
+
+
+def test_pointnet_bwd_restages_w3_when_it_does_not_fit(card):
+    """At C3 = 640 W3 (160 KB) does not fit in shared memory beside a
+    warpgroup's buffers: the backward restages it in groups of 512 channels
+    per tile. Against the plain version, with the tiles the routing fills."""
+    x, *ws = card.op_inputs("pointnet_fwd", 67, torch.bfloat16, seed=36, p=512)
+    g = torch.Generator().manual_seed(37)
+    ws[4] = (torch.randn(128, 640, generator=g) * 128 ** -0.5).to("cuda", torch.bfloat16)
+    ws[5] = (torch.randn(1, 640, generator=g) * 0.1).to("cuda", torch.bfloat16)
+    args = _pointnet_bwd_args(card, x, ws, seed=38)
+    card.check_op("pointnet_bwd", args, "bf16")
+    _bwd_tiles_match(card, args)
+
+
+def test_pointnet_bwd_ties_dead_and_many_rows(card):
+    """The bf16 backward (O=8, P=512, C3=256): object 0 repeats point 5 at
+    point 70 (another 64-point tile of the forward), scaled so that a
+    quarter of its channels tie there (the first index routes); object 6's
+    points lie on a sphere, so its maxima scatter over more than two
+    64-row tiles; object 7's points are scaled down and b3 set so that all
+    its channels are dead (max <= 0). Against the plain version, the same
+    bits twice, and the tiles the routing fills."""
+    from sgaligner_tpu_torch.ops.pointnet_fused import pointnet_bwd, stack_plain
+
+    x, *ws = card.op_inputs("pointnet_fwd", 8, torch.bfloat16, seed=29, p=512)
+    x[0, :, 5] *= 30.0
+    x[0, :, 70] = x[0, :, 5]
+    xs = x[6].float()
+    x[6] = (xs / xs.norm(dim=0, keepdim=True) * 2.0).to(torch.bfloat16)
+    x[7] *= 0.05
+    a3 = stack_plain(x[7:8], *ws[:5], torch.zeros_like(ws[5]))[0]
+    ws[5] = (-a3[0].amax(dim=0, keepdim=True) - 0.05).to(torch.bfloat16)
+    args = _pointnet_bwd_args(card, x, ws, seed=30)
+    _, _, amax, peak = args[:4]
+    assert not bool((peak[7] > 0).any())
+    assert bool(((amax[0] == 5).float().mean() > 0.1)) and not bool((amax[0] == 70).any())
+    card.check_op("pointnet_bwd", args, "bf16")
+    first, second = pointnet_bwd(*args), pointnet_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    live = (peak > 0) & (args[1] != 0)
+    routed_6 = len(set(amax[6][live[6]].tolist()))
+    assert routed_6 > 128, routed_6
+    _bwd_tiles_match(card, args)
+
+
+def test_pointnet_bwd_nan_point(card):
+    """The bf16 backward with a NaN in object 1's x at points 7 and 140:
+    every channel's max is NaN there and routes nothing, and the weight
+    gradients are NaN where the dense plain version's are (its 0·NaN),
+    the bias gradients finite and within the tolerance."""
+    from sgaligner_tpu_torch.ops.pointnet_fused import pointnet_bwd, pointnet_bwd_plain
+
+    x, *ws = card.op_inputs("pointnet_fwd", 3, torch.bfloat16, seed=31, p=200)
+    x[1, 0, 7] = float("nan")
+    x[1, 1, 140] = float("nan")
+    args = _pointnet_bwd_args(card, x, ws, seed=32)
+    assert bool(args[3][1].isnan().all()) and bool((args[2][1] == 7).all())
+    got, want = pointnet_bwd(*args), pointnet_bwd_plain(*args)
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g.isnan(), w.isnan()), i
+        if i % 2:   # the bias gradients
+            _, rel = card.compare(g, w)
+            assert rel <= card.TOL[("pointnet_bwd", "bf16")], (i, rel)
+    assert bool(got[4].isnan().all()) and not bool(got[0][2].isnan().any())
+
+
+def test_pointnet_bwd_routes_by_the_forward_max(card):
+    """A channel whose bf16 forward max is positive carries its gradient:
+    with b3 set so that each channel's maxima straddle 0 over the objects
+    (some within a bf16 step of it) and no cotangent near 0, db3 equals
+    Σ_o dout·[peak > 0] of the forward kernel's own f32 max."""
+    from sgaligner_tpu_torch.ops.pointnet_fused import pointnet_bwd, pointnet_pool, stack_plain
+
+    x, *ws = card.op_inputs("pointnet_fwd", 67, torch.bfloat16, seed=33, p=512)
+    a3 = stack_plain(x, *ws[:5], torch.zeros_like(ws[5]))[0]
+    ws[5] = (-a3.amax(dim=1).median(dim=0, keepdim=True).values).to(torch.bfloat16)
+    peak, amax = pointnet_pool(x, *ws, with_argmax=True)
+    pos = (peak > 0).float().mean(dim=0)
+    assert bool(((pos > 0) & (pos < 1)).float().mean() > 0.9)
+    g = torch.Generator().manual_seed(34)
+    mag = 0.5 + torch.rand(67, ws[4].shape[1], generator=g)
+    sign = torch.where(torch.rand(67, ws[4].shape[1], generator=g) < 0.5, -1.0, 1.0)
+    dout = (mag * sign).to("cuda", torch.bfloat16)
+    db3 = pointnet_bwd(x, dout, amax, peak, *ws)[5]
+    want = (dout.double() * (peak > 0)).sum(dim=0, keepdim=True)
+    torch.testing.assert_close(db3.double(), want, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("objects,points", [(3, 200), (1, 5), (67, 512)],
+                         ids=["ragged", "fewer_rows_than_the_grid", "main_path"])
+def test_pct_epi_sums_stream(card, dtype, objects, points):
+    """The streaming epilogue sums against the plain version: row counts
+    that are not a multiple of a block's rows per step (600 rows), fewer
+    rows than the grid has row lanes (5), and the main path's width; the
+    same bits twice."""
+    from sgaligner_tpu_torch.ops.pct_attention import epi_sums
+
+    dt_name = "f32" if dtype == torch.float32 else "bf16"
+    args = card.op_inputs("pct_epi_sums", objects, dtype, seed=35, p=points)
+    card.check_op("pct_epi_sums", args, dt_name)
+    first, second = epi_sums(*args), epi_sums(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def _tail_with_ties_and_nans(dtype):

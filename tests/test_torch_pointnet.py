@@ -26,7 +26,20 @@ O=16 objects of P=32 points, C3=256 (the op's widths are fixed at 64 and
   so a value may land on the neighbouring bf16 number: normwise 2e-2
   (max |error| / max |value| per output; one bf16 step is 2^-8 = 3.9e-3
   relative and a flipped relu mask moves a gradient sum by a little more).
-  The backward gets the JAX forward's argmax on both sides.
+  The backward gets the JAX forward's argmax and its max (the routing
+  test peak > 0) on both sides.
+* The routing: the port's backward routes a channel's gradient by the
+  forward's own max (peak > 0), where the JAX kernel recomputes a3 and
+  tests a3 > 0 at the argmax. On the CPU the two are the same bits
+  (float32, bfloat16, float64), and so are the gradients.
+* The routed-rows formulation of the card's bfloat16 backward
+  (``_routed_rows_bwd`` below: per object only the points some live
+  channel routes to, or a NaN max marks, recomputed and multiplied)
+  against the JAX ``_bwd_rule`` on its Pallas kernel in interpret mode,
+  at float64 (O=8, P=64, C3=64; ``_pick_tile`` patched in the test so the
+  rule takes the kernel at itemsize 8). That kernel sums in f32 whatever
+  the input dtype (``preferred_element_type``), so the two are held to
+  rtol 1e-5 / atol 1e-6; NaN must sit at the same places.
 """
 
 import numpy as np
@@ -37,8 +50,9 @@ import jax
 import jax.numpy as jnp
 
 from sgaligner_tpu.ops import pointnet_fused as jpf
-from sgaligner_tpu_torch.ops.pointnet_fused import (pointnet_bwd, pointnet_fused,
-                                                    pointnet_fwd, stack_plain)
+from sgaligner_tpu_torch.ops.pointnet_fused import (pointnet_bwd, pointnet_bwd_plain,
+                                                    pointnet_fused, pointnet_fwd,
+                                                    pointnet_pool_plain, stack_plain)
 from tests.test_torch_ops import expect_dtype, x64  # noqa: F401  (fixture)
 
 O, P, C3 = 16, 32, 256
@@ -134,12 +148,13 @@ def test_backward_matches_pallas_bf16():
     xj, *wj = _jax([x, *ws], jnp.bfloat16)
     doutj = jnp.asarray(dout, jnp.bfloat16)
     assert jpf._pick_tile(O, P, 2, bwd=True) is not None   # Pallas backward
-    _, amax_j = jpf._forward(xj, *wj, True, with_argmax=True)
+    out_j, amax_j = jpf._forward(xj, *wj, True, with_argmax=True)
     want = jpf._bwd_rule(True, (xj, *wj, amax_j), doutj)
     assert not np.asarray(want[0].astype(jnp.float32)).any()
     got = pointnet_bwd(*_torch([x], torch.bfloat16),
                        *_torch([dout], torch.bfloat16),
                        torch.from_numpy(np.array(amax_j)),
+                       torch.from_numpy(np.array(out_j.astype(jnp.float32))),
                        *_torch(ws, torch.bfloat16))
     for i, (g, w) in enumerate(zip(got, want[1:])):
         assert g.dtype == torch.float32
@@ -158,7 +173,7 @@ def test_argmax_is_first_index_on_ties(p):
     dead = out == 0
     assert bool(dead.any())
     assert not bool(amax[dead].any())
-    grads = pointnet_bwd(args[0], torch.from_numpy(dout), amax, *args[1:])
+    grads = pointnet_bwd(args[0], torch.from_numpy(dout), amax, out, *args[1:])
     assert not bool(grads[5][0][dead.all(dim=0)].any())
 
 
@@ -193,3 +208,131 @@ def test_first_index_and_nan_match_pallas_f32():
     h3 = torch.relu(stack_plain(*args)[0])[finite]
     at_jax = torch.gather(h3, 1, torch.from_numpy(amax_j[finite]).long()[:, None, :])[:, 0]
     assert _normwise(at_jax.numpy(), out[finite]) <= 1e-5
+
+
+def _edge_inputs(nan_point: bool):
+    """O=8 objects of P=64 points, C3=64. Object 0 repeats point 5 at point
+    40, scaled up so that many channels' max lie on the pair (an exact
+    tie: the first index routes); object 3's points are scaled down and b3
+    set so that every channel of it is dead (max <= 0); column 7 of dout
+    is zero. With ``nan_point``, object 2 holds a NaN at points 7 (x) and
+    40 (y)."""
+    o, p, c3 = 8, 64, 64
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(o, 3, p))
+    x[0, :, 5] *= 8.0
+    x[0, :, 40] = x[0, :, 5]
+    x[3] *= 0.05
+    ws = []
+    for cin, cout in ((3, 64), (64, 128), (128, c3)):
+        ws.append(rng.normal(size=(cin, cout)) / np.sqrt(cin))
+        ws.append(rng.normal(size=(1, cout)) * 0.1)
+    h = np.maximum(x[3].T @ ws[0] + ws[1], 0.0)
+    h = np.maximum(h @ ws[2] + ws[3], 0.0)
+    ws[5] = -(h @ ws[4]).max(axis=0, keepdims=True) - 0.01    # object 3 dead
+    if nan_point:
+        x[2, 0, 7] = np.nan
+        x[2, 1, 40] = np.nan
+    dout = rng.normal(size=(o, c3))
+    dout[:, 7] = 0.0
+    return x, ws, dout
+
+
+def _routed_rows_bwd(x, dout, amax, peak, w1, b1, w2, b2, w3, b3):
+    """The card's bfloat16 backward as a formulation, at float64 in numpy:
+    per object, the points that a live channel (peak > 0, dout != 0)
+    routes to or a NaN max marks, in order; layers 1 and 2 on those rows
+    alone; g3 holds each live channel's dout at its row; the products and
+    sums over those rows (np.einsum: no BLAS, so 0·NaN stays NaN); and a
+    NaN into dw1[k] where x[k] of the object is not finite (what the
+    unrouted points' x·0 adds to the dense sums)."""
+    o, _, p = x.shape
+    c3 = w3.shape[1]
+    dw1, db1 = np.zeros((3, 64)), np.zeros((1, 64))
+    dw2, db2 = np.zeros((64, 128)), np.zeros((1, 128))
+    dw3, db3 = np.zeros((128, c3)), np.zeros((1, c3))
+    for i in range(o):
+        dw1 += np.where(~np.isfinite(x[i]).all(axis=1), np.nan, 0.0)[:, None]
+        live = (peak[i] > 0) & (dout[i] != 0)
+        rows = np.unique(amax[i][live | np.isnan(peak[i])])
+        if rows.size == 0:
+            continue
+        xr = x[i][:, rows].T                                    # [R, 3]
+        a1 = np.einsum("rk,kd->rd", xr, w1) + b1
+        h1 = np.maximum(a1, 0.0)                                # keeps a NaN
+        a2 = np.einsum("rk,kd->rd", h1, w2) + b2
+        h2 = np.maximum(a2, 0.0)
+        g3 = np.zeros((rows.size, c3))
+        chans = np.flatnonzero(live)
+        g3[np.searchsorted(rows, amax[i][chans]), chans] = dout[i][chans]
+        g2 = np.where(a2 > 0, np.einsum("rc,kc->rk", g3, w3), 0.0)
+        g1 = np.where(a1 > 0, np.einsum("rk,dk->rd", g2, w2), 0.0)
+        dw3 += np.einsum("rk,rc->kc", h2, g3)
+        db3 += g3.sum(axis=0)
+        dw2 += np.einsum("rk,rc->kc", h1, g2)
+        db2 += g2.sum(axis=0)
+        dw1 += np.einsum("rk,rc->kc", xr, g1)
+        db1 += g1.sum(axis=0)
+    return dw1, db1, dw2, db2, dw3, db3
+
+
+@pytest.mark.parametrize("nan_point", [False, True], ids=["ties_dead_zero_dout", "nan_point"])
+def test_routed_rows_match_pallas_bwd_rule_f64(x64, monkeypatch, nan_point):
+    x, ws, dout = _edge_inputs(nan_point)
+    o, _, p = x.shape
+    # the Pallas backward at float64: one tile of every object (the JAX
+    # package picks no tile above itemsize 2 and takes jax.grad of the
+    # unfused stack instead, which splits the max's gradient over ties)
+    monkeypatch.setattr(jpf, "_pick_tile", lambda o_, p_, itemsize, bwd: o_)
+    xj, *wj = _jax([x, *ws], jnp.float64)
+    out_j, amax_j = jpf._forward(xj, *wj, True, with_argmax=True)
+    want = expect_dtype(jpf._bwd_rule(True, (xj, *wj, amax_j), _jax([dout], jnp.float64)[0]))
+    amax, peak = np.asarray(amax_j), np.asarray(out_j)
+    dead = peak[3] <= 0
+    assert dead.all() and (amax[0] == 5).mean() > 0.2
+    got = _routed_rows_bwd(x, dout, amax, peak, *ws)
+    if nan_point:
+        assert np.isnan(peak[2]).all() and (amax[2] == 7).all()
+        assert np.isnan(np.asarray(want[1])).any()
+    for i, (g, w) in enumerate(zip(got, want[1:])):
+        np.testing.assert_allclose(g, np.asarray(w), rtol=1e-5, atol=1e-6,
+                                   err_msg=f"grad {i}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64],
+                         ids=["f32", "bf16", "f64"])
+def test_forward_max_routes_as_the_recompute(dtype):
+    """peak > 0 (the forward's max) is a3 > 0 at the argmax of the plain
+    recompute, bit for bit, and the backward gives the same bits routed
+    either way (ties, a NaN point, a dead object, a zero dout column)."""
+    x, ws, dout = _edge_inputs(nan_point=True)
+    args = _torch([x, *ws], dtype)
+    peak, amax = pointnet_pool_plain(*args, with_argmax=True)
+    a3 = stack_plain(*args)[0]
+    at = torch.gather(a3, 1, amax.long()[:, None, :])[:, 0]
+    assert torch.equal(peak > 0, at > 0)
+    assert bool((peak > 0).any()) and not bool((peak > 0).all())
+    dout_t = _torch([dout], dtype)[0]
+    by_peak = pointnet_bwd(args[0], dout_t, amax, peak, *args[1:])
+    by_recompute = pointnet_bwd_plain(args[0], dout_t, amax, at, *args[1:])
+    for g, r in zip(by_peak, by_recompute):
+        assert torch.equal(g.nan_to_num(7.0), r.nan_to_num(7.0))
+
+
+def test_autograd_matches_jax_grads_f64_dead_and_zero_dout(x64):
+    """PointNetFused (the forward's peak kept for the backward) against
+    JAX's gradients at float64 on inputs with a dead object and a zero
+    dout column (no NaN, and the tie moved apart: JAX's float64 backward
+    is jax.grad of the unfused stack, which splits a tie)."""
+    x, ws, dout = _edge_inputs(nan_point=False)
+    x[0, :, 40] += 1e-3
+    xj, *wj = _jax([x, *ws], jnp.float64)
+    _, vjp = jax.vjp(lambda *w: jpf.pointnet_fused(xj, *w, True), *wj)
+    want = expect_dtype(vjp(*_jax([dout], jnp.float64)))
+    wt = [torch.from_numpy(w).requires_grad_(True) for w in ws]
+    out = pointnet_fused(torch.from_numpy(x), *wt)
+    got = torch.autograd.grad(out, wt, torch.from_numpy(dout))
+    assert not bool(got[5][0, 7].any())          # the zero column routes nothing
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-10,
+                                   atol=1e-12, err_msg=f"grad {i}")
