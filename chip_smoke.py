@@ -241,7 +241,7 @@ KERNELS = {
                      "sgaligner_tpu/ops/pointnet_fused.py:62"),
     "pointnet_bwd": ("sgaligner_tpu_torch/csrc/pointnet_bwd_sm90.cu",
                      "sgaligner_tpu/ops/pointnet_fused.py:72"),
-    "embed_first_bwd": ("sgaligner_tpu_torch/csrc/pct_embed.cu",
+    "embed_first_bwd": ("sgaligner_tpu_torch/csrc/pct_embed_first_bwd.cu",
                         "sgaligner_tpu/ops/pct_embed.py:66"),
     "embed_second_bwd": ("sgaligner_tpu_torch/csrc/pct_embed_bwd_sm90.cu",
                          "sgaligner_tpu/ops/pct_embed.py:221"),
@@ -253,7 +253,7 @@ KERNELS = {
                           "sgaligner_tpu/ops/pct_attention.py:599"),
     "pct_tail_bwd": ("sgaligner_tpu_torch/csrc/pct_tail_bwd_sm90.cu",
                      "sgaligner_tpu/ops/pct_tail.py:124"),
-    "pct_attn_fwd": ("sgaligner_tpu_torch/csrc/pct_attention.cu",
+    "pct_attn_fwd": ("sgaligner_tpu_torch/csrc/pct_block_eval_sm90.cu",
                      "sgaligner_tpu/ops/pct_attention.py:103"),
     "pct_attn_bwd": ("sgaligner_tpu_torch/csrc/pct_block_bwd_sm90.cu",
                      "sgaligner_tpu/ops/pct_attention.py:108"),
@@ -296,6 +296,15 @@ def _misrouted(outs, args):
     return pointnet_bwd(x, dout, moved, peak, *ws)
 
 
+def _tile_scaled(outs, args):
+    """A planted fault of the attention forward: the 64-row tile of y that
+    holds its largest |value|, times 1.1."""
+    y = outs[0].clone()
+    obj, row = divmod(int(y.abs().amax(dim=2).argmax()), y.shape[1])
+    y[obj, row // 64 * 64:(row // 64 + 1) * 64] *= 1.1
+    return (y,)
+
+
 def _unmasked_sums(outs, args):
     """A planted fault of the embeddings' forwards: the BN sums taken over
     every object, the mask ignored (the kernel's own h)."""
@@ -320,7 +329,9 @@ KERNEL_PLANTED = {"pct_block_res_bwd": (_scaled(0, 2.0), _scaled(2, 2.0)),
                   "embed_second_bwd": (_scaled(0, 1.1), _scaled(3, 2.0)),
                   "pointnet_bwd": (_scaled(4, 1.1),
                                    ("a live channel routed to the wrong point", _misrouted)),
-                  "pct_epi_sums": (_scaled(1, 1.1),)}
+                  "pct_epi_sums": (_scaled(1, 1.1),),
+                  "pct_attn_fwd": (("one 64-row tile of y x1.1", _tile_scaled),),
+                  "embed_first_bwd": (_scaled(0, 0.0),)}
 # pct_block_eval's mixed flag pairs, which no model uses but the JAX op
 # computes: SA's scale with OA's normalisation, and neither
 MIXED_FLAGS = [("both", (True, True)), ("neither", (False, False))]
@@ -395,13 +406,17 @@ TAIL_BWD_PASSES = ("::transpose_w_kernel", "::tail_g_wgmma_kernel", "::tail_dx_w
                    "::wgrad_wgmma_kernel", "::reduce_slices_kernel")
 # The first versions of the kernels redesigned after the wgmma ones, at
 # O = 896, bf16 (NVIDIA H100 80GB HBM3, 700.00 W; CUDA events, median of 5,
-# chip_smoke.py): the dense PointNet backward (shared-memory WMMA chunks)
-# and the epilogue sums (one 2-byte load a thread and row), with the
-# kernel names of the new designs' passes
-FIRST_MS = {"pointnet_bwd": 3.296, "pct_epi_sums": 0.435}
+# chip_smoke.py): the dense PointNet backward (shared-memory WMMA chunks),
+# the epilogue sums and the first embedding's backward (one 2-byte load a
+# thread and row) and the attention forward (shared-memory WMMA tiles),
+# with the kernel names of the new designs' passes
+FIRST_MS = {"pointnet_bwd": 3.296, "pct_epi_sums": 0.435, "embed_first_bwd": 0.220,
+            "pct_attn_fwd": 2.480, "pct_attn_fwd/OA": 2.298}
 POINTNET_BWD_PASSES = ("::pointnet_bwd_wgmma_kernel", "::pointnet_dw3_wgmma_kernel",
                        "::reduce_slices_kernel")
 EPI_SUMS_PASSES = ("::epi_sums_stream_kernel", "::reduce_slices_kernel")
+EMBED_FIRST_BWD_PASSES = ("::embed_first_bwd_stream_kernel", "::reduce_slices_kernel")
+ATTN_FWD_PASSES = ("::project_wgmma_kernel", "::lse_wgmma_kernel", "::apply_wgmma_kernel")
 
 
 def log(msg: str) -> None:
@@ -1838,7 +1853,9 @@ def log_redesign(state: dict, label: str, o: int, ms: float, b_ms: float, kern,
               "pct_block_fwd": BLOCK_FWD_PASSES,
               "embed_second_bwd": EMBED_SECOND_BWD_PASSES,
               "pointnet_bwd": POINTNET_BWD_PASSES,
-              "pct_epi_sums": EPI_SUMS_PASSES}.get(label.split("/")[0], BLOCK_BWD_PASSES)
+              "pct_epi_sums": EPI_SUMS_PASSES,
+              "embed_first_bwd": EMBED_FIRST_BWD_PASSES,
+              "pct_attn_fwd": ATTN_FWD_PASSES}.get(label.split("/")[0], BLOCK_BWD_PASSES)
     earlier = {**WMMA_BWD_MS, **WMMA_FWD_MS, **FIRST_MS}[label]
     split = pass_split(lambda: kern(*args), passes)
     log(f"[time] {label} O={o} bf16: {ms:.3f} ms, {b_ms / ms:.1%} of its bound; the earlier "
@@ -1924,7 +1941,7 @@ def time_oa(state: dict) -> list[dict]:
         plain_ms = cuda_ms(lambda: plain(*args), warmup=1, reps=3)
         b_ms, b_by = bound(name, o, oa=flags == OA)
         launches = counted[f"ops/{tag}" if where == "ops" else where][name]
-        if label in WMMA_BWD_MS or label in WMMA_FWD_MS:
+        if label in WMMA_BWD_MS or label in WMMA_FWD_MS or label in FIRST_MS:
             log_redesign(state, label, o, ms, b_ms, kern, args)
         log(f"[time] {label:20s} O={o} bf16 kernel {ms:.3f} ms | plain {plain_ms:.3f} ms | "
             f"bound {b_ms:.4f} ms ({b_by}) | library None | launches {launches} ({where}) | "

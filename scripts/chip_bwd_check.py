@@ -17,8 +17,8 @@ two designs on the same seeded inputs. Prints, per line and prefixed by
   gradients from the plain version at f32 on the same bf16 inputs, beside
   the bf16 plain version's own distance (chip_smoke.py's BLOCK_DX_VS_PLAIN
   rule reads their ratio);
-* the bf16 backwards (embed_second_bwd and pointnet_bwd too) and
-  pct_epi_sums at O = 896 (P = 512): CUDA-event ms (median of 5), the
+* the bf16 backwards (embed_second_bwd, pointnet_bwd and embed_first_bwd
+  too) and pct_epi_sums at O = 896 (P = 512): CUDA-event ms (median of 5), the
   bound from chip_smoke.bound (pointnet_bwd's from the work its inputs
   route, chip_smoke.bwd_work), the error against the plain version, and
   the device ms of each kernel under torch.profiler.
@@ -76,8 +76,8 @@ PASSES = ("project_wgmma_kernel", "lse_wgmma_kernel", "dz_wgmma_kernel", "dv_wgm
           "bwd_dz_kernel", "bwd_dv_kernel", "bwd_dq_kernel", "bwd_dx_kernel", "attn_sc_kernel",
           "tail_g_kernel", "tail_dx_kernel", "tail_dw_kernel", "embed_second_bwd_wgmma_kernel",
           "embed_second_bwd_kernel", "pointnet_bwd_wgmma_kernel", "pointnet_dw3_wgmma_kernel",
-          "pointnet_bwd_kernel",
-          "epi_sums_stream_kernel", "epi_sums_kernel", "reduce_slices_kernel")
+          "pointnet_bwd_kernel", "epi_sums_stream_kernel", "epi_sums_kernel",
+          "embed_first_bwd_stream_kernel", "embed_first_bwd_kernel", "reduce_slices_kernel")
 
 
 def times(tag: str) -> None:
@@ -86,7 +86,8 @@ def times(tag: str) -> None:
                         ("pct_tail_bwd", None), ("pct_block_bwd", cs.SA),
                         ("pct_block_bwd", cs.OA), ("pct_attn_bwd", cs.SA),
                         ("pct_attn_bwd", cs.OA), ("embed_second_bwd", None),
-                        ("pointnet_bwd", None), ("pct_epi_sums", None)):
+                        ("pointnet_bwd", None), ("pct_epi_sums", None),
+                        ("embed_first_bwd", None)):
         args = cs.op_inputs(name, o, torch.bfloat16, seed=2)
         kern, _ = cs.op_fns(name, flags or cs.SA)
         ms = cs.cuda_ms(lambda: kern(*args))

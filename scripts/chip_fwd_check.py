@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""The bf16 forwards of the pct block (eval and training), embed_second and
-the PointNet encoder on one NVIDIA GPU: times at the training and serving
-O.
+"""The bf16 forwards of the pct block (eval and training), the attention
+op, embed_second and the PointNet encoder on one NVIDIA GPU: times at the
+training and serving O.
 
     python3 scripts/chip_fwd_check.py [label]
 
@@ -12,7 +12,7 @@ two designs on the same seeded inputs. Prints, per line and prefixed by
 
 * the compiler's registers and spills of the forward kernels (the build's
   ptxas notes);
-* pct_block_fwd (SA, OA) and pct_block_eval (SA, OA) at O = 896,
+* pct_block_fwd, pct_block_eval and pct_attn_fwd (SA, OA) at O = 896,
   embed_second and pointnet_fwd (with the argmax) at O = 896, and those
   three at the serving O = 13,440 (P = 512):
   CUDA-event ms (median of 9), the bound from chip_smoke.bound, the error
@@ -38,8 +38,8 @@ import chip_smoke as cs  # noqa: E402
 # shared-memory WMMA design's), matched after the namespace
 PASSES = ("project_wgmma_kernel", "lse_wgmma_kernel", "apply_wgmma_kernel",
           "embed_second_wgmma_kernel", "project_kernel", "lse_kernel", "apply_kernel",
-          "embed_second_kernel", "pointnet_fwd_wgmma_kernel", "pointnet_fwd_kernel",
-          "reduce_slices_kernel")
+          "attn_out_kernel", "embed_second_kernel", "pointnet_fwd_wgmma_kernel",
+          "pointnet_fwd_kernel", "reduce_slices_kernel")
 
 
 def registers(tag: str) -> None:
@@ -48,8 +48,8 @@ def registers(tag: str) -> None:
     _build.lib()
     lines = (Path(_build.build_info["path"]).parent / "build.log").read_text().splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry" in line and any(k in line for k in ("apply_wgmma", "embed_second",
-                                                                 "pointnet_fwd")):
+        if "Compiling entry" in line and any(k in line for k in ("apply_wgmma", "attn_out",
+                                                                 "embed_second", "pointnet_fwd")):
             name = line.split("'")[1]
             notes = " | ".join(x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
                                if "Used" in x or "spill" in x)
@@ -59,6 +59,7 @@ def registers(tag: str) -> None:
 def times(tag: str) -> None:
     for name, flags, o in (("pct_block_fwd", cs.SA, 896), ("pct_block_fwd", cs.OA, 896),
                            ("pct_block_eval", cs.SA, 896), ("pct_block_eval", cs.OA, 896),
+                           ("pct_attn_fwd", cs.SA, 896), ("pct_attn_fwd", cs.OA, 896),
                            ("embed_second", cs.SA, 896), ("pointnet_fwd", cs.SA, 896),
                            ("embed_second", cs.SA, 13440), ("pct_block_eval", cs.SA, 13440),
                            ("pointnet_fwd", cs.SA, 13440)):
@@ -66,7 +67,7 @@ def times(tag: str) -> None:
         kern, _ = cs.op_fns(name, flags)
         err = cs.check_op(name, args, "bf16", flags, what=name)[1] if o <= 896 else float("nan")
         ms = cs.cuda_ms(lambda: kern(*args), warmup=3, reps=9)
-        b_ms, _ = cs.bound(name, o)
+        b_ms, _ = cs.bound(name, o, oa=flags == cs.OA)
         split = cs.pass_split(lambda: kern(*args), tuple(f"::{k}" for k in PASSES))
         print(f"{tag} {name}{'/OA' if flags == cs.OA else ''} O={o}: {ms:.3f} ms, bound "
               f"{b_ms:.3f} ms ({b_ms / ms:.1%}), max_rel {err:.2e} | passes " + ", ".join(

@@ -23,9 +23,8 @@
 //   online (flash-style) row softmax does not apply. By symmetry of E the
 //   column log-sum-exp of key q equals the row log-sum-exp of row q, which
 //   gives three passes over 64-row tiles. bf16 runs them as the wgmma
-//   design of pct_block_eval_sm90.cu (the training forward below too); f32
-//   (and the attention op's forward below, in both dtypes) as these
-//   grid-stride passes:
+//   design of pct_block_eval_sm90.cu (the training forward and the
+//   attention op's forward below too); f32 as these grid-stride passes:
 //     1. project: q and v of a tile, Wqk and Wv resident in shared memory;
 //     2. lse: for a tile of rows, an online max / sum-exp over all P columns
 //        of E, recomputing E from q in 64-column chunks (f32);
@@ -106,9 +105,11 @@
 // so SA and OA normalisation each pair with either scale.
 //   Bound on the H100: operations. 2·P·C·(da + C) + 2·P²·da + 2·P²·C per
 //   object: 105 MFLOP at P = 512.
-//   Design: projection and lse as pct_block_eval, then an apply pass that
-//   writes y (OA divides by s) instead of running the trans epilogue; Wt is
-//   not resident, so the apply pass's shared memory is the key loop's alone.
+//   bf16: pct_block_eval's wgmma passes, the apply pass with the attention
+//   epilogue (pct_block_eval_sm90.cu). f32: projection and lse as
+//   pct_block_eval, then an apply pass that writes y (OA divides by s)
+//   instead of running the trans epilogue; Wt is not resident, so the apply
+//   pass's shared memory is the key loop's alone.
 //
 // pct_attn_bwd replaces ops/pct_attention.py::_bwd_rule (Pallas kernel
 // _bwd_kernel): for the cotangent dY of y, dx = dq·Wqk_sᵀ + dv·Wvᵀ (no
@@ -403,7 +404,7 @@ apply_kernel(const T* __restrict__ x, const T* __restrict__ q, const T* __restri
   }
 }
 
-// The attention op's apply pass: y = Σ G·v (OA: divided by s), rounded.
+// The attention op's f32 apply pass: y = Σ G·v (OA: divided by s), rounded.
 template <typename T, bool OA>
 __global__ void __launch_bounds__(kThreads)
 attn_out_kernel(const T* __restrict__ q, const T* __restrict__ v, const float* __restrict__ lse,
@@ -1038,6 +1039,8 @@ int launch_block_fwd_sm90(const void* x, const void* wqk, const void* wv, const 
                           const void* wt, const void* bt, const void* mask, void* q, void* vt,
                           float* lse2, void* tout, float* scratch, int slices, float* sums,
                           int o, int p, int oa, cudaStream_t st);
+int launch_attn_fwd_sm90(const void* x, const void* wqk, const void* wv, const void* bv, void* q,
+                         void* vt, float* lse2, void* y, int o, int p, int oa, cudaStream_t st);
 size_t block_bwd_work_bytes_sm90(int o, int p);
 int launch_block_bwd_sm90(int kind, const void* x, const void* wqk, const void* wv,
                           const void* bv, const void* wt, const void* bt, const void* mask,
@@ -1125,13 +1128,14 @@ int sga_pct_block_bwd(const void* x, const void* wqk, const void* wv, const void
 }
 
 // pct_attention_fused's forward: y [O, P, 128] in the compute dtype (OA row
-// normalisation with oa = 1); q, v, lse work buffers
+// normalisation with oa = 1); q, v, lse work buffers as sga_pct_block_eval's
+// (bf16 runs the wgmma design of pct_block_eval_sm90.cu)
 int sga_pct_attn_fwd(const void* x, const void* wqk, const void* wv, const void* bv, void* q,
                      void* v, float* lse, void* y, int o, int p, int oa, int dtype,
                      void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == sga::kBF16)
-    return sga::launch_attn_fwd<sga::bf16>(x, wqk, wv, bv, q, v, lse, y, o, p, oa, st);
+    return sga::launch_attn_fwd_sm90(x, wqk, wv, bv, q, v, lse, y, o, p, oa, st);
   return sga::launch_attn_fwd<float>(x, wqk, wv, bv, q, v, lse, y, o, p, oa, st);
 }
 

@@ -1,11 +1,12 @@
-// PCT SA / OA block, bf16: the wgmma design of pct_block_eval and of the
-// training forward pct_block_fwd (see pct_attention.cu for the functions and
-// their f32 paths).
+// PCT SA / OA block, bf16: the wgmma design of pct_block_eval, of the
+// training forward pct_block_fwd and of the attention op's forward
+// pct_attn_fwd (see pct_attention.cu for the functions and their f32 paths).
 //
 // Replaces sgaligner_tpu/ops/pct_attention.py::pct_block_eval (Pallas kernel
-// _block_eval_kernel) for bf16 inputs: out = x + relu(t·wbn + bbn); and
+// _block_eval_kernel) for bf16 inputs: out = x + relu(t·wbn + bbn);
 // ::pct_block_fused (Pallas kernel _block_fwd_kernel): t_out = round(t) and
-// the masked sums Σ m·t, Σ m·t² (f32).
+// the masked sums Σ m·t, Σ m·t² (f32); and ::pct_attention_fused (Pallas
+// kernel _fwd_kernel): y = round(Σ G·v), OA divided by the row sums s.
 //   Bound on the H100: operations on the tensor cores (126 MFLOP per object
 //   at P = 512: 1.65 ms at O = 13,440), and beside them the exponentials:
 //   the softmax normaliser runs over the key axis, so the design takes two
@@ -34,8 +35,12 @@
 //        K-major), then out = x + relu(round(t + bt)·wbn + bbn), written over
 //        the warpgroup's x tile (brought by TMA during the key loop) and
 //        stored from there in 16-byte rows.
-//   The training forward runs the same three passes; its apply pass's
-//   epilogue (a compile-time variant) writes t through the staging tile
+//   The training forward and the attention op run the same three passes,
+//   each with an apply epilogue of its own chosen at compile time. The
+//   attention op's writes y (OA: times 1/(1e-9 + s)) through the staging
+//   tile in 16-byte rows, with no Wt staged, no x tile and no u·Wt product
+//   (105 MFLOP per object at P = 512, the exponentials the same as the
+//   block's). The training epilogue writes t through the staging tile
 //   and takes the sums from the registers: per thread over its two rows
 //   (rows past P weigh 0), over the 8 lanes of each column by shuffles,
 //   into one shared-memory share per warp, and once per warpgroup into its
@@ -375,12 +380,17 @@ struct ApplySmem {
   static constexpr size_t bytes = bar_off + sizeof(Barriers) + 1024;
 };
 
-// TRAIN = false: out = x + relu(round(t + bt)·wbn + bbn) (pct_block_eval).
-// TRAIN = true: out = t_out = round(u·Wt + bt) (pct_block_fwd), and the
-// masked channel sums Σ m·t, Σ m·t² of each consumer warpgroup into its
-// scratch slice 2·blockIdx + c (slice_stride(256) floats); SA then loads no
-// x tile (its epilogue does not read x).
-template <bool OA, bool TRAIN>
+// The apply pass's epilogue, a compile-time choice:
+// kEval: out = x + relu(round(t + bt)·wbn + bbn) (pct_block_eval).
+// kTrain: out = t_out = round(u·Wt + bt) (pct_block_fwd), and the masked
+//   channel sums Σ m·t, Σ m·t² of each consumer warpgroup into its scratch
+//   slice 2·blockIdx + c (slice_stride(256) floats); SA then loads no x tile
+//   (its epilogue does not read x).
+// kAttn: out = y = round(Σ G·v) (SA) or round(y · 1/(1e-9 + s)) (OA), the
+//   attention op pct_attn_fwd: no Wt staged, no x tile, no u·Wt product.
+enum Epilogue { kEval, kTrain, kAttn };
+
+template <bool OA, Epilogue EPI>
 __global__ void __launch_bounds__(kThreads, 1)
 apply_wgmma_kernel(const __grid_constant__ CUtensorMap qm, const __grid_constant__ CUtensorMap vm,
                    const __grid_constant__ CUtensorMap lm, const __grid_constant__ CUtensorMap xm,
@@ -389,7 +399,8 @@ apply_wgmma_kernel(const __grid_constant__ CUtensorMap qm, const __grid_constant
                    const bf16* __restrict__ mask, bf16* __restrict__ out,
                    float* __restrict__ scratch, int o, int p) {
   using L = ApplySmem;
-  constexpr bool kX = !TRAIN || OA;  // the epilogue reads the x tile
+  constexpr bool TRAIN = EPI == kTrain;
+  constexpr bool kX = EPI == kEval || (TRAIN && OA);  // the epilogue reads the x tile
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   Barriers& b = *reinterpret_cast<Barriers*>(smem + L::bar_off);
@@ -397,12 +408,14 @@ apply_wgmma_kernel(const __grid_constant__ CUtensorMap qm, const __grid_constant
   float* red = reinterpret_cast<float*>(smem + L::red_off);
 
   // Wtᵀ resident (the B operand of u·Wt); the epilogue vectors as f32
-  stage_transposed<kC, kC>(reinterpret_cast<bf16*>(smem + L::wt_off), wt);
-  for (int i = threadIdx.x; i < kC; i += blockDim.x) {
-    vec[i] = __bfloat162float(bt[i]);
-    if constexpr (!TRAIN) {
-      vec[kC + i] = wbn[i];
-      vec[2 * kC + i] = bbn[i];
+  if constexpr (EPI != kAttn) {
+    stage_transposed<kC, kC>(reinterpret_cast<bf16*>(smem + L::wt_off), wt);
+    for (int i = threadIdx.x; i < kC; i += blockDim.x) {
+      vec[i] = __bfloat162float(bt[i]);
+      if constexpr (EPI == kEval) {
+        vec[kC + i] = wbn[i];
+        vec[2 * kC + i] = bbn[i];
+      }
     }
   }
   if constexpr (TRAIN)
@@ -503,74 +516,85 @@ apply_wgmma_kernel(const __grid_constant__ CUtensorMap qm, const __grid_constant
       if (lane == 0) mbar_arrive(b.empty + st);
     }
 
-    // u = y (SA) or x − y/(1e-9 + s) (OA), rounded as the f32 path rounds;
-    // its accumulator columns 16kk.. are the A fragment of k-step kk of u·Wt
     float inv[2] = {1.f, 1.f};  // OA: 1 / (1e-9 + s) of the two rows
     if constexpr (OA) {
       inv[0] = 1.f / (1e-9f + quad_sum(rs[0]));
       inv[1] = 1.f / (1e-9f + quad_sum(rs[1]));
     }
-    if constexpr (kX) mbar_wait(b.xfull + c, qn & 1u);
     uint32_t* xt = reinterpret_cast<uint32_t*>(smem + L::out_off + c * kXTile);
-    uint32_t ua[8][4];
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int j = 2 * kk + r / 2, h = r % 2;  // column group, row half
-        const float y0 = y[4 * j + 2 * h], y1 = y[4 * j + 2 * h + 1];
-        if constexpr (OA) {
-          const uint32_t xv = xt[x_word(rl + 8 * h, 8 * j + 2 * (lane % 4))];
-          const uint32_t yr = pack_bf16(y0 * inv[h], y1 * inv[h]);
-          ua[kk][r] = pack_bf16(lo_bf16(xv) - lo_bf16(yr), hi_bf16(xv) - hi_bf16(yr));
-        } else {
-          ua[kk][r] = pack_bf16(y0, y1);
-        }
-      }
-    float tacc[64];
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
-      wgmma_m64n128k16_rs(tacc, ua[kk], desc(smem + L::wt_off + (kk / 4) * kVTile, kSw128,
-                                             (kk % 4) * 32),
-                          kk != 0);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(tacc);
-
-    if constexpr (TRAIN) {
-      // t = round(u·Wt + bt), written over the tile; its masked column sums
-      // (rows past P out: TMA zero-filled them) into this warp's share
-      if constexpr (!kX) bar_sync(1 + c, 128);  // the last item's rows have left the tile
-      const float m = __bfloat162float(mask[obj]);
-      const float mh[2] = {r0 + rl < p ? m : 0.f, r0 + rl + 8 < p ? m : 0.f};
-      float s1[32], s2[32];
-#pragma unroll
-      for (int g = 0; g < 16; ++g) {  // columns 8g + 2·(lane % 4) and + 1
-        const int col = 8 * g + 2 * (lane % 4);
-        uint32_t tw[2];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          tw[h] = pack_bf16(tacc[4 * g + 2 * h] + vec[col], tacc[4 * g + 2 * h + 1] + vec[col + 1]);
-          xt[x_word(rl + 8 * h, col)] = tw[h];
-        }
-        row_pair_sums(tw, mh, s1 + 2 * g, s2 + 2 * g);
-      }
-      add_column_sums(red + (4 * c + warp) * 2 * kC, s1, s2, lane);
-    } else {
-      // out = x + relu(round(t + bt)·wbn + bbn), written over x in the tile
+    if constexpr (EPI == kAttn) {
+      // y, or y / (1e-9 + s), rounded into the tile
+      bar_sync(1 + c, 128);  // the last item's rows have left the tile
 #pragma unroll
       for (int i = 0; i < 64; i += 2) {
         const int h = (i / 2) % 2, col = 8 * (i / 4) + 2 * (lane % 4);
-        uint32_t& xo = xt[x_word(rl + 8 * h, col)];
-        float ov[2];
+        xt[x_word(rl + 8 * h, col)] = pack_bf16(y[i] * inv[h], y[i + 1] * inv[h]);
+      }
+    } else {
+      // u = y (SA) or x − y/(1e-9 + s) (OA), rounded as the f32 path rounds;
+      // its accumulator columns 16kk.. are the A fragment of k-step kk of u·Wt
+      if constexpr (kX) mbar_wait(b.xfull + c, qn & 1u);
+      uint32_t ua[8][4];
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float tv = __bfloat162float(__float2bfloat16_rn(tacc[i + e] + vec[col + e]));
-          const float z = tv * vec[kC + col + e] + vec[2 * kC + col + e];
-          ov[e] = (e == 0 ? lo_bf16(xo) : hi_bf16(xo)) + fmaxf(z, 0.f);
+      for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int j = 2 * kk + r / 2, h = r % 2;  // column group, row half
+          const float y0 = y[4 * j + 2 * h], y1 = y[4 * j + 2 * h + 1];
+          if constexpr (OA) {
+            const uint32_t xv = xt[x_word(rl + 8 * h, 8 * j + 2 * (lane % 4))];
+            const uint32_t yr = pack_bf16(y0 * inv[h], y1 * inv[h]);
+            ua[kk][r] = pack_bf16(lo_bf16(xv) - lo_bf16(yr), hi_bf16(xv) - hi_bf16(yr));
+          } else {
+            ua[kk][r] = pack_bf16(y0, y1);
+          }
         }
-        xo = pack_bf16(ov[0], ov[1]);
+      float tacc[64];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma_m64n128k16_rs(tacc, ua[kk], desc(smem + L::wt_off + (kk / 4) * kVTile, kSw128,
+                                               (kk % 4) * 32),
+                            kk != 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(tacc);
+
+      if constexpr (TRAIN) {
+        // t = round(u·Wt + bt), written over the tile; its masked column sums
+        // (rows past P out: TMA zero-filled them) into this warp's share
+        if constexpr (!kX) bar_sync(1 + c, 128);  // the last item's rows have left the tile
+        const float m = __bfloat162float(mask[obj]);
+        const float mh[2] = {r0 + rl < p ? m : 0.f, r0 + rl + 8 < p ? m : 0.f};
+        float s1[32], s2[32];
+#pragma unroll
+        for (int g = 0; g < 16; ++g) {  // columns 8g + 2·(lane % 4) and + 1
+          const int col = 8 * g + 2 * (lane % 4);
+          uint32_t tw[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            tw[h] = pack_bf16(tacc[4 * g + 2 * h] + vec[col],
+                              tacc[4 * g + 2 * h + 1] + vec[col + 1]);
+            xt[x_word(rl + 8 * h, col)] = tw[h];
+          }
+          row_pair_sums(tw, mh, s1 + 2 * g, s2 + 2 * g);
+        }
+        add_column_sums(red + (4 * c + warp) * 2 * kC, s1, s2, lane);
+      } else {
+        // out = x + relu(round(t + bt)·wbn + bbn), written over x in the tile
+#pragma unroll
+        for (int i = 0; i < 64; i += 2) {
+          const int h = (i / 2) % 2, col = 8 * (i / 4) + 2 * (lane % 4);
+          uint32_t& xo = xt[x_word(rl + 8 * h, col)];
+          float ov[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float tv = __bfloat162float(__float2bfloat16_rn(tacc[i + e] + vec[col + e]));
+            const float z = tv * vec[kC + col + e] + vec[2 * kC + col + e];
+            ov[e] = (e == 0 ? lo_bf16(xo) : hi_bf16(xo)) + fmaxf(z, 0.f);
+          }
+          xo = pack_bf16(ov[0], ov[1]);
+        }
       }
     }
     // the tile to device memory in 16-byte rows
@@ -593,6 +617,16 @@ apply_wgmma_kernel(const __grid_constant__ CUtensorMap qm, const __grid_constant
   }
 }
 
+// Blocks of the persistent lse and apply passes: one per SM, at most one
+// per work item
+int items_grid(int o, int p) {
+  int dev = 0, sms = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long items = (long long)o * (((p + kTile - 1) / kTile + 1) / 2);
+  return (int)(items < sms ? items : sms);
+}
+
 }  // namespace
 
 // The projection and lse passes of the bf16 block (pct_block_eval here, and
@@ -607,9 +641,6 @@ int launch_project_lse_sm90(const void* x, const void* wqk, const void* wv, cons
   const int pp = (p + 7) / 8 * 8;
   // stage_transposed reads the weights in 16-byte vectors
   if (((uintptr_t)wqk | (uintptr_t)wv) & 15) return (int)cudaErrorMisalignedAddress;
-  int dev = 0, sms = 1;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   {
     const uint64_t dims[3] = {kC, (uint64_t)p, (uint64_t)o};
     const uint64_t strides[2] = {kC * 2, (uint64_t)p * kC * 2};
@@ -649,10 +680,8 @@ int launch_project_lse_sm90(const void* x, const void* wqk, const void* wv, cons
                           CU_TENSOR_MAP_SWIZZLE_NONE))
       return rc;
   }
-  const long long items = (long long)o * (((p + kTile - 1) / kTile + 1) / 2);
-  const int grid = (int)(items < sms ? items : sms);
   if (int rc = allow_smem(lse_wgmma_kernel, LseSmem::bytes)) return rc;
-  lse_wgmma_kernel<<<grid, kThreads, LseSmem::bytes, st>>>(*qm, lse2, o, p, pp);
+  lse_wgmma_kernel<<<items_grid(o, p), kThreads, LseSmem::bytes, st>>>(*qm, lse2, o, p, pp);
   return (int)cudaGetLastError();
 }
 
@@ -668,16 +697,11 @@ int launch_block_eval_sm90(const void* x, const void* wqk, const void* wv, const
   if (int rc = launch_project_lse_sm90(x, wqk, wv, bv, q, vt, nullptr, lse2, o, p, &xm, &qm, &vm,
                                        &lm, st))
     return rc;
-  int dev = 0, sms = 1;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long items = (long long)o * (((p + kTile - 1) / kTile + 1) / 2);
-  const int grid = (int)(items < sms ? items : sms);
-  auto apply = oa ? apply_wgmma_kernel<true, false> : apply_wgmma_kernel<false, false>;
+  auto apply = oa ? apply_wgmma_kernel<true, kEval> : apply_wgmma_kernel<false, kEval>;
   if (int rc = allow_smem(apply, ApplySmem::bytes)) return rc;
-  apply<<<grid, kThreads, ApplySmem::bytes, st>>>(qm, vm, lm, xm, (const bf16*)wt,
-                                                  (const bf16*)bt, wbn, bbn, nullptr, (bf16*)out,
-                                                  nullptr, o, p);
+  apply<<<items_grid(o, p), kThreads, ApplySmem::bytes, st>>>(qm, vm, lm, xm, (const bf16*)wt,
+                                                              (const bf16*)bt, wbn, bbn, nullptr,
+                                                              (bf16*)out, nullptr, o, p);
   return (int)cudaGetLastError();
 }
 
@@ -697,7 +721,7 @@ int launch_block_fwd_sm90(const void* x, const void* wqk, const void* wv, const 
   if (int rc = launch_project_lse_sm90(x, wqk, wv, bv, q, vt, nullptr, lse2, o, p, &xm, &qm, &vm,
                                        &lm, st))
     return rc;
-  auto apply = oa ? apply_wgmma_kernel<true, true> : apply_wgmma_kernel<false, true>;
+  auto apply = oa ? apply_wgmma_kernel<true, kTrain> : apply_wgmma_kernel<false, kTrain>;
   if (int rc = allow_smem(apply, ApplySmem::bytes)) return rc;
   apply<<<slices / 2, kThreads, ApplySmem::bytes, st>>>(qm, vm, lm, xm, (const bf16*)wt,
                                                         (const bf16*)bt, nullptr, nullptr,
@@ -705,6 +729,23 @@ int launch_block_fwd_sm90(const void* x, const void* wqk, const void* wv, const 
                                                         o, p);
   if (int rc = (int)cudaGetLastError()) return rc;
   return reduce_slices(scratch, kSumStride, slices, sums, 2 * kC, st);
+}
+
+// bf16 pct_attn_fwd: the eval block's projection and lse passes, then the
+// apply pass with the attention epilogue, y [O, P, 128] (OA: divided by the
+// row sums s). Work buffers as launch_block_eval_sm90
+int launch_attn_fwd_sm90(const void* x, const void* wqk, const void* wv, const void* bv, void* q,
+                         void* vt, float* lse2, void* y, int o, int p, int oa, cudaStream_t st) {
+  CUtensorMap xm, qm, vm, lm;
+  if (int rc = launch_project_lse_sm90(x, wqk, wv, bv, q, vt, nullptr, lse2, o, p, &xm, &qm, &vm,
+                                       &lm, st))
+    return rc;
+  auto apply = oa ? apply_wgmma_kernel<true, kAttn> : apply_wgmma_kernel<false, kAttn>;
+  if (int rc = allow_smem(apply, ApplySmem::bytes)) return rc;
+  apply<<<items_grid(o, p), kThreads, ApplySmem::bytes, st>>>(qm, vm, lm, xm, nullptr, nullptr,
+                                                              nullptr, nullptr, nullptr,
+                                                              (bf16*)y, nullptr, o, p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace sga

@@ -1,4 +1,5 @@
-// PCT point embedding: the two conv(no bias) layers of NaivePCT, forward only.
+// PCT point embedding: the two conv(no bias) layers of NaivePCT, their
+// forwards and the second layer's f32 backward.
 //
 // embed_first replaces sgaligner_tpu/ops/pct_embed.py::embed_first_fused
 // (Pallas kernel _e1_fwd_kernel): h0 = x_cfᵀ·W0 for channel-first points
@@ -130,17 +131,8 @@ embed_second_kernel(const T* __restrict__ h0, const T* __restrict__ wf, const T*
 
 // ------------------------------- backward ----------------------------------
 //
-// embed_first_bwd replaces ops/pct_embed.py::_e1_bwd_rule (Pallas kernel
-// _e1_bwd_kernel): given the cotangents dh [O, P, 128] of h0 and ds1, ds2
-// [1, 128] of its masked sums, recompute h = x_cfᵀ·W0 (same expression as
-// the forward, rounded), dz = dh + m·ds1 + 2·h·m·ds2 rounded to the compute
-// dtype, and dW0 [3, 128] = Σ x·dz (f32). No gradient for the points: they
-// are data.
-//   Bound on the H100: bytes (dh read once, 6 FLOP per element).
-//   Design: as the forward, one block walks whole objects and thread c owns
-//   channel c, keeping its three dW0 sums in registers; each block writes
-//   its [3, 128] partial to its own scratch slice and reduce_slices adds the
-//   slices in block order (no atomics, the same bits every run).
+// embed_first_bwd is a streaming reduction of its own:
+// pct_embed_first_bwd.cu.
 //
 // embed_second_bwd replaces ops/pct_embed.py::_e2_bwd_rule (Pallas kernel
 // _e2_bwd_kernel): recompute pre = h0·wf + bf (f32), x0 = relu(pre) rounded,
@@ -157,38 +149,7 @@ embed_second_kernel(const T* __restrict__ h0, const T* __restrict__ wf, const T*
 //   dwf and dbf are per-thread channel sums. Slices are summed by
 //   reduce_slices.
 
-constexpr int kE1Grad = 3 * kC;                        // dW0
 constexpr int kE2Grad = kC * kC + 2 * kC;              // dW1, dwf, dbf
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-embed_first_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                       const T* __restrict__ mask, const T* __restrict__ dh,
-                       const float* __restrict__ ds1, const float* __restrict__ ds2,
-                       float* __restrict__ scratch, long long stride, int o, int p) {
-  const int c = threadIdx.x % kC, half = threadIdx.x / kC;
-  const float w0 = to_f<T>(w[c]), w1 = to_f<T>(w[kC + c]), w2 = to_f<T>(w[2 * kC + c]);
-  const float d1 = ds1[c], d2 = ds2[c];
-  float g0 = 0.f, g1 = 0.f, g2 = 0.f;
-  for (int obj = blockIdx.x; obj < o; obj += gridDim.x) {
-    const T* xo = x + (size_t)obj * 3 * p;
-    const T* dho = dh + (size_t)obj * p * kC;
-    const float m = to_f<T>(mask[obj]);
-    const float a1 = m * d1, a2 = m * d2;
-    for (int r = half; r < p; r += 2) {
-      const float x0 = to_f<T>(xo[r]), x1 = to_f<T>(xo[p + r]), x2 = to_f<T>(xo[2 * p + r]);
-      const float h = round_to<T>(x0 * w0 + x1 * w1 + x2 * w2);
-      const float dz = round_to<T>(to_f<T>(dho[(size_t)r * kC + c]) + a1 + 2.f * h * a2);
-      g0 = fmaf(x0, dz, g0);
-      g1 = fmaf(x1, dz, g1);
-      g2 = fmaf(x2, dz, g2);
-    }
-  }
-  float* part = scratch + (size_t)blockIdx.x * stride;
-  store_channel_sums(g0, part);
-  store_channel_sums(g1, part + kC);
-  store_channel_sums(g2, part + 2 * kC);
-}
 
 template <typename T>
 struct E2BwdSmem {
@@ -274,17 +235,6 @@ embed_second_bwd_kernel(const T* __restrict__ h0, const T* __restrict__ wf,
 }
 
 template <typename T>
-int launch_first_bwd(const void* x, const void* w, const void* mask, const void* dh,
-                     const float* ds1, const float* ds2, float* scratch, int blocks, float* dw,
-                     int o, int p, cudaStream_t st) {
-  const long long stride = slice_stride(kE1Grad);
-  embed_first_bwd_kernel<T><<<blocks, kThreads, 0, st>>>(
-      (const T*)x, (const T*)w, (const T*)mask, (const T*)dh, ds1, ds2, scratch, stride, o, p);
-  if (int rc = (int)cudaGetLastError()) return rc;
-  return reduce_slices(scratch, stride, blocks, dw, kE1Grad, st);
-}
-
-template <typename T>
 int launch_second_bwd(const void* h0, const void* wf, const void* bf, const void* w,
                       const void* mask, const void* dh, const float* ds1, const float* ds2,
                       void* dh0, float* scratch, int blocks, float* grads, int o, int p,
@@ -356,18 +306,6 @@ int sga_embed_second(const void* h0, const void* wf, const void* bf, const void*
     return sga::launch_embed_second_sm90(h0, wf, bf, w, mask, h1, scratch, blocks, sums, o, p,
                                          st);
   return sga::launch_second<float>(h0, wf, bf, w, mask, h1, scratch, blocks, sums, o, p, st);
-}
-
-// dW0 [3, 128] f32; scratch holds `blocks` slices of slice_stride(384)
-// floats, one per block of the launch
-int sga_embed_first_bwd(const void* x, const void* w, const void* mask, const void* dh,
-                        const float* ds1, const float* ds2, float* scratch, int blocks, float* dw,
-                        int o, int p, int dtype, void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == sga::kBF16)
-    return sga::launch_first_bwd<sga::bf16>(x, w, mask, dh, ds1, ds2, scratch, blocks, dw, o, p,
-                                            st);
-  return sga::launch_first_bwd<float>(x, w, mask, dh, ds1, ds2, scratch, blocks, dw, o, p, st);
 }
 
 // grads: dW1 [128, 128], dwf [128], dbf [128] back to back, f32; bf16 takes

@@ -13,6 +13,7 @@ right where it launches, and nowhere else.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -143,6 +144,7 @@ _SIGNATURES = {
     "sga_pointnet_bwd_blocks": [_I, _I],
     "sga_pointnet_bwd_work_bytes": [_I, _I, _I],
     "sga_pct_epi_sums_rows_per_block": [_I],
+    "sga_embed_first_bwd_rows_per_block": [_I],
     "sga_pct_bwd_work_bytes": [_I, _I, _I],
 }
 _RESTYPES = {"sga_pct_bwd_work_bytes": ctypes.c_longlong,
@@ -198,6 +200,16 @@ def grid_blocks(device: torch.device, work: int, per_sm: int = 2) -> int:
     block: ``per_sm`` per multiprocessor, at most one per work item."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(int(work), sms * per_sm))
+
+
+@functools.lru_cache(maxsize=64)
+def stream_blocks(query: str, rows: int, code: int, device: torch.device) -> int:
+    """Blocks of one streaming-reduction launch over ``rows`` rows: two per
+    multiprocessor, at most one per step of rows a block takes (the
+    library's answer to ``query`` for the dtype code: its row lanes times
+    its unroll)."""
+    step = getattr(lib(), query)(code)
+    return grid_blocks(device, -(-rows // step))
 
 
 def warpgroup_slices(device: torch.device, items: int) -> int:

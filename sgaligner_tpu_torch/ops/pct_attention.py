@@ -24,10 +24,10 @@ Every op takes both flag sets, SA (``scale=True, double_norm=False``) and OA
 (``False, True``); the block ops take ``double_norm`` as the OA residual
 too, as the JAX ops do; ``pct_block_eval`` also the mixed pairs, and
 ``BlockEval`` makes it differentiable. A CUDA tensor goes through
-``csrc/pct_attention.cu`` (in bf16, ``pct_block_eval`` and ``block_fwd``
-through ``csrc/pct_block_eval_sm90.cu`` and the three backwards through
-``csrc/pct_block_bwd_sm90.cu``; ``epi_sums`` at both dtypes through the
-streaming reduction of ``csrc/pct_epi_sums.cu``); a CPU tensor through the
+``csrc/pct_attention.cu`` (in bf16, ``pct_block_eval``, ``block_fwd`` and
+``attn_fwd`` through ``csrc/pct_block_eval_sm90.cu`` and the three backwards
+through ``csrc/pct_block_bwd_sm90.cu``; ``epi_sums`` at both dtypes through
+the streaming reduction of ``csrc/pct_epi_sums.cu``); a CPU tensor through the
 plain versions (``block_eval_plain``, ``block_fwd_plain``,
 ``epi_sums_plain``, ``block_res_bwd_plain``, ``block_bwd_plain``,
 ``attn_fwd_plain``, ``attn_bwd_plain``), which repeat
@@ -37,8 +37,6 @@ log-sum-exp instead).
 """
 
 from __future__ import annotations
-
-import functools
 
 import torch
 
@@ -137,9 +135,10 @@ def pct_block_eval(x, wqk, wv, bv, wt, bt, wbn, bbn, scale=True,
 
 
 def _block_work(x):
-    """The block kernels' work buffers q [O, P, 32], v, lse. bf16 (the
-    wgmma design): vᵀ [O, 128, pp] and lse [O, pp], the key axis padded to
-    a multiple of 8 (16-byte rows for TMA); f32: v [O, P, 128], lse [O, P]."""
+    """The work buffers q [O, P, 32], v, lse of the block kernels and the
+    attention forward. bf16 (the wgmma design): vᵀ [O, 128, pp] and
+    lse [O, pp], the key axis padded to a multiple of 8 (16-byte rows for
+    TMA); f32: v [O, P, 128], lse [O, P]."""
     o, p, _ = x.shape
     q = torch.empty((o, p, 32), dtype=x.dtype, device=x.device)
     if x.dtype == torch.bfloat16:
@@ -261,14 +260,6 @@ def epi_sums_plain(t_out, wbn, bbn, dy):
     return ((g * t_out.to(acc)).sum(dim=(0, 1))[None], g.sum(dim=(0, 1))[None])
 
 
-@functools.lru_cache(maxsize=64)
-def _epi_blocks(rows, code, device):
-    """Blocks of one epi_sums launch: two per multiprocessor, at most one
-    per step of rows a block takes (its row lanes times its unroll)."""
-    step = _build.lib().sga_pct_epi_sums_rows_per_block(code)
-    return _build.grid_blocks(device, -(-rows // step))
-
-
 def epi_sums(t_out, wbn, bbn, dy):
     """The fold's gradient sums of the training epilogue for its cotangent
     ``dy``: ``(Σ g·t_out, Σ g)`` [1, 128] each, ``g = dy`` where
@@ -291,7 +282,7 @@ def epi_sums(t_out, wbn, bbn, dy):
     sums = (torch.empty if o else torch.zeros)((2, C), dtype=torch.float32, device=dev)
     if o:
         code = _build.DTYPE_CODE[t_out.dtype]
-        blocks = _epi_blocks(o * p, code, dev)
+        blocks = _build.stream_blocks("sga_pct_epi_sums_rows_per_block", o * p, code, dev)
         part = _build.scratch(dev, blocks, 2 * C)
         _build.launch(name, "sga_pct_epi_sums", dev,
                       t_out.data_ptr(), wbn32.data_ptr(), bbn32.data_ptr(),
@@ -536,9 +527,7 @@ def attn_fwd(x, wqk, wv, bv, scale=True, double_norm=False):
     o, p = _check_attn(name, x, wqk_s, wv, bv)
     y = torch.empty_like(x)
     if o:
-        q = torch.empty((o, p, DA), dtype=x.dtype, device=x.device)
-        v = torch.empty_like(x)
-        lse = torch.empty((o, p), dtype=torch.float32, device=x.device)
+        q, v, lse = _block_work(x)
         _build.launch(name, "sga_pct_attn_fwd", x.device,
                       *(t.data_ptr() for t in (x, wqk_s, wv, bv, q, v, lse, y)),
                       o, p, int(double_norm), _build.DTYPE_CODE[x.dtype])

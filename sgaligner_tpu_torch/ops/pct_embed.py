@@ -18,7 +18,8 @@ Counterpart of ``sgaligner_tpu/ops/pct_embed.py`` (``embed_first_fused``,
 
 A CUDA tensor goes through the kernels of ``csrc/pct_embed.cu`` (the bf16
 ``embed_second`` through ``csrc/pct_embed_sm90.cu``, its backward through
-``csrc/pct_embed_bwd_sm90.cu``); a CPU tensor
+``csrc/pct_embed_bwd_sm90.cu``; ``embed_first_bwd`` at both dtypes through
+the streaming reduction of ``csrc/pct_embed_first_bwd.cu``); a CPU tensor
 through the plain versions below, which repeat the kernels' arithmetic
 (f64 accumulation for f64 inputs, f32 otherwise).
 """
@@ -173,13 +174,13 @@ def embed_first_bwd(x_cf, w, mask, dh, ds1, ds2):
     dev = x_cf.device
     dw = torch.zeros((3, 128), dtype=torch.float32, device=dev)
     if o:
-        blocks = _build.grid_blocks(dev, o, per_sm=4)
+        code = _build.DTYPE_CODE[x_cf.dtype]
+        blocks = _build.stream_blocks("sga_embed_first_bwd_rows_per_block", o * p, code, dev)
         part = _build.scratch(dev, blocks, 3 * 128)
         _build.launch(name, "sga_embed_first_bwd", dev,
                       x_cf.data_ptr(), w.data_ptr(), mask.data_ptr(),
                       dh.data_ptr(), ds1.data_ptr(), ds2.data_ptr(),
-                      part.data_ptr(), blocks, dw.data_ptr(), o, p,
-                      _build.DTYPE_CODE[x_cf.dtype])
+                      part.data_ptr(), blocks, dw.data_ptr(), o, p, code)
     return dw
 
 

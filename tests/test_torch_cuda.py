@@ -515,6 +515,58 @@ def test_pct_epi_sums_stream(card, dtype, objects, points):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
+def _held_to_plain_twice(card, name, args, dt_name, flags):
+    """One redesigned kernel on ``args``: two launches (counted), its output
+    against the plain version's within its tolerance, the same bits twice,
+    and each of chip_smoke.py's planted faults of it (KERNEL_PLANTED)
+    caught."""
+    from sgaligner_tpu_torch.ops import _build
+
+    kern, plain = card.op_fns(name, flags)
+    before = _build.LAUNCHES[name]
+    got, again = card.as_tuple(kern(*args)), card.as_tuple(kern(*args))
+    want = card.as_tuple(plain(*args))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == before + 2
+    card.judge(name, dt_name, flags, args, got, want, plain)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for what, fault in card.KERNEL_PLANTED[name]:
+        with pytest.raises(AssertionError):
+            card.judge(name, dt_name, flags, args, fault(got, args), want, plain)
+
+
+@pytest.mark.parametrize("points", [512, 200, 72, 64])
+@pytest.mark.parametrize("objects", [1, 3, 37])
+@pytest.mark.parametrize("flags", [SA, OA, (True, True), (False, False)],
+                         ids=["SA", "OA", "both", "neither"])
+def test_attn_fwd_wgmma(card, flags, objects, points):
+    """The bf16 attention forward on the eval block's wgmma passes with the
+    attention epilogue, at every (scale, double_norm) pair: at few objects
+    (a block with one or no object for one of its warpgroups) and at P a
+    multiple of the 64-row tile, ragged, and the main path's. Against the
+    plain version, the same bits twice, one 64-row tile of y x1.1 caught."""
+    args = card.op_inputs("pct_attn_fwd", objects, torch.bfloat16, seed=41, p=points)
+    _held_to_plain_twice(card, "pct_attn_fwd", args, "bf16", flags)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("points", [512, 200, 72, 5])
+@pytest.mark.parametrize("objects", [1, 3, 67, 600])
+def test_embed_first_bwd_stream(card, objects, points, dtype):
+    """The streaming embed_first_bwd at both dtypes: fewer rows than the
+    grid has row lanes (O = 1, P = 5), row counts no multiple of a block's
+    rows per step, P no multiple of 4 or 8, and the main path's P; the last
+    object dead (mask 0: it adds x·dh alone) wherever there are two or
+    more. Against the plain version, the same bits twice, a zeroed dW
+    caught."""
+    x, w, mask, dh, ds1, ds2 = card.op_inputs("embed_first_bwd", objects, dtype, seed=43,
+                                              p=points)
+    if objects > 1:
+        mask[-1] = 0.0
+    dt_name = "f32" if dtype == torch.float32 else "bf16"
+    _held_to_plain_twice(card, "embed_first_bwd", (x, w, mask, dh, ds1, ds2), dt_name, SA)
+
+
 def _tail_with_ties_and_nans(dtype):
     """Tail inputs (O=5, P=200) whose object 0 repeats row 5 at row 70
     (another 64-row tile), scaled up so that every column's max or min lies

@@ -1,6 +1,7 @@
 """The offset-attention (OA) family of the port against the JAX package, on
-the CPU: the ops ``pct_attention_fused`` and ``pct_block_fused`` with their
-gradients (SA and OA), ``OABlock`` and ``SPCT`` in eval and train mode, and
+the CPU: the ops ``pct_attention_fused`` (at all four (scale, double_norm)
+pairs at f64) and ``pct_block_fused`` with their gradients (SA and OA),
+``OABlock`` and ``SPCT`` in eval and train mode, and
 the weight bridge ``spct_state_dict_from_flax``.
 
 Widths are the models' (C=128, da=32, the tail 512 -> 1024); O=4 objects,
@@ -45,6 +46,10 @@ O, P, C, DA = 4, 16, 128, 32
 RTOL, FLOOR = 1e-8, 1e-9
 F32_NORMWISE = 1e-5
 FLAGS = pytest.mark.parametrize("flags", [(True, False), (False, True)], ids=["SA", "OA"])
+# the attention op takes scale and double_norm independently: SA, OA and the
+# mixed pairs (SA's scale with OA's normalisation, and neither)
+PAIRS = pytest.mark.parametrize("flags", [(True, False), (False, True), (True, True),
+                                          (False, False)], ids=["SA", "OA", "both", "neither"])
 
 
 def _close(got, want, what, floor=None):
@@ -97,7 +102,7 @@ def _port_attn(args, ct, flags, dtype):
     return out, torch.autograd.grad(out, ts, torch.from_numpy(ct).to(dtype))
 
 
-@FLAGS
+@PAIRS
 def test_attention_fused_matches_jax_f64(x64, flags):
     rng = np.random.default_rng(0)
     args = _attn_case(rng)
