@@ -12,7 +12,9 @@ Phases, in order (every failure raises and exits non-zero):
                3 -> 64 -> 128 -> 256), O=67 objects (ragged, not a multiple
                of 8), float32 and bfloat16, SA and OA (the six kernels of the
                attention family); again at P=200 (not a multiple of the
-               kernels' row tiles). The
+               kernels' row tiles); the PointNet forward also at EVA's
+               C3 = 200 (the wrapper pads to the kernel's width and drops
+               the padding), with two planted faults (PADDED_PLANTED). The
                PointNet forward's argmax and the tail's argmax / argmin are
                held by value: at the kernel's index the plain activation must
                equal the plain max (min). Each training and op kernel, the
@@ -70,6 +72,20 @@ Phases, in order (every failure raises and exits non-zero):
   ops          pct_attention_fused and pct_block_fused forward plus backward
                through autograd at O=896, SA and OA, against the plain
                versions; one launch of each of their kernels per call
+  quality      the three tracked trained snapshots (checkpoints/torch/
+               aligner_{point,full,eva}.pth.tar) through the port's tester
+               (AlignRegTester on the held-out val workspace each
+               checkpoints/aligner_<name>/quality.json pins, rebuilt with the
+               port's make_synthetic_workspace; the config as a dict, no
+               YAML, no tensorstore): at f32 in the tester's own layout, MRR
+               and Hits@1/3/5 each within 0.02 of quality.json, EVA
+               below full, pointnet_fwd launched once a batch (C3 = 200 for
+               EVA); then at bf16 with pooled bucket 128 (the benchmark's
+               serving settings) the same metrics and their gaps, a reading.
+               In both runs the first request's PointNet forward inputs
+               (O = 256 in the tester's layout, the pooled O at bf16) go
+               through the kernel again and are held against its plain
+               version at the kernels phase's tolerances
   time         each kernel against its plain version (and torch.matmul for
                the tail): the pct serving kernels at the serving O (the three
                wgmma kernels beside the replaced WMMA design's times and their
@@ -80,7 +96,9 @@ Phases, in order (every failure raises and exits non-zero):
                backward beside their earlier times, with their passes under
                torch.profiler; the PointNet backward's routed rows beside the
                row tiles its kernel ran, which must be the ones they fill),
-               the ops' kernels and the OA variants at O=896, with each bound
+               the ops' kernels and the OA variants at O=896, the PointNet
+               forward at EVA's C3 = 200 (O = 896 and 13,440; the quality
+               runs' request times beside it), with each bound
                from the shapes (the PointNet backward's from the rows and
                channels that carry gradient);
                scaled_dot_product_attention(q, q, v) at the serving and
@@ -113,6 +131,7 @@ F32_FLOPS = 67e12
 P, C, DA, K = 512, 128, 32, 1024
 SA, OA = (True, False), (False, True)   # (scale, double_norm) of the attention ops
 PN = (64, 128, 256)            # PointNet widths (conv1, conv2, conv3 = pt_out_dim)
+EVA_C3 = 200                   # EVA's PointNet width (models/eva.py), padded by the wrapper
 SMALL_O = 67
 RAGGED_P = 200
 MODULES = ("pct", "gat", "rel", "attr")
@@ -214,6 +233,28 @@ OA_PLANTED = (("block_res_bwd/OA dWv x2", "block_res_bwd", 2, 2.0, "spct"),
               ("block_res_bwd/OA dx x1.1", "block_res_bwd", 0, 1.1, "spct"),
               ("pct_block_bwd dWt x2", "block_bwd", 4, 2.0, "block"),
               ("pct_attn_bwd dx x1.1", "attn_bwd", 0, 1.1, "attention"))
+# the tracked trained snapshots (phase quality): each checkpoints/
+# aligner_<name> pins its MRR and Hits@k in quality.json, and checkpoints/
+# torch/aligner_<name>.pth.tar is its copy in upstream's layout (scripts/
+# export_torch_snapshots.py). The benchmark contract of scripts/
+# aligner_artifact.py (BENCH, VAL_SEED, N_VAL_PAIRS, write_cfg's values),
+# copied so the card rebuilds the val workspace and the config without YAML;
+# tests/test_torch_snapshots.py holds it equal to the script and to each
+# quality.json. Each metric of the f32 run lies within QUALITY_ABS of
+# quality.json, the JAX package's own test's tolerance (tests/
+# test_aligner_artifact.py); the bf16 run with the pooled bucket of bench.py
+# is a reading only
+CHECKPOINTS = REPO / "checkpoints"
+BENCH = dict(n_shared=8, n_extra=6, pts_per_obj=256, pc_resolutions=[512],
+             view_noise=0.05, bow_flip=0.25, proto_classes=3,
+             center_noise=0.75)
+VAL_SEED = 2002
+N_VAL_PAIRS = 32
+MAX_EPOCH = 40
+SNAPSHOTS = ("point", "full", "eva")
+QUALITY_KEYS = ("mrr", "hits@1", "hits@3", "hits@5")
+QUALITY_ABS = 0.02
+QUALITY_BUCKET = 128
 # launches per SPCT call at O = 896 (phase spct)
 PER_SPCT_EVAL = {"embed_first": 1, "embed_second": 1, "pct_block_eval": 4}
 PER_SPCT_TRAIN = {"embed_first": 1, "embed_second": 1, "embed_first_bwd": 1,
@@ -332,6 +373,32 @@ KERNEL_PLANTED = {"pct_block_res_bwd": (_scaled(0, 2.0), _scaled(2, 2.0)),
                   "pct_epi_sums": (_scaled(1, 1.1),),
                   "pct_attn_fwd": (("one 64-row tile of y x1.1", _tile_scaled),),
                   "embed_first_bwd": (_scaled(0, 0.0),)}
+def _padding_kept(outs, args):
+    """A planted fault of the PointNet forward at a width its kernel pads
+    (EVA's C3 = 200): the padded channels left in the output (W3 and b3
+    padded to the kernel's width, as the wrapper pads them, and nothing
+    dropped)."""
+    import torch.nn.functional as F
+
+    from sgaligner_tpu_torch.ops.pointnet_fused import padded_width, pointnet_fwd
+
+    x, w1, b1, w2, b2, w3, b3 = args
+    extra = padded_width(w3.shape[1], x.dtype) - w3.shape[1]
+    return pointnet_fwd(x, w1, b1, w2, b2, F.pad(w3, (0, extra)), F.pad(b3, (0, extra)),
+                        with_argmax=True)
+
+
+def _last_channel_zeroed(outs, args):
+    out, amax = outs
+    out = out.clone()
+    out[:, -1] = 0
+    return out, amax
+
+
+# faults planted in the padded PointNet forward's outputs (kernels phase,
+# C3 = 200, both dtypes), each of which the comparison must catch
+PADDED_PLANTED = (("the padded channels left in the output", _padding_kept),
+                  ("the last real channel zeroed", _last_channel_zeroed))
 # pct_block_eval's mixed flag pairs, which no model uses but the JAX op
 # computes: SA's scale with OA's normalisation, and neither
 MIXED_FLAGS = [("both", (True, True)), ("neither", (False, False))]
@@ -450,9 +517,10 @@ def cuda_ms(fn, warmup: int = 2, reps: int = 5) -> float:
 
 # ------------------------------- inputs --------------------------------------
 
-def op_inputs(name: str, o: int, dtype, seed: int, p: int = P) -> tuple:
-    """Seeded inputs of one op at full width (p points per object), on the
-    card."""
+def op_inputs(name: str, o: int, dtype, seed: int, p: int = P, c3: int = PN[-1]
+              ) -> tuple:
+    """Seeded inputs of one op at full width (p points per object; the
+    PointNet's last width c3), on the card."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
@@ -465,14 +533,14 @@ def op_inputs(name: str, o: int, dtype, seed: int, p: int = P) -> tuple:
 
         x = rnd(o, 3, p)
         ws = []
-        for cin, cout in zip((3, *PN[:-1]), PN):
+        for cin, cout in zip((3, *PN[:-1]), (*PN[:-1], c3)):
             ws += [rnd(cin, cout, scale=cin ** -0.5), rnd(1, cout, scale=0.1)]
         if name == "pointnet_fwd":
             return (x, *ws)
         # the backward routes by the plain forward's argmax and max (both
         # sides get them)
         peak, amax = pointnet_pool_plain(x, *ws, with_argmax=True)
-        return (x, rnd(o, PN[-1]), amax, peak, *ws)
+        return (x, rnd(o, c3), amax, peak, *ws)
     mask = (torch.rand(o, 1, generator=g) < 0.85).float()
     mask[0] = 1.0
     mask = mask.to("cuda", dtype)
@@ -572,7 +640,12 @@ def compare(got, want) -> tuple[float, float]:
     error over all outputs). The [1, ·] BN sums add up O·P values, so their
     absolute error scales with O·P; they are held by the relative check."""
     worst_abs, worst_rel = 0.0, 0.0
+    if len(as_tuple(got)) != len(as_tuple(want)):
+        raise AssertionError("kernel gives another number of outputs")
     for g, w in zip(as_tuple(got), as_tuple(want)):
+        if g.shape != w.shape:
+            raise AssertionError(f"kernel output has shape {tuple(g.shape)}, the "
+                                 f"plain version's {tuple(w.shape)}")
         g, w = g.double(), w.double()
         if not bool(g.isfinite().all()):
             raise AssertionError("kernel output is not finite")
@@ -636,6 +709,9 @@ def judge(name: str, dt_name: str, flags, args: tuple, got, want, plain,
         return check_block_bwd_bf16(args, got, want, plain, limit, what or name)
     if name == "pointnet_fwd":
         (got, amax), (want, _) = got, want
+        if amax.shape != want.shape:
+            raise AssertionError(f"{what or name}: argmax has shape {tuple(amax.shape)}, "
+                                 f"the output {tuple(want.shape)}")
         arg_err = argmax_error(args, amax)
         if not arg_err <= limit:
             raise AssertionError(f"{what or name}: argmax points off the max "
@@ -736,19 +812,35 @@ def phase_kernels(state: dict) -> None:
                 log(f"[kernels] {label:24s} O={SMALL_O} P={p} max_abs={err_abs:.3e} "
                     f"max_rel={err_rel:.3e} (tol {tol(name, dt_name, flags or SA):g}) "
                     f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms")
+    # the PointNet forward at EVA's C3 = 200, which its wrapper pads to the
+    # kernel's width (f32 208, bf16 256) and crops
+    kern, plain = op_fns("pointnet_fwd")
+    for dt_name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        args = op_inputs("pointnet_fwd", SMALL_O, dtype, seed=3, c3=EVA_C3)
+        label = f"pointnet_fwd/C3={EVA_C3}/{dt_name}"
+        err_abs, err_rel = check_op("pointnet_fwd", args, dt_name, what=label)
+        check_planted("pointnet_fwd", args, SA, label, dt_name, PADDED_PLANTED)
+        first, second = kern(*args), kern(*args)
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            raise AssertionError(f"{label}: two runs on the same inputs differ")
+        log(f"[kernels] {label:24s} O={SMALL_O} P={P} max_abs={err_abs:.3e} "
+            f"max_rel={err_rel:.3e} (tol {tol('pointnet_fwd', dt_name):g}) output "
+            f"{tuple(first[0].shape)}")
 
 
-def check_planted(name: str, args: tuple, flags, label: str) -> None:
-    """Faults planted in the outputs of the wgmma kernels (KERNEL_PLANTED)
-    must each fail the comparison with the plain version."""
+def check_planted(name: str, args: tuple, flags, label: str, dt_name: str = "bf16",
+                  faults: tuple | None = None) -> None:
+    """Faults planted in a kernel's outputs (``faults``, by default the
+    wgmma kernels' KERNEL_PLANTED) must each fail the comparison with the
+    plain version."""
     import torch
 
     kern, plain = op_fns(name, flags)
     got, want = as_tuple(kern(*args)), as_tuple(plain(*args))
     torch.cuda.synchronize()
-    for what, fault in KERNEL_PLANTED.get(name, ()):
+    for what, fault in (KERNEL_PLANTED.get(name, ()) if faults is None else faults):
         try:
-            judge(name, "bf16", flags, args, fault(got, args), want, plain, f"{label} planted")
+            judge(name, dt_name, flags, args, fault(got, args), want, plain, f"{label} planted")
         except AssertionError:
             log(f"[kernels] {label}: planted fault ({what}) caught")
             continue
@@ -1619,6 +1711,161 @@ def phase_ops(state: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def snapshot_quality(name: str) -> dict:
+    """checkpoints/aligner_<name>/quality.json."""
+    with open(CHECKPOINTS / f"aligner_{name}" / "quality.json") as f:
+        return json.load(f)
+
+
+def torch_snapshot(name: str) -> str:
+    return str(CHECKPOINTS / "torch" / f"aligner_{name}.pth.tar")
+
+
+def quality_cfg(root: str, modules, model_name: str = "sgaligner") -> dict:
+    """The config write_cfg writes for the tester (no LR schedule, the loss
+    as best metric), as a dict for core.config.make_cfg."""
+    return {
+        "seed": 42, "num_workers": 2, "model_name": model_name,
+        "modules": list(modules), "scan_type": "subscan",
+        "data": {"name": "Scan3R", "subscan_dir": root},
+        "preprocess": {"pc_resolutions": [512], "min_obj_points": 10},
+        "train": {"batch_size": 8, "pc_res": 512},
+        "val": {"batch_size": 8, "pc_res": 512},
+        "optim": {"max_epoch": MAX_EPOCH, "lr": 1e-3},
+        "tpu": {"max_objects": 16, "points_per_object": 512, "dp": 1},
+    }
+
+
+def build_val_workspace(root: str, q: dict) -> dict:
+    """The held-out val workspace a quality.json pins (its bench, val_seed
+    and n_val_pairs), written under root."""
+    from sgaligner_tpu_torch.data.fixtures import make_synthetic_workspace
+
+    return make_synthetic_workspace(root, split="val", n_pairs=q["n_val_pairs"],
+                                    seed=q["val_seed"], **q["bench"])
+
+
+def quality_run(name: str, root: str, device: str = "cuda", dtype: str = "float32",
+                bucket: int = 0) -> tuple[dict, list[float], int, tuple]:
+    """One tracked snapshot through the port's tester on the val workspace
+    at ``root``: the config as a dict (write_cfg's values), the weights from
+    its .pth.tar copy. Returns (results, ms per request, the PointNet's
+    C3, a copy of the PointNet forward's inputs on the first request); a
+    request is one eval step on a batch of 8 pairs."""
+    import torch
+
+    from sgaligner_tpu_torch.core.config import make_cfg
+    from sgaligner_tpu_torch.data.loaders import get_val_dataloader
+    from sgaligner_tpu_torch.engine.tester import AlignRegTester
+    from sgaligner_tpu_torch.models import pointnet
+
+    q = snapshot_quality(name)
+    values = quality_cfg(root, q["modules"], q.get("model_name", "sgaligner"))
+    values["tpu"].update(compute_dtype=dtype, pooled_bucket=bucket)
+    cfg = make_cfg(**values)
+    loader = get_val_dataloader(cfg)
+    tester = AlignRegTester(cfg, loader.dataset, loader,
+                            snapshot=torch_snapshot(name), device=device)
+    step, times = tester.eval_step, []
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+    def timed(batch):
+        sync()
+        t0 = time.perf_counter()
+        out = step(batch)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    first, fwd = [], pointnet.pointnet_fwd
+
+    def kept(*args, **kw):
+        if not first:
+            first.append(tuple(a.clone() for a in args))
+        return fwd(*args, **kw)
+
+    tester.eval_step, pointnet.pointnet_fwd = timed, kept
+    try:
+        results = tester.run()
+    finally:
+        pointnet.pointnet_fwd = fwd
+    return results, times, tester.model.object_encoder.conv3.weight.shape[0], first[0]
+
+
+def phase_quality(state: dict) -> None:
+    """The tracked trained snapshots through the port's tester on the card
+    (f32 in the tester's own layout, held to quality.json; bf16 pooled, a
+    reading). Counts are set to 0 before each run and read after it; then
+    the first request's PointNet forward is held against its plain
+    version on the same inputs."""
+    import tempfile
+
+    from sgaligner_tpu_torch.ops import _build
+
+    readings, state["quality_ms"] = {}, {}
+    with tempfile.TemporaryDirectory(prefix="sga_quality_") as tmp:
+        built: dict[str, str] = {}
+        for name in SNAPSHOTS:
+            q = snapshot_quality(name)
+            key = json.dumps([q["bench"], q["val_seed"], q["n_val_pairs"]])
+            if key not in built:
+                built[key] = str(Path(tmp) / f"ws{len(built)}")
+                t0 = time.perf_counter()
+                build_val_workspace(built[key], q)
+                log(f"[quality] val workspace (seed {q['val_seed']}, {q['n_val_pairs']} "
+                    f"pairs) built in {time.perf_counter() - t0:.1f} s")
+            pinned = q["results"]
+            for dtype, bucket in (("float32", 0), ("bfloat16", QUALITY_BUCKET)):
+                _build.reset_launches()
+                got, times, c3, args = quality_run(name, built[key], "cuda", dtype, bucket)
+                launches = dict(_build.LAUNCHES)
+                # the first request's PointNet forward again, against its plain
+                # version on the same inputs (after the counts were read)
+                dt_name = "f32" if dtype == "float32" else "bf16"
+                label = f"quality {name} pointnet_fwd/C3={c3}/{dt_name}"
+                err_abs, err_rel = check_op("pointnet_fwd", args, dt_name, what=label)
+                log(f"[quality] {label}: O={args[0].shape[0]} P={args[0].shape[2]} "
+                    f"max_abs={err_abs:.3e} max_rel={err_rel:.3e} (tol "
+                    f"{tol('pointnet_fwd', dt_name):g})")
+                batches = -(-q["n_val_pairs"] // 8)
+                want = {k: (batches if k == "pointnet_fwd" else 0) for k in KERNELS}
+                if launches != want:
+                    raise AssertionError(f"quality {name} {dtype}: launches {launches}, "
+                                         f"expected pointnet_fwd {batches} and no other")
+                if name == "eva" and c3 != EVA_C3:
+                    raise AssertionError(f"quality eva: PointNet C3 = {c3}, expected {EVA_C3}")
+                gaps = {k: got[k] - pinned[k] for k in QUALITY_KEYS}
+                log(f"[quality] {name} {dtype}{' pooled ' + str(bucket) if bucket else ''}: "
+                    + ", ".join(f"{k} {got[k]:.4f} (quality.json {pinned[k]:.4f}, gap "
+                                f"{gaps[k]:+.4f})" for k in QUALITY_KEYS)
+                    + f"; sgar@2/50/100 {got['sgar@2']:.3f}/{got['sgar@50']:.3f}/"
+                    f"{got['sgar@100']:.3f}; pointnet_fwd C3 = {c3}, {launches['pointnet_fwd']} "
+                    f"launches; requests (8 pairs) " + ", ".join(f"{t:.2f}" for t in times)
+                    + f" ms | {state['card']}")
+                state["quality_ms"][(name, dtype)] = statistics.median(times)
+                if name == "eva":
+                    state.setdefault("launches_quality_eva", 0)
+                    state["launches_quality_eva"] += launches["pointnet_fwd"]
+                if dtype == "float32":
+                    readings[name] = got
+                    off = {k: g for k, g in gaps.items()
+                           if not abs(g) <= QUALITY_ABS}
+                    if off:
+                        raise AssertionError(f"quality {name} f32: {off} beyond "
+                                             f"{QUALITY_ABS} of quality.json")
+                elif any(abs(g) > QUALITY_ABS for g in gaps.values()):
+                    log(f"[quality] {name} bfloat16: a gap beyond {QUALITY_ABS} "
+                        "(a reading, not a check)")
+    eva, full = readings["eva"], readings["full"]
+    if not (eva["mrr"] < full["mrr"] and eva["hits@1"] < full["hits@1"]):
+        raise AssertionError(f"quality: EVA (mrr {eva['mrr']:.4f}, hits@1 "
+                             f"{eva['hits@1']:.4f}) is not below full (mrr "
+                             f"{full['mrr']:.4f}, hits@1 {full['hits@1']:.4f})")
+    log("[quality] EVA below full at f32: mrr "
+        f"{eva['mrr']:.4f} < {full['mrr']:.4f}, hits@1 {eva['hits@1']:.4f} < "
+        f"{full['hits@1']:.4f}")
+
+
 def bwd_work(args) -> tuple[int, int, int]:
     """The gradient-carrying work of one pointnet_bwd call on its inputs:
     (rows, channels, tiles) summed over objects. A channel carries gradient
@@ -1654,12 +1901,13 @@ def attn_flops(oa: bool = False, bwd: bool = False) -> int:
 
 
 def bound(name: str, o: int, p: int = P, work: tuple[int, int] | None = None,
-          oa: bool = False) -> tuple[float, str]:
+          oa: bool = False, c3: int = PN[-1]) -> tuple[float, str]:
     """Least time (ms) for the work of one call at O objects, bf16.
     pointnet_bwd counts only the work its data needs (``work`` from
-    ``bwd_work``); ``oa``: the OA flags (the attention backward's y)."""
+    ``bwd_work``); ``oa``: the OA flags (the attention backward's y); ``c3``:
+    the PointNet's real channels (padding is not work)."""
     e = 2  # bytes per bf16 element
-    c1, c2, c3 = PN
+    c1, c2 = PN[:2]
     w_elems = 3 * c1 + c1 + c1 * c2 + c2 + c2 * c3 + c3
     stack_flops = 2 * (3 * c1 + c1 * c2 + c2 * c3)          # per point
     if name == "pointnet_fwd":
@@ -1787,6 +2035,7 @@ def phase_time(state: dict) -> None:
         f"({PER_REQUEST}); median request {state['serve_ms']:.1f} ms, so "
         f"{per_req / state['serve_ms']:.1%} of it | {state['card']}")
     rows += time_pointnet(state)
+    rows += time_pointnet_eva(state)
     rows += time_train_pct(state)
     rows += time_oa(state)
     time_attention_yardstick(state)
@@ -1841,6 +2090,41 @@ def time_pointnet(state: dict) -> list[dict]:
     log(f"[time] point train step {step_ms:.2f} ms: the two PointNet kernels "
         f"{kern_ms:.3f} ms ({kern_ms / step_ms:.1%}), the rest (GAT, embeddings, "
         f"losses, Adam, the finite check, host) {step_ms - kern_ms:.2f} ms | {state['card']}")
+    return rows
+
+
+def time_pointnet_eva(state: dict) -> list[dict]:
+    """The PointNet forward at EVA's C3 = 200 (the wrapper pads W3 and b3
+    to the kernel's width and crops the output) at the training O and the
+    serving O, bf16; its bound counts the 200 real channels. The row's
+    launches are the quality phase's EVA runs'. Beside it, the quality
+    runs' request times."""
+    import torch
+
+    source, replaces = KERNELS["pointnet_fwd"]
+    kern, plain = op_fns("pointnet_fwd")
+    rows = []
+    for o in (state["train_o"], state["serve_o"]):
+        args = op_inputs("pointnet_fwd", o, torch.bfloat16, seed=2, c3=EVA_C3)
+        err_abs, err_rel = check_op("pointnet_fwd", args, "bf16",
+                                    what=f"time: pointnet_fwd C3={EVA_C3} at O={o}")
+        ms = cuda_ms(lambda: kern(*args))
+        plain_ms = cuda_ms(lambda: plain(*args), warmup=1, reps=3)
+        b_ms, b_by = bound("pointnet_fwd", o, c3=EVA_C3)
+        log(f"[time] pointnet_fwd C3={EVA_C3} O={o} bf16 kernel {ms:.3f} ms | plain "
+            f"{plain_ms:.3f} ms | bound {b_ms:.4f} ms ({b_by}; {b_ms / ms:.1%} of it) | "
+            f"library None | max_abs {err_abs:.3e} max_rel {err_rel:.3e} | {state['card']}")
+        if o == state["train_o"]:
+            rows.append({"name": f"pointnet_fwd/C3={EVA_C3}", "route": "cuda",
+                         "source": source, "replaces": replaces,
+                         "launches": state["launches_quality_eva"],
+                         "max_abs_err": err_abs, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        del args
+        torch.cuda.empty_cache()
+    for (name, dtype), ms in state["quality_ms"].items():
+        log(f"[time] quality {name} {dtype}: median request {ms:.2f} ms (8 pairs, "
+            f"{8 / ms * 1e3:.1f} pairs/s) | {state['card']}")
     return rows
 
 
@@ -2010,7 +2294,8 @@ def main() -> int:
                         ("oa_parity", phase_oa_parity),
                         ("serve", phase_serve), ("train", phase_train),
                         ("train_pct", phase_train_pct), ("serve_point", phase_serve_point),
-                        ("spct", phase_spct), ("ops", phase_ops), ("time", phase_time)):
+                        ("spct", phase_spct), ("ops", phase_ops),
+                        ("quality", phase_quality), ("time", phase_time)):
         t0 = time.perf_counter()
         phase(state)
         log(f"[{name}] done in {time.perf_counter() - t0:.1f} s")

@@ -1,0 +1,46 @@
+"""EVA alignment inference entry point (MRR, Hits@k and SGAR).
+
+Counterpart of ``sgaligner_tpu/cli/inference_align_eva.py``, with the same
+flags (``--config``, ``--snapshot``, ``--test_epoch``, ``--test_iter``,
+``--output_root``) plus ``--device`` (``cuda`` unless ``cpu`` is asked
+for). Registration is off. Prints the results as one JSON line:
+
+    python -m sgaligner_tpu_torch.cli.inference_align_eva --config CFG.yaml \\
+        --snapshot checkpoints/torch/aligner_eva.pth.tar --device cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+from sgaligner_tpu_torch.core.config import make_cfg, update_config
+from sgaligner_tpu_torch.data.loaders import get_val_dataloader
+from sgaligner_tpu_torch.engine.tester import AlignRegTester
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--config", required=True)
+    parser.add_argument("--snapshot", default=None)
+    parser.add_argument("--test_epoch", type=int, default=None)
+    parser.add_argument("--test_iter", type=int, default=None)
+    parser.add_argument("--output_root", default=None)
+    parser.add_argument("--device", default="cuda")
+    return parser.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    cfg = update_config(make_cfg(), args.config, output_root=args.output_root)
+    cfg.registration = False
+    loader = get_val_dataloader(cfg)
+    tester = AlignRegTester(cfg, loader.dataset, loader,
+                            snapshot=args.snapshot, test_epoch=args.test_epoch,
+                            test_iter=args.test_iter, device=args.device)
+    print(json.dumps(tester.run(), default=float))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

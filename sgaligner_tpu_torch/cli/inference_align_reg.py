@@ -1,0 +1,51 @@
+"""Alignment inference entry point (the alignment metrics; registration is
+not ported yet).
+
+Counterpart of ``sgaligner_tpu/cli/inference_align_reg.py``, with the same
+flags (``--config``, ``--snapshot``, ``--test_epoch``, ``--test_iter``,
+``--reg_snapshot``, ``--output_root``) plus ``--device`` (``cuda`` unless
+``cpu`` is asked for). ``--reg_snapshot`` (the registration backend's
+weights) raises, as registration does. Prints the results as one JSON line:
+
+    python -m sgaligner_tpu_torch.cli.inference_align_reg --config CFG.yaml \\
+        --snapshot checkpoints/torch/aligner_full.pth.tar --device cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+from sgaligner_tpu_torch.core.config import make_cfg, update_config
+from sgaligner_tpu_torch.data.loaders import get_val_dataloader
+from sgaligner_tpu_torch.engine.tester import AlignRegTester
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--config", required=True)
+    parser.add_argument("--snapshot", default=None)
+    parser.add_argument("--test_epoch", type=int, default=None)
+    parser.add_argument("--test_iter", type=int, default=None)
+    parser.add_argument("--reg_snapshot", default=None)
+    parser.add_argument("--output_root", default=None)
+    parser.add_argument("--device", default="cuda")
+    return parser.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    if args.reg_snapshot is not None:
+        raise NotImplementedError("registration is not ported yet; run without "
+                                  "--reg_snapshot")
+    cfg = update_config(make_cfg(), args.config, output_root=args.output_root)
+    loader = get_val_dataloader(cfg)
+    tester = AlignRegTester(cfg, loader.dataset, loader,
+                            snapshot=args.snapshot, test_epoch=args.test_epoch,
+                            test_iter=args.test_iter, device=args.device)
+    print(json.dumps(tester.run(), default=float))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

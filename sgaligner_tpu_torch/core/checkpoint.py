@@ -1,18 +1,36 @@
-"""Weight bridge: the JAX package's parameter tree -> the port's state_dict.
+"""Snapshots and the weight bridge: the JAX package's parameter tree -> the
+port's state_dict.
+
+``read_ocdbt_snapshot(path)`` reads a snapshot the JAX package wrote
+(``sgaligner_tpu/core/checkpoint.py::save_snapshot``: an orbax OCDBT store
+of zarr arrays, zstd-compressed, plus ``meta.json``) through
+``tensorstore``, without JAX: nested dicts of numpy arrays, the counterpart
+of that module's ``load_snapshot``. ``load_torch_snapshot`` /
+``save_torch_snapshot`` read and write upstream's ``.pth.tar`` layout
+``{"model": state_dict, "epoch", "iteration"}``, the one the JAX package's
+``load_torch_snapshot`` reads; ``checkpoints/torch/`` holds such copies of
+the tracked snapshots (``scripts/export_torch_snapshots.py``), so a machine
+without ``tensorstore`` loads them.
 
 ``state_dict_from_flax(params, batch_stats, modules)`` takes the flax
 ``params`` / ``batch_stats`` trees of ``sgaligner_tpu``'s MultiModalEncoder
-(as nested dicts of numpy arrays) and returns a state_dict with upstream
-SGAligner's torch names and shapes — the port's own parameter names. It is
-the inverse of ``sgaligner_tpu/core/checkpoint.py::torch_state_dict_to_params``
-for the point / pct / gat / rel / attr modules:
+or EVA (as nested dicts of numpy arrays) and returns a state_dict with
+upstream SGAligner's torch names and shapes — the port's own parameter
+names. It is the inverse of
+``sgaligner_tpu/core/checkpoint.py::torch_state_dict_to_params`` for the
+point / pct / gat / gcn / rel / attr modules:
 
 * Dense ``kernel [in, out]`` -> Linear ``weight [out, in]``;
   Conv1d(k=1) weights -> ``[out, in, 1]``;
 * MaskedBatchNorm ``scale / bias`` + ``mean / var`` -> ``weight / bias /
   running_mean / running_var``;
 * GATConv ``weight [in, H, out]`` -> ``lin_src.weight [H·out, in]``,
-  ``att_src / att_dst [H, out]`` -> ``[1, H, out]``.
+  ``att_src / att_dst [H, out]`` -> ``[1, H, out]``;
+* GCNConv ``weight [in, out]`` -> ``lin.weight [out, in]``.
+
+The parity-mode PointNet has no BatchNorm (its tree has no
+``batch_stats``), and EVA has no ``object_embedding`` or
+``structure_embedding``: each is mapped where the tree has it.
 
 ``spct_state_dict_from_flax(params, batch_stats)`` maps the tree of a flax
 ``SPCT`` (``emb0``, ``emb0_bn``, ``emb1``, ``emb1_bn``, ``sa1``..``sa4``,
@@ -28,8 +46,82 @@ float64 (so a float64 tree, or its gradients, maps without rounding).
 
 from __future__ import annotations
 
+import ast
+import json
+import os
+import os.path as osp
+
 import numpy as np
 import torch
+
+
+def read_ocdbt_snapshot(path: str) -> dict:
+    """A JAX-package snapshot directory -> ``{"params": tree, "batch_stats":
+    tree (when saved), ..., "epoch", "iteration"}``, every tree a nested
+    dict of numpy arrays keyed as the JAX package's ``load_snapshot`` gives
+    them (the model under ``params["model"]`` when the train state saved
+    its objective's parameters beside it, under ``params["loss"]``).
+    Needs ``tensorstore``; a machine without it loads the ``.pth.tar``
+    copies instead (``load_torch_snapshot``)."""
+    try:
+        import tensorstore as ts
+    except ImportError as err:
+        raise ImportError(
+            "read_ocdbt_snapshot needs tensorstore; without it, load the "
+            "snapshot's .pth.tar copy (checkpoints/torch/, written by "
+            "scripts/export_torch_snapshots.py) with load_torch_snapshot") from err
+    path = osp.abspath(path)
+    with open(osp.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    with open(osp.join(path, "_METADATA")) as f:
+        keys = [ast.literal_eval(k) for k in json.load(f)["tree_metadata"]]
+    out: dict = {}
+    for key in keys:
+        arr = ts.open({"driver": "zarr",
+                       "kvstore": {"driver": "ocdbt", "base": f"file://{path}",
+                                   "path": ".".join(key)}}).result()
+        node = out
+        for part in key[:-1]:
+            node = node.setdefault(part, {})
+        node[key[-1]] = np.asarray(arr.read().result())
+    out["epoch"], out["iteration"] = meta["epoch"], meta["iteration"]
+    return out
+
+
+def latest_snapshot(snapshot_dir: str) -> str | None:
+    """The rolling ``snapshot`` directory, else the ``epoch-<N>`` one with
+    the largest N (the JAX package's ``latest_snapshot``)."""
+    rolling = osp.join(snapshot_dir, "snapshot")
+    if osp.isdir(rolling):
+        return rolling
+    epochs = ([d for d in os.listdir(snapshot_dir) if d.startswith("epoch-")]
+              if osp.isdir(snapshot_dir) else [])
+    if not epochs:
+        return None
+    return osp.join(snapshot_dir, max(epochs, key=lambda d: int(d.split("-")[1])))
+
+
+def save_torch_snapshot(path: str, state_dict: dict, epoch: int = 0,
+                        iteration: int = 0) -> str:
+    """Write upstream's ``.pth.tar`` layout: ``{"model": state_dict,
+    "epoch", "iteration"}``."""
+    torch.save({"model": {k: v.detach().cpu() for k, v in state_dict.items()},
+                "epoch": int(epoch), "iteration": int(iteration)}, path)
+    return path
+
+
+def load_torch_snapshot(path: str) -> dict:
+    """An upstream ``.pth.tar`` -> ``{"model": state_dict, "epoch",
+    "iteration"}``. A bare state_dict, or one under ``"state_dict"``, is
+    taken too, and DDP's ``module.`` prefix is dropped (what the JAX
+    package's ``load_torch_snapshot`` accepts)."""
+    if not osp.isfile(path):
+        raise FileNotFoundError(f"no snapshot at {path}")
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    state_dict = blob.get("model", blob.get("state_dict", blob))
+    state_dict = {k.removeprefix("module."): v for k, v in state_dict.items()}
+    return {"model": state_dict, "epoch": int(blob.get("epoch", 0)),
+            "iteration": int(blob.get("iteration", 0))}
 
 
 def _t(a) -> torch.Tensor:
@@ -79,9 +171,10 @@ def _pct_trunk(sd: dict, pre: str, enc: dict, st: dict) -> None:
     _bn(sd, f"{pre}linear.1", enc["linear_bn"], st["linear_bn"])
 
 
-def state_dict_from_flax(params: dict, batch_stats: dict,
+def state_dict_from_flax(params: dict, batch_stats: dict | None,
                          modules: tuple[str, ...]) -> dict[str, torch.Tensor]:
     sd: dict[str, torch.Tensor] = {}
+    batch_stats = batch_stats or {}
     if "pct" in modules:
         enc, st = params["object_encoder"], batch_stats["object_encoder"]
         p = "object_encoder"
@@ -95,8 +188,15 @@ def state_dict_from_flax(params: dict, batch_stats: dict,
         for i in (1, 2, 3):
             sd[f"object_encoder.conv{i}.weight"] = _conv(enc[f"conv{i}"]["kernel"])
             sd[f"object_encoder.conv{i}.bias"] = _t(enc[f"conv{i}"]["bias"])
-    if "pct" in modules or "point" in modules:
+    if "object_embedding" in params:
         _linear(sd, "object_embedding", params["object_embedding"])
+    if "gcn" in modules:
+        se = params["structure_encoder"]
+        for i in range(len(se)):
+            layer = se[f"gcn{i}"]
+            p = f"structure_encoder.layer_stack.{i}"
+            sd[f"{p}.lin.weight"] = _t(np.asarray(layer["weight"]).T)
+            sd[f"{p}.bias"] = _t(layer["bias"])
     if "gat" in modules:
         se = params["structure_encoder"]
         for i in range(len(se)):

@@ -1,7 +1,8 @@
 """Factories: ``build_model``, ``build_lr_schedule``, ``build_optimizer``.
 
-Counterpart of ``sgaligner_tpu/engine/factory.py`` for the SGAligner
-encoder. The weights are drawn on the CPU from ``generator`` (so one seed
+Counterpart of ``sgaligner_tpu/engine/factory.py``: the SGAligner encoder,
+or EVA for ``model_name: eva`` (``loss_kind`` names its objective). The
+weights are drawn on the CPU from ``generator`` (so one seed
 gives the same weights on every device) and then moved to ``device``, which
 is the card unless the caller asks for ``"cpu"``. The optimizer is
 ``torch.optim.Adam`` with upstream's settings, over the model's and the
@@ -16,7 +17,9 @@ from collections.abc import Callable, Iterable
 import torch
 
 from sgaligner_tpu_torch.core.config import Config
+from sgaligner_tpu_torch.models.eva import EVA
 from sgaligner_tpu_torch.models.sg_aligner import MultiModalEncoder
+from sgaligner_tpu_torch.ops.objective import OverallLoss, OverallNCALoss
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float64": torch.float64}
@@ -51,24 +54,44 @@ def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
 
 
 def build_model(cfg: Config, device: str | torch.device = "cuda",
-                generator: torch.Generator | None = None) -> MultiModalEncoder:
+                generator: torch.Generator | None = None
+                ) -> MultiModalEncoder | EVA:
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
-    model = MultiModalEncoder(
-        modules=tuple(cfg.modules),
-        rel_dim=cfg.model.rel_dim,
-        attr_dim=cfg.model.attr_dim,
-        emb_dim=cfg.model.emb_dim,
-        pt_out_dim=cfg.model.pt_out_dim,
-        hidden_units=tuple(cfg.model.hidden_units),
-        heads=tuple(cfg.model.heads),
-        dropout=cfg.model.dropout,
-        pointnet_bn_mode=cfg.model.pointnet_bn_mode,
-        dtype=DTYPES[cfg.tpu.compute_dtype],
-    )
+    dtype = DTYPES[cfg.tpu.compute_dtype]
+    if cfg.model_name == "eva":
+        model = EVA(modules=tuple(cfg.modules), rel_dim=cfg.model.rel_dim,
+                    attr_dim=cfg.model.attr_dim, emb_dim=cfg.model.emb_dim,
+                    dropout=cfg.model.dropout,
+                    pointnet_bn_mode=cfg.model.pointnet_bn_mode, dtype=dtype)
+    else:
+        model = MultiModalEncoder(
+            modules=tuple(cfg.modules),
+            rel_dim=cfg.model.rel_dim,
+            attr_dim=cfg.model.attr_dim,
+            emb_dim=cfg.model.emb_dim,
+            pt_out_dim=cfg.model.pt_out_dim,
+            hidden_units=tuple(cfg.model.hidden_units),
+            heads=tuple(cfg.model.heads),
+            dropout=cfg.model.dropout,
+            pointnet_bn_mode=cfg.model.pointnet_bn_mode,
+            dtype=dtype,
+        )
     init_weights(model, generator)
     return model.to(device)
+
+
+def loss_kind(cfg: Config) -> str:
+    return "nca" if cfg.model_name == "eva" else "overall"
+
+
+def build_objective(cfg: Config) -> OverallLoss | OverallNCALoss:
+    """The objective of ``loss_kind(cfg)`` (its Kendall log-variances at
+    zero for SGAligner's)."""
+    if loss_kind(cfg) == "nca":
+        return OverallNCALoss(cfg.modules)
+    return OverallLoss(cfg.modules, zoom=cfg.loss.zoom)
 
 
 def build_lr_schedule(cfg: Config) -> Callable[[int], float]:

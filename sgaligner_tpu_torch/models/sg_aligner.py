@@ -29,6 +29,33 @@ from sgaligner_tpu_torch.models.structure import MultiGAT
 from sgaligner_tpu_torch.ops.losses import l2_normalize
 
 
+def point_inputs(batch: dict, b: int, two_n: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The object encoder's input ``[O, 3, P]`` and its mask ``[O]``: the
+    batch-pooled points, or every slot of the uncompacted layout."""
+    if "obj_points_pooled" in batch:
+        pts, mask = batch["obj_points_pooled"], batch["pooled_mask"]
+    elif "obj_points" in batch:
+        pts, mask = batch["obj_points"], batch["obj_mask"].reshape(b * two_n)
+    else:
+        raise NotImplementedError("per-pair compacted points are not "
+                                  "ported yet; use pool_compact")
+    return pts.reshape(-1, 3, pts.shape[-1]), mask
+
+
+def scatter_pooled(emb: torch.Tensor, batch: dict, b: int, two_n: int
+                   ) -> torch.Tensor:
+    """Per-object rows back to the ``[B·2N]`` slots: the pooled layout's
+    padded rows zeroed and scattered by ``pooled_flat_idx``; the uncompacted
+    layout's rows are the slots already."""
+    if "obj_points_pooled" not in batch:
+        return emb
+    emb = emb * batch["pooled_mask"][:, None].to(emb.dtype)
+    out = torch.zeros((b * two_n, emb.shape[-1]), dtype=emb.dtype,
+                      device=emb.device)
+    return out.index_add_(0, batch["pooled_flat_idx"].long(), emb)
+
+
 class MultiModalFusion(nn.Module):
     """Learned softmax weights over modalities."""
 
@@ -83,25 +110,10 @@ class MultiModalEncoder(nn.Module):
 
     def _points(self, batch: dict, b: int, two_n: int,
                 generator: torch.Generator | None) -> torch.Tensor:
-        dt = self.dtype
-        if "obj_points_pooled" in batch:
-            pts = batch["obj_points_pooled"]
-            mask = batch["pooled_mask"]
-        elif "obj_points" in batch:
-            pts = batch["obj_points"]
-            mask = batch["obj_mask"].reshape(b * two_n)
-        else:
-            raise NotImplementedError("per-pair compacted points are not "
-                                      "ported yet; use pool_compact")
-        pts = pts.reshape(-1, 3, pts.shape[-1])
+        pts, mask = point_inputs(batch, b, two_n)
         feat = self.object_encoder(pts, mask, generator)
-        emb = self.object_embedding(feat, dt)
-        if "obj_points_pooled" in batch:
-            emb = emb * batch["pooled_mask"][:, None].to(emb.dtype)
-            out = torch.zeros((b * two_n, emb.shape[-1]), dtype=emb.dtype,
-                              device=emb.device)
-            emb = out.index_add_(0, batch["pooled_flat_idx"].long(), emb)
-        return emb
+        return scatter_pooled(self.object_embedding(feat, self.dtype), batch,
+                              b, two_n)
 
     def forward(self, batch: dict, generator: torch.Generator | None = None
                 ) -> dict[str, torch.Tensor]:

@@ -1,12 +1,15 @@
-"""Structure encoder: MultiGAT over dense masked adjacency.
+"""Structure encoders: MultiGAT and MultiGCN over dense masked adjacency.
 
 Counterpart of ``sgaligner_tpu/models/structure.py`` (``GATConvLayer``,
-``MultiGAT``) with torch-geometric GATConv's parameter names and shapes
-(``lin_src.weight [H·out, in]``, ``att_src / att_dst [1, H, out]``,
-``bias [H·out]``). Layer i > 0 takes ``n_units[i] · n_heads[i-1]`` inputs;
-ELU between layers. In training mode each layer's input goes through
-dropout (p = ``dropout``) drawn from the generator the caller passes; at
-p = 0 and at inference it is the identity, as flax's ``nn.Dropout`` is.
+``MultiGAT``, ``GCNConvLayer``, ``MultiGCN``) with torch-geometric's
+parameter names and shapes: GATConv ``lin_src.weight [H·out, in]``,
+``att_src / att_dst [1, H, out]``, ``bias [H·out]``; GCNConv
+``lin.weight [out, in]``, ``bias [out]``. MultiGAT: layer i > 0 takes
+``n_units[i] · n_heads[i-1]`` inputs, ELU between layers, and in training
+mode each layer's input goes through dropout. MultiGCN (EVA's): ReLU and
+then dropout between layers. Dropout (p = ``dropout``) is drawn from the
+generator the caller passes; at p = 0 and at inference it is the
+identity, as flax's ``nn.Dropout`` is.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sgaligner_tpu_torch.ops.gat import gat_conv
+from sgaligner_tpu_torch.ops.gat import gat_conv, gcn_conv
 
 
 class LinearNoBias(nn.Module):
@@ -41,6 +44,18 @@ class GATConvLayer(nn.Module):
         w = w.reshape(self.heads, self.out_dim, -1).permute(2, 0, 1)  # [in, H, out]
         return gat_conv(x, adj, node_mask, w, self.att_src[0].to(dt),
                         self.att_dst[0].to(dt), self.bias.to(dt))
+
+
+class GCNConvLayer(nn.Module):
+    def __init__(self, in_dim: int, out_dim: int):
+        super().__init__()
+        self.lin = LinearNoBias(in_dim, out_dim)
+        self.bias = nn.Parameter(torch.zeros(out_dim))
+
+    def forward(self, x, adj, node_mask):
+        dt = x.dtype
+        return gcn_conv(x, adj, node_mask, self.lin.weight.t().to(dt),
+                        self.bias.to(dt))
 
 
 def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None
@@ -73,4 +88,23 @@ class MultiGAT(nn.Module):
             x = layer(x, adj, node_mask)
             if i + 1 < len(self.layer_stack):
                 x = F.elu(x)
+        return x
+
+
+class MultiGCN(nn.Module):
+    def __init__(self, n_units: Sequence[int] = (3, 200, 400),
+                 dropout: float = 0.0):
+        super().__init__()
+        self.dropout = dropout
+        self.layer_stack = nn.ModuleList(
+            GCNConvLayer(n_units[i], n_units[i + 1])
+            for i in range(len(n_units) - 1))
+
+    def forward(self, x, adj, node_mask, generator=None):
+        for i, layer in enumerate(self.layer_stack):
+            x = layer(x, adj, node_mask)
+            if i + 1 < len(self.layer_stack):
+                x = torch.relu(x)
+                if self.training:
+                    x = dropout(x, self.dropout, generator)
         return x

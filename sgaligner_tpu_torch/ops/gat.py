@@ -1,10 +1,13 @@
-"""Dense masked graph attention (torch-geometric GATConv semantics).
+"""Dense masked graph convolutions (torch-geometric GATConv and GCNConv
+semantics).
 
-Counterpart of ``sgaligner_tpu/ops/gat.py``: every graph of every pair runs
-at once over a dense ``[G, N, N]`` adjacency; ``adj[g, i, j]`` is the edge
-j -> i. Scores ``e_ij = LeakyReLU(att_src·(W x_j) + att_dst·(W x_i), 0.2)``,
-softmax over the incoming edges of i with self-loops added, heads
-concatenated, plus bias; padded nodes output zeros.
+Counterpart of ``sgaligner_tpu/ops/gat.py`` (``gat_conv``, ``gcn_conv``):
+every graph of every pair runs at once over a dense ``[G, N, N]``
+adjacency; ``adj[g, i, j]`` is the edge j -> i. GAT: scores
+``e_ij = LeakyReLU(att_src·(W x_j) + att_dst·(W x_i), 0.2)``, softmax over
+the incoming edges of i with self-loops added, heads concatenated, plus
+bias. GCN: ``Â = A + I`` normalised by ``deg_i^-1/2 deg_j^-1/2`` (deg the
+in-degree), times ``x W``, plus bias. Padded nodes output zeros.
 """
 
 from __future__ import annotations
@@ -45,6 +48,20 @@ def gat_conv(x, adj, node_mask, weight, att_src, att_dst, bias,
     denom = expd.sum(dim=-1, keepdim=True)
     alpha = expd / torch.clamp(denom, min=1e-16)                 # [G, H, N, N]
     out = torch.einsum("ghij,gjhe->gihe", alpha, xp).reshape(g, n, h * dout)
+    if bias is not None:
+        out = out + bias
+    return out * node_mask[..., None].to(out.dtype)
+
+
+def gcn_conv(x, adj, node_mask, weight, bias):
+    """x [G, N, Din]; adj [G, N, N] bool; node_mask [G, N] bool;
+    weight [Din, Dout]; bias [Dout] or None. Returns [G, N, Dout]."""
+    a_hat = add_self_loops(adj, node_mask).to(x.dtype)          # [G, N, N]
+    deg = a_hat.sum(dim=-1)                                     # in-degree of i
+    inv_sqrt = torch.where(deg > 0, torch.rsqrt(torch.clamp(deg, min=1e-12)),
+                           torch.zeros_like(deg))
+    norm = a_hat * inv_sqrt[:, :, None] * inv_sqrt[:, None, :]
+    out = torch.einsum("gij,gjd->gid", norm, x @ weight)
     if bias is not None:
         out = out + bias
     return out * node_mask[..., None].to(out.dtype)

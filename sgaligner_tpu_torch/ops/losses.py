@@ -2,7 +2,7 @@
 
 Counterpart of ``sgaligner_tpu/ops/losses.py`` (``l2_normalize``,
 ``masked_prob_dist``, ``_gather``, ``icl_loss``, ``ial_loss``,
-``kendall_combine``) over padded anchor / negative index sets: every index
+``kendall_combine``, and EVA's ``nca_loss``) over padded anchor / negative index sets: every index
 array has a static length and a boolean mask, and every sum is a masked sum.
 The upstream quirks the JAX package keeps are kept here:
 
@@ -97,3 +97,23 @@ def ial_loss(emb_modal, emb_joint, e1i, e2i, e1j, e2j, m_i, m_j1, m_j2,
 def kendall_combine(losses: torch.Tensor, log_vars: torch.Tensor) -> torch.Tensor:
     """Upstream CustomMultiLossLayer: Σᵢ exp(-sᵢ) Lᵢ + sᵢ."""
     return (torch.exp(-log_vars) * losses + log_vars).sum()
+
+
+def nca_loss(src: torch.Tensor, ref: torch.Tensor, mask: torch.Tensor,
+             alpha: float = 1.0, beta: float = 1.0, ep: float = 0.0
+             ) -> torch.Tensor:
+    """Upstream NCALoss over masked anchors: src / ref [A, D] gathered,
+    normalised anchor embeddings, mask [A]."""
+    mask_f = mask.to(src.dtype)
+    valid2 = mask_f[:, None] * mask_f[None, :]                      # [A, A]
+    scores = (src @ ref.t()) * valid2
+    eye = torch.eye(scores.shape[0], dtype=scores.dtype, device=scores.device)
+    s_diag = eye * scores
+    s_off = torch.exp(alpha * (scores - ep)) * valid2
+    s_off = s_off - s_off * eye
+    n_valid = torch.clamp(mask_f.sum(), min=1.0)
+    loss_diag = -torch.log1p(torch.relu(s_diag.sum(0)))             # [A]
+    term_0 = (torch.log1p(s_off.sum(0)) / alpha * mask_f).sum() / n_valid
+    term_1 = (torch.log1p(s_off.sum(1)) / alpha * mask_f).sum() / n_valid
+    term_d = (beta * loss_diag * mask_f).sum() / n_valid
+    return term_0 + term_1 + term_d

@@ -1,12 +1,15 @@
-"""Training objective: OverallLoss (SGAligner).
+"""Training objectives: OverallLoss (SGAligner) and OverallNCALoss (EVA).
 
 Counterpart of ``sgaligner_tpu/ops/objective.py`` (``init_loss_params``,
-``flat_loss_indices``, ``overall_loss``) over a padded PairBatch:
+``flat_loss_indices``, ``overall_loss``, ``overall_nca_loss``) over a padded
+PairBatch. SGAligner's:
 per-modality ICL and IAL (against the joint embedding), each group combined
 by Kendall uncertainty weights, plus ICL on the joint embedding. The
 weights' log-variances are the ``nn.Parameter``s of ``OverallLoss``, which
 the optimizer updates with the model's (upstream adds the loss layers'
-parameters to its optimizer).
+parameters to its optimizer). EVA's: NCA over every output head (each
+modality and ``joint``), summed; it has no parameters, and the port runs
+it forward only (the EVA eval step's loss).
 """
 
 from __future__ import annotations
@@ -16,7 +19,8 @@ from collections.abc import Sequence
 import torch
 from torch import nn
 
-from sgaligner_tpu_torch.ops.losses import ial_loss, icl_loss, kendall_combine
+from sgaligner_tpu_torch.ops.losses import (ial_loss, icl_loss, kendall_combine,
+                                            l2_normalize, nca_loss)
 
 
 def init_loss_params(num_modules: int) -> dict[str, torch.Tensor]:
@@ -82,3 +86,34 @@ class OverallLoss(nn.Module):
         params = {"ial_log_vars": self.ial_log_vars,
                   "icl_log_vars": self.icl_log_vars}
         return overall_loss(embs, batch, params, self.modal_names, self.zoom)
+
+
+def overall_nca_loss(embs: dict[str, torch.Tensor], batch: dict,
+                     alpha: float = 1.0, beta: float = 1.0, ep: float = 0.0
+                     ) -> dict[str, torch.Tensor]:
+    """Upstream OverallNCALoss.forward: one NCA term per output head, and
+    their sum ``loss``."""
+    ix = flat_loss_indices(batch)
+    mask = ix["m_i"]
+    out: dict[str, torch.Tensor] = {}
+    total = torch.zeros((), dtype=torch.float32, device=mask.device)
+    for key, emb in embs.items():
+        e = l2_normalize(emb, dim=-1)
+        m = mask[:, None].to(e.dtype)
+        out[key] = nca_loss(e[ix["e1i"]] * m, e[ix["e2i"]] * m, mask,
+                            alpha=alpha, beta=beta, ep=ep)
+        total = total + out[key]
+    out["loss"] = total
+    return out
+
+
+class OverallNCALoss(nn.Module):
+    """EVA's objective, in the call form of ``OverallLoss``."""
+
+    def __init__(self, modules: Sequence[str]):
+        super().__init__()
+        self.modal_names = tuple(modules)
+
+    def forward(self, embs: dict[str, torch.Tensor], batch: dict
+                ) -> dict[str, torch.Tensor]:
+        return overall_nca_loss(embs, batch)

@@ -26,10 +26,14 @@ rounded to the compute dtype at the end.
 
 A CUDA tensor goes through ``csrc/pointnet.cu`` (float32) or the Hopper
 designs (bfloat16): the forward ``csrc/pointnet_sm90.cu``, which takes
-C3 = 128 or a multiple of 256 (the wrapper pads other widths with zero
-channels and drops them), and the backward ``csrc/pointnet_bwd_sm90.cu``,
-which runs over the routed points only and takes any C3 that is a multiple
-of 16. A CPU tensor goes through the plain versions below.
+C3 = 128 or a multiple of 256, and the backward ``csrc/pointnet_bwd_sm90.cu``,
+which runs over the routed points only. The forward takes any C3 (EVA's
+is 200): the wrapper pads W3 and b3 with zero channels to the next width
+its kernel takes (f32: a multiple of 16; bf16: 128 or a multiple of 256)
+and drops them from the output. A zero channel's max is relu(0) = 0 and
+never mixes into a real channel. The backward takes C3 a multiple of 16
+(both kernels). A CPU tensor goes through the plain versions below, at
+any C3.
 """
 
 from __future__ import annotations
@@ -94,7 +98,7 @@ def pointnet_bwd_plain(x, dout, amax, peak, w1, b1, w2, b2, w3, b3):
     return dw1, bg(g1), wg(h1, g2), bg(g2), wg(h2, g3), bg(g3)
 
 
-def _check(name, x, weights):
+def _check(name, x, weights, multiple=1):
     w1, b1, w2, b2, w3, b3 = weights
     _build.check_cuda(name, {"x": x, "w1": w1, "b1": b1, "w2": w2, "b2": b2,
                              "w3": w3, "b3": b3}, x.dtype)
@@ -102,13 +106,23 @@ def _check(name, x, weights):
     c3 = w3.shape[-1]
     if three != 3:
         raise ValueError(f"{name}: x has shape {tuple(x.shape)}, expected [O, 3, P]")
-    if c3 % 16 or c3 == 0:
-        raise ValueError(f"{name}: C3 = {c3} is not a positive multiple of 16")
+    if c3 % multiple or c3 == 0:
+        raise ValueError(f"{name}: C3 = {c3} is not a positive multiple of {multiple}"
+                         + (" (a backward at other widths, EVA's C3 = 200, comes "
+                            "with EVA training)" if name == "pointnet_bwd" else ""))
     for key, t, shape in (("w1", w1, (3, C1)), ("b1", b1, (1, C1)),
                           ("w2", w2, (C1, C2)), ("b2", b2, (1, C2)),
                           ("w3", w3, (C2, c3)), ("b3", b3, (1, c3))):
         _build.check_shape(name, key, t, shape)
     return o, p, c3
+
+
+def padded_width(c3: int, dtype: torch.dtype) -> int:
+    """The width the forward kernel runs for C3 channels: the f32 kernel
+    takes multiples of 16, the bf16 kernel 128 channels or groups of 256."""
+    if dtype == torch.bfloat16:
+        return 128 if c3 <= 128 else -(-c3 // 256) * 256
+    return -(-c3 // 16) * 16
 
 
 def pointnet_fwd(x, w1, b1, w2, b2, w3, b3, with_argmax=False):
@@ -126,14 +140,10 @@ def pointnet_pool(x, w1, b1, w2, b2, w3, b3, with_argmax=False):
         return pointnet_pool_plain(x, w1, b1, w2, b2, w3, b3, with_argmax)
     name = "pointnet_fwd"
     o, p, c3 = _check(name, x, (w1, b1, w2, b2, w3, b3))
-    width = c3
-    if x.dtype == torch.bfloat16:
-        # the bf16 kernel takes 128 channels or groups of 256: other widths
-        # get zero channels, whose results are dropped
-        width = 128 if c3 <= 128 else -(-c3 // 256) * 256
-        if width != c3:
-            w3 = torch.nn.functional.pad(w3, (0, width - c3))
-            b3 = torch.nn.functional.pad(b3, (0, width - c3))
+    width = padded_width(c3, x.dtype)
+    if width != c3:
+        w3 = torch.nn.functional.pad(w3, (0, width - c3))
+        b3 = torch.nn.functional.pad(b3, (0, width - c3))
     out = torch.empty((o, width), dtype=torch.float32, device=x.device)
     amax = (torch.empty((o, width), dtype=torch.int32, device=x.device)
             if with_argmax else None)
@@ -185,7 +195,7 @@ def pointnet_bwd(x, dout, amax, peak, w1, b1, w2, b2, w3, b3):
     if x.device.type == "cpu":
         return pointnet_bwd_plain(x, dout, amax, peak, w1, b1, w2, b2, w3, b3)
     name = "pointnet_bwd"
-    o, p, c3 = _check(name, x, (w1, b1, w2, b2, w3, b3))
+    o, p, c3 = _check(name, x, (w1, b1, w2, b2, w3, b3), multiple=16)
     _build.check_cuda(name, {"x": x, "dout": dout, "amax": amax, "peak": peak})
     if (dout.dtype != x.dtype or amax.dtype != torch.int32
             or peak.dtype != torch.float32):

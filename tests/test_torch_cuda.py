@@ -261,10 +261,14 @@ def test_wrappers_raise_instead_of_falling_back(card):
         pct_tail(*args[:4], args[4][:, :100].contiguous(), args[5])
     from sgaligner_tpu_torch.ops.pointnet_fused import pointnet_fwd
 
+    from sgaligner_tpu_torch.ops.pointnet_fused import pointnet_bwd
+
     x, *ws = card.op_inputs("pointnet_fwd", 8, torch.float32, seed=0)
-    with pytest.raises(ValueError):                  # C3 not a multiple of 16
-        pointnet_fwd(x, *ws[:4], ws[4][:, :100].contiguous(),
-                     ws[5][:, :100].contiguous())
+    # the forward pads C3 to its kernel's width; the backward takes
+    # multiples of 16 only, and says which slice brings the others
+    args = card.op_inputs("pointnet_bwd", 8, torch.float32, seed=0, c3=200)
+    with pytest.raises(ValueError, match="EVA training"):
+        pointnet_bwd(*args)
     with pytest.raises(ValueError):                  # weights on the CPU
         pointnet_fwd(x, *(w.cpu() for w in ws))
 
@@ -761,3 +765,59 @@ def test_eval_gradients_on_the_card_match_the_cpu(card, model):
                 for key, run in runs.items() if key != ("cpu", torch.float64)}
         bound = card.PCT_VS_CPU * dist["cpu", torch.float32] + EVAL_F32_SUMS
         assert dist["cuda", torch.float32] <= bound, (k, dist)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("width", [200, 100])
+def test_pointnet_fwd_at_eva_width(card, width, dtype):
+    """The PointNet forward at C3 = 200 (EVA's) and 100: the wrapper pads W3
+    and b3 with zero channels to its kernel's width (f32: 208 / 112; bf16:
+    256 / 128) and crops the output and the argmax. Held to the plain
+    version as at 256 (argmax by value), the same bits twice, and the same
+    values without the argmax."""
+    from sgaligner_tpu_torch.ops import _build
+    from sgaligner_tpu_torch.ops.pointnet_fused import pointnet_fwd
+
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    args = card.op_inputs("pointnet_fwd", 67, dt, seed=11, c3=width)
+    before = _build.LAUNCHES["pointnet_fwd"]
+    card.check_op("pointnet_fwd", args, dtype)
+    assert _build.LAUNCHES["pointnet_fwd"] == before + 1
+    first, second = pointnet_fwd(*args, with_argmax=True), pointnet_fwd(*args, with_argmax=True)
+    alone, _ = pointnet_fwd(*args)
+    torch.cuda.synchronize()
+    assert first[0].shape == first[1].shape == (67, width)
+    assert first[0].is_contiguous() and first[1].is_contiguous()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    assert torch.equal(first[0], alone)
+
+
+def test_eva_on_the_card_matches_the_cpu(card):
+    """EVA (C3 = 200, GCN, NCA objective) at f32 with seeded weights on one
+    pooled batch: the card's embeddings and eval-step components against
+    the CPU's, relative 1e-4 on the valid rows (card.PARITY_DRIFT is the
+    model-level bound; this batch has no max-pool near-ties)."""
+    from sgaligner_tpu_torch.core.config import make_cfg
+    from sgaligner_tpu_torch.data.batch import BatchSpec, pool_compact, to_device
+    from sgaligner_tpu_torch.data.synthetic import make_synthetic_batch
+    from sgaligner_tpu_torch.engine.factory import build_model, build_objective
+    from sgaligner_tpu_torch.engine.train_step import make_eval_step
+
+    cfg = make_cfg(modules=["point", "gcn", "rel", "attr"], model_name="eva")
+    batch = pool_compact(make_synthetic_batch(
+        BatchSpec(batch_size=4, max_objects=16, points_per_object=512), seed=3,
+        bow_noise=0.3), 64)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, dev, torch.Generator().manual_seed(0))
+        step = make_eval_step(model, build_objective(cfg).to(dev), tuple(cfg.modules))
+        b = to_device(batch, dev)
+        with torch.inference_mode():
+            outs[dev] = (model(b), step(b))
+    mask = torch.as_tensor(batch["obj_mask"]).reshape(-1)
+    for k, emb in outs["cpu"][0].items():
+        got = outs["cuda"][0][k].cpu()[mask]
+        want = emb[mask]
+        assert float((got - want).norm() / want.norm()) <= 1e-4, k
+    assert abs(float(outs["cuda"][1]["loss"]) - float(outs["cpu"][1]["loss"])) <= 1e-4 * abs(
+        float(outs["cpu"][1]["loss"]))

@@ -3,6 +3,12 @@
 Each check runs in a fresh interpreter and inspects ``sys.modules``. The JAX
 package is matched by its exact name or its submodules
 (``sgaligner_tpu.``), not by prefix: ``sgaligner_tpu_torch`` must not count.
+The port's modules, chip_smoke.py and ``scripts/export_torch_snapshots.py``
+import neither PyYAML nor tensorstore when imported (each is imported inside
+the one function that needs it), and chip_smoke.py's ``quality`` path (the
+tracked snapshots through the tester, from the ``.pth.tar`` copies, the
+config as a dict) runs with both made unimportable: the card's machine has
+neither.
 """
 
 import json
@@ -15,11 +21,19 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+JAX_NAMES = ("jax", "jaxlib", "flax", "optax", "sgaligner_tpu")
+HOST_ONLY = ("yaml", "tensorstore")
+EXPORT_SCRIPT = os.path.join(REPO, "scripts", "export_torch_snapshots.py")
+
 _PROBE = r"""
-import importlib, json, sys
-for name in sys.argv[1:]:
-    importlib.import_module(name)
-banned = ("jax", "jaxlib", "flax", "optax", "sgaligner_tpu")
+import importlib, importlib.util, json, sys
+banned = tuple(json.loads(sys.argv[1]))
+for name in sys.argv[2:]:
+    if name.endswith(".py"):
+        spec = importlib.util.spec_from_file_location("probed_script", name)
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    else:
+        importlib.import_module(name)
 print(json.dumps(sorted(m for m in sys.modules
                         if any(m == b or m.startswith(b + ".") for b in banned))))
 """
@@ -35,11 +49,16 @@ def _port_modules():
     return names
 
 
-def _imported_banned(names):
+def _env():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
-    out = subprocess.run([sys.executable, "-c", _PROBE, *names], cwd=REPO,
-                         env=env, capture_output=True, text=True, check=True)
+    return env
+
+
+def _imported_banned(names, banned=JAX_NAMES):
+    out = subprocess.run([sys.executable, "-c", _PROBE, json.dumps(banned), *names],
+                         cwd=REPO, env=_env(), capture_output=True, text=True,
+                         check=True)
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
@@ -52,14 +71,57 @@ def test_port_modules_are_listed():
                      "sgaligner_tpu_torch.ops.objective",
                      "sgaligner_tpu_torch.ops.losses",
                      "sgaligner_tpu_torch.models.pointnet",
-                     "sgaligner_tpu_torch.engine.factory"):
+                     "sgaligner_tpu_torch.engine.factory",
+                     "sgaligner_tpu_torch.engine.tester",
+                     "sgaligner_tpu_torch.models.eva",
+                     "sgaligner_tpu_torch.data.scan3r",
+                     "sgaligner_tpu_torch.data.loaders",
+                     "sgaligner_tpu_torch.data.fixtures",
+                     "sgaligner_tpu_torch.utils.io",
+                     "sgaligner_tpu_torch.cli.inference_align_reg",
+                     "sgaligner_tpu_torch.cli.inference_align_eva"):
         assert expected in names
 
 
-@pytest.mark.parametrize("target", ["package", "chip_smoke"])
+def _targets(target):
+    return {"package": _port_modules(), "chip_smoke": ["chip_smoke"],
+            "export_script": [EXPORT_SCRIPT]}[target]
+
+
+@pytest.mark.parametrize("target", ["package", "chip_smoke", "export_script"])
 def test_no_jax_imported(target):
-    names = _port_modules() if target == "package" else ["chip_smoke"]
-    assert _imported_banned(names) == []
+    assert _imported_banned(_targets(target)) == []
+
+
+@pytest.mark.parametrize("target", ["package", "chip_smoke", "export_script"])
+def test_no_yaml_or_tensorstore_at_import(target):
+    assert _imported_banned(_targets(target), HOST_ONLY) == []
+
+
+_QUALITY_WITHOUT_HOST_ONLY = r"""
+import json, sys, tempfile
+for name in ("yaml", "tensorstore"):
+    sys.modules[name] = None                 # importing either now raises
+import chip_smoke
+with tempfile.TemporaryDirectory() as root:
+    chip_smoke.build_val_workspace(root, chip_smoke.snapshot_quality("eva"))
+    results, times, c3, _ = chip_smoke.quality_run("eva", root, "cpu")
+print(json.dumps({"mrr": results["mrr"], "c3": c3, "requests": len(times)}))
+"""
+
+
+def test_quality_path_needs_neither_yaml_nor_tensorstore():
+    """chip_smoke.py's quality run of one snapshot (EVA), on the CPU, with
+    PyYAML and tensorstore unimportable."""
+    out = subprocess.run([sys.executable, "-c", _QUALITY_WITHOUT_HOST_ONLY],
+                         cwd=REPO, env=_env(), capture_output=True, text=True,
+                         check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["c3"] == 200 and got["requests"] == 4
+    import chip_smoke
+
+    pinned = chip_smoke.snapshot_quality("eva")["results"]["mrr"]
+    assert abs(got["mrr"] - pinned) <= chip_smoke.QUALITY_ABS
 
 
 def test_probe_matches_the_jax_package_exactly():
