@@ -14,7 +14,11 @@ Phases, in order (every failure raises and exits non-zero):
                attention family); again at P=200 (not a multiple of the
                kernels' row tiles); the PointNet forward also at EVA's
                C3 = 200 (the wrapper pads to the kernel's width and drops
-               the padding), with two planted faults (PADDED_PLANTED). The
+               the padding), with two planted faults (PADDED_PLANTED); the
+               PointNet backward at C3 = 200 and 100 (padded to the kernels'
+               multiple of 16, dW3 and db3 cropped) at O = 67 and the EVA
+               retrain's O = 256, with the crop's two planted faults
+               (PADDED_BWD_PLANTED). The
                PointNet forward's argmax and the tail's argmax / argmin are
                held by value: at the kernel's index the plain activation must
                equal the plain max (min). Each training and op kernel, the
@@ -86,6 +90,18 @@ Phases, in order (every failure raises and exits non-zero):
                (O = 256 in the tester's layout, the pooled O at bf16) go
                through the kernel again and are held against its plain
                version at the kernels phase's tolerances
+  trainer      the EVA recipe of scripts/aligner_artifact.py (its train
+               and val workspace, seeds 1001 and 2002; 40 epochs of Adam at
+               1e-3, batch 8, f32, the tester's layout) retrained through
+               trainval_eva's train function and the port's Trainer: 20
+               epochs, then a new Trainer resumed from the rolling snapshot
+               to 40; the port's tester on best_snapshot.pth.tar must read
+               MRR >= 0.96 and Hits@1 >= 0.95 (RETRAIN_FLOORS); pointnet_bwd
+               launched once a step (C3 = 200), pointnet_fwd once a step and
+               once a val batch. Then the pct configuration (bf16, pooled
+               bucket 128) for 2 epochs through the same Trainer: finite
+               losses, every kernel's launches the per-step and per-request
+               counts, the final snapshot read back by the tester
   time         each kernel against its plain version (and torch.matmul for
                the tail): the pct serving kernels at the serving O (the three
                wgmma kernels beside the replaced WMMA design's times and their
@@ -98,7 +114,9 @@ Phases, in order (every failure raises and exits non-zero):
                row tiles its kernel ran, which must be the ones they fill),
                the ops' kernels and the OA variants at O=896, the PointNet
                forward at EVA's C3 = 200 (O = 896 and 13,440; the quality
-               runs' request times beside it), with each bound
+               runs' request times beside it), the PointNet backward at
+               C3 = 200 beside 208 and 256 (O = 256 and 896, f32 and bf16),
+               with each bound
                from the shapes (the PointNet backward's from the rows and
                channels that carry gradient);
                scaled_dot_product_attention(q, q, v) at the serving and
@@ -255,6 +273,22 @@ SNAPSHOTS = ("point", "full", "eva")
 QUALITY_KEYS = ("mrr", "hits@1", "hits@3", "hits@5")
 QUALITY_ABS = 0.02
 QUALITY_BUCKET = 128
+# aligner_artifact.py's training split and its EVA recipe (CONFIGS["eva"]:
+# quality_cfg's values train it, MAX_EPOCH epochs of Adam at a flat 1e-3,
+# batch 8, f32), copied for the trainer phase; tests/test_torch_snapshots.py
+# holds them equal to the script. The retrain stops at RETRAIN_HALF epochs
+# and a new Trainer resumes it. RETRAIN_FLOORS are tests/
+# test_aligner_artifact.py's floors for the tracked EVA snapshot
+TRAIN_SEED = 1001
+N_TRAIN_PAIRS = 96
+EVA_RECIPE = dict(modules=["point", "gcn", "rel", "attr"], model_name="eva",
+                  epochs=MAX_EPOCH, scheduler="none", lr=1e-3)
+RETRAIN_HALF = MAX_EPOCH // 2
+RETRAIN_FLOORS = {"mrr": 0.96, "hits@1": 0.95}
+PCT_TRAIN_EPOCHS = 2
+# objects a batch of the tester's layout carries (8 pairs, 2 graphs, 16
+# slots): the EVA retrain's PointNet O
+EVA_TRAIN_O = 8 * 2 * 16
 # launches per SPCT call at O = 896 (phase spct)
 PER_SPCT_EVAL = {"embed_first": 1, "embed_second": 1, "pct_block_eval": 4}
 PER_SPCT_TRAIN = {"embed_first": 1, "embed_second": 1, "embed_first_bwd": 1,
@@ -399,6 +433,34 @@ def _last_channel_zeroed(outs, args):
 # C3 = 200, both dtypes), each of which the comparison must catch
 PADDED_PLANTED = (("the padded channels left in the output", _padding_kept),
                   ("the last real channel zeroed", _last_channel_zeroed))
+
+
+def _crop_shifted(outs, args):
+    """A planted fault of the PointNet backward at a width its kernel pads
+    (EVA's C3 = 200): dW3 and db3 cropped at the wrong end of the padded
+    width, so the padded columns come in and the first real ones drop."""
+    import torch.nn.functional as F
+
+    from sgaligner_tpu_torch.ops.pointnet_fused import BWD_MULTIPLE
+
+    c3 = args[-1].shape[-1]
+    extra = -(-c3 // BWD_MULTIPLE) * BWD_MULTIPLE - c3
+    return (*outs[:4], *(F.pad(t, (0, extra))[:, extra:] for t in outs[4:]))
+
+
+def _live_column_zeroed(outs, args):
+    """dW3's and db3's column of the channel with the largest |db3| zeroed."""
+    c = int(outs[5].abs().argmax())
+    dw3, db3 = outs[4].clone(), outs[5].clone()
+    dw3[:, c] = 0
+    db3[:, c] = 0
+    return (*outs[:4], dw3, db3)
+
+
+# faults planted in the padded PointNet backward's outputs (kernels phase,
+# C3 = 200 and 100, both dtypes): the crop's two ways to fail
+PADDED_BWD_PLANTED = (("a padded column leaking into dW3 / db3", _crop_shifted),
+                      ("a real channel's column zeroed", _live_column_zeroed))
 # pct_block_eval's mixed flag pairs, which no model uses but the JAX op
 # computes: SA's scale with OA's normalisation, and neither
 MIXED_FLAGS = [("both", (True, True)), ("neither", (False, False))]
@@ -826,6 +888,24 @@ def phase_kernels(state: dict) -> None:
         log(f"[kernels] {label:24s} O={SMALL_O} P={P} max_abs={err_abs:.3e} "
             f"max_rel={err_rel:.3e} (tol {tol('pointnet_fwd', dt_name):g}) output "
             f"{tuple(first[0].shape)}")
+    # the PointNet backward at C3 = 200 (EVA) and 100, which its wrapper pads
+    # to the kernels' multiple of 16 and crops (padded_bwd), at O = 67 and at
+    # the EVA retrain's O
+    kern, plain = op_fns("pointnet_bwd")
+    for c3 in (EVA_C3, EVA_C3 // 2):
+        for o in (SMALL_O, EVA_TRAIN_O):
+            for dt_name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+                args = op_inputs("pointnet_bwd", o, dtype, seed=4, c3=c3)
+                label = f"pointnet_bwd/C3={c3}/{dt_name}"
+                err_abs, err_rel = check_op("pointnet_bwd", args, dt_name, what=label)
+                check_planted("pointnet_bwd", args, SA, f"{label} O={o}", dt_name,
+                              PADDED_BWD_PLANTED)
+                first, second = kern(*args), kern(*args)
+                if not all(torch.equal(a, b) for a, b in zip(first, second)):
+                    raise AssertionError(f"{label}: two runs on the same inputs differ")
+                log(f"[kernels] {label:24s} O={o} P={P} max_abs={err_abs:.3e} "
+                    f"max_rel={err_rel:.3e} (tol {tol('pointnet_bwd', dt_name):g}) dW3 "
+                    f"{tuple(first[4].shape)}")
 
 
 def check_planted(name: str, args: tuple, flags, label: str, dt_name: str = "bf16",
@@ -978,21 +1058,21 @@ def phase_serve(state: dict) -> None:
 
 def _train_three(cfg, host, dev: str, modules=POINT_MODULES) -> dict:
     """Three train steps from the seeded weights (pct: head dropout off, so
-    the CPU and the card draw no masks): the losses, the first step's
+    the CPU and the card draw no masks) with ``cfg``'s objective
+    (``build_objective``: EVA's is NCA): the losses, the first step's
     gradients, the starting and final parameters and buffers. A float64
     ``cfg`` keeps the parameters, Adam and the loss at float64 too."""
     import torch
 
     from sgaligner_tpu_torch.data.batch import to_device
-    from sgaligner_tpu_torch.engine.factory import build_model
+    from sgaligner_tpu_torch.engine.factory import build_model, build_objective
     from sgaligner_tpu_torch.engine.train_step import create_train_state, make_train_step
-    from sgaligner_tpu_torch.ops.objective import OverallLoss
 
     model = build_model(cfg, dev, torch.Generator().manual_seed(11))
-    objective = None
+    objective = build_objective(cfg)
     if cfg.tpu.compute_dtype == "float64":
         model = model.double()
-        objective = OverallLoss(modules, zoom=cfg.loss.zoom).double()
+        objective = objective.double()
     if "pct" in modules:
         model.object_encoder.dropout = 0.0
     start = {k: v.detach().double().cpu().clone() for k, v in model.state_dict().items()}
@@ -1866,6 +1946,194 @@ def phase_quality(state: dict) -> None:
         f"{full['hits@1']:.4f}")
 
 
+def build_train_workspace(root: str) -> None:
+    """aligner_artifact.py's benchmark workspace: the train split
+    (TRAIN_SEED, N_TRAIN_PAIRS pairs), then the val split (VAL_SEED,
+    N_VAL_PAIRS) under the same root. The fixtures name scans by pair index,
+    so the val split's files replace those of train pairs 0-31: the
+    artifact's training saw the val pairs' scans, and so does the retrain."""
+    from sgaligner_tpu_torch.data.fixtures import make_synthetic_workspace
+
+    make_synthetic_workspace(root, split="train", n_pairs=N_TRAIN_PAIRS,
+                             seed=TRAIN_SEED, **BENCH)
+    make_synthetic_workspace(root, split="val", n_pairs=N_VAL_PAIRS,
+                             seed=VAL_SEED, **BENCH)
+
+
+def train_cfg(root: str, out: str, modules, model_name: str = "sgaligner",
+              epochs: int = MAX_EPOCH, dtype: str = "float32", bucket: int = 0):
+    """The artifact's training config (quality_cfg's values: Adam at a flat
+    1e-3, batch 8, the tester's layout) for ``epochs`` epochs, with its
+    output tree under ``out``."""
+    from sgaligner_tpu_torch.core.config import make_cfg, make_output_tree
+
+    values = quality_cfg(root, modules, model_name)
+    values["optim"]["max_epoch"] = epochs
+    values["tpu"].update(compute_dtype=dtype, pooled_bucket=bucket)
+    return make_output_tree(make_cfg(**values), out)
+
+
+def retrain(cfg, halves: tuple[int, ...], device: str = "cuda") -> dict:
+    """``cfg`` trained through trainval_eva's ``train`` to ``halves[0]``
+    epochs, then by a new Trainer resumed from the rolling snapshot to each
+    later entry; then the port's tester on best_snapshot.pth.tar (else
+    snapshot.pth.tar, the artifact script's rule) over the val split. The
+    launch counts are set to 0 before each part and read after it. Returns
+    the tester's results, and per part the seconds, the launches and the
+    Trainer's history; the snapshot's iteration and path."""
+    import torch
+
+    from sgaligner_tpu_torch.cli.trainval_eva import train
+    from sgaligner_tpu_torch.core.checkpoint import load_torch_snapshot
+    from sgaligner_tpu_torch.data.loaders import get_val_dataloader
+    from sgaligner_tpu_torch.engine.tester import AlignRegTester
+    from sgaligner_tpu_torch.ops import _build
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    run: dict = {"seconds": [], "launches": [], "history": []}
+
+    def part(fn):
+        sync()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        run["seconds"].append(time.perf_counter() - t0)
+        run["launches"].append(dict(_build.LAUNCHES))
+        return out
+
+    for i, epochs in enumerate(halves):
+        cfg.optim.max_epoch = epochs
+        run["history"].append(part(lambda: train(cfg, device, resume=i > 0)))
+    snaps = Path(cfg.snapshot_dir)
+    best = snaps / "best_snapshot.pth.tar"
+    run["snapshot"] = str(best if best.is_file() else snaps / "snapshot.pth.tar")
+    run["iteration"] = load_torch_snapshot(str(snaps / "snapshot.pth.tar"))["iteration"]
+    loader = get_val_dataloader(cfg)
+    tester = AlignRegTester(cfg, loader.dataset, loader, snapshot=run["snapshot"],
+                            device=device)
+    run["results"] = part(tester.run)
+    return run
+
+
+def _step_ms(run: dict) -> float:
+    """The Trainer's mean process time a step (``time/process``: the step
+    and, every ``log_steps``, the read-back) over a run's epochs, ms."""
+    return 1e3 * statistics.mean(e["train"]["time/process"] for e in run["history"])
+
+
+def bare_step_ms(cfg, steps: int = 20) -> float:
+    """make_train_step alone on the card, on the first batch of ``cfg``'s
+    train loader moved there once, from fresh seeded weights: 3 warm-up
+    steps, then ms a step over ``steps`` synchronised steps (the Trainer's
+    step without its loader, to_device, read-backs and snapshots)."""
+    import torch
+
+    from sgaligner_tpu_torch.data.batch import to_device
+    from sgaligner_tpu_torch.data.loaders import get_train_val_data_loader
+    from sgaligner_tpu_torch.engine.factory import build_model, build_objective
+    from sgaligner_tpu_torch.engine.train_step import create_train_state, make_train_step
+
+    train_loader, _ = get_train_val_data_loader(cfg)
+    batch = to_device(next(iter(train_loader)), "cuda")
+    train = create_train_state(build_model(cfg, "cuda"), cfg, build_objective(cfg))
+    step = make_train_step(tuple(cfg.modules))
+    for _ in range(3):
+        step(train, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step(train, batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+def phase_trainer(state: dict) -> None:
+    """The EVA recipe retrained on the card through the port's Trainer
+    (resumed halfway) and held to RETRAIN_FLOORS by the port's tester; then
+    the pct configuration for PCT_TRAIN_EPOCHS epochs through the same
+    Trainer, its launches held to the per-step and per-request counts and
+    its final snapshot read back by the tester."""
+    import math
+    import tempfile
+
+    steps_per_epoch = N_TRAIN_PAIRS // 8
+    val_batches = -(-N_VAL_PAIRS // 8)
+    with tempfile.TemporaryDirectory(prefix="sga_trainer_") as tmp:
+        ws = str(Path(tmp) / "ws")
+        t0 = time.perf_counter()
+        build_train_workspace(ws)
+        log(f"[trainer] workspace ({N_TRAIN_PAIRS} train pairs, seed {TRAIN_SEED}; "
+            f"{N_VAL_PAIRS} val pairs, seed {VAL_SEED}) built in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        cfg = train_cfg(ws, str(Path(tmp) / "eva"), EVA_RECIPE["modules"], "eva")
+        run = retrain(cfg, (RETRAIN_HALF, EVA_RECIPE["epochs"]))
+        steps = steps_per_epoch * EVA_RECIPE["epochs"]
+        if run["iteration"] != steps:
+            raise AssertionError(f"trainer eva: the rolling snapshot is at step "
+                                 f"{run['iteration']}, expected {steps}")
+        fwd = sum(la["pointnet_fwd"] for la in run["launches"][:2])
+        bwd = sum(la["pointnet_bwd"] for la in run["launches"][:2])
+        want_fwd = steps + EVA_RECIPE["epochs"] * val_batches
+        if (fwd, bwd) != (want_fwd, steps):
+            raise AssertionError(f"trainer eva: pointnet_fwd / pointnet_bwd launched "
+                                 f"{fwd} / {bwd} times, expected {want_fwd} / {steps}")
+        if any(v for la in run["launches"] for k, v in la.items() if k not in POINT_KERNELS):
+            raise AssertionError(f"trainer eva: a kernel off the EVA path ran: {run['launches']}")
+        got = run["results"]
+        low = {k: got[k] for k, floor in RETRAIN_FLOORS.items() if not got[k] >= floor}
+        for i, (secs, hist) in enumerate(zip(run["seconds"], run["history"])):
+            n = steps_per_epoch * len(hist["history"])
+            log(f"[trainer] eva half {i + 1}: {len(hist['history'])} epochs, {n} steps in "
+                f"{secs:.1f} s ({secs / n * 1e3:.2f} ms a step with the val passes, "
+                f"snapshots and loading; the Trainer's process time {_step_ms(hist):.2f} ms "
+                f"a step); last train loss {hist['history'][-1]['train']['loss']:.4f}, "
+                f"val loss {hist['history'][-1]['val']['loss']:.4f} | {state['card']}")
+        log(f"[trainer] eva retrain ({EVA_RECIPE['epochs']} epochs, {steps} steps, resumed "
+            f"at epoch {RETRAIN_HALF}) through the tester on {Path(run['snapshot']).name}: "
+            + ", ".join(f"{k} {got[k]:.4f}" for k in (*QUALITY_KEYS, "sgar@2", "sgar@50",
+                                                       "sgar@100"))
+            + f" (floors {RETRAIN_FLOORS}; the tracked EVA reads "
+            f"{snapshot_quality('eva')['results']['mrr']:.4f} / "
+            f"{snapshot_quality('eva')['results']['hits@1']:.4f}); pointnet_fwd {fwd} "
+            f"launches ({steps} steps + {EVA_RECIPE['epochs']} val passes of {val_batches}), "
+            f"pointnet_bwd {bwd}, C3 = {EVA_C3} | {state['card']}")
+        if low:
+            raise AssertionError(f"trainer eva: {low} below the floors {RETRAIN_FLOORS}")
+        state["launches_trainer_eva"] = bwd
+        state["trainer_eva_ms"] = [_step_ms(h) for h in run["history"]]
+        log(f"[trainer] eva: the bare train step on one of its batches "
+            f"{bare_step_ms(cfg):.2f} ms a step against the Trainer's process time "
+            + " / ".join(f"{ms:.2f}" for ms in state["trainer_eva_ms"])
+            + f" ms (f32, O={EVA_TRAIN_O}) | {state['card']}")
+
+        cfg = train_cfg(ws, str(Path(tmp) / "pct"), MODULES, epochs=PCT_TRAIN_EPOCHS,
+                        dtype="bfloat16", bucket=QUALITY_BUCKET)
+        run = retrain(cfg, (PCT_TRAIN_EPOCHS,))
+        steps = steps_per_epoch * PCT_TRAIN_EPOCHS
+        want = {k: steps * PER_PCT_TRAIN_STEP.get(k, 0)
+                + PCT_TRAIN_EPOCHS * val_batches * PER_REQUEST.get(k, 0) for k in KERNELS}
+        if run["launches"][0] != want:
+            raise AssertionError(f"trainer pct: launches {run['launches'][0]}, "
+                                 f"expected {want}")
+        _check_launches("trainer pct tester", run["launches"][1], PER_REQUEST, val_batches)
+        hist = run["history"][0]["history"]
+        losses = [e["train"]["loss"] for e in hist] + [e["val"]["loss"] for e in hist]
+        if not all(math.isfinite(v) for v in losses) or run["iteration"] != steps:
+            raise AssertionError(f"trainer pct: losses {losses}, step {run['iteration']} "
+                                 f"of {steps}")
+        got = run["results"]
+        log(f"[trainer] pct config (bf16, pooled {QUALITY_BUCKET}) {PCT_TRAIN_EPOCHS} epochs, "
+            f"{steps} steps in {run['seconds'][0]:.1f} s (the Trainer's process time "
+            f"{_step_ms(run['history'][0]):.2f} ms a step; the bare step on one of its "
+            f"batches {bare_step_ms(cfg):.2f} ms; bench.py's B={TRAIN_B} step "
+            f"{state['train_pct_ms']:.2f} ms at O={state['train_pct_o']}); train loss "
+            + " -> ".join(f"{e['train']['loss']:.4f}" for e in hist)
+            + f"; the tester on {Path(run['snapshot']).name}: mrr {got['mrr']:.4f}, "
+            f"hits@1 {got['hits@1']:.4f}; launches {run['launches'][0]} | {state['card']}")
+
+
 def bwd_work(args) -> tuple[int, int, int]:
     """The gradient-carrying work of one pointnet_bwd call on its inputs:
     (rows, channels, tiles) summed over objects. A channel carries gradient
@@ -1901,18 +2169,21 @@ def attn_flops(oa: bool = False, bwd: bool = False) -> int:
 
 
 def bound(name: str, o: int, p: int = P, work: tuple[int, int] | None = None,
-          oa: bool = False, c3: int = PN[-1]) -> tuple[float, str]:
-    """Least time (ms) for the work of one call at O objects, bf16.
-    pointnet_bwd counts only the work its data needs (``work`` from
-    ``bwd_work``); ``oa``: the OA flags (the attention backward's y); ``c3``:
-    the PointNet's real channels (padding is not work)."""
-    e = 2  # bytes per bf16 element
+          oa: bool = False, c3: int = PN[-1], f32: bool = False) -> tuple[float, str]:
+    """Least time (ms) for the work of one call at O objects, bf16 (the
+    PointNet kernels also f32, at the f32 rate: their f32 forms use no
+    tensor cores). pointnet_bwd counts only the work its data needs
+    (``work`` from ``bwd_work``); ``oa``: the OA flags (the attention
+    backward's y); ``c3``: the PointNet's real channels (padding is not
+    work)."""
+    e = 4 if f32 else 2  # bytes per element
+    pn_rate = F32_FLOPS if f32 else BF16_TENSOR_FLOPS
     c1, c2 = PN[:2]
     w_elems = 3 * c1 + c1 + c1 * c2 + c2 + c2 * c3 + c3
     stack_flops = 2 * (3 * c1 + c1 * c2 + c2 * c3)          # per point
     if name == "pointnet_fwd":
         nbytes = o * 3 * p * e + w_elems * e + o * c3 * e + o * c3 * 4
-        ops, rate = o * p * stack_flops, BF16_TENSOR_FLOPS
+        ops, rate = o * p * stack_flops, pn_rate
     elif name == "pointnet_bwd":
         # inputs x, dout, amax, weights; outputs f32 gradients. Operations:
         # at each picked row, h1 and h2 again, g1 = g2·w2ᵀ, dW2 and dW1;
@@ -1922,7 +2193,7 @@ def bound(name: str, o: int, p: int = P, work: tuple[int, int] | None = None,
         nbytes = o * 3 * p * e + o * c3 * (e + 4) + w_elems * e + w_elems * 4
         ops = (rows * 2 * (3 * c1 + c1 * c2 + 2 * c1 * c2 + 3 * c1)
                + chans * 3 * 2 * c2)
-        rate = BF16_TENSOR_FLOPS
+        rate = pn_rate
     elif name == "embed_first":
         nbytes = o * 3 * P * e + 3 * C * e + o * e + o * P * C * e + 2 * C * 4
         ops, rate = 2 * 3 * C * o * P, F32_FLOPS
@@ -2036,6 +2307,7 @@ def phase_time(state: dict) -> None:
         f"{per_req / state['serve_ms']:.1%} of it | {state['card']}")
     rows += time_pointnet(state)
     rows += time_pointnet_eva(state)
+    rows += time_pointnet_bwd_eva(state)
     rows += time_train_pct(state)
     rows += time_oa(state)
     time_attention_yardstick(state)
@@ -2125,6 +2397,58 @@ def time_pointnet_eva(state: dict) -> list[dict]:
     for (name, dtype), ms in state["quality_ms"].items():
         log(f"[time] quality {name} {dtype}: median request {ms:.2f} ms (8 pairs, "
             f"{8 / ms * 1e3:.1f} pairs/s) | {state['card']}")
+    return rows
+
+
+def time_pointnet_bwd_eva(state: dict) -> list[dict]:
+    """The PointNet backward at EVA's C3 = 200 (the wrapper pads W3, b3,
+    dout, peak and amax to 208 and crops dW3 and db3) beside the kernel at
+    208 and 256 on the same points, at the EVA retrain's O and the training
+    O, f32 (the recipe's dtype) and bf16. The bound counts the work of the
+    200 real channels (bwd_work). The row (f32 at the retrain's O, the main
+    path's form) takes its launches from the trainer phase's retrain."""
+    import torch
+
+    _, replaces = KERNELS["pointnet_bwd"]
+    kern, plain = op_fns("pointnet_bwd")
+    rows = []
+    for o in (EVA_TRAIN_O, state["train_o"]):
+        for dt_name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            widths = {}
+            for c3 in (EVA_C3, 208, PN[-1]):
+                args = op_inputs("pointnet_bwd", o, dtype, seed=2, c3=c3)
+                widths[c3] = cuda_ms(lambda: kern(*args))
+                if c3 == EVA_C3:
+                    err_abs, err_rel = check_op("pointnet_bwd", args, dt_name,
+                                                what=f"time: pointnet_bwd C3={c3} O={o}")
+                    plain_ms = cuda_ms(lambda: plain(*args), warmup=1, reps=3)
+                    b_ms, b_by = bound("pointnet_bwd", o, work=bwd_work(args), c3=c3,
+                                       f32=dt_name == "f32")
+                del args
+            ms = widths[EVA_C3]
+            log(f"[time] pointnet_bwd C3={EVA_C3} O={o} {dt_name} kernel {ms:.3f} ms (the "
+                f"kernel at C3 = 208 {widths[208]:.3f}, at 256 {widths[PN[-1]]:.3f}) | plain "
+                f"{plain_ms:.3f} ms | bound {b_ms:.4f} ms ({b_by}; {b_ms / ms:.1%} of it) | "
+                f"library None | max_abs {err_abs:.3e} max_rel {err_rel:.3e} | {state['card']}")
+            if o == EVA_TRAIN_O and dt_name == "f32":
+                rows.append({"name": f"pointnet_bwd/C3={EVA_C3}", "route": "cuda",
+                             "source": "sgaligner_tpu_torch/csrc/pointnet.cu",
+                             "replaces": replaces,
+                             "launches": state["launches_trainer_eva"],
+                             "max_abs_err": err_abs, "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+            torch.cuda.empty_cache()
+    # the retrain's forward beside it (f32, C3 = 200 padded to 208)
+    kern_f, plain_f = op_fns("pointnet_fwd")
+    args = op_inputs("pointnet_fwd", EVA_TRAIN_O, torch.float32, seed=2, c3=EVA_C3)
+    check_op("pointnet_fwd", args, "f32", what=f"time: pointnet_fwd C3={EVA_C3} f32")
+    log(f"[time] pointnet_fwd C3={EVA_C3} O={EVA_TRAIN_O} f32 (the retrain's forward) "
+        f"kernel {cuda_ms(lambda: kern_f(*args)):.3f} ms | plain "
+        f"{cuda_ms(lambda: plain_f(*args), warmup=1, reps=3):.3f} ms | {state['card']}")
+    del args
+    for tag, ms in zip(("first half", "resumed half"), state["trainer_eva_ms"]):
+        log(f"[time] trainer eva {tag}: {ms:.2f} ms a step (the Trainer's process time, "
+            f"f32, O={EVA_TRAIN_O}) | {state['card']}")
     return rows
 
 
@@ -2295,7 +2619,8 @@ def main() -> int:
                         ("serve", phase_serve), ("train", phase_train),
                         ("train_pct", phase_train_pct), ("serve_point", phase_serve_point),
                         ("spct", phase_spct), ("ops", phase_ops),
-                        ("quality", phase_quality), ("time", phase_time)):
+                        ("quality", phase_quality), ("trainer", phase_trainer),
+                        ("time", phase_time)):
         t0 = time.perf_counter()
         phase(state)
         log(f"[{name}] done in {time.perf_counter() - t0:.1f} s")

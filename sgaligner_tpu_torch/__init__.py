@@ -9,14 +9,15 @@ versions run instead.
 
 Ported so far: training, evaluation and serving of the 4-modality
 ``('pct', 'gat', 'rel', 'attr')`` aligner and of the point configuration
-``('point', 'gat', 'rel', 'attr')``; evaluation of the EVA baseline
-``('point', 'gcn', 'rel', 'attr')``; the Scan3R data path, the tester's
-alignment metrics and its CLIs on trained snapshots
-(``engine.tester``, ``cli/``); the offset-attention encoder family
+``('point', 'gat', 'rel', 'attr')``; training and evaluation of the EVA
+baseline ``('point', 'gcn', 'rel', 'attr')``; the epoch trainer with its
+``.pth.tar`` snapshots and resume (``engine.trainer``) and the training
+CLIs; the Scan3R data path, the tester's alignment metrics and its CLIs on
+trained snapshots (``engine.tester``, ``cli/``); the offset-attention encoder family
 (``models.pct.OABlock`` and ``SPCT``, eval and train); and the attention
 ops ``ops.pct_attention.pct_attention_fused`` and ``pct_block_fused`` with
 their gradients. Every Pallas kernel of the JAX package has its CUDA
-counterpart at C = 128 (the PointNet forward at any width). Each module
+counterpart at C = 128 (the PointNet pair at any width). Each module
 names its JAX counterpart in ``sgaligner_tpu/`` in its docstring.
 """
 

@@ -10,7 +10,12 @@ of that module's ``load_snapshot``. ``load_torch_snapshot`` /
 ``{"model": state_dict, "epoch", "iteration"}``, the one the JAX package's
 ``load_torch_snapshot`` reads; ``checkpoints/torch/`` holds such copies of
 the tracked snapshots (``scripts/export_torch_snapshots.py``), so a machine
-without ``tensorstore`` loads them.
+without ``tensorstore`` loads them. The trainer writes the same layout:
+``epoch-<N>.pth.tar`` and ``best_snapshot.pth.tar``, and the rolling
+``snapshot.pth.tar`` with the train state's other entries beside the model
+(``engine/train_step.py::TrainState.state_dict``). ``load_model_state``
+reads either kind of snapshot into the port's state_dict;
+``latest_snapshot`` finds the newest in a snapshot directory.
 
 ``state_dict_from_flax(params, batch_stats, modules)`` takes the flax
 ``params`` / ``batch_stats`` trees of ``sgaligner_tpu``'s MultiModalEncoder
@@ -89,39 +94,68 @@ def read_ocdbt_snapshot(path: str) -> dict:
 
 
 def latest_snapshot(snapshot_dir: str) -> str | None:
-    """The rolling ``snapshot`` directory, else the ``epoch-<N>`` one with
-    the largest N (the JAX package's ``latest_snapshot``)."""
-    rolling = osp.join(snapshot_dir, "snapshot")
-    if osp.isdir(rolling):
-        return rolling
-    epochs = ([d for d in os.listdir(snapshot_dir) if d.startswith("epoch-")]
-              if osp.isdir(snapshot_dir) else [])
-    if not epochs:
+    """The newest snapshot under ``snapshot_dir``: the port's rolling
+    ``snapshot.pth.tar``, else its ``epoch-<N>.pth.tar`` with the largest
+    N, else the JAX package's rolling ``snapshot`` directory, else its
+    ``epoch-<N>`` directory with the largest N (that package's
+    ``latest_snapshot``)."""
+    if not osp.isdir(snapshot_dir):
         return None
-    return osp.join(snapshot_dir, max(epochs, key=lambda d: int(d.split("-")[1])))
+    names = os.listdir(snapshot_dir)
+    for rolling, suffix in (("snapshot.pth.tar", ".pth.tar"), ("snapshot", "")):
+        if rolling in names:
+            return osp.join(snapshot_dir, rolling)
+        epochs = [n.removesuffix(suffix) for n in names if n.startswith("epoch-")
+                  and n.endswith(suffix) and n.removesuffix(suffix)[6:].isdigit()]
+        if epochs:
+            last = max(epochs, key=lambda n: int(n[6:]))
+            return osp.join(snapshot_dir, last + suffix)
+    return None
 
 
 def save_torch_snapshot(path: str, state_dict: dict, epoch: int = 0,
-                        iteration: int = 0) -> str:
+                        iteration: int = 0, **extra) -> str:
     """Write upstream's ``.pth.tar`` layout: ``{"model": state_dict,
-    "epoch", "iteration"}``."""
+    "epoch", "iteration"}``, and ``extra``'s entries beside them (the
+    rolling training snapshot's)."""
     torch.save({"model": {k: v.detach().cpu() for k, v in state_dict.items()},
-                "epoch": int(epoch), "iteration": int(iteration)}, path)
+                "epoch": int(epoch), "iteration": int(iteration), **extra}, path)
     return path
 
 
 def load_torch_snapshot(path: str) -> dict:
     """An upstream ``.pth.tar`` -> ``{"model": state_dict, "epoch",
-    "iteration"}``. A bare state_dict, or one under ``"state_dict"``, is
-    taken too, and DDP's ``module.`` prefix is dropped (what the JAX
-    package's ``load_torch_snapshot`` accepts)."""
+    "iteration"}`` and the file's other entries. A bare state_dict, or one
+    under ``"state_dict"``, is taken too, and DDP's ``module.`` prefix is
+    dropped (what the JAX package's ``load_torch_snapshot`` accepts)."""
     if not osp.isfile(path):
         raise FileNotFoundError(f"no snapshot at {path}")
     blob = torch.load(path, map_location="cpu", weights_only=True)
-    state_dict = blob.get("model", blob.get("state_dict", blob))
+    if "model" in blob or "state_dict" in blob:
+        state_dict = blob.get("model", blob.get("state_dict"))
+        extra = {k: v for k, v in blob.items()
+                 if k not in ("model", "state_dict", "epoch", "iteration")}
+    else:
+        state_dict, extra = blob, {}
     state_dict = {k.removeprefix("module."): v for k, v in state_dict.items()}
-    return {"model": state_dict, "epoch": int(blob.get("epoch", 0)),
+    return {**extra, "model": state_dict, "epoch": int(blob.get("epoch", 0)),
             "iteration": int(blob.get("iteration", 0))}
+
+
+def load_model_state(path: str, modules: tuple[str, ...]
+                     ) -> tuple[dict[str, torch.Tensor], int, int]:
+    """A snapshot's model weights as the port's state_dict, with its epoch
+    and iteration: a ``.pth.tar`` (``load_torch_snapshot``) or a JAX-package
+    snapshot directory (``read_ocdbt_snapshot``, which needs
+    ``tensorstore``)."""
+    if path.endswith((".pth.tar", ".pth", ".tar")):
+        blob = load_torch_snapshot(path)
+        return blob["model"], blob["epoch"], blob["iteration"]
+    blob = read_ocdbt_snapshot(path)
+    params = blob["params"]
+    params = params["model"] if "model" in params else params
+    state_dict = state_dict_from_flax(params, blob.get("batch_stats"), modules)
+    return state_dict, blob["epoch"], blob["iteration"]
 
 
 def _t(a) -> torch.Tensor:

@@ -5,7 +5,8 @@ A copy of ``sgaligner_tpu/core/config.py``'s dataclasses with the same key
 names (without the registration model's section), so a config written for
 the JAX package merges unchanged (keys the port does not read are ignored
 with a warning). ``make_cfg(**values)`` takes the config as a dict;
-``update_config`` merges a YAML file (PyYAML is imported only there).
+``update_config`` merges a YAML file (PyYAML is imported only there);
+``make_output_tree`` derives the snapshot, log and event directories.
 """
 
 from __future__ import annotations
@@ -176,20 +177,27 @@ def load_yaml(filename: str) -> dict[str, Any]:
 def update_config(cfg: Config, filename: str, ensure_dir: bool = True,
                   output_root: str | None = None) -> Config:
     """Merge a YAML file into ``cfg``; with ``ensure_dir``, derive and
-    create the output tree ``<root>/output/<data.name>/<model_name>/<modules
-    joined by '_'>`` with ``snapshots/``, ``logs/`` and ``events/`` (root:
-    ``output_root``, else the working directory)."""
+    create its output tree (``make_output_tree``)."""
     _merge_into_dataclass(cfg, load_yaml(filename))
     if ensure_dir:
-        root = output_root if output_root is not None else os.getcwd()
-        cfg.exp_name = "_".join(cfg.modules)
-        cfg.output_dir = osp.join(root, "output", cfg.data.name, cfg.model_name,
-                                  cfg.exp_name)
-        cfg.snapshot_dir = osp.join(cfg.output_dir, "snapshots")
-        cfg.log_dir = osp.join(cfg.output_dir, "logs")
-        cfg.event_dir = osp.join(cfg.output_dir, "events")
-        for d in (cfg.output_dir, cfg.snapshot_dir, cfg.log_dir, cfg.event_dir):
-            os.makedirs(d, exist_ok=True)
+        make_output_tree(cfg, output_root)
+    return cfg
+
+
+def make_output_tree(cfg: Config, output_root: str | None = None) -> Config:
+    """Derive and create the output tree ``<root>/output/<data.name>/
+    <model_name>/<modules joined by '_'>`` with ``snapshots/``, ``logs/``
+    and ``events/`` (root: ``output_root``, else the working directory);
+    a config given as a dict gets its tree here."""
+    root = output_root if output_root is not None else os.getcwd()
+    cfg.exp_name = "_".join(cfg.modules)
+    cfg.output_dir = osp.join(root, "output", cfg.data.name, cfg.model_name,
+                              cfg.exp_name)
+    cfg.snapshot_dir = osp.join(cfg.output_dir, "snapshots")
+    cfg.log_dir = osp.join(cfg.output_dir, "logs")
+    cfg.event_dir = osp.join(cfg.output_dir, "events")
+    for d in (cfg.output_dir, cfg.snapshot_dir, cfg.log_dir, cfg.event_dir):
+        os.makedirs(d, exist_ok=True)
     return cfg
 
 

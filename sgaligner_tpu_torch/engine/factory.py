@@ -134,10 +134,9 @@ def build_optimizer(cfg: Config, params: Iterable[torch.nn.Parameter]
                     ) -> torch.optim.Adam:
     """Adam with upstream's settings; its weight decay is L2 added to the
     gradient before the moments (optax ``add_decayed_weights`` then
-    ``scale_by_adam``, which covers the loss parameters too). The skip of
-    steps with a non-finite gradient is the train step's
+    ``scale_by_adam``, which covers the loss parameters too). Gradient
+    accumulation (``optim.grad_acc_steps``, optax ``MultiSteps``) and the
+    skip of steps with a non-finite gradient are the train step's
     (``engine/train_step.py``)."""
-    if cfg.optim.grad_acc_steps > 1:
-        raise NotImplementedError("grad_acc_steps > 1 is not ported yet")
     return torch.optim.Adam(params, lr=cfg.optim.lr, betas=(0.9, 0.999),
                             eps=1e-8, weight_decay=cfg.optim.weight_decay)

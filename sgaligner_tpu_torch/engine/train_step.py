@@ -1,9 +1,10 @@
 """Train, eval and serving steps.
 
 Counterpart of ``sgaligner_tpu/engine/train_step.py``: ``TrainState``,
-``create_train_state``, ``make_train_step`` (forward, ``OverallLoss``,
-backward, Adam with the non-finite skip), ``make_eval_step`` (loss, ranks,
-MRR / Hits@K components, SGAR, ``alignment_score``) and the serving steps
+``create_train_state``, ``make_train_step`` (forward, the objective,
+backward, Adam with gradient accumulation and the non-finite skip),
+``make_eval_step`` (loss, ranks, MRR / Hits@K components, SGAR,
+``alignment_score``), ``eval_epoch`` (a pass of it) and the serving steps
 (``make_serving_step``, ``serve_queue``). The JAX steps take parameter trees
 and return new ones; here the model and the objective hold their
 parameters, the train step updates them in place, and every step takes the
@@ -18,6 +19,7 @@ from dataclasses import dataclass
 import torch
 
 from sgaligner_tpu_torch.core.config import Config
+from sgaligner_tpu_torch.data.batch import to_device
 from sgaligner_tpu_torch.engine.factory import build_lr_schedule, build_optimizer
 from sgaligner_tpu_torch.ops import metrics as M
 from sgaligner_tpu_torch.ops.objective import OverallLoss
@@ -27,30 +29,59 @@ from sgaligner_tpu_torch.ops.objective import OverallLoss
 class TrainState:
     """``updates`` counts the optimizer updates applied, which is the
     schedule's count; a skipped non-finite step advances ``skipped`` but not
-    ``updates`` or Adam's state. ``step`` counts every call of the train
-    step, as the JAX state's does."""
+    ``updates`` or Adam's state. With ``acc_steps`` > 1 (``optim.
+    grad_acc_steps``) a finite step adds its gradient to ``acc``, the
+    running mean of optax ``MultiSteps``, and every ``acc_steps``-th one
+    applies it; ``mini`` counts the steps in ``acc``. ``step`` counts every
+    call of the train step, as the JAX state's does."""
 
     model: torch.nn.Module
     objective: OverallLoss
     optimizer: torch.optim.Adam
     schedule: Callable[[int], float]
     generator: torch.Generator      # dropout masks, on the model's device
+    acc_steps: int = 1
     updates: int = 0
     skipped: int = 0
+    mini: int = 0
+    acc: list[torch.Tensor] | None = None
 
     @property
     def step(self) -> int:
-        return self.updates + self.skipped
+        return self.updates * self.acc_steps + self.mini + self.skipped
 
     def parameters(self) -> list[torch.nn.Parameter]:
         return [*self.model.parameters(), *self.objective.parameters()]
+
+    def state_dict(self) -> dict:
+        """Everything but the model's weights that a resumed run needs: the
+        objective's parameters, Adam's state, the dropout generator's state,
+        the counters and the accumulated gradient (the JAX rolling
+        snapshot's ``opt_state``, ``rng`` and ``step``), on the CPU."""
+        return {"objective": {k: v.detach().cpu()
+                              for k, v in self.objective.state_dict().items()},
+                "optimizer": self.optimizer.state_dict(),
+                "generator": self.generator.get_state(),
+                "updates": self.updates, "skipped": self.skipped, "mini": self.mini,
+                "acc": None if self.acc is None else [a.cpu() for a in self.acc]}
+
+    def load_state_dict(self, blob: dict) -> None:
+        """The inverse of ``state_dict`` (tensors go to the parameters'
+        devices)."""
+        self.objective.load_state_dict(blob["objective"])
+        self.optimizer.load_state_dict(blob["optimizer"])
+        self.generator.set_state(blob["generator"])
+        self.updates, self.skipped, self.mini = (int(blob[k]) for k in
+                                                 ("updates", "skipped", "mini"))
+        self.acc = (None if blob["acc"] is None else
+                    [a.to(p.device) for a, p in zip(blob["acc"], self.parameters())])
 
 
 def create_train_state(model, cfg: Config, objective: OverallLoss | None = None
                        ) -> TrainState:
     """Objective (log-variances at zero), Adam over model and objective
     parameters, and a dropout generator seeded from ``cfg.seed`` on the
-    model's device."""
+    model's device; ``cfg.optim.grad_acc_steps`` steps to an update."""
     device = next(model.parameters()).device
     if objective is None:
         objective = OverallLoss(model.modal_names, zoom=cfg.loss.zoom)
@@ -59,17 +90,48 @@ def create_train_state(model, cfg: Config, objective: OverallLoss | None = None
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
     return TrainState(model=model, objective=objective,
                       optimizer=build_optimizer(cfg, params),
-                      schedule=build_lr_schedule(cfg), generator=generator)
+                      schedule=build_lr_schedule(cfg), generator=generator,
+                      acc_steps=max(cfg.optim.grad_acc_steps, 1))
+
+
+def _update(state: TrainState) -> None:
+    """One Adam update from the parameters' ``.grad`` at the schedule's
+    rate."""
+    for group in state.optimizer.param_groups:
+        group["lr"] = state.schedule(state.updates)
+    state.optimizer.step()
+    state.updates += 1
+
+
+def _accumulate(state: TrainState, params: list[torch.nn.Parameter]) -> None:
+    """optax ``MultiSteps``: ``acc + (g - acc) / (mini + 1)``; on the
+    ``acc_steps``-th step the mean becomes the gradient of one update and
+    the accumulator starts again from zero."""
+    if state.acc is None:
+        state.acc = [torch.zeros_like(p) for p in params]
+    for a, p in zip(state.acc, params):
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        a.add_((g - a) / (state.mini + 1))
+    state.mini += 1
+    if state.mini < state.acc_steps:
+        return
+    for a, p in zip(state.acc, params):
+        p.grad = a.clone()
+        a.zero_()
+    state.mini = 0
+    _update(state)
 
 
 def make_train_step(modules: tuple[str, ...]):
     """Returns ``step(state, batch) -> losses``: ``loss`` and its terms
-    ``icl_loss_unimodal``, ``icl_loss_multimodal``, ``ial_loss``
-    (detached). The update is skipped when any gradient is non-finite
-    (optax ``apply_if_finite``): parameters and Adam's state stay as they
-    were. Deciding that reads one flag back from the device per step.
-    BatchNorm running statistics move in the forward, on a skipped step too,
-    as the JAX step assigns the new ``batch_stats`` either way."""
+    (``icl_loss_unimodal``, ``icl_loss_multimodal``, ``ial_loss`` for
+    ``OverallLoss``; one NCA term per head for ``OverallNCALoss``;
+    detached). The step is dropped whole when any gradient is non-finite
+    (optax ``apply_if_finite`` around ``MultiSteps``): parameters, Adam's
+    state and the accumulated gradient stay as they were. Deciding that
+    reads one flag back from the device per step. BatchNorm running
+    statistics move in the forward, on a skipped step too, as the JAX step
+    assigns the new ``batch_stats`` either way."""
 
     def step(state: TrainState, batch: dict) -> dict[str, torch.Tensor]:
         if tuple(modules) != state.objective.modal_names:
@@ -80,15 +142,15 @@ def make_train_step(modules: tuple[str, ...]):
         embs = state.model(batch, generator=state.generator)
         losses = state.objective(embs, batch)
         losses["loss"].backward()
-        grads = [p.grad for p in state.parameters() if p.grad is not None]
+        params = state.parameters()
+        grads = [p.grad for p in params if p.grad is not None]
         finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
-        if bool(finite):
-            for group in state.optimizer.param_groups:
-                group["lr"] = state.schedule(state.updates)
-            state.optimizer.step()
-            state.updates += 1
-        else:
+        if not bool(finite):
             state.skipped += 1
+        elif state.acc_steps > 1:
+            _accumulate(state, params)
+        else:
+            _update(state)
         return {k: v.detach() for k, v in losses.items()}
 
     return step
@@ -156,6 +218,39 @@ def make_eval_step(model, objective: OverallLoss, modules: tuple[str, ...],
         return out
 
     return step
+
+
+def eval_epoch(step, batches, ks: tuple[int, ...], device) -> dict[str, float]:
+    """One pass of an eval step (``make_eval_step``) over host batches, each
+    moved to ``device`` and its components read back: ``loss`` (the mean
+    over batches), ``last_batch_loss``, ``mrr``, ``hits@k`` and
+    ``sgar@{2,50,100}`` over the pass (the JAX trainer's
+    ``inference_epoch`` and tester's aggregation)."""
+    rr_sum = rr_count = n_pairs = 0.0
+    hits = {k: [0.0, 0.0] for k in ks}
+    sgar_sums = {"2": 0.0, "50": 0.0, "100": 0.0}
+    losses: list[float] = []
+    for batch in batches:
+        out = step(to_device(batch, device))
+        losses.append(float(out["loss"]))
+        rr_sum += float(out["rr_sum"])
+        rr_count += float(out["rr_count"])
+        for k in ks:
+            c, t = out[f"hits@{k}"]
+            hits[k][0] += float(c)
+            hits[k][1] += float(t)
+        pv = out["pair_valid"]
+        n_pairs += float(pv.sum())
+        for mode in sgar_sums:
+            sgar_sums[mode] += float((out["sgar"][mode] * pv).sum())
+    results = {"loss": sum(losses) / len(losses) if losses else float("nan"),
+               "last_batch_loss": losses[-1] if losses else float("nan"),
+               "mrr": rr_sum / max(rr_count, 1.0)}
+    for k in ks:
+        results[f"hits@{k}"] = hits[k][0] / max(hits[k][1], 1.0)
+    for mode, total in sgar_sums.items():
+        results[f"sgar@{mode}"] = total / max(n_pairs, 1.0)
+    return results
 
 
 def serve_queue(model, modules: tuple[str, ...], batches: list[dict],

@@ -27,13 +27,15 @@ rounded to the compute dtype at the end.
 A CUDA tensor goes through ``csrc/pointnet.cu`` (float32) or the Hopper
 designs (bfloat16): the forward ``csrc/pointnet_sm90.cu``, which takes
 C3 = 128 or a multiple of 256, and the backward ``csrc/pointnet_bwd_sm90.cu``,
-which runs over the routed points only. The forward takes any C3 (EVA's
-is 200): the wrapper pads W3 and b3 with zero channels to the next width
-its kernel takes (f32: a multiple of 16; bf16: 128 or a multiple of 256)
-and drops them from the output. A zero channel's max is relu(0) = 0 and
-never mixes into a real channel. The backward takes C3 a multiple of 16
-(both kernels). A CPU tensor goes through the plain versions below, at
-any C3.
+which runs over the routed points only. Both take any C3 (EVA's is
+200). The forward's wrapper pads W3 and b3 with zero channels to the next
+width its kernel takes (f32: a multiple of 16; bf16: 128 or a multiple of
+256) and drops them from the output: a zero channel's max is relu(0) = 0
+and never mixes into a real channel. The backward's kernels take multiples
+of 16: ``padded_bwd`` pads W3, b3, dout and peak with zero channels (a
+channel whose max is not positive is never routed) and amax with point 0,
+and drops dW3's and db3's padded columns. A CPU tensor goes through the
+plain versions below, at any C3.
 """
 
 from __future__ import annotations
@@ -98,7 +100,7 @@ def pointnet_bwd_plain(x, dout, amax, peak, w1, b1, w2, b2, w3, b3):
     return dw1, bg(g1), wg(h1, g2), bg(g2), wg(h2, g3), bg(g3)
 
 
-def _check(name, x, weights, multiple=1):
+def _check(name, x, weights):
     w1, b1, w2, b2, w3, b3 = weights
     _build.check_cuda(name, {"x": x, "w1": w1, "b1": b1, "w2": w2, "b2": b2,
                              "w3": w3, "b3": b3}, x.dtype)
@@ -106,10 +108,8 @@ def _check(name, x, weights, multiple=1):
     c3 = w3.shape[-1]
     if three != 3:
         raise ValueError(f"{name}: x has shape {tuple(x.shape)}, expected [O, 3, P]")
-    if c3 % multiple or c3 == 0:
-        raise ValueError(f"{name}: C3 = {c3} is not a positive multiple of {multiple}"
-                         + (" (a backward at other widths, EVA's C3 = 200, comes "
-                            "with EVA training)" if name == "pointnet_bwd" else ""))
+    if c3 == 0:
+        raise ValueError(f"{name}: C3 = 0 channels")
     for key, t, shape in (("w1", w1, (3, C1)), ("b1", b1, (1, C1)),
                           ("w2", w2, (C1, C2)), ("b2", b2, (1, C2)),
                           ("w3", w3, (C2, c3)), ("b3", b3, (1, c3))):
@@ -185,17 +185,38 @@ def _bwd_sizes(o, p, c3, bf16, device):
             (size, lib.sga_pointnet_grad_stride(c3)))
 
 
+BWD_MULTIPLE = 16   # the backward kernels' channel tile
+
+
+def padded_bwd(bwd, width, x, dout, amax, peak, w1, b1, w2, b2, w3, b3):
+    """``bwd`` (the kernels' launch, or the plain backward) run at ``width``
+    >= C3 channels: W3, b3, dout and peak padded with zero channels (a
+    channel whose max is not positive is never routed, so the padding
+    carries no gradient), amax with point 0 (any index in range); dW3's and
+    db3's padded columns dropped."""
+    c3 = w3.shape[-1]
+    if width == c3:
+        return bwd(x, dout, amax, peak, w1, b1, w2, b2, w3, b3)
+
+    def pad(t):
+        return torch.nn.functional.pad(t, (0, width - c3))
+
+    dw1, db1, dw2, db2, dw3, db3 = bwd(x, pad(dout), pad(amax), pad(peak),
+                                       w1, b1, w2, b2, pad(w3), pad(b3))
+    return dw1, db1, dw2, db2, dw3[:, :c3].contiguous(), db3[:, :c3].contiguous()
+
+
 def pointnet_bwd(x, dout, amax, peak, w1, b1, w2, b2, w3, b3):
     """Weight and bias gradients of ``pointnet_fwd`` for the cotangent
     ``dout [O, C3]`` (x's dtype), routed to the points ``amax [O, C3]``
     where the forward's max ``peak [O, C3]`` (``pointnet_pool``; float32
     on the card) is positive: ``(dw1 [3, 64], db1 [1, 64], dw2, db2, dw3,
-    db3)`` at f32 (f64 for f64 inputs)."""
-    global last_bwd_grads
+    db3)`` at f32 (f64 for f64 inputs). On the card a C3 that is not a
+    multiple of BWD_MULTIPLE runs padded (``padded_bwd``)."""
     if x.device.type == "cpu":
         return pointnet_bwd_plain(x, dout, amax, peak, w1, b1, w2, b2, w3, b3)
     name = "pointnet_bwd"
-    o, p, c3 = _check(name, x, (w1, b1, w2, b2, w3, b3), multiple=16)
+    o, p, c3 = _check(name, x, (w1, b1, w2, b2, w3, b3))
     _build.check_cuda(name, {"x": x, "dout": dout, "amax": amax, "peak": peak})
     if (dout.dtype != x.dtype or amax.dtype != torch.int32
             or peak.dtype != torch.float32):
@@ -204,6 +225,16 @@ def pointnet_bwd(x, dout, amax, peak, w1, b1, w2, b2, w3, b3):
                          f"{peak.dtype} (expected torch.float32)")
     for key, t in (("dout", dout), ("amax", amax), ("peak", peak)):
         _build.check_shape(name, key, t, (o, c3))
+    width = -(-c3 // BWD_MULTIPLE) * BWD_MULTIPLE
+    return padded_bwd(_launch_bwd, width, x, dout, amax, peak, w1, b1, w2, b2, w3, b3)
+
+
+def _launch_bwd(x, dout, amax, peak, w1, b1, w2, b2, w3, b3):
+    """One launch of the backward kernels (C3 a multiple of BWD_MULTIPLE,
+    inputs checked by ``pointnet_bwd``)."""
+    global last_bwd_grads
+    name = "pointnet_bwd"
+    o, p, c3 = x.shape[0], x.shape[-1], w3.shape[-1]
     bf16 = x.dtype == torch.bfloat16
     total, blocks, scratch_shape = _bwd_sizes(o, p, c3, bf16, x.device)
     # the kernels' slice sums write every entry

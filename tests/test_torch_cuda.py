@@ -259,18 +259,22 @@ def test_wrappers_raise_instead_of_falling_back(card):
     args = card.op_inputs("pct_tail", 8, torch.bfloat16, seed=0)
     with pytest.raises(ValueError):                  # K not a multiple of 128
         pct_tail(*args[:4], args[4][:, :100].contiguous(), args[5])
-    from sgaligner_tpu_torch.ops.pointnet_fused import pointnet_fwd
-
-    from sgaligner_tpu_torch.ops.pointnet_fused import pointnet_bwd
+    from sgaligner_tpu_torch.ops.pointnet_fused import pointnet_bwd, pointnet_fwd
 
     x, *ws = card.op_inputs("pointnet_fwd", 8, torch.float32, seed=0)
-    # the forward pads C3 to its kernel's width; the backward takes
-    # multiples of 16 only, and says which slice brings the others
-    args = card.op_inputs("pointnet_bwd", 8, torch.float32, seed=0, c3=200)
-    with pytest.raises(ValueError, match="EVA training"):
-        pointnet_bwd(*args)
     with pytest.raises(ValueError):                  # weights on the CPU
         pointnet_fwd(x, *(w.cpu() for w in ws))
+    # both PointNet wrappers pad C3 to their kernels' widths (EVA's 200 and
+    # 100 run padded: test_pointnet_bwd_at_eva_width); wrong shapes, dtypes
+    # and devices still raise
+    x, dout, amax, peak, *ws = card.op_inputs("pointnet_bwd", 8, torch.float32, seed=0,
+                                              c3=200)
+    with pytest.raises(ValueError):                  # weights on the CPU
+        pointnet_bwd(x, dout, amax, peak, *(w.cpu() for w in ws))
+    with pytest.raises(ValueError):                  # dout one channel short
+        pointnet_bwd(x, dout[:, :-1].contiguous(), amax, peak, *ws)
+    with pytest.raises(ValueError):                  # peak not float32
+        pointnet_bwd(x, dout, amax, peak.double(), *ws)
 
 
 @pytest.mark.parametrize("points", [64, 200, 512])
@@ -790,6 +794,65 @@ def test_pointnet_fwd_at_eva_width(card, width, dtype):
     assert first[0].is_contiguous() and first[1].is_contiguous()
     assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
     assert torch.equal(first[0], alone)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("width", [200, 100])
+def test_pointnet_bwd_at_eva_width(card, width, dtype):
+    """The PointNet backward at C3 = 200 (EVA's) and 100: the wrapper pads
+    W3, b3, dout and peak with zero channels and amax with point 0 to the
+    kernels' multiple of 16 (208 / 112), launches once and crops dW3 and
+    db3. Held to the plain backward at the width itself, the same bits
+    twice, and through the autograd Function (zero x gradient)."""
+    from sgaligner_tpu_torch.ops import _build
+    from sgaligner_tpu_torch.ops.pointnet_fused import pointnet_bwd, pointnet_fused
+
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    args = card.op_inputs("pointnet_bwd", 67, dt, seed=12, c3=width)
+    before = _build.LAUNCHES["pointnet_bwd"]
+    card.check_op("pointnet_bwd", args, dtype)
+    assert _build.LAUNCHES["pointnet_bwd"] == before + 1
+    first, second = pointnet_bwd(*args), pointnet_bwd(*args)
+    torch.cuda.synchronize()
+    assert first[4].shape == (128, width) and first[5].shape == (1, width)
+    assert first[4].is_contiguous() and first[5].is_contiguous()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+    x, _, _, _, *ws = args
+    x = x.clone().requires_grad_(True)
+    ws = [w.clone().requires_grad_(True) for w in ws]
+    dout = args[1]
+    grads = torch.autograd.grad(pointnet_fused(x, *ws), [x, *ws], dout)
+    assert not bool(grads[0].any())
+    assert all(g.shape == w.shape for g, w in zip(grads[1:], ws))
+
+
+def test_eva_train_steps_on_the_card_match_the_cpu(card):
+    """Three EVA train steps (C3 = 200: both PointNet kernels padded, GCN,
+    NCA objective) at f32 from the same seeded weights on one pooled batch,
+    card against CPU by the point training rule (PERF.md §2): worst
+    gradient leaf of step 1 TRAIN_GRAD_DRIFT normwise, losses
+    TRAIN_LOSS_DRIFT relative, parameters' card-CPU distance
+    TRAIN_PARAM_DRIFT of the distance moved."""
+    from sgaligner_tpu_torch.core.config import make_cfg
+    from sgaligner_tpu_torch.data.batch import BatchSpec, pool_compact
+    from sgaligner_tpu_torch.data.synthetic import make_synthetic_batch
+    from sgaligner_tpu_torch.ops import _build
+
+    modules = ("point", "gcn", "rel", "attr")
+    cfg = make_cfg(modules=list(modules), model_name="eva")
+    host = pool_compact(make_synthetic_batch(
+        BatchSpec(batch_size=8, max_objects=16, points_per_object=512), seed=3,
+        bow_noise=1.0, resample=True), 64)
+    before = dict(_build.LAUNCHES)
+    runs = {dev: card._train_three(cfg, host, dev, modules) for dev in ("cpu", "cuda")}
+    for name in card.POINT_KERNELS:
+        assert _build.LAUNCHES[name] == before[name] + 3, name
+    bounds = {"grad": card.TRAIN_GRAD_DRIFT, "loss": card.TRAIN_LOSS_DRIFT,
+              "param": card.TRAIN_PARAM_DRIFT}
+    r = card._train_readings(runs["cpu"], runs["cuda"], bounds)
+    assert not r["failed"], r
+    assert runs["cpu"]["losses"][2]["loss"] < runs["cpu"]["losses"][0]["loss"]
 
 
 def test_eva_on_the_card_matches_the_cpu(card):

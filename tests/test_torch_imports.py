@@ -79,7 +79,11 @@ def test_port_modules_are_listed():
                      "sgaligner_tpu_torch.data.fixtures",
                      "sgaligner_tpu_torch.utils.io",
                      "sgaligner_tpu_torch.cli.inference_align_reg",
-                     "sgaligner_tpu_torch.cli.inference_align_eva"):
+                     "sgaligner_tpu_torch.cli.inference_align_eva",
+                     "sgaligner_tpu_torch.engine.trainer",
+                     "sgaligner_tpu_torch.utils.logging",
+                     "sgaligner_tpu_torch.cli.trainval_sgaligner",
+                     "sgaligner_tpu_torch.cli.trainval_eva"):
         assert expected in names
 
 
@@ -122,6 +126,43 @@ def test_quality_path_needs_neither_yaml_nor_tensorstore():
 
     pinned = chip_smoke.snapshot_quality("eva")["results"]["mrr"]
     assert abs(got["mrr"] - pinned) <= chip_smoke.QUALITY_ABS
+
+
+_TRAINER_WITHOUT_HOST_ONLY = r"""
+import json, sys, tempfile
+# importing any of these now raises (the Trainer then writes no events)
+for name in ("yaml", "tensorstore", "torch.utils.tensorboard"):
+    sys.modules[name] = None
+import chip_smoke
+from sgaligner_tpu_torch.data.fixtures import make_synthetic_workspace
+with tempfile.TemporaryDirectory() as root:
+    for split, seed, n in (("train", 1, 8), ("val", 2, 4)):
+        make_synthetic_workspace(root, split=split, n_pairs=n, seed=seed, n_shared=4,
+                                 n_extra=3, pts_per_obj=48, pc_resolutions=[32])
+    cfg = chip_smoke.train_cfg(root, root + "/out", chip_smoke.EVA_RECIPE["modules"], "eva")
+    cfg.tpu.max_objects, cfg.tpu.points_per_object = 8, 32
+    cfg.train.pc_res = cfg.val.pc_res = 32
+    cfg.preprocess.pc_resolutions = [32]
+    run = chip_smoke.retrain(cfg, (1, 2), "cpu")
+print(json.dumps({"mrr": run["results"]["mrr"], "iteration": run["iteration"],
+                  "epochs": [h["epochs"] for h in run["history"]],
+                  "snapshot": run["snapshot"].rsplit("/", 1)[-1]}))
+"""
+
+
+def test_trainer_path_needs_neither_yaml_nor_tensorstore():
+    """chip_smoke.py's retrain (trainval_eva's train function, a resumed
+    Trainer, the tester) on a tiny workspace on the CPU, the config a dict,
+    with PyYAML and tensorstore unimportable (and TensorBoard's writer,
+    whose tensorflow import, where installed, would take most of the
+    test's time)."""
+    out = subprocess.run([sys.executable, "-c", _TRAINER_WITHOUT_HOST_ONLY],
+                         cwd=REPO, env=_env(), capture_output=True, text=True,
+                         check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    # 8 train pairs in batches of 8: one step an epoch
+    assert got["iteration"] == 2 and got["epochs"] == [1, 2]
+    assert got["snapshot"] == "best_snapshot.pth.tar" and 0.0 < got["mrr"] <= 1.0
 
 
 def test_probe_matches_the_jax_package_exactly():

@@ -254,9 +254,11 @@ def test_encoder_eval_forward_matches_jax_f64(x64):
 
 def test_training_mode_guards():
     """Both configurations switch to their training form; the options the
-    port does not have yet raise."""
+    port does not have yet raise, and gradient accumulation (ported) builds
+    its train state (``tests/test_torch_trainer.py`` holds it to JAX)."""
     from sgaligner_tpu_torch.core.config import make_cfg
     from sgaligner_tpu_torch.engine.factory import build_optimizer
+    from sgaligner_tpu_torch.engine.train_step import create_train_state
     from sgaligner_tpu_torch.models.pointnet import PointNetEncoder
 
     point = MultiModalEncoder(POINT_MODULES)
@@ -269,5 +271,6 @@ def test_training_mode_guards():
     with pytest.raises(NotImplementedError, match="active"):
         PointNetEncoder(bn_mode="active")
     cfg = make_cfg(modules=list(POINT_MODULES), optim={"grad_acc_steps": 2})
-    with pytest.raises(NotImplementedError, match="grad_acc_steps"):
-        build_optimizer(cfg, point.parameters())
+    assert isinstance(build_optimizer(cfg, point.parameters()), torch.optim.Adam)
+    state = create_train_state(point, cfg)
+    assert (state.acc_steps, state.mini, state.acc) == (2, 0, None)

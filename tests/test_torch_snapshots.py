@@ -117,6 +117,11 @@ def test_contract_matches_the_script_and_quality(name, tmp_path):
     assert smoke.BENCH == script.BENCH
     assert (smoke.VAL_SEED, smoke.N_VAL_PAIRS, smoke.MAX_EPOCH) == (
         script.VAL_SEED, script.N_VAL_PAIRS, script.MAX_EPOCH)
+    # the trainer phase's retrain: the script's train split and EVA recipe,
+    # whose config is the tester's (quality_cfg's values)
+    assert (smoke.TRAIN_SEED, smoke.N_TRAIN_PAIRS) == (script.TRAIN_SEED,
+                                                       script.N_TRAIN_PAIRS)
+    assert smoke.EVA_RECIPE == script.CONFIGS["eva"]
     q = smoke.snapshot_quality(name)
     assert q["bench"] == smoke.BENCH
     assert (q["val_seed"], q["n_val_pairs"]) == (smoke.VAL_SEED, smoke.N_VAL_PAIRS)
@@ -127,3 +132,12 @@ def test_contract_matches_the_script_and_quality(name, tmp_path):
     with open(written) as f:
         want = yaml.safe_load(f)
     assert smoke.quality_cfg(root, q["modules"], model_name) == want
+    if name == "eva":
+        # the config the script trains EVA with
+        rec = script.CONFIGS["eva"]
+        trained = script.write_cfg(str(tmp_path / "train.yaml"), root, rec["modules"],
+                                   max_epoch=rec["epochs"], model_name=rec["model_name"],
+                                   scheduler=rec["scheduler"], lr=rec["lr"])
+        with open(trained) as f:
+            want = yaml.safe_load(f)
+        assert smoke.quality_cfg(root, smoke.EVA_RECIPE["modules"], "eva") == want
