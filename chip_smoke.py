@@ -13,12 +13,13 @@ Phases, in order (every failure raises and exits non-zero):
                of 8), float32 and bfloat16, SA and OA (the six kernels of the
                attention family); again at P=200 (not a multiple of the
                kernels' row tiles); the PointNet forward also at EVA's
-               C3 = 200 (the wrapper pads to the kernel's width and drops
-               the padding), with two planted faults (PADDED_PLANTED); the
-               PointNet backward at C3 = 200 and 100 (padded to the kernels'
-               multiple of 16, dW3 and db3 cropped) at O = 67 and the EVA
-               retrain's O = 256, with the crop's two planted faults
-               (PADDED_BWD_PLANTED). The
+               C3 = 200 (bf16: the wrapper pads to the kernel's width and
+               drops the padding, with two planted faults, PADDED_PLANTED;
+               f32: the kernel takes any C3, F32_FWD_PLANTED); the PointNet
+               backward at C3 = 200 and 100 at O = 67 and the EVA retrain's
+               O = 256 (bf16: padded to the kernel's multiple of 16, dW3 and
+               db3 cropped, with the crop's two planted faults,
+               PADDED_BWD_PLANTED; f32: unpadded, F32_BWD_PLANTED). The
                PointNet forward's argmax and the tail's argmax / argmin are
                held by value: at the kernel's index the plain activation must
                equal the plain max (min). Each training and op kernel, the
@@ -114,8 +115,10 @@ Phases, in order (every failure raises and exits non-zero):
                row tiles its kernel ran, which must be the ones they fill),
                the ops' kernels and the OA variants at O=896, the PointNet
                forward at EVA's C3 = 200 (O = 896 and 13,440; the quality
-               runs' request times beside it), the PointNet backward at
-               C3 = 200 beside 208 and 256 (O = 256 and 896, f32 and bf16),
+               runs' request times beside it), the bf16 PointNet backward at
+               C3 = 200 beside 208 and 256, and the f32 forms of both PointNet
+               kernels at C3 = 200 and 256 beside their first versions'
+               times (F32_FIRST_MS) and their passes (O = 256 and 896),
                with each bound
                from the shapes (the PointNet backward's from the rows and
                channels that carry gradient);
@@ -149,7 +152,7 @@ F32_FLOPS = 67e12
 P, C, DA, K = 512, 128, 32, 1024
 SA, OA = (True, False), (False, True)   # (scale, double_norm) of the attention ops
 PN = (64, 128, 256)            # PointNet widths (conv1, conv2, conv3 = pt_out_dim)
-EVA_C3 = 200                   # EVA's PointNet width (models/eva.py), padded by the wrapper
+EVA_C3 = 200                   # EVA's PointNet width (models/eva.py); the bf16 wrappers pad it
 SMALL_O = 67
 RAGGED_P = 200
 MODULES = ("pct", "gat", "rel", "attr")
@@ -417,7 +420,7 @@ def _padding_kept(outs, args):
     from sgaligner_tpu_torch.ops.pointnet_fused import padded_width, pointnet_fwd
 
     x, w1, b1, w2, b2, w3, b3 = args
-    extra = padded_width(w3.shape[1], x.dtype) - w3.shape[1]
+    extra = padded_width(w3.shape[1]) - w3.shape[1]
     return pointnet_fwd(x, w1, b1, w2, b2, F.pad(w3, (0, extra)), F.pad(b3, (0, extra)),
                         with_argmax=True)
 
@@ -430,7 +433,7 @@ def _last_channel_zeroed(outs, args):
 
 
 # faults planted in the padded PointNet forward's outputs (kernels phase,
-# C3 = 200, both dtypes), each of which the comparison must catch
+# C3 = 200, bf16), each of which the comparison must catch
 PADDED_PLANTED = (("the padded channels left in the output", _padding_kept),
                   ("the last real channel zeroed", _last_channel_zeroed))
 
@@ -458,9 +461,44 @@ def _live_column_zeroed(outs, args):
 
 
 # faults planted in the padded PointNet backward's outputs (kernels phase,
-# C3 = 200 and 100, both dtypes): the crop's two ways to fail
+# C3 = 200 and 100, bf16): the crop's two ways to fail
 PADDED_BWD_PLANTED = (("a padded column leaking into dW3 / db3", _crop_shifted),
                       ("a real channel's column zeroed", _live_column_zeroed))
+
+
+def _live_channel_zeroed(outs, args):
+    """The PointNet forward's channel with the largest max, zeroed in
+    every object."""
+    out, amax = outs
+    out = out.clone()
+    out[:, int(out.abs().amax(dim=0).argmax())] = 0
+    return out, amax
+
+
+def _shift_last(t, n: int = 8):
+    """The last ``n`` columns of t moved one column on (the last to the
+    first of them)."""
+    t = t.clone()
+    t[:, -n:] = t[:, -n:].roll(1, dims=1)
+    return t
+
+
+def _last_channels_shifted_fwd(outs, args):
+    out, amax = outs
+    return _shift_last(out), _shift_last(amax)
+
+
+def _last_channels_shifted_bwd(outs, args):
+    return (*outs[:4], _shift_last(outs[4]), _shift_last(outs[5]))
+
+
+# faults planted in the f32 PointNet kernels' outputs at widths that are not
+# a multiple of their tiles (kernels phase, C3 = 200 and 100: the kernels
+# take any C3, so the ragged last channels are where they can go wrong)
+F32_FWD_PLANTED = (("the channel with the largest max zeroed", _live_channel_zeroed),
+                   ("the last 8 channels shifted by one", _last_channels_shifted_fwd))
+F32_BWD_PLANTED = (("a real channel's column zeroed", _live_column_zeroed),
+                   ("the last 8 columns of dW3 / db3 shifted by one", _last_channels_shifted_bwd))
 # pct_block_eval's mixed flag pairs, which no model uses but the JAX op
 # computes: SA's scale with OA's normalisation, and neither
 MIXED_FLAGS = [("both", (True, True)), ("neither", (False, False))]
@@ -544,6 +582,13 @@ FIRST_MS = {"pointnet_bwd": 3.296, "pct_epi_sums": 0.435, "embed_first_bwd": 0.2
 POINTNET_BWD_PASSES = ("::pointnet_bwd_wgmma_kernel", "::pointnet_dw3_wgmma_kernel",
                        "::reduce_slices_kernel")
 EPI_SUMS_PASSES = ("::epi_sums_stream_kernel", "::reduce_slices_kernel")
+# The f32 PointNet kernels' first versions (the port's first design: shared-memory FMA
+# chunks, C3 = 200 padded to 208) at the EVA retrain's O = 256 and C3 = 200
+# (NVIDIA H100 80GB HBM3, 700.00 W; CUDA events, median of 5, chip_smoke.py),
+# and the kernel names of the f32 backward's passes (pass_split)
+F32_FIRST_MS = {"pointnet_bwd": 22.112, "pointnet_fwd": 2.270}
+POINTNET_F32_BWD_PASSES = ("::transpose_w3_kernel", "::pointnet_bwd_f32_kernel",
+                           "::pointnet_dw3_f32_kernel", "::pointnet_reduce_f32_kernel")
 EMBED_FIRST_BWD_PASSES = ("::embed_first_bwd_stream_kernel", "::reduce_slices_kernel")
 ATTN_FWD_PASSES = ("::project_wgmma_kernel", "::lse_wgmma_kernel", "::apply_wgmma_kernel")
 
@@ -874,23 +919,24 @@ def phase_kernels(state: dict) -> None:
                 log(f"[kernels] {label:24s} O={SMALL_O} P={p} max_abs={err_abs:.3e} "
                     f"max_rel={err_rel:.3e} (tol {tol(name, dt_name, flags or SA):g}) "
                     f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms")
-    # the PointNet forward at EVA's C3 = 200, which its wrapper pads to the
-    # kernel's width (f32 208, bf16 256) and crops
+    # the PointNet forward at EVA's C3 = 200: bf16's wrapper pads to the
+    # kernel's width (256) and crops; the f32 kernel takes it as it is
     kern, plain = op_fns("pointnet_fwd")
     for dt_name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         args = op_inputs("pointnet_fwd", SMALL_O, dtype, seed=3, c3=EVA_C3)
         label = f"pointnet_fwd/C3={EVA_C3}/{dt_name}"
         err_abs, err_rel = check_op("pointnet_fwd", args, dt_name, what=label)
-        check_planted("pointnet_fwd", args, SA, label, dt_name, PADDED_PLANTED)
+        check_planted("pointnet_fwd", args, SA, label, dt_name,
+                      PADDED_PLANTED if dt_name == "bf16" else F32_FWD_PLANTED)
         first, second = kern(*args), kern(*args)
         if not all(torch.equal(a, b) for a, b in zip(first, second)):
             raise AssertionError(f"{label}: two runs on the same inputs differ")
         log(f"[kernels] {label:24s} O={SMALL_O} P={P} max_abs={err_abs:.3e} "
             f"max_rel={err_rel:.3e} (tol {tol('pointnet_fwd', dt_name):g}) output "
             f"{tuple(first[0].shape)}")
-    # the PointNet backward at C3 = 200 (EVA) and 100, which its wrapper pads
-    # to the kernels' multiple of 16 and crops (padded_bwd), at O = 67 and at
-    # the EVA retrain's O
+    # the PointNet backward at C3 = 200 (EVA) and 100, at O = 67 and at the
+    # EVA retrain's O: bf16's wrapper pads to the kernel's multiple of 16 and
+    # crops (padded_bwd); the f32 kernels take any C3
     kern, plain = op_fns("pointnet_bwd")
     for c3 in (EVA_C3, EVA_C3 // 2):
         for o in (SMALL_O, EVA_TRAIN_O):
@@ -899,7 +945,7 @@ def phase_kernels(state: dict) -> None:
                 label = f"pointnet_bwd/C3={c3}/{dt_name}"
                 err_abs, err_rel = check_op("pointnet_bwd", args, dt_name, what=label)
                 check_planted("pointnet_bwd", args, SA, f"{label} O={o}", dt_name,
-                              PADDED_BWD_PLANTED)
+                              PADDED_BWD_PLANTED if dt_name == "bf16" else F32_BWD_PLANTED)
                 first, second = kern(*args), kern(*args)
                 if not all(torch.equal(a, b) for a, b in zip(first, second)):
                     raise AssertionError(f"{label}: two runs on the same inputs differ")
@@ -2102,6 +2148,7 @@ def phase_trainer(state: dict) -> None:
         if low:
             raise AssertionError(f"trainer eva: {low} below the floors {RETRAIN_FLOORS}")
         state["launches_trainer_eva"] = bwd
+        state["launches_trainer_eva_fwd"] = fwd
         state["trainer_eva_ms"] = [_step_ms(h) for h in run["history"]]
         log(f"[trainer] eva: the bare train step on one of its batches "
             f"{bare_step_ms(cfg):.2f} ms a step against the Trainer's process time "
@@ -2170,20 +2217,19 @@ def attn_flops(oa: bool = False, bwd: bool = False) -> int:
 
 def bound(name: str, o: int, p: int = P, work: tuple[int, int] | None = None,
           oa: bool = False, c3: int = PN[-1], f32: bool = False) -> tuple[float, str]:
-    """Least time (ms) for the work of one call at O objects, bf16 (the
-    PointNet kernels also f32, at the f32 rate: their f32 forms use no
-    tensor cores). pointnet_bwd counts only the work its data needs
+    """Least time (ms) for the work of one call at O objects, bf16, or
+    with ``f32`` f32 at the f32 rate (the f32 forms use no tensor cores).
+    pointnet_bwd counts only the work its data needs
     (``work`` from ``bwd_work``); ``oa``: the OA flags (the attention
     backward's y); ``c3``: the PointNet's real channels (padding is not
     work)."""
     e = 4 if f32 else 2  # bytes per element
-    pn_rate = F32_FLOPS if f32 else BF16_TENSOR_FLOPS
     c1, c2 = PN[:2]
     w_elems = 3 * c1 + c1 + c1 * c2 + c2 + c2 * c3 + c3
     stack_flops = 2 * (3 * c1 + c1 * c2 + c2 * c3)          # per point
     if name == "pointnet_fwd":
         nbytes = o * 3 * p * e + w_elems * e + o * c3 * e + o * c3 * 4
-        ops, rate = o * p * stack_flops, pn_rate
+        ops, rate = o * p * stack_flops, BF16_TENSOR_FLOPS
     elif name == "pointnet_bwd":
         # inputs x, dout, amax, weights; outputs f32 gradients. Operations:
         # at each picked row, h1 and h2 again, g1 = g2·w2ᵀ, dW2 and dW1;
@@ -2193,7 +2239,7 @@ def bound(name: str, o: int, p: int = P, work: tuple[int, int] | None = None,
         nbytes = o * 3 * p * e + o * c3 * (e + 4) + w_elems * e + w_elems * 4
         ops = (rows * 2 * (3 * c1 + c1 * c2 + 2 * c1 * c2 + 3 * c1)
                + chans * 3 * 2 * c2)
-        rate = pn_rate
+        rate = BF16_TENSOR_FLOPS
     elif name == "embed_first":
         nbytes = o * 3 * P * e + 3 * C * e + o * e + o * P * C * e + 2 * C * 4
         ops, rate = 2 * 3 * C * o * P, F32_FLOPS
@@ -2244,7 +2290,7 @@ def bound(name: str, o: int, p: int = P, work: tuple[int, int] | None = None,
     else:
         nbytes = 4 * o * P * C * e + 4 * C * K * e + o * e + 2 * o * K * 4 + 2 * K * 4
         ops, rate = 2 * o * P * 4 * C * K, BF16_TENSOR_FLOPS
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / (F32_FLOPS if f32 else rate)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -2310,6 +2356,7 @@ def phase_time(state: dict) -> None:
     rows += time_pointnet_bwd_eva(state)
     rows += time_train_pct(state)
     rows += time_oa(state)
+    time_f32_forms(state)
     time_attention_yardstick(state)
     state["rows"] = rows
 
@@ -2401,51 +2448,82 @@ def time_pointnet_eva(state: dict) -> list[dict]:
 
 
 def time_pointnet_bwd_eva(state: dict) -> list[dict]:
-    """The PointNet backward at EVA's C3 = 200 (the wrapper pads W3, b3,
-    dout, peak and amax to 208 and crops dW3 and db3) beside the kernel at
-    208 and 256 on the same points, at the EVA retrain's O and the training
-    O, f32 (the recipe's dtype) and bf16. The bound counts the work of the
-    200 real channels (bwd_work). The row (f32 at the retrain's O, the main
-    path's form) takes its launches from the trainer phase's retrain."""
+    """The bf16 PointNet backward at EVA's C3 = 200 (the wrapper pads W3,
+    b3, dout, peak and amax to 208 and crops dW3 and db3) beside the kernel
+    at 208 and 256 on the same points; then the f32 forms of both PointNet
+    kernels (rows 14 and 15 as the EVA recipe trains them; any C3, no
+    padding) at C3 = 200 and 256. Each at the EVA retrain's O and the
+    training O, beside its plain version and its bound (the backward's from
+    the rows and channels that carry gradient, bwd_work); the f32 forms at
+    the retrain's O and C3 = 200 also beside their first versions' times
+    (F32_FIRST_MS), the backward with its passes under torch.profiler. The
+    rows (f32 at the retrain's O and C3 = 200, the main path's forms) take
+    their launches from the trainer phase's retrain."""
     import torch
 
-    _, replaces = KERNELS["pointnet_bwd"]
+    from sgaligner_tpu_torch.ops import pointnet_fused
+
     kern, plain = op_fns("pointnet_bwd")
-    rows = []
     for o in (EVA_TRAIN_O, state["train_o"]):
-        for dt_name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-            widths = {}
-            for c3 in (EVA_C3, 208, PN[-1]):
-                args = op_inputs("pointnet_bwd", o, dtype, seed=2, c3=c3)
-                widths[c3] = cuda_ms(lambda: kern(*args))
-                if c3 == EVA_C3:
-                    err_abs, err_rel = check_op("pointnet_bwd", args, dt_name,
-                                                what=f"time: pointnet_bwd C3={c3} O={o}")
-                    plain_ms = cuda_ms(lambda: plain(*args), warmup=1, reps=3)
-                    b_ms, b_by = bound("pointnet_bwd", o, work=bwd_work(args), c3=c3,
-                                       f32=dt_name == "f32")
+        widths = {}
+        for c3 in (EVA_C3, 208, PN[-1]):
+            args = op_inputs("pointnet_bwd", o, torch.bfloat16, seed=2, c3=c3)
+            widths[c3] = cuda_ms(lambda: kern(*args))
+            if c3 == EVA_C3:
+                err_abs, err_rel = check_op("pointnet_bwd", args, "bf16",
+                                            what=f"time: pointnet_bwd C3={c3} O={o}")
+                plain_ms = cuda_ms(lambda: plain(*args), warmup=1, reps=3)
+                b_ms, b_by = bound("pointnet_bwd", o, work=bwd_work(args), c3=c3)
+            del args
+        ms = widths[EVA_C3]
+        log(f"[time] pointnet_bwd C3={EVA_C3} O={o} bf16 kernel {ms:.3f} ms (the kernel at "
+            f"C3 = 208 {widths[208]:.3f}, at 256 {widths[PN[-1]]:.3f}) | plain {plain_ms:.3f} ms "
+            f"| bound {b_ms:.4f} ms ({b_by}; {b_ms / ms:.1%} of it) | library None | max_abs "
+            f"{err_abs:.3e} max_rel {err_rel:.3e} | {state['card']}")
+        torch.cuda.empty_cache()
+    rows = []
+    launches = {"pointnet_fwd": state["launches_trainer_eva_fwd"],
+                "pointnet_bwd": state["launches_trainer_eva"]}
+    for name in POINT_KERNELS:
+        kern, plain = op_fns(name)
+        for o in (EVA_TRAIN_O, state["train_o"]):
+            for c3 in (EVA_C3, PN[-1]):
+                args = op_inputs(name, o, torch.float32, seed=2, c3=c3)
+                err_abs, err_rel = check_op(name, args, "f32",
+                                            what=f"time: {name} f32 C3={c3} O={o}")
+                ms = cuda_ms(lambda: kern(*args))
+                plain_ms = cuda_ms(lambda: plain(*args), warmup=1, reps=3)
+                work = bwd_work(args) if name == "pointnet_bwd" else None
+                b_ms, b_by = bound(name, o, work=work, c3=c3, f32=True)
+                note = ""
+                if work:
+                    tiles = int(float(pointnet_fused.last_bwd_grads[-1]))
+                    if tiles != work[2]:
+                        raise AssertionError(f"pointnet_bwd f32 ran {tiles} row tiles, the "
+                                             f"routed rows fill {work[2]}")
+                    note = (f" | {work[0]} rows and {work[1]} channels carry gradient, "
+                            f"{tiles} row tiles")
+                main = (o, c3) == (EVA_TRAIN_O, EVA_C3)
+                if main:
+                    first = F32_FIRST_MS[name]
+                    note += f" | the first version {first} ms ({first / ms:.1f}x this)"
+                    if work:
+                        split = pass_split(lambda: kern(*args), POINTNET_F32_BWD_PASSES)
+                        note += " | passes (torch.profiler, ms a call): " + ", ".join(
+                            f"{k[2:].replace('_kernel', '')} {split.get(k, 0.0):.4f}"
+                            for k in POINTNET_F32_BWD_PASSES)
+                log(f"[time] {name} f32 C3={c3} O={o} kernel {ms:.3f} ms | plain "
+                    f"{plain_ms:.3f} ms | bound {b_ms:.4f} ms ({b_by}; {b_ms / ms:.1%} of "
+                    f"it) | library None | max_abs {err_abs:.3e} max_rel {err_rel:.3e}{note} "
+                    f"| {state['card']}")
+                if main:
+                    rows.append({"name": f"{name}/C3={EVA_C3}/f32", "route": "cuda",
+                                 "source": "sgaligner_tpu_torch/csrc/pointnet.cu",
+                                 "replaces": KERNELS[name][1], "launches": launches[name],
+                                 "max_abs_err": err_abs, "ms": ms, "plain_ms": plain_ms,
+                                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
                 del args
-            ms = widths[EVA_C3]
-            log(f"[time] pointnet_bwd C3={EVA_C3} O={o} {dt_name} kernel {ms:.3f} ms (the "
-                f"kernel at C3 = 208 {widths[208]:.3f}, at 256 {widths[PN[-1]]:.3f}) | plain "
-                f"{plain_ms:.3f} ms | bound {b_ms:.4f} ms ({b_by}; {b_ms / ms:.1%} of it) | "
-                f"library None | max_abs {err_abs:.3e} max_rel {err_rel:.3e} | {state['card']}")
-            if o == EVA_TRAIN_O and dt_name == "f32":
-                rows.append({"name": f"pointnet_bwd/C3={EVA_C3}", "route": "cuda",
-                             "source": "sgaligner_tpu_torch/csrc/pointnet.cu",
-                             "replaces": replaces,
-                             "launches": state["launches_trainer_eva"],
-                             "max_abs_err": err_abs, "ms": ms, "plain_ms": plain_ms,
-                             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
-            torch.cuda.empty_cache()
-    # the retrain's forward beside it (f32, C3 = 200 padded to 208)
-    kern_f, plain_f = op_fns("pointnet_fwd")
-    args = op_inputs("pointnet_fwd", EVA_TRAIN_O, torch.float32, seed=2, c3=EVA_C3)
-    check_op("pointnet_fwd", args, "f32", what=f"time: pointnet_fwd C3={EVA_C3} f32")
-    log(f"[time] pointnet_fwd C3={EVA_C3} O={EVA_TRAIN_O} f32 (the retrain's forward) "
-        f"kernel {cuda_ms(lambda: kern_f(*args)):.3f} ms | plain "
-        f"{cuda_ms(lambda: plain_f(*args), warmup=1, reps=3):.3f} ms | {state['card']}")
-    del args
+                torch.cuda.empty_cache()
     for tag, ms in zip(("first half", "resumed half"), state["trainer_eva_ms"]):
         log(f"[time] trainer eva {tag}: {ms:.2f} ms a step (the Trainer's process time, "
             f"f32, O={EVA_TRAIN_O}) | {state['card']}")
@@ -2561,6 +2639,41 @@ def time_oa(state: dict) -> list[dict]:
         del args
         torch.cuda.empty_cache()
     return rows
+
+
+def time_f32_forms(state: dict) -> None:
+    """The f32 forms that are still first versions (pct_embed.cu,
+    pct_attention.cu and pct_tail.cu: every kernel but the PointNet pair,
+    pct_epi_sums and embed_first_bwd, whose f32 forms are redesigned) at
+    O = 896, P = 512: CUDA-event ms and the bound at the f32 rate of each.
+    No recipe serves or trains them: only the parity phases launch them
+    (parity, train_pct_parity, oa_parity)."""
+    import torch
+
+    o = state["train_o"]
+    for name in KERNELS:
+        if name in (*POINT_KERNELS, "pct_epi_sums", "embed_first_bwd"):
+            continue
+        variants = ([("SA", SA), ("OA", OA)] if name in ATTN_FNS else
+                    [("", SA), ("idx", "idx")] if name == "pct_tail" else [("", SA)])
+        for tag, flags in variants:
+            kern, _ = op_fns(name, flags)
+            args = op_inputs(name, o, torch.float32, seed=2)
+            ms = cuda_ms(lambda: kern(*args), warmup=1, reps=3)
+            b_ms, b_by = bound(name, o, oa=flags == OA, f32=True)
+            log(f"[time] f32 form {name}{'/' + tag if tag else ''} O={o}: kernel {ms:.3f} ms | "
+                f"bound {b_ms:.4f} ms ({b_by}, the f32 rate) | {f32_source(name)} | "
+                f"{state['card']}")
+            del args
+            torch.cuda.empty_cache()
+
+
+def f32_source(name: str) -> str:
+    """The file of a kernel's f32 form (a first version)."""
+    if name.startswith("embed"):
+        return "sgaligner_tpu_torch/csrc/pct_embed.cu"
+    return ("sgaligner_tpu_torch/csrc/pct_tail.cu" if name.startswith("pct_tail")
+            else "sgaligner_tpu_torch/csrc/pct_attention.cu")
 
 
 def time_attention_yardstick(state: dict) -> None:

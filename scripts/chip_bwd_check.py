@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""The bf16 backwards (block, tail, embedding, PointNet) and the epilogue
-sums on one NVIDIA GPU: accuracy at few objects, and times at the training
-O.
+"""The bf16 backwards (block, tail, embedding, PointNet), the epilogue sums
+and the f32 PointNet backward on one NVIDIA GPU: accuracy at few objects,
+and times at the training O.
 
-    python3 scripts/chip_bwd_check.py [label] [--times-only]
+    python3 scripts/chip_bwd_check.py [label] [--times-only] [--f32-pointnet]
 
 Run from a checkout's root (it imports that checkout's chip_smoke.py and
 sgaligner_tpu_torch); running it from two checkouts on one card compares
@@ -21,7 +21,10 @@ two designs on the same seeded inputs. Prints, per line and prefixed by
   too) and pct_epi_sums at O = 896 (P = 512): CUDA-event ms (median of 5), the
   bound from chip_smoke.bound (pointnet_bwd's from the work its inputs
   route, chip_smoke.bwd_work), the error against the plain version, and
-  the device ms of each kernel under torch.profiler.
+  the device ms of each kernel under torch.profiler;
+* the f32 PointNet backward (the EVA recipe's form, any C3) at O = 256 and
+  896, C3 = 200 and 256: the same readings, its four passes' device ms
+  among them. With --f32-pointnet only these lines (and the ptxas notes).
 """
 
 from __future__ import annotations
@@ -43,7 +46,9 @@ def registers(tag: str) -> None:
     lines = (Path(_build.build_info["path"]).parent / "build.log").read_text().splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry" in line and any(k in line for k in ("bwd", "wgrad", "_dz_",
-                                                                  "epi_sums")):
+                                                                  "epi_sums", "dw3",
+                                                                  "pointnet_reduce",
+                                                                  "transpose_w3")):
             name = line.split("'")[1]
             notes = " | ".join(x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
                                if "Used" in x or "spill" in x)
@@ -77,7 +82,9 @@ PASSES = ("project_wgmma_kernel", "lse_wgmma_kernel", "dz_wgmma_kernel", "dv_wgm
           "tail_g_kernel", "tail_dx_kernel", "tail_dw_kernel", "embed_second_bwd_wgmma_kernel",
           "embed_second_bwd_kernel", "pointnet_bwd_wgmma_kernel", "pointnet_dw3_wgmma_kernel",
           "pointnet_bwd_kernel", "epi_sums_stream_kernel", "epi_sums_kernel",
-          "embed_first_bwd_stream_kernel", "embed_first_bwd_kernel", "reduce_slices_kernel")
+          "embed_first_bwd_stream_kernel", "embed_first_bwd_kernel", "reduce_slices_kernel",
+          "transpose_w3_kernel", "pointnet_bwd_f32_kernel", "pointnet_dw3_f32_kernel",
+          "pointnet_reduce_f32_kernel")
 
 
 def times(tag: str) -> None:
@@ -103,17 +110,37 @@ def times(tag: str) -> None:
         torch.cuda.empty_cache()
 
 
+def f32_pointnet(tag: str) -> None:
+    kern, _ = cs.op_fns("pointnet_bwd")
+    for o in (cs.EVA_TRAIN_O, 896):
+        for c3 in (cs.EVA_C3, cs.PN[-1]):
+            args = cs.op_inputs("pointnet_bwd", o, torch.float32, seed=2, c3=c3)
+            ms = cs.cuda_ms(lambda: kern(*args))
+            work = cs.bwd_work(args)
+            b_ms, _ = cs.bound("pointnet_bwd", o, work=work, c3=c3, f32=True)
+            err = cs.check_op("pointnet_bwd", args, "f32", what="pointnet_bwd f32")[1]
+            split = cs.pass_split(lambda: kern(*args), tuple(f"::{k}" for k in PASSES))
+            print(f"{tag} pointnet_bwd f32 C3={c3} O={o}: {ms:.3f} ms, bound {b_ms:.4f} ms, "
+                  f"max_rel {err:.2e}, {work[0]} rows / {work[1]} channels carry gradient | "
+                  "passes " + ", ".join(f"{k[2:]} {v:.4f}" for k, v in split.items())
+                  + f" | {cs.card_line()}", flush=True)
+            del args
+            torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_bwd_check: needs an NVIDIA GPU", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
-    args = [a for a in sys.argv[1:] if a != "--times-only"]
+    args = [a for a in sys.argv[1:] if not a.startswith("--")]
     tag = args[0] if args else "this"
     registers(tag)
-    if "--times-only" not in sys.argv:
-        accuracy(tag)
-    times(tag)
+    if "--f32-pointnet" not in sys.argv:
+        if "--times-only" not in sys.argv:
+            accuracy(tag)
+        times(tag)
+    f32_pointnet(tag)
     return 0
 
 

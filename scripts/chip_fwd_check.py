@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """The bf16 forwards of the pct block (eval and training), the attention
-op, embed_second and the PointNet encoder on one NVIDIA GPU: times at the
-training and serving O.
+op, embed_second and the PointNet encoder, and the f32 PointNet forward, on
+one NVIDIA GPU: times at the training and serving O.
 
-    python3 scripts/chip_fwd_check.py [label]
+    python3 scripts/chip_fwd_check.py [label] [--f32-pointnet]
 
 Run from a checkout's root (it imports that checkout's chip_smoke.py and
 sgaligner_tpu_torch); running it from two checkouts on one card compares
@@ -18,9 +18,12 @@ two designs on the same seeded inputs. Prints, per line and prefixed by
   CUDA-event ms (median of 9), the bound from chip_smoke.bound, the error
   against the plain version (at O = 896), and the device ms of each kernel
   under torch.profiler;
+* the f32 PointNet forward (the EVA recipe's form, any C3) with the
+  argmax at O = 256 and 896, C3 = 200 and 256: the same readings;
 * the point configuration's four B = 512 requests, as chip_smoke.py's
   serve_point phase serves them (after its serve phase, which makes the
   requests), with their host-clock times.
+With --f32-pointnet only the ptxas notes and the f32 PointNet lines.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ import chip_smoke as cs  # noqa: E402
 PASSES = ("project_wgmma_kernel", "lse_wgmma_kernel", "apply_wgmma_kernel",
           "embed_second_wgmma_kernel", "project_kernel", "lse_kernel", "apply_kernel",
           "attn_out_kernel", "embed_second_kernel", "pointnet_fwd_wgmma_kernel",
-          "pointnet_fwd_kernel", "reduce_slices_kernel")
+          "pointnet_fwd_kernel", "pointnet_fwd_f32_kernel", "reduce_slices_kernel")
 
 
 def registers(tag: str) -> None:
@@ -77,14 +80,36 @@ def times(tag: str) -> None:
         torch.cuda.empty_cache()
 
 
+def f32_pointnet(tag: str) -> None:
+    kern, _ = cs.op_fns("pointnet_fwd")
+    for o in (cs.EVA_TRAIN_O, 896):
+        for c3 in (cs.EVA_C3, cs.PN[-1]):
+            args = cs.op_inputs("pointnet_fwd", o, torch.float32, seed=2, c3=c3)
+            err = cs.check_op("pointnet_fwd", args, "f32", what="pointnet_fwd f32")[1]
+            ms = cs.cuda_ms(lambda: kern(*args), warmup=3, reps=9)
+            b_ms, _ = cs.bound("pointnet_fwd", o, c3=c3, f32=True)
+            split = cs.pass_split(lambda: kern(*args), tuple(f"::{k}" for k in PASSES))
+            print(f"{tag} pointnet_fwd f32 C3={c3} O={o}: {ms:.3f} ms, bound {b_ms:.4f} ms "
+                  f"({b_ms / ms:.1%}), max_rel {err:.2e} | passes " + ", ".join(
+                      f"{k[2:]} {v:.4f}" for k, v in split.items()) + f" | {cs.card_line()}",
+                  flush=True)
+            del args
+            torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_fwd_check: needs an NVIDIA GPU", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
-    tag = sys.argv[1] if len(sys.argv) > 1 else "this"
+    args = [a for a in sys.argv[1:] if not a.startswith("--")]
+    tag = args[0] if args else "this"
     registers(tag)
+    if "--f32-pointnet" in sys.argv:
+        f32_pointnet(tag)
+        return 0
     times(tag)
+    f32_pointnet(tag)
     print(f"{tag} serve_point:", flush=True)
     state: dict = {}
     for phase in (cs.phase_device, cs.phase_serve, cs.phase_serve_point):

@@ -188,9 +188,9 @@ inline int reduce_slices(const float* scratch, long long stride, int blocks, flo
 }  // namespace
 
 // The PointNet backward's flat gradient buffer (floats): dw1 [3, 64], db1,
-// dw2 [64, 128], db2, dw3 [128, C3], db3, then one float the bf16 kernel
-// sets to the row tiles it ran (pointnet_bwd_sm90.cu; 0 from the f32
-// kernel). Every scratch slice has this layout.
+// dw2 [64, 128], db2, dw3 [128, C3], db3, then one float the kernels set to
+// the 64-row tiles of routed points they ran (pointnet_bwd_sm90.cu for
+// bf16, pointnet.cu for f32).
 namespace pointnet_grad {
 constexpr int kC1 = 64, kC2 = 128;
 constexpr int kOffDb1 = 3 * kC1;
@@ -199,7 +199,6 @@ constexpr int kOffDb2 = kOffDw2 + kC1 * kC2;
 constexpr int kOffDw3 = kOffDb2 + kC2;
 __host__ __device__ inline int off_db3(int c3) { return kOffDw3 + kC2 * c3; }
 __host__ __device__ inline int total(int c3) { return off_db3(c3) + c3 + 1; }
-__host__ __device__ inline int stride(int c3) { return (int)slice_stride(total(c3)); }
 }  // namespace pointnet_grad
 
 // relu routing of the pct block's training epilogue x + relu(t·wbn + bbn):

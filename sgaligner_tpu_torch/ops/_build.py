@@ -120,8 +120,8 @@ _SIGNATURES = {
                      _I, _I, _I, _I, _P],
     "sga_pointnet_fwd": [_P, _P, _P, _P, _P, _P, _P, _F, _P, _I, _I, _I, _I,
                          _P],
-    "sga_pointnet_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _F,
-                         _I, _I, _I, _I, _P],
+    "sga_pointnet_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I,
+                         _I, _I, _P],
     "sga_embed_first_bwd": [_P, _P, _P, _P, _F, _F, _F, _I, _F, _I, _I, _I,
                             _P],
     "sga_embed_second_bwd": [_P, _P, _P, _P, _P, _P, _F, _F, _P, _F, _I, _F,
@@ -138,11 +138,9 @@ _SIGNATURES = {
                          _I, _P],
     "sga_pct_tail_bwd": [_P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _P, _P, _P,
                          _P, _P, _P, _P, _P, _F, _I, _F, _I, _I, _I, _I, _P],
-    # queries (no launch): scratch sizes and the backward's block count
-    "sga_pointnet_grad_stride": [_I],
+    # queries (no launch): scratch sizes
     "sga_pointnet_grad_total": [_I],
-    "sga_pointnet_bwd_blocks": [_I, _I],
-    "sga_pointnet_bwd_work_bytes": [_I, _I, _I],
+    "sga_pointnet_bwd_work_bytes": [_I, _I, _I, _I],
     "sga_pct_epi_sums_rows_per_block": [_I],
     "sga_embed_first_bwd_rows_per_block": [_I],
     "sga_pct_bwd_work_bytes": [_I, _I, _I],

@@ -24,18 +24,18 @@ masks come from those pre-activations; h1 and h2 are rounded to the compute
 dtype; a3 stays f32 and the max and argmax run on relu(a3); the output is
 rounded to the compute dtype at the end.
 
-A CUDA tensor goes through ``csrc/pointnet.cu`` (float32) or the Hopper
-designs (bfloat16): the forward ``csrc/pointnet_sm90.cu``, which takes
-C3 = 128 or a multiple of 256, and the backward ``csrc/pointnet_bwd_sm90.cu``,
-which runs over the routed points only. Both take any C3 (EVA's is
-200). The forward's wrapper pads W3 and b3 with zero channels to the next
-width its kernel takes (f32: a multiple of 16; bf16: 128 or a multiple of
-256) and drops them from the output: a zero channel's max is relu(0) = 0
-and never mixes into a real channel. The backward's kernels take multiples
-of 16: ``padded_bwd`` pads W3, b3, dout and peak with zero channels (a
-channel whose max is not positive is never routed) and amax with point 0,
-and drops dW3's and db3's padded columns. A CPU tensor goes through the
-plain versions below, at any C3.
+A CUDA tensor goes through the kernels of ``csrc/pointnet.cu`` (float32:
+register-tiled FMA, W2 and W3 resident, any C3; the backward over the
+routed points only) or the Hopper designs (bfloat16): the forward
+``csrc/pointnet_sm90.cu``, which takes C3 = 128 or a multiple of 256, and
+the backward ``csrc/pointnet_bwd_sm90.cu``, which runs over the routed
+points only and takes multiples of 16. At bfloat16 the forward's wrapper
+pads W3 and b3 with zero channels to the next width its kernel takes and
+drops them from the output: a zero channel's max is relu(0) = 0 and never
+mixes into a real channel; ``padded_bwd`` pads W3, b3, dout and peak with
+zero channels (a channel whose max is not positive is never routed) and
+amax with point 0, and drops dW3's and db3's padded columns. A CPU tensor
+goes through the plain versions below, at any C3.
 """
 
 from __future__ import annotations
@@ -117,12 +117,10 @@ def _check(name, x, weights):
     return o, p, c3
 
 
-def padded_width(c3: int, dtype: torch.dtype) -> int:
-    """The width the forward kernel runs for C3 channels: the f32 kernel
-    takes multiples of 16, the bf16 kernel 128 channels or groups of 256."""
-    if dtype == torch.bfloat16:
-        return 128 if c3 <= 128 else -(-c3 // 256) * 256
-    return -(-c3 // 16) * 16
+def padded_width(c3: int) -> int:
+    """The width the bfloat16 forward kernel runs for C3 channels: 128
+    channels or groups of 256 (the float32 kernel takes any C3)."""
+    return 128 if c3 <= 128 else -(-c3 // 256) * 256
 
 
 def pointnet_fwd(x, w1, b1, w2, b2, w3, b3, with_argmax=False):
@@ -140,7 +138,7 @@ def pointnet_pool(x, w1, b1, w2, b2, w3, b3, with_argmax=False):
         return pointnet_pool_plain(x, w1, b1, w2, b2, w3, b3, with_argmax)
     name = "pointnet_fwd"
     o, p, c3 = _check(name, x, (w1, b1, w2, b2, w3, b3))
-    width = padded_width(c3, x.dtype)
+    width = padded_width(c3) if x.dtype == torch.bfloat16 else c3
     if width != c3:
         w3 = torch.nn.functional.pad(w3, (0, width - c3))
         b3 = torch.nn.functional.pad(b3, (0, width - c3))
@@ -160,32 +158,28 @@ def pointnet_pool(x, w1, b1, w2, b2, w3, b3, with_argmax=False):
     return out, amax
 
 
-# the flat gradient buffer of the last bfloat16 pointnet_bwd launch: its
-# last float is the count of 64-row tiles the kernel ran (read it after the
-# call; keeping it costs no sync)
+# the flat gradient buffer of the last pointnet_bwd launch: its last float
+# is the count of 64-row tiles the kernels ran (read it after the call;
+# keeping it costs no sync)
 last_bwd_grads: torch.Tensor | None = None
 
 
 @functools.lru_cache(maxsize=64)
-def _bwd_sizes(o, p, c3, bf16, device):
-    """(gradient buffer floats, f32 blocks, scratch shape) of one backward
-    launch: bf16 takes one byte work buffer (both passes' slices, the
-    routed rows' h2, the slots), f32 a slice per block."""
+def _bwd_sizes(o, p, c3, dtype, device):
+    """(gradient buffer floats, work buffer bytes) of one backward launch:
+    one byte buffer holds the kernels' per-block slices, the routed rows'
+    h2 and the slots (float32 also W3ᵀ)."""
     lib = _build.lib()
     if not o:
-        return lib.sga_pointnet_grad_total(c3), 0, (0,)
+        return lib.sga_pointnet_grad_total(c3), 0
     with torch.cuda.device(device):
-        size = (lib.sga_pointnet_bwd_work_bytes(o, p, c3) if bf16
-                else lib.sga_pointnet_bwd_blocks(o, c3))
+        size = lib.sga_pointnet_bwd_work_bytes(o, p, c3, _build.DTYPE_CODE[dtype])
     if size < 0:
         raise RuntimeError(f"pointnet_bwd: {lib.sga_error_string(-size).decode()}")
-    if bf16:
-        return lib.sga_pointnet_grad_total(c3), 0, (size,)
-    return (lib.sga_pointnet_grad_total(c3), size,
-            (size, lib.sga_pointnet_grad_stride(c3)))
+    return lib.sga_pointnet_grad_total(c3), size
 
 
-BWD_MULTIPLE = 16   # the backward kernels' channel tile
+BWD_MULTIPLE = 16   # the bfloat16 backward kernel's channel tile
 
 
 def padded_bwd(bwd, width, x, dout, amax, peak, w1, b1, w2, b2, w3, b3):
@@ -211,8 +205,8 @@ def pointnet_bwd(x, dout, amax, peak, w1, b1, w2, b2, w3, b3):
     ``dout [O, C3]`` (x's dtype), routed to the points ``amax [O, C3]``
     where the forward's max ``peak [O, C3]`` (``pointnet_pool``; float32
     on the card) is positive: ``(dw1 [3, 64], db1 [1, 64], dw2, db2, dw3,
-    db3)`` at f32 (f64 for f64 inputs). On the card a C3 that is not a
-    multiple of BWD_MULTIPLE runs padded (``padded_bwd``)."""
+    db3)`` at f32 (f64 for f64 inputs). On the card a bfloat16 C3 that is
+    not a multiple of BWD_MULTIPLE runs padded (``padded_bwd``)."""
     if x.device.type == "cpu":
         return pointnet_bwd_plain(x, dout, amax, peak, w1, b1, w2, b2, w3, b3)
     name = "pointnet_bwd"
@@ -225,31 +219,31 @@ def pointnet_bwd(x, dout, amax, peak, w1, b1, w2, b2, w3, b3):
                          f"{peak.dtype} (expected torch.float32)")
     for key, t in (("dout", dout), ("amax", amax), ("peak", peak)):
         _build.check_shape(name, key, t, (o, c3))
+    if x.dtype == torch.float32:
+        return _launch_bwd(x, dout, amax, peak, w1, b1, w2, b2, w3, b3)
     width = -(-c3 // BWD_MULTIPLE) * BWD_MULTIPLE
     return padded_bwd(_launch_bwd, width, x, dout, amax, peak, w1, b1, w2, b2, w3, b3)
 
 
 def _launch_bwd(x, dout, amax, peak, w1, b1, w2, b2, w3, b3):
-    """One launch of the backward kernels (C3 a multiple of BWD_MULTIPLE,
-    inputs checked by ``pointnet_bwd``)."""
+    """One launch of the backward kernels (bfloat16: C3 a multiple of
+    BWD_MULTIPLE; inputs checked by ``pointnet_bwd``). b3 takes no part:
+    the routing reads the forward's max."""
     global last_bwd_grads
     name = "pointnet_bwd"
     o, p, c3 = x.shape[0], x.shape[-1], w3.shape[-1]
-    bf16 = x.dtype == torch.bfloat16
-    total, blocks, scratch_shape = _bwd_sizes(o, p, c3, bf16, x.device)
+    total, size = _bwd_sizes(o, p, c3, x.dtype, x.device)
     # the kernels' slice sums write every entry
     grads = (torch.empty if o else torch.zeros)(total, dtype=torch.float32, device=x.device)
     if o:
-        scratch = torch.empty(scratch_shape, dtype=torch.uint8 if bf16 else torch.float32,
-                              device=x.device)
+        work = torch.empty(size, dtype=torch.uint8, device=x.device)
         _build.launch(name, "sga_pointnet_bwd", x.device,
                       x.data_ptr(), dout.data_ptr(), amax.data_ptr(),
                       peak.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                       w2.data_ptr(), b2.data_ptr(), w3.data_ptr(),
-                      b3.data_ptr(), scratch.data_ptr(), blocks,
-                      grads.data_ptr(), o, p, c3, _build.DTYPE_CODE[x.dtype])
-    if bf16:
-        last_bwd_grads = grads
+                      work.data_ptr(), grads.data_ptr(), o, p, c3,
+                      _build.DTYPE_CODE[x.dtype])
+    last_bwd_grads = grads
     sizes = (3 * C1, C1, C1 * C2, C2, C2 * c3, c3)
     shapes = ((3, C1), (1, C1), (C1, C2), (1, C2), (C2, c3), (1, c3))
     return tuple(g.view(s) for g, s in zip(torch.split(grads[:-1], sizes), shapes))

@@ -264,9 +264,9 @@ def test_wrappers_raise_instead_of_falling_back(card):
     x, *ws = card.op_inputs("pointnet_fwd", 8, torch.float32, seed=0)
     with pytest.raises(ValueError):                  # weights on the CPU
         pointnet_fwd(x, *(w.cpu() for w in ws))
-    # both PointNet wrappers pad C3 to their kernels' widths (EVA's 200 and
-    # 100 run padded: test_pointnet_bwd_at_eva_width); wrong shapes, dtypes
-    # and devices still raise
+    # the f32 PointNet kernels take any C3 and the bf16 wrappers pad it
+    # (EVA's 200 and 100: test_pointnet_bwd_f32_widths and the bf16 widths
+    # tests); wrong shapes, dtypes and devices still raise
     x, dout, amax, peak, *ws = card.op_inputs("pointnet_bwd", 8, torch.float32, seed=0,
                                               c3=200)
     with pytest.raises(ValueError):                  # weights on the CPU
@@ -385,13 +385,13 @@ def _pointnet_bwd_args(card, x, ws, seed):
     from sgaligner_tpu_torch.ops.pointnet_fused import pointnet_pool_plain
 
     g = torch.Generator().manual_seed(seed)
-    dout = torch.randn(x.shape[0], ws[4].shape[1], generator=g).to("cuda", torch.bfloat16)
+    dout = torch.randn(x.shape[0], ws[4].shape[1], generator=g).to("cuda", x.dtype)
     peak, amax = pointnet_pool_plain(x, *ws, with_argmax=True)
     return (x, dout, amax, peak, *ws)
 
 
 def _bwd_tiles_match(card, args):
-    """The row tiles the bf16 kernel ran are the ones the routing fills."""
+    """The row tiles the kernels ran are the ones the routing fills."""
     from sgaligner_tpu_torch.ops import pointnet_fused
 
     pointnet_fused.pointnet_bwd(*args)
@@ -504,6 +504,157 @@ def test_pointnet_bwd_routes_by_the_forward_max(card):
     db3 = pointnet_bwd(x, dout, amax, peak, *ws)[5]
     want = (dout.double() * (peak > 0)).sum(dim=0, keepdim=True)
     torch.testing.assert_close(db3.double(), want, rtol=0, atol=1e-3)
+
+
+F32_WIDTHS = [16, 100, 200, 208, 256, 384]
+
+
+def _f32_weights(card, objects, points, width, seed):
+    """f32 PointNet inputs on the card with W3 and b3 at ``width`` channels."""
+    x, *ws = card.op_inputs("pointnet_fwd", objects, torch.float32, seed=seed, p=points)
+    g = torch.Generator().manual_seed(seed + 1)
+    ws[4] = (torch.randn(128, width, generator=g) * 128 ** -0.5).cuda()
+    ws[5] = (torch.randn(1, width, generator=g) * 0.1).cuda()
+    return x, ws
+
+
+@pytest.mark.parametrize("objects", [1, 3, 67])
+@pytest.mark.parametrize("points", [200, 512])
+@pytest.mark.parametrize("width", F32_WIDTHS)
+def test_pointnet_fwd_f32_widths(card, width, points, objects):
+    """The f32 PointNet forward at any C3 (16 to 384: one group of
+    resident W3 channels up to 256, two above; widths not a multiple of 8
+    or 16), P a multiple of the 64-point tile or not, 1, 3 or 67 objects:
+    against the plain version with the argmax held by value, the same bits
+    twice, and the same values without the argmax."""
+    from sgaligner_tpu_torch.ops.pointnet_fused import pointnet_fwd
+
+    x, ws = _f32_weights(card, objects, points, width, seed=51)
+    args = (x, *ws)
+    card.check_op("pointnet_fwd", args, "f32")
+    first = pointnet_fwd(*args, with_argmax=True)
+    second = pointnet_fwd(*args, with_argmax=True)
+    alone, none = pointnet_fwd(*args, with_argmax=False)
+    torch.cuda.synchronize()
+    assert first[0].shape == (objects, width) and first[1].is_contiguous()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    assert none is None and torch.equal(first[0], alone)
+
+
+@pytest.mark.parametrize("objects", [1, 3, 67])
+@pytest.mark.parametrize("points", [200, 512])
+@pytest.mark.parametrize("width", F32_WIDTHS)
+def test_pointnet_bwd_f32_widths(card, width, points, objects):
+    """The f32 backward over the routed rows against the plain (dense)
+    version at any C3 (no padding), P a multiple of 8 or not, 1, 3 or 67
+    objects; the same bits twice, and as many 64-row tiles as the routed
+    rows fill."""
+    from sgaligner_tpu_torch.ops.pointnet_fused import pointnet_bwd
+
+    x, ws = _f32_weights(card, objects, points, width, seed=53)
+    args = _pointnet_bwd_args(card, x, ws, seed=55)
+    card.check_op("pointnet_bwd", args, "f32")
+    first, second = pointnet_bwd(*args), pointnet_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    _bwd_tiles_match(card, args)
+
+
+def test_pointnet_fwd_f32_first_index_and_nan(card):
+    """The f32 PointNet forward: object 0 repeats point 5 at point 70
+    (another tile), object 1 point 9 at point 45 (another row group of the
+    same tile), each scaled up so that many channels' max lie on the pair;
+    the index must be the first one. Object 2 holds a NaN in x at points
+    140 and 20: every channel's max is NaN, at point 20."""
+    from sgaligner_tpu_torch.ops.pointnet_fused import pointnet_fwd, pointnet_fwd_plain
+
+    x, *ws = card.op_inputs("pointnet_fwd", 3, torch.float32, seed=57, p=200)
+    for obj, a, b in ((0, 5, 70), (1, 9, 45)):
+        x[obj, :, a] *= 8.0
+        x[obj, :, b] = x[obj, :, a]
+    x[2, 0, 140] = float("nan")
+    x[2, 1, 20] = float("nan")
+    out, amax = pointnet_fwd(x, *ws, with_argmax=True)
+    want, want_idx = pointnet_fwd_plain(x, *ws, with_argmax=True)
+    torch.cuda.synchronize()
+    for obj, a, b in ((0, 5, 70), (1, 9, 45)):
+        tied = (want_idx[obj] == a) | (want_idx[obj] == b)
+        assert bool(tied.float().mean() > 0.2)
+        assert bool((amax[obj][tied] == a).all()) and not bool((amax[obj] == b).any())
+        torch.testing.assert_close(out[obj], want[obj], rtol=1e-5, atol=1e-5)
+    assert bool(out[2].isnan().all()) and bool((amax[2] == 20).all())
+
+
+def test_pointnet_bwd_f32_ties_dead_and_many_rows(card):
+    """The f32 backward (O=8, P=512, C3=200): object 0 repeats point 5 at
+    point 70, scaled so that a quarter of its channels tie there (the first
+    index routes); object 6's points lie on a sphere, so its maxima scatter
+    over more than two 64-row tiles; object 7 is dead (max <= 0). Against
+    the plain version, the same bits twice, and the tiles the routing
+    fills."""
+    from sgaligner_tpu_torch.ops.pointnet_fused import pointnet_bwd, stack_plain
+
+    x, ws = _f32_weights(card, 8, 512, 200, seed=59)
+    x[0, :, 5] *= 30.0
+    x[0, :, 70] = x[0, :, 5]
+    x[6] = x[6] / x[6].norm(dim=0, keepdim=True) * 2.0
+    x[7] *= 0.05
+    a3 = stack_plain(x[7:8], *ws[:5], torch.zeros_like(ws[5]))[0]
+    ws[5] = -a3[0].amax(dim=0, keepdim=True) - 0.05
+    args = _pointnet_bwd_args(card, x, ws, seed=60)
+    _, _, amax, peak = args[:4]
+    assert not bool((peak[7] > 0).any())
+    assert bool(((amax[0] == 5).float().mean() > 0.1)) and not bool((amax[0] == 70).any())
+    card.check_op("pointnet_bwd", args, "f32")
+    first, second = pointnet_bwd(*args), pointnet_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    live = (peak > 0) & (args[1] != 0)
+    routed_6 = len(set(amax[6][live[6]].tolist()))
+    assert routed_6 > 128, routed_6
+    _bwd_tiles_match(card, args)
+
+
+def test_pointnet_bwd_f32_nan_point(card):
+    """The f32 backward with a NaN in object 1's x at points 7 and 140:
+    every channel's max is NaN there and routes nothing, and the weight
+    gradients are NaN where the dense plain version's are (its 0·NaN),
+    the bias gradients finite and within the tolerance."""
+    from sgaligner_tpu_torch.ops.pointnet_fused import pointnet_bwd, pointnet_bwd_plain
+
+    x, ws = _f32_weights(card, 3, 200, 200, seed=61)
+    x[1, 0, 7] = float("nan")
+    x[1, 1, 140] = float("nan")
+    args = _pointnet_bwd_args(card, x, ws, seed=62)
+    assert bool(args[3][1].isnan().all()) and bool((args[2][1] == 7).all())
+    got, want = pointnet_bwd(*args), pointnet_bwd_plain(*args)
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g.isnan(), w.isnan()), i
+        if i % 2:   # the bias gradients
+            _, rel = card.compare(g, w)
+            assert rel <= card.TOL[("pointnet_bwd", "f32")], (i, rel)
+    assert bool(got[4].isnan().all()) and not bool(got[0][2].isnan().any())
+
+
+def test_pointnet_bwd_f32_routes_by_the_forward_max(card):
+    """A channel whose f32 forward max is positive carries its gradient:
+    with b3 set so that each channel's maxima straddle 0 over the objects
+    and no cotangent near 0, db3 equals Σ_o dout·[peak > 0] of the forward
+    kernel's own max (C3 = 200, unpadded)."""
+    from sgaligner_tpu_torch.ops.pointnet_fused import pointnet_bwd, pointnet_pool, stack_plain
+
+    x, ws = _f32_weights(card, 67, 512, 200, seed=63)
+    a3 = stack_plain(x, *ws[:5], torch.zeros_like(ws[5]))[0]
+    ws[5] = -a3.amax(dim=1).median(dim=0, keepdim=True).values
+    peak, amax = pointnet_pool(x, *ws, with_argmax=True)
+    pos = (peak > 0).float().mean(dim=0)
+    assert bool(((pos > 0) & (pos < 1)).float().mean() > 0.9)
+    g = torch.Generator().manual_seed(64)
+    mag = 0.5 + torch.rand(67, 200, generator=g)
+    sign = torch.where(torch.rand(67, 200, generator=g) < 0.5, -1.0, 1.0)
+    dout = (mag * sign).cuda()
+    db3 = pointnet_bwd(x, dout, amax, peak, *ws)[5]
+    want = (dout.double() * (peak > 0)).sum(dim=0, keepdim=True)
+    torch.testing.assert_close(db3.double(), want, rtol=0, atol=1e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

@@ -40,6 +40,18 @@ O=16 objects of P=32 points, C3=256 (the op's widths are fixed at 64 and
   rule takes the kernel at itemsize 8). That kernel sums in f32 whatever
   the input dtype (``preferred_element_type``), so the two are held to
   rtol 1e-5 / atol 1e-6; NaN must sit at the same places.
+* The card's float32 backward (``csrc/pointnet.cu``) as a formulation
+  (``_f32_routed_rows_bwd``: the same routed rows, g2 of each row from its
+  own live channels in channel order, dW3 as one rank-1 column per live
+  channel plus NaN where a listed row's h2 is not finite, the relu masks
+  read off h) against the same Pallas ``_bwd_rule`` at float64, by the same
+  rule.
+* The card's float32 forward pool (``_f32_pool_model``: per 64-point tile
+  eight row groups keep a running max and first index, merged at the end
+  by the pool's first-index rule) at float64 against the plain forward
+  (the same bits and indices) and the Pallas forward (atol 1e-6, as
+  above): ties across tiles and across row groups, a NaN in either of two
+  row groups and in a ragged last tile, a dead object (O=6, P=136, C3=40).
 """
 
 import numpy as np
@@ -276,10 +288,52 @@ def _routed_rows_bwd(x, dout, amax, peak, w1, b1, w2, b2, w3, b3):
     return dw1, db1, dw2, db2, dw3, db3
 
 
-@pytest.mark.parametrize("nan_point", [False, True], ids=["ties_dead_zero_dout", "nan_point"])
-def test_routed_rows_match_pallas_bwd_rule_f64(x64, monkeypatch, nan_point):
-    x, ws, dout = _edge_inputs(nan_point)
+def _f32_routed_rows_bwd(x, dout, amax, peak, w1, b1, w2, b2, w3, b3):
+    """The card's float32 backward as a formulation, at float64 in numpy:
+    the routed rows of ``_routed_rows_bwd``, layers 1 and 2 on them; g2 of
+    each row from the live channels routed to it alone, dout·W3ᵀ[c] added
+    in channel order, masked by h2 > 0 (relu keeps a NaN, so h > 0 is
+    a > 0); g1 masked by h1 > 0; dW3 as one rank-1 column per live channel
+    (h2 at its row times its dout), and NaN in every column of a k whose h2
+    is not finite on a listed row (the dense product's 0·NaN); the other
+    sums over the listed rows; NaN into dw1[k] where x[k] of the object is
+    not finite."""
     o, _, p = x.shape
+    c3 = w3.shape[1]
+    dw1, db1 = np.zeros((3, 64)), np.zeros((1, 64))
+    dw2, db2 = np.zeros((64, 128)), np.zeros((1, 128))
+    dw3, db3 = np.zeros((128, c3)), np.zeros((1, c3))
+    for i in range(o):
+        dw1 += np.where(~np.isfinite(x[i]).all(axis=1), np.nan, 0.0)[:, None]
+        live = (peak[i] > 0) & (dout[i] != 0)
+        rows = np.unique(amax[i][live | np.isnan(peak[i])])
+        if rows.size == 0:
+            continue
+        xr = x[i][:, rows].T                                    # [R, 3]
+        h1 = np.maximum(np.einsum("rk,kd->rd", xr, w1) + b1, 0.0)
+        h2 = np.maximum(np.einsum("rk,kd->rd", h1, w2) + b2, 0.0)
+        chans = np.flatnonzero(live)
+        slots = np.searchsorted(rows, amax[i][chans])
+        g2 = np.zeros((rows.size, 128))
+        for c, s_ in zip(chans, slots):
+            g2[s_] += dout[i][c] * w3[:, c]
+        g2 = np.where(h2 > 0, g2, 0.0)
+        g1 = np.where(h1 > 0, np.einsum("rk,dk->rd", g2, w2), 0.0)
+        dw3[:, chans] += h2[slots].T * dout[i][chans]
+        dw3[~np.isfinite(h2).all(axis=0)] += np.nan
+        db3[0, chans] += dout[i][chans]
+        dw2 += np.einsum("rk,rc->kc", h1, g2)
+        db2 += g2.sum(axis=0)
+        dw1 += np.einsum("rk,rc->kc", xr, g1)
+        db1 += g1.sum(axis=0)
+    return dw1, db1, dw2, db2, dw3, db3
+
+
+def _pallas_bwd_f64(monkeypatch, nan_point):
+    """``_edge_inputs`` through JAX's forward and ``_bwd_rule`` on the
+    Pallas kernels at float64 in interpret mode: (x, ws, dout, the
+    gradients, amax, peak)."""
+    x, ws, dout = _edge_inputs(nan_point)
     # the Pallas backward at float64: one tile of every object (the JAX
     # package picks no tile above itemsize 2 and takes jax.grad of the
     # unfused stack instead, which splits the max's gradient over ties)
@@ -290,13 +344,113 @@ def test_routed_rows_match_pallas_bwd_rule_f64(x64, monkeypatch, nan_point):
     amax, peak = np.asarray(amax_j), np.asarray(out_j)
     dead = peak[3] <= 0
     assert dead.all() and (amax[0] == 5).mean() > 0.2
-    got = _routed_rows_bwd(x, dout, amax, peak, *ws)
     if nan_point:
         assert np.isnan(peak[2]).all() and (amax[2] == 7).all()
         assert np.isnan(np.asarray(want[1])).any()
+    return x, ws, dout, want, amax, peak
+
+
+@pytest.mark.parametrize("nan_point", [False, True], ids=["ties_dead_zero_dout", "nan_point"])
+def test_routed_rows_match_pallas_bwd_rule_f64(x64, monkeypatch, nan_point):
+    x, ws, dout, want, amax, peak = _pallas_bwd_f64(monkeypatch, nan_point)
+    got = _routed_rows_bwd(x, dout, amax, peak, *ws)
     for i, (g, w) in enumerate(zip(got, want[1:])):
         np.testing.assert_allclose(g, np.asarray(w), rtol=1e-5, atol=1e-6,
                                    err_msg=f"grad {i}")
+
+
+@pytest.mark.parametrize("nan_point", [False, True], ids=["ties_dead_zero_dout", "nan_point"])
+def test_f32_routed_rows_match_pallas_bwd_rule_f64(x64, monkeypatch, nan_point):
+    """The float32 kernels' formulation: the same rule as the bfloat16
+    one's (NaN at the same places as the dense Pallas sums)."""
+    x, ws, dout, want, amax, peak = _pallas_bwd_f64(monkeypatch, nan_point)
+    got = _f32_routed_rows_bwd(x, dout, amax, peak, *ws)
+    for i, (g, w) in enumerate(zip(got, want[1:])):
+        np.testing.assert_allclose(g, np.asarray(w), rtol=1e-5, atol=1e-6,
+                                   err_msg=f"grad {i}")
+
+
+def _f32_pool_model(h3):
+    """The card's float32 forward pool as a formulation, in numpy: per
+    64-point tile each of eight row groups (points 4g..4g+3 and
+    32+4g..32+4g+3 of the tile) runs over its points in ascending order, a
+    strictly greater value or a first NaN replacing its running max and
+    index; then the groups merge in group order by the pool's first-index
+    rule (beats_max: larger, or equal at an earlier index; a NaN beats any
+    number and a later NaN). h3 [O, P, C], relu'd. Returns (max, index),
+    each [O, C]."""
+    o, p, c = h3.shape
+    best = np.full((8, o, c), -np.inf)
+    idx = np.zeros((8, o, c), np.int64)
+    for r0 in range(0, p, 64):
+        for g in range(8):
+            for i in range(8):
+                row = r0 + (4 * g + i if i < 4 else 28 + 4 * g + i)
+                if row >= p:
+                    continue
+                v = h3[:, row]
+                upd = ~np.isnan(best[g]) & ((v > best[g]) | np.isnan(v))
+                best[g] = np.where(upd, v, best[g])
+                idx[g] = np.where(upd, row, idx[g])
+    out, at = best[0], idx[0]
+    for g in range(1, 8):
+        v, i = best[g], idx[g]
+        nan_v, nan_o = np.isnan(v), np.isnan(out)
+        beats = np.where(nan_v, ~nan_o | (i < at),
+                         ~nan_o & ((v > out) | ((v == out) & (i < at))))
+        out, at = np.where(beats, v, out), np.where(beats, i, at)
+    return out, at
+
+
+def test_f32_forward_split_pool_matches_pallas_f64(x64):
+    """Object 0 repeats point 5 at point 70 (row group 1 of tiles 0 and 1),
+    object 1 point 9 at point 45 (row groups 2 and 3 of tile 0), each
+    scaled so that many channels' max lie on the pair; object 2 holds a
+    NaN at points 50 (group 4) and 20 (group 5): every channel's max is
+    NaN at 20; object 3 a NaN at point 130 (the ragged third tile); object
+    4's points are scaled down and b3 set so that it is dead (every max 0,
+    at point 0). The model equals the plain forward (values and indices)
+    and agrees with the Pallas forward: values within 1e-6, the first index
+    of each tie, the NaN's index, and elsewhere the index held by value."""
+    o, p, c3 = 6, 136, 40
+    rng = np.random.default_rng(12)
+    x = rng.normal(size=(o, 3, p))
+    ws = []
+    for cin, cout in ((3, 64), (64, 128), (128, c3)):
+        ws.append(rng.normal(size=(cin, cout)) / np.sqrt(cin))
+        ws.append(rng.normal(size=(1, cout)) * 0.1)
+    x[0, :, 5] *= 8.0
+    x[0, :, 70] = x[0, :, 5]
+    x[1, :, 9] *= 8.0
+    x[1, :, 45] = x[1, :, 9]
+    x[4] *= 0.05
+    h = np.maximum(x[4].T @ ws[0] + ws[1], 0.0)
+    h = np.maximum(h @ ws[2] + ws[3], 0.0)
+    ws[5] = -(h @ ws[4]).max(axis=0, keepdims=True) - 0.01    # object 4 dead
+    x[2, 0, 50] = np.nan
+    x[2, 1, 20] = np.nan
+    x[3, 2, 130] = np.nan
+    assert jpf._pick_tile(o, p, 8, bwd=False) is not None      # the Pallas kernel ran
+    out_j, amax_j = jpf._forward(*_jax([x, *ws], jnp.float64), True, with_argmax=True)
+    out_j, amax_j = np.asarray(expect_dtype(out_j)), np.asarray(amax_j)
+    args = _torch([x, *ws], torch.float64)
+    h3 = torch.relu(stack_plain(*args)[0])
+    out, at = _f32_pool_model(h3.numpy())
+    peak, amax = pointnet_pool_plain(*args, with_argmax=True)
+    np.testing.assert_array_equal(out, peak.numpy())
+    np.testing.assert_array_equal(at, amax.numpy())
+    for obj, first, second in ((0, 5, 70), (1, 9, 45)):
+        tied = (amax_j[obj] == first) | (amax_j[obj] == second)
+        assert tied.mean() > 0.2
+        assert (amax_j[obj][tied] == first).all() and (at[obj][tied] == first).all()
+    for obj, row in ((2, 20), (3, 130)):
+        assert np.isnan(out[obj]).all() and np.isnan(out_j[obj]).all()
+        assert (at[obj] == row).all() and (amax_j[obj] == row).all()
+    assert (out[4] == 0).all() and (at[4] == 0).all() and (amax_j[4] == 0).all()
+    finite = np.array([0, 1, 4, 5])
+    np.testing.assert_allclose(out[finite], out_j[finite], rtol=0, atol=1e-6)
+    at_jax = np.take_along_axis(h3.numpy()[finite], amax_j[finite][:, None, :], axis=1)[:, 0]
+    np.testing.assert_allclose(at_jax, out[finite], rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64],

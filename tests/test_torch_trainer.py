@@ -21,7 +21,7 @@ the nca train step, row 15's padding and the training CLIs.
   for bit in the parameters, Adam's state, the generator, the accumulated
   gradient and the counters; a non-finite batch through the Trainer (the
   step dropped, the batch and weights dumped); the epoch-2 profile;
-* (e) row 15's ``padded_bwd`` through the plain backward at C3 = 200 and
+* (e) row 15's bf16 ``padded_bwd`` through the plain backward at C3 = 200 and
   100 equals the plain backward at those widths;
 * (f) ``trainval_sgaligner`` / ``trainval_eva`` with ``--device cpu`` on a
   YAML config, ``--resume``, ``--snapshot``, and the inference CLIs finding
@@ -374,7 +374,7 @@ def test_nonfinite_batch_through_the_trainer(tmp_path):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
 @pytest.mark.parametrize("c3", [200, 100])
 def test_padded_backward_equals_the_plain_backward(c3, dtype):
-    """``padded_bwd`` (what the card's wrapper runs around its kernels) with
+    """``padded_bwd`` (what the card's wrapper runs around its bf16 kernel) with
     the plain backward in the kernels' place: the zero channels carry no
     gradient, so it equals the plain backward at C3 itself (the padded sums
     add exact zeros: rtol 1e-12 at f64, 1e-6 at f32)."""
