@@ -77,6 +77,28 @@ Phases, in order (every failure raises and exits non-zero):
   ops          pct_attention_fused and pct_block_fused forward plus backward
                through autograd at O=896, SA and OA, against the plain
                versions; one launch of each of their kernels per call
+  artifact     the serving artifact (serving.py: torch.export with the
+               kernels as custom ops) for the card: the pct serving step at
+               full width (bf16, B=512, K pinned to the largest of serve's
+               pooled O), single and as a queue of ARTIFACT_Q, and the point
+               configuration; exported, saved, loaded, and serve's four
+               requests run through it (launch counts 1/1/4/1 and 1 a
+               request), held to make_serving_step / serve_queue on the same
+               prepared batches (integer counts equal, rr_sum and
+               alignment_score within ARTIFACT_RTOL), ms a request beside the
+               eager step's in turns; a request past the pinned K refused
+  register     RANSAC at the reference's size (RANSAC_N correspondences,
+               RANSAC_ITERS hypotheses, a known transform, 30% inliers) on
+               the card against the CPU on the same draw (transforms within
+               REG_TF_ABS, equal inlier counts), timed at float64 (the
+               library's precision) and, its inputs cast, float32; a planted
+               fault (the card's Kabsch returns Rᵀ) that the check must
+               catch; icp_refine card against CPU; and
+               Aligner.align(register=True) at the API's defaults (pc_res
+               512, 5,000 RANSAC hypotheses) on a synthetic scene pair of
+               ALIGN_PTS points an object: RRE < 5 deg, RTE < 0.1, one
+               pointnet_fwd launch a call, node matches equal to the CPU's
+               and the transform within REG_TF_ABS of it; timed warm
   quality      the three tracked trained snapshots (checkpoints/torch/
                aligner_{point,full,eva}.pth.tar) through the port's tester
                (AlignRegTester on the held-out val workspace each
@@ -90,7 +112,14 @@ Phases, in order (every failure raises and exits non-zero):
                In both runs the first request's PointNet forward inputs
                (O = 256 in the tester's layout, the pooled O at bf16) go
                through the kernel again and are held against its plain
-               version at the kernels phase's tolerances
+               version at the kernels phase's tolerances. Then the full
+               snapshot's AlignRegTester with registration (the classical
+               backend) over the val split at f32, on the card and on the
+               CPU: each metric of the normal and aligner summaries within
+               REG_SUMMARY_ABS. The workspace's view noise leaves no point
+               of one side within the tester's 1e-7 of the other, so no
+               pair has GT correspondences and recall is 0 by construction
+               (the phase counts them and says so)
   trainer      the EVA recipe of scripts/aligner_artifact.py (its train
                and val workspace, seeds 1001 and 2002; 40 epochs of Adam at
                1e-3, batch 8, f32, the tester's layout) retrained through
@@ -298,6 +327,19 @@ PER_SPCT_TRAIN = {"embed_first": 1, "embed_second": 1, "embed_first_bwd": 1,
                   "embed_second_bwd": 1, "pct_block_fwd": 4, "pct_epi_sums": 4,
                   "pct_block_res_bwd": 4}
 SPCT_EVAL_CALLS, SPCT_TRAIN_CALLS = 5, 3
+# phase artifact: the serving artifact's components against the eager step's
+# on the same batches (the integer counts equal), and the queue's length
+ARTIFACT_RTOL = 1e-6
+ARTIFACT_Q = 4
+# phase register: RANSAC at the reference's size (20k correspondences, 5,000
+# hypotheses, 30% inliers), the card against the CPU on the same draw (the
+# transforms' largest entry difference, the inlier counts equal), and ICP;
+# phase quality: the registration summaries, card against CPU
+RANSAC_N, RANSAC_ITERS, RANSAC_INLIERS = 20000, 5000, 0.3
+ICP_ITERS = 10
+ALIGN_PTS = 1024          # points an object of the scenes align() samples to pc_res 512
+REG_TF_ABS = 1e-4
+REG_SUMMARY_ABS = 1e-4
 # the ops' kernels and the OA variants timed at the training O (phase time):
 # (kernel, flags, where its launches were counted)
 OA_ROWS = (("pct_attn_fwd", SA, "ops"), ("pct_attn_fwd", OA, "ops"),
@@ -1056,8 +1098,9 @@ def phase_serve(state: dict) -> None:
     model = build_model(cfg, "cuda", torch.Generator().manual_seed(0))
     step = make_serving_step(model, MODULES)
     t0 = time.perf_counter()
-    hosts = [pool_compact(make_synthetic_batch(BatchSpec(b, 32, P), seed=100 + i), 128)
-             for i in range(4)]
+    raws = [make_synthetic_batch(BatchSpec(b, 32, P), seed=100 + i) for i in range(4)]
+    hosts = [pool_compact(r, 128) for r in raws]
+    state["serve_raw"] = raws                 # served again by the artifacts
     batches = [to_device(h, "cuda") for h in hosts]
     torch.cuda.synchronize()
     os_ = [h["obj_points_pooled"].shape[0] for h in hosts]
@@ -1701,6 +1744,396 @@ def phase_serve_point(state: dict) -> None:
         f"launches {launches} | {state['card']}")
 
 
+def _components_equal(tag: str, got: dict, want: dict) -> float:
+    """The serving components of an artifact against the eager step's: the
+    integer counts equal, ``rr_sum`` and ``alignment_score`` within
+    ARTIFACT_RTOL relative. Returns the largest relative difference."""
+    import torch
+
+    if set(got) != set(want):
+        raise AssertionError(f"{tag}: outputs {sorted(got)} != {sorted(want)}")
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k]
+        if k in ("rr_sum", "alignment_score", "sim"):
+            g, w = g.double().cpu(), w.double().cpu()
+            if not bool(g.isfinite().all()):
+                raise AssertionError(f"{tag}: {k} not finite")
+            rel = float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+            worst = max(worst, rel)
+            if not rel <= ARTIFACT_RTOL:
+                raise AssertionError(f"{tag}: {k} differs from the eager step by "
+                                     f"{rel:.3e} relative (> {ARTIFACT_RTOL:g})")
+        else:
+            for a, b in zip(g if isinstance(g, tuple) else (g,),
+                            w if isinstance(w, tuple) else (w,)):
+                if not torch.equal(a.cpu(), b.cpu()):
+                    raise AssertionError(f"{tag}: {k} {a.tolist()} != eager {b.tolist()}")
+    return worst
+
+
+def _artifact_run(state: dict, tag: str, cfg, model, modules, per_request: dict,
+                  queue: int = 1) -> None:
+    """Export the serving step of ``model`` for the card (the pooled K pinned
+    to the largest of the serve requests'), save, load, run the four serve
+    requests through it (counts set to 0 just before, read just after), and
+    hold them to the eager step on the same prepared batches; times both a
+    request, in turns, on the same device-resident batches."""
+    import tempfile
+
+    import torch
+
+    from sgaligner_tpu_torch import serving
+    from sgaligner_tpu_torch.engine.train_step import make_serving_step, serve_queue
+    from sgaligner_tpu_torch.ops import _build
+
+    raws = state["serve_raw"]
+    b = raws[0]["obj_mask"].shape[0]
+    with tempfile.TemporaryDirectory(prefix="sga_artifact_") as tmp:
+        t0 = time.perf_counter()
+        serving.export_serving_artifact(cfg, model, tmp, batch_size=b,
+                                        pooled_bucket=state["serve_o"], queue=queue)
+        t_export = time.perf_counter() - t0
+        size = (Path(tmp) / serving.PROGRAM).stat().st_size
+        t0 = time.perf_counter()
+        art = serving.load_serving_artifact(tmp)
+        t_load = time.perf_counter() - t0
+    prepared = [{k: v.to("cuda") for k, v in art.prepare(r).items()} for r in raws]
+    if queue > 1:
+        calls = [{k: torch.stack([p[k] for p in prepared]) for k in prepared[0]}]
+        eager = lambda i: serve_queue(model, modules, prepared)  # noqa: E731
+    else:
+        calls = prepared
+        step = make_serving_step(model, modules)
+        eager = lambda i: step(prepared[i])  # noqa: E731
+    module = art.module()
+    with torch.inference_mode():
+        module(calls[0])                              # warm-up (not counted)
+        want = [eager(i) for i in range(len(calls))]
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        got = [module(c) for c in calls]
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+    _check_launches(f"artifact {tag}", launches, per_request, len(raws))
+    worst = max(_components_equal(f"artifact {tag} call {i}", g, w)
+                for i, (g, w) in enumerate(zip(got, want)))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    t_art, t_eager = [], []
+    with torch.inference_mode():
+        for i in range(len(calls)):                   # eager, artifact, artifact, eager
+            t_eager.append(timed(lambda: eager(i)))
+            t_art.append(timed(lambda: module(calls[i])))
+            t_art.append(timed(lambda: module(calls[i])))
+            t_eager.append(timed(lambda: eager(i)))
+        host_ms = timed(lambda: art(raws if queue > 1 else raws[0]))
+    per = len(raws) / len(calls)
+    art_ms, eager_ms = statistics.median(t_art) / per, statistics.median(t_eager) / per
+    state.setdefault("artifact", {})[tag] = {"ms": art_ms, "eager_ms": eager_ms,
+                                             "launches": launches}
+    log(f"[artifact] {tag}: exported in {t_export:.1f} s ({size / 2**20:.1f} MiB), "
+        f"loaded in {t_load:.1f} s; K={state['serve_o']} B={b}"
+        f"{f' Q={queue}' if queue > 1 else ''}: {art_ms:.2f} ms a request "
+        f"({b / art_ms * 1e3:.1f} pairs/s) against the eager step's {eager_ms:.2f} ms "
+        f"(median of the turns, device-resident batches); one call from host "
+        f"batches (prepare, copy, run) {host_ms:.1f} ms; worst relative difference "
+        f"{worst:.3e}; launches {({k: v for k, v in launches.items() if v})} | "
+        f"{state['card']}")
+
+
+def phase_artifact(state: dict) -> None:
+    """The serving artifact (serving.py) on the card: the pct serving step
+    at full width, single and queue (Q = ARTIFACT_Q), and the point
+    configuration; then a request prepare must refuse."""
+    import torch
+
+    from sgaligner_tpu_torch import serving
+    from sgaligner_tpu_torch.engine.factory import build_model
+
+    pct = build_model(_cfg("bfloat16", 32), "cuda", torch.Generator().manual_seed(0))
+    _artifact_run(state, "pct", _cfg("bfloat16", 32), pct, MODULES, PER_REQUEST)
+    _artifact_run(state, "pct queue", _cfg("bfloat16", 32), pct, MODULES,
+                  PER_REQUEST, queue=ARTIFACT_Q)
+    del pct
+    point = build_model(_cfg("bfloat16", 32, POINT_MODULES), "cuda",
+                        torch.Generator().manual_seed(0))
+    _artifact_run(state, "point", _cfg("bfloat16", 32, POINT_MODULES), point,
+                  POINT_MODULES, {"pointnet_fwd": 1})
+    state.pop("serve_raw")
+    torch.cuda.empty_cache()
+    # a batch whose every slot is real pools past the pinned K: refused
+    import tempfile
+
+    cfg = _cfg("bfloat16", 8, POINT_MODULES)
+    with tempfile.TemporaryDirectory(prefix="sga_artifact_") as tmp:
+        serving.export_serving_artifact(cfg, build_model(cfg, "cuda"), tmp,
+                                        batch_size=4, pooled_bucket=16)
+        art = serving.load_serving_artifact(tmp)
+    from sgaligner_tpu_torch.data.batch import BatchSpec
+    from sgaligner_tpu_torch.data.synthetic import make_synthetic_batch
+
+    host = make_synthetic_batch(BatchSpec(4, 8, P), seed=5)
+    host["obj_mask"][:] = True
+    try:
+        art.prepare(host)
+    except ValueError as e:
+        if "pooled_bucket" not in str(e):
+            raise
+        log(f"[artifact] a request past the pinned K refused: {e}")
+    else:
+        raise AssertionError("artifact: prepare took a batch past the pinned K")
+
+
+def ransac_problem(seed: int, n: int = RANSAC_N, inliers: float = RANSAC_INLIERS):
+    """Correspondences under a known rigid transform: a share ``inliers``
+    moved by it (noise 3 mm), the rest uniform in the same box. Returns
+    (src, ref, transform, inlier mask), float32 and float64."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    r = np.linalg.qr(rng.normal(size=(3, 3)))[0]
+    r *= np.sign(np.linalg.det(r))
+    t = rng.normal(size=3)
+    src = rng.uniform(-2, 2, size=(n, 3))
+    ref = src @ r.T + t
+    inl = rng.random(n) < inliers
+    ref[~inl] = rng.uniform(-2, 2, size=(int((~inl).sum()), 3)) + t
+    ref[inl] += rng.normal(0, 0.003, size=(int(inl.sum()), 3))
+    tf = np.eye(4)
+    tf[:3, :3], tf[:3, 3] = r, t
+    return src.astype(np.float32), ref.astype(np.float32), tf, inl
+
+
+def _ransac_sides(src, ref, seed: int) -> dict:
+    """RANSAC on the CPU and on the card on the same draw: {device:
+    (transform float64, inlier count)}."""
+    import torch
+
+    from sgaligner_tpu_torch.reg import ransac
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        s, r, m = ransac._padded(src, ref, dev)
+        tf, n = ransac.ransac_rigid_transform(s, r, m, seed, iters=RANSAC_ITERS)
+        out[dev] = (tf.cpu().double().numpy(), int(n))
+    torch.cuda.synchronize()
+    return out
+
+
+def _ransac_agree(sides: dict, what: str) -> float:
+    import numpy as np
+
+    (tf_c, n_c), (tf_g, n_g) = sides["cpu"], sides["cuda"]
+    diff = float(np.abs(tf_g - tf_c).max())
+    if not diff <= REG_TF_ABS or n_c != n_g:
+        raise AssertionError(f"register {what}: card transform {diff:.3e} from the "
+                             f"CPU's (bound {REG_TF_ABS:g}), inliers {n_g} vs {n_c}")
+    return diff
+
+
+def phase_register(state: dict) -> None:
+    """The classical registration stack on the card: RANSAC at the
+    reference's size against the CPU on the same draw (then with a planted
+    fault), ICP against the CPU, and Aligner.align(register=True) on a
+    synthetic scene pair."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sgaligner_tpu_torch import api
+    from sgaligner_tpu_torch.core.config import make_cfg
+    from sgaligner_tpu_torch.data.fixtures import make_synthetic_workspace
+    from sgaligner_tpu_torch.ops import _build
+    from sgaligner_tpu_torch.reg import icp, ransac
+    from sgaligner_tpu_torch.reg.metrics import compute_registration_error
+
+    src, ref, tf_true, inl = ransac_problem(7)
+    t0 = time.perf_counter()
+    sides = _ransac_sides(src, ref, seed=3)
+    diff = _ransac_agree(sides, "ransac")
+    rre, rte = compute_registration_error(tf_true, sides["cuda"][0])
+    if not (rre < 0.1 and rte < 0.01):
+        raise AssertionError(f"register: RANSAC missed the known transform "
+                             f"(RRE {rre:.3e} deg, RTE {rte:.3e})")
+    times = {}
+    s64, r64, m = ransac._padded(src, ref, "cuda")
+    for dtype in (torch.float64, torch.float32):
+        s, r = s64.to(dtype), r64.to(dtype)
+        runs = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ransac.ransac_rigid_transform(s, r, m, 3, iters=RANSAC_ITERS)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t1) * 1e3)
+        times[str(dtype).removeprefix("torch.")] = runs[1:]
+    ms = statistics.median(times["float64"])
+    state["ransac_ms"] = ms
+    log(f"[register] RANSAC N={RANSAC_N} ({RANSAC_INLIERS:.0%} inliers, {int(inl.sum())}) "
+        f"x {RANSAC_ITERS} hypotheses, float64 (find_rigid_transform's): card "
+        f"{ms:.2f} ms (median of 5, the CPU draw included; runs "
+        + ", ".join(f"{t:.2f}" for t in times["float64"]) + "); inputs cast to float32 "
+        f"{statistics.median(times['float32']):.2f} ms; card vs CPU transform "
+        f"{diff:.3e}, inliers {sides['cuda'][1]} / {sides['cpu'][1]}; RRE {rre:.2e} deg "
+        f"RTE {rte:.2e} | {state['card']}")
+    profile_calls(state, lambda: ransac.ransac_rigid_transform(s64, r64, m, 3, iters=RANSAC_ITERS),
+                  "register", 3, "RANSAC call")
+
+    kabsch = ransac.kabsch
+
+    def transposed(a, b, w=None):      # the planted fault: Rᵀ from the card
+        tf = kabsch(a, b, w)
+        if a.is_cuda:
+            tf = tf.clone()
+            tf[..., :3, :3] = tf[..., :3, :3].transpose(-1, -2)
+        return tf
+
+    ransac.kabsch = transposed
+    try:
+        caught = False
+        try:
+            _ransac_agree(_ransac_sides(src, ref, seed=3), "planted")
+        except AssertionError as e:
+            caught = True
+            log(f"[register] planted fault (the card's Kabsch returns Rᵀ) caught: {e}")
+    finally:
+        ransac.kabsch = kabsch
+    if not caught:
+        raise AssertionError("register: the planted Kabsch fault was not caught")
+
+    rng = np.random.default_rng(11)
+    cloud = rng.uniform(-2, 2, size=(8192, 3)).astype(np.float32)
+    ang = np.radians(4.0)
+    tf_icp = np.eye(4)
+    tf_icp[:3, :3] = [[np.cos(ang), -np.sin(ang), 0], [np.sin(ang), np.cos(ang), 0], [0, 0, 1]]
+    tf_icp[:3, 3] = [0.03, -0.02, 0.01]
+    moved = (cloud @ tf_icp[:3, :3].T + tf_icp[:3, 3]).astype(np.float32)
+    icp_out = {dev: icp.icp_refine_host(cloud, moved, iters=ICP_ITERS,
+                                        max_corr_dist=0.2, device=dev)
+               for dev in ("cpu", "cuda")}
+    d_icp = float(np.abs(icp_out["cuda"][0] - icp_out["cpu"][0]).max())
+    d_rmse = abs(icp_out["cuda"][1] - icp_out["cpu"][1])
+    rre_i, rte_i = compute_registration_error(tf_icp, icp_out["cuda"][0])
+    log(f"[register] icp_refine 8192 x 8192 points, {ICP_ITERS} iterations: card vs "
+        f"CPU transform {d_icp:.3e}, rmse {icp_out['cuda'][1]:.3e} / "
+        f"{icp_out['cpu'][1]:.3e}; card RRE {rre_i:.2e} deg RTE {rte_i:.2e}")
+    if not (d_icp <= REG_TF_ABS and d_rmse <= REG_TF_ABS):
+        raise AssertionError(f"register: icp card vs CPU {d_icp:.3e} / {d_rmse:.3e}")
+
+    with tempfile.TemporaryDirectory(prefix="sga_register_") as tmp:
+        make_synthetic_workspace(tmp, split="val", n_pairs=1, pts_per_obj=ALIGN_PTS)
+        scenes = [str(Path(tmp) / "scans" / f"scene00_{side}" / "data.npy")
+                  for side in ("src", "ref")]
+        cfg = make_cfg(model_name="sgaligner", modules=["point"])
+        aligners = {dev: api.load_aligner(cfg, device=dev) for dev in ("cuda", "cpu")}
+        res = {"cpu": aligners["cpu"].align(*scenes, register=True)}
+        aligners["cuda"].align(*scenes, register=True)          # warm-up
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t1 = time.perf_counter()
+        res["cuda"] = aligners["cuda"].align(*scenes, register=True)
+        t_align = time.perf_counter() - t1
+        launches = dict(_build.LAUNCHES)
+    _check_launches("register align", launches, {"pointnet_fwd": 1}, 1)
+    got, want = res["cuda"], res["cpu"]
+    rre, rte = compute_registration_error(np.eye(4), got.transform)
+    d_align = float(np.abs(got.transform - want.transform).max())
+    log(f"[register] Aligner.align(register=True), pc_res {cfg.val.pc_res}, "
+        f"{cfg.reg_model.ransac_max_iters} hypotheses, {ALIGN_PTS} points an object: "
+        f"{len(got.node_matches)} node matches, RRE {rre:.3e} deg RTE {rte:.3e} (bounds "
+        f"5, 0.1), card vs CPU transform {d_align:.3e}; {t_align * 1e3:.1f} ms a call "
+        f"(warm, host clock) | launches {({k: v for k, v in launches.items() if v})} | "
+        f"{state['card']}")
+    if not (rre < 5.0 and rte < 0.1):
+        raise AssertionError(f"register: align(register=True) RRE {rre} RTE {rte}")
+    if got.node_matches != want.node_matches or not d_align <= REG_TF_ABS:
+        raise AssertionError(f"register: align on the card vs the CPU: matches "
+                             f"{got.node_matches} vs {want.node_matches}, transform "
+                             f"{d_align:.3e}")
+    log(f"[register] {time.perf_counter() - t0:.1f} s")
+
+
+def registration_run(root: str, device: str) -> dict:
+    """The ``full`` snapshot's AlignRegTester with registration (the
+    classical backend, reg_model's defaults) over the val workspace at
+    ``root``, at f32 on ``device``."""
+    from sgaligner_tpu_torch.core.config import make_cfg
+    from sgaligner_tpu_torch.data.loaders import get_val_dataloader
+    from sgaligner_tpu_torch.engine.tester import AlignRegTester
+    from sgaligner_tpu_torch.reg.backend import build_backend
+    from sgaligner_tpu_torch.reg.evaluator import RegistrationEvaluator
+
+    q = snapshot_quality("full")
+    values = quality_cfg(root, q["modules"])
+    values["registration"] = True
+    cfg = make_cfg(**values)
+    loader = get_val_dataloader(cfg)
+    evaluator = RegistrationEvaluator(cfg, build_backend(cfg, device=device))
+    tester = AlignRegTester(cfg, loader.dataset, loader,
+                            registration_evaluator=evaluator,
+                            snapshot=torch_snapshot("full"), device=device)
+    return tester.run()
+
+
+def gt_correspondences(root: str) -> list[int]:
+    """For each val pair of the workspace at ``root``, the GT point
+    correspondences the tester gives the recall: src points within 1e-7 of a
+    ref point, both centred on the src scan (identity pairs)."""
+    import numpy as np
+
+    from sgaligner_tpu_torch.core.config import make_cfg
+    from sgaligner_tpu_torch.data.loaders import get_val_dataloader
+    from sgaligner_tpu_torch.utils.io import load_plydata_npy
+    from sgaligner_tpu_torch.utils.pointcloud import compute_pcl_overlap
+
+    ds = get_val_dataloader(make_cfg(**quality_cfg(root, ["point"]))).dataset
+    counts = []
+    for i in range(len(ds)):
+        src, ref = (load_plydata_npy(str(Path(ds.scans_scenes_dir) / scan / "data.npy"))
+                    for scan in ds.pair_scan_ids(i))
+        if not np.allclose(ds.pair_gt_transform(i), np.eye(4)):
+            raise AssertionError(f"quality registration: pair {i} is not at identity")
+        c = src.mean(axis=0)
+        counts.append(len(compute_pcl_overlap(src - c, ref - c, 1e-7)[1]))
+    return counts
+
+
+def quality_registration(state: dict, root: str) -> None:
+    """Registration of the ``full`` snapshot over the val split on the card
+    and on the CPU: each summary's metrics within REG_SUMMARY_ABS."""
+    counts = gt_correspondences(root)
+    log(f"[quality] GT correspondences (within 1e-7) a val pair: {counts}"
+        + (": none, so recall is 0 on both sides by construction and its "
+           "comparison checks nothing" if not any(counts) else ""))
+    readings = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        got = registration_run(root, dev)
+        readings[dev] = got
+        log(f"[quality] full registration on {dev} ({time.perf_counter() - t0:.1f} s): "
+            + "; ".join(f"{kind} " + ", ".join(f"{k} {v:.6f}" for k, v in got[kind].items())
+                        for kind in ("normal_registration", "aligner_registration"))
+            + f" | {state['card']}")
+    for kind in ("normal_registration", "aligner_registration"):
+        card, cpu = readings["cuda"][kind], readings["cpu"][kind]
+        if set(card) != set(cpu) or not card:
+            raise AssertionError(f"quality registration: {kind} keys {sorted(card)} "
+                                 f"vs {sorted(cpu)}")
+        off = {k: (card[k], cpu[k]) for k in cpu if not abs(card[k] - cpu[k]) <= REG_SUMMARY_ABS}
+        if off:
+            raise AssertionError(f"quality registration: {kind} card vs CPU beyond "
+                                 f"{REG_SUMMARY_ABS}: {off}")
+    state["registration"] = readings["cuda"]
+
+
 def _check_launches(tag: str, launches: dict, per_call: dict, calls: int) -> None:
     for name in KERNELS:
         want = per_call.get(name, 0) * calls
@@ -1982,6 +2415,9 @@ def phase_quality(state: dict) -> None:
                 elif any(abs(g) > QUALITY_ABS for g in gaps.values()):
                     log(f"[quality] {name} bfloat16: a gap beyond {QUALITY_ABS} "
                         "(a reading, not a check)")
+        q = snapshot_quality("full")
+        quality_registration(state, built[json.dumps([q["bench"], q["val_seed"],
+                                                      q["n_val_pairs"]])])
     eva, full = readings["eva"], readings["full"]
     if not (eva["mrr"] < full["mrr"] and eva["hits@1"] < full["hits@1"]):
         raise AssertionError(f"quality: EVA (mrr {eva['mrr']:.4f}, hits@1 "
@@ -2731,6 +3167,7 @@ def main() -> int:
                         ("oa_parity", phase_oa_parity),
                         ("serve", phase_serve), ("train", phase_train),
                         ("train_pct", phase_train_pct), ("serve_point", phase_serve_point),
+                        ("artifact", phase_artifact), ("register", phase_register),
                         ("spct", phase_spct), ("ops", phase_ops),
                         ("quality", phase_quality), ("trainer", phase_trainer),
                         ("time", phase_time)):

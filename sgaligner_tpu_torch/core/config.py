@@ -2,7 +2,7 @@
 the tester read.
 
 A copy of ``sgaligner_tpu/core/config.py``'s dataclasses with the same key
-names (without the registration model's section), so a config written for
+names (the registration model's section included), so a config written for
 the JAX package merges unchanged (keys the port does not read are ignored
 with a warning). ``make_cfg(**values)`` takes the config as a dict;
 ``update_config`` merges a YAML file (PyYAML is imported only there);
@@ -100,6 +100,30 @@ class LossConfig:
 
 
 @dataclass
+class RegModelConfig:
+    """The registration section (``reg_model``), with the JAX package's
+    names and defaults. The port runs ``backend: "ransac"`` (the classical
+    mutual-NN + RANSAC backend); ``"learned"`` and ``"geotransformer"`` are
+    not ported yet and raise in ``reg.backend.build_backend``."""
+
+    K: int = 1
+    neighbor_limits: list[int] = field(default_factory=lambda: [38, 36, 36, 38])
+    num_p2p_corrs: int = 20000
+    corr_score_thresh: float = 0.1
+    rmse_thresh: float = 0.2
+    inlier_ratio_thresh: float = 0.05
+    ransac_threshold: float = 0.03
+    ransac_min_iters: int = 5000
+    ransac_max_iters: int = 5000
+    ransac_use_sprt: bool = True
+    backend: str = "ransac"
+    # coarse initializer of the mutual-NN backend: "none" (upstream's
+    # same-world-frame evaluation) or "pca" (principal axes, for pairs with
+    # a non-identity gt transform)
+    coarse: str = "none"
+
+
+@dataclass
 class MetricsConfig:
     all_k: list[int] = field(default_factory=lambda: [1, 2, 3, 4, 5])
 
@@ -136,6 +160,7 @@ class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     loss: LossConfig = field(default_factory=LossConfig)
+    reg_model: RegModelConfig = field(default_factory=RegModelConfig)
     metrics: MetricsConfig = field(default_factory=MetricsConfig)
     tpu: TpuConfig = field(default_factory=TpuConfig)
 

@@ -5,7 +5,8 @@ Counterpart of ``sgaligner_tpu/engine/train_step.py``: ``TrainState``,
 backward, Adam with gradient accumulation and the non-finite skip),
 ``make_eval_step`` (loss, ranks, MRR / Hits@K components, SGAR,
 ``alignment_score``), ``eval_epoch`` (a pass of it) and the serving steps
-(``make_serving_step``, ``serve_queue``). The JAX steps take parameter trees
+(``make_serving_step``, ``serve_queue``; ``serving_metrics`` and
+``queue_metrics`` are their bodies, which ``serving.py`` exports). The JAX steps take parameter trees
 and return new ones; here the model and the objective hold their
 parameters, the train step updates them in place, and every step takes the
 batch as a dict of tensors on the model's device (``data.batch.to_device``).
@@ -182,20 +183,22 @@ def _rank_metrics(embs, modules, ks, batch, with_sim=False, eval_extras=False):
 
 
 def serving_metrics(model, modules: tuple[str, ...], ks: tuple[int, ...],
-                    batch: dict) -> dict:
-    """One batch: the metric components the host accumulates."""
-    return _rank_metrics(model(batch), modules, ks, batch)
+                    batch: dict, with_sim: bool = False) -> dict:
+    """One batch: the metric components the host accumulates (with
+    ``with_sim`` also the per-pair similarity matrices ``sim``)."""
+    return _rank_metrics(model(batch), modules, ks, batch, with_sim=with_sim)
 
 
 def make_serving_step(model, modules: tuple[str, ...],
-                      ks: tuple[int, ...] = (1, 2, 3, 4, 5)):
+                      ks: tuple[int, ...] = (1, 2, 3, 4, 5),
+                      with_sim: bool = False):
     """Returns ``step(batch) -> metric components`` (inference mode; puts
     the model in eval mode)."""
 
     @torch.inference_mode()
     def step(batch: dict) -> dict:
         model.train(False)
-        return serving_metrics(model, modules, ks, batch)
+        return serving_metrics(model, modules, ks, batch, with_sim)
 
     return step
 
@@ -220,18 +223,23 @@ def make_eval_step(model, objective: OverallLoss, modules: tuple[str, ...],
     return step
 
 
-def eval_epoch(step, batches, ks: tuple[int, ...], device) -> dict[str, float]:
+def eval_epoch(step, batches, ks: tuple[int, ...], device,
+               visit: Callable[[dict, dict], None] | None = None
+               ) -> dict[str, float]:
     """One pass of an eval step (``make_eval_step``) over host batches, each
     moved to ``device`` and its components read back: ``loss`` (the mean
     over batches), ``last_batch_loss``, ``mrr``, ``hits@k`` and
     ``sgar@{2,50,100}`` over the pass (the JAX trainer's
-    ``inference_epoch`` and tester's aggregation)."""
+    ``inference_epoch`` and tester's aggregation). ``visit(batch, out)``,
+    where given, sees each host batch with its step's outputs."""
     rr_sum = rr_count = n_pairs = 0.0
     hits = {k: [0.0, 0.0] for k in ks}
     sgar_sums = {"2": 0.0, "50": 0.0, "100": 0.0}
     losses: list[float] = []
     for batch in batches:
         out = step(to_device(batch, device))
+        if visit is not None:
+            visit(batch, out)
         losses.append(float(out["loss"]))
         rr_sum += float(out["rr_sum"])
         rr_count += float(out["rr_count"])
@@ -253,13 +261,12 @@ def eval_epoch(step, batches, ks: tuple[int, ...], device) -> dict[str, float]:
     return results
 
 
-def serve_queue(model, modules: tuple[str, ...], batches: list[dict],
-                ks: tuple[int, ...] = (1, 2, 3, 4, 5)) -> dict:
-    """A queue of batches, one step each: scalar components summed over the
-    queue, ``alignment_score`` stacked to ``[Q, B]`` (the outputs of
-    ``make_serving_queue``)."""
-    step = make_serving_step(model, modules, ks)
-    outs = [step(b) for b in batches]
+def queue_metrics(model, modules: tuple[str, ...], ks: tuple[int, ...],
+                  batches: list[dict]) -> dict:
+    """``serving_metrics`` of each batch in turn: scalar components summed
+    over the queue in its order, ``alignment_score`` stacked to ``[Q, B]``
+    (the outputs of the JAX ``make_serving_queue``)."""
+    outs = [serving_metrics(model, modules, ks, b) for b in batches]
     summed = {}
     for k in outs[0]:
         if k == "alignment_score":
@@ -269,3 +276,12 @@ def serve_queue(model, modules: tuple[str, ...], batches: list[dict],
         else:
             summed[k] = sum(o[k] for o in outs)
     return summed
+
+
+def serve_queue(model, modules: tuple[str, ...], batches: list[dict],
+                ks: tuple[int, ...] = (1, 2, 3, 4, 5)) -> dict:
+    """A queue of batches through ``queue_metrics`` (inference mode; puts
+    the model in eval mode)."""
+    model.train(False)
+    with torch.inference_mode():
+        return queue_metrics(model, modules, ks, batches)

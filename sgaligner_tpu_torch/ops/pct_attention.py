@@ -33,14 +33,16 @@ plain versions (``block_eval_plain``, ``block_fwd_plain``,
 ``attn_fwd_plain``, ``attn_bwd_plain``), which repeat
 the JAX kernels op for op (their exponentials run in the compute dtype
 against a column max, as the TPU kernels' do; the CUDA kernels use an f32
-log-sum-exp instead).
+log-sum-exp instead). ``pct_block_eval`` is the custom op
+``sgaligner::pct_block_eval`` (``ops/library.py``), which ``torch.export``
+keeps whole.
 """
 
 from __future__ import annotations
 
 import torch
 
-from sgaligner_tpu_torch.ops import _build
+from sgaligner_tpu_torch.ops import _build, library
 from sgaligner_tpu_torch.ops.pct_embed import acc_dtype, masked_sums
 
 
@@ -96,7 +98,8 @@ def block_eval_plain(x, wqk, wv, bv, wt, bt, wbn, bbn, scale=True,
 
 def pct_block_eval(x, wqk, wv, bv, wt, bt, wbn, bbn, scale=True,
                    double_norm=False):
-    """Inference SA/OA block ``x + relu(t_out·wbn + bbn)``.
+    """Inference SA/OA block ``x + relu(t_out·wbn + bbn)``, through the op
+    ``sgaligner::pct_block_eval``.
 
     x: [O, P, 128]; wqk [128, 32] (unscaled); wv, wt [128, 128]; bv, bt [128]
     in x's dtype; wbn, bbn [128]: the BN affine folded from running
@@ -104,9 +107,11 @@ def pct_block_eval(x, wqk, wv, bv, wt, bt, wbn, bbn, scale=True,
     ``scale=False, double_norm=True`` OA; the mixed pairs run too (the
     scale is folded into Wqk before the launch). No gradient: ``BlockEval``
     is the differentiable form."""
-    if x.device.type == "cpu":
-        return block_eval_plain(x, wqk, wv, bv, wt, bt, wbn, bbn, scale,
-                                double_norm)
+    return _block_eval_op(x, wqk, wv, bv, wt, bt, wbn, bbn, bool(scale),
+                          bool(double_norm))
+
+
+def _block_eval_cuda(x, wqk, wv, bv, wt, bt, wbn, bbn, scale, double_norm):
     name = "pct_block_eval"
     dt = x.dtype
     wqk_s = qk_scale(wqk, scale).contiguous()
@@ -132,6 +137,17 @@ def pct_block_eval(x, wqk, wv, bv, wt, bt, wbn, bbn, scale=True,
                       v.data_ptr(), lse.data_ptr(), out.data_ptr(), o, p,
                       int(double_norm), _build.DTYPE_CODE[dt])
     return out
+
+
+def _block_eval_fake(x, wqk, wv, bv, wt, bt, wbn, bbn, scale, double_norm):
+    return torch.empty_like(x)
+
+
+_block_eval_op = library.define(
+    "pct_block_eval",
+    "(Tensor x, Tensor wqk, Tensor wv, Tensor bv, Tensor wt, Tensor bt, "
+    "Tensor wbn, Tensor bbn, bool scale, bool double_norm) -> Tensor",
+    block_eval_plain, _block_eval_cuda, _block_eval_fake)
 
 
 def _block_work(x):

@@ -21,14 +21,16 @@ A CUDA tensor goes through the kernels of ``csrc/pct_embed.cu`` (the bf16
 ``csrc/pct_embed_bwd_sm90.cu``; ``embed_first_bwd`` at both dtypes through
 the streaming reduction of ``csrc/pct_embed_first_bwd.cu``); a CPU tensor
 through the plain versions below, which repeat the kernels' arithmetic
-(f64 accumulation for f64 inputs, f32 otherwise).
+(f64 accumulation for f64 inputs, f32 otherwise). The two forwards are the
+custom ops ``sgaligner::embed_first`` and ``sgaligner::embed_second``
+(``ops/library.py``), which ``torch.export`` keeps whole.
 """
 
 from __future__ import annotations
 
 import torch
 
-from sgaligner_tpu_torch.ops import _build
+from sgaligner_tpu_torch.ops import _build, library
 
 
 def acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -61,9 +63,18 @@ def embed_second_plain(h0, wf, bf, w, mask):
 
 def embed_first(x_cf, w, mask):
     """x_cf: [O, 3, P]; w: [3, 128]; mask: [O, 1] (1 = valid object), all in
-    the compute dtype. Returns (h0 [O, P, 128], ssum [1, 128], ssumsq)."""
-    if x_cf.device.type == "cpu":
-        return embed_first_plain(x_cf, w, mask)
+    the compute dtype. Returns (h0 [O, P, 128], ssum [1, 128], ssumsq)
+    through the op ``sgaligner::embed_first``."""
+    h, sums = _embed_first_op(x_cf, w, mask)
+    return h, sums[:1], sums[1:]
+
+
+def _embed_first_cpu(x_cf, w, mask):
+    h, s1, s2 = embed_first_plain(x_cf, w, mask)
+    return h, torch.cat([s1, s2])
+
+
+def _embed_first_cuda(x_cf, w, mask):
     name = "embed_first"
     _build.check_cuda(name, {"x_cf": x_cf, "w": w, "mask": mask}, x_cf.dtype)
     o, three, p = x_cf.shape
@@ -74,7 +85,18 @@ def embed_first(x_cf, w, mask):
     sums = _launch_with_sums(name, "sga_embed_first", x_cf.device, o,
                              _build.grid_blocks(x_cf.device, o, per_sm=4),
                              x_cf, w, mask, h, p=p, dtype=x_cf.dtype)
-    return h, sums[:1], sums[1:]
+    return h, sums
+
+
+def _embed_first_fake(x_cf, w, mask):
+    o, _, p = x_cf.shape
+    return (x_cf.new_empty((o, p, 128)),
+            x_cf.new_empty((2, 128), dtype=acc_dtype(x_cf.dtype)))
+
+
+_embed_first_op = library.define(
+    "embed_first", "(Tensor x_cf, Tensor w, Tensor mask) -> (Tensor, Tensor)",
+    _embed_first_cpu, _embed_first_cuda, _embed_first_fake)
 
 
 def _launch_with_sums(name, fn_name, dev, o, slices, *tensors, p, dtype):
@@ -93,9 +115,18 @@ def _launch_with_sums(name, fn_name, dev, o, slices, *tensors, p, dtype):
 
 def embed_second(h0, wf, bf, w, mask):
     """h0: [O, P, 128]; wf/bf: [1, 128] folded BN affine; w: [128, 128];
-    mask: [O, 1]; all in the compute dtype. Returns (h1, ssum, ssumsq)."""
-    if h0.device.type == "cpu":
-        return embed_second_plain(h0, wf, bf, w, mask)
+    mask: [O, 1]; all in the compute dtype. Returns (h1, ssum, ssumsq)
+    through the op ``sgaligner::embed_second``."""
+    h1, sums = _embed_second_op(h0, wf, bf, w, mask)
+    return h1, sums[:1], sums[1:]
+
+
+def _embed_second_cpu(h0, wf, bf, w, mask):
+    h1, s1, s2 = embed_second_plain(h0, wf, bf, w, mask)
+    return h1, torch.cat([s1, s2])
+
+
+def _embed_second_cuda(h0, wf, bf, w, mask):
     name = "embed_second"
     _build.check_cuda(name, {"h0": h0, "wf": wf, "bf": bf, "w": w,
                              "mask": mask}, h0.dtype)
@@ -113,7 +144,18 @@ def embed_second(h0, wf, bf, w, mask):
         slices = _build.grid_blocks(h0.device, tiles, per_sm=2)
     sums = _launch_with_sums(name, "sga_embed_second", h0.device, o, slices,
                              h0, wf, bf, w, mask, h1, p=p, dtype=h0.dtype)
-    return h1, sums[:1], sums[1:]
+    return h1, sums
+
+
+def _embed_second_fake(h0, wf, bf, w, mask):
+    return (torch.empty_like(h0),
+            h0.new_empty((2, 128), dtype=acc_dtype(h0.dtype)))
+
+
+_embed_second_op = library.define(
+    "embed_second",
+    "(Tensor h0, Tensor wf, Tensor bf, Tensor w, Tensor mask) -> (Tensor, Tensor)",
+    _embed_second_cpu, _embed_second_cuda, _embed_second_fake)
 
 
 # --------------------------------- backward ----------------------------------

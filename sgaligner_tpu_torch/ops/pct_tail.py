@@ -19,13 +19,16 @@ default there):
 A CUDA tensor goes through ``csrc/pct_tail.cu`` (bf16 through the wgmma
 designs of ``csrc/pct_tail_sm90.cu`` and, the backward,
 ``csrc/pct_tail_bwd_sm90.cu``); a CPU tensor through the plain versions.
+The forward is the custom op ``sgaligner::pct_tail`` (with the indices,
+``sgaligner::pct_tail_indexed``; ``ops/library.py``), which
+``torch.export`` keeps whole.
 """
 
 from __future__ import annotations
 
 import torch
 
-from sgaligner_tpu_torch.ops import _build
+from sgaligner_tpu_torch.ops import _build, library
 from sgaligner_tpu_torch.ops.pct_embed import acc_dtype
 
 
@@ -52,9 +55,14 @@ def pct_tail(x1, x2, x3, x4, w, mask, with_index=False):
     """x_i: [O, P, 128] SA-block outputs; w: [512, K] (K a multiple of 128);
     mask: [O, 1] (1 = valid object); all in the compute dtype. Returns
     ``(pmax [O, K], pmin [O, K], ssum [1, K], ssumsq [1, K])`` at f32 (f64
-    for f64 inputs) and, with ``with_index``, ``amax, amin [O, K]`` int32."""
-    if x1.device.type == "cpu":
-        return pct_tail_plain(x1, x2, x3, x4, w, mask, with_index)
+    for f64 inputs) and, with ``with_index``, ``amax, amin [O, K]`` int32;
+    through the ops ``sgaligner::pct_tail`` and ``pct_tail_indexed``."""
+    if with_index:
+        return _tail_indexed_op(x1, x2, x3, x4, w, mask)
+    return _tail_op(x1, x2, x3, x4, w, mask)
+
+
+def _tail_cuda(x1, x2, x3, x4, w, mask, with_index=False):
     name = "pct_tail"
     o, p, k = _check(name, (x1, x2, x3, x4), w, mask)
     dev = x1.device
@@ -76,6 +84,27 @@ def pct_tail(x1, x2, x3, x4, w, mask, with_index=False):
                       work.data_ptr(), groups, o, p, k,
                       _build.DTYPE_CODE[x1.dtype])
     return (pmax, pmin, s1, s2, *idx) if with_index else (pmax, pmin, s1, s2)
+
+
+def _tail_fake(x1, x2, x3, x4, w, mask, with_index=False):
+    o, k = x1.shape[0], w.shape[-1]
+    acc = acc_dtype(x1.dtype)
+    out = (x1.new_empty((o, k), dtype=acc), x1.new_empty((o, k), dtype=acc),
+           x1.new_empty((1, k), dtype=acc), x1.new_empty((1, k), dtype=acc))
+    if not with_index:
+        return out
+    return (*out, x1.new_empty((o, k), dtype=torch.int32),
+            x1.new_empty((o, k), dtype=torch.int32))
+
+
+_TAIL_ARGS = "(Tensor x1, Tensor x2, Tensor x3, Tensor x4, Tensor w, Tensor mask)"
+_tail_op = library.define(
+    "pct_tail", _TAIL_ARGS + " -> (Tensor, Tensor, Tensor, Tensor)",
+    pct_tail_plain, _tail_cuda, _tail_fake)
+_tail_indexed_op = library.define(
+    "pct_tail_indexed",
+    _TAIL_ARGS + " -> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)",
+    *(library.flagged(f) for f in (pct_tail_plain, _tail_cuda, _tail_fake)))
 
 
 def _tail_work(device, o: int, k: int, dtype):

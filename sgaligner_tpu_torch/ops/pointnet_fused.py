@@ -35,7 +35,10 @@ drops them from the output: a zero channel's max is relu(0) = 0 and never
 mixes into a real channel; ``padded_bwd`` pads W3, b3, dout and peak with
 zero channels (a channel whose max is not positive is never routed) and
 amax with point 0, and drops dW3's and db3's padded columns. A CPU tensor
-goes through the plain versions below, at any C3.
+goes through the plain versions below, at any C3. The forward is the
+custom op ``sgaligner::pointnet_pool`` (with the argmax,
+``sgaligner::pointnet_pool_argmax``; ``ops/library.py``), which
+``torch.export`` keeps whole, the padding inside its CUDA body.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ import functools
 
 import torch
 
-from sgaligner_tpu_torch.ops import _build
+from sgaligner_tpu_torch.ops import _build, library
 from sgaligner_tpu_torch.ops.pct_embed import acc_dtype
 
 C1, C2 = 64, 128
@@ -133,9 +136,14 @@ def pointnet_fwd(x, w1, b1, w2, b2, w3, b3, with_argmax=False):
 
 def pointnet_pool(x, w1, b1, w2, b2, w3, b3, with_argmax=False):
     """``pointnet_fwd`` with its max before the cast: ``(peak [O, C3] at
-    the accumulation dtype (float32 on the card), amax or None)``."""
-    if x.device.type == "cpu":
-        return pointnet_pool_plain(x, w1, b1, w2, b2, w3, b3, with_argmax)
+    the accumulation dtype (float32 on the card), amax or None)``, through
+    the ops ``sgaligner::pointnet_pool`` and ``pointnet_pool_argmax``."""
+    if with_argmax:
+        return tuple(_pool_argmax_op(x, w1, b1, w2, b2, w3, b3))
+    return _pool_op(x, w1, b1, w2, b2, w3, b3), None
+
+
+def _pool_cuda(x, w1, b1, w2, b2, w3, b3, with_argmax=False):
     name = "pointnet_fwd"
     o, p, c3 = _check(name, x, (w1, b1, w2, b2, w3, b3))
     width = padded_width(c3) if x.dtype == torch.bfloat16 else c3
@@ -155,7 +163,23 @@ def pointnet_pool(x, w1, b1, w2, b2, w3, b3, with_argmax=False):
     if width != c3:
         out = out[:, :c3].contiguous()
         amax = amax[:, :c3].contiguous() if with_argmax else None
-    return out, amax
+    return (out, amax) if with_argmax else out
+
+
+def _pool_fake(x, w1, b1, w2, b2, w3, b3, with_argmax=False):
+    shape = (x.shape[0], w3.shape[-1])
+    peak = x.new_empty(shape, dtype=acc_dtype(x.dtype))
+    return (peak, x.new_empty(shape, dtype=torch.int32)) if with_argmax else peak
+
+
+_POOL_ARGS = ("(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2, Tensor w3, "
+              "Tensor b3)")
+_pool_op = library.define(
+    "pointnet_pool", _POOL_ARGS + " -> Tensor",
+    library.first(pointnet_pool_plain), _pool_cuda, _pool_fake)
+_pool_argmax_op = library.define(
+    "pointnet_pool_argmax", _POOL_ARGS + " -> (Tensor, Tensor)",
+    *(library.flagged(f) for f in (pointnet_pool_plain, _pool_cuda, _pool_fake)))
 
 
 # the flat gradient buffer of the last pointnet_bwd launch: its last float

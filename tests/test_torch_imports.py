@@ -83,7 +83,20 @@ def test_port_modules_are_listed():
                      "sgaligner_tpu_torch.engine.trainer",
                      "sgaligner_tpu_torch.utils.logging",
                      "sgaligner_tpu_torch.cli.trainval_sgaligner",
-                     "sgaligner_tpu_torch.cli.trainval_eva"):
+                     "sgaligner_tpu_torch.cli.trainval_eva",
+                     "sgaligner_tpu_torch.serving",
+                     "sgaligner_tpu_torch.api",
+                     "sgaligner_tpu_torch.ops.library",
+                     "sgaligner_tpu_torch.reg.ransac",
+                     "sgaligner_tpu_torch.reg.icp",
+                     "sgaligner_tpu_torch.reg.coarse",
+                     "sgaligner_tpu_torch.reg.backend",
+                     "sgaligner_tpu_torch.reg.metrics",
+                     "sgaligner_tpu_torch.reg.evaluator",
+                     "sgaligner_tpu_torch.align.alignment",
+                     "sgaligner_tpu_torch.utils.pointcloud",
+                     "sgaligner_tpu_torch.cli.export_serving",
+                     "sgaligner_tpu_torch.cli.demo_align"):
         assert expected in names
 
 

@@ -2,7 +2,9 @@
 against the JAX package, on the CPU.
 
 * data: BatchSpec / make_synthetic_batch / pool_compact copies give arrays
-  identical to the JAX package's for the same seed;
+  identical to the JAX package's for the same seed, and so do the numpy
+  copies ``align/alignment.py`` and ``utils/pointcloud.py``; the config's
+  ``reg_model`` section has the JAX fields and defaults;
 * weight bridge: ``torch_state_dict_to_params(port.state_dict())`` returns
   the flax tree the port was loaded from, leaf for leaf;
 * the whole 4-modality eval forward at float64 on a pooled batch with
@@ -166,6 +168,78 @@ def test_data_copies_match_jax_package(compact_slots):
     assert dev["pooled_flat_idx"].dtype == torch.int64
     assert dev["pooled_mask"].dtype == torch.bool
     assert dev["obj_points_pooled"].dtype == torch.float32
+
+
+def _alignment_case():
+    from sgaligner_tpu.align import alignment as want
+    from sgaligner_tpu_torch.align import alignment as got
+
+    rng = np.random.default_rng(4)
+    sim = rng.random((12, 12))
+    sim[2, 7] = sim[2, 9]                        # a tie: the stable order decides
+    sim[:, 11] = sim[11, :] = 1e30
+    ids = np.arange(12) + 100
+    calls = [("compute_node_corrs", (sim, 5, 6, 2)),
+             ("compute_alignment_score", (sim, 5, 4, 6)),
+             ("precision_recall_f1", ([1, 0, 1, 1, 0], [1, 1, 0, 1, 0]))]
+    corrs = want.compute_node_corrs(sim, 5, 6, k=2)
+    calls.append(("get_node_corrs_objects_ids", (corrs, ids)))
+    return got, want, calls
+
+
+def _pointcloud_case():
+    from sgaligner_tpu.utils import pointcloud as want
+    from sgaligner_tpu_torch.utils import pointcloud as got
+
+    rng = np.random.default_rng(5)
+    pts = rng.normal(size=(300, 3))
+    tf = np.eye(4)
+    tf[:3, :3] = np.linalg.qr(rng.normal(size=(3, 3)))[0]
+    tf[:3, 3] = rng.normal(size=3)
+    calls = [("apply_transform", (pts, tf)),
+             ("apply_transform", (pts, tf, pts[::-1])),
+             ("inverse_relative", (tf,)),
+             ("get_nearest_neighbor", (pts[:50] + 0.01, pts, True)),
+             ("compute_pcl_overlap", (np.concatenate([pts[:40], pts[:10] + 1.0]), pts))]
+    return got, want, calls
+
+
+@pytest.mark.parametrize("case", [_alignment_case, _pointcloud_case],
+                         ids=["alignment", "pointcloud"])
+def test_numpy_copies_match_jax_package(case):
+    """align/alignment.py and utils/pointcloud.py (the parts the port
+    copies): the same outputs for the same inputs."""
+    got, want, calls = case()
+    for name, args in calls:
+        g, w = getattr(got, name)(*args), getattr(want, name)(*args)
+        for a, b in zip(g if isinstance(g, tuple) else (g,),
+                        w if isinstance(w, tuple) else (w,)):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=name)
+    if case is _pointcloud_case:             # farthest sampling: the same rng draws
+        pts = np.random.default_rng(6).normal(size=(200, 3))
+        for n in (64, 400):
+            a = got.pcl_farthest_sample(pts, n, True, np.random.default_rng(1))
+            b = want.pcl_farthest_sample(pts, n, True, np.random.default_rng(1))
+            for x, y in zip(a, b):
+                np.testing.assert_array_equal(x, y)
+
+
+def test_config_reg_model_matches_jax_package():
+    """The reg_model section: the JAX package's fields and defaults, and a
+    JAX config with it merges without a warning."""
+    import dataclasses
+    import warnings
+
+    from sgaligner_tpu.core import config as jconfig
+    from sgaligner_tpu_torch.core import config as pconfig
+
+    want = dataclasses.asdict(jconfig.make_cfg().reg_model)
+    assert dataclasses.asdict(pconfig.make_cfg().reg_model) == want
+    values = {"registration": True, "reg_model": dict(want, K=2, coarse="pca")}
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        cfg = pconfig.make_cfg(**values)
+    assert cfg.reg_model.K == 2 and cfg.reg_model.coarse == "pca" and cfg.registration
 
 
 # ------------------------------- weight bridge ------------------------------
