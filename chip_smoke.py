@@ -120,6 +120,28 @@ Phases, in order (every failure raises and exits non-zero):
                of one side within the tester's 1e-7 of the other, so no
                pair has GT correspondences and recall is 0 by construction
                (the phase counts them and says so)
+  downstream   the learned registration backend (reg_model.backend: learned,
+               checkpoints/torch/geo_reg.pth.tar) on the card, held to
+               tests/test_learned_reg.py's floors: full SO(3) (3 pairs, seed
+               321, >= 2 within 5 deg / 10 cm), eval_geo's bands 0.2 / 0.3 /
+               0.4 (8 pairs each, seed 999: hits at 0.3 + 0.4 >= 13, RR >=
+               0.75 at both, RTE of the hits <= 0.04 at 0.4, hits at 0.2 >=
+               5) and planar rooms (16 pairs at 0.3, seed 424,242, >= 13
+               hits); the 0.4 band's 8 pairs again on the card and on the
+               CPU with the same draws (the same hits, transforms within
+               GEO_TF_ABS), with register_batch's stage timers in ms a pair;
+               batched RANSAC over sets that repeat points, card against
+               CPU (RANSAC_REPEAT: the same scores, the degenerate minimal
+               sets the identity on both). Then scripts/downstream_quality.py's contract through the
+               port's two CLIs on the card: the val workspace (seed 2002) of
+               32 overlapping and 32 non-overlapping pairs, the full snapshot
+               at f32, overlap P/R/F1 by alignment score and by
+               registration score, mosaicking acc / comp / prec / recall /
+               fscore over 8 scans, pointnet_fwd launched once an eval batch
+               and once a mosaicked subscan (its first request held against
+               its plain version); and on a 16 + 16 workspace of the same
+               seed with 2 scans, the card against the CPU within
+               tests/test_downstream_quality.py's tolerances
   trainer      the EVA recipe of scripts/aligner_artifact.py (its train
                and val workspace, seeds 1001 and 2002; 40 epochs of Adam at
                1e-3, batch 8, f32, the tester's layout) retrained through
@@ -340,6 +362,31 @@ ICP_ITERS = 10
 ALIGN_PTS = 1024          # points an object of the scenes align() samples to pc_res 512
 REG_TF_ABS = 1e-4
 REG_SUMMARY_ABS = 1e-4
+# phase downstream: the learned registration backend (checkpoints/geo_reg's
+# weights) held to tests/test_learned_reg.py's floors, then the JAX
+# package's downstream contract (scripts/downstream_quality.py) through the
+# port's two CLIs
+GEO_SO3 = dict(seed=321, pairs=3, n_points=2048, overlap=0.6, min_hits=2)
+GEO_BANDS = dict(overlaps=(0.2, 0.3, 0.4), n_pairs=8, seed=999)
+# hits at 0.3 plus at 0.4, RR at 0.3 and at 0.4, the hits' RTE at 0.4, hits
+# at 0.2 (tests/test_learned_reg.py:149-172)
+GEO_BAND_FLOORS = dict(hits_mid=13, rr=0.75, rte_hit=0.04, hits_low=5)
+GEO_PLANAR = dict(overlaps=(0.3,), n_pairs=16, seed=424_242, scene_kind="room")
+GEO_PLANAR_HITS = 13
+GEO_TF_ABS = 1e-4          # card against CPU, the 0.4 band's transforms
+DOWNSTREAM_MAX_SCANS = 8
+# the card against the CPU (tests/test_downstream_quality.py's tolerances)
+# on a 16 + 16 workspace of the same seed and 2 scans: the CPU registers a
+# pair in seconds, so the full contract on the CPU would take many minutes
+DOWNSTREAM_CPU = dict(pairs=16, scans=2)
+# batched RANSAC over sets that repeat points, as the fine stage's do (the
+# mosaicking's object pairs: 337 matches of 178 source points): G sets of N
+# correspondences, the second half copies of points of the first
+RANSAC_REPEAT = dict(seed=15, sets=4, n=256, iters=1000, threshold=0.05)
+RANSAC_REPEAT_TF_ABS = 1e-6
+DOWNSTREAM_PRF_ABS = 0.05
+DOWNSTREAM_DIST_ABS = 0.01     # acc, comp (m)
+DOWNSTREAM_RATE_ABS = 0.05     # prec, recall, fscore
 # the ops' kernels and the OA variants timed at the training O (phase time):
 # (kernel, flags, where its launches were counted)
 OA_ROWS = (("pct_attn_fwd", SA, "ops"), ("pct_attn_fwd", OA, "ops"),
@@ -2428,6 +2475,293 @@ def phase_quality(state: dict) -> None:
         f"{full['hits@1']:.4f}")
 
 
+def registered_hit(out, gt) -> bool:
+    """Whether a registration hits (eval_geo's rule; a declined pair
+    misses)."""
+    from sgaligner_tpu_torch.reg.eval_geo import is_hit
+    from sgaligner_tpu_torch.reg.metrics import compute_registration_error
+
+    return out is not None and is_hit(*compute_registration_error(
+        gt, out["estimated_transform"]))
+
+
+def learned_backend(device: str):
+    """``reg_model.backend: learned`` through build_backend, on ``device``."""
+    from sgaligner_tpu_torch.core.config import make_cfg
+    from sgaligner_tpu_torch.reg.backend import build_backend
+
+    cfg = make_cfg(model_name="sgaligner", modules=["point"])
+    cfg.reg_model.backend = "learned"
+    return build_backend(cfg, device=device)
+
+
+def downstream_cfg(root: str):
+    """scripts/downstream_quality.py's config: the full snapshot's tester
+    config with registration by the learned backend."""
+    from sgaligner_tpu_torch.core.config import make_cfg
+
+    values = quality_cfg(root, snapshot_quality("full")["modules"])
+    values["registration"] = True
+    values["reg_model"] = {"backend": "learned"}
+    return make_cfg(**values)
+
+
+def downstream_run(root: str, device: str, max_scans: int) -> dict:
+    """The two CLIs (their run functions: the card has no PyYAML) over the
+    workspace at ``root`` on ``device``: the tables, each run's launch
+    counts and seconds, and the first PointNet forward's inputs."""
+    from sgaligner_tpu_torch.cli import inference_find_overlapper, inference_mosaicking
+    from sgaligner_tpu_torch.models import pointnet
+    from sgaligner_tpu_torch.ops import _build
+
+    cfg = downstream_cfg(root)
+    first, fwd = [], pointnet.pointnet_fwd
+
+    def kept(*args, **kw):
+        if not first:
+            first.append(tuple(a.clone() for a in args))
+        return fwd(*args, **kw)
+
+    out = {"launches": {}, "s": {}}
+    pointnet.pointnet_fwd = kept
+    try:
+        for task, run, kw in (("overlap", inference_find_overlapper.run, {}),
+                              ("mosaicking", inference_mosaicking.run,
+                               {"max_scans": max_scans})):
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            out[task] = run(cfg, device, snapshot=torch_snapshot("full"), **kw)
+            out["s"][task] = time.perf_counter() - t0
+            out["launches"][task] = dict(_build.LAUNCHES)
+    finally:
+        pointnet.pointnet_fwd = fwd
+    out["first"] = first[0] if first else None
+    return out
+
+
+def _downstream_tables(tag: str, run: dict, state: dict) -> str:
+    lines = [f"[downstream] {tag}: overlap ({run['s']['overlap']:.1f} s, pointnet_fwd "
+             f"{run['launches']['overlap']['pointnet_fwd']} launches) "
+             + "; ".join(f"{k} P {m['precision']:.4f} R {m['recall']:.4f} F1 "
+                         f"{m['f1_score']:.4f}" for k, m in run["overlap"].items())]
+    lines.append(f"[downstream] {tag}: mosaicking ({run['s']['mosaicking']:.1f} s, "
+                 f"pointnet_fwd {run['launches']['mosaicking']['pointnet_fwd']} launches) "
+                 + "; ".join(f"{k} " + ", ".join(f"{n} {v:.4f}" for n, v in m.items())
+                             for k, m in run["mosaicking"].items()))
+    return "\n".join(f"{line} | {state['card']}" for line in lines)
+
+
+def _downstream_expected(root: str, max_scans: int) -> dict:
+    """The PointNet forward launches each CLI makes: one an eval batch of 8
+    pairs (overlap), one a subscan registered onto its scan's first
+    (mosaicking); no other kernel."""
+    from sgaligner_tpu_torch.data.loaders import get_val_dataloader
+    from sgaligner_tpu_torch.utils.io import load_json
+
+    n_pairs = len(get_val_dataloader(downstream_cfg(root)).dataset)
+    scans = load_json(str(Path(root) / "files" / "orig" / "scan_subscan_map_val.json"))
+    subscans = sum(max(len(v) - 1, 0) for v in list(scans.values())[:max_scans])
+    return {"overlap": -(-n_pairs // 8), "mosaicking": subscans}
+
+
+def _check_downstream_launches(tag: str, root: str, run: dict, max_scans: int) -> None:
+    want = _downstream_expected(root, max_scans)
+    for task, n in want.items():
+        expected = {k: (n if k == "pointnet_fwd" else 0) for k in KERNELS}
+        if run["launches"][task] != expected:
+            raise AssertionError(f"downstream {tag} {task}: launches "
+                                 f"{run['launches'][task]}, expected pointnet_fwd {n} "
+                                 "and no other")
+
+
+def ransac_repeat_check(state: dict) -> None:
+    """``ransac_hypotheses_batch`` on the card and on the CPU over sets
+    that repeat points: the same scores, the transforms within
+    RANSAC_REPEAT_TF_ABS, and the degenerate minimal sets (a repeated
+    point) the identity on both."""
+    import numpy as np
+    import torch
+
+    from sgaligner_tpu_torch.reg.ransac import ransac_hypotheses_batch
+
+    c = RANSAC_REPEAT
+    rng = np.random.default_rng(c["seed"])
+    half = c["n"] // 2
+    src = rng.uniform(-1, 1, size=(c["sets"], half, 3))
+    src = np.concatenate([src, src[:, rng.integers(0, half, size=half)]], axis=1)
+    rot = np.linalg.qr(rng.normal(size=(3, 3)))[0]
+    rot *= np.linalg.det(rot)
+    ref = src @ rot.T + 0.2 + rng.normal(0, 0.01, size=src.shape)
+    ref[:, ::4] = rng.uniform(-1, 1, size=ref[:, ::4].shape)
+    sides = {}
+    for dev in ("cuda", "cpu"):
+        tfs, scores = ransac_hypotheses_batch(
+            torch.from_numpy(src).to(dev), torch.from_numpy(ref).to(dev),
+            torch.ones(src.shape[:2], dtype=torch.bool, device=dev), c["seed"],
+            list(range(c["sets"])), [0] * c["sets"],
+            torch.full((c["sets"],), c["threshold"], dtype=torch.float64), iters=c["iters"])
+        sides[dev] = (tfs.cpu(), scores.cpu())
+    eye = torch.eye(4, dtype=torch.float64)
+    degenerate = [torch.all(tfs == eye, dim=(-1, -2)) for tfs, _ in sides.values()]
+    d = float((sides["cuda"][0] - sides["cpu"][0]).abs().max())
+    if not (torch.equal(*degenerate) and torch.equal(sides["cuda"][1], sides["cpu"][1])
+            and d <= RANSAC_REPEAT_TF_ABS and degenerate[0].any()):
+        raise AssertionError(
+            f"downstream: batched RANSAC over repeated points, card against CPU: "
+            f"degenerate sets {int(degenerate[0].sum())} / {int(degenerate[1].sum())}, "
+            f"scores equal {torch.equal(sides['cuda'][1], sides['cpu'][1])}, "
+            f"transforms {d:.3e} apart (tolerance {RANSAC_REPEAT_TF_ABS})")
+    log(f"[downstream] batched RANSAC over repeated points ({c['sets']} sets of {c['n']}, "
+        f"{c['iters']} minimal sets each), card against CPU: "
+        f"{int(degenerate[0].sum())} degenerate minimal sets identity on both, scores equal, "
+        f"transforms at most {d:.3e} apart (tolerance {RANSAC_REPEAT_TF_ABS}) | {state['card']}")
+
+
+def phase_downstream(state: dict) -> None:
+    """The learned registration backend with the tracked geo_reg weights on
+    the card, held to tests/test_learned_reg.py's floors and to the port's
+    CPU path on the 0.4 band; then the JAX package's downstream contract
+    (overlap detection and mosaicking of the full snapshot, the learned
+    backend) through the port's two CLIs on the card, and on a cut of it,
+    the card against the CPU."""
+    import tempfile
+
+    import numpy as np
+
+    from sgaligner_tpu_torch.data.fixtures import make_synthetic_workspace
+    from sgaligner_tpu_torch.reg import eval_geo
+    from sgaligner_tpu_torch.reg.eval_geo import is_hit
+    from sgaligner_tpu_torch.reg.metrics import compute_registration_error
+    from sgaligner_tpu_torch.reg.synthetic_pairs import make_pair
+
+    card = state["card"]
+    be = learned_backend("cuda")
+
+    # (a) full SO(3), tests/test_learned_reg.py:95-112
+    rng = np.random.default_rng(GEO_SO3["seed"])
+    hits, t0 = 0, time.perf_counter()
+    for _ in range(GEO_SO3["pairs"]):
+        src, ref, gt = make_pair(rng, n_points=GEO_SO3["n_points"], overlap=GEO_SO3["overlap"])
+        out = be.register(src, ref)
+        if out is None:
+            raise AssertionError("downstream: the learned backend declined a full-SO(3) pair")
+        rre, rte = compute_registration_error(gt, out["estimated_transform"])
+        hits += is_hit(rre, rte)
+        log(f"[downstream] SO(3) pair: RRE {rre:.3f} deg, RTE {rte:.4f} m, fit "
+            f"{out['fit_score']:.3f}, {len(out['corr_scores'])} corrs")
+    log(f"[downstream] SO(3): {hits}/{GEO_SO3['pairs']} hits (floor {GEO_SO3['min_hits']}) in "
+        f"{time.perf_counter() - t0:.1f} s | {card}")
+    if hits < GEO_SO3["min_hits"]:
+        raise AssertionError(f"downstream: {hits} full-SO(3) hits, floor {GEO_SO3['min_hits']}")
+
+    # the low-overlap bands and the planar scenes, :149-187
+    readings = {}
+    for what, kw in (("bands", GEO_BANDS), ("planar", GEO_PLANAR)):
+        t0 = time.perf_counter()
+        res = eval_geo.evaluate(be, verbose=False, **kw)
+        for ov, m in res.items():
+            log(f"[downstream] {what} overlap {ov}: hits {m['hits']}/{m['n']}, RR {m['RR']:.3f}, "
+                f"FMR {m['FMR']:.3f}, fails {m['fails']}, RRE {m['RRE']:.3f} deg, RTE "
+                f"{m['RTE']:.4f} m (hits only {m['RRE_hit']:.3f} deg, {m['RTE_hit']:.4f} m), "
+                f"CD {m['CD']:.5f}, corrs {m['n_corrs']:.0f} | {card}")
+        log(f"[downstream] {what}: {time.perf_counter() - t0:.1f} s | {card}")
+        readings[what] = res
+    bands, planar = readings["bands"], readings["planar"][0.3]
+    f = GEO_BAND_FLOORS
+    checks = {f"hits at 0.3 + 0.4 >= {f['hits_mid']}":
+              bands[0.3]["hits"] + bands[0.4]["hits"] >= f["hits_mid"],
+              f"RR >= {f['rr']} at 0.3 and 0.4": min(bands[0.3]["RR"], bands[0.4]["RR"]) >= f["rr"],
+              f"RTE of the hits <= {f['rte_hit']} at 0.4": bands[0.4]["RTE_hit"] <= f["rte_hit"],
+              f"hits at 0.2 >= {f['hits_low']}": bands[0.2]["hits"] >= f["hits_low"],
+              f"planar hits >= {GEO_PLANAR_HITS}": planar["hits"] >= GEO_PLANAR_HITS}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"downstream: the learned backend misses {failed}")
+    log("[downstream] the learned backend meets every floor: " + ", ".join(checks))
+    state["geo_bands"], state["geo_planar"] = bands, planar
+
+    # the card against the CPU on the 0.4 band, the same draws; stage times
+    quads = eval_geo.band_pairs(0.4, GEO_BANDS["n_pairs"], GEO_BANDS["seed"])
+    pairs = [(q[0], q[1]) for q in quads]
+    outs, secs = {}, {}
+    for dev, backend in (("cuda", be), ("cpu", learned_backend("cpu"))):
+        backend.profile_stages, backend._stage_times = True, {}
+        t0 = time.perf_counter()
+        outs[dev] = backend.register_batch(pairs)
+        secs[dev] = time.perf_counter() - t0
+        n = len(pairs)
+        log(f"[downstream] register_batch of the 0.4 band on {dev}: {secs[dev] / n * 1e3:.1f} ms a "
+            f"pair; stages, ms a pair: " + ", ".join(
+                f"{k} {v / n * 1e3:.2f}" for k, v in backend._stage_times.items()) + f" | {card}")
+    worst = 0.0
+    for i, ((_, _, gt, _), c, h) in enumerate(zip(quads, outs["cuda"], outs["cpu"])):
+        hit = [registered_hit(c, gt), registered_hit(h, gt)]
+        if hit[0] != hit[1]:
+            raise AssertionError(f"downstream: 0.4 band pair {i} hits on one side only "
+                                 f"(card {hit[0]}, CPU {hit[1]})")
+        if all(hit):
+            d = float(np.abs(c["estimated_transform"] - h["estimated_transform"]).max())
+            worst = max(worst, d)
+            if not d <= GEO_TF_ABS:
+                raise AssertionError(f"downstream: 0.4 band pair {i}: card and CPU transforms "
+                                     f"{d:.3e} apart (> {GEO_TF_ABS})")
+    log(f"[downstream] 0.4 band, card against CPU: the same hits, transforms at most "
+        f"{worst:.3e} apart (tolerance {GEO_TF_ABS}); {secs['cuda']:.1f} s against "
+        f"{secs['cpu']:.1f} s | {card}")
+    state["geo_ms_pair"] = secs["cuda"] / len(pairs) * 1e3
+    ransac_repeat_check(state)
+
+    # (b) the downstream contract through the two CLIs
+    q = snapshot_quality("full")
+    launches = 0
+    with tempfile.TemporaryDirectory(prefix="sga_downstream_") as tmp:
+        full = str(Path(tmp) / "full")
+        make_synthetic_workspace(full, split="val", n_pairs=q["n_val_pairs"],
+                                 n_nonoverlap_pairs=q["n_val_pairs"], seed=q["val_seed"],
+                                 **q["bench"])
+        run = downstream_run(full, "cuda", DOWNSTREAM_MAX_SCANS)
+        log(_downstream_tables(f"full contract ({q['n_val_pairs']} + {q['n_val_pairs']} "
+                               f"pairs, {DOWNSTREAM_MAX_SCANS} scans), card", run, state))
+        _check_downstream_launches("full contract", full, run, DOWNSTREAM_MAX_SCANS)
+        launches += sum(r["pointnet_fwd"] for r in run["launches"].values())
+        args = run["first"]
+        err_abs, err_rel = check_op("pointnet_fwd", args, "f32",
+                                    what="downstream pointnet_fwd/C3=256/f32")
+        log(f"[downstream] the first request's pointnet_fwd again (O={args[0].shape[0]}, "
+            f"P={args[0].shape[2]}, f32): max_abs {err_abs:.3e} max_rel {err_rel:.3e} "
+            f"(tol {tol('pointnet_fwd', 'f32'):g})")
+        state["downstream"] = run
+
+        cut = str(Path(tmp) / "cut")
+        make_synthetic_workspace(cut, split="val", n_pairs=DOWNSTREAM_CPU["pairs"],
+                                 n_nonoverlap_pairs=DOWNSTREAM_CPU["pairs"],
+                                 seed=q["val_seed"], **q["bench"])
+        sides = {}
+        for dev in ("cuda", "cpu"):
+            sides[dev] = downstream_run(cut, dev, DOWNSTREAM_CPU["scans"])
+            log(_downstream_tables(f"cut ({DOWNSTREAM_CPU['pairs']} + {DOWNSTREAM_CPU['pairs']}"
+                                   f" pairs, {DOWNSTREAM_CPU['scans']} scans), {dev}",
+                                   sides[dev], state))
+        _check_downstream_launches("cut", cut, sides["cuda"], DOWNSTREAM_CPU["scans"])
+        launches += sum(r["pointnet_fwd"] for r in sides["cuda"]["launches"].values())
+    off = {}
+    for key, m in sides["cpu"]["overlap"].items():
+        for k, v in m.items():
+            if not abs(sides["cuda"]["overlap"][key][k] - v) <= DOWNSTREAM_PRF_ABS:
+                off[f"{key}.{k}"] = (sides["cuda"]["overlap"][key][k], v)
+    for key, m in sides["cpu"]["mosaicking"].items():
+        for k, v in m.items():
+            limit = DOWNSTREAM_DIST_ABS if k in ("acc", "comp") else DOWNSTREAM_RATE_ABS
+            if not abs(sides["cuda"]["mosaicking"][key][k] - v) <= limit:
+                off[f"{key}.{k}"] = (sides["cuda"]["mosaicking"][key][k], v)
+    if off:
+        raise AssertionError(f"downstream: card against CPU beyond the tolerances: {off}")
+    log("[downstream] the cut's tables, card against CPU: within P/R/F1 "
+        f"{DOWNSTREAM_PRF_ABS}, acc/comp {DOWNSTREAM_DIST_ABS} m, prec/recall/fscore "
+        f"{DOWNSTREAM_RATE_ABS}")
+    state["launches_downstream"] = launches
+
+
 def build_train_workspace(root: str) -> None:
     """aligner_artifact.py's benchmark workspace: the train split
     (TRAIN_SEED, N_TRAIN_PAIRS pairs), then the val split (VAL_SEED,
@@ -2940,6 +3274,15 @@ def time_pointnet_bwd_eva(state: dict) -> list[dict]:
                     note = (f" | {work[0]} rows and {work[1]} channels carry gradient, "
                             f"{tiles} row tiles")
                 main = (o, c3) == (EVA_TRAIN_O, EVA_C3)
+                if name == "pointnet_fwd" and (o, c3) == (EVA_TRAIN_O, PN[-1]):
+                    # the downstream phase's testers: the full snapshot at
+                    # f32, eval batches of 8 pairs (O = 256)
+                    rows.append({"name": f"{name}/C3={c3}/f32", "route": "cuda",
+                                 "source": "sgaligner_tpu_torch/csrc/pointnet.cu",
+                                 "replaces": KERNELS[name][1],
+                                 "launches": state["launches_downstream"],
+                                 "max_abs_err": err_abs, "ms": ms, "plain_ms": plain_ms,
+                                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
                 if main:
                     first = F32_FIRST_MS[name]
                     note += f" | the first version {first} ms ({first / ms:.1f}x this)"
@@ -3169,7 +3512,8 @@ def main() -> int:
                         ("train_pct", phase_train_pct), ("serve_point", phase_serve_point),
                         ("artifact", phase_artifact), ("register", phase_register),
                         ("spct", phase_spct), ("ops", phase_ops),
-                        ("quality", phase_quality), ("trainer", phase_trainer),
+                        ("quality", phase_quality), ("downstream", phase_downstream),
+                        ("trainer", phase_trainer),
                         ("time", phase_time)):
         t0 = time.perf_counter()
         phase(state)

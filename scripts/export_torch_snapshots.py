@@ -1,7 +1,8 @@
 #!/usr/bin/env python
-"""Write the tracked aligner snapshots as upstream-layout .pth.tar copies.
+"""Write the tracked snapshots as .pth.tar copies the port loads without
+tensorstore.
 
-    python scripts/export_torch_snapshots.py [--names point full eva] [--out DIR]
+    python scripts/export_torch_snapshots.py [--names point full eva geo_reg] [--out DIR]
 
 Reads each ``checkpoints/aligner_<name>`` (an orbax OCDBT store the JAX
 package wrote) with the port's ``read_ocdbt_snapshot`` (needs
@@ -11,6 +12,13 @@ with ``state_dict_from_flax`` and writes ``{"model": state_dict, "epoch",
 without ``tensorstore`` loads the snapshots from these copies. Run it again
 whenever a tracked snapshot changes; ``tests/test_torch_snapshots.py``
 holds the copies array-equal to the stores.
+
+``geo_reg``: the learned registration matcher's weights
+(``checkpoints/geo_reg/geo_params``, a bare orbax tree) mapped by
+``geo_state_dict_from_flax`` and written with its ``geo_meta.json`` as
+``{"model": state_dict, "meta": geo_meta}`` to
+``checkpoints/torch/geo_reg.pth.tar``
+(``tests/test_torch_learned_reg.py`` holds it equal to the tree).
 """
 
 from __future__ import annotations
@@ -38,17 +46,35 @@ def export(name: str, out_dir: str) -> str:
     return save_torch_snapshot(path, sd, blob["epoch"], blob["iteration"])
 
 
+def export_geo(out_dir: str) -> str:
+    import json
+
+    import torch
+
+    from sgaligner_tpu_torch.core.checkpoint import (geo_state_dict_from_flax,
+                                                     read_ocdbt_tree)
+    from chip_smoke import CHECKPOINTS
+
+    src = CHECKPOINTS / "geo_reg"
+    sd = geo_state_dict_from_flax(read_ocdbt_tree(str(src / "geo_params")))
+    with open(src / "geo_meta.json") as f:
+        meta = json.load(f)
+    path = osp.join(out_dir, "geo_reg.pth.tar")
+    torch.save({"model": sd, "meta": meta}, path)
+    return path
+
+
 def main(argv=None) -> int:
     from chip_smoke import CHECKPOINTS, SNAPSHOTS
 
+    names = list(SNAPSHOTS) + ["geo_reg"]
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--names", nargs="+", default=list(SNAPSHOTS),
-                    choices=list(SNAPSHOTS))
+    ap.add_argument("--names", nargs="+", default=names, choices=names)
     ap.add_argument("--out", default=str(CHECKPOINTS / "torch"))
     args = ap.parse_args(argv)
     os.makedirs(args.out, exist_ok=True)
     for name in args.names:
-        path = export(name, args.out)
+        path = export_geo(args.out) if name == "geo_reg" else export(name, args.out)
         print(f"{name} -> {path} ({osp.getsize(path)} bytes)")
     return 0
 

@@ -4,8 +4,8 @@ Counterpart of ``sgaligner_tpu/cli/inference_align_reg.py``, with the same
 flags (``--config``, ``--snapshot``, ``--test_epoch``, ``--test_iter``,
 ``--reg_snapshot``, ``--output_root``) plus ``--device`` (``cuda`` unless
 ``cpu`` is asked for). With ``registration: true`` in the config it builds
-the registration backend (``reg_model.backend``; the classical ``ransac``
-one is ported, the learned and GeoTransformer ones raise) and the
+the registration backend (``reg_model.backend``: ``ransac`` or ``learned``;
+GeoTransformer raises) and the
 evaluator, and the results hold the normal and the aligner registration
 summaries. Prints the results as one JSON line:
 

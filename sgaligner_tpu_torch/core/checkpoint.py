@@ -43,6 +43,11 @@ The parity-mode PointNet has no BatchNorm (its tree has no
 ``OABlock`` (``qk``, ``v``, ``trans``, ``after_norm``) onto the port's
 ``OABlock``.
 
+``geo_state_dict_from_flax(params)`` maps the learned registration
+matcher's tree (``checkpoints/geo_reg/geo_params``, read by
+``read_ocdbt_tree``, a bare tree without ``meta.json``) onto the port's
+``reg.geo_model.GeoRegModel``.
+
 ``loss_state_dict_from_flax(params["loss"])`` gives the objective's
 (``ops.objective.OverallLoss``) state_dict from the JAX train state's loss
 parameters. Leaves come back as float32, or float64 where the tree holds
@@ -60,24 +65,19 @@ import numpy as np
 import torch
 
 
-def read_ocdbt_snapshot(path: str) -> dict:
-    """A JAX-package snapshot directory -> ``{"params": tree, "batch_stats":
-    tree (when saved), ..., "epoch", "iteration"}``, every tree a nested
-    dict of numpy arrays keyed as the JAX package's ``load_snapshot`` gives
-    them (the model under ``params["model"]`` when the train state saved
-    its objective's parameters beside it, under ``params["loss"]``).
-    Needs ``tensorstore``; a machine without it loads the ``.pth.tar``
-    copies instead (``load_torch_snapshot``)."""
+def read_ocdbt_tree(path: str) -> dict:
+    """An orbax OCDBT store the JAX package wrote (a snapshot's directory,
+    or a bare parameter tree such as ``checkpoints/geo_reg/geo_params``)
+    -> its tree as nested dicts of numpy arrays, keyed as saved. Needs
+    ``tensorstore``."""
     try:
         import tensorstore as ts
     except ImportError as err:
         raise ImportError(
-            "read_ocdbt_snapshot needs tensorstore; without it, load the "
-            "snapshot's .pth.tar copy (checkpoints/torch/, written by "
-            "scripts/export_torch_snapshots.py) with load_torch_snapshot") from err
+            "reading an orbax store needs tensorstore; without it, load the "
+            ".pth.tar copy in checkpoints/torch/ (written by "
+            "scripts/export_torch_snapshots.py)") from err
     path = osp.abspath(path)
-    with open(osp.join(path, "meta.json")) as f:
-        meta = json.load(f)
     with open(osp.join(path, "_METADATA")) as f:
         keys = [ast.literal_eval(k) for k in json.load(f)["tree_metadata"]]
     out: dict = {}
@@ -89,6 +89,20 @@ def read_ocdbt_snapshot(path: str) -> dict:
         for part in key[:-1]:
             node = node.setdefault(part, {})
         node[key[-1]] = np.asarray(arr.read().result())
+    return out
+
+
+def read_ocdbt_snapshot(path: str) -> dict:
+    """A JAX-package snapshot directory -> ``{"params": tree, "batch_stats":
+    tree (when saved), ..., "epoch", "iteration"}``, every tree a nested
+    dict of numpy arrays keyed as the JAX package's ``load_snapshot`` gives
+    them (the model under ``params["model"]`` when the train state saved
+    its objective's parameters beside it, under ``params["loss"]``).
+    Needs ``tensorstore``; a machine without it loads the ``.pth.tar``
+    copies instead (``load_torch_snapshot``)."""
+    with open(osp.join(osp.abspath(path), "meta.json")) as f:
+        meta = json.load(f)
+    out = read_ocdbt_tree(path)
     out["epoch"], out["iteration"] = meta["epoch"], meta["iteration"]
     return out
 
@@ -268,3 +282,25 @@ def loss_state_dict_from_flax(loss_params: dict) -> dict[str, torch.Tensor]:
     """``{"ial_log_vars": [M], "icl_log_vars": [M]}`` -> the same names as
     the objective's parameters."""
     return {k: _t(loss_params[k]) for k in ("ial_log_vars", "icl_log_vars")}
+
+
+def geo_state_dict_from_flax(params: dict, prefix: str = ""
+                             ) -> dict[str, torch.Tensor]:
+    """A flax ``GeoRegModel`` tree (``sgaligner_tpu/reg/geo_model.py``) ->
+    the port's ``reg.geo_model.GeoRegModel`` state_dict. The port names its
+    submodules as the tree does, so each leaf maps by its path: a Dense
+    ``kernel [in, out]`` to ``weight [out, in]``, a LayerNorm ``scale`` to
+    ``weight``, ``bias`` as it is, and the four scalars (``inv_temp``,
+    ``dustbin``, ``fine_inv_temp``, ``fine_dustbin``) to 0-d tensors."""
+    sd: dict[str, torch.Tensor] = {}
+    for name, node in params.items():
+        key = f"{prefix}{name}"
+        if isinstance(node, dict):
+            sd.update(geo_state_dict_from_flax(node, f"{key}."))
+        elif name == "kernel":
+            sd[f"{prefix}weight"] = _t(np.asarray(node).T)
+        elif name == "scale":
+            sd[f"{prefix}weight"] = _t(node)
+        else:
+            sd[key] = _t(node)
+    return sd

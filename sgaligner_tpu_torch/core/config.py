@@ -68,6 +68,8 @@ class ValConfig:
 class ModelConfig:
     rel_dim: int = 41
     attr_dim: int = 164
+    # overlap detection: a pair overlaps when its alignment score is above
+    alignment_thresh: float = 0.4
     emb_dim: int = 100
     pt_out_dim: int = 256
     hidden_units: list[int] = field(default_factory=lambda: [3, 128, 128])
@@ -103,8 +105,9 @@ class LossConfig:
 class RegModelConfig:
     """The registration section (``reg_model``), with the JAX package's
     names and defaults. The port runs ``backend: "ransac"`` (the classical
-    mutual-NN + RANSAC backend); ``"learned"`` and ``"geotransformer"`` are
-    not ported yet and raise in ``reg.backend.build_backend``."""
+    mutual-NN + RANSAC backend) and ``"learned"`` (the coarse-to-fine
+    matcher); ``"geotransformer"`` is not ported and raises in
+    ``reg.backend.build_backend``."""
 
     K: int = 1
     neighbor_limits: list[int] = field(default_factory=lambda: [38, 36, 36, 38])

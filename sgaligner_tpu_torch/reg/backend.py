@@ -10,12 +10,15 @@ backend with GeoTransformer inference's output contract
   distance-kernel scores, the rigid fit by RANSAC on the device
   (``reg/ransac.py``), optionally a PCA coarse alignment first
   (``coarse="pca"``) and ICP after (``reg/icp.py``).
-* ``backend: "learned"`` and ``"geotransformer"`` are not ported yet:
-  ``build_backend`` raises for them (ROADMAP.md §1 item 5).
+* ``LearnedBackend`` (``reg/learned.py``, ``backend: "learned"``): the
+  coarse-to-fine matcher with the tracked ``geo_reg`` weights.
+* ``backend: "geotransformer"`` (upstream's external GeoTransformer) is not
+  ported: ``build_backend`` raises for it (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import os.path as osp
 from typing import Protocol
 
 import numpy as np
@@ -117,16 +120,26 @@ class MutualNNBackend:
         }
 
 
+REPO = osp.dirname(osp.dirname(osp.dirname(osp.abspath(__file__))))
+GEO_CHECKPOINT = osp.join(REPO, "checkpoints", "torch", "geo_reg.pth.tar")
+
+
 def build_backend(cfg, reg_snapshot: str | None = None,
                   device: str | torch.device = "cuda") -> RegistrationBackend:
     """The backend ``cfg.reg_model.backend`` names, on ``device``:
-    ``"ransac"`` (``MutualNNBackend``); the learned and GeoTransformer
-    backends raise."""
+    ``"ransac"`` (``MutualNNBackend``) or ``"learned"`` (``LearnedBackend``
+    with ``reg_snapshot``, by default the tracked weights and their
+    ``geo_meta.json`` in ``checkpoints/torch/geo_reg.pth.tar``);
+    ``"geotransformer"`` raises."""
     backend = cfg.reg_model.backend
-    if backend in ("learned", "geotransformer"):
+    if backend == "geotransformer":
         raise NotImplementedError(
-            f"registration backend {backend!r} is not ported yet (ROADMAP.md "
-            "§1 item 5); use backend: 'ransac'")
+            "registration backend 'geotransformer' is not ported (ROADMAP.md); "
+            "use backend: 'learned' or 'ransac'")
+    if backend == "learned":
+        from sgaligner_tpu_torch.reg.learned import LearnedBackend
+
+        return LearnedBackend(checkpoint=reg_snapshot or GEO_CHECKPOINT, device=device)
     if backend != "ransac":
         raise ValueError(f"unknown registration backend {backend!r}")
     if reg_snapshot is not None:

@@ -6,7 +6,10 @@ neighbours by chunked brute-force distance products (``|s|² - 2 s·r +
 |r|²``, the first index of the minimum), rigid updates by the weighted
 Kabsch of ``reg/ransac.py``. Correspondences beyond ``max_corr_dist`` get
 zero weight (trimmed ICP); an iteration with fewer than 3 keeps the
-transform it had. Used by ``MutualNNBackend(refine_icp=True)``.
+transform it had. Used by ``MutualNNBackend(refine_icp=True)``;
+``icp_refine_stages_batch`` runs the learned backend's trim schedule over
+many (pair, candidate) instances at once, with optional correspondence
+anchors.
 """
 
 from __future__ import annotations
@@ -57,6 +60,77 @@ def icp_refine(src: torch.Tensor, ref: torch.Tensor, src_mask: torch.Tensor,
     w = maskf * (d2 < max_corr_dist ** 2)
     rmse = torch.sqrt((d2 * w).sum() / torch.clamp(w.sum(), min=1.0))
     return tf, rmse
+
+
+def icp_refine_stages_batch(src: torch.Tensor, ref: torch.Tensor,
+                            src_mask: torch.Tensor, ref_mask: torch.Tensor,
+                            init_transforms: torch.Tensor, trims: torch.Tensor,
+                            anchor_src: torch.Tensor | None = None,
+                            anchor_ref: torch.Tensor | None = None,
+                            anchor_w: torch.Tensor | None = None,
+                            anchor_frac: float = 0.15, iters: int = 10,
+                            chunk: int | None = None) -> torch.Tensor:
+    """The trim schedule of the learned backend over G (pair, candidate)
+    instances at once: ``iters`` ICP iterations at each ``max_corr_dist``
+    of ``trims [T]``, in order, at the source's dtype (float32 at least; the
+    JAX function casts to float32). ``src [G, N, 3]``, ``ref [G, M,
+    3]`` with their masks, ``init_transforms [G, 4, 4]``; returns the
+    refined ``[G, 4, 4]``. Nearest neighbours are found ``chunk`` source
+    points at a time, so the ``[G, chunk, M]`` distance transient stays
+    small at G instances: by default 256 on the card, and on the CPU as
+    many as keep it within 2^21 floats (the cache; the answers do not
+    depend on the chunk).
+
+    ``anchor_*`` (``[G, P, 3]``, ``[G, P, 3]``, weights ``[G, P]``, 0 for
+    padding): the candidate's matcher correspondences, added to every
+    Kabsch solve with a total weight of ``anchor_frac`` times that
+    iteration's trimmed-NN inlier weight. Point-to-point ICP slides along
+    self-similar planar geometry, where the NN cost is flat in the tangent
+    direction; the anchors are the one term that is not."""
+    g, n, _ = src.shape
+    if chunk is None:
+        chunk = 256 if src.is_cuda else max(16, (1 << 21) // max(g * ref.shape[1], 1))
+    dt = torch.promote_types(src.dtype, torch.float32)
+    src_f = src.to(dt)
+    ref_f = ref.to(dt)
+    maskf = src_mask.to(dt)
+    big = torch.where(ref_mask, 0.0, 1e30).to(dt)
+    ref_sq = (ref_f * ref_f).sum(-1) + big                          # [G, M]
+
+    def nn_all(moved):
+        d2, idx = [], []
+        for i in range(0, n, chunk):
+            s = moved[:, i:i + chunk]                               # [G, c, 3]
+            # |s|² - 2 s·r + |r|², in place (-2 s·r + |s|² rounds as |s|² - 2 s·r)
+            d = torch.bmm(s, ref_f.transpose(1, 2)).mul_(-2.0)
+            d.add_((s * s).sum(-1)[..., None]).add_(ref_sq[:, None, :])
+            m = torch.min(d, dim=-1)
+            d2.append(m.values)
+            idx.append(m.indices)
+        return torch.cat(d2, dim=1), torch.cat(idx, dim=1)
+
+    anchored = anchor_src is not None
+    if anchored:
+        a_src = anchor_src.to(dt)
+        a_ref = anchor_ref.to(dt)
+        a_w = anchor_w.to(dt)
+    tf = init_transforms.to(dt)
+    for trim in torch.repeat_interleave(trims.to(dt), iters):
+        moved = torch.einsum("gnd,ged->gne", src_f, tf[:, :3, :3]) + tf[:, None, :3, 3]
+        d2, idx = nn_all(moved)
+        w = maskf * (d2 < trim * trim)
+        targets = torch.gather(ref_f, 1, idx[..., None].expand(-1, -1, 3))
+        if anchored:
+            # the anchors carry anchor_frac of the NN inlier mass
+            scale = anchor_frac * w.sum(-1) / torch.clamp(a_w.sum(-1), min=1e-9)
+            s_all = torch.cat([src_f, a_src], dim=1)
+            t_all = torch.cat([targets, a_ref], dim=1)
+            w_all = torch.cat([w, a_w * scale[:, None]], dim=1)
+        else:
+            s_all, t_all, w_all = src_f, targets, w
+        new_tf = kabsch(s_all, t_all, w_all + 1e-12)
+        tf = torch.where((w.sum(-1) >= 3)[:, None, None], new_tf, tf)
+    return tf
 
 
 def icp_refine_host(src_points: np.ndarray, ref_points: np.ndarray,

@@ -13,7 +13,9 @@ seed)``: uniform over ordered triples of distinct valid correspondences,
 drawn on a CPU ``torch.Generator`` and moved to the device, so the card and
 the CPU test the same hypotheses. (The JAX package draws by Gumbel top-k
 over the whole padded axis, ``iters x bucket`` floats; the answers of
-everything after the draw are the same for the same samples.)
+everything after the draw are the same for the same samples.) The learned
+backend's batched sweep (``ransac_hypotheses_batch``, G sets at once) draws
+each set's samples with ``draw_instance_sets`` from the set's identity.
 
 The device functions compute at the dtype of their inputs. The host
 wrappers (``find_rigid_transform``, ``find_rigid_transforms_topk``) fit at
@@ -126,6 +128,68 @@ def ransac_rigid_transform(src: torch.Tensor, ref: torch.Tensor,
         best = torch.where(w.sum() >= 3, kabsch(src, ref, w + 1e-12), best)
     inliers = ((_residuals(src, ref, best) < threshold) * maskf).sum()
     return best, inliers
+
+
+def draw_instance_sets(seed: int, pair_id: int, role: int, n_valid: int,
+                       bucket: int, iters: int) -> torch.Tensor:
+    """The minimal sets of one correspondence set of the learned backend's
+    batched RANSAC, ``[iters, 3]`` indices into its ``n_valid`` valid
+    entries, on the CPU: ``draw_minimal_sets`` on a generator seeded from
+    the set's identity ``(seed, pair_id, role)`` (role 0 the fine set, 1
+    the coarse set), so a pair's draws do not depend on the pairs sharing
+    its round. ``bucket``, the padded width of the round's sets, is what
+    the JAX package's draw (Gumbel top-k over the padded axis) also
+    depends on; this draw does not use it."""
+    state = np.random.SeedSequence((int(seed), int(pair_id), int(role))).generate_state(1)
+    return draw_minimal_sets(n_valid, iters, int(state[0]))
+
+
+def _proper(src: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """Whether each minimal set ``src, ref [..., 3, 3]`` determines a
+    rotation: the second singular value of its cross-covariance above 1e-9
+    of the first. A repeated point leaves the centred triple on a line and
+    the cross-covariance of rank 1, whose rotation about that line the SVD
+    leaves to the library."""
+    h = ((src - src.mean(-2, keepdim=True)).transpose(-1, -2)
+         @ (ref - ref.mean(-2, keepdim=True)))
+    sv = torch.linalg.svdvals(h)
+    return sv[..., 1] > 1e-9 * sv[..., 0]
+
+
+def ransac_hypotheses_batch(src: torch.Tensor, ref: torch.Tensor,
+                            mask: torch.Tensor, seed: int, pair_ids, roles,
+                            thresholds: torch.Tensor, iters: int = 5000,
+                            chunk: int = 256) -> tuple[torch.Tensor, torch.Tensor]:
+    """``ransac_hypotheses`` over G correspondence sets at once: ``src, ref
+    [G, N, 3]`` (padded), ``mask [G, N]``, per-set inlier ``thresholds
+    [G]``. Set g's minimal sets are ``draw_instance_sets(seed, pair_ids[g],
+    roles[g], its valid count, N, iters)`` (indices of its valid entries,
+    in order). Returns ``(tfs [G, iters, 4, 4], scores [G, iters])``.
+
+    A correspondence set can hold one point twice (the fine stage matches
+    overlapping patches). A minimal set with a repeated point has no
+    unique rotation, and cuSOLVER and LAPACK return different ones, so such
+    a set (``_proper``) gets the identity and score 0: no caller takes a
+    hypothesis of fewer than 3 inliers, and the card's hypotheses are the
+    CPU's to rounding."""
+    g, n, _ = src.shape
+    mask_h = mask.cpu()
+    samples = []
+    for i in range(g):
+        valid = torch.nonzero(mask_h[i])[:, 0]
+        samples.append(valid[draw_instance_sets(seed, int(pair_ids[i]), int(roles[i]),
+                                                len(valid), n, iters)])
+    samples = torch.stack(samples).to(src.device)             # [G, iters, 3]
+    rows = torch.arange(g, device=src.device)[:, None, None]
+    a, b = src[rows, samples], ref[rows, samples]
+    proper = _proper(a, b)
+    tfs = torch.where(proper[..., None, None], kabsch(a, b),
+                      torch.eye(4, dtype=src.dtype, device=src.device))
+    maskf = mask.to(src.dtype)[:, None, :]
+    thr = thresholds.to(device=src.device, dtype=src.dtype)[:, None, None]
+    scores = torch.cat([((_residuals(src[:, None], ref[:, None], tfs[:, i:i + chunk]) < thr)
+                         * maskf).sum(-1) for i in range(0, iters, chunk)], dim=1)
+    return tfs, scores * proper
 
 
 def _padded(src_corr, ref_corr, device):

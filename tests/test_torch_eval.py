@@ -440,10 +440,10 @@ def test_tester_counts_match_jax(quality_runs, name):
 def test_tester_reads_the_store_as_the_copy(quality_runs, tmp_path):
     """The OCDBT store (the reader's route) gives EVA's results bit for bit;
     registration in the config without an evaluator leaves the alignment
-    metrics as they were (as the JAX tester); the registration backends not
-    ported yet (learned, geotransformer) raise, and so does a
-    --reg_snapshot for the classical backend, which takes none; the card
-    without one raises."""
+    metrics as they were (as the JAX tester); the GeoTransformer backend,
+    which is not ported, raises, and so do the learned backend given a
+    --reg_snapshot that holds no geo_params and the classical backend given
+    one at all, since it takes none; the card without one raises."""
     import yaml
 
     from sgaligner_tpu_torch.cli import inference_align_reg
@@ -463,7 +463,7 @@ def test_tester_reads_the_store_as_the_copy(quality_runs, tmp_path):
     cfg.registration = False
     with open(cfg_path) as f:
         values = yaml.safe_load(f)
-    for backend, reg_snapshot, error in (("learned", None, NotImplementedError),
+    for backend, reg_snapshot, error in (("learned", store, FileNotFoundError),
                                          ("geotransformer", store, NotImplementedError),
                                          ("ransac", store, ValueError)):
         path = str(tmp_path / f"{backend}.yaml")

@@ -96,7 +96,15 @@ def test_port_modules_are_listed():
                      "sgaligner_tpu_torch.align.alignment",
                      "sgaligner_tpu_torch.utils.pointcloud",
                      "sgaligner_tpu_torch.cli.export_serving",
-                     "sgaligner_tpu_torch.cli.demo_align"):
+                     "sgaligner_tpu_torch.cli.demo_align",
+                     "sgaligner_tpu_torch.ops.fps",
+                     "sgaligner_tpu_torch.reg.geo_model",
+                     "sgaligner_tpu_torch.reg.learned",
+                     "sgaligner_tpu_torch.reg.learned_batch",
+                     "sgaligner_tpu_torch.reg.eval_geo",
+                     "sgaligner_tpu_torch.reg.synthetic_pairs",
+                     "sgaligner_tpu_torch.cli.inference_find_overlapper",
+                     "sgaligner_tpu_torch.cli.inference_mosaicking"):
         assert expected in names
 
 
