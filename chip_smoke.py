@@ -26,7 +26,12 @@ Phases, in order (every failure raises and exits non-zero):
                tail in both forms and the embedding forwards twice on the
                same inputs: the same bits. Faults planted in the wgmma
                kernels' outputs (KERNEL_PLANTED), each of which the
-               comparison must catch
+               comparison must catch. Then the four block kernels at
+               FullPCT's width (C = 256, da = 64: eval, training forward,
+               epilogue sums, training backward; WIDE) at O = 67, P = 256
+               and 200, f32 and bf16, SA and OA, each launching its C = 256
+               kernel once, the same bits twice, the training backward's
+               KERNEL_PLANTED faults caught
   parity       the pct serving path on the CPU (plain versions) against the
                card (kernels): same seeded weights, one pooled B=8 batch, f32
   train_parity the point configuration's train step on the CPU against the
@@ -77,6 +82,14 @@ Phases, in order (every failure raises and exits non-zero):
   ops          pct_attention_fused and pct_block_fused forward plus backward
                through autograd at O=896, SA and OA, against the plain
                versions; one launch of each of their kernels per call
+  full_pct     FullPCT (FPS + KNN grouping, SGModule, four OA blocks at
+               C = 256) on scripts/aligner_artifact.py's BENCH layout at
+               N = 1,024 points an object: eval and three Adam steps at
+               O = 32 on the card at f32 and on the CPU at f32 and f64, the
+               CPU replaying the card's FPS and KNN picks, held by
+               oa_parity's rule; then O = 256 at f32 and bf16, eval and
+               train forward plus backward: ms a call, peak memory, 4
+               launches of each C = 256 block kernel a call, finiteness
   artifact     the serving artifact (serving.py: torch.export with the
                kernels as custom ops) for the card: the pct serving step at
                full width (bf16, B=512, K pinned to the largest of serve's
@@ -164,7 +177,8 @@ Phases, in order (every failure raises and exits non-zero):
                backward beside their earlier times, with their passes under
                torch.profiler; the PointNet backward's routed rows beside the
                row tiles its kernel ran, which must be the ones they fill),
-               the ops' kernels and the OA variants at O=896, the PointNet
+               the ops' kernels and the OA variants at O=896, the C = 256
+               block kernels (OA) at FullPCT's O = 256, bf16 and f32, the PointNet
                forward at EVA's C3 = 200 (O = 896 and 13,440; the quality
                runs' request times beside it), the bf16 PointNet backward at
                C3 = 200 beside 208 and 256, and the f32 forms of both PointNet
@@ -427,6 +441,24 @@ KERNELS = {
     "pct_block_bwd": ("sgaligner_tpu_torch/csrc/pct_block_bwd_sm90.cu",
                       "sgaligner_tpu/ops/pct_attention.py:341"),
 }
+# The block kernels at FullPCT's width, C = 256, da = 64 (csrc/
+# pct_attention_c256.cu; the epilogue sums csrc/pct_epi_sums.cu): each
+# launch count's name and the wrapper (ATTN_FNS, TRAIN_KERNELS) that launches
+# it for a 256-wide input. Their tolerances are the C = 128 forms' (TOL)
+WIDE = {"pct_block_eval_c256": "pct_block_eval", "pct_block_fwd_c256": "pct_block_fwd",
+        "pct_epi_sums_c256": "pct_epi_sums", "pct_block_res_bwd_c256": "pct_block_res_bwd"}
+WIDE_C, WIDE_P = 256, 256           # FullPCT's OA blocks: C, and P = samples[1]
+# phase full_pct: FullPCT on scripts/aligner_artifact.py's BENCH layout (16
+# slots a graph, 14 valid objects) at N = 1,024 points an object, so sg1's
+# FPS subsamples: 8 pairs, O = 256 on the card at f32 and bf16; the parity
+# run (card against CPU, three train steps) takes 1 pair, O = 32
+FULL_PCT_N, FULL_PCT_SLOTS, FULL_PCT_VALID, FULL_PCT_PAIRS = 1024, 16, 14, 8
+FULL_PCT_SAMPLES = (512, 256)       # FullPCT's own: sg2's 256 centres are the blocks' P
+FULL_PCT_PARITY_PAIRS = 1
+FULL_PCT_CALLS = 5
+PER_FULL_PCT_EVAL = {"pct_block_eval_c256": 4}
+PER_FULL_PCT_TRAIN = {"pct_block_fwd_c256": 4, "pct_epi_sums_c256": 4,
+                      "pct_block_res_bwd_c256": 4}
 PCT_KERNELS = ("embed_first", "embed_second", "pct_block_eval", "pct_tail")
 # kernels held to the same bits twice besides the training and op kernels
 # (their BN sums: per-block slices, no atomics; the PointNet forward's max
@@ -713,10 +745,19 @@ def cuda_ms(fn, warmup: int = 2, reps: int = 5) -> float:
 
 # ------------------------------- inputs --------------------------------------
 
-def op_inputs(name: str, o: int, dtype, seed: int, p: int = P, c3: int = PN[-1]
-              ) -> tuple:
+def wqk_scale(c: int) -> float:
+    """The q/k weight's scale in the attention kernels' inputs: C^-1/2 at
+    C = 128; (C·sqrt(da))^-1/2 at C = 256, where at C^-1/2 the energies'
+    diagonal |q|² (about da = 64) leaves each column softmax one-hot to f32
+    precision and dq (so dWqk) pure rounding noise on either side."""
+    return c ** -0.5 if c == C else (c * (c // 4) ** 0.5) ** -0.5
+
+
+def op_inputs(name: str, o: int, dtype, seed: int, p: int = P, c3: int = PN[-1],
+              c: int = C) -> tuple:
     """Seeded inputs of one op at full width (p points per object; the
-    PointNet's last width c3), on the card."""
+    PointNet's last width c3; the attention family's channels c, da = c / 4),
+    on the card."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
@@ -745,48 +786,48 @@ def op_inputs(name: str, o: int, dtype, seed: int, p: int = P, c3: int = PN[-1]
         return (torch.randn(*shape, generator=g) * scale).to("cuda", torch.float32)
 
     if name in TRAIN_KERNELS or name in OP_KERNELS:
-        return train_op_inputs(name, o, p, rnd, f32, mask)
+        return train_op_inputs(name, o, p, rnd, f32, mask, c)
     if name == "embed_first":
         return rnd(o, 3, p), rnd(3, C), mask
     if name == "embed_second":
         return (rnd(o, p, C), rnd(1, C, scale=0.5), rnd(1, C, scale=0.1),
                 rnd(C, C, scale=C ** -0.5), mask)
     if name == "pct_block_eval":
-        wbn = (torch.rand(C, generator=g) + 0.5).cuda()
-        return (rnd(o, p, C), rnd(C, DA, scale=C ** -0.5),
-                rnd(C, C, scale=C ** -0.5), rnd(C, scale=0.1),
-                rnd(C, C, scale=C ** -0.5), rnd(C, scale=0.1), wbn,
-                (torch.randn(C, generator=g) * 0.1).cuda())
+        wbn = (torch.rand(c, generator=g) + 0.5).cuda()
+        return (rnd(o, p, c), rnd(c, c // 4, scale=wqk_scale(c)),
+                rnd(c, c, scale=c ** -0.5), rnd(c, scale=0.1),
+                rnd(c, c, scale=c ** -0.5), rnd(c, scale=0.1), wbn,
+                (torch.randn(c, generator=g) * 0.1).cuda())
     return (*(rnd(o, p, C) for _ in range(4)), rnd(4 * C, K, scale=(4 * C) ** -0.5),
             mask)
 
 
-def train_op_inputs(name: str, o: int, p: int, rnd, f32, mask) -> tuple:
+def train_op_inputs(name: str, o: int, p: int, rnd, f32, mask, c: int = C) -> tuple:
     """Inputs of the training kernels: activations and weights as the
     forward ops take them, cotangents in the compute dtype (per point) or
     f32 (the BN sums' and the pool's), the tail's indices from the plain
-    forward (both sides get them)."""
-    ds = (f32(1, C, scale=0.1), f32(1, C, scale=0.01))
+    forward (both sides get them); the attention family's at c channels."""
+    ds = (f32(1, c, scale=0.1), f32(1, c, scale=0.01))
     if name == "embed_first_bwd":
         return (rnd(o, 3, p), rnd(3, C), mask, rnd(o, p, C), *ds)
     if name == "embed_second_bwd":
         return (rnd(o, p, C), rnd(1, C, scale=0.5), rnd(1, C, scale=0.1),
                 rnd(C, C, scale=C ** -0.5), mask, rnd(o, p, C), *ds)
     if name == "pct_epi_sums":
-        return rnd(o, p, C), f32(C), f32(C, scale=0.1), rnd(o, p, C)
-    attn = (rnd(o, p, C), rnd(C, DA, scale=C ** -0.5), rnd(C, C, scale=C ** -0.5),
-            rnd(C, scale=0.1))
+        return rnd(o, p, c), f32(c), f32(c, scale=0.1), rnd(o, p, c)
+    attn = (rnd(o, p, c), rnd(c, c // 4, scale=wqk_scale(c)), rnd(c, c, scale=c ** -0.5),
+            rnd(c, scale=0.1))
     if name == "pct_attn_fwd":
         return attn
     if name == "pct_attn_bwd":
-        return (*attn, rnd(o, p, C))
+        return (*attn, rnd(o, p, c))
     if name in ("pct_block_fwd", "pct_block_res_bwd", "pct_block_bwd"):
-        block = (*attn, rnd(C, C, scale=C ** -0.5), rnd(C, scale=0.1), mask)
+        block = (*attn, rnd(c, c, scale=c ** -0.5), rnd(c, scale=0.1), mask)
         if name == "pct_block_fwd":
             return block
         if name == "pct_block_bwd":
-            return (*block, rnd(o, p, C), *ds)
-        return (*block, rnd(o, p, C), f32(C), f32(C, scale=0.1), *ds)
+            return (*block, rnd(o, p, c), *ds)
+        return (*block, rnd(o, p, c), f32(c), f32(c, scale=0.1), *ds)
     from sgaligner_tpu_torch.ops.pct_tail import pct_tail_plain
 
     xs = tuple(rnd(o, p, C) for _ in range(4))
@@ -794,6 +835,26 @@ def train_op_inputs(name: str, o: int, p: int, rnd, f32, mask) -> tuple:
     amax, amin = pct_tail_plain(*xs, w, mask, with_index=True)[4:]
     return (*xs, w, mask, f32(o, K), f32(o, K), f32(1, K, scale=0.01),
             f32(1, K, scale=0.001), amax, amin)
+
+
+def untied(name: str, args: tuple, flags) -> tuple:
+    """``args`` of the C = 256 kernels, and for pct_block_res_bwd with the
+    cotangent dxn zeroed where the epilogue's relu input t_out·wbn + bbn (the
+    flags' t_out at f64) lies within 1e-5 of 0, relative to its largest
+    value: the kernel and the plain version sum t_out in other orders, and a
+    tie may route either way (an H100 routed one at |z| = 7e-9 among O·P·C =
+    3.4M the other way, which moved the f32 gradients by 2e-3). At O = 67,
+    P = 200 that zeroes 473 of the 3.4M elements; every other goes through
+    the comparison."""
+    if name != "pct_block_res_bwd":
+        return args
+    from sgaligner_tpu_torch.ops.pct_attention import block_math
+
+    x, wqk, wv, bv, wt, bt, mask, dxn, wbn, bbn, *rest = args
+    t = block_math(*(a.double() for a in (x, wqk, wv, bv, wt, bt)), *flags)
+    z = t * wbn.double() + bbn.double()
+    tie = z.abs() < 1e-5 * z.abs().max()
+    return (x, wqk, wv, bv, wt, bt, mask, dxn.masked_fill(tie, 0), wbn, bbn, *rest)
 
 
 def op_fns(name: str, flags=SA):
@@ -1041,6 +1102,43 @@ def phase_kernels(state: dict) -> None:
                 log(f"[kernels] {label:24s} O={o} P={P} max_abs={err_abs:.3e} "
                     f"max_rel={err_rel:.3e} (tol {tol('pointnet_bwd', dt_name):g}) dW3 "
                     f"{tuple(first[4].shape)}")
+    check_wide_kernels()
+
+
+def check_wide_kernels() -> None:
+    """The block kernels at C = 256 (WIDE) against their plain versions, at
+    O = 67, P = 256 and the ragged P, f32 and bf16, SA and OA: one launch of
+    the C = 256 kernel a call, the same bits twice, and the planted faults
+    of KERNEL_PLANTED in pct_block_res_bwd's output caught."""
+    import torch
+
+    from sgaligner_tpu_torch.ops import _build
+
+    for p in (WIDE_P, RAGGED_P):
+        for dt_name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            for wide, name in WIDE.items():
+                variants = [("", SA)] if name == "pct_epi_sums" else [("SA", SA), ("OA", OA)]
+                for tag, flags in variants:
+                    kern, plain = op_fns(name, flags)
+                    args = untied(name, op_inputs(name, SMALL_O, dtype, seed=11, p=p, c=WIDE_C),
+                                  flags)
+                    label = f"{wide}{'/' + tag if tag else ''}/{dt_name}"
+                    before = _build.LAUNCHES[wide]
+                    err_abs, err_rel = check_op(name, args, dt_name, flags, label)
+                    if _build.LAUNCHES[wide] != before + 1:
+                        raise AssertionError(f"{label}: {_build.LAUNCHES[wide] - before} "
+                                             "launches of the C = 256 kernel, expected 1")
+                    if name == "pct_block_res_bwd" and p == WIDE_P:
+                        check_planted(name, args, flags, label, dt_name)
+                    first, second = as_tuple(kern(*args)), as_tuple(kern(*args))
+                    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+                        raise AssertionError(f"{label}: two runs on the same inputs differ "
+                                             "(the kernel must be deterministic)")
+                    ms = cuda_ms(lambda: kern(*args), warmup=1, reps=3)
+                    log(f"[kernels] {label:30s} O={SMALL_O} P={p} C={WIDE_C} "
+                        f"max_abs={err_abs:.3e} max_rel={err_rel:.3e} "
+                        f"(tol {tol(name, dt_name, flags):g}) kernel {ms:.3f} ms")
+                    del args, first, second
 
 
 def check_planted(name: str, args: tuple, flags, label: str, dt_name: str = "bf16",
@@ -2182,7 +2280,7 @@ def quality_registration(state: dict, root: str) -> None:
 
 
 def _check_launches(tag: str, launches: dict, per_call: dict, calls: int) -> None:
-    for name in KERNELS:
+    for name in (*KERNELS, *WIDE):
         want = per_call.get(name, 0) * calls
         if launches[name] != want:
             raise AssertionError(f"{tag}: {name} launched {launches[name]} times in "
@@ -2317,6 +2415,184 @@ def phase_ops(state: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def full_pct_batch(pairs: int, seed: int):
+    """FullPCT's input on the CPU: ``pairs`` pairs of the BENCH layout
+    (FULL_PCT_SLOTS slots a graph, FULL_PCT_VALID valid objects, the padded
+    slots' points zeros) at FULL_PCT_N points an object: (points [O, N, 3],
+    mask [O]), O = 2 · FULL_PCT_SLOTS a pair."""
+    import torch
+
+    from sgaligner_tpu_torch.data.batch import BatchSpec
+    from sgaligner_tpu_torch.data.synthetic import make_synthetic_batch
+
+    host = make_synthetic_batch(BatchSpec(pairs, FULL_PCT_SLOTS, FULL_PCT_N), seed=seed,
+                                n_src=FULL_PCT_VALID, n_ref=FULL_PCT_VALID, resample=True)
+    pts = torch.from_numpy(host["obj_points"]).flatten(0, 1).transpose(1, 2).contiguous()
+    return pts, torch.from_numpy(host["obj_mask"]).flatten()
+
+
+@contextlib.contextmanager
+def grouping_indices(record: list, replay: list | None = None):
+    """Patch the KNN grouping's FPS and KNN (ops/knn.py): append each
+    call's indices to ``record`` (on the host) and, with ``replay``, use the
+    recorded ones instead, in call order. Both pick by comparing distances,
+    and a near-tie may fall either way on two devices or dtypes; a CPU run
+    that replays the card's picks groups the same points."""
+    from sgaligner_tpu_torch.ops import knn as mod
+
+    fps, knn_point, queue = mod.farthest_point_sample, mod.knn_point, iter(replay or ())
+
+    def routed(fn):
+        def call(*args, **kwargs):
+            idx = fn(*args, **kwargs)
+            record.append(idx.cpu())
+            return idx if replay is None else next(queue).to(idx.device)
+        return call
+
+    mod.farthest_point_sample, mod.knn_point = routed(fps), routed(knn_point)
+    try:
+        yield
+    finally:
+        mod.farthest_point_sample, mod.knn_point = fps, knn_point
+
+
+def _full_pct_three(dtype, dev: str, pts, mask) -> dict:
+    """FullPCT's eval output, then three Adam steps (lr 1e-3) in train mode
+    from the seeded weights (``build_full_pct``, seed 11; head dropout off)
+    on the loss <out, ct> with a seeded cotangent: _spct_three's readings,
+    "outputs" the eval output and the first train step's."""
+    import torch
+
+    from sgaligner_tpu_torch.engine.factory import build_full_pct
+
+    net = build_full_pct("cpu", dtype, seed=11, samples=FULL_PCT_SAMPLES)
+    net = net.to(dev, torch.float64) if dtype == torch.float64 else net.to(dev)
+    net.dropout = 0.0
+    pts, mask = pts.to(dev), mask.to(dev)
+    start = {k: v.detach().double().cpu().clone() for k, v in net.state_dict().items()}
+    t0 = time.perf_counter()
+    net.eval()
+    with torch.no_grad():
+        outputs = [net(pts, mask).double().cpu()]
+    net.train()
+    opt = torch.optim.Adam(net.parameters(), lr=1e-3)
+    ct = torch.randn(pts.shape[0], 256, generator=torch.Generator().manual_seed(5)).to(dev, dtype)
+    losses = []
+    for step in range(3):
+        opt.zero_grad(set_to_none=True)
+        out = net(pts, mask)
+        loss = (out * ct).sum()
+        loss.backward()
+        if step == 0:
+            outputs.append(out.detach().double().cpu())
+            grads = {k: q.grad.double().cpu() for k, q in net.named_parameters()}
+        opt.step()
+        losses.append({"loss": float(loss.detach())})
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return {"losses": losses, "grads": grads, "outputs": outputs, "start": start,
+            "seconds": time.perf_counter() - t0,
+            "params": {k: v.detach().double().cpu() for k, v in net.state_dict().items()}}
+
+
+def phase_full_pct(state: dict) -> None:
+    """FullPCT through the port (models.pct.FullPCT: FPS + KNN grouping,
+    SGModule, four OA blocks at C = 256 on the kernels of WIDE). First its
+    eval output and three train steps at O = 32 on the card at f32 and on the
+    CPU at f32 and f64, the CPU runs replaying the card's FPS and KNN picks,
+    held by oa_parity's rule (PCT_VS_CPU times the CPU's own f32 distance
+    from f64). Then at full width, O = 256, on the card at f32 and bf16:
+    the eval forward and the train forward plus backward (head dropout on),
+    ms a call (CUDA events, median of FULL_PCT_CALLS), the C = 256 kernels'
+    launches a call, finite outputs and gradients, peak memory. At bf16 FPS
+    and KNN pick on bf16 coordinates, so that run is held by its kernels
+    (phase kernels) and its finiteness, not against f32."""
+    import torch
+
+    from sgaligner_tpu_torch.engine.factory import build_full_pct
+    from sgaligner_tpu_torch.ops import _build
+
+    pts, mask = full_pct_batch(FULL_PCT_PARITY_PAIRS, seed=21)
+    o = pts.shape[0]
+    idx = {"cuda": [], "cpu": [], "cpu64": []}
+    runs = {}
+    for name, dev, dtype in (("cuda", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                             ("cpu64", "cpu", torch.float64)):
+        with grouping_indices(idx[name], None if name == "cuda" else idx["cuda"]):
+            runs[name] = _full_pct_three(dtype, dev, pts, mask)
+        log(f"[full_pct] {name}: eval + 3 train steps {runs[name]['seconds']:.1f} s; loss "
+            + ", ".join(f"{v['loss']:.6f}" for v in runs[name]["losses"]))
+    apart = [int((a != b).sum()) for a, b in zip(idx["cpu"], idx["cuda"])]
+    ref = _spct_readings(runs["cpu64"], runs["cpu"], {})
+    bounds = {k: PCT_VS_CPU * ref[k] for k in ("grad", "loss", "param", "stats", "outputs")}
+    r = _spct_readings(runs["cpu64"], runs["cuda"], bounds)
+    log(f"[full_pct] O={o} N={FULL_PCT_N}: FPS / KNN indices the CPU at f32 picks apart from "
+        f"the card, per call (replayed): {apart} of "
+        f"{[int(t.numel()) for t in idx['cuda']]}")
+    for who, x in (("CPU at f32 against the CPU at f64", ref),
+                   ("card at f32 against the CPU at f64", r)):
+        log(f"[full_pct] O={o} {who}: outputs {x['outputs']:.3e}; worst gradient leaf "
+            f"{x['leaf']} {x['grad']:.3e}; losses {x['loss']:.3e}; parameters "
+            f"{x['param']:.3e} (most in {x['param_leaf']}); running statistics "
+            f"{x['stats']:.3e}; quiet leaves left out: {x['quiet']}")
+    if r["failed"]:
+        raise AssertionError(f"full_pct: the card's FullPCT is further from the f64 run than "
+                             f"{PCT_VS_CPU} x the CPU's ({', '.join(r['failed'])}): {r}")
+    del runs, idx
+
+    pts, mask = full_pct_batch(FULL_PCT_PAIRS, seed=22)
+    pts, mask = pts.cuda(), mask.cuda()
+    o = pts.shape[0]
+    state["launches_full_pct"], state["full_pct_ms"] = {}, {}
+
+    def finite(tensors, what):
+        if not all(bool(t.isfinite().all()) for t in tensors):
+            raise AssertionError(f"full_pct: {what} not finite")
+
+    for dt_name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        net = build_full_pct("cuda", dtype, seed=11, samples=FULL_PCT_SAMPLES)
+        net.eval()
+        with torch.inference_mode():
+            out = net(pts, mask)                                         # warm-up
+            if tuple(out.shape) != (o, 256) or out.dtype != dtype:
+                raise AssertionError(f"full_pct: output {tuple(out.shape)} {out.dtype}")
+            finite([out], f"eval output ({dt_name})")
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            eval_ms = cuda_ms(lambda: net(pts, mask), warmup=0, reps=FULL_PCT_CALLS)
+            eval_launches = dict(_build.LAUNCHES)
+        _check_launches(f"full_pct eval/{dt_name}", eval_launches, PER_FULL_PCT_EVAL,
+                        FULL_PCT_CALLS)
+        net.train()
+        drop = torch.Generator(device="cuda").manual_seed(7)
+        ct = torch.randn(o, 256, generator=torch.Generator().manual_seed(5)).to("cuda", dtype)
+
+        def fwd_bwd():
+            net.zero_grad(set_to_none=True)
+            out = net(pts, mask, drop)
+            out.backward(ct)
+            return out
+
+        torch.cuda.reset_peak_memory_stats()
+        finite([fwd_bwd()], f"train output ({dt_name})")                  # warm-up
+        torch.cuda.synchronize()
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        _build.reset_launches()
+        train_ms = cuda_ms(fwd_bwd, warmup=0, reps=FULL_PCT_CALLS)
+        train_launches = dict(_build.LAUNCHES)
+        _check_launches(f"full_pct train/{dt_name}", train_launches, PER_FULL_PCT_TRAIN,
+                        FULL_PCT_CALLS)
+        finite([q.grad for q in net.parameters()], f"gradients ({dt_name})")
+        state["launches_full_pct"][dt_name] = {"eval": eval_launches, "train": train_launches}
+        state["full_pct_ms"][dt_name] = (eval_ms, train_ms)
+        log(f"[full_pct] O={o} N={FULL_PCT_N} samples {FULL_PCT_SAMPLES} {dt_name}: eval forward "
+            f"{eval_ms:.2f} ms, train forward + backward {train_ms:.2f} ms a call (median of "
+            f"{FULL_PCT_CALLS}); peak memory in training {peak_gb:.1f} GiB; launches a call: "
+            f"eval {PER_FULL_PCT_EVAL}, train {PER_FULL_PCT_TRAIN} | {state['card']}")
+        del net, out, ct
+        torch.cuda.empty_cache()
+
+
 def snapshot_quality(name: str) -> dict:
     """checkpoints/aligner_<name>/quality.json."""
     with open(CHECKPOINTS / f"aligner_{name}" / "quality.json") as f:
@@ -2434,7 +2710,8 @@ def phase_quality(state: dict) -> None:
                     f"max_abs={err_abs:.3e} max_rel={err_rel:.3e} (tol "
                     f"{tol('pointnet_fwd', dt_name):g})")
                 batches = -(-q["n_val_pairs"] // 8)
-                want = {k: (batches if k == "pointnet_fwd" else 0) for k in KERNELS}
+                want = {k: (batches if k == "pointnet_fwd" else 0)
+                        for k in (*KERNELS, *WIDE)}
                 if launches != want:
                     raise AssertionError(f"quality {name} {dtype}: launches {launches}, "
                                          f"expected pointnet_fwd {batches} and no other")
@@ -2567,7 +2844,7 @@ def _downstream_expected(root: str, max_scans: int) -> dict:
 def _check_downstream_launches(tag: str, root: str, run: dict, max_scans: int) -> None:
     want = _downstream_expected(root, max_scans)
     for task, n in want.items():
-        expected = {k: (n if k == "pointnet_fwd" else 0) for k in KERNELS}
+        expected = {k: (n if k == "pointnet_fwd" else 0) for k in (*KERNELS, *WIDE)}
         if run["launches"][task] != expected:
             raise AssertionError(f"downstream {tag} {task}: launches "
                                  f"{run['launches'][task]}, expected pointnet_fwd {n} "
@@ -2930,7 +3207,8 @@ def phase_trainer(state: dict) -> None:
         run = retrain(cfg, (PCT_TRAIN_EPOCHS,))
         steps = steps_per_epoch * PCT_TRAIN_EPOCHS
         want = {k: steps * PER_PCT_TRAIN_STEP.get(k, 0)
-                + PCT_TRAIN_EPOCHS * val_batches * PER_REQUEST.get(k, 0) for k in KERNELS}
+                + PCT_TRAIN_EPOCHS * val_batches * PER_REQUEST.get(k, 0)
+                for k in (*KERNELS, *WIDE)}
         if run["launches"][0] != want:
             raise AssertionError(f"trainer pct: launches {run['launches'][0]}, "
                                  f"expected {want}")
@@ -2967,10 +3245,11 @@ def bwd_work(args) -> tuple[int, int, int]:
     return (int(per_obj.sum()), int(live.sum()), int(((per_obj + 63) // 64).sum()))
 
 
-def block_flops() -> int:
+def block_flops(p: int = P, c: int = C) -> int:
     """Operations of one object's SA block forward: q, v, E = q qᵀ, y = G v,
-    t = u Wt (122 MFLOP at P=512)."""
-    return 2 * P * C * (DA + C) + 2 * P * P * DA + 2 * P * P * C + 2 * P * C * C
+    t = u Wt (122 MFLOP at P=512, C=128; 117 MFLOP at P=C=256)."""
+    da = c // 4
+    return 2 * p * c * (da + c) + 2 * p * p * da + 2 * p * p * c + 2 * p * c * c
 
 
 def attn_flops(oa: bool = False, bwd: bool = False) -> int:
@@ -2986,13 +3265,16 @@ def attn_flops(oa: bool = False, bwd: bool = False) -> int:
 
 
 def bound(name: str, o: int, p: int = P, work: tuple[int, int] | None = None,
-          oa: bool = False, c3: int = PN[-1], f32: bool = False) -> tuple[float, str]:
+          oa: bool = False, c3: int = PN[-1], f32: bool = False, c: int = C
+          ) -> tuple[float, str]:
     """Least time (ms) for the work of one call at O objects, bf16, or
     with ``f32`` f32 at the f32 rate (the f32 forms use no tensor cores).
     pointnet_bwd counts only the work its data needs
     (``work`` from ``bwd_work``); ``oa``: the OA flags (the attention
     backward's y); ``c3``: the PointNet's real channels (padding is not
-    work)."""
+    work); ``c``: the block kernels' and the epilogue sums' channels (da =
+    c / 4)."""
+    da = c // 4
     e = 4 if f32 else 2  # bytes per element
     c1, c2 = PN[:2]
     w_elems = 3 * c1 + c1 + c1 * c2 + c2 + c2 * c3 + c3
@@ -3018,19 +3300,19 @@ def bound(name: str, o: int, p: int = P, work: tuple[int, int] | None = None,
         ops, rate = 2 * o * P * C * C, BF16_TENSOR_FLOPS
     elif name in ("pct_block_eval", "pct_block_fwd"):
         # q, v, E = q qᵀ, y = G v, t = u Wt; x read, the output written
-        nbytes = 2 * o * P * C * e + (C * DA + 2 * C * C + 2 * C) * e + 2 * C * 4
-        ops = o * block_flops()
+        nbytes = 2 * o * p * c * e + (c * da + 2 * c * c + 2 * c) * e + 2 * c * 4
+        ops = o * block_flops(p, c)
         rate = BF16_TENSOR_FLOPS
     elif name in ("pct_block_res_bwd", "pct_block_bwd"):
         # the forward again; dWt and dY = dz Wtᵀ; dv = Gᵀ dY and dG = dY vᵀ;
         # dq = (dE + dEᵀ) q; dWqk, dWv and dx = dq Wqkᵀ + dv Wvᵀ. x and dxn (or
         # dt) read, dx written, f32 weight gradients
-        back = (2 * 2 * P * C * C + 2 * 2 * P * P * C + 2 * 2 * P * P * DA
-                + 2 * 2 * P * C * DA + 2 * 2 * P * C * C)
+        back = (2 * 2 * p * c * c + 2 * 2 * p * p * c + 2 * 2 * p * p * da
+                + 2 * 2 * p * c * da + 2 * 2 * p * c * c)
         vecs = 4 if name == "pct_block_res_bwd" else 2
-        nbytes = (3 * o * P * C * e + (C * DA + 2 * C * C + 2 * C) * e + o * e + vecs * C * 4
-                  + (C * DA + 2 * C * C + 2 * C) * 4)
-        ops, rate = o * (block_flops() + back), BF16_TENSOR_FLOPS
+        nbytes = (3 * o * p * c * e + (c * da + 2 * c * c + 2 * c) * e + o * e + vecs * c * 4
+                  + (c * da + 2 * c * c + 2 * c) * 4)
+        ops, rate = o * (block_flops(p, c) + back), BF16_TENSOR_FLOPS
     elif name == "pct_attn_fwd":
         # x read, y written
         nbytes = 2 * o * P * C * e + (C * DA + C * C + C) * e
@@ -3040,8 +3322,8 @@ def bound(name: str, o: int, p: int = P, work: tuple[int, int] | None = None,
         nbytes = 3 * o * P * C * e + (C * DA + C * C + C) * (e + 4)
         ops, rate = o * attn_flops(oa, bwd=True), BF16_TENSOR_FLOPS
     elif name == "pct_epi_sums":
-        nbytes = 2 * o * P * C * e + 2 * C * 4 + 2 * C * 4
-        ops, rate = 4 * o * P * C, F32_FLOPS
+        nbytes = 2 * o * p * c * e + 2 * c * 4 + 2 * c * 4
+        ops, rate = 4 * o * p * c, F32_FLOPS
     elif name == "embed_first_bwd":
         # h recomputed (3 FMAs), dz, dW (3 FMAs) per element; x and dh read
         nbytes = o * 3 * P * e + o * P * C * e + 3 * C * e + o * e + 2 * C * 4 + 3 * C * 4
@@ -3126,6 +3408,7 @@ def phase_time(state: dict) -> None:
     rows += time_pointnet_bwd_eva(state)
     rows += time_train_pct(state)
     rows += time_oa(state)
+    rows += time_full_pct(state)
     time_f32_forms(state)
     time_attention_yardstick(state)
     state["rows"] = rows
@@ -3420,6 +3703,44 @@ def time_oa(state: dict) -> list[dict]:
     return rows
 
 
+def time_full_pct(state: dict) -> list[dict]:
+    """The C = 256 block kernels with FullPCT's OA flags at its full-width
+    O = 256, P = 256, bf16 then f32 (bound at the f32 rate), each with its
+    launches in phase full_pct's timed calls and the plain version's time.
+    No single PyTorch call computes any of them (library_ms null)."""
+    import torch
+
+    o = FULL_PCT_PAIRS * 2 * FULL_PCT_SLOTS
+    rows = []
+    for dt_name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        counted = state["launches_full_pct"][dt_name]
+        for wide, name in WIDE.items():
+            flags = SA if name == "pct_epi_sums" else OA
+            label = wide + ("" if name == "pct_epi_sums" else "/OA") + (
+                "/f32" if dt_name == "f32" else "")
+            kern, plain = op_fns(name, flags)
+            args = untied(name, op_inputs(name, o, dtype, seed=2, p=WIDE_P, c=WIDE_C), flags)
+            err_abs, err_rel = check_op(name, args, dt_name, flags,
+                                        what=f"time: {label} at O={o}")
+            ms = cuda_ms(lambda: kern(*args))
+            plain_ms = cuda_ms(lambda: plain(*args), warmup=1, reps=3)
+            b_ms, b_by = bound(name, o, WIDE_P, oa=flags == OA, f32=dt_name == "f32", c=WIDE_C)
+            launches = counted["eval" if name == "pct_block_eval" else "train"][wide]
+            log(f"[time] {label:28s} O={o} P={WIDE_P} C={WIDE_C} kernel {ms:.3f} ms | plain "
+                f"{plain_ms:.3f} ms | bound {b_ms:.4f} ms ({b_by}) | library None | launches "
+                f"{launches} (full_pct, {FULL_PCT_CALLS} calls) | max_abs {err_abs:.3e} "
+                f"max_rel {err_rel:.3e} | {state['card']}")
+            source = ("sgaligner_tpu_torch/csrc/pct_epi_sums.cu" if name == "pct_epi_sums"
+                      else "sgaligner_tpu_torch/csrc/pct_attention_c256.cu")
+            rows.append({"name": label, "route": "cuda", "source": source,
+                         "replaces": KERNELS[name][1], "launches": launches,
+                         "max_abs_err": err_abs, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+            del args
+            torch.cuda.empty_cache()
+    return rows
+
+
 def time_f32_forms(state: dict) -> None:
     """The f32 forms that are still first versions (pct_embed.cu,
     pct_attention.cu and pct_tail.cu: every kernel but the PointNet pair,
@@ -3512,6 +3833,7 @@ def main() -> int:
                         ("train_pct", phase_train_pct), ("serve_point", phase_serve_point),
                         ("artifact", phase_artifact), ("register", phase_register),
                         ("spct", phase_spct), ("ops", phase_ops),
+                        ("full_pct", phase_full_pct),
                         ("quality", phase_quality), ("downstream", phase_downstream),
                         ("trainer", phase_trainer),
                         ("time", phase_time)):

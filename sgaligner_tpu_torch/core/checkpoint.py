@@ -43,6 +43,23 @@ The parity-mode PointNet has no BatchNorm (its tree has no
 ``OABlock`` (``qk``, ``v``, ``trans``, ``after_norm``) onto the port's
 ``OABlock``.
 
+``full_pct_state_dict_from_flax(params, batch_stats)`` maps the tree of a
+flax ``FullPCT`` onto the port's ``FullPCT``, and
+``full_pct_flax_from_state_dict`` maps it back. The JAX checkpoint
+converter has no FullPCT entry, so the names are the port's own, upstream
+pct.py's where it has them (``_FULL_PCT``):
+
+* ``ne_conv1``, ``ne_conv2``, ``ne_bn1``, ``ne_bn2`` ->
+  ``neighbor_embedding.conv1`` / ``conv2`` / ``bn1`` / ``bn2``;
+* ``sg1`` / ``sg2`` ``.conv1``, ``.conv2``, ``.bn1``, ``.bn2`` ->
+  ``neighbor_embedding.sg1`` / ``sg2`` ``.conv1`` ...;
+* ``oa1``..``oa4`` ``qk``, ``v``, ``trans``, ``after_norm`` -> ``oa1``..``oa4``
+  ``q_conv``, ``v_conv``, ``trans_conv``, ``after_norm`` (as SPCT's blocks);
+* ``linear``, ``linear_bn`` -> ``linear.0``, ``linear.1``; ``linear1``,
+  ``bn1``, ``linear2``, ``bn2`` under their own names;
+
+with the running statistics of every BatchNorm.
+
 ``geo_state_dict_from_flax(params)`` maps the learned registration
 matcher's tree (``checkpoints/geo_reg/geo_params``, read by
 ``read_ocdbt_tree``, a bare tree without ``meta.json``) onto the port's
@@ -276,6 +293,96 @@ def spct_state_dict_from_flax(params: dict, batch_stats: dict
     else:
         _pct_trunk(sd, "", params, batch_stats)
     return sd
+
+
+# FullPCT's leaves: (flax path, torch key prefix, kind), kind "conv" (a
+# Dense kernel as a Conv1d weight), "linear", "bn" or "block" (an OA block)
+_FULL_PCT = (
+    ("ne_conv1", "neighbor_embedding.conv1", "conv"),
+    ("ne_bn1", "neighbor_embedding.bn1", "bn"),
+    ("ne_conv2", "neighbor_embedding.conv2", "conv"),
+    ("ne_bn2", "neighbor_embedding.bn2", "bn"),
+    *((f"{sg}.{kind}{i}", f"neighbor_embedding.{sg}.{kind}{i}",
+       "conv" if kind == "conv" else "bn")
+      for sg in ("sg1", "sg2") for i in (1, 2) for kind in ("conv", "bn")),
+    *((f"oa{i}", f"oa{i}", "block") for i in (1, 2, 3, 4)),
+    ("linear", "linear.0", "conv"),
+    ("linear_bn", "linear.1", "bn"),
+    ("linear1", "linear1", "linear"),
+    ("bn1", "bn1", "bn"),
+    ("linear2", "linear2", "linear"),
+    ("bn2", "bn2", "bn"),
+)
+
+
+def _node(tree: dict, path: str) -> dict:
+    for key in path.split("."):
+        tree = tree[key]
+    return tree
+
+
+def _put(tree: dict, path: str, value: dict) -> None:
+    *parents, last = path.split(".")
+    for key in parents:
+        tree = tree.setdefault(key, {})
+    tree[last] = value
+
+
+def full_pct_state_dict_from_flax(params: dict, batch_stats: dict
+                                  ) -> dict[str, torch.Tensor]:
+    """A flax ``FullPCT`` tree -> the port's ``FullPCT`` state_dict."""
+    sd: dict[str, torch.Tensor] = {}
+    for path, pre, kind in _FULL_PCT:
+        node = _node(params, path)
+        if kind == "conv":
+            sd[f"{pre}.weight"] = _conv(node["kernel"])
+        elif kind == "linear":
+            _linear(sd, pre, node)
+        elif kind == "bn":
+            _bn(sd, pre, node, _node(batch_stats, path))
+        else:
+            _attention_block(sd, f"{pre}.", node, _node(batch_stats, path))
+    return sd
+
+
+def full_pct_flax_from_state_dict(sd: dict) -> tuple[dict, dict]:
+    """The port's ``FullPCT`` state_dict -> the flax ``(params,
+    batch_stats)`` trees (numpy arrays), the inverse of
+    ``full_pct_state_dict_from_flax``."""
+    params: dict = {}
+    stats: dict = {}
+
+    def a(key):
+        return sd[key].detach().cpu().numpy()
+
+    def kernel(pre):
+        return {"kernel": a(f"{pre}.weight")[:, :, 0].T}
+
+    def bn(pre):
+        return ({"scale": a(f"{pre}.weight"), "bias": a(f"{pre}.bias")},
+                {"mean": a(f"{pre}.running_mean"), "var": a(f"{pre}.running_var")})
+
+    for path, pre, kind in _FULL_PCT:
+        if kind == "conv":
+            _put(params, path, kernel(pre))
+        elif kind == "linear":
+            dense = {"kernel": a(f"{pre}.weight").T}
+            if f"{pre}.bias" in sd:
+                dense["bias"] = a(f"{pre}.bias")
+            _put(params, path, dense)
+        elif kind == "bn":
+            p, st = bn(pre)
+            _put(params, path, p)
+            _put(stats, path, st)
+        else:
+            p, st = bn(f"{pre}.after_norm")
+            _put(params, path, {
+                "qk": kernel(f"{pre}.q_conv"),
+                "v": {**kernel(f"{pre}.v_conv"), "bias": a(f"{pre}.v_conv.bias")},
+                "trans": {**kernel(f"{pre}.trans_conv"), "bias": a(f"{pre}.trans_conv.bias")},
+                "after_norm": p})
+            _put(stats, path, {"after_norm": st})
+    return params, stats
 
 
 def loss_state_dict_from_flax(loss_params: dict) -> dict[str, torch.Tensor]:

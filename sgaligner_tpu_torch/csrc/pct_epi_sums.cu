@@ -5,12 +5,14 @@
 // sgaligner_tpu/ops/pct_attention.py::_block_res_bwd_rule: with g = dy
 // where t·wbn + bbn > 0 (the multiply and add in the compute dtype, compared
 // in f32, as the reference: epi_live in common.cuh), dwbn = Σ g·t and
-// dbbn = Σ g over every row of t_out and dy [rows, 128], in f32.
+// dbbn = Σ g over every row of t_out and dy [rows, C], in f32, at the
+// block's widths C = 128 (SPCT, NaivePCT) and C = 256 (FullPCT's OA
+// blocks, the entries ending in _c256).
 //   Bound on the H100: bytes. t_out and dy are read once and nothing else
-//   is large: 0.070 ms at O = 896, P = 512 in bf16.
+//   is large: 0.070 ms at O = 896, P = 512, C = 128 in bf16.
 //   Design: a thread owns 16 bytes of a row (8 bf16 or 4 f32 channels), so
-//   16 (bf16) or 32 (f32) threads cover a 256- or 512-byte row with one
-//   16-byte load each, and takes kUnroll rows of both tensors per step,
+//   C / 8 (bf16) or C / 4 (f32) threads cover a row with one 16-byte load
+//   each, and takes kUnroll rows of both tensors per step,
 //   all loads issued before any arithmetic: 128 bytes in flight a thread,
 //   32 KB a 256-thread block. Its sums stay in registers (2 per channel);
 //   at the end the block's row lanes meet in shared memory in a fixed
@@ -21,11 +23,10 @@
 namespace sga {
 namespace {
 
-constexpr int kC = 128;
 constexpr int kThreads = 256;
 constexpr int kUnroll = 4;
 
-template <typename T>
+template <typename T, int kC>
 __global__ void __launch_bounds__(kThreads)
 epi_sums_stream_kernel(const T* __restrict__ tout, const float* __restrict__ wbn,
                        const float* __restrict__ bbn, const T* __restrict__ dy,
@@ -76,21 +77,39 @@ epi_sums_stream_kernel(const T* __restrict__ tout, const float* __restrict__ wbn
   }
   __syncthreads();
   // thread (sum, channel) adds the row lanes in order into the block's slice
-  const int which = threadIdx.x / kC, ch = threadIdx.x % kC;
-  float sum = 0.f;
+  for (int j = threadIdx.x; j < 2 * kC; j += kThreads) {
+    const int which = j / kC, ch = j % kC;
+    float sum = 0.f;
 #pragma unroll
-  for (int l = 0; l < kRowLanes; ++l) sum += part[l][which][ch];
-  scratch[(size_t)blockIdx.x * slice_stride(2 * kC) + which * kC + ch] = sum;
+    for (int l = 0; l < kRowLanes; ++l) sum += part[l][which][ch];
+    scratch[(size_t)blockIdx.x * slice_stride(2 * kC) + which * kC + ch] = sum;
+  }
 }
 
-template <typename T>
+template <typename T, int kC>
 int launch(const void* tout, const float* wbn, const float* bbn, const void* dy, float* scratch,
            int blocks, float* sums, long long rows, cudaStream_t st) {
   if (((uintptr_t)tout | (uintptr_t)dy) & 15) return (int)cudaErrorMisalignedAddress;
-  epi_sums_stream_kernel<T><<<blocks, kThreads, 0, st>>>((const T*)tout, wbn, bbn, (const T*)dy,
-                                                         scratch, rows);
+  epi_sums_stream_kernel<T, kC><<<blocks, kThreads, 0, st>>>((const T*)tout, wbn, bbn,
+                                                             (const T*)dy, scratch, rows);
   if (int rc = (int)cudaGetLastError()) return rc;
   return reduce_slices(scratch, slice_stride(2 * kC), blocks, sums, 2 * kC, st);
+}
+
+// Rows one block takes per step at C channels (its row lanes times the
+// unroll): the wrapper sizes the grid by it
+inline int rows_per_block(int c, int dtype) {
+  const int lanes = c / (dtype == kBF16 ? 8 : 4);
+  return kThreads / lanes * kUnroll;
+}
+
+template <int kC>
+int epi_sums(const void* tout, const float* wbn, const float* bbn, const void* dy,
+             float* scratch, int blocks, float* sums, long long rows, int dtype, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16)
+    return launch<bf16, kC>(tout, wbn, bbn, dy, scratch, blocks, sums, rows, st);
+  return launch<float, kC>(tout, wbn, bbn, dy, scratch, blocks, sums, rows, st);
 }
 
 }  // namespace
@@ -98,21 +117,21 @@ int launch(const void* tout, const float* wbn, const float* bbn, const void* dy,
 
 extern "C" {
 
-// Rows one block takes per step (its row lanes times the unroll): the
-// wrapper sizes the grid by it
-int sga_pct_epi_sums_rows_per_block(int dtype) {
-  const int lanes = sga::kC / (dtype == sga::kBF16 ? 8 : 4);
-  return sga::kThreads / lanes * sga::kUnroll;
-}
+int sga_pct_epi_sums_rows_per_block(int dtype) { return sga::rows_per_block(128, dtype); }
+int sga_pct_epi_sums_c256_rows_per_block(int dtype) { return sga::rows_per_block(256, dtype); }
 
-// sums [2, 128]: Σ g·t, Σ g; scratch: `blocks` slices of slice_stride(256)
+// sums [2, C]: Σ g·t, Σ g; scratch: `blocks` slices of slice_stride(2·C);
+// C = 128, and 256 for the _c256 entry
 int sga_pct_epi_sums(const void* tout, const float* wbn, const float* bbn, const void* dy,
                      float* scratch, int blocks, float* sums, long long rows, int dtype,
                      void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == sga::kBF16)
-    return sga::launch<sga::bf16>(tout, wbn, bbn, dy, scratch, blocks, sums, rows, st);
-  return sga::launch<float>(tout, wbn, bbn, dy, scratch, blocks, sums, rows, st);
+  return sga::epi_sums<128>(tout, wbn, bbn, dy, scratch, blocks, sums, rows, dtype, stream);
+}
+
+int sga_pct_epi_sums_c256(const void* tout, const float* wbn, const float* bbn, const void* dy,
+                          float* scratch, int blocks, float* sums, long long rows, int dtype,
+                          void* stream) {
+  return sga::epi_sums<256>(tout, wbn, bbn, dy, scratch, blocks, sums, rows, dtype, stream);
 }
 
 }  // extern "C"

@@ -1,4 +1,5 @@
-"""Factories: ``build_model``, ``build_lr_schedule``, ``build_optimizer``.
+"""Factories: ``build_model``, ``build_full_pct``, ``build_lr_schedule``,
+``build_optimizer``.
 
 Counterpart of ``sgaligner_tpu/engine/factory.py``: the SGAligner encoder,
 or EVA for ``model_name: eva`` (``loss_kind`` names its objective). The
@@ -18,6 +19,7 @@ import torch
 
 from sgaligner_tpu_torch.core.config import Config
 from sgaligner_tpu_torch.models.eva import EVA
+from sgaligner_tpu_torch.models.pct import FullPCT
 from sgaligner_tpu_torch.models.sg_aligner import MultiModalEncoder
 from sgaligner_tpu_torch.ops.objective import OverallLoss, OverallNCALoss
 
@@ -79,6 +81,16 @@ def build_model(cfg: Config, device: str | torch.device = "cuda",
             dtype=dtype,
         )
     init_weights(model, generator)
+    return model.to(device)
+
+
+def build_full_pct(device: str | torch.device = "cuda", dtype: torch.dtype = torch.float32,
+                   seed: int = 0, **kwargs) -> FullPCT:
+    """FullPCT (``models.pct.FullPCT``; ``kwargs``: ``out_size``,
+    ``samples``) with ``init_weights``' seeded weights on ``device``."""
+    device = resolve_device(device)
+    model = FullPCT(dtype=dtype, **kwargs)
+    init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device)
 
 

@@ -1,12 +1,15 @@
-"""PCT object encoders, inference and training forms: NaivePCT (SA blocks)
-and SPCT (OA blocks).
+"""PCT object encoders, inference and training forms: NaivePCT (SA blocks),
+SPCT (OA blocks) and FullPCT (FPS + KNN grouping, OA blocks at C = 256).
 
 Counterpart of ``sgaligner_tpu/models/pct.py`` (``MaskedBatchNorm`` with its
 running-statistics and masked batch-statistics forms, ``SABlock`` and
 ``OABlock`` in their fused form (``_fused_block``), ``NaivePCT`` with
 channel-first input, the fused embedding / block / tail ops and the head's
-two ``Dropout(0.5)``, and ``SPCT``: the embedding, four OA blocks and the
-1024-wide tail with its max and mean pools).
+two ``Dropout(0.5)``, ``SPCT``: the embedding, four OA blocks and the
+1024-wide tail with its max and mean pools, ``SGModule`` and ``FullPCT``:
+the neighbour embedding (3 -> 64 -> 64, then two sampling-and-grouping
+blocks, 128 and 256 wide), four ``OABlock(256)``, the 1280 -> 1024 tail and
+NaivePCT's head).
 Parameters carry upstream SGAligner's torch names and shapes
 (``object_encoder.sa1.q_conv.weight`` is ``[32, 128, 1]``), the names
 ``sgaligner_tpu/core/checkpoint.py::torch_state_dict_to_params`` maps from.
@@ -21,9 +24,11 @@ Functions run (``EmbedFirst``, ``EmbedSecond``, ``BlockResidual``,
 ``PctTail``), the BatchNorms fold from the batch's masked
 moments and update their running statistics (decay 0.9, the unbiased
 variance), and the head draws its dropout from the caller's generator.
-SPCT's tail is plain torch in both modes, as the JAX package leaves it to
-XLA. The ops dispatch on the tensors' device: CUDA tensors launch the
-kernels of ``csrc/``, CPU tensors take the plain versions.
+SPCT's and FullPCT's tails, and FullPCT's neighbour embedding (FPS, KNN
+grouping, its 1x1 convolutions and BatchNorms), are plain torch in both
+modes, as the JAX package leaves them to XLA. The ops dispatch on the
+tensors' device: CUDA tensors launch the kernels of ``csrc/``, CPU tensors
+take the plain versions.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sgaligner_tpu_torch.models.structure import dropout
+from sgaligner_tpu_torch.ops.knn import sample_and_knn_group
 from sgaligner_tpu_torch.ops.pct_attention import BlockEval, BlockResidual
 from sgaligner_tpu_torch.ops.pct_embed import EmbedFirst, EmbedSecond
 from sgaligner_tpu_torch.ops.pct_tail import PctTail, pct_tail_pool
@@ -189,7 +195,7 @@ class SABlock(nn.Module):
 
     def forward(self, x: torch.Tensor, kmask: torch.Tensor | None = None,
                 count: torch.Tensor | None = None) -> torch.Tensor:
-        """x [O, P, 128] in the compute dtype; train mode also takes the
+        """x [O, P, C] in the compute dtype; train mode also takes the
         object mask ``kmask [O, 1]`` (x's dtype) and the valid-row count."""
         dt = x.dtype
         weights = (self.q_conv.kernel(dt), self.v_conv.kernel(dt),
@@ -301,3 +307,109 @@ class SPCT(nn.Module):
         z = torch.matmul(torch.cat(feats, dim=-1), self.linear[0].kernel(dt))
         x = F.leaky_relu(self.linear[1](z, mask[:, None]), 0.2)      # [O, P, 1024]
         return x, x.amax(dim=1), x.mean(dim=1)
+
+
+def _conv_bn_relu(x, conv: Conv1x1, bn: MaskedBatchNorm, mask) -> torch.Tensor:
+    """relu(BN(x·W)) in x's dtype, BN over the rows ``mask`` marks."""
+    return torch.relu(bn(torch.matmul(x, conv.kernel(x.dtype)), mask))
+
+
+class SGModule(nn.Module):
+    """Sampling and grouping (upstream pct.py SG): FPS ``s`` centres, the
+    features of each centre's 32 nearest points grouped around it
+    (``ops.knn.sample_and_knn_group``), 2 x (1x1 conv + BN + relu), max over
+    the group. The BatchNorms count a valid object's s·32 rows."""
+
+    k = 32
+
+    def __init__(self, s: int, in_channels: int, out_channels: int):
+        super().__init__()
+        self.s = s
+        self.conv1 = Conv1x1(in_channels, out_channels, bias=False)
+        self.conv2 = Conv1x1(out_channels, out_channels, bias=False)
+        self.bn1 = MaskedBatchNorm(out_channels)
+        self.bn2 = MaskedBatchNorm(out_channels)
+
+    def forward(self, features: torch.Tensor, coords: torch.Tensor, mask: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """features [O, N, D] and coords [O, N, 3] in the compute dtype, mask
+        [O] -> (the centres [O, s, 3], their features [O, s, C])."""
+        new_xyz, grouped = sample_and_knn_group(self.s, self.k, coords, features)
+        o, s, k, d = grouped.shape
+        x = grouped.reshape(o * s, k, d)
+        gm = mask[:, None].expand(o, s).reshape(o * s, 1)
+        x = _conv_bn_relu(x, self.conv1, self.bn1, gm)
+        x = _conv_bn_relu(x, self.conv2, self.bn2, gm)
+        return new_xyz, x.amax(dim=1).reshape(o, s, -1)
+
+
+class NeighborEmbedding(nn.Module):
+    """Upstream ``NeighborEmbedding``: 2 x (1x1 conv 3 -> 64 -> 64 + BN +
+    relu) per point, then ``sg1`` (``samples[0]`` centres, 128 wide) and
+    ``sg2`` (``samples[1]`` centres of sg1's, 256 wide)."""
+
+    def __init__(self, samples: tuple[int, int] = (512, 256)):
+        super().__init__()
+        self.conv1 = Conv1x1(3, 64, bias=False)
+        self.conv2 = Conv1x1(64, 64, bias=False)
+        self.bn1 = MaskedBatchNorm(64)
+        self.bn2 = MaskedBatchNorm(64)
+        self.sg1 = SGModule(samples[0], 128, 128)
+        self.sg2 = SGModule(samples[1], 256, 256)
+
+    def forward(self, xyz: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """xyz [O, N, 3] in the compute dtype, mask [O] -> [O, samples[1], 256]."""
+        pm = mask[:, None]
+        x = _conv_bn_relu(xyz, self.conv1, self.bn1, pm)
+        x = _conv_bn_relu(x, self.conv2, self.bn2, pm)
+        xyz1, x = self.sg1(x, xyz, mask)
+        return self.sg2(x, xyz1, mask)[1]
+
+
+class FullPCT(nn.Module):
+    """FullPCT (upstream pct.py PCT): the neighbour embedding, four OA
+    blocks at C = 256 (the kernels of ``csrc/pct_attention_c256.cu``), the
+    concatenation of the five 256-wide features, 1280 -> 1024 + BN + leaky
+    relu (0.2) + max over the sampled points, and NaivePCT's head.
+
+    Input: points-last ``[O, N, 3]`` (the JAX layout) and the object mask
+    ``[O]``; returns ``[O, out_size]`` in the module's dtype. ``dropout``:
+    the head's two rates (0.5), applied in train mode from the generator the
+    caller passes. ``engine.factory.build_full_pct`` builds one with seeded
+    weights on the card (or the CPU)."""
+
+    def __init__(self, out_size: int = 256, samples: tuple[int, int] = (512, 256),
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.dropout = 0.5
+        self.neighbor_embedding = NeighborEmbedding(samples)
+        self.oa1, self.oa2, self.oa3, self.oa4 = (OABlock(256) for _ in range(4))
+        self.linear = nn.ModuleList([Conv1x1(5 * 256, 1024, bias=False),
+                                     MaskedBatchNorm(1024)])
+        self.linear1 = Linear(1024, 512, bias=False)
+        self.bn1 = MaskedBatchNorm(512)
+        self.linear2 = Linear(512, out_size)
+        self.bn2 = MaskedBatchNorm(out_size)
+
+    def forward(self, points: torch.Tensor, mask: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        dt = self.dtype
+        x = self.neighbor_embedding(points.to(dt), mask)              # [O, S, 256]
+        kmask = mask.to(dt)[:, None].contiguous()
+        # valid rows of the blocks' BN statistics, as the JAX model counts them (f32)
+        count = (torch.clamp_min(mask.to(torch.float32).sum() * x.shape[1], 1.0)
+                 if self.training else None)
+        feats = [x]
+        for oa in (self.oa1, self.oa2, self.oa3, self.oa4):
+            x = oa(x, kmask, count)
+            feats.append(x)
+        z = torch.matmul(torch.cat(feats, dim=-1), self.linear[0].kernel(dt))
+        x = F.leaky_relu(self.linear[1](z, mask[:, None]), 0.2).amax(dim=1)  # [O, 1024]
+        x = torch.relu(self.bn1(self.linear1(x, dt), mask))
+        if self.training:
+            x = dropout(x, self.dropout, generator)
+        x = torch.relu(self.bn2(self.linear2(x, dt), mask))
+        if self.training:
+            x = dropout(x, self.dropout, generator)
+        return x

@@ -36,6 +36,14 @@ against a column max, as the TPU kernels' do; the CUDA kernels use an f32
 log-sum-exp instead). ``pct_block_eval`` is the custom op
 ``sgaligner::pct_block_eval`` (``ops/library.py``), which ``torch.export``
 keeps whole.
+
+Widths: the kernels take C = 128, da = 32 (NaivePCT, SPCT), and the block
+kernels FullPCT's OA blocks run (``pct_block_eval``, ``block_fwd``,
+``epi_sums``, ``block_res_bwd``) also C = 256, da = 64, at both dtypes
+through ``csrc/pct_attention_c256.cu`` (and ``epi_sums`` through
+``csrc/pct_epi_sums.cu``), each counted under its name with ``_c256``. A CUDA
+tensor of any other width raises, as do ``block_bwd``, ``attn_fwd`` and
+``attn_bwd`` at C = 256. The plain versions take any width.
 """
 
 from __future__ import annotations
@@ -44,6 +52,20 @@ import torch
 
 from sgaligner_tpu_torch.ops import _build, library
 from sgaligner_tpu_torch.ops.pct_embed import acc_dtype, masked_sums
+
+# the kernels' widths C (da = C / 4): the suffix of the C entry points and
+# of the launch counts at each
+WIDTHS = {128: "", 256: "_c256"}
+
+
+def kernel_width(name: str, x, widths=tuple(WIDTHS)) -> tuple[int, str]:
+    """(C, its suffix) of x [O, P, C] for the kernel ``name``; raises for a
+    width it has no kernel for."""
+    c = x.shape[-1]
+    if x.dim() != 3 or c not in widths:
+        raise ValueError(f"{name}: x has shape {tuple(x.shape)}; the kernel takes "
+                         f"[O, P, C] with C in {sorted(widths)}")
+    return c, WIDTHS[c]
 
 
 def qk_scale(wqk, scale: bool):
@@ -101,10 +123,10 @@ def pct_block_eval(x, wqk, wv, bv, wt, bt, wbn, bbn, scale=True,
     """Inference SA/OA block ``x + relu(t_out·wbn + bbn)``, through the op
     ``sgaligner::pct_block_eval``.
 
-    x: [O, P, 128]; wqk [128, 32] (unscaled); wv, wt [128, 128]; bv, bt [128]
-    in x's dtype; wbn, bbn [128]: the BN affine folded from running
-    statistics (at >= f32). ``scale=True, double_norm=False`` is SA,
-    ``scale=False, double_norm=True`` OA; the mixed pairs run too (the
+    x: [O, P, C] (C = 128 or 256, da = C / 4); wqk [C, da] (unscaled); wv,
+    wt [C, C]; bv, bt [C] in x's dtype; wbn, bbn [C]: the BN affine folded
+    from running statistics (at >= f32). ``scale=True, double_norm=False``
+    is SA, ``scale=False, double_norm=True`` OA; the mixed pairs run too (the
     scale is folded into Wqk before the launch). No gradient: ``BlockEval``
     is the differentiable form."""
     return _block_eval_op(x, wqk, wv, bv, wt, bt, wbn, bbn, bool(scale),
@@ -112,7 +134,8 @@ def pct_block_eval(x, wqk, wv, bv, wt, bt, wbn, bbn, scale=True,
 
 
 def _block_eval_cuda(x, wqk, wv, bv, wt, bt, wbn, bbn, scale, double_norm):
-    name = "pct_block_eval"
+    c, suffix = kernel_width("pct_block_eval", x)
+    name = "pct_block_eval" + suffix
     dt = x.dtype
     wqk_s = qk_scale(wqk, scale).contiguous()
     wbn32 = wbn.to(torch.float32).reshape(-1).contiguous()
@@ -120,17 +143,16 @@ def _block_eval_cuda(x, wqk, wv, bv, wt, bt, wbn, bbn, scale, double_norm):
     _build.check_cuda(name, {"x": x, "wqk": wqk_s, "wv": wv, "bv": bv,
                              "wt": wt, "bt": bt}, dt)
     _build.check_cuda(name, {"x": x, "wbn": wbn32, "bbn": bbn32})
-    o, p, c = x.shape
-    _build.check_shape(name, "x", x, (o, p, 128))
-    _build.check_shape(name, "wqk", wqk_s, (128, 32))
+    o, p, _ = x.shape
+    _build.check_shape(name, "wqk", wqk_s, (c, c // 4))
     for key, t in (("wv", wv), ("wt", wt)):
-        _build.check_shape(name, key, t, (128, 128))
+        _build.check_shape(name, key, t, (c, c))
     for key, t in (("bv", bv), ("bt", bt), ("wbn", wbn32), ("bbn", bbn32)):
-        _build.check_shape(name, key, t, (128,))
+        _build.check_shape(name, key, t, (c,))
     out = torch.empty_like(x)
     q, v, lse = _block_work(x)
     if o:
-        _build.launch(name, "sga_pct_block_eval", x.device,
+        _build.launch(name, "sga_pct_block_eval" + suffix, x.device,
                       x.data_ptr(), wqk_s.data_ptr(), wv.data_ptr(),
                       bv.data_ptr(), wt.data_ptr(), bt.data_ptr(),
                       wbn32.data_ptr(), bbn32.data_ptr(), q.data_ptr(),
@@ -151,13 +173,13 @@ _block_eval_op = library.define(
 
 
 def _block_work(x):
-    """The work buffers q [O, P, 32], v, lse of the block kernels and the
-    attention forward. bf16 (the wgmma design): vᵀ [O, 128, pp] and
-    lse [O, pp], the key axis padded to a multiple of 8 (16-byte rows for
-    TMA); f32: v [O, P, 128], lse [O, P]."""
-    o, p, _ = x.shape
-    q = torch.empty((o, p, 32), dtype=x.dtype, device=x.device)
-    if x.dtype == torch.bfloat16:
+    """The work buffers q [O, P, da], v, lse of the block kernels and the
+    attention forward. bf16 at C = 128 (the wgmma design): vᵀ [O, 128, pp]
+    and lse [O, pp], the key axis padded to a multiple of 8 (16-byte rows for
+    TMA); otherwise v [O, P, C], lse [O, P]."""
+    o, p, c = x.shape
+    q = torch.empty((o, p, c // 4), dtype=x.dtype, device=x.device)
+    if x.dtype == torch.bfloat16 and c == 128:
         pp = (p + 7) // 8 * 8
         return (q, torch.empty((o, 128, pp), dtype=x.dtype, device=x.device),
                 torch.empty((o, pp), dtype=torch.float32, device=x.device))
@@ -190,26 +212,23 @@ class BlockEval(torch.autograd.Function):
 
 # ------------------------------- training ------------------------------------
 
-C, DA = 128, 32
-
-
 def _check_attn(name, x, wqk, wv, bv):
+    """Checks the attention's inputs at x's width C; returns (O, P, C)."""
     _build.check_cuda(name, {"x": x, "wqk": wqk, "wv": wv, "bv": bv}, x.dtype)
-    o, p, _ = x.shape
-    _build.check_shape(name, "x", x, (o, p, C))
-    _build.check_shape(name, "wqk", wqk, (C, DA))
-    _build.check_shape(name, "wv", wv, (C, C))
-    _build.check_shape(name, "bv", bv, (C,))
-    return o, p
+    o, p, c = x.shape
+    _build.check_shape(name, "wqk", wqk, (c, c // 4))
+    _build.check_shape(name, "wv", wv, (c, c))
+    _build.check_shape(name, "bv", bv, (c,))
+    return o, p, c
 
 
 def _check_block(name, x, wqk, wv, bv, wt, bt, mask):
-    o, p = _check_attn(name, x, wqk, wv, bv)
+    o, p, c = _check_attn(name, x, wqk, wv, bv)
     _build.check_cuda(name, {"x": x, "wt": wt, "bt": bt, "mask": mask}, x.dtype)
-    _build.check_shape(name, "wt", wt, (C, C))
-    _build.check_shape(name, "bt", bt, (C,))
+    _build.check_shape(name, "wt", wt, (c, c))
+    _build.check_shape(name, "bt", bt, (c,))
     _build.check_shape(name, "mask", mask, (o, 1))
-    return o, p
+    return o, p, c
 
 
 def block_fwd_plain(x, wqk, wv, bv, wt, bt, mask, scale=True, double_norm=False):
@@ -218,28 +237,29 @@ def block_fwd_plain(x, wqk, wv, bv, wt, bt, mask, scale=True, double_norm=False)
 
 
 def block_fwd(x, wqk, wv, bv, wt, bt, mask, scale=True, double_norm=False):
-    """Training forward of the SA/OA block: ``(t_out [O, P, 128] in x's
-    dtype, ssum [1, 128], ssumsq [1, 128])``, the sums masked by
+    """Training forward of the SA/OA block: ``(t_out [O, P, C] in x's
+    dtype, ssum [1, C], ssumsq [1, C])``, the sums masked by
     ``mask [O, 1]`` at f32 (f64 for f64 inputs). Weights as in
     ``pct_block_eval``, in x's dtype."""
     if x.device.type == "cpu":
         return block_fwd_plain(x, wqk, wv, bv, wt, bt, mask, scale, double_norm)
-    name = "pct_block_fwd"
+    _, suffix = kernel_width("pct_block_fwd", x)
+    name = "pct_block_fwd" + suffix
     wqk_s = qk_scale(wqk, scale).contiguous()
-    o, p = _check_block(name, x, wqk_s, wv, bv, wt, bt, mask)
+    o, p, c = _check_block(name, x, wqk_s, wv, bv, wt, bt, mask)
     dev, dt = x.device, x.dtype
     t_out = torch.empty_like(x)
-    sums = torch.zeros((2, C), dtype=torch.float32, device=dev)
+    sums = torch.zeros((2, c), dtype=torch.float32, device=dev)
     if o:
         q, v, lse = _block_work(x)
-        if dt == torch.bfloat16:
+        if dt == torch.bfloat16 and c == 128:
             # one sum slice per consumer warpgroup of the persistent apply
             # pass (two a block, one block per SM, one per pair of row tiles)
             blocks = _build.warpgroup_slices(dev, o * (((p + 63) // 64 + 1) // 2))
         else:
             blocks = _build.grid_blocks(dev, o * ((p + 63) // 64), per_sm=1)
-        part = _build.scratch(dev, blocks, 2 * C)
-        _build.launch(name, "sga_pct_block_fwd", dev,
+        part = _build.scratch(dev, blocks, 2 * c)
+        _build.launch(name, "sga_pct_block_fwd" + suffix, dev,
                       *(t.data_ptr() for t in (x, wqk_s, wv, bv, wt, bt, mask,
                                                q, v, lse, t_out, part)),
                       blocks, sums.data_ptr(), o, p, int(double_norm),
@@ -278,29 +298,30 @@ def epi_sums_plain(t_out, wbn, bbn, dy):
 
 def epi_sums(t_out, wbn, bbn, dy):
     """The fold's gradient sums of the training epilogue for its cotangent
-    ``dy``: ``(Σ g·t_out, Σ g)`` [1, 128] each, ``g = dy`` where
-    ``t_out·wbn + bbn > 0``; f32 (f64 for f64 inputs). wbn, bbn [128] at
+    ``dy``: ``(Σ g·t_out, Σ g)`` [1, C] each, ``g = dy`` where
+    ``t_out·wbn + bbn > 0``; f32 (f64 for f64 inputs). wbn, bbn [C] at
     f32."""
     if t_out.device.type == "cpu":
         return epi_sums_plain(t_out, wbn, bbn, dy)
-    name = "pct_epi_sums"
+    c, suffix = kernel_width("pct_epi_sums", t_out)
+    name = "pct_epi_sums" + suffix
     wbn32, bbn32 = (v if v.dtype == torch.float32 and v.dim() == 1 and v.is_contiguous()
                     else v.to(torch.float32).reshape(-1).contiguous() for v in (wbn, bbn))
     _build.check_cuda(name, {"t_out": t_out, "dy": dy}, t_out.dtype)
     _build.check_cuda(name, {"t_out": t_out, "wbn": wbn32, "bbn": bbn32})
     o, p, _ = t_out.shape
-    for key, t in (("t_out", t_out), ("dy", dy)):
-        _build.check_shape(name, key, t, (o, p, C))
+    _build.check_shape(name, "dy", dy, (o, p, c))
     for key, t in (("wbn", wbn32), ("bbn", bbn32)):
-        _build.check_shape(name, key, t, (C,))
+        _build.check_shape(name, key, t, (c,))
     dev = t_out.device
     # the kernel's slice sum writes every entry
-    sums = (torch.empty if o else torch.zeros)((2, C), dtype=torch.float32, device=dev)
+    sums = (torch.empty if o else torch.zeros)((2, c), dtype=torch.float32, device=dev)
     if o:
         code = _build.DTYPE_CODE[t_out.dtype]
-        blocks = _build.stream_blocks("sga_pct_epi_sums_rows_per_block", o * p, code, dev)
-        part = _build.scratch(dev, blocks, 2 * C)
-        _build.launch(name, "sga_pct_epi_sums", dev,
+        blocks = _build.stream_blocks(f"sga_pct_epi_sums{suffix}_rows_per_block", o * p, code,
+                                      dev)
+        part = _build.scratch(dev, blocks, 2 * c)
+        _build.launch(name, "sga_pct_epi_sums" + suffix, dev,
                       t_out.data_ptr(), wbn32.data_ptr(), bbn32.data_ptr(),
                       dy.data_ptr(), part.data_ptr(), blocks, sums.data_ptr(),
                       o * p, code)
@@ -379,52 +400,61 @@ def block_bwd_plain(x, wqk, wv, bv, wt, bt, mask, dt, dsum, dsumsq, scale=True,
 
 def _bwd_work(x):
     """The block and attention backwards' device buffers, one byte buffer
-    the C entry carves (``sga_pct_bwd_work_bytes``)."""
-    o, p, _ = x.shape
-    n = _build.lib().sga_pct_bwd_work_bytes(o, p, _build.DTYPE_CODE[x.dtype])
-    return torch.empty(n, dtype=torch.uint8, device=x.device)
+    the C entry carves (``sga_pct_bwd_work_bytes``, at C = 256
+    ``sga_pct_bwd_work_bytes_c256``)."""
+    o, p, c = x.shape
+    query = getattr(_build.lib(), "sga_pct_bwd_work_bytes" + WIDTHS[c])
+    return torch.empty(query(o, p, _build.DTYPE_CODE[x.dtype]), dtype=torch.uint8,
+                       device=x.device)
 
 
-N_GRAD = C * DA + 2 * C * C + 2 * C  # dWqk, dWv, dbv, dWt, dbt (f32)
+def n_grad(c: int) -> int:
+    """Floats of a block backward's weight gradients at width C: dWqk, dWv,
+    dbv, dWt, dbt (f32)."""
+    return c * (c // 4) + 2 * c * c + 2 * c
 
 
 def _block_backward(name, fn_name, x, wqk, wv, bv, wt, bt, mask, cot, vecs,
-                    scale, double_norm):
+                    scale, double_norm, widths=tuple(WIDTHS)):
     """Launch one block backward: ``cot`` is dxn (pct_block_res_bwd) or dt
-    (pct_block_bwd), ``vecs`` its [128] f32 inputs in the C entry's order."""
+    (pct_block_bwd), ``vecs`` its [C] f32 inputs in the C entry's order;
+    ``name`` and ``fn_name`` take the suffix of x's width."""
+    _, suffix = kernel_width(name, x, widths)
+    name, fn_name = name + suffix, fn_name + suffix
     wqk_s = qk_scale(wqk, scale).contiguous()
-    o, p = _check_block(name, x, wqk_s, wv, bv, wt, bt, mask)
+    o, p, c = _check_block(name, x, wqk_s, wv, bv, wt, bt, mask)
+    da = c // 4
     dev, dt = x.device, x.dtype
     vecs = {k: t.to(torch.float32).reshape(-1).contiguous() for k, t in vecs}
     _build.check_cuda(name, {"cotangent": cot}, dt)
     _build.check_cuda(name, {"x": x, **vecs})
-    _build.check_shape(name, "cotangent", cot, (o, p, C))
+    _build.check_shape(name, "cotangent", cot, (o, p, c))
     for key, t in vecs.items():
-        _build.check_shape(name, key, t, (C,))
-    grads = torch.zeros(N_GRAD, dtype=torch.float32, device=dev)
+        _build.check_shape(name, key, t, (c,))
+    grads = torch.zeros(n_grad(c), dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
     if o:
         blocks = _build.grid_blocks(dev, o * ((p + 63) // 64), per_sm=1)
-        part = _build.scratch(dev, blocks, N_GRAD)
+        part, work = _build.scratch(dev, blocks, n_grad(c)), _bwd_work(x)
         _build.launch(name, fn_name, dev,
                       *(t.data_ptr() for t in (x, wqk_s, wv, bv, wt, bt, mask, cot,
-                                               *vecs.values(), _bwd_work(x), dx, part)),
+                                               *vecs.values(), work, dx, part)),
                       blocks, grads.data_ptr(), o, p, int(double_norm),
                       _build.DTYPE_CODE[dt])
-    dwqk, dwv, dbv, dwt, dbt = torch.split(grads, (C * DA, C * C, C, C * C, C))
-    s = float(DA) ** -0.25 if scale else 1.0
-    return (dx, s * dwqk.view(C, DA), dwv.view(C, C), dbv.view(1, C),
-            dwt.view(C, C), dbt.view(1, C))
+    dwqk, dwv, dbv, dwt, dbt = torch.split(grads, (c * da, c * c, c, c * c, c))
+    s = float(da) ** -0.25 if scale else 1.0
+    return (dx, s * dwqk.view(c, da), dwv.view(c, c), dbv.view(1, c),
+            dwt.view(c, c), dbt.view(1, c))
 
 
 def block_res_bwd(x, wqk, wv, bv, wt, bt, mask, dxn, wbn, bbn, dsum, dsumsq,
                   scale=True, double_norm=False):
     """Backward of the training block for the cotangent ``dxn`` of its
-    output, given the fold ``(wbn, bbn)`` [128] and the totals ``dsum,
-    dsumsq`` [1, 128] of the BN sums' cotangents (f32): ``(dx [O, P, 128] in
-    x's dtype (the residual included), dwqk [128, 32], dwv [128, 128],
-    dbv [1, 128], dwt [128, 128], dbt [1, 128])``, the weight gradients at
-    the accumulation dtype."""
+    output, given the fold ``(wbn, bbn)`` [C] and the totals ``dsum,
+    dsumsq`` [1, C] of the BN sums' cotangents (f32): ``(dx [O, P, C] in
+    x's dtype (the residual included), dwqk [C, da], dwv [C, C],
+    dbv [1, C], dwt [C, C], dbt [1, C])``, the weight gradients at the
+    accumulation dtype."""
     if x.device.type == "cpu":
         return block_res_bwd_plain(x, wqk, wv, bv, wt, bt, mask, dxn, wbn, bbn,
                                    dsum, dsumsq, scale, double_norm)
@@ -444,7 +474,7 @@ def block_bwd(x, wqk, wv, bv, wt, bt, mask, dt, dsum, dsumsq, scale=True,
                                scale, double_norm)
     return _block_backward("pct_block_bwd", "sga_pct_block_bwd", x, wqk, wv, bv, wt,
                            bt, mask, dt, (("dsum", dsum), ("dsumsq", dsumsq)),
-                           scale, double_norm)
+                           scale, double_norm, widths=(128,))
 
 
 class BlockResidual(torch.autograd.Function):
@@ -455,7 +485,7 @@ class BlockResidual(torch.autograd.Function):
 
     Forward: ``block_fwd`` (kernel), ``fold_from_sums``, ``epilogue`` (plain
     torch elementwise). Backward: ``epi_sums`` (kernel); the fold's vjp on
-    [128] vectors (torch autograd), giving the BN parameters' gradients and,
+    [C] vectors (torch autograd), giving the BN parameters' gradients and,
     with the sums' own cotangents, ``dsum`` / ``dsumsq``; then
     ``block_res_bwd`` (kernel). The two kernels must run in this order: the
     fold's vjp needs the first one's sums."""
@@ -539,8 +569,9 @@ def attn_fwd(x, wqk, wv, bv, scale=True, double_norm=False):
     if x.device.type == "cpu":
         return attn_fwd_plain(x, wqk, wv, bv, scale, double_norm)
     name = "pct_attn_fwd"
+    kernel_width(name, x, (128,))
     wqk_s = qk_scale(wqk, scale).contiguous()
-    o, p = _check_attn(name, x, wqk_s, wv, bv)
+    o, p, _ = _check_attn(name, x, wqk_s, wv, bv)
     y = torch.empty_like(x)
     if o:
         q, v, lse = _block_work(x)
@@ -565,25 +596,25 @@ def attn_bwd(x, wqk, wv, bv, dy, scale=True, double_norm=False):
     if x.device.type == "cpu":
         return attn_bwd_plain(x, wqk, wv, bv, dy, scale, double_norm)
     name = "pct_attn_bwd"
+    c, _ = kernel_width(name, x, (128,))
+    da = c // 4
     wqk_s = qk_scale(wqk, scale).contiguous()
-    o, p = _check_attn(name, x, wqk_s, wv, bv)
+    o, p, _ = _check_attn(name, x, wqk_s, wv, bv)
     _build.check_cuda(name, {"x": x, "dy": dy}, x.dtype)
-    _build.check_shape(name, "dy", dy, (o, p, C))
+    _build.check_shape(name, "dy", dy, (o, p, c))
     dev = x.device
-    n = C * DA + C * C + C
-    grads = torch.zeros(n, dtype=torch.float32, device=dev)
+    grads = torch.zeros(c * da + c * c + c, dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
     if o:
         blocks = _build.grid_blocks(dev, o * ((p + 63) // 64), per_sm=1)
-        part = _build.scratch(dev, blocks, N_GRAD)
+        part, work = _build.scratch(dev, blocks, n_grad(c)), _bwd_work(x)
         _build.launch(name, "sga_pct_attn_bwd", dev,
-                      *(t.data_ptr() for t in (x, wqk_s, wv, bv, dy, _bwd_work(x), dx,
-                                               part)),
+                      *(t.data_ptr() for t in (x, wqk_s, wv, bv, dy, work, dx, part)),
                       blocks, grads.data_ptr(), o, p, int(double_norm),
                       _build.DTYPE_CODE[x.dtype])
-    dwqk, dwv, dbv = torch.split(grads, (C * DA, C * C, C))
-    s = float(DA) ** -0.25 if scale else 1.0
-    return dx, s * dwqk.view(C, DA), dwv.view(C, C), dbv.view(1, C)
+    dwqk, dwv, dbv = torch.split(grads, (c * da, c * c, c))
+    s = float(da) ** -0.25 if scale else 1.0
+    return dx, s * dwqk.view(c, da), dwv.view(c, c), dbv.view(1, c)
 
 
 class AttentionFused(torch.autograd.Function):

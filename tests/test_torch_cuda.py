@@ -1035,3 +1035,98 @@ def test_eva_on_the_card_matches_the_cpu(card):
         assert float((got - want).norm() / want.norm()) <= 1e-4, k
     assert abs(float(outs["cuda"][1]["loss"]) - float(outs["cpu"][1]["loss"])) <= 1e-4 * abs(
         float(outs["cpu"][1]["loss"]))
+
+
+# the block kernels at FullPCT's width (C = 256, da = 64)
+WIDE_CASES = [("pct_block_eval", SA), ("pct_block_eval", OA), ("pct_block_fwd", SA),
+              ("pct_block_fwd", OA), ("pct_epi_sums", None), ("pct_block_res_bwd", SA),
+              ("pct_block_res_bwd", OA)]
+
+
+@pytest.mark.parametrize("points", [256, 72])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("name,flags", WIDE_CASES,
+                         ids=["block_SA", "block_OA", "block_fwd", "block_fwd_OA", "epi_sums",
+                              "block_res_bwd", "block_res_bwd_OA"])
+def test_c256_kernel_matches_plain_version(card, name, flags, dtype, points):
+    """The C = 256 forms (csrc/pct_attention_c256.cu, csrc/pct_epi_sums.cu)
+    against the plain versions at chip_smoke's tolerances: one launch of the
+    C = 256 kernel a call, the same bits twice."""
+    from sgaligner_tpu_torch.ops import _build
+
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    args = card.untied(name, card.op_inputs(name, 37, dt, seed=5, p=points, c=card.WIDE_C),
+                       flags or SA)
+    wide = name + "_c256"
+    before = _build.LAUNCHES[wide]
+    card.check_op(name, args, dtype, flags or SA)
+    assert _build.LAUNCHES[wide] == before + 1
+    kern, _ = card.op_fns(name, flags or SA)
+    first, second = card.as_tuple(kern(*args)), card.as_tuple(kern(*args))
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_c256_wrappers_raise_where_there_is_no_kernel(card):
+    """The ops no model runs at C = 256 (the attention op, pct_block_fused's
+    backward) and any width other than 128 and 256 raise on the card."""
+    from sgaligner_tpu_torch.ops import pct_attention
+
+    x, wqk, wv, bv, wt, bt, mask = card.op_inputs("pct_block_fwd", 4, torch.float32, seed=0,
+                                                  p=64, c=card.WIDE_C)
+    with pytest.raises(ValueError):
+        pct_attention.attn_fwd(x, wqk, wv, bv)
+    with pytest.raises(ValueError):
+        pct_attention.block_bwd(x, wqk, wv, bv, wt, bt, mask, x, *(torch.zeros(
+            1, card.WIDE_C, device="cuda") for _ in range(2)))
+    narrow = card.op_inputs("pct_block_fwd", 4, torch.float32, seed=0, p=64, c=192)
+    with pytest.raises(ValueError):
+        pct_attention.block_fwd(*narrow)
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+def test_full_pct_on_the_card_matches_the_cpu(card, train):
+    """FullPCT (N = 128 points, samples (64, 32), O = 12) on the card at f32
+    against its CPU path at f32 and f64, the same seeded weights, the CPU
+    runs replaying the card's FPS and KNN picks (chip_smoke's
+    grouping_indices), head dropout off: the output, and in train mode the
+    running statistics and every parameter gradient (quiet leaves left out),
+    each held to PCT_VS_CPU times the CPU's own f32 distance from f64; four
+    launches of the C = 256 block kernel a call."""
+    from sgaligner_tpu_torch.engine.factory import build_full_pct
+    from sgaligner_tpu_torch.ops import _build
+
+    g = torch.Generator().manual_seed(12)
+    pts = torch.randn(12, 128, 3, generator=g)
+    mask = torch.rand(12, generator=g) < 0.85
+    pts[~mask] = 0.0
+    runs, picks = {}, []
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float32), ("cpu", torch.float64)):
+        net = build_full_pct("cpu", dtype, seed=13, samples=(64, 32))
+        net = net.to(dev, dtype).train(train)
+        net.dropout = 0.0
+        before = dict(_build.LAUNCHES)
+        with card.grouping_indices([] if dev == "cpu" else picks,
+                                   picks if dev == "cpu" else None):
+            with torch.set_grad_enabled(train):
+                out = net(pts.to(dev, dtype), mask.to(dev))
+            read = {"output": out.detach()}
+            if train:
+                ct = torch.randn(out.shape, generator=torch.Generator().manual_seed(14))
+                names, prms = zip(*net.named_parameters())
+                read.update(zip(names, torch.autograd.grad(out, prms, ct.to(dev, dtype))))
+                read.update((k, v) for k, v in net.state_dict().items() if "running_" in k)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            blocks = "pct_block_fwd_c256" if train else "pct_block_eval_c256"
+            assert _build.LAUNCHES[blocks] == before[blocks] + 4
+        runs[dev, dtype] = {k: v.double().cpu() for k, v in read.items()}
+    ref = runs["cpu", torch.float64]
+    quiet = card.quiet_leaves({k: v for k, v in ref.items() if "." in k
+                               and "running_" not in k}) if train else set()
+    for k, v in ref.items():
+        if k in quiet:
+            continue
+        dist = {key: float((run[k] - v).norm() / v.norm().clamp_min(1e-30))
+                for key, run in runs.items() if key != ("cpu", torch.float64)}
+        assert dist["cuda", torch.float32] <= card.PCT_VS_CPU * dist["cpu", torch.float32] + 1e-6, \
+            (k, dist)

@@ -4,8 +4,9 @@ pairs at f64) and ``pct_block_fused`` with their gradients (SA and OA),
 ``OABlock`` and ``SPCT`` in eval and train mode, and
 the weight bridge ``spct_state_dict_from_flax``.
 
-Widths are the models' (C=128, da=32, the tail 512 -> 1024); O=4 objects,
-the last one padded, of P=16 points. Every JAX tile picker takes its Pallas
+Widths are the models' (C=128, da=32, the tail 512 -> 1024; the block op and
+``OABlock`` also at FullPCT's C=256, da=64); O=4 objects, the last one
+padded, of P=16 points. Every JAX tile picker takes its Pallas
 kernel at these shapes (each test asserts it), run in interpret mode; the
 JAX ``pct_block_residual`` backward runs its pure-JAX fallback at f64 (its
 kernels take f32 / bf16). Inputs and weights come from numpy with fixed
@@ -46,6 +47,7 @@ O, P, C, DA = 4, 16, 128, 32
 RTOL, FLOOR = 1e-8, 1e-9
 F32_NORMWISE = 1e-5
 FLAGS = pytest.mark.parametrize("flags", [(True, False), (False, True)], ids=["SA", "OA"])
+WIDTH = pytest.mark.parametrize("c", [C, 2 * C], ids=["C128", "C256"])
 # the attention op takes scale and double_norm independently: SA, OA and the
 # mixed pairs (SA's scale with OA's normalisation, and neither)
 PAIRS = pytest.mark.parametrize("flags", [(True, False), (False, True), (True, True),
@@ -77,15 +79,20 @@ def _mask(o=O):
     return m
 
 
-def _attn_case(rng):
-    return (rng.normal(size=(O, P, C)), rng.normal(size=(C, DA)) / np.sqrt(C),
-            rng.normal(size=(C, C)) / np.sqrt(C), rng.normal(size=(C,)) * 0.1)
+def _attn_case(rng, c=C):
+    """x, wqk, wv, bv. At C=256 wqk is scaled by (C·sqrt(da))^-1/2 (at C=128
+    by C^-1/2, as before): at C^-1/2 the energies' diagonal |q|² (about da
+    = 64) leaves each column softmax one-hot to f32 precision, and dq would be
+    pure rounding noise on both sides."""
+    wqk_scale = np.sqrt(c) if c == C else np.sqrt(c * np.sqrt(c // 4))
+    return (rng.normal(size=(O, P, c)), rng.normal(size=(c, c // 4)) / wqk_scale,
+            rng.normal(size=(c, c)) / np.sqrt(c), rng.normal(size=(c,)) * 0.1)
 
 
-def _block_case(rng):
-    x, wqk, wv, bv = _attn_case(rng)
-    return (x, wqk, wv, bv, rng.normal(size=(C, C)) / np.sqrt(C),
-            rng.normal(size=(C,)) * 0.1)
+def _block_case(rng, c=C):
+    x, wqk, wv, bv = _attn_case(rng, c)
+    return (x, wqk, wv, bv, rng.normal(size=(c, c)) / np.sqrt(c),
+            rng.normal(size=(c,)) * 0.1)
 
 
 # ------------------------------------ ops -----------------------------------
@@ -135,17 +142,18 @@ def _port_block(args, m, cts, flags, dtype):
     return outs, grads
 
 
-def _block_cts(rng):
-    return (rng.normal(size=(O, P, C)), rng.normal(size=(1, C)) * 0.1,
-            rng.normal(size=(1, C)) * 0.01)
+def _block_cts(rng, c=C):
+    return (rng.normal(size=(O, P, c)), rng.normal(size=(1, c)) * 0.1,
+            rng.normal(size=(1, c)) * 0.01)
 
 
+@WIDTH
 @FLAGS
-def test_block_fused_matches_jax_f64(x64, flags):
+def test_block_fused_matches_jax_f64(x64, flags, c):
     rng = np.random.default_rng(1)
-    args, m, cts = _block_case(rng), _mask(), _block_cts(rng)
+    args, m, cts = _block_case(rng, c), _mask(), _block_cts(rng, c)
     for bwd in (False, True):
-        assert jpa._block_pick_tile(O, P, C, DA, 8, bwd=bwd) is not None
+        assert jpa._block_pick_tile(O, P, c, c // 4, 8, bwd=bwd) is not None
     expect_dtype(to_jax(*args, m, *cts))
     want, want_g = _jax_block(args, m, cts, flags, jnp.float64)
     got, got_g = _port_block(args, m, cts, flags, torch.float64)
@@ -153,9 +161,10 @@ def test_block_fused_matches_jax_f64(x64, flags):
     _close(got_g, want_g, "pct_block_fused grads (x, wqk, wv, bv, wt, bt)")
 
 
-@pytest.mark.parametrize("op", ["attention", "block"])
+@pytest.mark.parametrize("op,c", [("attention", C), ("block", C), ("block", 2 * C)],
+                         ids=["attention", "block", "block-C256"])
 @FLAGS
-def test_ops_match_jax_kernels_f32(op, flags):
+def test_ops_match_jax_kernels_f32(op, flags, c):
     """x64 off: the JAX side is the Pallas kernels _fwd_kernel / _bwd_kernel
     and _block_fwd_kernel / _block_bwd_kernel (interpret mode)."""
     assert not jax.config.jax_enable_x64
@@ -167,8 +176,8 @@ def test_ops_match_jax_kernels_f32(op, flags):
         got, got_g = _port_attn(args, ct, flags, torch.float32)
         want, got = [want], [got]
     else:
-        args, m, cts = _block_case(rng), _mask(), _block_cts(rng)
-        assert jpa._block_pick_tile(O, P, C, DA, 4, bwd=True) is not None
+        args, m, cts = _block_case(rng, c), _mask(), _block_cts(rng, c)
+        assert jpa._block_pick_tile(O, P, c, c // 4, 4, bwd=True) is not None
         want, want_g = _jax_block(args, m, cts, flags, jnp.float32)
         got, got_g = _port_block(args, m, cts, flags, torch.float32)
     expect_dtype([want, want_g], jnp.float32, what="JAX f32")
@@ -243,11 +252,11 @@ def _port_run(net, inputs, train, cts, wrt_input):
 
 
 def _check_model(net, model, inputs, port_inputs, params, stats, train, cts,
-                 wrt_input=False):
+                 wrt_input=False, bridge=spct_state_dict_from_flax):
     """Outputs; after a train call the running statistics and every
-    parameter gradient, all through the weight bridge, and with
+    parameter gradient, all through the weight bridge ``bridge``, and with
     ``wrt_input`` the first input's gradient."""
-    net.load_state_dict(spct_state_dict_from_flax(params, stats))
+    net.load_state_dict(bridge(params, stats))
     want, upd, want_g = _jax_run(model, params, stats, inputs, train, cts)
     got, got_g = _port_run(net, port_inputs, train, cts, wrt_input)
     want = want if isinstance(want, tuple) else (want,)
@@ -255,20 +264,19 @@ def _check_model(net, model, inputs, port_inputs, params, stats, train, cts,
     _close(got, want, f"outputs (train={train})")
     if not train:
         return
-    want_sd = spct_state_dict_from_flax(jax.tree.map(np.asarray, params),
-                                        jax.tree.map(np.asarray, upd))
+    want_sd = bridge(jax.tree.map(np.asarray, params), jax.tree.map(np.asarray, upd))
     stats_keys = [k for k in want_sd if "running_" in k]
     assert len(stats_keys) == 2 * sum(1 for m in net.modules()
                                       if hasattr(m, "running_mean"))
     port_sd = net.state_dict()
     _close([port_sd[k] for k in stats_keys], [want_sd[k].numpy() for k in stats_keys],
            "running statistics after one train call")
-    start = spct_state_dict_from_flax(params, stats)
+    start = bridge(params, stats)
     assert all(not np.array_equal(want_sd[k].numpy(), start[k].numpy())
                for k in stats_keys)
     if wrt_input:
         _close([got_g.pop("input")], [want_g[1]], "input gradient")
-    want_grads = {k: v for k, v in spct_state_dict_from_flax(
+    want_grads = {k: v for k, v in bridge(
         expect_dtype(jax.tree.map(np.asarray, want_g[0])), jax.tree.map(np.asarray, stats)
     ).items() if "running_" not in k}
     assert sorted(want_grads) == sorted(got_g)
@@ -277,21 +285,22 @@ def _check_model(net, model, inputs, port_inputs, params, stats, train, cts,
            "parameter gradients", floor=top)
 
 
+@WIDTH
 @pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
-def test_oablock_matches_jax_f64(x64, train):
+def test_oablock_matches_jax_f64(x64, train, c):
     """Output; after one train-mode call the running statistics, the
     parameters' and the input's gradients."""
     rng = np.random.default_rng(3)
-    x, m = rng.normal(size=(O, P, C)), _mask()[:, 0] > 0
-    model = JaxOABlock(C, dtype=jnp.float64, fused="always")
+    x, m = rng.normal(size=(O, P, c)), _mask()[:, 0] > 0
+    model = JaxOABlock(c, dtype=jnp.float64, fused="always")
     inputs = (*to_jax(x), jnp.asarray(m))
     params, stats = _jax_model(model, inputs, seed=4)
     assert set(params) == {"qk", "v", "trans", "after_norm"}
-    net = OABlock(C).double()
+    net = OABlock(c).double()
     kmask = torch.from_numpy(m).double()[:, None]
     count = torch.tensor(max(float(m.sum()) * P, 1.0), dtype=torch.float32)
     _check_model(net, model, inputs, (torch.from_numpy(x), kmask, count),
-                 params, stats, train, [rng.normal(size=(O, P, C))], wrt_input=True)
+                 params, stats, train, [rng.normal(size=(O, P, c))], wrt_input=True)
 
 
 @pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
