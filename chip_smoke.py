@@ -31,7 +31,8 @@ Phases, in order (every failure raises and exits non-zero):
                epilogue sums, training backward; WIDE) at O = 67, P = 256
                and 200, f32 and bf16, SA and OA, each launching its C = 256
                kernel once, the same bits twice, the training backward's
-               KERNEL_PLANTED faults caught
+               KERNEL_PLANTED faults caught (at f32 also WIDE_F32_PLANTED in
+               its weight gradients)
   parity       the pct serving path on the CPU (plain versions) against the
                card (kernels): same seeded weights, one pooled B=8 batch, f32
   train_parity the point configuration's train step on the CPU against the
@@ -89,7 +90,9 @@ Phases, in order (every failure raises and exits non-zero):
                CPU replaying the card's FPS and KNN picks, held by
                oa_parity's rule; then O = 256 at f32 and bf16, eval and
                train forward plus backward: ms a call, peak memory, 4
-               launches of each C = 256 block kernel a call, finiteness
+               launches of each C = 256 block kernel a call, finiteness,
+               and a torch.profiler pass over two f32 train calls (the
+               device's busy share)
   artifact     the serving artifact (serving.py: torch.export with the
                kernels as custom ops) for the card: the pct serving step at
                full width (bf16, B=512, K pinned to the largest of serve's
@@ -184,6 +187,8 @@ Phases, in order (every failure raises and exits non-zero):
                C3 = 200 beside 208 and 256, and the f32 forms of both PointNet
                kernels at C3 = 200 and 256 beside their first versions'
                times (F32_FIRST_MS) and their passes (O = 256 and 896),
+               the other f32 forms at O = 896 beside their plain versions
+               and their launches in the parity phases (time_f32_forms),
                with each bound
                from the shapes (the PointNet backward's from the rows and
                channels that carry gradient);
@@ -531,6 +536,24 @@ KERNEL_PLANTED = {"pct_block_res_bwd": (_scaled(0, 2.0), _scaled(2, 2.0)),
                   "pct_epi_sums": (_scaled(1, 1.1),),
                   "pct_attn_fwd": (("one 64-row tile of y x1.1", _tile_scaled),),
                   "embed_first_bwd": (_scaled(0, 0.0),)}
+
+
+def _columns_zeroed(index: int, n0: int, width: int):
+    """A planted fault: columns n0 .. n0 + width - 1 of output ``index``
+    zeroed (one streamed weight slice of a C = 256 weight gradient lost)."""
+    def fault(outs, args):
+        outs = list(outs)
+        w = outs[index].clone()
+        w[..., n0:n0 + width] = 0
+        outs[index] = w
+        return tuple(outs)
+    return f"output {index} columns {n0}..{n0 + width - 1} zeroed", fault
+
+
+# faults planted in the f32 C = 256 backward's weight gradients (kernels
+# phase, P = 256, besides KERNEL_PLANTED's): dWt's second 32-column slice
+# (one slice of the dz pass's streamed Wt) lost, and dWqk off by 1e-3
+WIDE_F32_PLANTED = (_columns_zeroed(4, 32, 32), _scaled(1, 1.001))
 def _padding_kept(outs, args):
     """A planted fault of the PointNet forward at a width its kernel pads
     (EVA's C3 = 200): the padded channels left in the output (W3 and b3
@@ -1129,7 +1152,9 @@ def check_wide_kernels() -> None:
                         raise AssertionError(f"{label}: {_build.LAUNCHES[wide] - before} "
                                              "launches of the C = 256 kernel, expected 1")
                     if name == "pct_block_res_bwd" and p == WIDE_P:
-                        check_planted(name, args, flags, label, dt_name)
+                        check_planted(name, args, flags, label, dt_name,
+                                      KERNEL_PLANTED[name]
+                                      + (WIDE_F32_PLANTED if dt_name == "f32" else ()))
                     first, second = as_tuple(kern(*args)), as_tuple(kern(*args))
                     if not all(torch.equal(a, b) for a, b in zip(first, second)):
                         raise AssertionError(f"{label}: two runs on the same inputs differ "
@@ -1186,6 +1211,11 @@ def phase_parity(state: dict) -> None:
     from sgaligner_tpu_torch.engine.factory import build_model
     from sgaligner_tpu_torch.engine.train_step import make_serving_step
 
+    from sgaligner_tpu_torch.ops import _build
+
+    # the f32 forms' launches are counted from here to the end of oa_parity
+    # (time_f32_forms reads them)
+    _build.reset_launches()
     cfg = _cfg("float32", 32)
     host = pool_compact(make_synthetic_batch(
         BatchSpec(8, 32, P), seed=3, bow_noise=1.0, resample=True), 128)
@@ -1617,6 +1647,7 @@ def phase_oa_parity(state: dict) -> None:
 
     from sgaligner_tpu_torch.data.batch import BatchSpec, pool_compact, to_device
     from sgaligner_tpu_torch.data.synthetic import make_synthetic_batch
+    from sgaligner_tpu_torch.ops import _build
 
     host = to_device(pool_compact(make_synthetic_batch(
         BatchSpec(4, 32, P), seed=3, bow_noise=1.0, resample=True), 128), "cpu")
@@ -1689,6 +1720,7 @@ def phase_oa_parity(state: dict) -> None:
             unseen.append(label)
     if unseen:
         raise AssertionError(f"oa_parity: the planted faults {unseen} went unseen")
+    state["launches_f32"] = dict(_build.LAUNCHES)  # since phase parity began
 
 
 def _bench_train(state: dict, modules, tag: str, per_step: dict) -> tuple[int, float, dict]:
@@ -2583,6 +2615,10 @@ def phase_full_pct(state: dict) -> None:
         _check_launches(f"full_pct train/{dt_name}", train_launches, PER_FULL_PCT_TRAIN,
                         FULL_PCT_CALLS)
         finite([q.grad for q in net.parameters()], f"gradients ({dt_name})")
+        if dt_name == "f32":
+            # the device's busy share of a train call: how much is host work
+            # (FPS's picks, the launches)
+            profile_calls(state, fwd_bwd, "full_pct f32 train", steps=2, unit="call")
         state["launches_full_pct"][dt_name] = {"eval": eval_launches, "train": train_launches}
         state["full_pct_ms"][dt_name] = (eval_ms, train_ms)
         log(f"[full_pct] O={o} N={FULL_PCT_N} samples {FULL_PCT_SAMPLES} {dt_name}: eval forward "
@@ -3252,16 +3288,17 @@ def block_flops(p: int = P, c: int = C) -> int:
     return 2 * p * c * (da + c) + 2 * p * p * da + 2 * p * p * c + 2 * p * c * c
 
 
-def attn_flops(oa: bool = False, bwd: bool = False) -> int:
+def attn_flops(oa: bool = False, bwd: bool = False, p: int = P, c: int = C) -> int:
     """Operations of one object's attention op (row 10: q, v, E = q qᵀ,
-    y = G v; 105 MFLOP at P=512). Its backward (row 11): the projections and
-    E again (and y for OA's c), dv = Gᵀ dŶ and dG = dŶ vᵀ, dq = (dE + dEᵀ) q,
-    dWqk and dWv, dx = dq Wqkᵀ + dv Wvᵀ."""
-    proj_e = 2 * P * C * (DA + C) + 2 * P * P * DA
+    y = G v; 105 MFLOP at P=512, C = 128). Its backward (row 11): the
+    projections and E again (and y for OA's c), dv = Gᵀ dŶ and dG = dŶ vᵀ,
+    dq = (dE + dEᵀ) q, dWqk and dWv, dx = dq Wqkᵀ + dv Wvᵀ."""
+    da = c // 4
+    proj_e = 2 * p * c * (da + c) + 2 * p * p * da
     if not bwd:
-        return proj_e + 2 * P * P * C
-    return (proj_e + (2 * P * P * C if oa else 0) + 2 * 2 * P * P * C + 2 * 2 * P * P * DA
-            + 2 * 2 * P * C * (DA + C))
+        return proj_e + 2 * p * p * c
+    return (proj_e + (2 * p * p * c if oa else 0) + 2 * 2 * p * p * c + 2 * 2 * p * p * da
+            + 2 * 2 * p * c * (da + c))
 
 
 def bound(name: str, o: int, p: int = P, work: tuple[int, int] | None = None,
@@ -3315,12 +3352,12 @@ def bound(name: str, o: int, p: int = P, work: tuple[int, int] | None = None,
         ops, rate = o * (block_flops(p, c) + back), BF16_TENSOR_FLOPS
     elif name == "pct_attn_fwd":
         # x read, y written
-        nbytes = 2 * o * P * C * e + (C * DA + C * C + C) * e
-        ops, rate = o * attn_flops(), BF16_TENSOR_FLOPS
+        nbytes = 2 * o * p * c * e + (c * da + c * c + c) * e
+        ops, rate = o * attn_flops(p=p, c=c), BF16_TENSOR_FLOPS
     elif name == "pct_attn_bwd":
         # x and dy read, dx written, f32 weight gradients
-        nbytes = 3 * o * P * C * e + (C * DA + C * C + C) * (e + 4)
-        ops, rate = o * attn_flops(oa, bwd=True), BF16_TENSOR_FLOPS
+        nbytes = 3 * o * p * c * e + (c * da + c * c + c) * (e + 4)
+        ops, rate = o * attn_flops(oa, bwd=True, p=p, c=c), BF16_TENSOR_FLOPS
     elif name == "pct_epi_sums":
         nbytes = 2 * o * p * c * e + 2 * c * 4 + 2 * c * 4
         ops, rate = 4 * o * p * c, F32_FLOPS
@@ -3745,25 +3782,29 @@ def time_f32_forms(state: dict) -> None:
     """The f32 forms that are still first versions (pct_embed.cu,
     pct_attention.cu and pct_tail.cu: every kernel but the PointNet pair,
     pct_epi_sums and embed_first_bwd, whose f32 forms are redesigned) at
-    O = 896, P = 512: CUDA-event ms and the bound at the f32 rate of each.
-    No recipe serves or trains them: only the parity phases launch them
-    (parity, train_pct_parity, oa_parity)."""
+    O = 896, P = 512: CUDA-event ms, the plain version's ms, the bound at the
+    f32 rate, and the launches of each (every flag set) in the phases that
+    run them: parity, train_pct_parity and oa_parity (no recipe serves or
+    trains them)."""
     import torch
 
     o = state["train_o"]
+    launches = state.get("launches_f32", {})
     for name in KERNELS:
         if name in (*POINT_KERNELS, "pct_epi_sums", "embed_first_bwd"):
             continue
         variants = ([("SA", SA), ("OA", OA)] if name in ATTN_FNS else
                     [("", SA), ("idx", "idx")] if name == "pct_tail" else [("", SA)])
         for tag, flags in variants:
-            kern, _ = op_fns(name, flags)
+            kern, plain = op_fns(name, flags)
             args = op_inputs(name, o, torch.float32, seed=2)
             ms = cuda_ms(lambda: kern(*args), warmup=1, reps=3)
+            plain_ms = cuda_ms(lambda: plain(*args), warmup=1, reps=3)
             b_ms, b_by = bound(name, o, oa=flags == OA, f32=True)
             log(f"[time] f32 form {name}{'/' + tag if tag else ''} O={o}: kernel {ms:.3f} ms | "
-                f"bound {b_ms:.4f} ms ({b_by}, the f32 rate) | {f32_source(name)} | "
-                f"{state['card']}")
+                f"plain {plain_ms:.3f} ms | bound {b_ms:.4f} ms ({b_by}, the f32 rate) | "
+                f"launches {launches.get(name, 0)} (parity, train_pct_parity, oa_parity; every "
+                f"flag set) | {f32_source(name)} | {state['card']}")
             del args
             torch.cuda.empty_cache()
 

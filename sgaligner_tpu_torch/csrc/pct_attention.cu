@@ -171,8 +171,8 @@ project_kernel(const T* __restrict__ x, const T* __restrict__ wqk, const T* __re
     const size_t row0 = (size_t)obj * p + r0;
     load_tile<T>(sx, L::ldx, x + row0 * kC, kC, kRows, kC, valid);
     __syncthreads();
-    block_gemm<T, false>(sx, L::ldx, swq, L::ldq, cq, L::ldcq, kRows, kDa, kC, false);
-    block_gemm<T, false>(sx, L::ldx, swv, L::ldv, cv, L::ldcv, kRows, kC, kC, false);
+    block_gemm<T, false, false, kRows, kDa, kC>(sx, L::ldx, swq, L::ldq, cq, L::ldcq, false);
+    block_gemm<T, false, false, kRows, kC, kC>(sx, L::ldx, swv, L::ldv, cv, L::ldcv, false);
     __syncthreads();
     for (int idx = threadIdx.x; idx < valid * kDa; idx += blockDim.x) {
       const int r = idx / kDa, d = idx % kDa;
@@ -258,7 +258,7 @@ apply_kernel(const T* __restrict__ x, const T* __restrict__ q, const T* __restri
       su[r * L::ldu + c] = from_f<T>(u);
     }
     __syncthreads();
-    block_gemm<T, false>(su, L::ldu, swt, L::ldw, sy, L::ldy, kRows, kC, kC, false);
+    block_gemm<T, false, false, kRows, kC, kC>(su, L::ldu, swt, L::ldw, sy, L::ldy, false);
     __syncthreads();
     const float m = TRAIN ? to_f<T>(mask[obj]) : 0.f;
     for (int idx = threadIdx.x; idx < valid * kC; idx += blockDim.x) {
@@ -408,7 +408,7 @@ bwd_dz_kernel(const T* __restrict__ x, const T* __restrict__ q, const T* __restr
       }
     }
     __syncthreads();
-    block_gemm<T, false>(su, L::ldu, swt, L::ldw, st, L::ldy, kRows, kC, kC, false);
+    block_gemm<T, false, false, kRows, kC, kC>(su, L::ldu, swt, L::ldw, st, L::ldy, false);
     __syncthreads();
     const float m = to_f<T>(mask[obj]);
     for (int idx = threadIdx.x; idx < kRows * kC; idx += blockDim.x) {
@@ -427,8 +427,8 @@ bwd_dz_kernel(const T* __restrict__ x, const T* __restrict__ q, const T* __restr
       rdbt += dz;
     }
     __syncthreads();
-    block_gemm<T, false, true>(su, L::ldu, sdz, L::ldu, part + kOffDwt, kC, kC, kC, kRows, true);
-    block_gemm<T, true>(sdz, L::ldu, swt, L::ldw, st, L::ldy, kRows, kC, kC, false);
+    block_gemm<T, false, true, kC, kC, kRows>(su, L::ldu, sdz, L::ldu, part + kOffDwt, kC, true);
+    block_gemm<T, true, false, kRows, kC, kC>(sdz, L::ldu, swt, L::ldw, st, L::ldy, false);
     __syncthreads();
     if constexpr (OA) {
       // dY = −du; c_j = (dY_j / s_j)·y_j
@@ -538,8 +538,8 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ v, const float* __r
         if constexpr (OA) cj[threadIdx.x] = in ? sc[rows + ob + j0 + threadIdx.x] : 0.f;
       }
       __syncthreads();
-      block_gemm<T, true>(sqi, L::ldq, sqj, L::ldq, ss, L::lds, kRows, kRows, kDa, false);
-      block_gemm<T, true>(svi, L::ldc, syj, L::ldc, spp, L::lds, kRows, kRows, kC, false);
+      block_gemm<T, true, false, kRows, kRows, kDa>(sqi, L::ldq, sqj, L::ldq, ss, L::lds, false);
+      block_gemm<T, true, false, kRows, kRows, kC>(svi, L::ldc, syj, L::ldc, spp, L::lds, false);
       __syncthreads();
       // dE[j, i] term: G[j, i] = exp(E[i, j] − lse_i), dŶ_j·v_i = (v_I·dŶ_Jᵀ)[i, j]
       for (int idx = threadIdx.x; idx < kRows * kRows; idx += blockDim.x) {
@@ -549,7 +549,7 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ v, const float* __r
         sf[i * L::lds + j] = expf(ss[i * L::lds + j] - li[i]) * (a - di[i]);
       }
       __syncthreads();
-      block_gemm<T, true>(syi, L::ldc, svj, L::ldc, spp, L::lds, kRows, kRows, kC, false);
+      block_gemm<T, true, false, kRows, kRows, kC>(syi, L::ldc, svj, L::ldc, spp, L::lds, false);
       __syncthreads();
       // dE[i, j] term: G[i, j] = exp(E[i, j] − lse_j), dŶ_i·v_j
       for (int idx = threadIdx.x; idx < kRows * kRows; idx += blockDim.x) {
@@ -563,7 +563,7 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ v, const float* __r
         sft[i * L::ldf + j] = from_f<T>(f);
       }
       __syncthreads();
-      block_gemm<T, false>(sft, L::ldf, sqj, L::ldq, sdq, L::lda, kRows, kDa, kRows, j0 > 0);
+      block_gemm<T, false, false, kRows, kDa, kRows>(sft, L::ldf, sqj, L::ldq, sdq, L::lda, j0 > 0);
       __syncthreads();
     }
     for (int idx = threadIdx.x; idx < valid * kDa; idx += blockDim.x) {
@@ -620,12 +620,11 @@ bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ wqk, const T* __res
     load_tile<T>(sdq, L::ldq, dq + row0 * kDa, kDa, kRows, kDa, valid);
     load_tile<T>(sdv, L::ldx, dv + row0 * kC, kC, kRows, kC, valid);
     __syncthreads();
-    block_gemm<T, true>(sdq, L::ldq, swq, L::ldwq, sc, L::ldc, kRows, kC, kDa, false);
+    block_gemm<T, true, false, kRows, kC, kDa>(sdq, L::ldq, swq, L::ldwq, sc, L::ldc, false);
     __syncthreads();
-    block_gemm<T, true>(sdv, L::ldx, swv, L::ldw, sc, L::ldc, kRows, kC, kC, true);
-    block_gemm<T, false, true>(sx, L::ldx, sdq, L::ldq, part + kOffDwqk, kDa, kC, kDa, kRows,
-                               true);
-    block_gemm<T, false, true>(sx, L::ldx, sdv, L::ldx, part + kOffDwv, kC, kC, kC, kRows, true);
+    block_gemm<T, true, false, kRows, kC, kC>(sdv, L::ldx, swv, L::ldw, sc, L::ldc, true);
+    block_gemm<T, false, true, kC, kDa, kRows>(sx, L::ldx, sdq, L::ldq, part + kOffDwqk, kDa, true);
+    block_gemm<T, false, true, kC, kC, kRows>(sx, L::ldx, sdv, L::ldx, part + kOffDwv, kC, true);
     __syncthreads();
     for (int idx = threadIdx.x; idx < valid * kC; idx += blockDim.x) {
       const int r = idx / kC;  // channel c throughout

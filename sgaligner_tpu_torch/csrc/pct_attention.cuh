@@ -3,7 +3,9 @@
 // log-sum-exp pass, the apply loop of one row tile (attend_tile) and the
 // backward's dv pass. pct_attention.cu instantiates them at C = 128,
 // da = 32, pct_attention_c256.cu at C = 256, da = 64; pct_attention.cu's
-// header comment sets out the notation and what each pass computes.
+// header comment sets out the notation and what each pass computes. Each
+// loop over key chunks fetches the next chunk with cp.async while the
+// current one's products and exponentials run.
 #pragma once
 
 #include "common.cuh"
@@ -24,6 +26,24 @@ __device__ __forceinline__ void load_rows_scaled(T* dst, int ld_s, const T* __re
     const int r = idx / cols, c = idx % cols;
     const float val = r < valid_rows ? to_f<T>(src[r * ld_g + c]) * scale[r] : 0.f;
     dst[r * ld_s + c] = from_f<T>(val);
+  }
+}
+
+// Scale the rows r < valid of a tile that this thread copied with
+// load_tile_async by scale[r], rounded to T (load_rows_scaled's arithmetic
+// on its own 16-byte chunks, so no other thread's copy need be complete)
+template <typename T>
+__device__ __forceinline__ void scale_own_rows(T* dst, int ld_s, int rows, int cols, int valid,
+                                               const float* __restrict__ scale) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int vcols = cols / kVec;
+  for (int idx = threadIdx.x; idx < rows * vcols; idx += blockDim.x) {
+    const int r = idx / vcols, cv = idx % vcols;
+    if (r >= valid) continue;
+    const float sr = scale[r];
+    T* d = dst + r * ld_s + cv * kVec;
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) d[e] = from_f<T>(to_f<T>(d[e]) * sr);
   }
 }
 
@@ -71,14 +91,23 @@ lse_kernel(const T* __restrict__ q, float* __restrict__ lse, int o, int p) {
   for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
     const int obj = (int)(t / per_obj), r0 = (int)(t % per_obj) * kRows;
     const T* qo = q + (size_t)obj * p * kDa;
-    load_tile<T>(sqt, L::ldq, qo + (size_t)r0 * kDa, kDa, kRows, kDa, min(kRows, p - r0));
+    // the key chunks by cp.async: chunk c + 1 arrives while chunk c's
+    // exponentials run
+    load_tile_async<T>(sqt, L::ldq, qo + (size_t)r0 * kDa, kDa, kRows, kDa, min(kRows, p - r0));
+    load_tile_async<T>(sqc, L::ldq, qo, kDa, kRows, kDa, min(kRows, p));
+    cp_async_commit();
     float m = -INFINITY, l = 0.f;
     for (int c0 = 0; c0 < p; c0 += kRows) {
       const int kv = min(kRows, p - c0);
-      load_tile<T>(sqc, L::ldq, qo + (size_t)c0 * kDa, kDa, kRows, kDa, kv);
+      cp_async_wait<0>();
       __syncthreads();
-      block_gemm<T, true>(sqt, L::ldq, sqc, L::ldq, ss, L::lds, kRows, kRows, kDa, false);
+      block_gemm<T, true, false, kRows, kRows, kDa>(sqt, L::ldq, sqc, L::ldq, ss, L::lds, false);
       __syncthreads();
+      if (c0 + kRows < p) {
+        load_tile_async<T>(sqc, L::ldq, qo + (size_t)(c0 + kRows) * kDa, kDa, kRows, kDa,
+                           min(kRows, p - c0 - kRows));
+        cp_async_commit();
+      }
       float cm = -INFINITY;
       for (int j = sub; j < kv; j += 4) cm = fmaxf(cm, ss[row * L::lds + j]);
       if (cm != -INFINITY) {
@@ -100,8 +129,10 @@ lse_kernel(const T* __restrict__ q, float* __restrict__ lse, int o, int p) {
 // y of one 64-row tile (rows r0.. of the object starting at row ob):
 // sy[r, c] = Σ_k G[r, k]·v[k, c] with G = exp(E − lse_k) rounded to T, and
 // srs[r] = Σ_k G[r, k] (OA's row sums). L: the pass's shared-memory layout
-// (the tiles qt, y, rs, lc and the key loop's qc, vc, s, g). Ends
-// synchronised.
+// (the tiles qt, y, rs, lc and the key loop's qc, vc, s, g). The key
+// chunks arrive by cp.async: chunk c + 1's q while chunk c's exponentials
+// and G·v run, its v while chunk c + 1's S runs. Ends synchronised, with no
+// copy in flight.
 template <typename T, typename L, int kC, int kDa>
 __device__ void attend_tile(unsigned char* smem, const T* __restrict__ q, const T* __restrict__ v,
                             const float* __restrict__ lse, size_t ob, int r0, int valid, int p) {
@@ -115,16 +146,25 @@ __device__ void attend_tile(unsigned char* smem, const T* __restrict__ q, const 
   T* sg = reinterpret_cast<T*>(smem + L::g_off);
 
   const int row = threadIdx.x / 4, sub = threadIdx.x % 4;
-  load_tile<T>(sqt, L::ldq, q + (ob + r0) * kDa, kDa, kRows, kDa, valid);
+  load_tile_async<T>(sqt, L::ldq, q + (ob + r0) * kDa, kDa, kRows, kDa, valid);
+  load_tile_async<T>(sqc, L::ldq, q + ob * kDa, kDa, kRows, kDa, min(kRows, p));
+  cp_async_commit();
+  load_tile_async<T>(svc, L::ldv, v + ob * kC, kC, kRows, kC, min(kRows, p));
+  cp_async_commit();
   if (threadIdx.x < kRows) srs[threadIdx.x] = 0.f;
   for (int c0 = 0; c0 < p; c0 += kRows) {
     const int kv = min(kRows, p - c0);
-    load_tile<T>(sqc, L::ldq, q + (ob + c0) * kDa, kDa, kRows, kDa, kv);
-    load_tile<T>(svc, L::ldv, v + (ob + c0) * kC, kC, kRows, kC, kv);
+    const bool more = c0 + kRows < p;
     if (threadIdx.x < kRows) slc[threadIdx.x] = threadIdx.x < kv ? lse[ob + c0 + threadIdx.x] : 0.f;
+    cp_async_wait<1>();  // this chunk's q (its v may still be in flight)
     __syncthreads();
-    block_gemm<T, true>(sqt, L::ldq, sqc, L::ldq, ss, L::lds, kRows, kRows, kDa, false);
+    block_gemm<T, true, false, kRows, kRows, kDa>(sqt, L::ldq, sqc, L::ldq, ss, L::lds, false);
     __syncthreads();
+    if (more) {
+      load_tile_async<T>(sqc, L::ldq, q + (ob + c0 + kRows) * kDa, kDa, kRows, kDa,
+                         min(kRows, p - c0 - kRows));
+      cp_async_commit();
+    }
     float part = 0.f;
     for (int j = sub; j < kRows; j += 4) {
       const float g = j < kv ? expf(ss[row * L::lds + j] - slc[j]) : 0.f;
@@ -134,9 +174,18 @@ __device__ void attend_tile(unsigned char* smem, const T* __restrict__ q, const 
     }
     part = quad_sum(part);
     if (sub == 0) srs[row] += part;
+    if (more)
+      cp_async_wait<1>();  // this chunk's v (the next q may still be in flight)
+    else
+      cp_async_wait<0>();
     __syncthreads();
-    block_gemm<T, false>(sg, L::ldg, svc, L::ldv, sy, L::ldy, kRows, kC, kRows, c0 > 0);
+    block_gemm<T, false, false, kRows, kC, kRows>(sg, L::ldg, svc, L::ldv, sy, L::ldy, c0 > 0);
     __syncthreads();
+    if (more) {
+      load_tile_async<T>(svc, L::ldv, v + (ob + c0 + kRows) * kC, kC, kRows, kC,
+                         min(kRows, p - c0 - kRows));
+      cp_async_commit();
+    }
   }
 }
 
@@ -184,31 +233,50 @@ bwd_dv_kernel(const T* __restrict__ q, const T* __restrict__ v, const float* __r
     const int obj = (int)(t / per_obj), i0 = (int)(t % per_obj) * kRows;
     const int valid = min(kRows, p - i0);
     const size_t ob = (size_t)obj * p;
-    load_tile<T>(sqi, L::ldq, q + (ob + i0) * kDa, kDa, kRows, kDa, valid);
+    // the key tiles by cp.async: tile j + 1's q while tile j's G and
+    // Gᵀ·dŶ run, its dY while tile j + 1's S runs
+    load_tile_async<T>(sqi, L::ldq, q + (ob + i0) * kDa, kDa, kRows, kDa, valid);
+    load_tile_async<T>(sqj, L::ldq, q + ob * kDa, kDa, kRows, kDa, min(kRows, p));
+    cp_async_commit();
+    load_tile_async<T>(sdy, L::ldc, dy + ob * kC, kC, kRows, kC, min(kRows, p));
+    cp_async_commit();
     if (threadIdx.x < kRows) sl[threadIdx.x] = threadIdx.x < valid ? lse[ob + i0 + threadIdx.x] : 0.f;
     float gc = 0.f;  // OA: Σ_j G[j, i]·c_j of column i = row, this lane's rows
     for (int j0 = 0; j0 < p; j0 += kRows) {
       const int kv = min(kRows, p - j0);
-      load_tile<T>(sqj, L::ldq, q + (ob + j0) * kDa, kDa, kRows, kDa, kv);
-      if constexpr (OA) {
-        load_rows_scaled<T>(sdy, L::ldc, dy + (ob + j0) * kC, kC, kRows, kC, kv, sc + ob + j0);
+      const bool more = j0 + kRows < p;
+      if constexpr (OA)
         if (threadIdx.x < kRows) scj[threadIdx.x] = threadIdx.x < kv ? sc[rows + ob + j0 + threadIdx.x] : 0.f;
-      } else {
-        load_tile<T>(sdy, L::ldc, dy + (ob + j0) * kC, kC, kRows, kC, kv);
+      cp_async_wait<1>();  // this tile's q (its dY may still be in flight)
+      __syncthreads();
+      block_gemm<T, true, false, kRows, kRows, kDa>(sqj, L::ldq, sqi, L::ldq, ss, L::lds, false);
+      __syncthreads();
+      if (more) {
+        load_tile_async<T>(sqj, L::ldq, q + (ob + j0 + kRows) * kDa, kDa, kRows, kDa,
+                           min(kRows, p - j0 - kRows));
+        cp_async_commit();
       }
-      __syncthreads();
-      block_gemm<T, true>(sqj, L::ldq, sqi, L::ldq, ss, L::lds, kRows, kRows, kDa, false);
-      __syncthreads();
       for (int idx = threadIdx.x; idx < kRows * kRows; idx += blockDim.x) {
         const int j = idx / kRows, i = idx % kRows;
         const float g = j < kv ? expf(ss[j * L::lds + i] - sl[i]) : 0.f;
         sg[j * L::ldg + i] = from_f<T>(g);
       }
+      if (more)
+        cp_async_wait<1>();  // this tile's dY (the next q may still be in flight)
+      else
+        cp_async_wait<0>();
+      // OA's dŶ = dY·(1/s): each thread scales the chunks it copied
+      if constexpr (OA) scale_own_rows<T>(sdy, L::ldc, kRows, kC, kv, sc + ob + j0);
       __syncthreads();
       if constexpr (OA)
         for (int j = sub; j < kv; j += 4) gc += to_f<T>(sg[j * L::ldg + row]) * scj[j];
-      block_gemm<T, false, true>(sg, L::ldg, sdy, L::ldc, sdv, L::ldv, kRows, kC, kRows, j0 > 0);
+      block_gemm<T, false, true, kRows, kC, kRows>(sg, L::ldg, sdy, L::ldc, sdv, L::ldv, j0 > 0);
       __syncthreads();
+      if (more) {
+        load_tile_async<T>(sdy, L::ldc, dy + (ob + j0 + kRows) * kC, kC, kRows, kC,
+                           min(kRows, p - j0 - kRows));
+        cp_async_commit();
+      }
     }
     for (int idx = threadIdx.x; idx < valid * kC; idx += blockDim.x) {
       const int r = idx / kC, cc = idx % kC;

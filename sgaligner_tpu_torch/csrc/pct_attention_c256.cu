@@ -11,30 +11,47 @@
 // of that rule (_epi_sums_kernel) are pct_epi_sums.cu's at C = 256.
 //   Bound on the H100: operations. The forward does 2·P·C·(da + C) +
 //   2·P²·da + 2·P²·C + 2·P·C² = 117 MFLOP per object at P = C = 256, against
-//   2·P·C elements in and out; the backward about three times that.
+//   2·P·C elements in and out; the backward about three times that. At f32
+//   (no TF32: the plain versions' cuBLAS products are full f32 too) that is
+//   the CUDA cores' 67 TFLOP/s: 0.45 ms a forward and 1.35 ms a backward at
+//   O = 256.
 //   Design: pct_attention.cu's grid-stride passes over 64-row tiles (shared
 //   with it through pct_attention.cuh: the log-sum-exp pass, the apply
-//   loop and the dv pass), with block_gemm's WMMA (bf16) or FMA (f32)
-//   tiles. What changes at this width is shared memory: Wv and Wt are
-//   256 KB each at f32 (128 KB at bf16) and a block has 227 KB, so no pass
-//   keeps a whole weight resident, as the C = 128 passes do. Every product
-//   with a weight streams it through shared memory in kN = 32-column (or
-//   -row) slices, per 64-row tile, from L2 (the forward's 0.6 MB of
-//   weights a tile at f32 against its 30 MFLOP: far below L2's rate):
+//   loop and the dv pass), multiplying with block_gemm: WMMA at bf16; at
+//   f32 a register-tiled FMA product (8 to 64 outputs a thread in
+//   registers, fed by 16-byte shared loads, every output one fmaf chain in
+//   k order), which lifts the FMA loop off the two shared loads an FMA of
+//   a one-output-a-thread loop. What changes at this width is shared
+//   memory: Wv and Wt are 256 KB each at f32 (128 KB at bf16) and a block
+//   has 227 KB, so no pass keeps a whole weight resident, as the C = 128
+//   passes do. Every product with a weight streams it through shared
+//   memory in kN = 32-column (or -row) slices, per 64-row tile, from L2,
+//   double-buffered with cp.async so that slice s + 1 arrives while slice s
+//   multiplies:
 //     project: [Wqk | Wv] in column slices, each slice's q or v columns
-//       written as it is done;
+//       written as it is done (16-byte stores); two weight stages and two
+//       x tiles, the next tile's x arriving with its first slice;
 //     apply (eval and training forward): y by attend_tile, u in shared
 //       memory, then t = u·Wt one column slice at a time, each slice's
 //       epilogue (the residual, or t and the masked BN sums) right after;
+//       the two Wt stages take the key loop's room beside u, and the t
+//       slice the q tile's place;
 //     dz (backward): t, dz, dWt += uᵀ·dz and du += dz·Wt_sliceᵀ slice by
-//       slice from the same column slice of Wt, so neither t nor dz is
+//       slice from the same column slice of Wt (two stages, as apply's;
+//       at f32 the dz slice overwrites t in place, which is what makes
+//       room for the second stage: 226,816 bytes), so neither t nor dz is
 //       ever whole; OA keeps y/s in a device work buffer (no room beside
 //       du) and forms c_j from it once du is complete;
-//     dq: the (I, J) products v_I·dŶ_Jᵀ and dŶ_I·v_Jᵀ summed over column
-//       slices of the four operands, which no longer fit whole;
+//     dq: the (I, J) products v_I·dŶ_Jᵀ and dŶ_I·v_Jᵀ summed over kNq =
+//       64-channel slices of the four operands, which no longer fit whole,
+//       double-buffered (OA's 1/s applied by each thread to the chunks it
+//       copied);
 //     dx: dx = dq·Wqk_sᵀ + dv·Wvᵀ one output column slice at a time from
-//       row slices of Wqk and Wv.
-//   Every layout is checked against the 232,448 bytes a block may have.
+//       row slices of Wqk and Wv, the second stage in the x tile's place
+//       once xᵀ·dq and xᵀ·dv have read it.
+//   The key chunks of the lse, apply and dv loops arrive the same way
+//   (pct_attention.cuh). Every layout is checked against the 232,448 bytes
+//   a block may have.
 //   Weight gradients and BN sums go to per-block slices that reduce_slices
 //   adds in block order: no atomics, the same bits from run to run.
 #include "pct_attention.cuh"
@@ -45,6 +62,7 @@ namespace {
 constexpr int kC = 256;       // channels
 constexpr int kDa = 64;       // q/k width (C / 4)
 constexpr int kN = 32;        // columns (or rows) of a streamed weight slice
+constexpr int kNq = 64;       // channels of the dq pass's slices of v and dY
 constexpr size_t kSmemMax = 232448;
 static_assert(kC == kThreads, "the dx pass gives each thread one channel");
 
@@ -63,17 +81,27 @@ static_assert(Grad::dwv % 8 == 0 && Grad::dwt % 8 == 0, "gradient slice alignmen
 
 // ----------------------------- pass 1: project -----------------------------
 
+// The x tile and two stages of a kNp-column slice of [Wqk | Wv]: slice
+// s + 1 arrives (cp.async) while slice s multiplies; the next tile's x once
+// the last slice has read this one's. kNp = 64 (not kN): a thread's 16
+// outputs of a [64, 64] slice take half the shared loads an FMA of 8 of a
+// [64, 32] one
+constexpr int kNp = 64;
+constexpr int kProjSlices = (kDa + kC) / kNp;  // slice 0 is Wqk, 1.. are Wv's
+static_assert(kDa == kNp, "project: slice 0 is all of Wqk");
+
 template <typename T>
 struct ProjSmem {
-  static constexpr int ldx = pad_ld<T>(kC), ldw = pad_ld<T>(kN), ldc = pad_ldf(kN);
+  static constexpr int ldx = pad_ld<T>(kC), ldw = pad_ld<T>(kNp), ldc = pad_ldf(kNp);
+  static constexpr size_t w_stage = align128(sizeof(T) * kC * ldw);
   static constexpr size_t x_off = 0;
   static constexpr size_t w_off = align128(x_off + sizeof(T) * kRows * ldx);
-  static constexpr size_t c_off = align128(w_off + sizeof(T) * kC * ldw);
+  static constexpr size_t c_off = w_off + 2 * w_stage;
   static constexpr size_t bytes = align128(c_off + sizeof(float) * kRows * ldc);
 };
 static_assert(ProjSmem<float>::bytes <= kSmemMax, "project: shared memory");
 
-// q = x·Wqk and v = x·Wv + bv of each 64-row tile, one kN-column slice of
+// q = x·Wqk and v = x·Wv + bv of each 64-row tile, one kNp-column slice of
 // [Wqk | Wv] at a time
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -82,32 +110,56 @@ project_kernel(const T* __restrict__ x, const T* __restrict__ wqk, const T* __re
   using L = ProjSmem<T>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sx = reinterpret_cast<T*>(smem + L::x_off);
-  T* sw = reinterpret_cast<T*>(smem + L::w_off);
   float* sc = reinterpret_cast<float*>(smem + L::c_off);
+  auto sw = [&](int i) { return reinterpret_cast<T*>(smem + L::w_off + (i & 1) * L::w_stage); };
 
   const int per_obj = (p + kRows - 1) / kRows;
   const long long tiles = (long long)o * per_obj;
+  auto issue_x = [&](long long t) {
+    const int obj = (int)(t / per_obj), r0 = (int)(t % per_obj) * kRows;
+    load_tile_async<T>(sx, L::ldx, x + ((size_t)obj * p + r0) * kC, kC, kRows, kC,
+                       min(kRows, p - r0));
+    cp_async_commit();
+  };
+  auto issue_slice = [&](int s, int i) {
+    if (s == 0)
+      load_tile_async<T>(sw(i), L::ldw, wqk, kDa, kC, kNp, kC);
+    else
+      load_tile_async<T>(sw(i), L::ldw, wv + (s - 1) * kNp, kC, kC, kNp, kC);
+    cp_async_commit();
+  };
+  if (blockIdx.x < tiles) {
+    issue_x(blockIdx.x);
+    issue_slice(0, 0);
+  }
+  int g = 0;  // this block's slice count: slice g sits in stage g % 2
   for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
     const int obj = (int)(t / per_obj), r0 = (int)(t % per_obj) * kRows;
     const int valid = min(kRows, p - r0);
     const size_t row0 = (size_t)obj * p + r0;
-    load_tile<T>(sx, L::ldx, x + row0 * kC, kC, kRows, kC, valid);
-    for (int s = 0; s < (kDa + kC) / kN; ++s) {
-      const bool is_q = s * kN < kDa;
-      const int n0 = is_q ? s * kN : s * kN - kDa;  // first column in Wqk or Wv
-      if (is_q)
-        load_tile<T>(sw, L::ldw, wqk + n0, kDa, kC, kN, kC);
-      else
-        load_tile<T>(sw, L::ldw, wv + n0, kC, kC, kN, kC);
+    const bool more = t + gridDim.x < tiles;
+    for (int s = 0; s < kProjSlices; ++s, ++g) {
+      const bool last = s + 1 == kProjSlices;
+      if (!last || more) {
+        issue_slice(last ? 0 : s + 1, g + 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
       __syncthreads();
-      block_gemm<T, false>(sx, L::ldx, sw, L::ldw, sc, L::ldc, kRows, kN, kC, false);
+      block_gemm<T, false, false, kRows, kNp, kC>(sx, L::ldx, sw(g), L::ldw, sc, L::ldc, false);
       __syncthreads();
-      for (int idx = threadIdx.x; idx < valid * kN; idx += blockDim.x) {
-        const int r = idx / kN, c = idx % kN;
-        if (is_q)
-          q[(row0 + r) * kDa + n0 + c] = from_f<T>(sc[r * L::ldc + c]);
-        else
-          v[(row0 + r) * kC + n0 + c] = from_f<T>(sc[r * L::ldc + c] + to_f<T>(bv[n0 + c]));
+      if (last && more) issue_x(t + gridDim.x);  // x read: the next tile's may come
+      for (int idx = threadIdx.x; idx < valid * (kNp / 4); idx += blockDim.x) {
+        const int r = idx / (kNp / 4), c = 4 * (idx % (kNp / 4));
+        const float4 a = *reinterpret_cast<const float4*>(sc + r * L::ldc + c);
+        if (s == 0) {
+          store4<T>(q + (row0 + r) * kDa + c, a.x, a.y, a.z, a.w);
+        } else {
+          const int n = (s - 1) * kNp + c;
+          const float4 b = load4<T>(bv + n);
+          store4<T>(v + (row0 + r) * kC + n, a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+        }
       }
     }
   }
@@ -115,15 +167,24 @@ project_kernel(const T* __restrict__ x, const T* __restrict__ wqk, const T* __re
 
 // ------------------------- pass 3: apply, and dz ----------------------------
 
-// The apply pass's and the dz pass's layout: attend_tile's tiles (qt, y, rs,
-// lc, then the key loop's qc, vc, s, g); acc: the block's per-channel sums;
-// the epilogue reuses the key loop's region for the u tile, a column slice
-// of Wt, the t slice (f32) and the dz slice
-template <typename T>
+// The apply pass's (kDz false) and the dz pass's layout: attend_tile's tiles
+// (qt, y, rs, lc, then the key loop's qc, vc, s, g); acc: the block's
+// per-channel sums. The epilogue multiplies u by kNw-column slices of Wt in
+// two stages (slice n0 + kNw arrives while n0 multiplies) in the key loop's
+// room, with u beside them or, in the f32 apply pass, over y (form_u writes
+// each element over its own y), which leaves room for kNw = 64 there (16
+// outputs a thread, not 8; the dz pass keeps du in y and takes kN = 32).
+// The t slice (f32) takes the q tile's place where it fits; the dz slice
+// rounded to T takes t's place at f32 (each element overwrites its own t)
+// and a tile of its own at bf16, then the dz pass's slice of dxn: after t at
+// f32 (the rest of the q tile's place), after dz at bf16
+template <typename T, bool kDz>
 struct ApplySmem {
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  static constexpr int kNw = kDz ? kN : 2 * kN;
   static constexpr int ldq = pad_ld<T>(kDa), ldv = pad_ld<T>(kC), ldg = pad_ld<T>(kRows);
   static constexpr int lds = pad_ldf(kRows), ldy = pad_ldf(kC);
-  static constexpr int ldu = pad_ld<T>(kC), ldw = pad_ld<T>(kN), ldt = pad_ldf(kN);
+  static constexpr int ldu = pad_ld<T>(kC), ldw = pad_ld<T>(kNw), ldt = pad_ldf(kNw);
   static constexpr int ldz = pad_ld<T>(kN);
   static constexpr size_t qt_off = 0;
   static constexpr size_t y_off = align128(qt_off + sizeof(T) * kRows * ldq);
@@ -135,14 +196,51 @@ struct ApplySmem {
   static constexpr size_t s_off = align128(vc_off + sizeof(T) * kRows * ldv);
   static constexpr size_t g_off = align128(s_off + sizeof(float) * kRows * lds);
   static constexpr size_t loop_end = align128(g_off + sizeof(T) * kRows * ldg);
-  static constexpr size_t u_off = qc_off;
-  static constexpr size_t w_off = align128(u_off + sizeof(T) * kRows * ldu);
-  static constexpr size_t t_off = align128(w_off + sizeof(T) * kC * ldw);
-  static constexpr size_t z_off = align128(t_off + sizeof(float) * kRows * ldt);
-  static constexpr size_t epi_end = align128(z_off + sizeof(T) * kRows * ldz);
+  static constexpr bool kUinY = kF32 && !kDz;
+  static constexpr size_t u_off = kUinY ? y_off : qc_off;
+  static constexpr size_t w_stage = align128(sizeof(T) * kC * ldw);
+  static constexpr size_t w_off = kUinY ? qc_off : align128(u_off + sizeof(T) * kRows * ldu);
+  static constexpr size_t w_end = w_off + 2 * w_stage;
+  static constexpr bool kTinQ = sizeof(float) * kRows * ldt <= y_off - qt_off;
+  static constexpr size_t t_off = kTinQ ? qt_off : w_end;
+  static constexpr size_t t_end = kTinQ ? w_end : align128(t_off + sizeof(float) * kRows * ldt);
+  static constexpr size_t z_off = kF32 ? t_off : t_end;
+  static constexpr size_t dxn_off = kF32 ? align128(t_off + sizeof(float) * kRows * ldt)
+                                         : align128(z_off + sizeof(T) * kRows * ldz);
+  static constexpr size_t epi_end =
+      kDz && !kF32 ? align128(dxn_off + sizeof(T) * kRows * kN) : t_end;
   static constexpr size_t bytes = loop_end > epi_end ? loop_end : epi_end;
+  static_assert(!kUinY || ldu == ldy, "apply: u over y element by element");
+  static_assert(!(kDz && kF32) || (kTinQ && dxn_off + sizeof(T) * kRows * kN <= y_off),
+                "dz: t and dxn in the q tile's place");
+  static_assert(!(kDz && kF32) || ldz == ldt, "dz: the f32 dz slice overwrites t in place");
 };
-static_assert(ApplySmem<float>::bytes <= kSmemMax, "apply: shared memory");
+static_assert(ApplySmem<float, false>::bytes <= kSmemMax, "apply: shared memory");
+static_assert(ApplySmem<float, true>::bytes <= kSmemMax, "dz: shared memory");
+
+// Issue the column slice n0.. of Wt into the epilogue's weight stage `i % 2`
+template <typename T, typename L>
+__device__ __forceinline__ void wt_slice_async(unsigned char* smem, const T* __restrict__ wt,
+                                               int n0, int i) {
+  load_tile_async<T>(reinterpret_cast<T*>(smem + L::w_off + (i & 1) * L::w_stage), L::ldw,
+                     wt + n0, kC, kC, L::kNw, kC);
+  cp_async_commit();
+}
+
+// Wait for the weight stage of slice n0 (the next one issued first, if any)
+template <typename T, typename L>
+__device__ __forceinline__ const T* wt_slice_ready(unsigned char* smem, const T* __restrict__ wt,
+                                                   int n0) {
+  const int i = n0 / L::kNw;
+  if (n0 + L::kNw < kC) {
+    wt_slice_async<T, L>(smem, wt, n0 + L::kNw, i + 1);
+    cp_async_wait<1>();
+  } else {
+    cp_async_wait<0>();
+  }
+  __syncthreads();
+  return reinterpret_cast<const T*>(smem + L::w_off + (i & 1) * L::w_stage);
+}
 
 // u = y (SA) or x − y/s (OA) of one tile into su, each rounded to T; rows
 // past `valid` zero. OA with ys: y/s (f32) also into ys (the dz pass's c).
@@ -178,11 +276,11 @@ apply_kernel(const T* __restrict__ x, const T* __restrict__ q, const T* __restri
              const float* __restrict__ wbn, const float* __restrict__ bbn,
              const T* __restrict__ mask, T* __restrict__ out, float* __restrict__ scratch,
              int o, int p, int oa) {
-  using L = ApplySmem<T>;
+  using L = ApplySmem<T, false>;
+  constexpr int kNw = L::kNw;
   extern __shared__ __align__(128) unsigned char smem[];
   float* sacc = reinterpret_cast<float*>(smem + L::acc_off);
   const T* su = reinterpret_cast<const T*>(smem + L::u_off);
-  T* sw = reinterpret_cast<T*>(smem + L::w_off);
   float* st = reinterpret_cast<float*>(smem + L::t_off);
 
   for (int i = threadIdx.x; i < 2 * kC; i += blockDim.x) sacc[i] = 0.f;
@@ -193,28 +291,36 @@ apply_kernel(const T* __restrict__ x, const T* __restrict__ q, const T* __restri
     const int valid = min(kRows, p - r0);
     const size_t ob = (size_t)obj * p;
     attend_tile<T, L, kC, kDa>(smem, q, v, lse, ob, r0, valid, p);
+    wt_slice_async<T, L>(smem, wt, 0, 0);
     form_u<T, L>(smem, x, (ob + r0) * kC, valid, oa, nullptr);
     const float m = TRAIN ? to_f<T>(mask[obj]) : 0.f;
-    for (int n0 = 0; n0 < kC; n0 += kN) {
-      load_tile<T>(sw, L::ldw, wt + n0, kC, kC, kN, kC);
+    for (int n0 = 0; n0 < kC; n0 += kNw) {
+      const T* sw = wt_slice_ready<T, L>(smem, wt, n0);
+      block_gemm<T, false, false, kRows, kNw, kC>(su, L::ldu, sw, L::ldw, st, L::ldt, false);
       __syncthreads();
-      block_gemm<T, false>(su, L::ldu, sw, L::ldw, st, L::ldt, kRows, kN, kC, false);
-      __syncthreads();
-      for (int idx = threadIdx.x; idx < valid * kN; idx += blockDim.x) {
-        const int r = idx / kN, c = idx % kN;
+      for (int idx = threadIdx.x; idx < valid * (kNw / 4); idx += blockDim.x) {
+        const int r = idx / (kNw / 4), c = 4 * (idx % (kNw / 4));
         const size_t at = (ob + r0 + r) * kC + n0 + c;
-        const float tv = round_to<T>(st[r * L::ldt + c] + to_f<T>(bt[n0 + c]));
+        const float4 a = *reinterpret_cast<const float4*>(st + r * L::ldt + c);
+        const float4 b = load4<T>(bt + n0 + c);
+        const float tv[4] = {round_to<T>(a.x + b.x), round_to<T>(a.y + b.y),
+                             round_to<T>(a.z + b.z), round_to<T>(a.w + b.w)};
         if constexpr (TRAIN) {
-          out[at] = from_f<T>(tv);
-          st[r * L::ldt + c] = tv;
+          store4<T>(out + at, tv[0], tv[1], tv[2], tv[3]);
+          *reinterpret_cast<float4*>(st + r * L::ldt + c) = make_float4(tv[0], tv[1], tv[2], tv[3]);
         } else {
-          const float z = tv * wbn[n0 + c] + bbn[n0 + c];
-          out[at] = from_f<T>(to_f<T>(x[at]) + fmaxf(z, 0.f));
+          const float4 xv = load4<T>(x + at);
+          const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
+          float o4[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            o4[e] = xs[e] + fmaxf(tv[e] * wbn[n0 + c + e] + bbn[n0 + c + e], 0.f);
+          store4<T>(out + at, o4[0], o4[1], o4[2], o4[3]);
         }
       }
       if constexpr (TRAIN) {
         __syncthreads();
-        if (threadIdx.x < kN) {
+        if (threadIdx.x < kNw) {
           float s1 = 0.f, s2 = 0.f;
           for (int r = 0; r < valid; ++r) {
             const float tv = st[r * L::ldt + threadIdx.x];
@@ -249,18 +355,19 @@ bwd_dz_kernel(const T* __restrict__ x, const T* __restrict__ q, const T* __restr
               const float* __restrict__ dsum, const float* __restrict__ dsumsq,
               T* __restrict__ dy, float* __restrict__ sc, float* __restrict__ ys,
               float* __restrict__ scratch, int o, int p) {
-  using L = ApplySmem<T>;
+  using L = ApplySmem<T, true>;
   extern __shared__ __align__(128) unsigned char smem[];
   float* sy = reinterpret_cast<float*>(smem + L::y_off);  // y, then du
   const float* srs = reinterpret_cast<const float*>(smem + L::rs_off);
   float* sdbt = reinterpret_cast<float*>(smem + L::acc_off);
   const T* su = reinterpret_cast<const T*>(smem + L::u_off);
-  T* sw = reinterpret_cast<T*>(smem + L::w_off);
   float* st = reinterpret_cast<float*>(smem + L::t_off);
   T* sz = reinterpret_cast<T*>(smem + L::z_off);
+  T* sdxn = reinterpret_cast<T*>(smem + L::dxn_off);
 
   float* part = scratch + (size_t)blockIdx.x * slice_stride(Grad::total);
-  for (int i = threadIdx.x; i < kC * kC; i += blockDim.x) part[Grad::dwt + i] = 0.f;
+  for (int i = threadIdx.x; i < kC * kC / 4; i += blockDim.x)
+    reinterpret_cast<float4*>(part + Grad::dwt)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int i = threadIdx.x; i < kC; i += blockDim.x) sdbt[i] = 0.f;
   const long long rows = (long long)o * p;
   const int row = threadIdx.x / 4, sub = threadIdx.x % 4;
@@ -273,20 +380,37 @@ bwd_dz_kernel(const T* __restrict__ x, const T* __restrict__ q, const T* __restr
     const int valid = min(kRows, p - r0);
     const size_t ob = (size_t)obj * p;
     attend_tile<T, L, kC, kDa>(smem, q, v, lse, ob, r0, valid, p);
+    wt_slice_async<T, L>(smem, wt, 0, 0);
     form_u<T, L>(smem, x, (ob + r0) * kC, valid, OA, ys);
     const float m = to_f<T>(mask[obj]);
     for (int n0 = 0; n0 < kC; n0 += kN) {
-      load_tile<T>(sw, L::ldw, wt + n0, kC, kC, kN, kC);
+      // this slice's dxn arrives while t multiplies, and the next Wt slice
+      load_tile_async<T>(sdxn, kN, dxn + (ob + r0) * kC + n0, kC, kRows, kN, valid);
+      cp_async_commit();
+      const int i = n0 / kN;
+      if (n0 + kN < kC) {
+        wt_slice_async<T, L>(smem, wt, n0 + kN, i + 1);
+        cp_async_wait<2>();
+      } else {
+        cp_async_wait<1>();
+      }
       __syncthreads();
-      block_gemm<T, false>(su, L::ldu, sw, L::ldw, st, L::ldt, kRows, kN, kC, false);
+      const T* sw = reinterpret_cast<const T*>(smem + L::w_off + (i & 1) * L::w_stage);
+      block_gemm<T, false, false, kRows, kN, kC>(su, L::ldu, sw, L::ldw, st, L::ldt, false);
+      cp_async_wait<0>();
       __syncthreads();
-      for (int idx = threadIdx.x; idx < kRows * kN; idx += blockDim.x) {
+      // one element at a time, as written: the same expression over four
+      // elements gave other bits on an H100 (the compiler fused other
+      // products into FMAs)
+#pragma unroll
+      for (int e = 0; e < kRows * kN / kThreads; ++e) {
+        const int idx = threadIdx.x + e * kThreads;
         const int r = idx / kN, c = idx % kN, ch = n0 + c;
         float dz = 0.f;
         if (r < valid) {
           const float wc = wbn[ch];
           const float tv = round_to<T>(st[r * L::ldt + c] + to_f<T>(bt[ch]));
-          const float g = to_f<T>(dxn[(ob + r0 + r) * kC + ch]);
+          const float g = to_f<T>(sdxn[r * kN + c]);
           const bool live = epi_live<T>(tv, round_to<T>(wc), round_to<T>(bbn[ch]));
           dz = round_to<T>(((live ? g : 0.f) * wc + m * dsum[ch]) + 2.f * tv * (m * dsumsq[ch]));
         }
@@ -298,9 +422,9 @@ bwd_dz_kernel(const T* __restrict__ x, const T* __restrict__ q, const T* __restr
         for (int r = 0; r < valid; ++r) s += to_f<T>(sz[r * L::ldz + threadIdx.x]);
         sdbt[n0 + threadIdx.x] += s;
       }
-      block_gemm<T, false, true>(su, L::ldu, sz, L::ldz, part + Grad::dwt + n0, kC, kC, kN, kRows,
-                                 true);
-      block_gemm<T, true>(sz, L::ldz, sw, L::ldw, sy, L::ldy, kRows, kC, kN, n0 > 0);
+      block_gemm<T, false, true, kC, kN, kRows>(su, L::ldu, sz, L::ldz, part + Grad::dwt + n0, kC,
+                                                true);
+      block_gemm<T, true, false, kRows, kC, kN>(sz, L::ldz, sw, L::ldw, sy, L::ldy, n0 > 0);
       __syncthreads();
     }
     if constexpr (OA) {
@@ -316,10 +440,13 @@ bwd_dz_kernel(const T* __restrict__ x, const T* __restrict__ q, const T* __restr
         sc[rows + ob + r0 + row] = cr;
       }
     }
-    for (int idx = threadIdx.x; idx < valid * kC; idx += blockDim.x) {
-      const int r = idx / kC, cc = idx % kC;
-      const float d = sy[r * L::ldy + cc];
-      dy[(ob + r0 + r) * kC + cc] = from_f<T>(OA ? -d : d);
+    for (int idx = threadIdx.x; idx < valid * (kC / 4); idx += blockDim.x) {
+      const int r = idx / (kC / 4), cc = 4 * (idx % (kC / 4));
+      const float4 d = *reinterpret_cast<const float4*>(sy + r * L::ldy + cc);
+      if (OA)
+        store4<T>(dy + (ob + r0 + r) * kC + cc, -d.x, -d.y, -d.z, -d.w);
+      else
+        store4<T>(dy + (ob + r0 + r) * kC + cc, d.x, d.y, d.z, d.w);
     }
     __syncthreads();
   }
@@ -331,14 +458,15 @@ bwd_dz_kernel(const T* __restrict__ x, const T* __restrict__ q, const T* __restr
 template <typename T, bool OA>
 struct DqSmem {
   static constexpr bool kF32 = std::is_same<T, float>::value;
-  static constexpr int ldq = pad_ld<T>(kDa), ldk = pad_ld<T>(kN), ldf = pad_ld<T>(kRows);
+  static constexpr int ldq = pad_ld<T>(kDa), ldk = pad_ld<T>(kNq), ldf = pad_ld<T>(kRows);
   static constexpr int lds = pad_ldf(kRows), lda = pad_ldf(kDa);
   static constexpr size_t qi_off = 0;
   static constexpr size_t qj_off = align128(qi_off + sizeof(T) * kRows * ldq);
-  // a column slice of the I-side and of the J-side operand
-  static constexpr size_t a_off = align128(qj_off + sizeof(T) * kRows * ldq);
-  static constexpr size_t b_off = align128(a_off + sizeof(T) * kRows * ldk);
-  static constexpr size_t s_off = align128(b_off + sizeof(T) * kRows * ldk);
+  // two stages of a column slice of the I-side and of the J-side operand:
+  // slice k + 1 arrives while slice k multiplies
+  static constexpr size_t ab_tile = align128(sizeof(T) * kRows * ldk);
+  static constexpr size_t ab_off = align128(qj_off + sizeof(T) * kRows * ldq);
+  static constexpr size_t s_off = ab_off + 4 * ab_tile;
   static constexpr size_t pp_off = align128(s_off + sizeof(float) * kRows * lds);
   static constexpr size_t f_off = align128(pp_off + sizeof(float) * kRows * lds);
   static constexpr size_t f_end = align128(f_off + sizeof(float) * kRows * lds);
@@ -349,31 +477,46 @@ struct DqSmem {
   static constexpr size_t vec_off = align128(dq_off + sizeof(float) * kRows * lda);
   // lse and D of tiles I and J; OA: c of both too
   static constexpr size_t bytes = align128(vec_off + sizeof(float) * (OA ? 6 : 4) * kRows);
+  __device__ static T* a(unsigned char* smem, int i) {
+    return reinterpret_cast<T*>(smem + ab_off + (i & 1) * 2 * ab_tile);
+  }
+  __device__ static T* b(unsigned char* smem, int i) {
+    return reinterpret_cast<T*>(smem + ab_off + ((i & 1) * 2 + 1) * ab_tile);
+  }
 };
 static_assert(DqSmem<float, true>::bytes <= kSmemMax, "dq: shared memory");
 
 // spp[i, j] = Σ_c a[i, c]·b[j, c] over the C channels of the rows a0.. (a)
-// and b0.. (b) of the object, in kN-column slices; a (or b) with `a_dy`
+// and b0.. (b) of the object, in kNq-column slices; a (or b) with `a_dy`
 // (`b_dy`) is dY, scaled by 1/s (sc) for OA. Ends synchronised.
 template <typename T, bool OA>
 __device__ void channel_product(unsigned char* smem, const T* __restrict__ a, bool a_dy,
                                 const T* __restrict__ b, const float* __restrict__ sc,
                                 size_t a0, int a_valid, size_t b0, int b_valid) {
   using L = DqSmem<T, OA>;
-  T* sa = reinterpret_cast<T*>(smem + L::a_off);
-  T* sb = reinterpret_cast<T*>(smem + L::b_off);
   float* spp = reinterpret_cast<float*>(smem + L::pp_off);
-  for (int k0 = 0; k0 < kC; k0 += kN) {
-    if (OA && a_dy)
-      load_rows_scaled<T>(sa, L::ldk, a + a0 * kC + k0, kC, kRows, kN, a_valid, sc + a0);
-    else
-      load_tile<T>(sa, L::ldk, a + a0 * kC + k0, kC, kRows, kN, a_valid);
-    if (OA && !a_dy)
-      load_rows_scaled<T>(sb, L::ldk, b + b0 * kC + k0, kC, kRows, kN, b_valid, sc + b0);
-    else
-      load_tile<T>(sb, L::ldk, b + b0 * kC + k0, kC, kRows, kN, b_valid);
+  auto issue = [&](int k0, int i) {
+    load_tile_async<T>(L::a(smem, i), L::ldk, a + a0 * kC + k0, kC, kRows, kNq, a_valid);
+    load_tile_async<T>(L::b(smem, i), L::ldk, b + b0 * kC + k0, kC, kRows, kNq, b_valid);
+    cp_async_commit();
+  };
+  issue(0, 0);
+  for (int k0 = 0, i = 0; k0 < kC; k0 += kNq, ++i) {
+    if (k0 + kNq < kC) {
+      issue(k0 + kNq, i + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    if constexpr (OA) {
+      if (a_dy)
+        scale_own_rows<T>(L::a(smem, i), L::ldk, kRows, kNq, a_valid, sc + a0);
+      else
+        scale_own_rows<T>(L::b(smem, i), L::ldk, kRows, kNq, b_valid, sc + b0);
+    }
     __syncthreads();
-    block_gemm<T, true>(sa, L::ldk, sb, L::ldk, spp, L::lds, kRows, kRows, kN, k0 > 0);
+    block_gemm<T, true, false, kRows, kRows, kNq>(L::a(smem, i), L::ldk, L::b(smem, i), L::ldk,
+                                                 spp, L::lds, k0 > 0);
     __syncthreads();
   }
 }
@@ -426,7 +569,7 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ v, const float* __r
         if constexpr (OA) cj[threadIdx.x] = in ? sc[rows + ob + j0 + threadIdx.x] : 0.f;
       }
       __syncthreads();
-      block_gemm<T, true>(sqi, L::ldq, sqj, L::ldq, ss, L::lds, kRows, kRows, kDa, false);
+      block_gemm<T, true, false, kRows, kRows, kDa>(sqi, L::ldq, sqj, L::ldq, ss, L::lds, false);
       // v_I·dŶ_Jᵀ
       channel_product<T, OA>(smem, v, false, dy, sc, ob + i0, valid, ob + j0, kv);
       // dE[j, i] term: G[j, i] = exp(E[i, j] − lse_i), dŶ_j·v_i = (v_I·dŶ_Jᵀ)[i, j]
@@ -451,7 +594,7 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ v, const float* __r
         sft[i * L::ldf + j] = from_f<T>(f);
       }
       __syncthreads();
-      block_gemm<T, false>(sft, L::ldf, sqj, L::ldq, sdq, L::lda, kRows, kDa, kRows, j0 > 0);
+      block_gemm<T, false, false, kRows, kDa, kRows>(sft, L::ldf, sqj, L::ldq, sdq, L::lda, j0 > 0);
       __syncthreads();
     }
     for (int idx = threadIdx.x; idx < valid * kDa; idx += blockDim.x) {
@@ -464,17 +607,22 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ v, const float* __r
 
 // --------------------------------- dx pass ----------------------------------
 
+// Two stages of the row slices [kN, ·] of Wqk_s and Wv: stage 0 after the
+// tiles, stage 1 in the x tile's place, free once the weight gradients have
+// read x
 template <typename T>
 struct DxSmem {
   static constexpr int ldx = pad_ld<T>(kC), ldq = pad_ld<T>(kDa), ldc = pad_ldf(kN);
   static constexpr size_t x_off = 0;
   static constexpr size_t dq_off = align128(x_off + sizeof(T) * kRows * ldx);
   static constexpr size_t dv_off = align128(dq_off + sizeof(T) * kRows * ldq);
-  // row slices [kN, ·] of Wqk_s and Wv
-  static constexpr size_t wq_off = align128(dv_off + sizeof(T) * kRows * ldx);
-  static constexpr size_t wv_off = align128(wq_off + sizeof(T) * kN * ldq);
-  static constexpr size_t c_off = align128(wv_off + sizeof(T) * kN * ldx);
+  static constexpr size_t wq0_off = align128(dv_off + sizeof(T) * kRows * ldx);
+  static constexpr size_t wv0_off = align128(wq0_off + sizeof(T) * kN * ldq);
+  static constexpr size_t wq1_off = x_off;
+  static constexpr size_t wv1_off = align128(wq1_off + sizeof(T) * kN * ldq);
+  static constexpr size_t c_off = align128(wv0_off + sizeof(T) * kN * ldx);
   static constexpr size_t bytes = align128(c_off + sizeof(float) * kRows * ldc);
+  static_assert(wv1_off + sizeof(T) * kN * ldx <= dq_off, "dx: stage 1 in the x tile");
 };
 static_assert(DxSmem<float>::bytes <= kSmemMax, "dx: shared memory");
 
@@ -491,9 +639,14 @@ bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ wqk, const T* __res
   T* sx = reinterpret_cast<T*>(smem + L::x_off);
   T* sdq = reinterpret_cast<T*>(smem + L::dq_off);
   T* sdv = reinterpret_cast<T*>(smem + L::dv_off);
-  T* swq = reinterpret_cast<T*>(smem + L::wq_off);
-  T* swv = reinterpret_cast<T*>(smem + L::wv_off);
   float* sc = reinterpret_cast<float*>(smem + L::c_off);
+  auto issue_slice = [&](int n0, int i) {
+    load_tile_async<T>(reinterpret_cast<T*>(smem + (i & 1 ? L::wq1_off : L::wq0_off)), L::ldq,
+                       wqk + (size_t)n0 * kDa, kDa, kN, kDa, kN);
+    load_tile_async<T>(reinterpret_cast<T*>(smem + (i & 1 ? L::wv1_off : L::wv0_off)), L::ldx,
+                       wv + (size_t)n0 * kC, kC, kN, kC, kN);
+    cp_async_commit();
+  };
 
   float* part = scratch + (size_t)blockIdx.x * slice_stride(Grad::total);
   for (int i = threadIdx.x; i < Grad::dbv; i += blockDim.x) part[i] = 0.f;  // dWqk, dWv
@@ -504,29 +657,45 @@ bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ wqk, const T* __res
   for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
     const long long row0 = t * kRows;
     const int valid = (int)min((long long)kRows, rows - row0);
-    load_tile<T>(sx, L::ldx, x + row0 * kC, kC, kRows, kC, valid);
-    load_tile<T>(sdq, L::ldq, dq + row0 * kDa, kDa, kRows, kDa, valid);
-    load_tile<T>(sdv, L::ldx, dv + row0 * kC, kC, kRows, kC, valid);
+    load_tile_async<T>(sx, L::ldx, x + row0 * kC, kC, kRows, kC, valid);
+    load_tile_async<T>(sdq, L::ldq, dq + row0 * kDa, kDa, kRows, kDa, valid);
+    load_tile_async<T>(sdv, L::ldx, dv + row0 * kC, kC, kRows, kC, valid);
+    cp_async_commit();
+    cp_async_wait<0>();
     __syncthreads();
-    block_gemm<T, false, true>(sx, L::ldx, sdq, L::ldq, part + Grad::dwqk, kDa, kC, kDa, kRows,
-                               true);
-    block_gemm<T, false, true>(sx, L::ldx, sdv, L::ldx, part + Grad::dwv, kC, kC, kC, kRows, true);
+    issue_slice(0, 0);  // arrives while the weight gradients multiply
+    block_gemm<T, false, true, kC, kDa, kRows>(sx, L::ldx, sdq, L::ldq, part + Grad::dwqk, kDa,
+                                               true);
+    block_gemm<T, false, true, kC, kC, kRows>(sx, L::ldx, sdv, L::ldx, part + Grad::dwv, kC, true);
     for (int r = 0; r < valid; ++r) rdbv += to_f<T>(sdv[r * L::ldx + threadIdx.x]);
+    __syncthreads();  // x read: stage 1 may take its place
     for (int n0 = 0; n0 < kC; n0 += kN) {
-      load_tile<T>(swq, L::ldq, wqk + (size_t)n0 * kDa, kDa, kN, kDa, kN);
-      load_tile<T>(swv, L::ldx, wv + (size_t)n0 * kC, kC, kN, kC, kN);
+      const int i = n0 / kN;
+      if (n0 + kN < kC) {
+        issue_slice(n0 + kN, i + 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
       __syncthreads();
-      block_gemm<T, true>(sdq, L::ldq, swq, L::ldq, sc, L::ldc, kRows, kN, kDa, false);
+      const T* swq = reinterpret_cast<const T*>(smem + (i & 1 ? L::wq1_off : L::wq0_off));
+      const T* swv = reinterpret_cast<const T*>(smem + (i & 1 ? L::wv1_off : L::wv0_off));
+      block_gemm<T, true, false, kRows, kN, kDa>(sdq, L::ldq, swq, L::ldq, sc, L::ldc, false);
       __syncthreads();
-      block_gemm<T, true>(sdv, L::ldx, swv, L::ldx, sc, L::ldc, kRows, kN, kC, true);
+      block_gemm<T, true, false, kRows, kN, kC>(sdv, L::ldx, swv, L::ldx, sc, L::ldc, true);
       __syncthreads();
-      for (int idx = threadIdx.x; idx < valid * kN; idx += blockDim.x) {
-        const int r = idx / kN, c = idx % kN;
+      for (int idx = threadIdx.x; idx < valid * (kN / 4); idx += blockDim.x) {
+        const int r = idx / (kN / 4), c = 4 * (idx % (kN / 4));
         const long long at = (row0 + r) * kC + n0 + c;
-        float d = sc[r * L::ldc + c];
-        if constexpr (OA) d -= to_f<T>(dy[at]);
-        d += to_f<T>(dxn[at]);
-        dx[at] = from_f<T>(d);
+        const float4 s4 = *reinterpret_cast<const float4*>(sc + r * L::ldc + c);
+        float d[4] = {s4.x, s4.y, s4.z, s4.w};
+        if constexpr (OA) {
+          const float4 y4 = load4<T>(dy + at);
+          d[0] -= y4.x, d[1] -= y4.y, d[2] -= y4.z, d[3] -= y4.w;
+        }
+        const float4 g4 = load4<T>(dxn + at);
+        d[0] += g4.x, d[1] += g4.y, d[2] += g4.z, d[3] += g4.w;
+        store4<T>(dx + at, d[0], d[1], d[2], d[3]);
       }
     }
     __syncthreads();
@@ -560,7 +729,7 @@ int launch_block(const void* x, const void* wqk, const void* wv, const void* bv,
                  void* out, int o, int p, int oa, cudaStream_t st) {
   if (int rc = project_and_lse<T>(x, wqk, wv, bv, q, v, lse, o, p, st)) return rc;
   const long long tiles = (long long)o * ((p + kRows - 1) / kRows);
-  const size_t s3 = ApplySmem<T>::bytes;
+  const size_t s3 = ApplySmem<T, false>::bytes;
   if (int rc = allow_smem(apply_kernel<T, false>, s3)) return rc;
   const int g3 = resident_grid(apply_kernel<T, false>, kThreads, s3, tiles);
   apply_kernel<T, false><<<g3, kThreads, s3, st>>>(
@@ -575,7 +744,7 @@ int launch_block_fwd(const void* x, const void* wqk, const void* wv, const void*
                      float* lse, void* tout, float* scratch, int blocks, float* sums, int o,
                      int p, int oa, cudaStream_t st) {
   if (int rc = project_and_lse<T>(x, wqk, wv, bv, q, v, lse, o, p, st)) return rc;
-  const size_t s3 = ApplySmem<T>::bytes;
+  const size_t s3 = ApplySmem<T, false>::bytes;
   if (int rc = allow_smem(apply_kernel<T, true>, s3)) return rc;
   apply_kernel<T, true><<<blocks, kThreads, s3, st>>>(
       (const T*)x, (const T*)q, (const T*)v, lse, (const T*)wt, (const T*)bt, nullptr, nullptr,
@@ -626,7 +795,7 @@ int launch_block_res_bwd(const void* x, const void* wqk, const void* wv, const v
   if (int rc = project_and_lse<T>(x, wqk, wv, bv, w.q, w.v, w.lse, o, p, st)) return rc;
   const long long tiles = (long long)o * ((p + kRows - 1) / kRows);
 
-  const size_t s1 = ApplySmem<T>::bytes;
+  const size_t s1 = ApplySmem<T, true>::bytes;
   if (int rc = allow_smem(bwd_dz_kernel<T, OA>, s1)) return rc;
   bwd_dz_kernel<T, OA><<<blocks, kThreads, s1, st>>>(
       (const T*)x, w.q, w.v, w.lse, (const T*)wt, (const T*)bt, (const T*)mask, (const T*)dxn,

@@ -26,8 +26,8 @@
 //   accumulators). f32: grid-stride over 64-row tiles of the flat [O·P, 128]
 //   activation; W1 stays resident in shared memory for all of a block's
 //   tiles; the prologue is applied while the tile is staged; the product
-//   runs as f32 FMAs; sums as in embed_first. Tiles may straddle objects:
-//   each row looks up its own object's mask.
+//   is block_gemm's register-tiled f32 FMA product; sums as in embed_first.
+//   Tiles may straddle objects: each row looks up its own object's mask.
 //   Both kernels take a fixed grid (`blocks`, chosen by the wrapper) so that
 //   the scratch holds one slice per block.
 #include "common.cuh"
@@ -114,7 +114,7 @@ embed_second_kernel(const T* __restrict__ h0, const T* __restrict__ wf, const T*
       sa[r * L::lda + k] = from_f<T>(v);
     }
     __syncthreads();
-    block_gemm<T, false>(sa, L::lda, sw, L::ldw, sc, L::ldc, kRows, kC, kC, false);
+    block_gemm<T, false, false, kRows, kC, kC>(sa, L::lda, sw, L::ldw, sc, L::ldc, false);
     __syncthreads();
     for (int r = half; r < valid; r += 2) {
       const T hv = from_f<T>(sc[r * L::ldc + c]);
@@ -200,7 +200,7 @@ embed_second_bwd_kernel(const T* __restrict__ h0, const T* __restrict__ wf,
       sa[r * L::lda + k] = from_f<T>(v);
     }
     __syncthreads();
-    block_gemm<T, false>(sa, L::lda, sw, L::ldw, sc, L::ldc, kRows, kC, kC, false);
+    block_gemm<T, false, false, kRows, kC, kC>(sa, L::lda, sw, L::ldw, sc, L::ldc, false);
     __syncthreads();
     // dz = dh + m·ds1 + 2·h·m·ds2, rounded (thread owns channel c throughout)
     for (int idx = threadIdx.x; idx < kRows * kC; idx += blockDim.x) {
@@ -215,8 +215,8 @@ embed_second_bwd_kernel(const T* __restrict__ h0, const T* __restrict__ wf,
     }
     __syncthreads();
     // dW1 += x0ᵀ·dz into this block's slice; dx0 = dz·W1ᵀ
-    block_gemm<T, false, true>(sa, L::lda, sz, L::lda, part, kC, kC, kC, kRows, true);
-    block_gemm<T, true>(sz, L::lda, sw, L::ldw, sc, L::ldc, kRows, kC, kC, false);
+    block_gemm<T, false, true, kC, kC, kRows>(sa, L::lda, sz, L::lda, part, kC, true);
+    block_gemm<T, true, false, kRows, kC, kC>(sz, L::lda, sw, L::ldw, sc, L::ldc, false);
     __syncthreads();
     for (int idx = threadIdx.x; idx < valid * kC; idx += blockDim.x) {
       const int r = idx / kC;

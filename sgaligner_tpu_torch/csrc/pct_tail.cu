@@ -19,10 +19,10 @@
 //   block b owning the 128-column slice b % (K/128) and walking objects in
 //   a fixed stride. Per object it walks P in 64-row chunks, stages the four
 //   [64, 128] input tiles and the matching [128, 128] slices of W in shared
-//   memory and accumulates z with f32 FMAs; the epilogue keeps the running
-//   max / min (and, in the training form only, a compile-time variant, their
-//   indices) and sums of its column in registers, so the pool over P never
-//   leaves the block.
+//   memory and accumulates z with block_gemm's register-tiled f32 FMA
+//   product; the epilogue keeps the running max / min (and, in the
+//   training form only, a compile-time variant, their indices) and sums of
+//   its column in registers, so the pool over P never leaves the block.
 //   Both dtypes: each block (bf16: each consumer warpgroup) adds its
 //   objects' masked sums in registers and writes them once into its own
 //   slice of a scratch buffer; reduce_slices adds the slices in order. No
@@ -85,7 +85,7 @@ __device__ __forceinline__ void z_chunk(const T* const (&xs)[4], const T* __rest
     load_tile<T>(sa, L::lda, xs[i] + ((size_t)obj * p + r0) * kC, kC, kRows, kC, valid);
     load_tile<T>(sb, L::ldb, w + (size_t)i * kC * k + n0, k, kC, kN, kC);
     __syncthreads();
-    block_gemm<T, false>(sa, L::lda, sb, L::ldb, sc, L::ldc, kRows, kN, kC, i > 0);
+    block_gemm<T, false, false, kRows, kN, kC>(sa, L::lda, sb, L::ldb, sc, L::ldc, i > 0);
     __syncthreads();
   }
 }
@@ -241,7 +241,7 @@ tail_dx_kernel(const T* __restrict__ g, const T* __restrict__ w, T* __restrict__
       // Wᵢ[:, k0:k0+128] is the transposed operand: [128 (c) x 128 (k)]
       load_tile<T>(sw, L::ldw, w + (size_t)i * kC * k + k0, k, kC, kN, kC);
       __syncthreads();
-      block_gemm<T, true>(sg, L::ldg, sw, L::ldw, sc, L::ldc, kRows, kC, kN, k0 > 0);
+      block_gemm<T, true, false, kRows, kC, kN>(sg, L::ldg, sw, L::ldw, sc, L::ldc, k0 > 0);
       __syncthreads();
     }
     T* out = dxs[i] + row0 * kC;
@@ -286,7 +286,7 @@ tail_dw_kernel(const T* __restrict__ x1, const T* __restrict__ x2, const T* __re
     load_tile<T>(sx, L::ldx, xs[i] + row0 * kC, kC, kRows, kC, valid);
     load_tile<T>(sg, L::ldg, g + row0 * k + n0, k, kRows, kN, valid);
     __syncthreads();
-    block_gemm<T, false, true>(sx, L::ldx, sg, L::ldg, sc, L::ldc, kC, kN, kRows, true);
+    block_gemm<T, false, true, kC, kN, kRows>(sx, L::ldx, sg, L::ldg, sc, L::ldc, true);
     __syncthreads();
   }
   __syncthreads();

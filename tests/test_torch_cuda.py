@@ -1043,20 +1043,28 @@ WIDE_CASES = [("pct_block_eval", SA), ("pct_block_eval", OA), ("pct_block_fwd", 
               ("pct_block_res_bwd", OA)]
 
 
+# (dtype, objects): 37 objects at both dtypes (148 row tiles at P = 256,
+# more than an H100's 132 resident blocks); at f32 also few objects (1, 3)
+# and 20 (80 row tiles, so some resident blocks get no tile and the
+# double-buffered passes see one tile each)
+WIDE_SIZES = [("f32", 37), ("bf16", 37), ("f32", 1), ("f32", 3), ("f32", 20)]
+
+
 @pytest.mark.parametrize("points", [256, 72])
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("dtype,objects", WIDE_SIZES,
+                         ids=[f"{d}-O{o}" for d, o in WIDE_SIZES])
 @pytest.mark.parametrize("name,flags", WIDE_CASES,
                          ids=["block_SA", "block_OA", "block_fwd", "block_fwd_OA", "epi_sums",
                               "block_res_bwd", "block_res_bwd_OA"])
-def test_c256_kernel_matches_plain_version(card, name, flags, dtype, points):
+def test_c256_kernel_matches_plain_version(card, name, flags, dtype, objects, points):
     """The C = 256 forms (csrc/pct_attention_c256.cu, csrc/pct_epi_sums.cu)
     against the plain versions at chip_smoke's tolerances: one launch of the
     C = 256 kernel a call, the same bits twice."""
     from sgaligner_tpu_torch.ops import _build
 
     dt = torch.float32 if dtype == "f32" else torch.bfloat16
-    args = card.untied(name, card.op_inputs(name, 37, dt, seed=5, p=points, c=card.WIDE_C),
-                       flags or SA)
+    args = card.untied(name, card.op_inputs(name, objects, dt, seed=5, p=points,
+                                            c=card.WIDE_C), flags or SA)
     wide = name + "_c256"
     before = _build.LAUNCHES[wide]
     card.check_op(name, args, dtype, flags or SA)
