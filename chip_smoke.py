@@ -26,13 +26,15 @@ Phases, in order (every failure raises and exits non-zero):
                tail in both forms and the embedding forwards twice on the
                same inputs: the same bits. Faults planted in the wgmma
                kernels' outputs (KERNEL_PLANTED), each of which the
-               comparison must catch. Then the four block kernels at
-               FullPCT's width (C = 256, da = 64: eval, training forward,
-               epilogue sums, training backward; WIDE) at O = 67, P = 256
-               and 200, f32 and bf16, SA and OA, each launching its C = 256
-               kernel once, the same bits twice, the training backward's
-               KERNEL_PLANTED faults caught (at f32 also WIDE_F32_PLANTED in
-               its weight gradients)
+               comparison must catch. Then the seven kernels at C = 256,
+               da = 64 (WIDE: the four block kernels FullPCT runs, eval,
+               training forward, epilogue sums, training backward; and the
+               two ops' three, the attention forward and backward and the
+               block op's backward) at O = 67, P = 256 and 200, f32 and
+               bf16, SA and OA, each launching its C = 256 kernel once, the
+               same bits twice, the three backwards' KERNEL_PLANTED faults
+               caught (at f32 also WIDE_F32_PLANTED in their weight
+               gradients)
   parity       the pct serving path on the CPU (plain versions) against the
                card (kernels): same seeded weights, one pooled B=8 batch, f32
   train_parity the point configuration's train step on the CPU against the
@@ -56,9 +58,11 @@ Phases, in order (every failure raises and exits non-zero):
                f32 and on the CPU at f32 and f64 (the pooled B=4 batch,
                O=128), held by train_pct_parity's rule, the first step's
                outputs too; then pct_attention_fused's and pct_block_fused's
-               gradients (SA and OA) on the card against the CPU at f64; then
-               faults planted in the OA block backward and the ops' backward
-               kernels, each of which a check must catch
+               gradients (SA and OA; at C = 128, P = 512 and at C = 256,
+               P = 256) on the card against the CPU at f64; then faults
+               planted in the OA block backward and the ops' backward
+               kernels, each of which a check must catch (the ops' at both
+               widths)
   serve        the pct serving configuration of bench.py (B=512 pairs, 32
                object slots per graph, 512 points, bfloat16, pooled bucket
                128): four requests with distinct seeds through
@@ -81,8 +85,10 @@ Phases, in order (every failure raises and exits non-zero):
                pct_block_eval; train: 4/4/4 of the OA block forward, epilogue
                sums and block backward; the embedding kernels)
   ops          pct_attention_fused and pct_block_fused forward plus backward
-               through autograd at O=896, SA and OA, against the plain
-               versions; one launch of each of their kernels per call
+               through autograd at O=896 (C = 128, bf16), then at FullPCT's
+               layout (O = 256, P = C = 256) in f32 and bf16, SA and OA,
+               against the plain versions; one launch of each of their
+               kernels per call (at C = 256 the _c256 ones)
   full_pct     FullPCT (FPS + KNN grouping, SGModule, four OA blocks at
                C = 256) on scripts/aligner_artifact.py's BENCH layout at
                N = 1,024 points an object: eval and three Adam steps at
@@ -181,7 +187,9 @@ Phases, in order (every failure raises and exits non-zero):
                torch.profiler; the PointNet backward's routed rows beside the
                row tiles its kernel ran, which must be the ones they fill),
                the ops' kernels and the OA variants at O=896, the C = 256
-               block kernels (OA) at FullPCT's O = 256, bf16 and f32, the PointNet
+               block kernels (OA) at FullPCT's O = 256, bf16 and f32, the
+               ops' C = 256 kernels (SA and OA) at O = 256, P = 256, bf16
+               and f32, with their launches in ops, the PointNet
                forward at EVA's C3 = 200 (O = 896 and 13,440; the quality
                runs' request times beside it), the bf16 PointNet backward at
                C3 = 200 beside 208 and 256, and the f32 forms of both PointNet
@@ -193,8 +201,8 @@ Phases, in order (every failure raises and exits non-zero):
                from the shapes (the PointNet backward's from the rows and
                channels that carry gradient);
                scaled_dot_product_attention(q, q, v) at the serving and
-               training shapes as a same-work yardstick of the attention
-               core
+               training shapes, and at C = 256, as a same-work yardstick of
+               the attention core
 
 The last two lines are the {"kernels": [...]} record and
 {"ok": true, "device": {...}}. Nothing of JAX or of the JAX package is
@@ -446,12 +454,15 @@ KERNELS = {
     "pct_block_bwd": ("sgaligner_tpu_torch/csrc/pct_block_bwd_sm90.cu",
                       "sgaligner_tpu/ops/pct_attention.py:341"),
 }
-# The block kernels at FullPCT's width, C = 256, da = 64 (csrc/
-# pct_attention_c256.cu; the epilogue sums csrc/pct_epi_sums.cu): each
-# launch count's name and the wrapper (ATTN_FNS, TRAIN_KERNELS) that launches
-# it for a 256-wide input. Their tolerances are the C = 128 forms' (TOL)
+# The kernels at C = 256, da = 64 (csrc/pct_attention_c256.cu; the epilogue
+# sums csrc/pct_epi_sums.cu): the four block kernels FullPCT's OA blocks run,
+# and the two ops' three. Each launch count's name and the wrapper
+# (ATTN_FNS, TRAIN_KERNELS) that launches it for a 256-wide input. Their
+# tolerances are the C = 128 forms' (TOL)
 WIDE = {"pct_block_eval_c256": "pct_block_eval", "pct_block_fwd_c256": "pct_block_fwd",
-        "pct_epi_sums_c256": "pct_epi_sums", "pct_block_res_bwd_c256": "pct_block_res_bwd"}
+        "pct_epi_sums_c256": "pct_epi_sums", "pct_block_res_bwd_c256": "pct_block_res_bwd",
+        "pct_attn_fwd_c256": "pct_attn_fwd", "pct_attn_bwd_c256": "pct_attn_bwd",
+        "pct_block_bwd_c256": "pct_block_bwd"}
 WIDE_C, WIDE_P = 256, 256           # FullPCT's OA blocks: C, and P = samples[1]
 # phase full_pct: FullPCT on scripts/aligner_artifact.py's BENCH layout (16
 # slots a graph, 14 valid objects) at N = 1,024 points an object, so sg1's
@@ -461,6 +472,7 @@ FULL_PCT_N, FULL_PCT_SLOTS, FULL_PCT_VALID, FULL_PCT_PAIRS = 1024, 16, 14, 8
 FULL_PCT_SAMPLES = (512, 256)       # FullPCT's own: sg2's 256 centres are the blocks' P
 FULL_PCT_PARITY_PAIRS = 1
 FULL_PCT_CALLS = 5
+WIDE_O = FULL_PCT_PAIRS * 2 * FULL_PCT_SLOTS   # FullPCT's O; the ops' at C = 256 too
 PER_FULL_PCT_EVAL = {"pct_block_eval_c256": 4}
 PER_FULL_PCT_TRAIN = {"pct_block_fwd_c256": 4, "pct_epi_sums_c256": 4,
                       "pct_block_res_bwd_c256": 4}
@@ -535,7 +547,9 @@ KERNEL_PLANTED = {"pct_block_res_bwd": (_scaled(0, 2.0), _scaled(2, 2.0)),
                                    ("a live channel routed to the wrong point", _misrouted)),
                   "pct_epi_sums": (_scaled(1, 1.1),),
                   "pct_attn_fwd": (("one 64-row tile of y x1.1", _tile_scaled),),
-                  "embed_first_bwd": (_scaled(0, 0.0),)}
+                  "embed_first_bwd": (_scaled(0, 0.0),),
+                  "pct_block_bwd": (_scaled(0, 2.0), _scaled(4, 2.0)),
+                  "pct_attn_bwd": (_scaled(0, 2.0), _scaled(2, 2.0))}
 
 
 def _columns_zeroed(index: int, n0: int, width: int):
@@ -550,10 +564,13 @@ def _columns_zeroed(index: int, n0: int, width: int):
     return f"output {index} columns {n0}..{n0 + width - 1} zeroed", fault
 
 
-# faults planted in the f32 C = 256 backward's weight gradients (kernels
-# phase, P = 256, besides KERNEL_PLANTED's): dWt's second 32-column slice
-# (one slice of the dz pass's streamed Wt) lost, and dWqk off by 1e-3
-WIDE_F32_PLANTED = (_columns_zeroed(4, 32, 32), _scaled(1, 1.001))
+# faults planted in the f32 C = 256 backwards' weight gradients (kernels
+# phase, P = 256, besides KERNEL_PLANTED's): the block backwards' dWt second
+# 32-column slice (one slice of the dz pass's streamed Wt) lost, the
+# attention backward's dWv second 32-column slice lost, and dWqk off by 1e-3
+WIDE_F32_PLANTED = {"pct_block_res_bwd": (_columns_zeroed(4, 32, 32), _scaled(1, 1.001)),
+                    "pct_block_bwd": (_columns_zeroed(4, 32, 32), _scaled(1, 1.001)),
+                    "pct_attn_bwd": (_columns_zeroed(2, 32, 32), _scaled(1, 1.001))}
 def _padding_kept(outs, args):
     """A planted fault of the PointNet forward at a width its kernel pads
     (EVA's C3 = 200): the padded channels left in the output (W3 and b3
@@ -1129,10 +1146,11 @@ def phase_kernels(state: dict) -> None:
 
 
 def check_wide_kernels() -> None:
-    """The block kernels at C = 256 (WIDE) against their plain versions, at
+    """The kernels at C = 256 (WIDE) against their plain versions, at
     O = 67, P = 256 and the ragged P, f32 and bf16, SA and OA: one launch of
     the C = 256 kernel a call, the same bits twice, and the planted faults
-    of KERNEL_PLANTED in pct_block_res_bwd's output caught."""
+    of KERNEL_PLANTED (at f32 also WIDE_F32_PLANTED) in the backwards'
+    outputs caught."""
     import torch
 
     from sgaligner_tpu_torch.ops import _build
@@ -1151,10 +1169,10 @@ def check_wide_kernels() -> None:
                     if _build.LAUNCHES[wide] != before + 1:
                         raise AssertionError(f"{label}: {_build.LAUNCHES[wide] - before} "
                                              "launches of the C = 256 kernel, expected 1")
-                    if name == "pct_block_res_bwd" and p == WIDE_P:
+                    if name in WIDE_F32_PLANTED and p == WIDE_P:
                         check_planted(name, args, flags, label, dt_name,
                                       KERNEL_PLANTED[name]
-                                      + (WIDE_F32_PLANTED if dt_name == "f32" else ()))
+                                      + (WIDE_F32_PLANTED[name] if dt_name == "f32" else ()))
                     first, second = as_tuple(kern(*args)), as_tuple(kern(*args))
                     if not all(torch.equal(a, b) for a, b in zip(first, second)):
                         raise AssertionError(f"{label}: two runs on the same inputs differ "
@@ -1626,6 +1644,11 @@ def _op_grads(op: str, flags, dev: str, dtype, args) -> tuple:
     return tuple(t.double().cpu() for t in grads)
 
 
+# the ops' widths in oa_parity: (C, P), the models' 128 at P = 512 and
+# FullPCT's 256 at its P = 256
+OP_WIDTHS = ((C, P), (WIDE_C, WIDE_P))
+
+
 def _op_readings(ops: dict, kernels: dict | None = None) -> dict:
     """Each op's gradients on the card at f32 against the CPU at f64, with
     its bound (the backward kernel's f32 tolerance plus PCT_VS_CPU times the
@@ -1673,21 +1696,22 @@ def phase_oa_parity(state: dict) -> None:
         raise AssertionError(f"oa_parity: the card's SPCT training is further from the f64 "
                              f"run than {PCT_VS_CPU} x the CPU's ({', '.join(r['failed'])}): {r}")
 
-    # the ops' gradients at the same O
+    # the ops' gradients at the same O, at both widths
     ops = {}
-    for op, bwd in (("attention", "pct_attn_bwd"), ("block", "pct_block_bwd")):
-        args = op_inputs(bwd, o, torch.float32, seed=7)
-        for tag, flags in (("SA", SA), ("OA", OA)):
-            ops[op, tag] = {name: _op_grads(op, flags, dev, dtype, args)
-                            for name, dev, dtype in (("cuda", "cuda", torch.float32),
-                                                     ("cpu", "cpu", torch.float32),
-                                                     ("cpu64", "cpu", torch.float64))}
+    for c, p in OP_WIDTHS:
+        for op, bwd in (("attention", "pct_attn_bwd"), ("block", "pct_block_bwd")):
+            args = op_inputs(bwd, o, torch.float32, seed=7, p=p, c=c)
+            for tag, flags in (("SA", SA), ("OA", OA)):
+                ops[op, tag, c] = {name: _op_grads(op, flags, dev, dtype, args)
+                                   for name, dev, dtype in (("cuda", "cuda", torch.float32),
+                                                            ("cpu", "cpu", torch.float32),
+                                                            ("cpu64", "cpu", torch.float64))}
     failed = []
-    for (op, tag), (rel, bound_, cpu_rel) in _op_readings(ops).items():
-        log(f"[oa_parity] {op}/{tag} O={o}: gradients, card at f32 against the CPU at f64 "
-            f"{rel:.3e} (bound {bound_:.3e}; the CPU at f32 {cpu_rel:.3e})")
+    for (op, tag, c), (rel, bound_, cpu_rel) in _op_readings(ops).items():
+        log(f"[oa_parity] {op}/{tag} O={o} C={c}: gradients, card at f32 against the CPU at "
+            f"f64 {rel:.3e} (bound {bound_:.3e}; the CPU at f32 {cpu_rel:.3e})")
         if not rel <= bound_:
-            failed.append(f"{op}/{tag}")
+            failed.append(f"{op}/{tag}/C={c}")
     if failed:
         raise AssertionError(f"oa_parity: the ops' gradients on the card are off: {failed}")
 
@@ -1706,18 +1730,23 @@ def phase_oa_parity(state: dict) -> None:
                         f"{f['stats']:.3e}")
             else:
                 bwd = "pct_attn_bwd" if check == "attention" else "pct_block_bwd"
-                args = op_inputs(bwd, o, torch.float32, seed=7)
-                faulty = {(check, tag): _op_grads(check, flags, "cuda", torch.float32, args)
-                          for tag, flags in (("SA", SA), ("OA", OA))}
+                faulty = {}
+                for c, p in OP_WIDTHS:
+                    args = op_inputs(bwd, o, torch.float32, seed=7, p=p, c=c)
+                    faulty.update({(check, tag, c): _op_grads(check, flags, "cuda",
+                                                              torch.float32, args)
+                                   for tag, flags in (("SA", SA), ("OA", OA))})
                 read = _op_readings({k: ops[k] for k in faulty}, faulty)
-                caught = [f"{k[0]}/{k[1]}" for k, (rel, b, _) in read.items() if not rel <= b]
-                what = ", ".join(f"{k[0]}/{k[1]} {rel:.3e} (bound {b:.3e})"
+                caught = [f"{k[0]}/{k[1]}/C={k[2]}" for k, (rel, b, _) in read.items()
+                          if not rel <= b]
+                what = ", ".join(f"{k[0]}/{k[1]}/C={k[2]} {rel:.3e} (bound {b:.3e})"
                                  for k, (rel, b, _) in read.items())
         finally:
             setattr(mod, fn_name, kernel)
         log(f"[oa_parity] planted fault {label}: {what}; caught by {caught}")
-        if not caught:
-            unseen.append(label)
+        # the ops' faults must be caught at each width
+        widths = [""] if check == "spct" else [f"/C={c}" for c, _ in OP_WIDTHS]
+        unseen += [label + w for w in widths if not any(k.endswith(w) for k in caught)]
     if unseen:
         raise AssertionError(f"oa_parity: the planted faults {unseen} went unseen")
     state["launches_f32"] = dict(_build.LAUNCHES)  # since phase parity began
@@ -2399,52 +2428,71 @@ def phase_spct(state: dict) -> None:
         f"call: eval {PER_SPCT_EVAL}, train {PER_SPCT_TRAIN} | {state['card']}")
 
 
-def phase_ops(state: dict) -> None:
-    """pct_attention_fused and pct_block_fused, forward plus backward
-    through autograd at the training O, SA then OA, on the card (bf16)
-    against their plain versions on the same inputs. The launches of each
-    flag set are counted from 0 over its two op calls."""
+def _ops_flag_set(state: dict, tag: str, flags, o: int, dtype, dt_name: str, p: int = P,
+                  c: int = C) -> dict:
+    """pct_attention_fused and pct_block_fused forward plus backward through
+    autograd with one flag set at width c on the card, the launches counted
+    from 0 over their two calls (one of each of their kernels, the _c256
+    ones at C = 256), then each held to its plain versions on the same
+    inputs. Returns the launches."""
     import torch
 
     from sgaligner_tpu_torch.ops import _build, pct_attention
 
-    o = state["spct_o"]
-    state["launches_ops"] = {}
-    for tag, flags in (("SA", SA), ("OA", OA)):
-        runs = {}
-        _build.reset_launches()
-        for op, fwd, bwd in (("attention", "pct_attn_fwd", "pct_attn_bwd"),
-                             ("block", "pct_block_fwd", "pct_block_bwd")):
-            args = op_inputs(bwd, o, torch.bfloat16, seed=4)
-            n = 4 if op == "attention" else 6
-            extra = args[n:n + 1] if op == "block" else ()
-            leaves = [a.clone().requires_grad_(True) for a in args[:n]]
-            fn = pct_attention.pct_attention_fused if op == "attention" else \
-                pct_attention.pct_block_fused
-            t0 = time.perf_counter()
-            outs = as_tuple(fn(*leaves, *extra, *flags))
-            grads = torch.autograd.grad(outs, leaves, args[n + len(extra):])
-            torch.cuda.synchronize()
-            runs[op] = (args, n, extra, outs, grads, fwd, bwd, time.perf_counter() - t0)
-        launches = dict(_build.LAUNCHES)
-        _check_launches(f"ops/{tag}", launches, {"pct_attn_fwd": 1, "pct_attn_bwd": 1,
-                                                 "pct_block_fwd": 1, "pct_block_bwd": 1}, 1)
-        state["launches_ops"][tag] = launches
-        for op, (args, n, extra, outs, grads, fwd, bwd, secs) in runs.items():
-            plain_f, plain_b = op_fns(fwd, flags)[1], op_fns(bwd, flags)[1]
-            f_abs, f_rel = judge(fwd, "bf16", flags, args[:n] + tuple(extra),
-                                 tuple(t.detach() for t in outs),
-                                 as_tuple(plain_f(*args[:n], *extra)), plain_f,
-                                 f"ops: {fwd}/{tag}")
-            want_b = as_tuple(plain_b(*args))
-            got_b = tuple(g.reshape(w.shape) for g, w in zip(grads, want_b))
-            b_abs, b_rel = judge(bwd, "bf16", flags, args, got_b, want_b, plain_b,
-                                 f"ops: {bwd}/{tag}")
-            log(f"[ops] {op}/{tag} O={o} bf16: forward + backward {secs * 1e3:.1f} ms "
-                f"(first call); against the plain versions: forward max_rel {f_rel:.3e}, "
-                f"gradients max_rel {b_rel:.3e} | {state['card']}")
-        del runs
-        torch.cuda.empty_cache()
+    suffix = pct_attention.WIDTHS[c]
+    runs = {}
+    _build.reset_launches()
+    for op, fwd, bwd in (("attention", "pct_attn_fwd", "pct_attn_bwd"),
+                         ("block", "pct_block_fwd", "pct_block_bwd")):
+        args = op_inputs(bwd, o, dtype, seed=4, p=p, c=c)
+        n = 4 if op == "attention" else 6
+        extra = args[n:n + 1] if op == "block" else ()
+        leaves = [a.clone().requires_grad_(True) for a in args[:n]]
+        fn = pct_attention.pct_attention_fused if op == "attention" else \
+            pct_attention.pct_block_fused
+        t0 = time.perf_counter()
+        outs = as_tuple(fn(*leaves, *extra, *flags))
+        grads = torch.autograd.grad(outs, leaves, args[n + len(extra):])
+        torch.cuda.synchronize()
+        runs[op] = (args, n, extra, outs, grads, fwd, bwd, time.perf_counter() - t0)
+    launches = dict(_build.LAUNCHES)
+    _check_launches(f"ops/{tag}/C={c}/{dt_name}", launches,
+                    {k + suffix: 1 for k in ("pct_attn_fwd", "pct_attn_bwd", "pct_block_fwd",
+                                             "pct_block_bwd")}, 1)
+    for op, (args, n, extra, outs, grads, fwd, bwd, secs) in runs.items():
+        plain_f, plain_b = op_fns(fwd, flags)[1], op_fns(bwd, flags)[1]
+        f_abs, f_rel = judge(fwd, dt_name, flags, args[:n] + tuple(extra),
+                             tuple(t.detach() for t in outs),
+                             as_tuple(plain_f(*args[:n], *extra)), plain_f,
+                             f"ops: {fwd}{suffix}/{tag}/{dt_name}")
+        want_b = as_tuple(plain_b(*args))
+        got_b = tuple(g.reshape(w.shape) for g, w in zip(grads, want_b))
+        b_abs, b_rel = judge(bwd, dt_name, flags, args, got_b, want_b, plain_b,
+                             f"ops: {bwd}{suffix}/{tag}/{dt_name}")
+        log(f"[ops] {op}/{tag} O={o} P={p} C={c} {dt_name}: forward + backward "
+            f"{secs * 1e3:.1f} ms (first call); against the plain versions: forward max_rel "
+            f"{f_rel:.3e}, gradients max_rel {b_rel:.3e}; launches "
+            f"{ {k: v for k, v in launches.items() if v} } | {state['card']}")
+    del runs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_ops(state: dict) -> None:
+    """pct_attention_fused and pct_block_fused, forward plus backward
+    through autograd, SA then OA, on the card against their plain versions
+    on the same inputs: at the training O (C = 128, bf16), then at
+    FullPCT's layout (O = 256, P = C = 256) in f32 and bf16. The launches of
+    each flag set are counted from 0 over its two op calls."""
+    import torch
+
+    state["launches_ops"] = {tag: _ops_flag_set(state, tag, flags, state["spct_o"],
+                                                torch.bfloat16, "bf16")
+                             for tag, flags in (("SA", SA), ("OA", OA))}
+    state["launches_ops_c256"] = {
+        dt_name: {tag: _ops_flag_set(state, tag, flags, WIDE_O, dtype, dt_name, WIDE_P, WIDE_C)
+                  for tag, flags in (("SA", SA), ("OA", OA))}
+        for dt_name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))}
 
 
 def full_pct_batch(pairs: int, seed: int):
@@ -3446,6 +3494,7 @@ def phase_time(state: dict) -> None:
     rows += time_train_pct(state)
     rows += time_oa(state)
     rows += time_full_pct(state)
+    rows += time_wide_ops(state)
     time_f32_forms(state)
     time_attention_yardstick(state)
     state["rows"] = rows
@@ -3747,11 +3796,12 @@ def time_full_pct(state: dict) -> list[dict]:
     No single PyTorch call computes any of them (library_ms null)."""
     import torch
 
-    o = FULL_PCT_PAIRS * 2 * FULL_PCT_SLOTS
+    o = WIDE_O
     rows = []
     for dt_name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         counted = state["launches_full_pct"][dt_name]
-        for wide, name in WIDE.items():
+        for wide in (*PER_FULL_PCT_EVAL, *PER_FULL_PCT_TRAIN):
+            name = WIDE[wide]
             flags = SA if name == "pct_epi_sums" else OA
             label = wide + ("" if name == "pct_epi_sums" else "/OA") + (
                 "/f32" if dt_name == "f32" else "")
@@ -3778,6 +3828,45 @@ def time_full_pct(state: dict) -> list[dict]:
     return rows
 
 
+def time_wide_ops(state: dict) -> list[dict]:
+    """The ops' C = 256 kernels (rows 7, 10, 11) with both flag sets at
+    FullPCT's O = 256, P = 256, bf16 then f32 (bound at the f32 rate), each
+    with its launches in phase ops and the plain version's time. No single
+    PyTorch call computes any of them (library_ms null);
+    time_attention_yardstick logs the same-work yardstick of rows 10 and 11
+    at this width."""
+    import torch
+
+    rows = []
+    for dt_name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        for wide in ("pct_block_bwd_c256", "pct_attn_fwd_c256", "pct_attn_bwd_c256"):
+            name = WIDE[wide]
+            for tag, flags in (("SA", SA), ("OA", OA)):
+                label = wide + ("/OA" if flags == OA else "") + (
+                    "/f32" if dt_name == "f32" else "")
+                kern, plain = op_fns(name, flags)
+                args = op_inputs(name, WIDE_O, dtype, seed=2, p=WIDE_P, c=WIDE_C)
+                err_abs, err_rel = check_op(name, args, dt_name, flags,
+                                            what=f"time: {label} at O={WIDE_O}")
+                ms = cuda_ms(lambda: kern(*args))
+                plain_ms = cuda_ms(lambda: plain(*args), warmup=1, reps=3)
+                b_ms, b_by = bound(name, WIDE_O, WIDE_P, oa=flags == OA, f32=dt_name == "f32",
+                                   c=WIDE_C)
+                launches = state["launches_ops_c256"][dt_name][tag][wide]
+                log(f"[time] {label:28s} O={WIDE_O} P={WIDE_P} C={WIDE_C} kernel {ms:.3f} ms | "
+                    f"plain {plain_ms:.3f} ms | bound {b_ms:.4f} ms ({b_by}) | library None | "
+                    f"launches {launches} (ops, one call) | max_abs {err_abs:.3e} max_rel "
+                    f"{err_rel:.3e} | {state['card']}")
+                rows.append({"name": label, "route": "cuda",
+                             "source": "sgaligner_tpu_torch/csrc/pct_attention_c256.cu",
+                             "replaces": KERNELS[name][1], "launches": launches,
+                             "max_abs_err": err_abs, "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+                del args
+                torch.cuda.empty_cache()
+    return rows
+
+
 def time_f32_forms(state: dict) -> None:
     """The f32 forms that are still first versions (pct_embed.cu,
     pct_attention.cu and pct_tail.cu: every kernel but the PointNet pair,
@@ -3785,7 +3874,8 @@ def time_f32_forms(state: dict) -> None:
     O = 896, P = 512: CUDA-event ms, the plain version's ms, the bound at the
     f32 rate, and the launches of each (every flag set) in the phases that
     run them: parity, train_pct_parity and oa_parity (no recipe serves or
-    trains them)."""
+    trains them); for the tail also one torch.matmul of its product at f32
+    (library)."""
     import torch
 
     o = state["train_o"]
@@ -3801,9 +3891,14 @@ def time_f32_forms(state: dict) -> None:
             ms = cuda_ms(lambda: kern(*args), warmup=1, reps=3)
             plain_ms = cuda_ms(lambda: plain(*args), warmup=1, reps=3)
             b_ms, b_by = bound(name, o, oa=flags == OA, f32=True)
+            library = ""
+            if name == "pct_tail":
+                cat_x = torch.cat(args[:4], dim=-1).reshape(o * P, 4 * C)
+                library = f"library {cuda_ms(lambda: torch.matmul(cat_x, args[4])):.3f} ms | "
+                del cat_x
             log(f"[time] f32 form {name}{'/' + tag if tag else ''} O={o}: kernel {ms:.3f} ms | "
-                f"plain {plain_ms:.3f} ms | bound {b_ms:.4f} ms ({b_by}, the f32 rate) | "
-                f"launches {launches.get(name, 0)} (parity, train_pct_parity, oa_parity; every "
+                f"plain {plain_ms:.3f} ms | {library}bound {b_ms:.4f} ms ({b_by}, the f32 rate) "
+                f"| launches {launches.get(name, 0)} (parity, train_pct_parity, oa_parity; every "
                 f"flag set) | {f32_source(name)} | {state['card']}")
             del args
             torch.cuda.empty_cache()
@@ -3819,19 +3914,23 @@ def f32_source(name: str) -> str:
 
 def time_attention_yardstick(state: dict) -> None:
     """scaled_dot_product_attention(q, q, v, scale=1) at the block's shapes
-    (per object: q [P, 32], v [P, 128], bf16), forward and forward plus
-    backward. It does the attention core's work (E = q qᵀ, softmax, times v)
-    but normalises each row by its own log-sum-exp, where the core
+    (per object: q [P, da], v [P, C], bf16; C = 128 at the serving and
+    training O, C = 256 at FullPCT's O = 256, P = 256), forward and forward
+    plus backward. It does the attention core's work (E = q qᵀ, softmax,
+    times v) but normalises each row by its own log-sum-exp, where the core
     normalises by the key's: a yardstick of a library flash attention on
     the same work, not the same function and on no path."""
     import torch
     import torch.nn.functional as F
 
-    for tag, o in (("serving", state["serve_o"]), ("training", state["train_pct_o"])):
+    for tag, o, p, c in (("serving", state["serve_o"], P, C),
+                         ("training", state["train_pct_o"], P, C),
+                         ("C = 256", WIDE_O, WIDE_P, WIDE_C)):
         g = torch.Generator().manual_seed(3)
-        q = (torch.randn(o, 1, P, DA, generator=g) * DA ** -0.25).to("cuda", torch.bfloat16)
-        v = torch.randn(o, 1, P, C, generator=g).to("cuda", torch.bfloat16)
-        dy = torch.randn(o, 1, P, C, generator=g).to("cuda", torch.bfloat16)
+        da = c // 4
+        q = (torch.randn(o, 1, p, da, generator=g) * da ** -0.25).to("cuda", torch.bfloat16)
+        v = torch.randn(o, 1, p, c, generator=g).to("cuda", torch.bfloat16)
+        dy = torch.randn(o, 1, p, c, generator=g).to("cuda", torch.bfloat16)
         try:
             fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, q, v, scale=1.0))
             qg, vg = q.clone().requires_grad_(True), v.clone().requires_grad_(True)
@@ -3841,9 +3940,9 @@ def time_attention_yardstick(state: dict) -> None:
                 torch.autograd.grad(out, (qg, vg), dy)
 
             fb = cuda_ms(both)
-            log(f"[time] attention yardstick ({tag}, O={o}): scaled_dot_product_attention"
-                f"(q, q, v) forward {fwd:.3f} ms, forward + backward {fb:.3f} ms | "
-                f"{state['card']}")
+            log(f"[time] attention yardstick ({tag}, O={o}, P={p}, C={c}): "
+                f"scaled_dot_product_attention(q, q, v) forward {fwd:.3f} ms, forward + "
+                f"backward {fb:.3f} ms | {state['card']}")
         except (RuntimeError, torch.OutOfMemoryError) as err:
             log(f"[time] attention yardstick ({tag}, O={o}): not measured ({err})")
         del q, v, dy

@@ -283,68 +283,6 @@ apply_kernel(const T* __restrict__ x, const T* __restrict__ q, const T* __restri
   }
 }
 
-// The attention op's f32 apply pass: y = Σ G·v (OA: divided by s), rounded.
-template <typename T, bool OA>
-__global__ void __launch_bounds__(kThreads)
-attn_out_kernel(const T* __restrict__ q, const T* __restrict__ v, const float* __restrict__ lse,
-                T* __restrict__ y, int o, int p) {
-  using L = ApplySmem<T, false>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const float* sy = reinterpret_cast<const float*>(smem + L::y_off);
-  const float* srs = reinterpret_cast<const float*>(smem + L::rs_off);
-
-  const int per_obj = (p + kRows - 1) / kRows;
-  const long long tiles = (long long)o * per_obj;
-  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const int obj = (int)(t / per_obj), r0 = (int)(t % per_obj) * kRows;
-    const int valid = min(kRows, p - r0);
-    const size_t ob = (size_t)obj * p;
-    attend_tile<T, L, kC, kDa>(smem, q, v, lse, ob, r0, valid, p);
-    for (int idx = threadIdx.x; idx < valid * kC; idx += blockDim.x) {
-      const int r = idx / kC, c = idx % kC;
-      float val = sy[r * L::ldy + c];
-      if constexpr (OA) val = val / (1e-9f + srs[r]);
-      y[(ob + r0 + r) * kC + c] = from_f<T>(val);
-    }
-    __syncthreads();
-  }
-}
-
-// The attention op's OA pass: per row, 1/s_j into sc[0..rows) and
-// c_j = (dY_j / s_j)·y_j into sc[rows..2·rows), y recomputed by the apply
-// loop (f32).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-attn_sc_kernel(const T* __restrict__ q, const T* __restrict__ v, const float* __restrict__ lse,
-               const T* __restrict__ dy, float* __restrict__ sc, int o, int p) {
-  using L = ApplySmem<T, false>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const float* sy = reinterpret_cast<const float*>(smem + L::y_off);
-  const float* srs = reinterpret_cast<const float*>(smem + L::rs_off);
-
-  const long long rows = (long long)o * p;
-  const int row = threadIdx.x / 4, sub = threadIdx.x % 4;
-  const int per_obj = (p + kRows - 1) / kRows;
-  const long long tiles = (long long)o * per_obj;
-  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const int obj = (int)(t / per_obj), r0 = (int)(t % per_obj) * kRows;
-    const int valid = min(kRows, p - r0);
-    const size_t ob = (size_t)obj * p;
-    attend_tile<T, L, kC, kDa>(smem, q, v, lse, ob, r0, valid, p);
-    const float inv = 1.f / (1e-9f + srs[row]);
-    float c = 0.f;
-    if (row < valid)
-      for (int cc = sub; cc < kC; cc += 4)
-        c += (to_f<T>(dy[(ob + r0 + row) * kC + cc]) * inv) * (sy[row * L::ldy + cc] * inv);
-    c = quad_sum(c);
-    if (sub == 0 && row < valid) {
-      sc[ob + r0 + row] = inv;
-      sc[rows + ob + r0 + row] = c;
-    }
-    __syncthreads();
-  }
-}
-
 // ------------------------------ training: backward --------------------------
 
 // dz pass: recompute y and t_out per row tile, build dz, add uᵀ·dz and Σ dz
@@ -750,8 +688,10 @@ int launch_attn_fwd(const void* x, const void* wqk, const void* wv, const void* 
                     void* v, float* lse, void* y, int o, int p, int oa, cudaStream_t st) {
   if (int rc = project_and_lse<T>(x, wqk, wv, bv, q, v, lse, o, p, st)) return rc;
   const long long tiles = (long long)o * ((p + kRows - 1) / kRows);
-  const size_t s3 = ApplySmem<T, false>::bytes;
-  auto kernel = oa ? attn_out_kernel<T, true> : attn_out_kernel<T, false>;
+  using L = ApplySmem<T, false>;
+  const size_t s3 = L::bytes;
+  auto kernel =
+      oa ? attn_out_kernel<T, L, kC, kDa, true> : attn_out_kernel<T, L, kC, kDa, false>;
   if (int rc = allow_smem(kernel, s3)) return rc;
   const int g3 = resident_grid(kernel, kThreads, s3, tiles);
   kernel<<<g3, kThreads, s3, st>>>((const T*)q, (const T*)v, lse, (T*)y, o, p);
@@ -767,10 +707,10 @@ int launch_attn_bwd(const void* x, const void* wqk, const void* wv, const void* 
   if constexpr (OA) {
     const long long tiles = (long long)o * ((p + kRows - 1) / kRows);
     const size_t s1 = ApplySmem<T, false>::bytes;
-    if (int rc = allow_smem(attn_sc_kernel<T>, s1)) return rc;
-    const int g1 = resident_grid(attn_sc_kernel<T>, kThreads, s1, tiles);
-    attn_sc_kernel<T><<<g1, kThreads, s1, st>>>((const T*)q, (const T*)v, lse, (const T*)dy, sc,
-                                                o, p);
+    auto kernel = attn_sc_kernel<T, ApplySmem<T, false>, kC, kDa>;
+    if (int rc = allow_smem(kernel, s1)) return rc;
+    const int g1 = resident_grid(kernel, kThreads, s1, tiles);
+    kernel<<<g1, kThreads, s1, st>>>((const T*)q, (const T*)v, lse, (const T*)dy, sc, o, p);
     if (int rc = (int)cudaGetLastError()) return rc;
   }
   if (int rc = launch_core_bwd<T, OA, false, false>(x, wqk, wv, nullptr, q, v, lse, dy, sc, dv,

@@ -1,11 +1,12 @@
 // The PCT attention passes that do not depend on how a width's weights are
 // staged, templated on the channels kC and the q/k width kDa: the
-// log-sum-exp pass, the apply loop of one row tile (attend_tile) and the
-// backward's dv pass. pct_attention.cu instantiates them at C = 128,
-// da = 32, pct_attention_c256.cu at C = 256, da = 64; pct_attention.cu's
-// header comment sets out the notation and what each pass computes. Each
-// loop over key chunks fetches the next chunk with cp.async while the
-// current one's products and exponentials run.
+// log-sum-exp pass, the apply loop of one row tile (attend_tile), the
+// attention op's output and OA sc passes, and the backward's dv pass.
+// pct_attention.cu instantiates them at C = 128, da = 32,
+// pct_attention_c256.cu at C = 256, da = 64; pct_attention.cu's header
+// comment sets out the notation and what each pass computes. Each loop over
+// key chunks fetches the next chunk with cp.async while the current one's
+// products and exponentials run.
 #pragma once
 
 #include "common.cuh"
@@ -186,6 +187,72 @@ __device__ void attend_tile(unsigned char* smem, const T* __restrict__ q, const 
                          min(kRows, p - c0 - kRows));
       cp_async_commit();
     }
+  }
+}
+
+// ------------------------- the attention op's passes -------------------------
+
+// pct_attn_fwd's output pass: y = Σ G·v (OA: divided by s), rounded to T,
+// four channels a thread (L: the apply layout, attend_tile's tiles)
+template <typename T, typename L, int kC, int kDa, bool OA>
+__global__ void __launch_bounds__(kThreads)
+attn_out_kernel(const T* __restrict__ q, const T* __restrict__ v, const float* __restrict__ lse,
+                T* __restrict__ y, int o, int p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const float* sy = reinterpret_cast<const float*>(smem + L::y_off);
+  const float* srs = reinterpret_cast<const float*>(smem + L::rs_off);
+
+  const int per_obj = (p + kRows - 1) / kRows;
+  const long long tiles = (long long)o * per_obj;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int obj = (int)(t / per_obj), r0 = (int)(t % per_obj) * kRows;
+    const int valid = min(kRows, p - r0);
+    const size_t ob = (size_t)obj * p;
+    attend_tile<T, L, kC, kDa>(smem, q, v, lse, ob, r0, valid, p);
+    for (int idx = threadIdx.x; idx < valid * (kC / 4); idx += blockDim.x) {
+      const int r = idx / (kC / 4), c = 4 * (idx % (kC / 4));
+      float4 a = *reinterpret_cast<const float4*>(sy + r * L::ldy + c);
+      if constexpr (OA) {
+        const float s = 1e-9f + srs[r];
+        a = make_float4(a.x / s, a.y / s, a.z / s, a.w / s);
+      }
+      store4<T>(y + (ob + r0 + r) * kC + c, a.x, a.y, a.z, a.w);
+    }
+    __syncthreads();
+  }
+}
+
+// pct_attn_bwd's OA pass: per row, 1/s_j into sc[0..rows) and
+// c_j = (dY_j / s_j)·(y_j / s_j) into sc[rows..2·rows), y and s recomputed
+// by attend_tile, dY read from the caller's rows
+template <typename T, typename L, int kC, int kDa>
+__global__ void __launch_bounds__(kThreads)
+attn_sc_kernel(const T* __restrict__ q, const T* __restrict__ v, const float* __restrict__ lse,
+               const T* __restrict__ dy, float* __restrict__ sc, int o, int p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const float* sy = reinterpret_cast<const float*>(smem + L::y_off);
+  const float* srs = reinterpret_cast<const float*>(smem + L::rs_off);
+
+  const long long rows = (long long)o * p;
+  const int row = threadIdx.x / 4, sub = threadIdx.x % 4;
+  const int per_obj = (p + kRows - 1) / kRows;
+  const long long tiles = (long long)o * per_obj;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int obj = (int)(t / per_obj), r0 = (int)(t % per_obj) * kRows;
+    const int valid = min(kRows, p - r0);
+    const size_t ob = (size_t)obj * p;
+    attend_tile<T, L, kC, kDa>(smem, q, v, lse, ob, r0, valid, p);
+    const float inv = 1.f / (1e-9f + srs[row]);
+    float c = 0.f;
+    if (row < valid)
+      for (int cc = sub; cc < kC; cc += 4)
+        c += (to_f<T>(dy[(ob + r0 + row) * kC + cc]) * inv) * (sy[row * L::ldy + cc] * inv);
+    c = quad_sum(c);
+    if (sub == 0 && row < valid) {
+      sc[ob + r0 + row] = inv;
+      sc[rows + ob + r0 + row] = c;
+    }
+    __syncthreads();
   }
 }
 

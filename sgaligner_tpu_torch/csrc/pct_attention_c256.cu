@@ -1,20 +1,27 @@
 // PCT self-attention at C = 256, da = 64, the width of FullPCT's four OA
 // blocks: the block's inference form (pct_block_eval), its training forward
 // (pct_block_fwd) and its training backward with the BN epilogue
-// (pct_block_res_bwd), f32 and bf16 (f32 accumulation), SA and OA. The
-// notation is pct_attention.cu's.
+// (pct_block_res_bwd); the block op's own backward (pct_block_bwd); and the
+// bare attention op's forward and backward (pct_attn_fwd, pct_attn_bwd);
+// f32 and bf16 (f32 accumulation), SA and OA. The notation is
+// pct_attention.cu's, and so are the arguments of each C entry point.
 //
 // pct_block_eval replaces sgaligner_tpu/ops/pct_attention.py::pct_block_eval
 // (Pallas kernel _block_eval_kernel) at this width, pct_block_fwd
 // pct_block_fused's forward (_block_fwd_kernel), pct_block_res_bwd the
 // backward of _block_res_bwd_rule (_block_res_bwd_kernel); the epilogue sums
 // of that rule (_epi_sums_kernel) are pct_epi_sums.cu's at C = 256.
+// pct_block_bwd replaces _block_bwd_rule's _block_bwd_kernel, pct_attn_fwd
+// pct_attention_fused's _fwd_kernel and pct_attn_bwd _bwd_rule's
+// _bwd_kernel.
 //   Bound on the H100: operations. The forward does 2·P·C·(da + C) +
 //   2·P²·da + 2·P²·C + 2·P·C² = 117 MFLOP per object at P = C = 256, against
 //   2·P·C elements in and out; the backward about three times that. At f32
 //   (no TF32: the plain versions' cuBLAS products are full f32 too) that is
 //   the CUDA cores' 67 TFLOP/s: 0.45 ms a forward and 1.35 ms a backward at
-//   O = 256.
+//   O = 256. The attention op leaves out the 2·P·C² of trans (and its
+//   backward trans's two products): 0.32 ms forward, 0.83 (SA) and 0.96
+//   (OA, y again for c) backward at f32.
 //   Design: pct_attention.cu's grid-stride passes over 64-row tiles (shared
 //   with it through pct_attention.cuh: the log-sum-exp pass, the apply
 //   loop and the dv pass), multiplying with block_gemm: WMMA at bf16; at
@@ -49,6 +56,14 @@
 //     dx: dx = dq·Wqk_sᵀ + dv·Wvᵀ one output column slice at a time from
 //       row slices of Wqk and Wv, the second stage in the x tile's place
 //       once xᵀ·dq and xᵀ·dv have read it.
+//   pct_block_bwd runs the same passes with the dz pass's and the dx pass's
+//   epilogues chosen at compile time (dz from the cotangent dt, no relu
+//   routing, in dxn's slice; no residual in dx). pct_attn_fwd runs project,
+//   lse and an output pass (attend_tile, then y, OA y/s, rounded; no Wt
+//   staged, so its shared memory is the key loop's alone); pct_attn_bwd
+//   runs project, lse, for OA an sc pass (y and s again, then 1/s_j and
+//   c_j from the caller's dY rows), then the dv, dq and dx passes (dx
+//   without residual or du) on the caller's dY.
 //   The key chunks of the lse, apply and dv loops arrive the same way
 //   (pct_attention.cuh). Every layout is checked against the 232,448 bytes
 //   a block may have.
@@ -341,12 +356,22 @@ apply_kernel(const T* __restrict__ x, const T* __restrict__ q, const T* __restri
   }
 }
 
-// dz pass of pct_block_res_bwd: per row tile recompute y, u and, one column
-// slice of Wt at a time, t_out and dz = dxn·[t_out·wbn + bbn > 0]·wbn +
-// m·dsum + 2·t_out·m·dsumsq (rounded), adding uᵀ·dz into the block's dWt and
-// Σ dz into its dbt, and du += dz·Wt_sliceᵀ; then dY = ±du (rounded) and for
-// OA the row vectors 1/s_j and c_j = (dY_j / s_j)·(y_j / s_j) into sc.
-template <typename T, bool OA>
+// The attention op's passes (attn_out_kernel, attn_sc_kernel) hold
+// attend_tile's tiles alone: the apply layout up to the end of its key loop
+// (no weight stage, u or t)
+template <typename T>
+constexpr size_t kAttnSmem = ApplySmem<T, false>::loop_end;
+static_assert(kAttnSmem<float> <= kSmemMax, "attention: shared memory");
+
+// dz pass of the block backwards: per row tile recompute y, u and, one
+// column slice of Wt at a time, t_out and dz (rounded), adding uᵀ·dz into
+// the block's dWt and Σ dz into its dbt, and du += dz·Wt_sliceᵀ; then
+// dY = ±du (rounded) and for OA the row vectors 1/s_j and
+// c_j = (dY_j / s_j)·(y_j / s_j) into sc. EPI (pct_block_res_bwd):
+// dz = dxn·[t_out·wbn + bbn > 0]·wbn + m·dsum + 2·t_out·m·dsumsq; otherwise
+// (pct_block_bwd) dxn is the cotangent dt of t_out, dz = dt + m·dsum +
+// 2·t_out·m·dsumsq, and wbn, bbn are not read.
+template <typename T, bool EPI, bool OA>
 __global__ void __launch_bounds__(kThreads)
 bwd_dz_kernel(const T* __restrict__ x, const T* __restrict__ q, const T* __restrict__ v,
               const float* __restrict__ lse, const T* __restrict__ wt, const T* __restrict__ bt,
@@ -408,11 +433,18 @@ bwd_dz_kernel(const T* __restrict__ x, const T* __restrict__ q, const T* __restr
         const int r = idx / kN, c = idx % kN, ch = n0 + c;
         float dz = 0.f;
         if (r < valid) {
-          const float wc = wbn[ch];
-          const float tv = round_to<T>(st[r * L::ldt + c] + to_f<T>(bt[ch]));
-          const float g = to_f<T>(sdxn[r * kN + c]);
-          const bool live = epi_live<T>(tv, round_to<T>(wc), round_to<T>(bbn[ch]));
-          dz = round_to<T>(((live ? g : 0.f) * wc + m * dsum[ch]) + 2.f * tv * (m * dsumsq[ch]));
+          if constexpr (EPI) {
+            const float wc = wbn[ch];
+            const float tv = round_to<T>(st[r * L::ldt + c] + to_f<T>(bt[ch]));
+            const float g = to_f<T>(sdxn[r * kN + c]);
+            const bool live = epi_live<T>(tv, round_to<T>(wc), round_to<T>(bbn[ch]));
+            dz = round_to<T>(((live ? g : 0.f) * wc + m * dsum[ch]) +
+                             2.f * tv * (m * dsumsq[ch]));
+          } else {
+            const float tv = round_to<T>(st[r * L::ldt + c] + to_f<T>(bt[ch]));
+            const float g = to_f<T>(sdxn[r * kN + c]);
+            dz = round_to<T>((g + m * dsum[ch]) + 2.f * tv * (m * dsumsq[ch]));
+          }
         }
         sz[r * L::ldz + c] = from_f<T>(dz);
       }
@@ -626,9 +658,10 @@ struct DxSmem {
 };
 static_assert(DxSmem<float>::bytes <= kSmemMax, "dx: shared memory");
 
-// dx pass: dx = dq·Wqk_sᵀ + dv·Wvᵀ (OA: + du = −dY) + dxn, one kN-column
-// slice of dx at a time; xᵀ·dq, xᵀ·dv and Σ dv into the block's slice.
-template <typename T, bool OA>
+// dx pass: dx = dq·Wqk_sᵀ + dv·Wvᵀ (+ du = −dY with DU) (+ dxn with RESID),
+// one kN-column slice of dx at a time; xᵀ·dq, xᵀ·dv and Σ dv into the
+// block's slice.
+template <typename T, bool RESID, bool DU>
 __global__ void __launch_bounds__(kThreads)
 bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ wqk, const T* __restrict__ wv,
               const T* __restrict__ dq, const T* __restrict__ dv, const T* __restrict__ dxn,
@@ -689,12 +722,14 @@ bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ wqk, const T* __res
         const long long at = (row0 + r) * kC + n0 + c;
         const float4 s4 = *reinterpret_cast<const float4*>(sc + r * L::ldc + c);
         float d[4] = {s4.x, s4.y, s4.z, s4.w};
-        if constexpr (OA) {
+        if constexpr (DU) {
           const float4 y4 = load4<T>(dy + at);
           d[0] -= y4.x, d[1] -= y4.y, d[2] -= y4.z, d[3] -= y4.w;
         }
-        const float4 g4 = load4<T>(dxn + at);
-        d[0] += g4.x, d[1] += g4.y, d[2] += g4.z, d[3] += g4.w;
+        if constexpr (RESID) {
+          const float4 g4 = load4<T>(dxn + at);
+          d[0] += g4.x, d[1] += g4.y, d[2] += g4.z, d[3] += g4.w;
+        }
         store4<T>(dx + at, d[0], d[1], d[2], d[3]);
       }
     }
@@ -753,8 +788,9 @@ int launch_block_fwd(const void* x, const void* wqk, const void* wv, const void*
   return reduce_slices(scratch, slice_stride(2 * kC), blocks, sums, 2 * kC, st);
 }
 
-// The backward's buffers, carved from one work buffer: q, v, lse, dY, dv, D,
-// dq, OA's [2, O·P] row vectors (1/s, c) and y/s [O·P, 256] (f32)
+// The backwards' buffers, carved from one work buffer: q, v, lse, dY, dv, D,
+// dq, OA's [2, O·P] row vectors (1/s, c) and y/s [O·P, 256] (f32);
+// pct_attn_bwd leaves dY (the caller's) and y/s unused
 template <typename T>
 struct Work {
   T *q, *v, *dy, *dv, *dq;
@@ -784,57 +820,118 @@ size_t carve(void* base, int o, int p, Work<T>* w) {
   return off;
 }
 
-template <typename T, bool OA>
-int launch_block_res_bwd(const void* x, const void* wqk, const void* wv, const void* bv,
-                         const void* wt, const void* bt, const void* mask, const void* dxn,
-                         const float* wbn, const float* bbn, const float* dsum,
-                         const float* dsumsq, void* work, void* dx, float* scratch, int blocks,
-                         float* grads, int o, int p, cudaStream_t st) {
-  Work<T> w;
-  carve<T>(work, o, p, &w);
-  if (int rc = project_and_lse<T>(x, wqk, wv, bv, w.q, w.v, w.lse, o, p, st)) return rc;
+template <typename T>
+int launch_attn_fwd(const void* x, const void* wqk, const void* wv, const void* bv, void* q,
+                    void* v, float* lse, void* y, int o, int p, int oa, cudaStream_t st) {
+  if (int rc = project_and_lse<T>(x, wqk, wv, bv, q, v, lse, o, p, st)) return rc;
   const long long tiles = (long long)o * ((p + kRows - 1) / kRows);
+  using L = ApplySmem<T, false>;
+  auto kernel =
+      oa ? attn_out_kernel<T, L, kC, kDa, true> : attn_out_kernel<T, L, kC, kDa, false>;
+  if (int rc = allow_smem(kernel, kAttnSmem<T>)) return rc;
+  const int g = resident_grid(kernel, kThreads, kAttnSmem<T>, tiles);
+  kernel<<<g, kThreads, kAttnSmem<T>, st>>>((const T*)q, (const T*)v, lse, (T*)y, o, p);
+  return (int)cudaGetLastError();
+}
 
-  const size_t s1 = ApplySmem<T, true>::bytes;
-  if (int rc = allow_smem(bwd_dz_kernel<T, OA>, s1)) return rc;
-  bwd_dz_kernel<T, OA><<<blocks, kThreads, s1, st>>>(
-      (const T*)x, w.q, w.v, w.lse, (const T*)wt, (const T*)bt, (const T*)mask, (const T*)dxn,
-      wbn, bbn, dsum, dsumsq, w.dy, w.sc, w.ys, scratch, o, p);
-  if (int rc = (int)cudaGetLastError()) return rc;
-
+// The dv, dq and dx passes of the three backwards (dY, and for OA 1/s and
+// c, already in device memory). RESID / DU: the dx pass's residual and du
+// terms.
+template <typename T, bool OA, bool RESID, bool DU>
+int launch_core_bwd(const void* x, const void* wqk, const void* wv, const void* dxn,
+                    const Work<T>& w, const T* dy, void* dx, float* scratch, int blocks, int o,
+                    int p, cudaStream_t st) {
+  const long long tiles = (long long)o * ((p + kRows - 1) / kRows);
   const size_t s2 = DvSmem<T, OA, kC, kDa>::bytes;
   if (int rc = allow_smem(bwd_dv_kernel<T, OA, kC, kDa>, s2)) return rc;
   const int g2 = resident_grid(bwd_dv_kernel<T, OA, kC, kDa>, kThreads, s2, tiles);
-  bwd_dv_kernel<T, OA, kC, kDa><<<g2, kThreads, s2, st>>>(w.q, w.v, w.lse, w.dy, w.sc, w.dv,
+  bwd_dv_kernel<T, OA, kC, kDa><<<g2, kThreads, s2, st>>>(w.q, w.v, w.lse, dy, w.sc, w.dv,
                                                           w.dd, o, p);
   if (int rc = (int)cudaGetLastError()) return rc;
 
   const size_t s3 = DqSmem<T, OA>::bytes;
   if (int rc = allow_smem(bwd_dq_kernel<T, OA>, s3)) return rc;
   const int g3 = resident_grid(bwd_dq_kernel<T, OA>, kThreads, s3, tiles);
-  bwd_dq_kernel<T, OA><<<g3, kThreads, s3, st>>>(w.q, w.v, w.lse, w.dy, w.dd, w.sc, w.dq, o, p);
+  bwd_dq_kernel<T, OA><<<g3, kThreads, s3, st>>>(w.q, w.v, w.lse, dy, w.dd, w.sc, w.dq, o, p);
   if (int rc = (int)cudaGetLastError()) return rc;
 
   const size_t s4 = DxSmem<T>::bytes;
-  if (int rc = allow_smem(bwd_dx_kernel<T, OA>, s4)) return rc;
-  bwd_dx_kernel<T, OA><<<blocks, kThreads, s4, st>>>(
-      (const T*)x, (const T*)wqk, (const T*)wv, w.dq, w.dv, (const T*)dxn, w.dy, (T*)dx, scratch,
+  if (int rc = allow_smem(bwd_dx_kernel<T, RESID, DU>, s4)) return rc;
+  bwd_dx_kernel<T, RESID, DU><<<blocks, kThreads, s4, st>>>(
+      (const T*)x, (const T*)wqk, (const T*)wv, w.dq, w.dv, (const T*)dxn, dy, (T*)dx, scratch,
       (long long)o * p);
+  return (int)cudaGetLastError();
+}
+
+// pct_block_res_bwd (EPI) and pct_block_bwd: dxn is the next layer's
+// cotangent (EPI) or t_out's (not EPI)
+template <typename T, bool EPI, bool OA>
+int launch_block_bwd(const void* x, const void* wqk, const void* wv, const void* bv,
+                     const void* wt, const void* bt, const void* mask, const void* dxn,
+                     const float* wbn, const float* bbn, const float* dsum, const float* dsumsq,
+                     void* work, void* dx, float* scratch, int blocks, float* grads, int o, int p,
+                     cudaStream_t st) {
+  Work<T> w;
+  carve<T>(work, o, p, &w);
+  if (int rc = project_and_lse<T>(x, wqk, wv, bv, w.q, w.v, w.lse, o, p, st)) return rc;
+
+  const size_t s1 = ApplySmem<T, true>::bytes;
+  if (int rc = allow_smem(bwd_dz_kernel<T, EPI, OA>, s1)) return rc;
+  bwd_dz_kernel<T, EPI, OA><<<blocks, kThreads, s1, st>>>(
+      (const T*)x, w.q, w.v, w.lse, (const T*)wt, (const T*)bt, (const T*)mask, (const T*)dxn,
+      wbn, bbn, dsum, dsumsq, w.dy, w.sc, w.ys, scratch, o, p);
   if (int rc = (int)cudaGetLastError()) return rc;
+
+  if (int rc = launch_core_bwd<T, OA, EPI, OA>(x, wqk, wv, dxn, w, w.dy, dx, scratch, blocks, o,
+                                                p, st))
+    return rc;
   return reduce_slices(scratch, slice_stride(Grad::total), blocks, grads, Grad::total, st);
 }
 
-template <typename T>
-int block_res_bwd(const void* x, const void* wqk, const void* wv, const void* bv, const void* wt,
-                  const void* bt, const void* mask, const void* dxn, const float* wbn,
-                  const float* bbn, const float* dsum, const float* dsumsq, void* work, void* dx,
-                  float* scratch, int blocks, float* grads, int o, int p, int oa,
-                  cudaStream_t st) {
+template <typename T, bool EPI>
+int block_bwd(const void* x, const void* wqk, const void* wv, const void* bv, const void* wt,
+              const void* bt, const void* mask, const void* dxn, const float* wbn,
+              const float* bbn, const float* dsum, const float* dsumsq, void* work, void* dx,
+              float* scratch, int blocks, float* grads, int o, int p, int oa, cudaStream_t st) {
   if (oa)
-    return launch_block_res_bwd<T, true>(x, wqk, wv, bv, wt, bt, mask, dxn, wbn, bbn, dsum,
+    return launch_block_bwd<T, EPI, true>(x, wqk, wv, bv, wt, bt, mask, dxn, wbn, bbn, dsum,
+                                          dsumsq, work, dx, scratch, blocks, grads, o, p, st);
+  return launch_block_bwd<T, EPI, false>(x, wqk, wv, bv, wt, bt, mask, dxn, wbn, bbn, dsum,
                                          dsumsq, work, dx, scratch, blocks, grads, o, p, st);
-  return launch_block_res_bwd<T, false>(x, wqk, wv, bv, wt, bt, mask, dxn, wbn, bbn, dsum,
-                                        dsumsq, work, dx, scratch, blocks, grads, o, p, st);
+}
+
+// pct_attn_bwd: only the first Grad::dwt floats of the slices (dWqk, dWv,
+// dbv) are reduced
+template <typename T, bool OA>
+int launch_attn_bwd(const void* x, const void* wqk, const void* wv, const void* bv,
+                    const void* dy, void* work, void* dx, float* scratch, int blocks,
+                    float* grads, int o, int p, cudaStream_t st) {
+  Work<T> w;
+  carve<T>(work, o, p, &w);
+  if (int rc = project_and_lse<T>(x, wqk, wv, bv, w.q, w.v, w.lse, o, p, st)) return rc;
+  if constexpr (OA) {
+    const long long tiles = (long long)o * ((p + kRows - 1) / kRows);
+    auto kernel = attn_sc_kernel<T, ApplySmem<T, false>, kC, kDa>;
+    if (int rc = allow_smem(kernel, kAttnSmem<T>)) return rc;
+    const int g = resident_grid(kernel, kThreads, kAttnSmem<T>, tiles);
+    kernel<<<g, kThreads, kAttnSmem<T>, st>>>(w.q, w.v, w.lse, (const T*)dy, w.sc, o, p);
+    if (int rc = (int)cudaGetLastError()) return rc;
+  }
+  if (int rc = launch_core_bwd<T, OA, false, false>(x, wqk, wv, nullptr, w, (const T*)dy, dx,
+                                                     scratch, blocks, o, p, st))
+    return rc;
+  return reduce_slices(scratch, slice_stride(Grad::total), blocks, grads, Grad::dwt, st);
+}
+
+template <typename T>
+int attn_bwd(const void* x, const void* wqk, const void* wv, const void* bv, const void* dy,
+             void* work, void* dx, float* scratch, int blocks, float* grads, int o, int p, int oa,
+             cudaStream_t st) {
+  if (oa)
+    return launch_attn_bwd<T, true>(x, wqk, wv, bv, dy, work, dx, scratch, blocks, grads, o, p,
+                                    st);
+  return launch_attn_bwd<T, false>(x, wqk, wv, bv, dy, work, dx, scratch, blocks, grads, o, p,
+                                   st);
 }
 
 }  // namespace
@@ -842,12 +939,12 @@ int block_res_bwd(const void* x, const void* wqk, const void* wv, const void* bv
 
 extern "C" {
 
-// The C = 256 forms of sga_pct_block_eval, sga_pct_block_fwd and
-// sga_pct_block_res_bwd (pct_attention.cu), with the same arguments, for
-// both dtypes: q [O, P, 64], v [O, P, 256] and lse [O, P] work buffers;
-// grads f32 dWqk_s [256, 64], dWv [256, 256], dbv [256], dWt [256, 256],
-// dbt [256]; scratch: `blocks` slices of slice_stride(512) floats (the
-// forward's sums) or slice_stride(147968) (the backward's gradients)
+// The C = 256 forms of pct_attention.cu's entry points, with the same
+// arguments, for both dtypes: q [O, P, 64], v [O, P, 256] and lse [O, P]
+// work buffers; grads f32 dWqk_s [256, 64], dWv [256, 256], dbv [256],
+// dWt [256, 256], dbt [256]; scratch: `blocks` slices of slice_stride(512)
+// floats (the forward's sums) or slice_stride(147968) (the backwards'
+// gradients)
 int sga_pct_block_eval_c256(const void* x, const void* wqk, const void* wv, const void* bv,
                             const void* wt, const void* bt, const float* wbn, const float* bbn,
                             void* q, void* v, float* lse, void* out, int o, int p, int oa,
@@ -886,10 +983,54 @@ int sga_pct_block_res_bwd_c256(const void* x, const void* wqk, const void* wv, c
                                void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == sga::kBF16)
-    return sga::block_res_bwd<sga::bf16>(x, wqk, wv, bv, wt, bt, mask, dxn, wbn, bbn, dsum,
-                                         dsumsq, work, dx, scratch, blocks, grads, o, p, oa, st);
-  return sga::block_res_bwd<float>(x, wqk, wv, bv, wt, bt, mask, dxn, wbn, bbn, dsum, dsumsq,
-                                   work, dx, scratch, blocks, grads, o, p, oa, st);
+    return sga::block_bwd<sga::bf16, true>(x, wqk, wv, bv, wt, bt, mask, dxn, wbn, bbn, dsum,
+                                           dsumsq, work, dx, scratch, blocks, grads, o, p, oa,
+                                           st);
+  return sga::block_bwd<float, true>(x, wqk, wv, bv, wt, bt, mask, dxn, wbn, bbn, dsum, dsumsq,
+                                     work, dx, scratch, blocks, grads, o, p, oa, st);
+}
+
+// pct_block_fused's backward at C = 256 for the cotangents dt [O, P, 256]
+// (compute dtype) and dsum, dsumsq [256] (f32): dx without a residual,
+// grads, work and scratch as sga_pct_block_res_bwd_c256's
+int sga_pct_block_bwd_c256(const void* x, const void* wqk, const void* wv, const void* bv,
+                           const void* wt, const void* bt, const void* mask, const void* dt,
+                           const float* dsum, const float* dsumsq, void* work, void* dx,
+                           float* scratch, int blocks, float* grads, int o, int p, int oa,
+                           int dtype, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == sga::kBF16)
+    return sga::block_bwd<sga::bf16, false>(x, wqk, wv, bv, wt, bt, mask, dt, nullptr, nullptr,
+                                            dsum, dsumsq, work, dx, scratch, blocks, grads, o, p,
+                                            oa, st);
+  return sga::block_bwd<float, false>(x, wqk, wv, bv, wt, bt, mask, dt, nullptr, nullptr, dsum,
+                                      dsumsq, work, dx, scratch, blocks, grads, o, p, oa, st);
+}
+
+// pct_attention_fused's forward at C = 256: y [O, P, 256] in the compute
+// dtype (OA row normalisation with oa = 1); q, v, lse work buffers as
+// sga_pct_block_eval_c256's
+int sga_pct_attn_fwd_c256(const void* x, const void* wqk, const void* wv, const void* bv,
+                          void* q, void* v, float* lse, void* y, int o, int p, int oa, int dtype,
+                          void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == sga::kBF16)
+    return sga::launch_attn_fwd<sga::bf16>(x, wqk, wv, bv, q, v, lse, y, o, p, oa, st);
+  return sga::launch_attn_fwd<float>(x, wqk, wv, bv, q, v, lse, y, o, p, oa, st);
+}
+
+// pct_attention_fused's backward at C = 256 for dY [O, P, 256]: dx, and
+// grads f32 dWqk_s [256, 64], dWv [256, 256], dbv [256]; work and scratch
+// as sga_pct_block_res_bwd_c256's
+int sga_pct_attn_bwd_c256(const void* x, const void* wqk, const void* wv, const void* bv,
+                          const void* dy, void* work, void* dx, float* scratch, int blocks,
+                          float* grads, int o, int p, int oa, int dtype, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == sga::kBF16)
+    return sga::attn_bwd<sga::bf16>(x, wqk, wv, bv, dy, work, dx, scratch, blocks, grads, o, p,
+                                    oa, st);
+  return sga::attn_bwd<float>(x, wqk, wv, bv, dy, work, dx, scratch, blocks, grads, o, p, oa,
+                              st);
 }
 
 }  // extern "C"

@@ -37,9 +37,12 @@ LAUNCHES: dict[str, int] = {"embed_first": 0, "embed_second": 0,
                             "pct_block_res_bwd": 0, "pct_tail_bwd": 0,
                             "pct_attn_fwd": 0, "pct_attn_bwd": 0,
                             "pct_block_bwd": 0,
-                            # the block kernels at C = 256 (FullPCT's OA blocks)
+                            # the kernels at C = 256 (FullPCT's OA blocks, and
+                            # the two ops at that width)
                             "pct_block_eval_c256": 0, "pct_block_fwd_c256": 0,
-                            "pct_epi_sums_c256": 0, "pct_block_res_bwd_c256": 0}
+                            "pct_epi_sums_c256": 0, "pct_block_res_bwd_c256": 0,
+                            "pct_attn_fwd_c256": 0, "pct_attn_bwd_c256": 0,
+                            "pct_block_bwd_c256": 0}
 
 _lib: ctypes.CDLL | None = None
 build_info: dict = {}
@@ -148,10 +151,11 @@ _SIGNATURES = {
     "sga_embed_first_bwd_rows_per_block": [_I],
     "sga_pct_bwd_work_bytes": [_I, _I, _I],
 }
-# the C = 256 forms of the block kernels take the C = 128 forms' arguments
+# the C = 256 forms take the C = 128 forms' arguments
 _SIGNATURES.update({f"{name}_c256": _SIGNATURES[name] for name in (
     "sga_pct_block_eval", "sga_pct_block_fwd", "sga_pct_epi_sums",
-    "sga_pct_block_res_bwd", "sga_pct_bwd_work_bytes")})
+    "sga_pct_block_res_bwd", "sga_pct_block_bwd", "sga_pct_attn_fwd",
+    "sga_pct_attn_bwd", "sga_pct_bwd_work_bytes")})
 _SIGNATURES["sga_pct_epi_sums_c256_rows_per_block"] = [_I]
 _RESTYPES = {"sga_pct_bwd_work_bytes": ctypes.c_longlong,
              "sga_pct_bwd_work_bytes_c256": ctypes.c_longlong,

@@ -37,13 +37,11 @@ log-sum-exp instead). ``pct_block_eval`` is the custom op
 ``sgaligner::pct_block_eval`` (``ops/library.py``), which ``torch.export``
 keeps whole.
 
-Widths: the kernels take C = 128, da = 32 (NaivePCT, SPCT), and the block
-kernels FullPCT's OA blocks run (``pct_block_eval``, ``block_fwd``,
-``epi_sums``, ``block_res_bwd``) also C = 256, da = 64, at both dtypes
-through ``csrc/pct_attention_c256.cu`` (and ``epi_sums`` through
+Widths: every kernel takes C = 128, da = 32 (NaivePCT, SPCT) and C = 256,
+da = 64 (FullPCT's OA blocks, and the two ops at that width), at both dtypes;
+at C = 256 through ``csrc/pct_attention_c256.cu`` (and ``epi_sums`` through
 ``csrc/pct_epi_sums.cu``), each counted under its name with ``_c256``. A CUDA
-tensor of any other width raises, as do ``block_bwd``, ``attn_fwd`` and
-``attn_bwd`` at C = 256. The plain versions take any width.
+tensor of any other width raises. The plain versions take any width.
 """
 
 from __future__ import annotations
@@ -58,13 +56,13 @@ from sgaligner_tpu_torch.ops.pct_embed import acc_dtype, masked_sums
 WIDTHS = {128: "", 256: "_c256"}
 
 
-def kernel_width(name: str, x, widths=tuple(WIDTHS)) -> tuple[int, str]:
+def kernel_width(name: str, x) -> tuple[int, str]:
     """(C, its suffix) of x [O, P, C] for the kernel ``name``; raises for a
     width it has no kernel for."""
     c = x.shape[-1]
-    if x.dim() != 3 or c not in widths:
+    if x.dim() != 3 or c not in WIDTHS:
         raise ValueError(f"{name}: x has shape {tuple(x.shape)}; the kernel takes "
-                         f"[O, P, C] with C in {sorted(widths)}")
+                         f"[O, P, C] with C in {sorted(WIDTHS)}")
     return c, WIDTHS[c]
 
 
@@ -415,11 +413,11 @@ def n_grad(c: int) -> int:
 
 
 def _block_backward(name, fn_name, x, wqk, wv, bv, wt, bt, mask, cot, vecs,
-                    scale, double_norm, widths=tuple(WIDTHS)):
+                    scale, double_norm):
     """Launch one block backward: ``cot`` is dxn (pct_block_res_bwd) or dt
     (pct_block_bwd), ``vecs`` its [C] f32 inputs in the C entry's order;
     ``name`` and ``fn_name`` take the suffix of x's width."""
-    _, suffix = kernel_width(name, x, widths)
+    _, suffix = kernel_width(name, x)
     name, fn_name = name + suffix, fn_name + suffix
     wqk_s = qk_scale(wqk, scale).contiguous()
     o, p, c = _check_block(name, x, wqk_s, wv, bv, wt, bt, mask)
@@ -466,15 +464,15 @@ def block_res_bwd(x, wqk, wv, bv, wt, bt, mask, dxn, wbn, bbn, dsum, dsumsq,
 
 def block_bwd(x, wqk, wv, bv, wt, bt, mask, dt, dsum, dsumsq, scale=True,
               double_norm=False):
-    """Backward of ``block_fwd`` for the cotangents ``dt [O, P, 128]`` (x's
-    dtype) of t_out and ``dsum, dsumsq [1, 128]`` (f32) of the sums:
+    """Backward of ``block_fwd`` for the cotangents ``dt [O, P, C]`` (x's
+    dtype) of t_out and ``dsum, dsumsq [1, C]`` (f32) of the sums:
     ``(dx (no residual), dwqk, dwv, dbv, dwt, dbt)`` as ``block_res_bwd``."""
     if x.device.type == "cpu":
         return block_bwd_plain(x, wqk, wv, bv, wt, bt, mask, dt, dsum, dsumsq,
                                scale, double_norm)
     return _block_backward("pct_block_bwd", "sga_pct_block_bwd", x, wqk, wv, bv, wt,
                            bt, mask, dt, (("dsum", dsum), ("dsumsq", dsumsq)),
-                           scale, double_norm, widths=(128,))
+                           scale, double_norm)
 
 
 class BlockResidual(torch.autograd.Function):
@@ -547,10 +545,9 @@ class BlockFused(torch.autograd.Function):
 
 
 def pct_block_fused(x, wqk, wv, bv, wt, bt, mask, scale=True, double_norm=False):
-    """The SA/OA block op: ``(t_out [O, P, 128], ssum [1, 128], ssumsq
-    [1, 128])`` with gradients for x and the five weights. Arguments as
-    ``block_fwd``; ``double_norm`` selects the OA normalisation and
-    residual direction."""
+    """The SA/OA block op: ``(t_out [O, P, C], ssum [1, C], ssumsq [1, C])``
+    with gradients for x and the five weights. Arguments as ``block_fwd``;
+    ``double_norm`` selects the OA normalisation and residual direction."""
     return BlockFused.apply(x, wqk, wv, bv, wt, bt, mask, scale, double_norm)
 
 
@@ -562,20 +559,20 @@ def attn_fwd_plain(x, wqk, wv, bv, scale=True, double_norm=False):
 
 
 def attn_fwd(x, wqk, wv, bv, scale=True, double_norm=False):
-    """The attention op's forward: ``y [O, P, 128]`` in x's dtype, the
+    """The attention op's forward: ``y [O, P, C]`` in x's dtype, the
     projections and the core with no trans. ``scale`` and ``double_norm``
     are independent: each of the four pairs runs. Weights as in
     ``pct_block_eval``."""
     if x.device.type == "cpu":
         return attn_fwd_plain(x, wqk, wv, bv, scale, double_norm)
-    name = "pct_attn_fwd"
-    kernel_width(name, x, (128,))
+    _, suffix = kernel_width("pct_attn_fwd", x)
+    name = "pct_attn_fwd" + suffix
     wqk_s = qk_scale(wqk, scale).contiguous()
     o, p, _ = _check_attn(name, x, wqk_s, wv, bv)
     y = torch.empty_like(x)
     if o:
         q, v, lse = _block_work(x)
-        _build.launch(name, "sga_pct_attn_fwd", x.device,
+        _build.launch(name, "sga_pct_attn_fwd" + suffix, x.device,
                       *(t.data_ptr() for t in (x, wqk_s, wv, bv, q, v, lse, y)),
                       o, p, int(double_norm), _build.DTYPE_CODE[x.dtype])
     return y
@@ -589,26 +586,27 @@ def attn_bwd_plain(x, wqk, wv, bv, dy, scale=True, double_norm=False):
 
 
 def attn_bwd(x, wqk, wv, bv, dy, scale=True, double_norm=False):
-    """The attention op's backward for the cotangent ``dy [O, P, 128]`` (x's
-    dtype) of y: ``(dx [O, P, 128] in x's dtype, dwqk [128, 32],
-    dwv [128, 128], dbv [1, 128])``, the weight gradients at the
-    accumulation dtype."""
+    """The attention op's backward for the cotangent ``dy [O, P, C]`` (x's
+    dtype) of y: ``(dx [O, P, C] in x's dtype, dwqk [C, da], dwv [C, C],
+    dbv [1, C])``, the weight gradients at the accumulation dtype."""
     if x.device.type == "cpu":
         return attn_bwd_plain(x, wqk, wv, bv, dy, scale, double_norm)
-    name = "pct_attn_bwd"
-    c, _ = kernel_width(name, x, (128,))
+    c, suffix = kernel_width("pct_attn_bwd", x)
+    name = "pct_attn_bwd" + suffix
     da = c // 4
     wqk_s = qk_scale(wqk, scale).contiguous()
     o, p, _ = _check_attn(name, x, wqk_s, wv, bv)
     _build.check_cuda(name, {"x": x, "dy": dy}, x.dtype)
     _build.check_shape(name, "dy", dy, (o, p, c))
     dev = x.device
+    # the first three of a block backward's gradient slices (the C entry
+    # reduces only those): dWqk, dWv, dbv
     grads = torch.zeros(c * da + c * c + c, dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
     if o:
         blocks = _build.grid_blocks(dev, o * ((p + 63) // 64), per_sm=1)
         part, work = _build.scratch(dev, blocks, n_grad(c)), _bwd_work(x)
-        _build.launch(name, "sga_pct_attn_bwd", dev,
+        _build.launch(name, "sga_pct_attn_bwd" + suffix, dev,
                       *(t.data_ptr() for t in (x, wqk_s, wv, bv, dy, work, dx, part)),
                       blocks, grads.data_ptr(), o, p, int(double_norm),
                       _build.DTYPE_CODE[x.dtype])
@@ -637,7 +635,8 @@ class AttentionFused(torch.autograd.Function):
 
 def pct_attention_fused(x, wqk, wv, bv, scale=True, double_norm=False):
     """SA (``scale=True``) / OA (``scale=False, double_norm=True``)
-    attention: ``y [O, P, 128]``, the attended features before trans, with
-    gradients for x and the three weights. x [O, P, 128]; wqk [128, 32]
-    (shared q/k, unscaled); wv [128, 128]; bv [128]; all in x's dtype."""
+    attention: ``y [O, P, C]``, the attended features before trans, with
+    gradients for x and the three weights. x [O, P, C] (C = 128 or 256,
+    da = C / 4); wqk [C, da] (shared q/k, unscaled); wv [C, C]; bv [C]; all
+    in x's dtype."""
     return AttentionFused.apply(x, wqk, wv, bv, scale, double_norm)

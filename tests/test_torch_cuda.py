@@ -1037,10 +1037,13 @@ def test_eva_on_the_card_matches_the_cpu(card):
         float(outs["cpu"][1]["loss"]))
 
 
-# the block kernels at FullPCT's width (C = 256, da = 64)
+# the kernels at C = 256, da = 64: the block kernels FullPCT's OA blocks
+# run, and the two ops' three
 WIDE_CASES = [("pct_block_eval", SA), ("pct_block_eval", OA), ("pct_block_fwd", SA),
               ("pct_block_fwd", OA), ("pct_epi_sums", None), ("pct_block_res_bwd", SA),
-              ("pct_block_res_bwd", OA)]
+              ("pct_block_res_bwd", OA), ("pct_block_bwd", SA), ("pct_block_bwd", OA),
+              ("pct_attn_fwd", SA), ("pct_attn_fwd", OA), ("pct_attn_bwd", SA),
+              ("pct_attn_bwd", OA)]
 
 
 # (dtype, objects): 37 objects at both dtypes (148 row tiles at P = 256,
@@ -1055,7 +1058,9 @@ WIDE_SIZES = [("f32", 37), ("bf16", 37), ("f32", 1), ("f32", 3), ("f32", 20)]
                          ids=[f"{d}-O{o}" for d, o in WIDE_SIZES])
 @pytest.mark.parametrize("name,flags", WIDE_CASES,
                          ids=["block_SA", "block_OA", "block_fwd", "block_fwd_OA", "epi_sums",
-                              "block_res_bwd", "block_res_bwd_OA"])
+                              "block_res_bwd", "block_res_bwd_OA", "block_bwd_SA",
+                              "block_bwd_OA", "attn_fwd_SA", "attn_fwd_OA", "attn_bwd_SA",
+                              "attn_bwd_OA"])
 def test_c256_kernel_matches_plain_version(card, name, flags, dtype, objects, points):
     """The C = 256 forms (csrc/pct_attention_c256.cu, csrc/pct_epi_sums.cu)
     against the plain versions at chip_smoke's tolerances: one launch of the
@@ -1075,20 +1080,30 @@ def test_c256_kernel_matches_plain_version(card, name, flags, dtype, objects, po
 
 
 def test_c256_wrappers_raise_where_there_is_no_kernel(card):
-    """The ops no model runs at C = 256 (the attention op, pct_block_fused's
-    backward) and any width other than 128 and 256 raise on the card."""
-    from sgaligner_tpu_torch.ops import pct_attention
+    """Every wrapper of the attention family raises on the card at a width
+    with no kernel (C = 192: the kernels take 128 and 256), before any
+    launch."""
+    from sgaligner_tpu_torch.ops import _build, pct_attention
 
+    c = 192
     x, wqk, wv, bv, wt, bt, mask = card.op_inputs("pct_block_fwd", 4, torch.float32, seed=0,
-                                                  p=64, c=card.WIDE_C)
-    with pytest.raises(ValueError):
-        pct_attention.attn_fwd(x, wqk, wv, bv)
-    with pytest.raises(ValueError):
-        pct_attention.block_bwd(x, wqk, wv, bv, wt, bt, mask, x, *(torch.zeros(
-            1, card.WIDE_C, device="cuda") for _ in range(2)))
-    narrow = card.op_inputs("pct_block_fwd", 4, torch.float32, seed=0, p=64, c=192)
-    with pytest.raises(ValueError):
-        pct_attention.block_fwd(*narrow)
+                                                  p=64, c=c)
+    vec = torch.ones(c, device="cuda")
+    ds = [torch.zeros(1, c, device="cuda") for _ in range(2)]
+    calls = {"pct_block_eval": lambda: pct_attention.pct_block_eval(x, wqk, wv, bv, wt, bt,
+                                                                    vec, vec),
+             "block_fwd": lambda: pct_attention.block_fwd(x, wqk, wv, bv, wt, bt, mask),
+             "epi_sums": lambda: pct_attention.epi_sums(x, vec, vec, x),
+             "block_res_bwd": lambda: pct_attention.block_res_bwd(x, wqk, wv, bv, wt, bt, mask,
+                                                                  x, vec, vec, *ds),
+             "block_bwd": lambda: pct_attention.block_bwd(x, wqk, wv, bv, wt, bt, mask, x, *ds),
+             "attn_fwd": lambda: pct_attention.attn_fwd(x, wqk, wv, bv),
+             "attn_bwd": lambda: pct_attention.attn_bwd(x, wqk, wv, bv, x)}
+    before = dict(_build.LAUNCHES)
+    for what, call in calls.items():
+        with pytest.raises(ValueError):
+            call()
+    assert _build.LAUNCHES == before
 
 
 @pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])

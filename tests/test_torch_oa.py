@@ -4,7 +4,7 @@ pairs at f64) and ``pct_block_fused`` with their gradients (SA and OA),
 ``OABlock`` and ``SPCT`` in eval and train mode, and
 the weight bridge ``spct_state_dict_from_flax``.
 
-Widths are the models' (C=128, da=32, the tail 512 -> 1024; the block op and
+Widths are the models' (C=128, da=32, the tail 512 -> 1024; the two ops and
 ``OABlock`` also at FullPCT's C=256, da=64); O=4 objects, the last one
 padded, of P=16 points. Every JAX tile picker takes its Pallas
 kernel at these shapes (each test asserts it), run in interpret mode; the
@@ -109,13 +109,14 @@ def _port_attn(args, ct, flags, dtype):
     return out, torch.autograd.grad(out, ts, torch.from_numpy(ct).to(dtype))
 
 
+@WIDTH
 @PAIRS
-def test_attention_fused_matches_jax_f64(x64, flags):
+def test_attention_fused_matches_jax_f64(x64, flags, c):
     rng = np.random.default_rng(0)
-    args = _attn_case(rng)
-    ct = rng.normal(size=(O, P, C))
+    args = _attn_case(rng, c)
+    ct = rng.normal(size=(O, P, c))
     for bwd in (False, True):
-        assert jpa._pick_tile(O, P, C, DA, 8, bwd=bwd) is not None   # Pallas kernels
+        assert jpa._pick_tile(O, P, c, c // 4, 8, bwd=bwd) is not None   # Pallas kernels
     expect_dtype(to_jax(*args, ct))
     want, want_g = _jax_attn(args, ct, flags, jnp.float64)
     got, got_g = _port_attn(args, ct, flags, torch.float64)
@@ -161,8 +162,9 @@ def test_block_fused_matches_jax_f64(x64, flags, c):
     _close(got_g, want_g, "pct_block_fused grads (x, wqk, wv, bv, wt, bt)")
 
 
-@pytest.mark.parametrize("op,c", [("attention", C), ("block", C), ("block", 2 * C)],
-                         ids=["attention", "block", "block-C256"])
+@pytest.mark.parametrize("op,c", [("attention", C), ("attention", 2 * C), ("block", C),
+                                  ("block", 2 * C)],
+                         ids=["attention", "attention-C256", "block", "block-C256"])
 @FLAGS
 def test_ops_match_jax_kernels_f32(op, flags, c):
     """x64 off: the JAX side is the Pallas kernels _fwd_kernel / _bwd_kernel
@@ -170,8 +172,9 @@ def test_ops_match_jax_kernels_f32(op, flags, c):
     assert not jax.config.jax_enable_x64
     rng = np.random.default_rng(2)
     if op == "attention":
-        args, ct = _attn_case(rng), rng.normal(size=(O, P, C))
-        assert jpa._pick_tile(O, P, C, DA, 4, bwd=True) is not None
+        args, ct = _attn_case(rng, c), rng.normal(size=(O, P, c))
+        for bwd in (False, True):
+            assert jpa._pick_tile(O, P, c, c // 4, 4, bwd=bwd) is not None
         want, want_g = _jax_attn(args, ct, flags, jnp.float32)
         got, got_g = _port_attn(args, ct, flags, torch.float32)
         want, got = [want], [got]
