@@ -161,7 +161,7 @@ Phases, in order (every failure raises and exits non-zero):
                registration score, mosaicking acc / comp / prec / recall /
                fscore over 8 scans, pointnet_fwd launched once an eval batch
                and once a mosaicked subscan (its first request held against
-               its plain version); and on a 16 + 16 workspace of the same
+               its plain version); and on an 8 + 8 workspace of the same
                seed with 2 scans, the card against the CPU within
                tests/test_downstream_quality.py's tolerances
   trainer      the EVA recipe of scripts/aligner_artifact.py (its train
@@ -176,6 +176,23 @@ Phases, in order (every failure raises and exits non-zero):
                bucket 128) for 2 epochs through the same Trainer: finite
                losses, every kernel's launches the per-step and per-request
                counts, the final snapshot read back by the tester
+  dp           data parallel (parallel/mesh.py), two ranks started by
+               parallel.launch.run_ranks: NCCL across two cards where the
+               machine has them, else gloo with both ranks on the one card
+               (the phase prints which); every run against one rank on the
+               same per-rank pooled layout. Three f32 Adam steps of the pct
+               configuration at full width (32 slots, 512 points, bucket 128,
+               B = 32, 16 a rank): every reading within DP_VS_CPU times the
+               larger of the CPU's own f32 dp = 2 against dp = 1 reading
+               (B = 4, two a rank) and the card's one-rank reading with the
+               rows pooled in the other order, the tail picks replayed from
+               the one-rank runs; one block's sums left local (DP_PLANTED)
+               caught; the ranks' parameters and running statistics
+               bit-equal. One bf16 B = 512 request split over the ranks
+               against the one-rank request (counts exact, rr_sum and
+               alignment_score within DP_SERVE_RTOL); ms a bf16 step and a
+               request at dp = 2 and dp = 1, readings; every kernel's
+               launches per rank
   time         each kernel against its plain version (and torch.matmul for
                the tail): the pct serving kernels at the serving O (the three
                wgmma kernels beside the replaced WMMA design's times and their
@@ -403,9 +420,10 @@ GEO_PLANAR_HITS = 13
 GEO_TF_ABS = 1e-4          # card against CPU, the 0.4 band's transforms
 DOWNSTREAM_MAX_SCANS = 8
 # the card against the CPU (tests/test_downstream_quality.py's tolerances)
-# on a 16 + 16 workspace of the same seed and 2 scans: the CPU registers a
+# on an 8 + 8 workspace of the same seed and 2 scans: the CPU registers a
 # pair in seconds, so the full contract on the CPU would take many minutes
-DOWNSTREAM_CPU = dict(pairs=16, scans=2)
+# (a 16 + 16 cut took 190 s of the CPU's time on an H100's host)
+DOWNSTREAM_CPU = dict(pairs=8, scans=2)
 # batched RANSAC over sets that repeat points, as the fine stage's do (the
 # mosaicking's object pairs: 337 matches of 178 source points): G sets of N
 # correspondences, the second half copies of points of the first
@@ -1338,17 +1356,20 @@ def phase_serve(state: dict) -> None:
         f"(B={b}, bf16) | launches {launches} | {state['card']}")
 
 
-def _train_three(cfg, host, dev: str, modules=POINT_MODULES) -> dict:
+def _train_three(cfg, host, dev: str, modules=POINT_MODULES, mesh=None) -> dict:
     """Three train steps from the seeded weights (pct: head dropout off, so
     the CPU and the card draw no masks) with ``cfg``'s objective
     (``build_objective``: EVA's is NCA): the losses, the first step's
     gradients, the starting and final parameters and buffers. A float64
-    ``cfg`` keeps the parameters, Adam and the loss at float64 too."""
+    ``cfg`` keeps the parameters, Adam and the loss at float64 too. With a
+    ``mesh`` (data parallel) this rank steps on its block of ``host``, and
+    the gradients read are the whole batch's."""
     import torch
 
     from sgaligner_tpu_torch.data.batch import to_device
     from sgaligner_tpu_torch.engine.factory import build_model, build_objective
     from sgaligner_tpu_torch.engine.train_step import create_train_state, make_train_step
+    from sgaligner_tpu_torch.parallel.mesh import shard_batch
 
     model = build_model(cfg, dev, torch.Generator().manual_seed(11))
     objective = build_objective(cfg)
@@ -1359,8 +1380,8 @@ def _train_three(cfg, host, dev: str, modules=POINT_MODULES) -> dict:
         model.object_encoder.dropout = 0.0
     start = {k: v.detach().double().cpu().clone() for k, v in model.state_dict().items()}
     train = create_train_state(model, cfg, objective)
-    step = make_train_step(modules)
-    batch = to_device(host, dev)
+    step = make_train_step(modules, mesh)
+    batch = to_device(shard_batch(host, mesh), dev)
     t0 = time.perf_counter()
     losses = [step(train, batch)]
     # the first step's gradients (the next step clears them)
@@ -1368,8 +1389,8 @@ def _train_three(cfg, host, dev: str, modules=POINT_MODULES) -> dict:
              [*model.named_parameters(),
               *(("loss." + n, q) for n, q in train.objective.named_parameters())]}
     losses += [step(train, batch) for _ in range(2)]
-    if dev == "cuda":
-        torch.cuda.synchronize()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
     if train.updates != 3:
         raise AssertionError(f"train_parity: {dev} applied {train.updates} of 3 updates")
     return {"losses": [{k: float(v) for k, v in o.items()} for o in losses],
@@ -1481,11 +1502,14 @@ def _planted(kernel, index, factor):
 
 
 @contextlib.contextmanager
-def tail_indices(record: list, replay: list | None = None):
+def tail_indices(record: list, replay: list | None = None, rows: slice = slice(None)):
     """Patch the tail op the training forward calls (``PctTail``): append
     the argmax / argmin that each indexed call computes to ``record`` (on
     the host) and, with ``replay``, route the call to the recorded indices
-    instead, in call order, pmax / pmin taken at them."""
+    instead, in call order: where a recorded index differs from the call's
+    own, pmax / pmin are taken at it from the plain z (elsewhere they stay
+    the call's); ``rows``: this rank's objects of each recorded call (data
+    parallel)."""
     import torch
 
     from sgaligner_tpu_torch.ops import pct_tail as mod
@@ -1498,9 +1522,15 @@ def tail_indices(record: list, replay: list | None = None):
             return out
         record.append((out[4].cpu(), out[5].cpu()))
         if replay is not None:
-            amax, amin = (t.to(x1.device) for t in next(queue))
-            z = mod._z([x1, x2, x3, x4], w).to(out[0].dtype)
-            pmax, pmin = (torch.gather(z, 1, i.long()[:, None, :])[:, 0] for i in (amax, amin))
+            amax, amin = (t[rows].to(x1.device) for t in next(queue))
+            pmax, pmin = out[0], out[1]
+            if not (torch.equal(amax, out[4]) and torch.equal(amin, out[5])):
+                z = mod._z([x1, x2, x3, x4], w).to(out[0].dtype)
+
+                def at(i, own, p):
+                    return torch.where(i == own, p, torch.gather(z, 1, i.long()[:, None, :])[:, 0])
+
+                pmax, pmin = at(amax, out[4], pmax), at(amin, out[5], pmin)
             out = (pmax, pmin, out[2], out[3], amax, amin)
         return out
 
@@ -3313,6 +3343,368 @@ def phase_trainer(state: dict) -> None:
             f"hits@1 {got['hits@1']:.4f}; launches {run['launches'][0]} | {state['card']}")
 
 
+# phase dp: data parallel (sgaligner_tpu_torch/parallel/mesh.py), DP ranks
+# started by parallel.launch.run_ranks: NCCL, one card a rank, where the
+# machine has DP cards, else gloo with the ranks sharing card 0. Every run is
+# held to one rank on the same per-rank pooled layout
+# (pool_compact_sharded(dp=DP)). Training: three f32 Adam steps of the pct
+# configuration at B = 32 (16 a rank) of train_pct_parity's generator. Each
+# reading (worst gradient leaf, losses, parameters against the distance
+# moved, BN running statistics) is held to the larger of two rounding
+# references, each times its own factor: DP_VS_CPU times the CPU's own f32
+# dp = DP against dp = 1 reading on the batch's first DP_CPU_B pairs (as §2
+# of PERF.md derives the 20x rule), and DP_VS_REORDER times the card's own
+# one-rank reading with the same batch pooled in the one-rank order
+# (pool_compact): the card's f32 kernels add their sums in sequential
+# slices, and re-associating them alone moves the readings several to tens
+# of times as far as the CPU's (PERF.md §6), so that reading is the card's
+# noise floor, and a small multiple of it keeps the bound tight. The
+# parameters' bound must stay below DP_PARAM_MAX of the distance they moved:
+# at or past that distance the reading could catch nothing. Every run takes the tail argmax /
+# argmin of the card's (the CPU's) dp = 1 run (tail_indices), and DP_FLOOR
+# is the least bound. Then the same steps with one block's sums left local
+# (sa1's forward, DP_PLANTED), which a reading must catch, and the ranks'
+# parameters and running statistics held to the same bits. Serving:
+# one bf16 B = 512 request split over the ranks against the one-rank request
+# (counts exact; rr_sum and alignment_score within DP_SERVE_RTOL: the eval
+# kernels compute each object alone). Timing: ms a bf16 step and a request at
+# dp = DP and dp = 1, readings
+DP = 2
+DP_STEPS = 3
+DP_CPU_B = 4
+DP_VS_CPU = PCT_VS_CPU
+DP_VS_REORDER = 5.0
+DP_PARAM_MAX = 0.5
+DP_FLOOR = 1e-6
+DP_SERVE_RTOL = 1e-6
+DP_TIME_STEPS = 10
+DP_TIME_REQUESTS = 4
+DP_TIMEOUT = 400.0
+DP_PLANTED = "sa1's forward sums left local"
+
+
+def _dp_hosts() -> dict:
+    """The phase's host batches, each pooled per rank's block: the parity
+    batch (B = 32 of train_pct_parity's generator; its first DP_CPU_B pairs
+    are the CPU's batch), bench.py's training batch and serve's first
+    request."""
+    from sgaligner_tpu_torch.data.batch import BatchSpec, pool_compact_sharded
+    from sgaligner_tpu_torch.data.synthetic import make_synthetic_batch
+
+    def parity(b, dp=DP):
+        return pool_compact_sharded(make_synthetic_batch(
+            BatchSpec(b, 32, P), seed=3, bow_noise=1.0, resample=True), 128, dp)
+
+    return {"train": parity(TRAIN_B), "cpu": parity(DP_CPU_B),
+            "train_one_rank": parity(TRAIN_B, 1),
+            "bench": pool_compact_sharded(make_synthetic_batch(
+                BatchSpec(TRAIN_B, 32, P), seed=0), 128, DP),
+            "serve": pool_compact_sharded(make_synthetic_batch(
+                BatchSpec(512, 32, P), seed=100), 128, DP)}
+
+
+def _dp_train(host, dev: str, mesh=None, replay=None, planted: bool = False) -> dict:
+    """``_train_three`` of the pct configuration at f32 on this rank's block
+    (``mesh``; one rank without), recording the tail's argmax / argmin of
+    each step; with ``replay`` the tail takes those of the one-rank run
+    (this rank's rows); ``planted``: sa1's forward sums are left local.
+    Also the launches of the run."""
+    from sgaligner_tpu_torch.ops import _build, pct_attention
+
+    picks: list = []
+    o = host["obj_points_pooled"].shape[0]
+    rows = mesh.block(o // mesh.dp) if mesh is not None else slice(None)
+    reduce_sum, calls = pct_attention.reduce_sum, [0]
+
+    def leave_first(m, tensors):
+        # BlockResidual sums twice a step and block: sa1..sa4 forward, then
+        # sa4..sa1 backward; the first of each eight is sa1's forward
+        calls[0] += 1
+        return list(tensors) if calls[0] % 8 == 1 else reduce_sum(m, tensors)
+
+    if planted:
+        pct_attention.reduce_sum = leave_first
+    _build.reset_launches()
+    try:
+        with tail_indices(picks, replay, rows):
+            run = _train_three(_cfg("float32", 32, MODULES), host, dev, MODULES, mesh)
+    finally:
+        pct_attention.reduce_sum = reduce_sum
+    run["launches"] = dict(_build.LAUNCHES)
+    run["picks"] = picks
+    return run
+
+
+def _dp_times(hosts: dict, dev: str, mesh=None) -> dict:
+    """On this rank (its block under ``mesh``): bf16 train steps of the pct
+    configuration (B = 32, bench.py's settings) and B = 512 requests, ms
+    each (host clock, synchronised; the ranks start each window together),
+    the launches of each window, and the first request's outputs."""
+    import torch
+
+    from sgaligner_tpu_torch.data.batch import to_device
+    from sgaligner_tpu_torch.engine.factory import build_model
+    from sgaligner_tpu_torch.engine.train_step import (create_train_state,
+                                                       make_serving_step, make_train_step)
+    from sgaligner_tpu_torch.ops import _build
+    from sgaligner_tpu_torch.parallel.mesh import barrier, shard_batch
+
+    cfg = _cfg("bfloat16", 32)
+    cfg.model.dropout = 0.0
+    train = create_train_state(build_model(cfg, dev, torch.Generator().manual_seed(0)), cfg)
+    step = make_train_step(MODULES, mesh)
+    batch = to_device(shard_batch(hosts["bench"], mesh), dev)
+    for _ in range(WARMUP_STEPS):
+        step(train, batch)
+    barrier(mesh, dev)
+    torch.cuda.synchronize(dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(DP_TIME_STEPS):
+        out = step(train, batch)
+    torch.cuda.synchronize(dev)
+    step_ms = (time.perf_counter() - t0) / DP_TIME_STEPS * 1e3
+    train_launches = dict(_build.LAUNCHES)
+    loss = float(out["loss"])
+
+    serve = make_serving_step(build_model(cfg, dev, torch.Generator().manual_seed(0)),
+                              MODULES, mesh=mesh)
+    request = to_device(shard_batch(hosts["serve"], mesh), dev)
+    first = serve(request)
+    first = {k: (tuple(int(t) for t in v) if isinstance(v, tuple) else v.cpu())
+             for k, v in first.items()}
+    barrier(mesh, dev)
+    torch.cuda.synchronize(dev)
+    _build.reset_launches()
+    times = []
+    for _ in range(DP_TIME_REQUESTS):
+        t0 = time.perf_counter()
+        serve(request)
+        torch.cuda.synchronize(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"step_ms": step_ms, "loss": loss, "train_launches": train_launches,
+            "request_ms": statistics.median(times), "requests": times,
+            "serve_launches": dict(_build.LAUNCHES), "first": first}
+
+
+def _relayout(picks: list, src: dict, dst: dict) -> list:
+    """Tail picks of a run on ``src``'s pooled rows placed on ``dst``'s:
+    both pool the same objects in batch order, padded apart."""
+    import torch
+
+    a = torch.as_tensor(src["pooled_mask"])
+    b = torch.as_tensor(dst["pooled_mask"])
+    out = []
+    for pair in picks:
+        moved = []
+        for t in pair:
+            m = torch.zeros((b.shape[0],) + tuple(t.shape[1:]), dtype=t.dtype)
+            m[b] = t[a]
+            moved.append(m)
+        out.append(tuple(moved))
+    return out
+
+
+def _wait_for(path: Path, timeout: float) -> None:
+    t0 = time.monotonic()
+    while not path.exists():
+        if time.monotonic() - t0 > timeout:
+            raise TimeoutError(f"dp: {path.name} did not appear in {timeout:g} s")
+        time.sleep(0.2)
+
+
+def _save(obj, path: Path) -> None:
+    import torch
+
+    torch.save(obj, path.with_suffix(".part"))
+    path.with_suffix(".part").replace(path)
+
+
+def dp_rank(mesh, work: str, backend: str) -> None:
+    """One rank of phase dp (``parallel.launch.run_ranks`` starts it): the
+    card's f32 parity steps (replaying the one-rank tail picks), the planted
+    run, then, once the one-rank CPU run has written its picks, the CPU's
+    f32 dp = DP steps (over gloo), then the timings. Writes
+    ``rank<r>.pt``."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from sgaligner_tpu_torch.parallel.mesh import Mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = f"cuda:{mesh.rank}" if backend == "nccl" else "cuda:0"
+    torch.cuda.set_device(dev)
+    cpu_mesh = (mesh if backend == "gloo"
+                else Mesh(mesh.dp, mesh.rank, dist.new_group(backend="gloo")))
+    work = Path(work)
+    inp = torch.load(work / "inputs.pt", weights_only=False)
+    hosts = inp["hosts"]
+    out = {"card": _dp_train(hosts["train"], dev, mesh, inp["picks"]),
+           "planted": _dp_train(hosts["train"], dev, mesh, inp["picks"], planted=True)}
+    _wait_for(work / "cpu.pt", DP_TIMEOUT)
+    cpu_picks = torch.load(work / "cpu.pt", weights_only=False)
+    torch.set_num_threads(max(1, (os.cpu_count() or DP) // DP))
+    out["cpu"] = _dp_train(hosts["cpu"], "cpu", cpu_mesh, cpu_picks)
+    out["times"] = _dp_times(hosts, dev, mesh)
+    out["device"] = dev
+    _save(out, work / f"rank{mesh.rank}.pt")
+
+
+def _picks_apart(run: dict, replay: list, rows: slice) -> tuple[int, int]:
+    """(argmax / argmin entries this rank's tail picked apart from the
+    replayed ones, entries) at step 1."""
+    (amax, amin), (rmax, rmin) = run["picks"][0], replay[0]
+    return (int((amax != rmax[rows]).sum()) + int((amin != rmin[rows]).sum()),
+            2 * amax.numel())
+
+
+def phase_dp(state: dict) -> None:
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from sgaligner_tpu_torch.parallel.launch import run_ranks
+
+    card = state["card"]
+    backend = "nccl" if torch.cuda.device_count() >= DP else "gloo"
+    where = (f"{DP} cards, one a rank" if backend == "nccl"
+             else f"one card that the {DP} ranks share")
+    log(f"[dp] {DP} ranks over {backend} on {where}")
+    hosts = _dp_hosts()
+    o_train = hosts["train"]["obj_points_pooled"].shape[0]
+    o_cpu = hosts["cpu"]["obj_points_pooled"].shape[0]
+
+    # one rank first (the card to itself): the f32 parity run, recording its
+    # tail picks, then the timings
+    t0 = time.perf_counter()
+    one = _dp_train(hosts["train"], "cuda")
+    _check_launches("dp: one rank, f32 steps", one["launches"], PER_PCT_TRAIN_STEP, DP_STEPS)
+    reorder = _dp_train(hosts["train_one_rank"], "cuda", replay=_relayout(
+        one["picks"], hosts["train"], hosts["train_one_rank"]))
+    one_times = _dp_times(hosts, "cuda")
+    log(f"[dp] one rank: f32 steps and timings {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="sga_dp_") as tmp:
+        work = Path(tmp)
+        _save({"hosts": hosts, "picks": one["picks"]}, work / "inputs.pt")
+        with ThreadPoolExecutor(1) as pool:
+            t0 = time.perf_counter()
+            ranks = pool.submit(run_ranks, dp_rank, DP, backend, str(work), backend,
+                                timeout=DP_TIMEOUT)
+            try:
+                # the CPU's one-rank run beside the ranks' card runs
+                one_cpu = _dp_train(hosts["cpu"], "cpu")
+                _save(one_cpu["picks"], work / "cpu.pt")
+            finally:
+                ranks.result()
+            log(f"[dp] the ranks and the one-rank CPU run {time.perf_counter() - t0:.1f} s")
+        two = [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(DP)]
+
+    failed = []
+    rows_train = [slice(r * o_train // DP, (r + 1) * o_train // DP) for r in range(DP)]
+    rows_cpu = [slice(r * o_cpu // DP, (r + 1) * o_cpu // DP) for r in range(DP)]
+    for r, t in enumerate(two):
+        for tag, run in (("card", t["card"]), ("planted", t["planted"])):
+            _check_launches(f"dp: rank {r} {tag}, f32 steps", run["launches"],
+                            PER_PCT_TRAIN_STEP, DP_STEPS)
+    # training: the CPU's own dp = DP against dp = 1 distance and the card's
+    # reordered one-rank distance set the bounds
+    ref = _train_readings(one_cpu, two[0]["cpu"], {})
+    rounding = _train_readings(one, reorder, {})
+    bounds = {k: max(DP_VS_CPU * ref[k], DP_VS_REORDER * rounding[k], DP_FLOOR)
+              for k in ("grad", "loss", "param", "stats")}
+    got = _train_readings(one, two[0]["card"], bounds)
+    planted = _train_readings(one, two[0]["planted"], bounds)
+    apart = {tag: [_picks_apart(t[key], replay, rows[r]) for r, t in enumerate(two)]
+             for tag, key, replay, rows in (("card", "card", one["picks"], rows_train),
+                                            ("CPU", "cpu", one_cpu["picks"], rows_cpu))}
+    for who, x in ((f"dp={DP} against dp=1, CPU, B={DP_CPU_B} (O={o_cpu})", ref),
+                   (f"one rank, its rows in the other order, card, B={TRAIN_B}", rounding),
+                   (f"dp={DP} against dp=1, card, B={TRAIN_B} (O={o_train})", got)):
+        log(f"[dp] f32 {who}: worst gradient leaf {x['leaf']} "
+            f"{x['grad']:.3e}; losses {x['loss']:.3e}; parameters {x['param']:.3e} (most in "
+            f"{x['param_leaf']}); running statistics {x['stats']:.3e}")
+    log(f"[dp] bounds (the larger of {DP_VS_CPU:g} x the CPU's and {DP_VS_REORDER:g} x the "
+        f"card's reordered reading, at least {DP_FLOOR:g}): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in bounds.items())
+        + f"; the card's readings {', '.join(got['failed']) or 'all'} "
+        + ("beyond them" if got["failed"] else "within them"))
+    for tag, per_rank in apart.items():
+        log(f"[dp] tail picks at step 1 apart from the one-rank run's, {tag}, per rank: "
+            + ", ".join(f"{a} of {n}" for a, n in per_rank))
+    total = sum(n for _, n in apart["card"])
+    if got["failed"]:
+        failed.append(f"training readings beyond their bounds: {got['failed']}")
+    if bounds["param"] > DP_PARAM_MAX:
+        failed.append(f"the parameters' bound {bounds['param']:.3e} of the distance moved "
+                      f"exceeds {DP_PARAM_MAX:g}: the card's rounding is too loud to check them")
+    if not sum(a for a, _ in apart["card"]) <= PCT_INDEX_APART * total:
+        failed.append("tail picks apart")
+    log(f"[dp] planted fault ({DP_PLANTED}): gradient {planted['leaf']} {planted['grad']:.3e}, "
+        f"loss {planted['loss']:.3e}, parameters {planted['param']:.3e}, statistics "
+        f"{planted['stats']:.3e}; caught by {planted['failed']}")
+    if not planted["failed"]:
+        failed.append("the planted fault went unseen")
+    # the ranks' parameters and running statistics, bit for bit
+    a, b = two[0]["card"]["params"], two[1]["card"]["params"]
+    unequal = [k for k in a if not torch.equal(a[k], b[k])]
+    log(f"[dp] rank 1's parameters and running statistics after {DP_STEPS} steps against "
+        f"rank 0's: {len(a) - len(unequal)} of {len(a)} tensors bit-equal")
+    if unequal:
+        failed.append(f"ranks apart in {unequal[:5]}")
+
+    # serving: the split request against the one-rank request
+    want = one_times["first"]
+    worst = {"rr_sum": 0.0, "alignment_score": 0.0}
+    counts = [k for k in want if k == "rr_count" or k.startswith("hits@")]
+    counts_apart = False
+    for r, t in enumerate(two):
+        first = t["times"]["first"]
+        off = [k for k in counts if (first[k] != want[k] if isinstance(want[k], tuple)
+                                     else int(first[k]) != int(want[k]))]
+        if off:
+            counts_apart = True
+            failed.append(f"rank {r}'s request counts differ: {off}")
+        for k in worst:
+            w = want[k].double()
+            d = float(((first[k].double() - w).abs() / w.abs().clamp_min(1e-30)).max())
+            worst[k] = max(worst[k], d)
+        _check_launches(f"dp: rank {r} requests", t["times"]["serve_launches"], PER_REQUEST,
+                        DP_TIME_REQUESTS)
+        _check_launches(f"dp: rank {r} bf16 steps", t["times"]["train_launches"],
+                        PER_PCT_TRAIN_STEP, DP_TIME_STEPS)
+    log(f"[dp] B=512 bf16 request split over {DP} ranks against one rank: counts "
+        f"{'APART' if counts_apart else 'equal'}; rr_sum "
+        f"{worst['rr_sum']:.3e}, alignment_score {worst['alignment_score']:.3e} relative "
+        f"(bound {DP_SERVE_RTOL:g})")
+    if max(worst.values()) > DP_SERVE_RTOL:
+        failed.append(f"request metrics apart: {worst}")
+    _check_launches("dp: one rank requests", one_times["serve_launches"], PER_REQUEST,
+                    DP_TIME_REQUESTS)
+    _check_launches("dp: one rank bf16 steps", one_times["train_launches"],
+                    PER_PCT_TRAIN_STEP, DP_TIME_STEPS)
+
+    shared = " (two ranks on one card: not a scaling figure)" if backend == "gloo" else ""
+    log(f"[dp] bf16 step, B={TRAIN_B}: dp=1 {one_times['step_ms']:.2f} ms; dp={DP} "
+        + " / ".join(f"{t['times']['step_ms']:.2f}" for t in two)
+        + f" ms (rank by rank){shared} | {card}")
+    log(f"[dp] bf16 request, B=512: dp=1 {one_times['request_ms']:.2f} ms; dp={DP} "
+        + " / ".join(f"{t['times']['request_ms']:.2f}" for t in two) + f" ms (median of "
+        f"{DP_TIME_REQUESTS}, rank by rank){shared} | {card}")
+    for t in two:
+        if not np.isfinite(t["times"]["loss"]):
+            failed.append("a bf16 step's loss is not finite")
+    state["dp"] = {"backend": backend, "readings": got, "bounds": bounds, "cpu": ref,
+                   "rounding": rounding, "planted": planted, "serve": worst,
+                   "one": one_times, "two": [t["times"] for t in two]}
+    if failed:
+        raise AssertionError(f"dp: {failed}")
+
+
 def bwd_work(args) -> tuple[int, int, int]:
     """The gradient-carrying work of one pointnet_bwd call on its inputs:
     (rows, channels, tiles) summed over objects. A channel carries gradient
@@ -3975,7 +4367,7 @@ def main() -> int:
                         ("spct", phase_spct), ("ops", phase_ops),
                         ("full_pct", phase_full_pct),
                         ("quality", phase_quality), ("downstream", phase_downstream),
-                        ("trainer", phase_trainer),
+                        ("trainer", phase_trainer), ("dp", phase_dp),
                         ("time", phase_time)):
         t0 = time.perf_counter()
         phase(state)

@@ -11,6 +11,10 @@ summaries. Prints the results as one JSON line:
 
     python -m sgaligner_tpu_torch.cli.inference_align_reg --config CFG.yaml \\
         --snapshot checkpoints/torch/aligner_full.pth.tar --device cpu
+
+Under ``torchrun`` each rank evaluates its block of every batch (the
+flags ``--dist_backend`` and ``--device`` as ``trainval_sgaligner``'s);
+the metrics are the whole val split's, and rank 0 prints them.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ import json
 from sgaligner_tpu_torch.core.config import make_cfg, update_config
 from sgaligner_tpu_torch.data.loaders import get_val_dataloader
 from sgaligner_tpu_torch.engine.tester import AlignRegTester
+from sgaligner_tpu_torch.parallel.mesh import (init_from_launcher, leave_launcher,
+                                               make_mesh, rank_device)
 from sgaligner_tpu_torch.reg.backend import build_backend
 from sgaligner_tpu_torch.reg.evaluator import RegistrationEvaluator
 
@@ -34,22 +40,33 @@ def parse_args(argv=None):
     parser.add_argument("--reg_snapshot", default=None)
     parser.add_argument("--output_root", default=None)
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--dist_backend", default="nccl",
+                        help="torch.distributed backend under torchrun (nccl, gloo)")
     return parser.parse_args(argv)
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    cfg = update_config(make_cfg(), args.config, output_root=args.output_root)
-    loader = get_val_dataloader(cfg)
-    reg_eval = None
-    if cfg.registration:
-        backend = build_backend(cfg, args.reg_snapshot, device=args.device)
-        reg_eval = RegistrationEvaluator(cfg, backend, device=args.device)
-    tester = AlignRegTester(cfg, loader.dataset, loader,
-                            registration_evaluator=reg_eval,
-                            snapshot=args.snapshot, test_epoch=args.test_epoch,
-                            test_iter=args.test_iter, device=args.device)
-    print(json.dumps(tester.run(), default=float))
+    local_rank = init_from_launcher(args.dist_backend)
+    try:
+        device = rank_device(args.device, local_rank)
+        cfg = update_config(make_cfg(), args.config, output_root=args.output_root)
+        mesh = make_mesh(cfg.tpu.dp)
+        cfg.tpu.dp = mesh.dp                 # the loader pools per rank's block
+        loader = get_val_dataloader(cfg)
+        reg_eval = None
+        if cfg.registration:
+            backend = build_backend(cfg, args.reg_snapshot, device=device)
+            reg_eval = RegistrationEvaluator(cfg, backend, device=device)
+        tester = AlignRegTester(cfg, loader.dataset, loader,
+                                registration_evaluator=reg_eval,
+                                snapshot=args.snapshot, test_epoch=args.test_epoch,
+                                test_iter=args.test_iter, device=device)
+        results = tester.run()
+        if mesh.rank == 0:
+            print(json.dumps(results, default=float))
+    finally:
+        leave_launcher()
     return 0
 
 

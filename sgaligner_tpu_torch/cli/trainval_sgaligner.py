@@ -12,6 +12,16 @@ snapshots/`` as ``.pth.tar`` files, which the inference CLIs find:
 
 ``train(cfg, ...)`` is the body, for a config given as a dict
 (``core.config.make_cfg`` and ``make_output_tree``; no PyYAML).
+
+Data parallel: launch one process per rank with ``torchrun``; each joins
+the launcher's process group over ``--dist_backend`` (``nccl`` unless
+asked otherwise; ``gloo`` for ranks on the CPU or sharing a card), and
+``--device cuda`` is the card of its ``LOCAL_RANK`` (``cuda:0`` puts every
+rank on card 0). ``tpu.dp`` in the config is 0 (every launched rank) or
+their number:
+
+    torchrun --nproc_per_node 2 -m sgaligner_tpu_torch.cli.trainval_sgaligner \\
+        --config CFG.yaml
 """
 
 from __future__ import annotations
@@ -22,6 +32,8 @@ from typing import Any
 from sgaligner_tpu_torch.core.config import Config, make_cfg, update_config
 from sgaligner_tpu_torch.data.loaders import get_train_val_data_loader
 from sgaligner_tpu_torch.engine.trainer import Trainer
+from sgaligner_tpu_torch.parallel.mesh import (init_from_launcher, leave_launcher,
+                                               make_mesh, rank_device)
 
 
 def parse_args(argv=None):
@@ -36,6 +48,8 @@ def parse_args(argv=None):
     parser.add_argument("--output_root", default=None,
                         help="root for the derived output/ tree (default: cwd)")
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--dist_backend", default="nccl",
+                        help="torch.distributed backend under torchrun (nccl, gloo)")
     return parser.parse_args(argv)
 
 
@@ -43,7 +57,10 @@ def train(cfg: Config, device: str = "cuda", resume: bool = False,
           snapshot: str | None = None) -> dict[str, Any]:
     """Train ``cfg`` (its output tree already derived) on ``device``: the
     Scan3R loaders, a ``Trainer``, the pretrained weights of ``snapshot``
-    when given, then ``Trainer.run``. Returns its history."""
+    when given, then ``Trainer.run``. Returns its history. Under data
+    parallel ``cfg.tpu.dp`` is set to the ranks' number first, so the
+    loaders pool each rank's block of a batch apart."""
+    cfg.tpu.dp = make_mesh(cfg.tpu.dp).dp
     train_loader, val_loader = get_train_val_data_loader(cfg)
     trainer = Trainer(cfg, lambda: iter(train_loader), lambda: iter(val_loader),
                       device=device)
@@ -55,8 +72,13 @@ def train(cfg: Config, device: str = "cuda", resume: bool = False,
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    cfg = update_config(make_cfg(), args.config, output_root=args.output_root)
-    train(cfg, args.device, resume=args.resume, snapshot=args.snapshot)
+    local_rank = init_from_launcher(args.dist_backend)
+    try:
+        cfg = update_config(make_cfg(), args.config, output_root=args.output_root)
+        train(cfg, rank_device(args.device, local_rank), resume=args.resume,
+              snapshot=args.snapshot)
+    finally:
+        leave_launcher()
     return 0
 
 

@@ -139,7 +139,8 @@ class TpuConfig:
     points_per_object: int = 512
     # "bfloat16" or "float32" (parameters stay float32)
     compute_dtype: str = "float32"
-    # data-parallel size: only 1 (or 0, one device) is ported
+    # data-parallel ranks (parallel/mesh.py): 0 = the launched process
+    # group's world size (1 without a group); any other value must equal it
     dp: int = 0
     # per-pair compaction (not ported: the loader and the model raise)
     compact_slots: int = 0

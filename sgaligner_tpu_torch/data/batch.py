@@ -1,7 +1,8 @@
 """PairBatch — the static-shape data contract for scene-graph pairs.
 
 A copy of the numpy contract in ``sgaligner_tpu/data/batch.py`` (``BatchSpec``,
-``pack_pair``, ``collate``, ``pool_compact``), so the port builds the same
+``pack_pair``, ``collate``, ``pad_batch_to``, ``pool_compact``,
+``pool_compact_sharded``, ``stack_queue``), so the port builds the same
 batches without importing the JAX package, plus ``to_device``.
 
 Each pair owns ``2N`` object slots: ``[0, N)`` the source graph, ``[N, 2N)``
@@ -175,6 +176,24 @@ def collate(samples: list[dict[str, np.ndarray]]) -> PairBatch:
     return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
 
 
+def pad_batch_to(batch: PairBatch, target_b: int) -> PairBatch:
+    """Pad the pair axis with empty pairs (overlap -1, every mask off) up to
+    ``target_b`` pairs, so it splits evenly over the ranks."""
+    b = batch["overlap"].shape[0]
+    if b == target_b:
+        return batch
+    if b > target_b:
+        raise ValueError(f"batch {b} > target {target_b}")
+    out = {}
+    for k, v in batch.items():
+        v = np.asarray(v)
+        pad = np.zeros((target_b - b,) + v.shape[1:], v.dtype)
+        if k == "overlap":
+            pad -= 1.0
+        out[k] = np.concatenate([v, pad], axis=0)
+    return out
+
+
 def pool_compact(batch: PairBatch, bucket: int = 128) -> PairBatch:
     """Batch-pooled object compaction: every real object of the batch packed
     into one flat ``obj_points_pooled [K, 3, P]``, K = real objects rounded up
@@ -210,6 +229,84 @@ def pool_compact(batch: PairBatch, bucket: int = 128) -> PairBatch:
     out["obj_points_pooled"] = pts
     out["pooled_flat_idx"] = idx
     out["pooled_mask"] = mask
+    return out
+
+
+def pool_compact_sharded(batch: PairBatch, bucket: int = 128,
+                         dp: int = 1) -> PairBatch:
+    """Per-shard pooled compaction for ``dp`` ranks: each contiguous block
+    of ``B/dp`` pairs (the batch padded with empty pairs to a multiple of
+    ``dp`` first) is pooled alone, every block to one common K, and the
+    blocks are concatenated, so rows ``[i·K, (i+1)·K)`` hold only objects of
+    block i's pairs. ``pooled_flat_idx`` stays global (``b * 2N + slot``);
+    ``parallel.mesh.shard_batch`` makes a rank's rows local. ``dp = 1`` is
+    ``pool_compact``."""
+    if dp <= 1:
+        return pool_compact(batch, bucket)
+    b = batch["obj_mask"].shape[0]
+    if b % dp != 0:
+        batch = pad_batch_to(batch, ((b + dp - 1) // dp) * dp)
+        b = batch["obj_mask"].shape[0]
+    two_n = batch["obj_mask"].shape[1]
+    bs = b // dp
+    shards = [pool_compact({k: v[i * bs:(i + 1) * bs]
+                            for k, v in batch.items()}, bucket)
+              for i in range(dp)]
+    k = max(s["obj_points_pooled"].shape[0] for s in shards)
+
+    def repad(s, i):
+        kk = s["obj_points_pooled"].shape[0]
+        pts = np.zeros((k,) + s["obj_points_pooled"].shape[1:],
+                       s["obj_points_pooled"].dtype)
+        pts[:kk] = s["obj_points_pooled"]
+        idx = np.zeros((k,), np.int32)
+        idx[:kk] = s["pooled_flat_idx"] + i * bs * two_n  # block -> global
+        mask = np.zeros((k,), bool)
+        mask[:kk] = s["pooled_mask"]
+        return pts, idx, mask
+
+    parts = [repad(s, i) for i, s in enumerate(shards)]
+    out = {kk: np.concatenate([s[kk] for s in shards])
+           for kk in shards[0] if kk not in POOLED_KEYS}
+    for j, key in enumerate(POOLED_KEYS):
+        out[key] = np.concatenate([p[j] for p in parts])
+    return out
+
+
+POOLED_KEYS = ("obj_points_pooled", "pooled_flat_idx", "pooled_mask")
+
+
+def stack_queue(batches: list[dict], dp: int = 1) -> dict:
+    """Stack batches of one B into a ``[Q, ...]`` serving queue. The pooled
+    axis K may differ per batch (bucket quantisation); each is padded to the
+    queue's largest with masked rows. With ``dp > 1`` (batches from
+    ``pool_compact_sharded``) the padding goes at the end of each rank's
+    block of rows, so every block keeps referencing its own pairs."""
+    out = {k: np.stack([np.asarray(b[k]) for b in batches])
+           for k in batches[0] if k not in POOLED_KEYS}
+    if "obj_points_pooled" not in batches[0]:
+        return out
+    ks = [b["obj_points_pooled"].shape[0] for b in batches]
+    for k in ks:
+        if k % dp != 0:
+            raise ValueError(
+                f"pooled axis {k} not divisible by dp={dp}: build batches "
+                "with pool_compact_sharded(dp=dp)")
+    kmax = max(k // dp for k in ks)
+
+    def pad_blocks(b):
+        k = b["obj_points_pooled"].shape[0] // dp
+        res = {}
+        for key in POOLED_KEYS:
+            v = np.asarray(b[key]).reshape((dp, k) + b[key].shape[1:])
+            pad = np.zeros((dp, kmax - k) + v.shape[2:], v.dtype)
+            res[key] = np.concatenate([v, pad], axis=1).reshape(
+                (dp * kmax,) + v.shape[2:])
+        return res
+
+    padded = [pad_blocks(b) for b in batches]
+    for key in POOLED_KEYS:
+        out[key] = np.stack([p[key] for p in padded])
     return out
 
 

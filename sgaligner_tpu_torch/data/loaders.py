@@ -7,10 +7,12 @@ out as numpy PairBatches; the tester moves each to the device with
 ``data.batch.to_device``. The train loader shuffles per epoch and drops the
 last partial batch; val keeps order and yields the last batch short.
 
-``cfg.tpu.pooled_bucket > 0`` pools each batch with ``data.batch.pool_compact``
-(one device: the JAX loader's per-shard pooling at dp = 1). Data parallel
-(``cfg.tpu.dp > 1``) and the per-pair compacted layout
-(``cfg.tpu.compact_slots > 0``) are not ported and raise.
+``cfg.tpu.pooled_bucket > 0`` pools each batch with
+``data.batch.pool_compact_sharded`` at ``cfg.tpu.dp`` (``pool_compact``
+for one rank): under data parallel every rank builds the same whole batch
+from the same seed, pooled per rank's block, and takes its block with
+``parallel.mesh.shard_batch``. The per-pair compacted layout
+(``cfg.tpu.compact_slots > 0``) is not ported and raises.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from sgaligner_tpu_torch.core.config import Config
-from sgaligner_tpu_torch.data.batch import collate, pool_compact
+from sgaligner_tpu_torch.data.batch import collate, pool_compact_sharded
 from sgaligner_tpu_torch.data.scan3r import Scan3RDataset
 
 
@@ -74,17 +76,16 @@ class BatchLoader:
 
 
 def _pool_transform(cfg: Config):
-    """Batch-pooled compaction when ``cfg.tpu.pooled_bucket > 0``."""
-    if cfg.tpu.dp > 1:
-        raise NotImplementedError(f"tpu.dp = {cfg.tpu.dp}: data parallel is not "
-                                  "ported yet (one device, dp 0 or 1)")
+    """Batch-pooled compaction when ``cfg.tpu.pooled_bucket > 0``, per
+    rank's block when ``cfg.tpu.dp > 1``."""
     if cfg.tpu.compact_slots > 0:
         raise NotImplementedError("tpu.compact_slots > 0: the per-pair compacted "
                                   "layout is not ported yet; use pooled_bucket")
     bucket = cfg.tpu.pooled_bucket
     if bucket <= 0:
         return None
-    return lambda b: pool_compact(b, bucket)
+    dp = max(cfg.tpu.dp, 1)
+    return lambda b: pool_compact_sharded(b, bucket, dp)
 
 
 def get_train_val_data_loader(cfg: Config, dataset_cls=Scan3RDataset):

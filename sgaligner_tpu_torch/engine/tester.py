@@ -17,6 +17,13 @@ log-variances, ranks, MRR / Hits@k, SGAR) on the batch moved there with
 node matches of the same eval step's similarity matrices, and summarises the
 normal and the aligner registration (the JAX ``AlignRegTester._register_pair``).
 
+Data parallel (``cfg.tpu.dp``, the launched process group's ranks, as the
+JAX tester's mesh): each rank runs the model on its block of every batch
+(``parallel.mesh.shard_batch``), and the eval step's metrics and
+``sim_matrices`` are the whole batch's on every rank. ``AlignRegTester``
+registers on rank 0 alone: its registration summaries are in rank 0's
+results, and dp does not speed registration up.
+
 The two downstream tasks (the JAX ``OverlapTester`` and ``MosaickTester``)
 read the key modality's similarity matrices of a batch (``sim_matrices``:
 the model's forward and the cosine distances, no loss) and register with
@@ -45,6 +52,7 @@ from sgaligner_tpu_torch.engine.factory import (build_model, build_objective,
                                                 resolve_device)
 from sgaligner_tpu_torch.engine.train_step import eval_epoch, make_eval_step
 from sgaligner_tpu_torch.ops import metrics as M
+from sgaligner_tpu_torch.parallel.mesh import gather_rows, make_mesh, shard_batch
 from sgaligner_tpu_torch.utils.io import load_pkl_data, load_plydata_npy
 from sgaligner_tpu_torch.utils.logging import SummaryBoard
 from sgaligner_tpu_torch.utils.pointcloud import apply_transform, compute_pcl_overlap
@@ -57,6 +65,7 @@ class BaseTester:
                  test_epoch: int | None = None, test_iter: int | None = None,
                  device: str | torch.device = "cuda", with_sim: bool = False):
         self.cfg = cfg
+        self.mesh = make_mesh(cfg.tpu.dp)
         self.device = resolve_device(device)
         self.model = build_model(cfg, self.device)
         self.objective = build_objective(cfg).to(self.device)
@@ -79,7 +88,7 @@ class BaseTester:
         self.epoch, self.iteration = self._load(snapshot)
         self.eval_step = make_eval_step(self.model, self.objective, self.modules,
                                         ks=tuple(cfg.metrics.all_k),
-                                        with_sim=with_sim)
+                                        with_sim=with_sim, mesh=self.mesh)
 
     def _load(self, snapshot: str) -> tuple[int, int]:
         """Loads the weights strictly; returns (epoch, iteration)."""
@@ -91,13 +100,16 @@ class BaseTester:
     def sim_matrices(self, batch: dict) -> np.ndarray:
         """The key modality's per-pair cosine distances ``[B, 2N, 2N]`` of a
         host batch (the model's forward on the tester's device; the JAX
-        ``BaseTester.sim_matrices``)."""
+        ``BaseTester.sim_matrices``); under data parallel the whole
+        batch's, each rank's block gathered."""
         self.model.train(False)
-        batch = to_device(batch, self.device)
+        batch = to_device(shard_batch(batch, self.mesh), self.device)
         key = "joint" if len(self.modules) > 1 else self.modules[0]
-        b, two_n = batch["obj_mask"].shape
-        emb = self.model(batch)[key].reshape(b, two_n, -1)
-        return M.cosine_sim_matrix(emb, batch["obj_mask"]).cpu().numpy()
+        two_n = batch["obj_mask"].shape[1]
+        emb = self.model(batch, mesh=self.mesh)[key]
+        emb, obj_mask = gather_rows(self.mesh, emb, batch["obj_mask"])
+        return M.cosine_sim_matrix(emb.reshape(-1, two_n, emb.shape[-1]),
+                                   obj_mask).cpu().numpy()
 
 
 class AlignRegTester(BaseTester):
@@ -116,7 +128,8 @@ class AlignRegTester(BaseTester):
     def run(self) -> dict[str, Any]:
         """MRR, Hits@k and SGAR over the loader (the loss is left out); with
         registration also ``normal_registration`` and
-        ``aligner_registration``, the two boards' summaries."""
+        ``aligner_registration``, the two boards' summaries (on rank 0
+        alone under data parallel)."""
         boards = (SummaryBoard(), SummaryBoard())
         seen = [0]
 
@@ -127,11 +140,12 @@ class AlignRegTester(BaseTester):
                 self._register_pair(batch, sim, i, seen[0] + i, *boards)
             seen[0] += b
 
+        register = self.run_reg and self.mesh.rank == 0
         results = eval_epoch(self.eval_step, self.loader, self.cfg.metrics.all_k,
-                             self.device, visit if self.run_reg else None)
+                             self.device, visit if register else None, self.mesh)
         results = {k: v for k, v in results.items()
                    if k not in ("loss", "last_batch_loss")}
-        if self.run_reg:
+        if register:
             results["normal_registration"] = boards[0].summary()
             results["aligner_registration"] = boards[1].summary()
         return results

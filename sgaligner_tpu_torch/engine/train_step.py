@@ -10,6 +10,15 @@ backward, Adam with gradient accumulation and the non-finite skip),
 and return new ones; here the model and the objective hold their
 parameters, the train step updates them in place, and every step takes the
 batch as a dict of tensors on the model's device (``data.batch.to_device``).
+
+Data parallel: a step made with a ``mesh`` (``parallel.mesh``) takes this
+rank's block of the batch (``shard_batch``, then ``to_device``) and is the
+one-rank step on the whole batch. The train step gathers every rank's
+embeddings and the objective's batch fields, computes the whole batch's
+loss on each rank, back-propagates 1/dp of it and sums the gradients over
+the ranks before the finite check and Adam, so every rank takes the same
+update (or skips the same step). The eval and serving steps sum the metric
+components over the ranks and gather the per-pair outputs in pair order.
 """
 
 from __future__ import annotations
@@ -24,6 +33,27 @@ from sgaligner_tpu_torch.data.batch import to_device
 from sgaligner_tpu_torch.engine.factory import build_lr_schedule, build_optimizer
 from sgaligner_tpu_torch.ops import metrics as M
 from sgaligner_tpu_torch.ops.objective import OverallLoss
+from sgaligner_tpu_torch.parallel.mesh import (Mesh, gather_rows, reduce_sum,
+                                               shard_batch, sharded)
+
+# the batch fields the objectives read (``ops.objective.flat_loss_indices``)
+LOSS_FIELDS = ("obj_mask", "e1i", "e2i", "anchor_mask", "e1j", "e1j_mask", "e2j",
+               "e2j_mask")
+
+
+def gather_embeddings(mesh: Mesh | None, embs: dict) -> dict:
+    """Every rank's embeddings (flat ``[b·2N, D]``) in pair order, on every
+    rank; differentiable."""
+    if not sharded(mesh):
+        return embs
+    return dict(zip(embs, gather_rows(mesh, *embs.values())))
+
+
+def gather_batch(mesh: Mesh | None, batch: dict) -> dict:
+    """The whole batch's ``LOSS_FIELDS`` from every rank's block."""
+    if not sharded(mesh):
+        return batch
+    return dict(zip(LOSS_FIELDS, gather_rows(mesh, *(batch[k] for k in LOSS_FIELDS))))
 
 
 @dataclass
@@ -123,14 +153,16 @@ def _accumulate(state: TrainState, params: list[torch.nn.Parameter]) -> None:
     _update(state)
 
 
-def make_train_step(modules: tuple[str, ...]):
+def make_train_step(modules: tuple[str, ...], mesh: Mesh | None = None):
     """Returns ``step(state, batch) -> losses``: ``loss`` and its terms
     (``icl_loss_unimodal``, ``icl_loss_multimodal``, ``ial_loss`` for
     ``OverallLoss``; one NCA term per head for ``OverallNCALoss``;
-    detached). The step is dropped whole when any gradient is non-finite
-    (optax ``apply_if_finite`` around ``MultiSteps``): parameters, Adam's
-    state and the accumulated gradient stay as they were. Deciding that
-    reads one flag back from the device per step. BatchNorm running
+    detached; the whole batch's under data parallel). The step is dropped
+    whole when any gradient is non-finite (optax ``apply_if_finite`` around
+    ``MultiSteps``): parameters, Adam's state and the accumulated gradient
+    stay as they were. Deciding that reads one flag back from the device per
+    step; under data parallel it reads the gradients summed over the ranks,
+    the same on every rank, so the ranks decide alike. BatchNorm running
     statistics move in the forward, on a skipped step too, as the JAX step
     assigns the new ``batch_stats`` either way."""
 
@@ -140,11 +172,17 @@ def make_train_step(modules: tuple[str, ...]):
                              f"!= {tuple(modules)}")
         state.model.train(True)
         state.optimizer.zero_grad(set_to_none=True)
-        embs = state.model(batch, generator=state.generator)
-        losses = state.objective(embs, batch)
-        losses["loss"].backward()
+        embs = state.model(batch, generator=state.generator, mesh=mesh)
+        losses = state.objective(gather_embeddings(mesh, embs), gather_batch(mesh, batch))
+        if sharded(mesh):
+            (losses["loss"] / mesh.dp).backward()
+        else:
+            losses["loss"].backward()
         params = state.parameters()
         grads = [p.grad for p in params if p.grad is not None]
+        if sharded(mesh):
+            for g, total in zip(grads, reduce_sum(mesh, grads)):
+                g.copy_(total)
         finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
         if not bool(finite):
             state.skipped += 1
@@ -157,7 +195,8 @@ def make_train_step(modules: tuple[str, ...]):
     return step
 
 
-def _rank_metrics(embs, modules, ks, batch, with_sim=False, eval_extras=False):
+def _rank_metrics(embs, modules, ks, batch, with_sim=False, eval_extras=False,
+                  mesh=None):
     key = "joint" if len(modules) > 1 else modules[0]
     b, two_n = batch["obj_mask"].shape
     emb = embs[key].reshape(b, two_n, -1)
@@ -179,65 +218,95 @@ def _rank_metrics(embs, modules, ks, batch, with_sim=False, eval_extras=False):
         out["sim"] = sim
     for k, (correct, total) in M.hits_at_k_from_ranks(ranks, mask, ks).items():
         out[f"hits@{k}"] = (correct, total)
-    return out
+    return _reduce_metrics(mesh, out)
+
+
+def _reduce_metrics(mesh: Mesh | None, out: dict) -> dict:
+    """One rank's metric components -> the whole batch's: the counts and
+    sums summed over the ranks, the per-pair outputs (``alignment_score``,
+    ``pair_valid``, ``sgar``, ``sim``) gathered in pair order."""
+    if not sharded(mesh):
+        return out
+    hits = [k for k in out if k.startswith("hits@")]
+    parts = [out["rr_sum"], out["rr_count"], *(t for k in hits for t in out[k])]
+    total = iter(reduce_sum(mesh, parts))
+    red = {"rr_sum": next(total), "rr_count": next(total)}
+    for k in hits:
+        red[k] = (next(total), next(total))
+    per_pair = {k: out[k] for k in ("alignment_score", "pair_valid", "sim") if k in out}
+    if "sgar" in out:
+        per_pair.update({f"sgar/{m}": v for m, v in out["sgar"].items()})
+    for k, v in zip(per_pair, gather_rows(mesh, *per_pair.values())):
+        if k.startswith("sgar/"):
+            red.setdefault("sgar", {})[k[5:]] = v
+        else:
+            red[k] = v
+    return red
 
 
 def serving_metrics(model, modules: tuple[str, ...], ks: tuple[int, ...],
-                    batch: dict, with_sim: bool = False) -> dict:
+                    batch: dict, with_sim: bool = False,
+                    mesh: Mesh | None = None) -> dict:
     """One batch: the metric components the host accumulates (with
-    ``with_sim`` also the per-pair similarity matrices ``sim``)."""
-    return _rank_metrics(model(batch), modules, ks, batch, with_sim=with_sim)
+    ``with_sim`` also the per-pair similarity matrices ``sim``); under data
+    parallel ``batch`` is this rank's block and the components the whole
+    batch's."""
+    return _rank_metrics(model(batch, mesh=mesh), modules, ks, batch, with_sim=with_sim,
+                         mesh=mesh)
 
 
 def make_serving_step(model, modules: tuple[str, ...],
                       ks: tuple[int, ...] = (1, 2, 3, 4, 5),
-                      with_sim: bool = False):
+                      with_sim: bool = False, mesh: Mesh | None = None):
     """Returns ``step(batch) -> metric components`` (inference mode; puts
     the model in eval mode)."""
 
     @torch.inference_mode()
     def step(batch: dict) -> dict:
         model.train(False)
-        return serving_metrics(model, modules, ks, batch, with_sim)
+        return serving_metrics(model, modules, ks, batch, with_sim, mesh)
 
     return step
 
 
 def make_eval_step(model, objective: OverallLoss, modules: tuple[str, ...],
                    ks: tuple[int, ...] = (1, 2, 3, 4, 5),
-                   with_sim: bool = False):
+                   with_sim: bool = False, mesh: Mesh | None = None):
     """Returns ``step(batch) -> metric components``: ``loss``, ``rr_sum``,
     ``rr_count``, ``pair_valid``, ``sgar`` ({mode: [B]}),
     ``alignment_score``, ``hits@k`` and, with ``with_sim``, the per-pair
-    similarity matrices ``sim``."""
+    similarity matrices ``sim``; the whole batch's under data parallel."""
 
     @torch.inference_mode()
     def step(batch: dict) -> dict:
         model.train(False)
-        embs = model(batch)
-        out = {"loss": objective(embs, batch)["loss"]}
+        embs = model(batch, mesh=mesh)
+        out = {"loss": objective(gather_embeddings(mesh, embs),
+                                 gather_batch(mesh, batch))["loss"]}
         out.update(_rank_metrics(embs, modules, ks, batch, with_sim=with_sim,
-                                 eval_extras=True))
+                                 eval_extras=True, mesh=mesh))
         return out
 
     return step
 
 
 def eval_epoch(step, batches, ks: tuple[int, ...], device,
-               visit: Callable[[dict, dict], None] | None = None
-               ) -> dict[str, float]:
+               visit: Callable[[dict, dict], None] | None = None,
+               mesh: Mesh | None = None) -> dict[str, float]:
     """One pass of an eval step (``make_eval_step``) over host batches, each
-    moved to ``device`` and its components read back: ``loss`` (the mean
+    moved to ``device`` (this rank's block of it under data parallel: the
+    step's ``mesh``) and its components read back: ``loss`` (the mean
     over batches), ``last_batch_loss``, ``mrr``, ``hits@k`` and
     ``sgar@{2,50,100}`` over the pass (the JAX trainer's
-    ``inference_epoch`` and tester's aggregation). ``visit(batch, out)``,
-    where given, sees each host batch with its step's outputs."""
+    ``inference_epoch`` and tester's aggregation), the same on every rank.
+    ``visit(batch, out)``, where given, sees each host batch with its
+    step's outputs."""
     rr_sum = rr_count = n_pairs = 0.0
     hits = {k: [0.0, 0.0] for k in ks}
     sgar_sums = {"2": 0.0, "50": 0.0, "100": 0.0}
     losses: list[float] = []
     for batch in batches:
-        out = step(to_device(batch, device))
+        out = step(to_device(shard_batch(batch, mesh), device))
         if visit is not None:
             visit(batch, out)
         losses.append(float(out["loss"]))
@@ -262,11 +331,13 @@ def eval_epoch(step, batches, ks: tuple[int, ...], device,
 
 
 def queue_metrics(model, modules: tuple[str, ...], ks: tuple[int, ...],
-                  batches: list[dict]) -> dict:
+                  batches: list[dict], mesh: Mesh | None = None) -> dict:
     """``serving_metrics`` of each batch in turn: scalar components summed
     over the queue in its order, ``alignment_score`` stacked to ``[Q, B]``
-    (the outputs of the JAX ``make_serving_queue``)."""
-    outs = [serving_metrics(model, modules, ks, b) for b in batches]
+    (the outputs of the JAX ``make_serving_queue``). Under data parallel
+    each batch is this rank's block (``parallel.mesh.shard_queue``) and the
+    outputs are the whole queue's."""
+    outs = [serving_metrics(model, modules, ks, b, mesh=mesh) for b in batches]
     summed = {}
     for k in outs[0]:
         if k == "alignment_score":
@@ -279,9 +350,9 @@ def queue_metrics(model, modules: tuple[str, ...], ks: tuple[int, ...],
 
 
 def serve_queue(model, modules: tuple[str, ...], batches: list[dict],
-                ks: tuple[int, ...] = (1, 2, 3, 4, 5)) -> dict:
+                ks: tuple[int, ...] = (1, 2, 3, 4, 5), mesh: Mesh | None = None) -> dict:
     """A queue of batches through ``queue_metrics`` (inference mode; puts
     the model in eval mode)."""
     model.train(False)
     with torch.inference_mode():
-        return queue_metrics(model, modules, ks, batches)
+        return queue_metrics(model, modules, ks, batches, mesh)

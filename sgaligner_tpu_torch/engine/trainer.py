@@ -17,9 +17,18 @@ tracking and resume. Snapshots are ``.pth.tar`` files in upstream's layout
 
 As in the JAX package, the loaders' shuffle and augmentation state is not
 part of a snapshot: a resumed run draws its batch order afresh from the
-loader's seed. Data parallel (``cfg.tpu.dp > 1``, ROADMAP §1 item 8) and the
-per-pair compacted layout (``cfg.tpu.compact_slots > 0``, item 7) are not
-ported and raise.
+loader's seed. The per-pair compacted layout (``cfg.tpu.compact_slots >
+0``, ROADMAP §1 item 7) is not ported and raises.
+
+Data parallel (``cfg.tpu.dp``, ``parallel.mesh.make_mesh``: the launched
+process group's ranks): every rank runs a Trainer on the same loaders (the
+same whole batches), takes its block of each (``shard_batch``) and steps
+with the mesh, so the parameters stay equal on every rank. Rank 0 alone
+writes the log, the TensorBoard scalars, the snapshots and the profiler
+trace; the ranks meet after each save. The val metrics are the whole
+batches' on every rank, and every rank reads the rolling snapshot on
+resume. EVA's nca step under data parallel is not ported (ROADMAP §1 item
+8) and raises.
 """
 
 from __future__ import annotations
@@ -37,10 +46,11 @@ from sgaligner_tpu_torch.core import checkpoint as ckpt
 from sgaligner_tpu_torch.core.config import Config
 from sgaligner_tpu_torch.data.batch import to_device
 from sgaligner_tpu_torch.engine.factory import (build_model, build_objective,
-                                                resolve_device)
+                                                loss_kind, resolve_device)
 from sgaligner_tpu_torch.engine.train_step import (TrainState, create_train_state,
                                                    eval_epoch, make_eval_step,
                                                    make_train_step)
+from sgaligner_tpu_torch.parallel.mesh import barrier, broadcast_, make_mesh, shard_batch
 from sgaligner_tpu_torch.utils.logging import Logger, StepTimer, SummaryBoard
 
 Loader = Callable[[], Iterable[dict[str, np.ndarray]]]
@@ -57,29 +67,32 @@ class Trainer:
                  val_loader: Loader | None = None, best_on_last_batch: bool = False,
                  log_file: str | None = None, profile_dir: str | None = None,
                  device: str | torch.device = "cuda"):
-        if cfg.tpu.dp > 1:
-            raise NotImplementedError(f"tpu.dp = {cfg.tpu.dp}: data parallel is not "
-                                      "ported yet (ROADMAP §1 item 8)")
         if cfg.tpu.compact_slots > 0:
             raise NotImplementedError("tpu.compact_slots > 0: the per-pair compacted "
                                       "layout is not ported yet (ROADMAP §1 item 7)")
+        self.mesh = make_mesh(cfg.tpu.dp)
+        if self.mesh.dp > 1 and loss_kind(cfg) == "nca":
+            raise NotImplementedError(f"tpu.dp = {self.mesh.dp}: EVA's nca step under "
+                                      "data parallel is not ported yet (ROADMAP §1 "
+                                      "item 8)")
+        self.lead = self.mesh.rank == 0
         self.cfg = cfg
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.best_on_last_batch = best_on_last_batch
-        self.profile_dir = profile_dir
+        self.profile_dir = profile_dir if self.lead else None
         if log_file is None and cfg.log_dir:
             log_file = osp.join(cfg.log_dir, "train.log")
-        self.logger = Logger(log_file)
-        self.writer = self._make_event_writer(cfg.event_dir)
+        self.logger = Logger(log_file if self.lead else None)
+        self.writer = self._make_event_writer(cfg.event_dir) if self.lead else None
 
         self.device = resolve_device(device)
         self.model = build_model(cfg, self.device)
         self.objective = build_objective(cfg).to(self.device)
         self.modules = tuple(cfg.modules)
-        self.train_step = make_train_step(self.modules)
+        self.train_step = make_train_step(self.modules, self.mesh)
         self.eval_step = make_eval_step(self.model, self.objective, self.modules,
-                                        ks=tuple(cfg.metrics.all_k))
+                                        ks=tuple(cfg.metrics.all_k), mesh=self.mesh)
         self.state: TrainState | None = None
         self.epoch = 0
         self.best_val_loss = float("inf")
@@ -106,11 +119,13 @@ class Trainer:
     # -- state ------------------------------------------------------------
     def init_state(self) -> None:
         """Adam, the dropout generator and the counters over the model's
-        seeded weights (drawn by ``build_model``)."""
+        seeded weights (drawn by ``build_model``; under data parallel rank
+        0's, broadcast)."""
         self.state = create_train_state(self.model, self.cfg, self.objective)
+        broadcast_(self.mesh, [*self.state.parameters(), *self.model.buffers()])
         n_params = sum(p.numel() for p in self.state.parameters())
         self.logger.info(f"model '{self.cfg.model_name}' modules={self.cfg.modules} "
-                         f"params={n_params:,} device={self.device}")
+                         f"params={n_params:,} device={self.device} dp={self.mesh.dp}")
 
     def _path(self, name: str) -> str:
         return osp.join(self.cfg.snapshot_dir, f"{name}.pth.tar")
@@ -145,7 +160,7 @@ class Trainer:
         board = SummaryBoard(last_n=None)
         timer = StepTimer()
         for it, host in enumerate(self.train_loader()):
-            batch = to_device(host, self.device)
+            batch = to_device(shard_batch(host, self.mesh), self.device)
             timer.record_prepare()
             metrics = self.train_step(self.state, batch)
             if (it + 1) % self.cfg.train.log_steps == 0:
@@ -170,7 +185,7 @@ class Trainer:
         ``<output_dir>/nan_debug_e<epoch>_i<it>.pth`` (the step itself was
         already dropped by the train step's non-finite skip)."""
         self.logger.error(f"non-finite loss at epoch {self.epoch} iter {it}")
-        if not self.cfg.output_dir:
+        if not self.cfg.output_dir or not self.lead:
             return
         path = osp.join(self.cfg.output_dir, f"nan_debug_e{self.epoch}_i{it}.pth")
         torch.save({"batch": {k: torch.as_tensor(np.asarray(v)) for k, v in host.items()},
@@ -181,16 +196,19 @@ class Trainer:
     def inference_epoch(self) -> dict[str, float]:
         assert self.state is not None and self.val_loader is not None
         return eval_epoch(self.eval_step, self.val_loader(),
-                          tuple(self.cfg.metrics.all_k), self.device)
+                          tuple(self.cfg.metrics.all_k), self.device, mesh=self.mesh)
 
     def _save(self, name: str, **extra) -> None:
-        ckpt.save_torch_snapshot(self._path(name), self.model.state_dict(),
-                                 epoch=self.epoch, iteration=self.state.step, **extra)
+        """Rank 0 writes; every rank returns once it has."""
+        if self.lead:
+            ckpt.save_torch_snapshot(self._path(name), self.model.state_dict(),
+                                     epoch=self.epoch, iteration=self.state.step, **extra)
+        barrier(self.mesh, self.device)
 
     def save_epoch_snapshot(self) -> None:
         assert self.state is not None
         self._save(f"epoch-{self.epoch}")
-        self._save("snapshot", **self.state.state_dict())
+        self._save("snapshot", **(self.state.state_dict() if self.lead else {}))
 
     def run(self, resume: bool = False) -> dict[str, Any]:
         if resume:

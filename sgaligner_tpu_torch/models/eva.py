@@ -28,6 +28,7 @@ from sgaligner_tpu_torch.models.pct import Linear
 from sgaligner_tpu_torch.models.pointnet import PointNetEncoder
 from sgaligner_tpu_torch.models.sg_aligner import (MultiModalFusion,
                                                    point_inputs, scatter_pooled)
+from sgaligner_tpu_torch.parallel.mesh import sharded
 from sgaligner_tpu_torch.models.structure import MultiGCN
 
 
@@ -59,9 +60,15 @@ class EVA(nn.Module):
             self.fusion = MultiModalFusion(len(self.modal_names))
         self.eval()
 
-    def forward(self, batch: dict, generator: torch.Generator | None = None
-                ) -> dict[str, torch.Tensor]:
-        """``generator`` draws the GCN's dropout masks in training mode."""
+    def forward(self, batch: dict, generator: torch.Generator | None = None,
+                mesh=None) -> dict[str, torch.Tensor]:
+        """``generator`` draws the GCN's dropout masks in training mode.
+        ``mesh``: ``batch`` is one rank's block; in eval mode each object is
+        computed alone, and training under data parallel is not ported
+        (ROADMAP §1 item 8)."""
+        if self.training and sharded(mesh):
+            raise NotImplementedError("EVA's training under data parallel (nca step) "
+                                      "is not ported yet (ROADMAP §1 item 8)")
         dt = self.dtype
         b, two_n = batch["obj_mask"].shape
         n = two_n // 2

@@ -42,6 +42,7 @@ from sgaligner_tpu_torch.ops.knn import sample_and_knn_group
 from sgaligner_tpu_torch.ops.pct_attention import BlockEval, BlockResidual
 from sgaligner_tpu_torch.ops.pct_embed import EmbedFirst, EmbedSecond
 from sgaligner_tpu_torch.ops.pct_tail import PctTail, pct_tail_pool
+from sgaligner_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 def _fold_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -122,22 +123,25 @@ class MaskedBatchNorm(nn.Module):
         self.update_running(mean, var, count)
         return self.fold_from(mean, var, dtype)
 
-    def batch_moments(self, x: torch.Tensor, mask: torch.Tensor):
+    def batch_moments(self, x: torch.Tensor, mask: torch.Tensor, mesh=None):
         """One-pass masked moments of x [..., C] over the rows where mask
-        (broadcastable to x[..., 0]) is true, accumulated at >= f32."""
+        (broadcastable to x[..., 0]) is true, accumulated at >= f32; under
+        data parallel (``mesh``) the count and sums over every rank's rows."""
         sdt = _fold_dtype(x.dtype)
         rows_per_mask = x.numel() // (mask.numel() * x.shape[-1])
-        count = torch.clamp_min(mask.to(sdt).sum() * rows_per_mask, 1.0)
         xm = x * mask.to(x.dtype)[..., None]
         red = tuple(range(x.dim() - 1))
-        mean = xm.sum(red, dtype=sdt) / count
-        ex2 = torch.square(xm).sum(red, dtype=sdt) / count
+        valid, s1, s2 = all_reduce_sum(mesh, mask.to(sdt).sum(), xm.sum(red, dtype=sdt),
+                                       torch.square(xm).sum(red, dtype=sdt))
+        count = torch.clamp_min(valid * rows_per_mask, 1.0)
+        mean = s1 / count
+        ex2 = s2 / count
         return mean, torch.clamp_min(ex2 - mean * mean, 0.0), count
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
+                mesh=None) -> torch.Tensor:
         if self.training:
-            w, b = self.train_fold(self.batch_moments(x, mask), x.dtype)
+            w, b = self.train_fold(self.batch_moments(x, mask, mesh), x.dtype)
         else:
             w, b = self.fold(x.dtype)
         return x * w.to(x.dtype) + b.to(x.dtype)
@@ -147,6 +151,14 @@ def moments_from_sums(ssum, ssumsq, count):
     """(mean, var, count) from masked per-channel sums [1, C]."""
     mean = ssum[0] / count
     return mean, torch.clamp_min(ssumsq[0] / count - mean * mean, 0.0), count
+
+
+def valid_rows(mask: torch.Tensor, per_object: int, mesh=None) -> torch.Tensor:
+    """The BatchNorm statistics' valid rows, as the JAX model counts them
+    (f32): max(valid objects · ``per_object``, 1), the objects of every rank
+    under data parallel (``mesh``)."""
+    (valid,) = all_reduce_sum(mesh, mask.to(torch.float32).sum())
+    return torch.clamp_min(valid * per_object, 1.0)
 
 
 class Embedding(nn.Module):
@@ -159,12 +171,15 @@ class Embedding(nn.Module):
         self.bn1 = MaskedBatchNorm(128)
         self.bn2 = MaskedBatchNorm(128)
 
-    def forward(self, pts_cf, kmask, dtype, count=None):
+    def forward(self, pts_cf, kmask, dtype, count=None, mesh=None):
         """pts_cf [O, 3, P] and kmask [O, 1] in ``dtype`` -> [O, P, 128].
-        ``count`` (train mode): the valid rows, max(valid objects · P, 1)."""
+        ``count`` (train mode): the valid rows, max(valid objects · P, 1);
+        under data parallel (``mesh``) the kernels' BN sums are summed over
+        the ranks before the folds."""
 
         def fold(bn, s1, s2):
             if self.training:
+                s1, s2 = all_reduce_sum(mesh, s1, s2)
                 w, b = bn.train_fold(moments_from_sums(s1, s2, count), dtype)
             else:
                 w, b = bn.fold(dtype)
@@ -194,9 +209,10 @@ class SABlock(nn.Module):
         self.after_norm = MaskedBatchNorm(channels)
 
     def forward(self, x: torch.Tensor, kmask: torch.Tensor | None = None,
-                count: torch.Tensor | None = None) -> torch.Tensor:
+                count: torch.Tensor | None = None, mesh=None) -> torch.Tensor:
         """x [O, P, C] in the compute dtype; train mode also takes the
-        object mask ``kmask [O, 1]`` (x's dtype) and the valid-row count."""
+        object mask ``kmask [O, 1]`` (x's dtype), the valid-row count and,
+        under data parallel, the ``mesh`` its BN sums are summed over."""
         dt = x.dtype
         weights = (self.q_conv.kernel(dt), self.v_conv.kernel(dt),
                    self.v_conv.bias_as(dt), self.trans_conv.kernel(dt),
@@ -208,7 +224,7 @@ class SABlock(nn.Module):
                                    self.double_norm)
         x_next, ssum, ssumsq = BlockResidual.apply(
             x, *weights, bn.weight, bn.bias, kmask, count, self.scale,
-            self.double_norm, bn.eps)
+            self.double_norm, bn.eps, mesh)
         bn.update_running(*moments_from_sums(ssum.detach(), ssumsq.detach(), count))
         return x_next
 
@@ -226,7 +242,10 @@ class NaivePCT(nn.Module):
 
     Input: channel-first points ``[O, 3, P]`` and the object mask ``[O]``.
     ``dropout``: the head's two dropout rates (0.5, as upstream), applied in
-    train mode from the generator the caller passes."""
+    train mode from the generator the caller passes. Under data parallel
+    (``mesh``: this rank's objects, a block of the batch's) every BatchNorm
+    folds from the whole batch's statistics and the dropout masks are the
+    whole batch's rows for this block."""
 
     def __init__(self, out_size: int = 256, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -242,18 +261,16 @@ class NaivePCT(nn.Module):
         self.bn2 = MaskedBatchNorm(out_size)
 
     def forward(self, points: torch.Tensor, mask: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None, mesh=None) -> torch.Tensor:
         dt = self.dtype
         pts = points.to(dt).contiguous()
         kmask = mask.to(dt)[:, None].contiguous()
         train = self.training
-        # valid rows of the BN statistics, as the JAX model counts them (f32)
-        count = (torch.clamp_min(mask.to(torch.float32).sum() * pts.shape[-1], 1.0)
-                 if train else None)
-        x = self.embedding(pts, kmask, dt, count)
+        count = valid_rows(mask, pts.shape[-1], mesh) if train else None
+        x = self.embedding(pts, kmask, dt, count, mesh)
         feats = []
         for sa in (self.sa1, self.sa2, self.sa3, self.sa4):
-            x = sa(x, kmask, count)
+            x = sa(x, kmask, count, mesh)
             feats.append(x)
         # tail: max/min of z = concat(feats)·W over points; the BN affine +
         # LeakyReLU + max-pool follow by the monotone identity (max where the
@@ -261,6 +278,7 @@ class NaivePCT(nn.Module):
         w = self.linear[0].kernel(dt)
         if train:
             pmax, pmin, ssum, ssumsq = PctTail.apply(*feats, w, kmask)
+            ssum, ssumsq = all_reduce_sum(mesh, ssum, ssumsq)
             wbn, bbn = self.linear[1].train_fold(
                 moments_from_sums(ssum, ssumsq, count), pmax.dtype)
         else:
@@ -268,12 +286,12 @@ class NaivePCT(nn.Module):
             wbn, bbn = self.linear[1].fold(pmax.dtype)
         pooled = torch.where(wbn > 0, pmax.to(wbn.dtype), pmin.to(wbn.dtype)) * wbn + bbn
         x = F.leaky_relu(pooled, 0.2).to(dt)                           # [O, 1024]
-        x = torch.relu(self.bn1(self.linear1(x, dt), mask))
+        x = torch.relu(self.bn1(self.linear1(x, dt), mask, mesh))
         if train:
-            x = dropout(x, self.dropout, generator)
-        x = torch.relu(self.bn2(self.linear2(x, dt), mask))
+            x = dropout(x, self.dropout, generator, mesh)
+        x = torch.relu(self.bn2(self.linear2(x, dt), mask, mesh))
         if train:
-            x = dropout(x, self.dropout, generator)
+            x = dropout(x, self.dropout, generator, mesh)
         return x
 
 
@@ -297,8 +315,7 @@ class SPCT(nn.Module):
         dt = self.dtype
         pts = points.to(dt).transpose(1, 2).contiguous()             # [O, 3, P]
         kmask = mask.to(dt)[:, None].contiguous()
-        count = (torch.clamp_min(mask.to(torch.float32).sum() * pts.shape[-1], 1.0)
-                 if self.training else None)
+        count = valid_rows(mask, pts.shape[-1]) if self.training else None
         x = self.embedding(pts, kmask, dt, count)
         feats = []
         for sa in (self.sa1, self.sa2, self.sa3, self.sa4):
@@ -397,9 +414,7 @@ class FullPCT(nn.Module):
         dt = self.dtype
         x = self.neighbor_embedding(points.to(dt), mask)              # [O, S, 256]
         kmask = mask.to(dt)[:, None].contiguous()
-        # valid rows of the blocks' BN statistics, as the JAX model counts them (f32)
-        count = (torch.clamp_min(mask.to(torch.float32).sum() * x.shape[1], 1.0)
-                 if self.training else None)
+        count = valid_rows(mask, x.shape[1]) if self.training else None
         feats = [x]
         for oa in (self.oa1, self.oa2, self.oa3, self.oa4):
             x = oa(x, kmask, count)

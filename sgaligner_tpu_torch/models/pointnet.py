@@ -35,10 +35,11 @@ class PointNetEncoder(nn.Module):
         self.conv3 = Conv1x1(128, out_size)
 
     def forward(self, points: torch.Tensor, mask: torch.Tensor | None = None,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        """points: channel-first ``[O, 3, P]`` -> ``[O, out_size]``. ``mask``
-        and ``generator`` are unused (parity mode has no batch statistics and
-        no dropout); they keep the call the same as NaivePCT's."""
+                generator: torch.Generator | None = None, mesh=None) -> torch.Tensor:
+        """points: channel-first ``[O, 3, P]`` -> ``[O, out_size]``. ``mask``,
+        ``generator`` and ``mesh`` are unused (parity mode has no batch
+        statistics and no dropout, so each object is computed alone); they
+        keep the call the same as NaivePCT's."""
         dt = self.dtype
         x = points.to(dt).contiguous()
         args = []

@@ -10,6 +10,11 @@ Both configurations train (``train(True)``): NaivePCT's training form
 the point encoder's. The caller's generator draws every dropout mask (the
 GAT's and NaivePCT's head's).
 
+Under data parallel the forward takes this rank's block of the batch
+(``parallel.mesh.shard_batch``) and the ``mesh``: NaivePCT's BatchNorms
+fold from the whole batch's statistics and every dropout mask is this
+block's rows of the whole batch's; the embeddings are this block's.
+
 Two point layouts: batch-pooled (``obj_points_pooled``, ``pooled_mask``,
 ``pooled_flat_idx`` from ``data.batch.pool_compact``; the encoder sees only
 real objects and ``index_add_`` scatters them back to their slots) and the
@@ -109,28 +114,29 @@ class MultiModalEncoder(nn.Module):
         self.eval()
 
     def _points(self, batch: dict, b: int, two_n: int,
-                generator: torch.Generator | None) -> torch.Tensor:
+                generator: torch.Generator | None, mesh) -> torch.Tensor:
         pts, mask = point_inputs(batch, b, two_n)
-        feat = self.object_encoder(pts, mask, generator)
+        feat = self.object_encoder(pts, mask, generator, mesh)
         return scatter_pooled(self.object_embedding(feat, self.dtype), batch,
                               b, two_n)
 
-    def forward(self, batch: dict, generator: torch.Generator | None = None
-                ) -> dict[str, torch.Tensor]:
-        """``generator`` draws the dropout masks in training mode."""
+    def forward(self, batch: dict, generator: torch.Generator | None = None,
+                mesh=None) -> dict[str, torch.Tensor]:
+        """``generator`` draws the dropout masks in training mode; ``mesh``
+        (``parallel.mesh.Mesh``) when ``batch`` is one rank's block."""
         dt = self.dtype
         b, two_n = batch["obj_mask"].shape
         n = two_n // 2
         embs: dict[str, torch.Tensor] = {}
         for module in self.modal_names:
             if module in ("point", "pct"):
-                emb = self._points(batch, b, two_n, generator)
+                emb = self._points(batch, b, two_n, generator, mesh)
             elif module == "gat":
                 rel_pose = batch["rel_pose"].to(dt).reshape(2 * b, n, 3)
                 node_mask = batch["obj_mask"].reshape(2 * b, n)
                 adj = batch["adj"].reshape(2 * b, n, n)
                 feat = self.structure_encoder(rel_pose, adj, node_mask,
-                                              generator)
+                                              generator, mesh)
                 emb = self.structure_embedding(feat.reshape(b * two_n, -1), dt)
             elif module == "rel":
                 emb = self.meta_embedding_rel(batch["bow_rel"], dt)

@@ -9,7 +9,8 @@ parameter names and shapes: GATConv ``lin_src.weight [H·out, in]``,
 mode each layer's input goes through dropout. MultiGCN (EVA's): ReLU and
 then dropout between layers. Dropout (p = ``dropout``) is drawn from the
 generator the caller passes; at p = 0 and at inference it is the
-identity, as flax's ``nn.Dropout`` is.
+identity, as flax's ``nn.Dropout`` is. Under data parallel (``mesh``) the
+mask is drawn for the whole batch and each rank keeps its rows.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sgaligner_tpu_torch.ops.gat import gat_conv, gcn_conv
+from sgaligner_tpu_torch.parallel.mesh import rand_rows
 
 
 class LinearNoBias(nn.Module):
@@ -58,15 +60,17 @@ class GCNConvLayer(nn.Module):
                         self.bias.to(dt))
 
 
-def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None
-            ) -> torch.Tensor:
+def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None,
+            mesh=None) -> torch.Tensor:
     """Inverted dropout: keep each value with probability 1 - p and scale
-    the kept ones by 1 / (1 - p) (flax ``nn.Dropout``'s form)."""
+    the kept ones by 1 / (1 - p) (flax ``nn.Dropout``'s form). ``mesh``: x
+    is this rank's block of the batch's rows (axis 0), and the mask is this
+    block of the whole batch's."""
     if p == 0.0:
         return x
     if p >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    keep = rand_rows(mesh, x.shape, generator, x.device) >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
@@ -81,10 +85,10 @@ class MultiGAT(nn.Module):
             layers.append(GATConvLayer(in_dim, n_units[i + 1], n_heads[i]))
         self.layer_stack = nn.ModuleList(layers)
 
-    def forward(self, x, adj, node_mask, generator=None):
+    def forward(self, x, adj, node_mask, generator=None, mesh=None):
         for i, layer in enumerate(self.layer_stack):
             if self.training:
-                x = dropout(x, self.dropout, generator)
+                x = dropout(x, self.dropout, generator, mesh)
             x = layer(x, adj, node_mask)
             if i + 1 < len(self.layer_stack):
                 x = F.elu(x)

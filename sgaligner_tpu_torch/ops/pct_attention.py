@@ -50,6 +50,7 @@ import torch
 
 from sgaligner_tpu_torch.ops import _build, library
 from sgaligner_tpu_torch.ops.pct_embed import acc_dtype, masked_sums
+from sgaligner_tpu_torch.parallel.mesh import reduce_sum
 
 # the kernels' widths C (da = C / 4): the suffix of the C entry points and
 # of the launch counts at each
@@ -486,17 +487,27 @@ class BlockResidual(torch.autograd.Function):
     [C] vectors (torch autograd), giving the BN parameters' gradients and,
     with the sums' own cotangents, ``dsum`` / ``dsumsq``; then
     ``block_res_bwd`` (kernel). The two kernels must run in this order: the
-    fold's vjp needs the first one's sums."""
+    fold's vjp needs the first one's sums.
+
+    Under data parallel (``mesh``; ``count`` the whole batch's) the sums are
+    summed over the ranks between ``block_fwd`` and the fold, and the
+    returned sums are the whole batch's. In the backward ``epi_sums`` and
+    the fold's vjp see this rank's rows (the BN parameters' gradients are
+    this rank's share, which the train step's gradient sum adds up), and
+    ``dsum`` / ``dsumsq`` are summed over the ranks before ``block_res_bwd``:
+    the adjoint of the forward's sum."""
 
     @staticmethod
     def forward(ctx, x, wqk, wv, bv, wt, bt, bn_scale, bn_bias, mask, count,
-                scale=True, double_norm=False, eps=1e-5):
+                scale=True, double_norm=False, eps=1e-5, mesh=None):
         t_out, ssum, ssumsq = block_fwd(x, wqk, wv, bv, wt, bt, mask, scale,
                                         double_norm)
+        ssum, ssumsq = reduce_sum(mesh, (ssum, ssumsq))
         w, b = fold_from_sums(bn_scale, bn_bias, ssum, ssumsq, count, eps)
         ctx.save_for_backward(x, wqk, wv, bv, wt, bt, bn_scale, bn_bias, mask,
                               count, t_out, ssum, ssumsq)
         ctx.flags = (scale, double_norm, eps)
+        ctx.mesh = mesh
         return epilogue(x, t_out, w, b), ssum, ssumsq
 
     @staticmethod
@@ -513,13 +524,14 @@ class BlockResidual(torch.autograd.Function):
         d_scale, d_bias, dssum, dssumsq = torch.autograd.grad(
             (wbn, bbn), leaves, (dwbn[0].to(wbn.dtype), dbbn[0].to(bbn.dtype)))
         acc = dsum_ct.dtype
+        dsum, dsumsq = reduce_sum(ctx.mesh, (dssum.to(acc) + dsum_ct,
+                                             dssumsq.to(acc) + dsumsq_ct))
         dx, dwqk, dwv, dbv, dwt, dbt = block_res_bwd(
             x, wqk, wv, bv, wt, bt, mask, dxn, wbn.detach(), bbn.detach(),
-            dssum.to(acc) + dsum_ct, dssumsq.to(acc) + dsumsq_ct, scale,
-            double_norm)
+            dsum, dsumsq, scale, double_norm)
         return (dx, dwqk.to(wqk.dtype), dwv.to(wv.dtype), dbv[0].to(bv.dtype),
                 dwt.to(wt.dtype), dbt[0].to(bt.dtype), d_scale, d_bias, None,
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 class BlockFused(torch.autograd.Function):

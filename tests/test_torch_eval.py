@@ -184,11 +184,19 @@ def test_loader_batches_match_jax(workspaces, bucket):
 
 
 def test_loader_raises_for_what_is_not_ported(workspaces):
+    """The per-pair compacted layout raises. Data parallel is ported: at
+    dp = 2 each batch is pooled per rank's block, as the JAX loader pools
+    it (the short last batch padded with an empty pair)."""
     root = workspaces["port"][0]
-    for tpu in ({"dp": 2}, {"compact_slots": 32}):
-        cfg, _ = _cfgs(root, "val", **tpu)
-        with pytest.raises(NotImplementedError):
-            port_loaders.get_val_dataloader(cfg)
+    cfg, _ = _cfgs(root, "val", compact_slots=32)
+    with pytest.raises(NotImplementedError):
+        port_loaders.get_val_dataloader(cfg)
+    port_cfg, jax_cfg = _cfgs(root, "val", dp=2, pooled_bucket=128)
+    got = list(port_loaders.get_val_dataloader(port_cfg))
+    want = list(jax_loaders.get_val_dataloader(jax_cfg))
+    assert len(got) == len(want) == 4
+    _assert_equal(got, want, "val, dp 2")
+    assert all(b["obj_mask"].shape[0] % 2 == 0 for b in got)
 
 
 # ------------------------------- EVA at f64 ---------------------------------

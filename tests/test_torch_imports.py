@@ -3,8 +3,9 @@
 Each check runs in a fresh interpreter and inspects ``sys.modules``. The JAX
 package is matched by its exact name or its submodules
 (``sgaligner_tpu.``), not by prefix: ``sgaligner_tpu_torch`` must not count.
-The port's modules, chip_smoke.py and ``scripts/export_torch_snapshots.py``
-import neither PyYAML nor tensorstore when imported (each is imported inside
+The port's modules, chip_smoke.py, ``scripts/export_torch_snapshots.py`` and
+``scripts/dp_step_trace.py`` (which runs on the card) import neither PyYAML
+nor tensorstore when imported (each is imported inside
 the one function that needs it), and chip_smoke.py's ``quality`` path (the
 tracked snapshots through the tester, from the ``.pth.tar`` copies, the
 config as a dict) runs with both made unimportable: the card's machine has
@@ -24,6 +25,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_NAMES = ("jax", "jaxlib", "flax", "optax", "sgaligner_tpu")
 HOST_ONLY = ("yaml", "tensorstore")
 EXPORT_SCRIPT = os.path.join(REPO, "scripts", "export_torch_snapshots.py")
+TRACE_SCRIPT = os.path.join(REPO, "scripts", "dp_step_trace.py")
 
 _PROBE = r"""
 import importlib, importlib.util, json, sys
@@ -104,21 +106,26 @@ def test_port_modules_are_listed():
                      "sgaligner_tpu_torch.reg.eval_geo",
                      "sgaligner_tpu_torch.reg.synthetic_pairs",
                      "sgaligner_tpu_torch.cli.inference_find_overlapper",
-                     "sgaligner_tpu_torch.cli.inference_mosaicking"):
+                     "sgaligner_tpu_torch.cli.inference_mosaicking",
+                     "sgaligner_tpu_torch.parallel",
+                     "sgaligner_tpu_torch.parallel.mesh",
+                     "sgaligner_tpu_torch.parallel.launch"):
         assert expected in names
 
 
 def _targets(target):
     return {"package": _port_modules(), "chip_smoke": ["chip_smoke"],
-            "export_script": [EXPORT_SCRIPT]}[target]
+            "export_script": [EXPORT_SCRIPT], "trace_script": [TRACE_SCRIPT]}[target]
 
 
-@pytest.mark.parametrize("target", ["package", "chip_smoke", "export_script"])
+@pytest.mark.parametrize("target", ["package", "chip_smoke", "export_script",
+                                    "trace_script"])
 def test_no_jax_imported(target):
     assert _imported_banned(_targets(target)) == []
 
 
-@pytest.mark.parametrize("target", ["package", "chip_smoke", "export_script"])
+@pytest.mark.parametrize("target", ["package", "chip_smoke", "export_script",
+                                    "trace_script"])
 def test_no_yaml_or_tensorstore_at_import(target):
     assert _imported_banned(_targets(target), HOST_ONLY) == []
 
