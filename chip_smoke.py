@@ -34,9 +34,12 @@ Phases, in order (every failure raises and exits non-zero):
                bf16, SA and OA, each launching its C = 256 kernel once, the
                same bits twice, the three backwards' KERNEL_PLANTED faults
                caught (at f32 also WIDE_F32_PLANTED in their weight
-               gradients)
+               gradients). At f32 the tail's faults of TAIL_F32_PLANTED
+               (an argmax moved to the next point, a dW column x1.1, a dx
+               row tile zeroed) caught at P = 512 and 200
   parity       the pct serving path on the CPU (plain versions) against the
-               card (kernels): same seeded weights, one pooled B=8 batch, f32
+               card (kernels): same seeded weights, one pooled B=8 batch, f32;
+               the card's launches in that request (the f32 serving form's row)
   train_parity the point configuration's train step on the CPU against the
                card: same seeded weights, one pooled B=8 batch, f32, three
                steps; every gradient of the first step (worst leaf,
@@ -76,7 +79,9 @@ Phases, in order (every failure raises and exits non-zero):
                bf16, pooled bucket 128, O=896, Adam lr 1e-3, head dropout
                0.5, one synthetic batch, seed 0): warm-up, 3 windows of 20
                steps, ms per step, pairs/s, the launches per step of every
-               kernel, a torch.profiler pass
+               kernel, a torch.profiler pass; then the same at
+               compute_dtype float32 (TpuConfig's default dtype; F32_STEP:
+               2 windows of 10 steps, 2 profiled), whose tail runs the f32 forms
   serve_point  the point configuration serving the four B=512 requests;
                1 PointNet forward launch per request
   spct         SPCT at full width on bench.py's pct training batch (B=32,
@@ -213,7 +218,11 @@ Phases, in order (every failure raises and exits non-zero):
                kernels at C3 = 200 and 256 beside their first versions'
                times (F32_FIRST_MS) and their passes (O = 256 and 896),
                the other f32 forms at O = 896 beside their plain versions
-               and their launches in the parity phases (time_f32_forms),
+               and their launches in the parity phases (time_f32_forms; the
+               tail's rows with the launches of the f32 serving request and
+               the f32 step windows, and with one torch.matmul of its
+               product, row 13's dx and dW products as torch.matmul
+               calls),
                with each bound
                from the shapes (the PointNet backward's from the rows and
                channels that carry gradient);
@@ -253,6 +262,7 @@ RAGGED_P = 200
 MODULES = ("pct", "gat", "rel", "attr")
 POINT_MODULES = ("point", "gat", "rel", "attr")
 TRAIN_B, WARMUP_STEPS, WINDOW_STEPS, N_WINDOWS = 32, 5, 20, 3
+F32_STEP = (2, 10, 2)          # the f32 pct step: windows (count, steps), profiled steps
 
 # Normwise tolerance, max|kernel - plain| / max|plain| per output. float32:
 # the same f32 arithmetic summed in another order. bfloat16: an output may
@@ -589,6 +599,43 @@ def _columns_zeroed(index: int, n0: int, width: int):
 WIDE_F32_PLANTED = {"pct_block_res_bwd": (_columns_zeroed(4, 32, 32), _scaled(1, 1.001)),
                     "pct_block_bwd": (_columns_zeroed(4, 32, 32), _scaled(1, 1.001)),
                     "pct_attn_bwd": (_columns_zeroed(2, 32, 32), _scaled(1, 1.001))}
+def _one_amax_moved(outs, args):
+    """A planted fault of the tail's indexed forward: the argmax of the
+    channel with the largest |max| moved to the next point."""
+    outs = list(outs)
+    amax = outs[4].clone()
+    obj, ch = divmod(int(outs[0].abs().argmax()), amax.shape[1])
+    amax[obj, ch] = (amax[obj, ch] + 1) % args[0].shape[1]
+    outs[4] = amax
+    return tuple(outs)
+
+
+def _dw_column_scaled(outs, args):
+    """The tail backward's dW column holding the largest |value|, x1.1."""
+    dw = outs[4].clone()
+    dw[:, int(dw.abs().amax(dim=0).argmax())] *= 1.1
+    return (*outs[:4], dw)
+
+
+def _dx_tile_zeroed(outs, args):
+    """The 128 flat rows (one row tile of the f32 dx pass) of the dxᵢ that
+    holds the largest |value|, zeroed."""
+    i = max(range(4), key=lambda j: float(outs[j].abs().max()))
+    dx = outs[i].clone()
+    flat = dx.view(-1, dx.shape[-1])
+    row = int(flat.abs().amax(dim=1).argmax()) // 128 * 128
+    flat[row:row + 128] = 0
+    return tuple(dx if j == i else t for j, t in enumerate(outs))
+
+
+# faults planted in the f32 tail's outputs (kernels phase, P = 512 and 200):
+# the indexed forward's pool routing and the backward's dW and dx passes
+TAIL_F32_PLANTED = {
+    "pct_tail/idx": (("one argmax moved to the next point", _one_amax_moved),),
+    "pct_tail_bwd": (("one dW column x1.1", _dw_column_scaled),
+                     ("one 128-row tile of a dx zeroed", _dx_tile_zeroed))}
+
+
 def _padding_kept(outs, args):
     """A planted fault of the PointNet forward at a width its kernel pads
     (EVA's C3 = 200): the padded channels left in the output (W3 and b3
@@ -1117,6 +1164,9 @@ def phase_kernels(state: dict) -> None:
                 err_abs, err_rel = check_op(name, args, dt_name, flags or SA, label)
                 if dt_name == "bf16" and p == P:
                     check_planted(name, args, flags or SA, label)
+                planted = TAIL_F32_PLANTED.get(name + ("/idx" if flags == "idx" else ""))
+                if dt_name == "f32" and planted:
+                    check_planted(name, args, flags or SA, label, "f32", planted)
                 if name in TRAIN_KERNELS or name in OP_KERNELS or name in SAME_BITS:
                     first, second = as_tuple(kern(*args)), as_tuple(kern(*args))
                     if not all(torch.equal(a, b) for a, b in zip(first, second)):
@@ -1249,9 +1299,6 @@ def phase_parity(state: dict) -> None:
 
     from sgaligner_tpu_torch.ops import _build
 
-    # the f32 forms' launches are counted from here to the end of oa_parity
-    # (time_f32_forms reads them)
-    _build.reset_launches()
     cfg = _cfg("float32", 32)
     host = pool_compact(make_synthetic_batch(
         BatchSpec(8, 32, P), seed=3, bow_noise=1.0, resample=True), 128)
@@ -1259,12 +1306,22 @@ def phase_parity(state: dict) -> None:
     for dev in ("cpu", "cuda"):
         model = build_model(cfg, dev, torch.Generator().manual_seed(11))
         batch = to_device(host, dev)
+        if dev == "cuda":
+            # the f32 forms' launches are counted from here to the end of
+            # oa_parity; the f32 serving request's alone are read just after
+            # it (time_f32_forms reads both)
+            _build.reset_launches()
         t0 = time.perf_counter()
         with torch.inference_mode():
             embs[dev] = {k: v.double().cpu() for k, v in model(batch).items()}
             outs[dev] = make_serving_step(model, MODULES)(batch)
         if dev == "cuda":
             torch.cuda.synchronize()
+            state["launches_serve_f32"] = served = dict(_build.LAUNCHES)
+            if not served["pct_tail"] or served["pct_tail_bwd"]:
+                raise AssertionError(f"parity: the f32 serving request launched pct_tail "
+                                     f"{served['pct_tail']} and pct_tail_bwd "
+                                     f"{served['pct_tail_bwd']} times")
         log(f"[parity] {dev}: forward + serving step {time.perf_counter() - t0:.1f} s")
     o = host["obj_points_pooled"].shape[0]
     for m in (*MODULES, "joint"):
@@ -1782,12 +1839,15 @@ def phase_oa_parity(state: dict) -> None:
     state["launches_f32"] = dict(_build.LAUNCHES)  # since phase parity began
 
 
-def _bench_train(state: dict, modules, tag: str, per_step: dict) -> tuple[int, float, dict]:
+def _bench_train(state: dict, modules, tag: str, per_step: dict, dtype: str = "bfloat16",
+                 windows: tuple[int, int, int] = (N_WINDOWS, WINDOW_STEPS, 5)
+                 ) -> tuple[int, float, dict]:
     """bench.py's training configuration for ``modules`` (B=32, 32 slots,
-    P=512, bf16, pooled bucket 128, Adam lr 1e-3, one seed-0 batch):
-    warm-up, N_WINDOWS synchronised windows of WINDOW_STEPS steps with the
-    launch counts checked against ``per_step``, then a profiler pass.
-    Returns (O, median ms per step, launches over the windows)."""
+    P=512, pooled bucket 128, Adam lr 1e-3, one seed-0 batch) at
+    ``dtype``: warm-up, ``windows`` = (count, steps, profiled steps):
+    synchronised windows with the launch counts checked against
+    ``per_step``, then a profiler pass. Returns (O, median ms per step,
+    launches over the windows)."""
     import torch
 
     from sgaligner_tpu_torch.data.batch import BatchSpec, pool_compact, to_device
@@ -1796,8 +1856,9 @@ def _bench_train(state: dict, modules, tag: str, per_step: dict) -> tuple[int, f
     from sgaligner_tpu_torch.engine.train_step import create_train_state, make_train_step
     from sgaligner_tpu_torch.ops import _build
 
-    cfg = _cfg("bfloat16", 32, modules)
+    cfg = _cfg(dtype, 32, modules)
     cfg.model.dropout = 0.0
+    n_windows, window_steps, profiled = windows
     host = pool_compact(make_synthetic_batch(BatchSpec(TRAIN_B, 32, P), seed=0), 128)
     batch = to_device(host, "cuda")
     o = host["obj_points_pooled"].shape[0]
@@ -1813,15 +1874,15 @@ def _bench_train(state: dict, modules, tag: str, per_step: dict) -> tuple[int, f
         f"{time.perf_counter() - t0:.1f} s; loss at step 1 {float(first['loss']):.6f}")
 
     _build.reset_launches()
-    windows = []
-    for _ in range(N_WINDOWS):
+    times = []
+    for _ in range(n_windows):
         t0 = time.perf_counter()
-        for _ in range(WINDOW_STEPS):
+        for _ in range(window_steps):
             out = step(train, batch)
         torch.cuda.synchronize()
-        windows.append(time.perf_counter() - t0)
+        times.append(time.perf_counter() - t0)
     launches = dict(_build.LAUNCHES)
-    steps = N_WINDOWS * WINDOW_STEPS
+    steps = n_windows * window_steps
     for name in KERNELS:
         want = per_step.get(name, 0) * steps
         if launches[name] != want:
@@ -1835,15 +1896,15 @@ def _bench_train(state: dict, modules, tag: str, per_step: dict) -> tuple[int, f
                              f"{last['loss']})")
     if train.skipped:
         raise AssertionError(f"{tag}: {train.skipped} steps skipped as non-finite")
-    for i, w in enumerate(windows):
-        log(f"[{tag}] window {i}: {w / WINDOW_STEPS * 1e3:.2f} ms/step, "
-            f"{TRAIN_B * WINDOW_STEPS / w:.1f} pairs/s | {state['card']}")
-    profile_train(state, step, train, batch, tag)
-    med = statistics.median(windows)
-    ms = med / WINDOW_STEPS * 1e3
+    for i, w in enumerate(times):
+        log(f"[{tag}] window {i}: {w / window_steps * 1e3:.2f} ms/step, "
+            f"{TRAIN_B * window_steps / w:.1f} pairs/s | {state['card']}")
+    profile_train(state, step, train, batch, tag, profiled)
+    med = statistics.median(times)
+    ms = med / window_steps * 1e3
     per = ", ".join(f"{k} {v / steps:g}" for k, v in launches.items() if v)
-    log(f"[{tag}] median window {ms:.2f} ms/step, {TRAIN_B * WINDOW_STEPS / med:.1f} "
-        f"pairs/s (B={TRAIN_B}, bf16, {modules[0]} config); launches per step: {per}; "
+    log(f"[{tag}] median window {ms:.2f} ms/step, {TRAIN_B * window_steps / med:.1f} "
+        f"pairs/s (B={TRAIN_B}, {dtype}, {modules[0]} config); launches per step: {per}; "
         f"loss {float(first['loss']):.6f} at step 1 -> {last['loss']:.6f} after "
         f"{WARMUP_STEPS + steps} | {state['card']}")
     return o, ms, launches
@@ -1858,6 +1919,11 @@ def phase_train_pct(state: dict) -> None:
     o, ms, launches = _bench_train(state, MODULES, "train_pct", PER_PCT_TRAIN_STEP)
     state["train_pct_o"], state["train_pct_ms"] = o, ms
     state["launches_train_pct"] = launches
+    # the same step at f32, the compute dtype a pct configuration that names
+    # none trains at: its tail runs the f32 forms (time_f32_forms)
+    _, ms, launches = _bench_train(state, MODULES, "train_pct_f32", PER_PCT_TRAIN_STEP,
+                                   "float32", F32_STEP)
+    state["train_pct_f32_ms"], state["launches_train_pct_f32"] = ms, launches
 
 
 def profile_train(state: dict, step, train, batch, tag: str, steps: int = 5) -> None:
@@ -3887,7 +3953,7 @@ def phase_time(state: dict) -> None:
     rows += time_oa(state)
     rows += time_full_pct(state)
     rows += time_wide_ops(state)
-    time_f32_forms(state)
+    rows += time_f32_forms(state)
     time_attention_yardstick(state)
     state["rows"] = rows
 
@@ -4259,19 +4325,29 @@ def time_wide_ops(state: dict) -> list[dict]:
     return rows
 
 
-def time_f32_forms(state: dict) -> None:
-    """The f32 forms that are still first versions (pct_embed.cu,
-    pct_attention.cu and pct_tail.cu: every kernel but the PointNet pair,
-    pct_epi_sums and embed_first_bwd, whose f32 forms are redesigned) at
+def time_f32_forms(state: dict) -> list[dict]:
+    """The f32 forms of every kernel but the PointNet pair, pct_epi_sums and
+    embed_first_bwd (whose f32 forms are timed beside their bf16 ones) at
     O = 896, P = 512: CUDA-event ms, the plain version's ms, the bound at the
     f32 rate, and the launches of each (every flag set) in the phases that
-    run them: parity, train_pct_parity and oa_parity (no recipe serves or
-    trains them); for the tail also one torch.matmul of its product at f32
-    (library)."""
+    run them: parity, train_pct_parity and oa_parity. The tail pair
+    (redesigned on tail_f32.cuh's mainloop; the rest are first versions on
+    block_gemm) also gives rows of the {"kernels": ...} line, each with the
+    launches of the path that runs its form alone (the serving form: parity's
+    f32 serving request; the indexed form and the backward: train_pct's f32
+    step windows), held to its plain version: the forward with one
+    torch.matmul of its product at f32 as its library time, the backward
+    with its three products (z, dX = g·Wᵀ, dW = xᵀ·g) as torch.matmul calls
+    logged as a yardstick (no single call computes it: library null)."""
     import torch
 
     o = state["train_o"]
     launches = state.get("launches_f32", {})
+    # each row's form and the path whose run alone launched it
+    path_launches = {"": state["launches_serve_f32"]["pct_tail"],
+                     "idx": state["launches_train_pct_f32"]["pct_tail"],
+                     "bwd": state["launches_train_pct_f32"]["pct_tail_bwd"]}
+    rows = []
     for name in KERNELS:
         if name in (*POINT_KERNELS, "pct_epi_sums", "embed_first_bwd"):
             continue
@@ -4280,24 +4356,50 @@ def time_f32_forms(state: dict) -> None:
         for tag, flags in variants:
             kern, plain = op_fns(name, flags)
             args = op_inputs(name, o, torch.float32, seed=2)
-            ms = cuda_ms(lambda: kern(*args), warmup=1, reps=3)
+            tail = name.startswith("pct_tail")
+            ms = cuda_ms(lambda: kern(*args), warmup=1, reps=5 if tail else 3)
             plain_ms = cuda_ms(lambda: plain(*args), warmup=1, reps=3)
             b_ms, b_by = bound(name, o, oa=flags == OA, f32=True)
-            library = ""
-            if name == "pct_tail":
+            library, library_ms, err = "", None, ""
+            if tail:
                 cat_x = torch.cat(args[:4], dim=-1).reshape(o * P, 4 * C)
-                library = f"library {cuda_ms(lambda: torch.matmul(cat_x, args[4])):.3f} ms | "
+                z_ms = cuda_ms(lambda: torch.matmul(cat_x, args[4]))
+                if name == "pct_tail":
+                    library_ms = z_ms
+                    library = f"library {z_ms:.3f} ms | "
+                else:
+                    g = torch.randn(o * P, K, device="cuda")
+                    w_t = args[4].t()
+                    dx_ms = cuda_ms(lambda: torch.matmul(g, w_t))
+                    dw_ms = cuda_ms(lambda: torch.matmul(cat_x.t(), g))
+                    library = (f"yardstick: its products as torch.matmul calls, z {z_ms:.3f} + "
+                               f"dX = g·Wᵀ {dx_ms:.3f} + dW = xᵀ·g {dw_ms:.3f} = "
+                               f"{z_ms + dx_ms + dw_ms:.3f} ms | ")
+                    del g
                 del cat_x
+                err_abs, err_rel = judge(name, "f32", flags, args, kern(*args), plain(*args),
+                                         plain, f"time: f32 {name} at O={o}")
+                form = tag if name == "pct_tail" else "bwd"
+                n = path_launches[form]
+                path = "the f32 serving request" if form == "" else "the f32 step windows"
+                err = (f"max_abs {err_abs:.3e} max_rel {err_rel:.3e} | launches {n} on its "
+                       f"path ({path}) | ")
+                rows.append({"name": f"{name}{'/' + tag if tag else ''}/f32", "route": "cuda",
+                             "source": f32_source(name), "replaces": KERNELS[name][1],
+                             "launches": n, "max_abs_err": err_abs,
+                             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                             "bound_by": b_by, "library_ms": library_ms})
             log(f"[time] f32 form {name}{'/' + tag if tag else ''} O={o}: kernel {ms:.3f} ms | "
                 f"plain {plain_ms:.3f} ms | {library}bound {b_ms:.4f} ms ({b_by}, the f32 rate) "
-                f"| launches {launches.get(name, 0)} (parity, train_pct_parity, oa_parity; every "
-                f"flag set) | {f32_source(name)} | {state['card']}")
+                f"| {err}launches {launches.get(name, 0)} (parity, train_pct_parity, oa_parity; "
+                f"every flag set) | {f32_source(name)} | {state['card']}")
             del args
             torch.cuda.empty_cache()
+    return rows
 
 
 def f32_source(name: str) -> str:
-    """The file of a kernel's f32 form (a first version)."""
+    """The file of a kernel's f32 form."""
     if name.startswith("embed"):
         return "sgaligner_tpu_torch/csrc/pct_embed.cu"
     return ("sgaligner_tpu_torch/csrc/pct_tail.cu" if name.startswith("pct_tail")

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""The f32 kernels that run on block_gemm's CUDA-core product (the C = 256
-block kernels of csrc/pct_attention_c256.cu and the f32 forms of
-csrc/pct_attention.cu, csrc/pct_embed.cu and csrc/pct_tail.cu) on one
-NVIDIA GPU: times, pass split, and their outputs for a bit-for-bit
-comparison of two checkouts.
+"""The f32 kernels that run on the port's CUDA-core products (block_gemm:
+the C = 256 block kernels of csrc/pct_attention_c256.cu and the f32 forms of
+csrc/pct_attention.cu and csrc/pct_embed.cu; tail_f32.cuh: the f32 tail of
+csrc/pct_tail.cu) on one NVIDIA GPU: times, pass split, and their outputs
+for a bit-for-bit comparison of two checkouts; with --step, the f32 pct
+train step.
 
     python3 scripts/chip_f32_check.py [label] [--times-only | --bits-only]
+    python3 scripts/chip_f32_check.py [label] --step
     python3 scripts/chip_f32_check.py --compare DIR_A DIR_B
 
 Run from a checkout's root (it imports that checkout's chip_smoke.py and
@@ -20,18 +22,25 @@ two designs on the same seeded inputs. Prints, per line and prefixed by
   (median of 9), the plain version's ms, the bound at the f32 rate from
   chip_smoke.bound, and the device ms of each pass under torch.profiler
   (a fresh process, so the profiler counts every launch);
-* every f32 form that is still a first version (chip_smoke.time_f32_forms'
-  list) at O = 896, P = 512: kernel ms, plain ms and bound;
+* every f32 form chip_smoke.time_f32_forms times (the first versions and
+  the tail pair) at O = 896, P = 512: kernel ms, plain ms and bound;
 * unless --times-only: the outputs of every f32 kernel on the inputs of
   chip_smoke.py's kernels phase (O = 67; P = 512 and 200 at C = 128, P =
   256 and 200 at C = 256, both flag sets) saved under build/f32_bits/<label>/
   (gitignored). ``--compare DIR_A DIR_B`` (two such folders) then says,
   output by output, whether the two checkouts gave the same bits, and the
   largest difference where not.
+
+``--step`` runs instead bench.py's pct training step at compute_dtype
+float32 (B = 32, O = 896; chip_smoke._bench_train with F32_STEP's windows
+and a torch.profiler pass for the device time) on the checkout it is run
+from, with the _bench_train of the chip_smoke.py beside this script, so
+two checkouts are timed by the same code.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import sys
 from pathlib import Path
 
@@ -85,9 +94,8 @@ def wide_times(tag: str) -> None:
 
 
 def first_versions():
-    """(name, tag, flags) of the f32 forms still first versions: every
-    kernel but the PointNet pair, pct_epi_sums and embed_first_bwd, as
-    chip_smoke.time_f32_forms times them."""
+    """(name, tag, flags) of the f32 forms chip_smoke.time_f32_forms times:
+    every kernel but the PointNet pair, pct_epi_sums and embed_first_bwd."""
     for name in cs.KERNELS:
         if name in (*cs.POINT_KERNELS, "pct_epi_sums", "embed_first_bwd"):
             continue
@@ -166,6 +174,20 @@ def compare_bits(a: str, b: str) -> int:
     return 0 if differ == 0 else 1
 
 
+def f32_step(tag: str) -> None:
+    """The f32 pct train step of the checkout run from, timed by this
+    script's own chip_smoke._bench_train."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_step", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    own = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(own)
+    state = {"card": cs.card_line()}
+    _, ms, _ = own._bench_train(state, own.MODULES, f"{tag} train_pct_f32",
+                                own.PER_PCT_TRAIN_STEP, "float32", own.F32_STEP)
+    print(f"{tag} f32 pct train step (B = {own.TRAIN_B}): {ms:.2f} ms | {state['card']}",
+          flush=True)
+
+
 def main() -> int:
     if "--compare" in sys.argv:
         a, b = [x for x in sys.argv[1:] if not x.startswith("--")][:2]
@@ -177,6 +199,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     tag = args[0] if args else "this"
+    if "--step" in sys.argv:
+        f32_step(tag)
+        return 0
     registers(tag)
     if "--bits-only" not in sys.argv:
         wide_times(tag)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""block_gemm's register-tiled f32 product alone on one NVIDIA GPU: the
-rate it reaches at each shape the C = 256 passes call it with, and the SM
-clock while it runs.
+"""The port's f32 CUDA-core products alone on one NVIDIA GPU: block_gemm's
+register-tiled product at each shape the C = 256 passes call it with, the
+f32 tail's mainloop (csrc/tail_f32.cuh) at the tail's three products, and
+the SM clock while block_gemm runs.
 
     python3 scripts/chip_gemm_check.py
 
@@ -11,8 +12,11 @@ shape launches one block an SM (132 on an H100) that multiplies tiles
 resident in shared memory over and over, times it with CUDA events and
 prints TFLOP/s beside the card's 67 TFLOP/s f32 rate (chip_smoke.F32_FLOPS),
 and the SM clock nvidia-smi reads during a longer run of the largest shape.
-The passes' own times (scripts/chip_f32_check.py) sit at these rates, so
-they say how far a pass can go on this product.
+Then builds scripts/tail_gemm_bench.cu and times the tail's mainloop over
+operands in device memory at O = 896, P = 512, K = 1024 (z = X·W, dX =
+G·Wᵀ, dW = Xᵀ·G), two blocks an SM, with an epilogue that only keeps a
+checksum. The passes' own times (scripts/chip_f32_check.py) sit at these
+rates, so they say how far a pass can go on this product.
 """
 
 from __future__ import annotations
@@ -35,14 +39,53 @@ F32_FLOPS = 67e12
 SMEM = 200 * 1024
 
 
-def build() -> ctypes.CDLL:
-    out = Path("build") / "block_gemm_bench.so"
+# the tail's products (scripts/tail_gemm_bench.cu modes) at O = 896, P = 512
+TAIL_ROWS, TAIL_K = 896 * 512, 1024
+TAIL_MODES = {"z = X·W [rows x 1024, K = 512]": 0, "dX = G·Wᵀ [rows x 512, K = 1024]": 1,
+              "dW = Xᵀ·G [512 x 1024, over the rows]": 2}
+
+
+def build(name: str = "block_gemm_bench") -> ctypes.CDLL:
+    out = Path("build") / f"{name}.so"
     out.parent.mkdir(exist_ok=True)
     subprocess.run(["/usr/local/cuda/bin/nvcc", "-gencode", "arch=compute_90a,code=sm_90a",
-                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                    "-I", "sgaligner_tpu_torch/csrc", "scripts/block_gemm_bench.cu",
+                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+                    "-I", "sgaligner_tpu_torch/csrc", f"scripts/{name}.cu",
                     "-o", str(out)], check=True)
     return ctypes.CDLL(str(out))
+
+
+def tail_rates(sms: int, card: str) -> None:
+    """The tail's mainloop at its three products' shapes, CUDA events over
+    one launch after a warm-up."""
+    lib = build("tail_gemm_bench")
+    fn = lib.tail_gemm
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(TAIL_ROWS, 512, device="cuda", generator=g)
+    gr = torch.randn(TAIL_ROWS, TAIL_K, device="cuda", generator=g)
+    w = torch.randn(512, TAIL_K, device="cuda", generator=g)
+    splits = max(1, 2 * sms // 32)
+    out = torch.zeros(256 * max(2 * sms, 32 * splits), device="cuda")
+    st = torch.cuda.current_stream().cuda_stream
+    for label, mode in TAIL_MODES.items():
+        a, b = {0: (x, w), 1: (gr, w), 2: (x, gr)}[mode]
+        groups = 2 * sms // (8 if mode == 0 else 4)
+        ms = []
+        for _ in range(3):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            if fn(mode, a.data_ptr(), b.data_ptr(), out.data_ptr(), TAIL_ROWS, groups, splits,
+                  st) != 0:
+                raise RuntimeError(f"tail_gemm mode {mode}: launch failed")
+            e1.record()
+            torch.cuda.synchronize()
+            ms.append(e0.elapsed_time(e1))
+        rows = TAIL_ROWS if mode < 2 else splits * (TAIL_ROWS // splits // 16 * 16)
+        rate = 2 * rows * 512 * TAIL_K / min(ms[1:]) / 1e9
+        print(f"tail mainloop f32 {label}: {min(ms[1:]):.3f} ms, {rate:.1f} TFLOP/s "
+              f"({rate * 1e12 / F32_FLOPS:.0%} of 67), rows {rows} | {card}", flush=True)
 
 
 def clocks(samples: list, stop: threading.Event) -> None:
@@ -94,6 +137,7 @@ def main() -> int:
     t.join()
     print(f"block_gemm f32 nn_64_256_64 for {ms:.0f} ms: nvidia-smi clocks.sm, power.draw "
           f"samples {samples[1:-1] or samples} | {card}", flush=True)
+    tail_rates(sms, card)
     return 0
 
 

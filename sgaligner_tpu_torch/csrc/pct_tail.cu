@@ -15,14 +15,18 @@
 //   P = 512, K = 1024) against 4·P·128 inputs read once.
 //   bf16: the wgmma design in pct_tail_sm90.cu (W resident, a TMA ring
 //   for x, accumulators in registers, the pool in the epilogue).
-//   f32 (full f32, no TF32: wgmma has no such form): blocks of 256 threads,
-//   block b owning the 128-column slice b % (K/128) and walking objects in
-//   a fixed stride. Per object it walks P in 64-row chunks, stages the four
-//   [64, 128] input tiles and the matching [128, 128] slices of W in shared
-//   memory and accumulates z with block_gemm's register-tiled f32 FMA
-//   product; the epilogue keeps the running max / min (and, in the
-//   training form only, a compile-time variant, their indices) and sums of
-//   its column in registers, so the pool over P never leaves the block.
+//   f32 (full f32, no TF32: wgmma has no such form): the register-tiled
+//   mainloop of tail_f32.cuh (128 x 128 block tiles, 8 x 8 outputs a
+//   thread in registers across the whole 512-deep sum, a 3-stage cp.async
+//   ring of 16-deep k-steps). Block b owns the 128-column slice b % (K/128)
+//   and walks objects g, g + groups, ... (g = b / (K/128)), each object's
+//   128-row tiles in turn; z is one fmaf chain a value over x1's channels,
+//   then x2's, x3's and x4's, in order. The epilogue passes each tile's z
+//   through the ring stage just freed, 32 rows at a time, to a thread per
+//   (column, row parity) that pools and sums its rows in order, carried
+//   over the object's tiles, as the first version did: the pool, its
+//   indices and the BN sums keep the first version's bits. Rows past a
+//   ragged P enter neither the pool nor the sums.
 //   Both dtypes: each block (bf16: each consumer warpgroup) adds its
 //   objects' masked sums in registers and writes them once into its own
 //   slice of a scratch buffer; reduce_slices adds the slices in order. No
@@ -39,104 +43,123 @@
 //   Bound on the H100: operations, 3 x 2·P·512·K per object (recompute z,
 //   the dx product, the dW product): 1.6 GFLOP per object.
 //   bf16: the wgmma design in pct_tail_bwd_sm90.cu. f32 (full f32, no
-//   TF32): three launches and a fixed-order sum, no atomics.
-//     1. tail_g: the forward's blocks again, (object, 128-column slice);
-//        its epilogue builds g2 and writes it to a [O·P, K] buffer (a round
-//        trip through device memory that the TPU kernel kept in VMEM: 2
-//        bytes per element in bf16, read twice below);
-//     2. tail_dx: a tiled product over 64-row tiles of the flat [O·P, K]
-//        g2, one block per (row tile, input i), walking K in 128-column
-//        chunks with Wᵢ's matching [128, 128] slice staged;
-//     3. tail_dw: one block per (input i, 128-column slice of K, row split),
-//        the [128, 128] accumulator in shared memory over its rows
-//        (transposed-A block_gemm), then one slice of the scratch per row
-//        split; reduce_slices adds the splits in order. A block that owned
-//        a whole [512, 128] column slice would need 256 KB of accumulator,
-//        more than a block's shared memory.
-#include "common.cuh"
+//   TF32): three launches of tail_f32.cuh's mainloop and a fixed-order sum,
+//   no atomics.
+//     1. tail_g: the forward's product over (object, row tile, column
+//        slice) tiles; its epilogue builds g and writes it to an [O·P, K]
+//        buffer (a round trip through device memory that the TPU kernel
+//        kept in VMEM, read twice below);
+//     2. tail_dx: dX = g·Wᵀ over 128-row tiles of the flat [O·P, K] g and
+//        the four 128-column slices of dX (one per dxᵢ), K deep;
+//     3. tail_dw: dW = Σ xᵀ·g, one block per (input i, 128-column slice of
+//        K, row split), its [128, 128] sum in registers over its rows, then
+//        one slice of the scratch per row split; reduce_slices adds the
+//        splits in order.
+#include "tail_f32.cuh"
 
+#include <algorithm>
 #include <climits>
 
 namespace sga {
 namespace {
 
-constexpr int kC = 128;       // width of each SA output
-constexpr int kN = 128;       // columns of K per block
-constexpr int kRows = 64;     // points per chunk
-constexpr int kThreads = 256;  // 2 row lanes x 128 columns
+using namespace tail_f32;
 
-template <typename T>
-struct TailSmem {
-  static constexpr int lda = pad_ld<T>(kC), ldb = pad_ld<T>(kN), ldc = pad_ldf(kN);
-  static constexpr size_t a_off = 0;
-  static constexpr size_t b_off = align128(a_off + sizeof(T) * kRows * lda);
-  static constexpr size_t c_off = align128(b_off + sizeof(T) * kC * ldb);
-  static constexpr size_t bytes = align128(c_off + sizeof(float) * kRows * ldc);
-};
+constexpr int kC = 128;                 // width of each SA output
+constexpr int kZSteps = 4 * kC / kBK;   // k-steps of z's 512-deep product
 
-// sc[r, n] = Σᵢ xᵢ[obj, r0 + r, :]·Wᵢ[:, n0 + n] for the 64-row chunk at r0
-// (rows >= valid from zero inputs), f32.
-template <typename T>
-__device__ __forceinline__ void z_chunk(const T* const (&xs)[4], const T* __restrict__ w, T* sa, T* sb, float* sc,
-                        int obj, int p, int k, int n0, int r0, int valid) {
-  using L = TailSmem<T>;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    load_tile<T>(sa, L::lda, xs[i] + ((size_t)obj * p + r0) * kC, kC, kRows, kC, valid);
-    load_tile<T>(sb, L::ldb, w + (size_t)i * kC * k + n0, k, kC, kN, kC);
-    __syncthreads();
-    block_gemm<T, false, false, kRows, kN, kC>(sa, L::lda, sb, L::ldb, sc, L::ldc, i > 0);
-    __syncthreads();
-  }
+__device__ __forceinline__ const float* input(const float* x1, const float* x2,
+                                              const float* x3, const float* x4, int i) {
+  return i == 0 ? x1 : i == 1 ? x2 : i == 2 ? x3 : x4;
 }
 
-// The f32 forward (bf16 runs pct_tail_sm90.cu). Block b owns the column
-// slice (b % (K/128)) and walks objects g, g + groups, ... with
-// g = b / (K/128). kIndex: also keep the first index of each max / min (the
-// training forward); without it the running max / min is a plain fmaxf /
-// fminf. Each block adds its objects' masked sums in registers and writes
-// them into its slice g of `sums` (Σz at [0, K), Σz² at [K, 2K)).
+// The operands of z's product shared by the forward and the g pass: the
+// 128-row tile at row r0 of object obj (rows >= valid zero-filled), column
+// slice n0 of W
+struct ZOperands {
+  const float *x1, *x2, *x3, *x4, *w;
+  int p, k, n0;
+
+  // k-step ks: channels 16·ks .. of the concatenated input (x1's 128, then
+  // x2's, ...), transposed, and the same 16 rows of W's slice
+  __device__ __forceinline__ void stage(float* st, int obj, int r0, int valid, int ks) const {
+    const int k0 = ks * kBK;
+    stage_rows_t(st, input(x1, x2, x3, x4, k0 / kC) + ((size_t)obj * p + r0) * kC + k0 % kC, kC,
+                 valid);
+    stage_rows(st + kOperand, w + (size_t)k0 * k + n0, k, kBK);
+  }
+};
+
+// The forward's job: the block's objects, each object's row tiles in turn.
+// After a tile's product the accumulators go through the spare stage, 32
+// rows at a time, and thread (c, h) (column n0 + c, row parity h) runs the
+// first version's pool and sums over its rows in ascending order: the
+// running max / min (and first indices) and Σz, Σz² of its rows r ≡ h
+// (mod 2), carried over the object's tiles. At an object's end the two
+// parities meet through `red` and thread (c, 0) writes the pool and adds
+// mask · (Σ₀ + Σ₁) to the block's sums
 template <bool kIndex>
-__global__ void __launch_bounds__(kThreads)
-pct_tail_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
-                const float* __restrict__ x3, const float* __restrict__ x4,
-                const float* __restrict__ w, const float* __restrict__ mask,
-                float* __restrict__ pmax, float* __restrict__ pmin, float* __restrict__ sums,
-                long long slice, int* __restrict__ amax, int* __restrict__ amin, int o, int p,
-                int k, int groups) {
-  using L = TailSmem<float>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* sa = reinterpret_cast<float*>(smem + L::a_off);
-  float* sb = reinterpret_cast<float*>(smem + L::b_off);
-  float* sc = reinterpret_cast<float*>(smem + L::c_off);
-  __shared__ float red[4][2][kN];
-  __shared__ int ridx[2][2][kN];
+struct TailFwd {
+  ZOperands z;
+  const float* mask;
+  float *pmax, *pmin;
+  int *amax, *amin;
+  float (*red)[2][kTile];  // [mx, mn, Σz, Σz²][parity][column]
+  int (*ridx)[2][kTile];   // [imx, imn][parity][column]
+  int g, groups, rtiles, objs;
+  float mx = -INFINITY, mn = INFINITY, b1 = 0.f, b2 = 0.f, u1 = 0.f, u2 = 0.f;
+  int imx = INT_MAX, imn = INT_MAX;
 
-  const int slices = k / kN;
-  const int n0 = (blockIdx.x % slices) * kN, g = blockIdx.x / slices;
-  const int c = threadIdx.x % kN, half = threadIdx.x / kN;
-  const float* const xs[4] = {x1, x2, x3, x4};
-  float u1 = 0.f, u2 = 0.f;  // half 0: the block's masked sums of column n0 + c
+  __device__ int steps() const { return objs * rtiles * kZSteps; }
+  __device__ int ksteps() const { return kZSteps; }
+  __device__ void stage(int s, float* st) const {
+    const int t = s / kZSteps, r0 = (t % rtiles) * kTile;
+    z.stage(st, g + groups * (t / rtiles), r0, min(kTile, z.p - r0), s % kZSteps);
+  }
 
-  for (int obj = g; obj < o; obj += groups) {
-    float mx = -INFINITY, mn = INFINITY, b1 = 0.f, b2 = 0.f;
-    int imx = INT_MAX, imn = INT_MAX;
-    for (int r0 = 0; r0 < p; r0 += kRows) {
-      const int valid = min(kRows, p - r0);
-      z_chunk<float>(xs, w, sa, sb, sc, obj, p, k, n0, r0, valid);
-      for (int r = half; r < valid; r += 2) {
-        const float z = sc[r * L::ldc + c];
-        if constexpr (kIndex) {
-          if (beats_max(z, r0 + r, mx, imx)) { mx = z; imx = r0 + r; }
-          if (beats_min(z, r0 + r, mn, imn)) { mn = z; imn = r0 + r; }
-        } else {
-          mx = fmaxf(mx, z);
-          mn = fminf(mn, z);
+  __device__ void epilogue(int t, const float (&acc)[8][8], float* spare) {
+    const int obj = g + groups * (t / rtiles), rt = t % rtiles;
+    const int r0 = rt * kTile, valid = min(kTile, z.p - r0);
+    const int tx = lane_tx(), ty = lane_ty(), c = threadIdx.x % kTile, half = threadIdx.x / kTile;
+    __syncthreads();  // every thread is past the product that read `spare`
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      // rows 32·q .. 32·q + 31: registers 4·(q/2) .. +3 of threads ty = 8·(q%2) .. +7
+      if (ty / 8 == q % 2) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * (q / 2) + e, row = 4 * (ty % 8) + e;
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            store4<float>(spare + row * kLd + 64 * h + 4 * tx, acc[i][4 * h],
+                          acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
         }
-        b1 += z;
-        b2 += z * z;
       }
+      __syncthreads();
+      // this parity's 16 rows of the quarter, loaded together; the rows
+      // past `valid` (zero-filled) are read and skipped
+      float v16[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) v16[j] = spare[(half + 2 * j) * kLd + c];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int r = half + 2 * j;
+        if (r >= valid - 32 * q) continue;
+        const float v = v16[j];
+        const int pt = r0 + 32 * q + r;
+        if constexpr (kIndex) {
+          if (beats_max(v, pt, mx, imx)) { mx = v; imx = pt; }
+          if (beats_min(v, pt, mn, imn)) { mn = v; imn = pt; }
+        } else {
+          mx = fmaxf(mx, v);
+          mn = fminf(mn, v);
+        }
+        b1 += v;
+        b2 += v * v;
+      }
+      __syncthreads();
     }
+    if (rt < rtiles - 1) return;
     red[0][half][c] = mx;
     red[1][half][c] = mn;
     red[2][half][c] = b1;
@@ -147,7 +170,7 @@ pct_tail_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
     }
     __syncthreads();
     if (half == 0) {
-      const size_t out = (size_t)obj * k + n0 + c;
+      const size_t out = (size_t)obj * z.k + z.n0 + c;
       if constexpr (kIndex) {
         const bool hi = beats_max(red[0][1][c], ridx[0][1][c], red[0][0][c], ridx[0][0][c]);
         const bool lo = beats_min(red[1][1][c], ridx[1][1][c], red[1][0][c], ridx[1][0][c]);
@@ -162,137 +185,199 @@ pct_tail_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
       u1 += mask[obj] * (red[2][0][c] + red[2][1][c]);
       u2 += mask[obj] * (red[3][0][c] + red[3][1][c]);
     }
-    __syncthreads();
+    mx = -INFINITY, mn = INFINITY, b1 = 0.f, b2 = 0.f, imx = INT_MAX, imn = INT_MAX;
+    // `red` is written again only after the next object's tiles, each
+    // behind a __syncthreads
   }
-  if (half == 0) {
-    sums[(size_t)g * slice + n0 + c] = u1;
-    sums[(size_t)g * slice + k + n0 + c] = u2;
+};
+
+// The f32 forward (bf16 runs pct_tail_sm90.cu). kIndex: also keep the
+// first index of each max / min (the training forward); without it the
+// running max / min is a plain fmaxf / fminf. Each block writes its masked
+// sums into its slice g of `sums` (Σz at [0, K), Σz² at [K, 2K)).
+template <bool kIndex>
+__global__ void __launch_bounds__(kThreads, 2)
+pct_tail_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
+                const float* __restrict__ x3, const float* __restrict__ x4,
+                const float* __restrict__ w, const float* __restrict__ mask,
+                float* __restrict__ pmax, float* __restrict__ pmin, float* __restrict__ sums,
+                long long slice, int* __restrict__ amax, int* __restrict__ amin, int o, int p,
+                int k, int groups) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float red[4][2][kTile];
+  __shared__ int ridx[2][2][kTile];
+  const int slices = k / kTile;
+  const int g = blockIdx.x / slices;
+  TailFwd<kIndex> job{{x1, x2, x3, x4, w, p, k, (int)(blockIdx.x % slices) * kTile},
+                      mask, pmax, pmin, amax, amin, red, ridx, g, groups,
+                      max(1, (p + kTile - 1) / kTile), (o - g + groups - 1) / groups};
+  run(job, reinterpret_cast<float*>(smem));
+  if (threadIdx.x < kTile) {
+    sums[(size_t)g * slice + job.z.n0 + threadIdx.x] = job.u1;
+    sums[(size_t)g * slice + k + job.z.n0 + threadIdx.x] = job.u2;
   }
 }
 
 // ------------------------------- backward ----------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-tail_g_kernel(const T* __restrict__ x1, const T* __restrict__ x2, const T* __restrict__ x3,
-              const T* __restrict__ x4, const T* __restrict__ w, const T* __restrict__ mask,
+// The g pass's job: tiles u = grp, grp + groups, ... of the (object, row
+// tile) list, each written as g's [128, 128] block at column slice n0
+struct TailG {
+  ZOperands z;
+  const float *mask, *dpmax, *dpmin, *dsum, *dsumsq;
+  const int *amax, *amin;
+  float* g;
+  int grp, groups, rtiles, tiles;
+
+  __device__ int steps() const { return tiles * kZSteps; }
+  __device__ int ksteps() const { return kZSteps; }
+  __device__ void stage(int s, float* st) const {
+    const int u = grp + groups * (s / kZSteps), r0 = (u % rtiles) * kTile;
+    z.stage(st, u / rtiles, r0, min(kTile, z.p - r0), s % kZSteps);
+  }
+  __device__ void epilogue(int t, const float (&acc)[8][8], float*) const {
+    const int u = grp + groups * t, obj = u / rtiles, r0 = (u % rtiles) * kTile;
+    const int valid = min(kTile, z.p - r0), tx = lane_tx(), ty = lane_ty();
+    const float m = mask[obj];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = z.n0 + 64 * h + 4 * tx;
+      const size_t oc = (size_t)obj * z.k + col;
+      const int4 ix = *reinterpret_cast<const int4*>(amax + oc);
+      const int4 in = *reinterpret_cast<const int4*>(amin + oc);
+      const float4 gx = *reinterpret_cast<const float4*>(dpmax + oc);
+      const float4 gn = *reinterpret_cast<const float4*>(dpmin + oc);
+      const float4 d1 = *reinterpret_cast<const float4*>(dsum + col);
+      const float4 d2 = *reinterpret_cast<const float4*>(dsumsq + col);
+      const int imx[4] = {ix.x, ix.y, ix.z, ix.w}, imn[4] = {in.x, in.y, in.z, in.w};
+      const float gmx[4] = {gx.x, gx.y, gx.z, gx.w}, gmn[4] = {gn.x, gn.y, gn.z, gn.w};
+      const float a1[4] = {m * d1.x, m * d1.y, m * d1.z, m * d1.w};
+      const float a2[4] = {m * d2.x, m * d2.y, m * d2.z, m * d2.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int row = tile_row(ty, i);
+        if (row >= valid) continue;
+        const int pt = r0 + row;
+        float gv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          gv[e] = (pt == imx[e] ? gmx[e] : 0.f) + (pt == imn[e] ? gmn[e] : 0.f);
+          gv[e] += a1[e] + 2.f * acc[i][4 * h + e] * a2[e];
+        }
+        store4<float>(g + ((size_t)obj * z.p + pt) * z.k + col, gv[0], gv[1], gv[2], gv[3]);
+      }
+    }
+  }
+};
+
+__global__ void __launch_bounds__(kThreads, 2)
+tail_g_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
+              const float* __restrict__ x3, const float* __restrict__ x4,
+              const float* __restrict__ w, const float* __restrict__ mask,
               const float* __restrict__ dpmax, const float* __restrict__ dpmin,
               const float* __restrict__ dsum, const float* __restrict__ dsumsq,
-              const int* __restrict__ amax, const int* __restrict__ amin, T* __restrict__ g,
-              int o, int p, int k) {
-  using L = TailSmem<T>;
+              const int* __restrict__ amax, const int* __restrict__ amin, float* __restrict__ g,
+              int o, int p, int k, int groups) {
   extern __shared__ __align__(128) unsigned char smem[];
-  T* sa = reinterpret_cast<T*>(smem + L::a_off);
-  T* sb = reinterpret_cast<T*>(smem + L::b_off);
-  float* sc = reinterpret_cast<float*>(smem + L::c_off);
-
-  const int slices = k / kN;
-  const int n0 = (blockIdx.x % slices) * kN, obj = blockIdx.x / slices;
-  const int c = threadIdx.x % kN, half = threadIdx.x / kN;
-  const T* const xs[4] = {x1, x2, x3, x4};
-  const size_t oc = (size_t)obj * k + n0 + c;
-  const int imx = amax[oc], imn = amin[oc];
-  const float gmx = dpmax[oc], gmn = dpmin[oc];
-  const float m = to_f<T>(mask[obj]);
-  const float a1 = m * dsum[n0 + c], a2 = m * dsumsq[n0 + c];
-
-  for (int r0 = 0; r0 < p; r0 += kRows) {
-    const int valid = min(kRows, p - r0);
-    z_chunk<T>(xs, w, sa, sb, sc, obj, p, k, n0, r0, valid);
-    for (int r = half; r < valid; r += 2) {
-      const float z = round_to<T>(sc[r * L::ldc + c]);
-      const int pt = r0 + r;
-      float gv = (pt == imx ? gmx : 0.f) + (pt == imn ? gmn : 0.f);
-      gv += a1 + 2.f * z * a2;
-      g[((size_t)obj * p + pt) * k + n0 + c] = from_f<T>(gv);
-    }
-  }
+  const int slices = k / kTile, grp = blockIdx.x / slices;
+  const int rtiles = max(1, (p + kTile - 1) / kTile), units = o * rtiles;
+  TailG job{{x1, x2, x3, x4, w, p, k, (int)(blockIdx.x % slices) * kTile},
+            mask, dpmax, dpmin, dsum, dsumsq, amax, amin, g, grp, groups, rtiles,
+            (units - grp + groups - 1) / groups};
+  run(job, reinterpret_cast<float*>(smem));
 }
 
-template <typename T>
-struct DxSmem {
-  static constexpr int ldg = pad_ld<T>(kN), ldw = pad_ld<T>(kN), ldc = pad_ldf(kC);
-  static constexpr size_t g_off = 0;
-  static constexpr size_t w_off = align128(g_off + sizeof(T) * kRows * ldg);
-  static constexpr size_t c_off = align128(w_off + sizeof(T) * kC * ldw);
-  static constexpr size_t bytes = align128(c_off + sizeof(float) * kRows * ldc);
+// dX = g·Wᵀ: tiles t = grp, grp + groups, ... of 128 flat rows, column
+// slice ct of dX (= dx_ct), K deep
+struct TailDx {
+  const float *g, *w;
+  float* dx;
+  long long rows;
+  int k, ct, grp, groups, tiles;
+
+  __device__ int steps() const { return tiles * (k / kBK); }
+  __device__ int ksteps() const { return k / kBK; }
+  __device__ void stage(int s, float* st) const {
+    const int ks = k / kBK;
+    const long long row0 = (long long)(grp + groups * (s / ks)) * kTile;
+    const int k0 = (s % ks) * kBK;
+    stage_rows_t(st, g + row0 * k + k0, k, (int)min((long long)kTile, rows - row0));
+    // B[kk][n] = W[128·ct + n][k0 + kk]: W's rows, transposed
+    stage_rows_t(st + kOperand, w + (size_t)ct * kTile * k + k0, k, kTile);
+  }
+  __device__ void epilogue(int t, const float (&acc)[8][8], float*) const {
+    const long long row0 = (long long)(grp + groups * t) * kTile;
+    const int tx = lane_tx(), ty = lane_ty();
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const long long r = row0 + tile_row(ty, i);
+      if (r >= rows) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        store4<float>(dx + r * kC + 64 * h + 4 * tx, acc[i][4 * h], acc[i][4 * h + 1],
+                      acc[i][4 * h + 2], acc[i][4 * h + 3]);
+    }
+  }
 };
 
-// dxᵢ[r, :] = g2[r, :]·Wᵢᵀ for 64-row tiles of the flat [O·P, K] g2
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-tail_dx_kernel(const T* __restrict__ g, const T* __restrict__ w, T* __restrict__ dx1,
-               T* __restrict__ dx2, T* __restrict__ dx3, T* __restrict__ dx4, long long rows,
-               int k) {
-  using L = DxSmem<T>;
+__global__ void __launch_bounds__(kThreads, 2)
+tail_dx_kernel(const float* __restrict__ g, const float* __restrict__ w, float* __restrict__ dx1,
+               float* __restrict__ dx2, float* __restrict__ dx3, float* __restrict__ dx4,
+               long long rows, int k, int groups) {
   extern __shared__ __align__(128) unsigned char smem[];
-  T* sg = reinterpret_cast<T*>(smem + L::g_off);
-  T* sw = reinterpret_cast<T*>(smem + L::w_off);
-  float* sc = reinterpret_cast<float*>(smem + L::c_off);
-  T* const dxs[4] = {dx1, dx2, dx3, dx4};
-
-  const long long tiles = (rows + kRows - 1) / kRows;
-  for (long long t = blockIdx.x; t < tiles * 4; t += gridDim.x) {
-    const int i = (int)(t % 4);
-    const long long row0 = (t / 4) * kRows;
-    const int valid = (int)min((long long)kRows, rows - row0);
-    for (int k0 = 0; k0 < k; k0 += kN) {
-      load_tile<T>(sg, L::ldg, g + row0 * k + k0, k, kRows, kN, valid);
-      // Wᵢ[:, k0:k0+128] is the transposed operand: [128 (c) x 128 (k)]
-      load_tile<T>(sw, L::ldw, w + (size_t)i * kC * k + k0, k, kC, kN, kC);
-      __syncthreads();
-      block_gemm<T, true, false, kRows, kC, kN>(sg, L::ldg, sw, L::ldw, sc, L::ldc, k0 > 0);
-      __syncthreads();
-    }
-    T* out = dxs[i] + row0 * kC;
-    for (int idx = threadIdx.x; idx < valid * kC; idx += blockDim.x)
-      out[idx] = from_f<T>(sc[(idx / kC) * L::ldc + idx % kC]);
-    __syncthreads();
-  }
+  const int ct = blockIdx.x % 4, grp = blockIdx.x / 4;
+  const long long rtiles = (rows + kTile - 1) / kTile;
+  TailDx job{g, w, ct == 0 ? dx1 : ct == 1 ? dx2 : ct == 2 ? dx3 : dx4, rows, k, ct, grp, groups,
+             (int)((rtiles - grp + groups - 1) / groups)};
+  run(job, reinterpret_cast<float*>(smem));
 }
 
-template <typename T>
-struct DwSmem {
-  static constexpr int ldx = pad_ld<T>(kC), ldg = pad_ld<T>(kN), ldc = pad_ldf(kN);
-  static constexpr size_t x_off = 0;
-  static constexpr size_t g_off = align128(x_off + sizeof(T) * kRows * ldx);
-  static constexpr size_t c_off = align128(g_off + sizeof(T) * kRows * ldg);
-  static constexpr size_t bytes = align128(c_off + sizeof(float) * kC * ldc);
+// dW's block (input i, column slice n0, row split): Σ over rows [lo, hi) of
+// xᵢᵀ·g[:, n0..], one slice of the scratch per split
+struct TailDw {
+  const float *x, *g;
+  float* out;  // the split's slice at dW[128·i, n0]
+  long long lo, hi;
+  int k, n0;
+
+  __device__ int steps() const { return (int)((hi - lo + kBK - 1) / kBK); }
+  __device__ int ksteps() const { return steps(); }
+  __device__ void stage(int s, float* st) const {
+    const long long r0 = lo + (long long)s * kBK;
+    const int valid = (int)min((long long)kBK, hi - r0);
+    stage_rows(st, x + r0 * kC, kC, valid);
+    stage_rows(st + kOperand, g + r0 * k + n0, k, valid);
+  }
+  __device__ void epilogue(int, const float (&acc)[8][8], float*) const {
+    const int tx = lane_tx(), ty = lane_ty();
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        store4<float>(out + (size_t)tile_row(ty, i) * k + 64 * h + 4 * tx, acc[i][4 * h],
+                      acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+  }
 };
 
-// block (i, column slice n, row split r): Σ over its rows of xᵢᵀ·g2[:, n]
-// into scratch slice r at dW[i·128.., n·128..]
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-tail_dw_kernel(const T* __restrict__ x1, const T* __restrict__ x2, const T* __restrict__ x3,
-               const T* __restrict__ x4, const T* __restrict__ g, float* __restrict__ scratch,
-               long long rows, long long rows_per_split, int k) {
-  using L = DwSmem<T>;
+__global__ void __launch_bounds__(kThreads, 2)
+tail_dw_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
+               const float* __restrict__ x3, const float* __restrict__ x4,
+               const float* __restrict__ g, float* __restrict__ scratch, long long rows,
+               long long rows_per_split, int k) {
   extern __shared__ __align__(128) unsigned char smem[];
-  T* sx = reinterpret_cast<T*>(smem + L::x_off);
-  T* sg = reinterpret_cast<T*>(smem + L::g_off);
-  float* sc = reinterpret_cast<float*>(smem + L::c_off);
-  const T* const xs[4] = {x1, x2, x3, x4};
-
-  const int slices = k / kN;
-  const int i = blockIdx.x % 4, n0 = ((blockIdx.x / 4) % slices) * kN;
+  const int slices = k / kTile;
+  const int i = blockIdx.x % 4, n0 = ((blockIdx.x / 4) % slices) * kTile;
   const int split = blockIdx.x / (4 * slices);
   const long long lo = split * rows_per_split;
-  const long long hi = min(rows, lo + rows_per_split);
-  for (int idx = threadIdx.x; idx < kC * kN; idx += blockDim.x)
-    sc[(idx / kN) * L::ldc + idx % kN] = 0.f;
-  for (long long row0 = lo; row0 < hi; row0 += kRows) {
-    const int valid = (int)min((long long)kRows, hi - row0);
-    load_tile<T>(sx, L::ldx, xs[i] + row0 * kC, kC, kRows, kC, valid);
-    load_tile<T>(sg, L::ldg, g + row0 * k + n0, k, kRows, kN, valid);
-    __syncthreads();
-    block_gemm<T, false, true, kC, kN, kRows>(sx, L::ldx, sg, L::ldg, sc, L::ldc, true);
-    __syncthreads();
+  TailDw job{input(x1, x2, x3, x4, i), g,
+             scratch + (size_t)split * 4 * kC * k + (size_t)i * kC * k + n0,
+             lo, min(rows, lo + rows_per_split), k, n0};
+  if (job.steps() > 0) {
+    run(job, reinterpret_cast<float*>(smem));
+  } else {  // a split past the last row: its slice is zero
+    const float zero[8][8] = {};
+    job.epilogue(0, zero, nullptr);
   }
-  __syncthreads();
-  float* out = scratch + (size_t)split * 4 * kC * k + (size_t)i * kC * k + n0;
-  for (int idx = threadIdx.x; idx < kC * kN; idx += blockDim.x)
-    out[(size_t)(idx / kN) * k + idx % kN] = sc[(idx / kN) * L::ldc + idx % kN];
 }
 
 // f32 forward; work: `groups` slices of slice_stride(2K) floats
@@ -300,46 +385,56 @@ int launch_tail_f32(const void* x1, const void* x2, const void* x3, const void* 
                     const void* w, const void* mask, float* pmax, float* pmin, float* s1,
                     float* s2, int* amax, int* amin, float* work, int groups, int o, int p, int k,
                     cudaStream_t st) {
-  const size_t smem = TailSmem<float>::bytes;
-  const unsigned grid = (unsigned)(k / kN) * (unsigned)groups;
+  const unsigned grid = (unsigned)(k / kTile) * (unsigned)groups;
   const long long slice = slice_stride(2LL * k);
   auto kernel = amax != nullptr ? pct_tail_kernel<true> : pct_tail_kernel<false>;
-  if (int rc = allow_smem(kernel, smem)) return rc;
-  kernel<<<grid, kThreads, smem, st>>>((const float*)x1, (const float*)x2, (const float*)x3,
-                                       (const float*)x4, (const float*)w, (const float*)mask,
-                                       pmax, pmin, work, slice, amax, amin, o, p, k, groups);
+  if (int rc = allow_smem(kernel, kRingBytes)) return rc;
+  kernel<<<grid, kThreads, kRingBytes, st>>>((const float*)x1, (const float*)x2,
+                                             (const float*)x3, (const float*)x4, (const float*)w,
+                                             (const float*)mask, pmax, pmin, work, slice, amax,
+                                             amin, o, p, k, groups);
   if (int rc = (int)cudaGetLastError()) return rc;
   if (int rc = reduce_slices(work, slice, groups, s1, k, st)) return rc;
   return reduce_slices(work + k, slice, groups, s2, k, st);
 }
 
-template <typename T>
-int launch_tail_bwd(const void* x1, const void* x2, const void* x3, const void* x4,
-                    const void* w, const void* mask, const float* dpmax, const float* dpmin,
-                    const float* dsum, const float* dsumsq, const int* amax, const int* amin,
-                    void* g, void* dx1, void* dx2, void* dx3, void* dx4, float* scratch,
-                    int splits, float* dw, int o, int p, int k, cudaStream_t st) {
-  const size_t s1 = TailSmem<T>::bytes;
-  if (int rc = allow_smem(tail_g_kernel<T>, s1)) return rc;
-  tail_g_kernel<T><<<(unsigned)(k / kN) * (unsigned)o, kThreads, s1, st>>>(
-      (const T*)x1, (const T*)x2, (const T*)x3, (const T*)x4, (const T*)w, (const T*)mask, dpmax,
-      dpmin, dsum, dsumsq, amax, amin, (T*)g, o, p, k);
-  if (int rc = (int)cudaGetLastError()) return rc;
-
+// f32 backward: the g and dx passes on as many blocks as stay resident,
+// the dW pass on the wrapper's row splits, then the splits' sum
+int launch_tail_bwd_f32(const void* x1, const void* x2, const void* x3, const void* x4,
+                        const void* w, const void* mask, const float* dpmax,
+                        const float* dpmin, const float* dsum, const float* dsumsq,
+                        const int* amax, const int* amin, void* g, void* dx1, void* dx2,
+                        void* dx3, void* dx4, float* scratch, int splits, float* dw, int o,
+                        int p, int k, cudaStream_t st) {
+  const int slices = k / kTile;
   const long long rows = (long long)o * p;
-  const size_t s2 = DxSmem<T>::bytes;
-  if (int rc = allow_smem(tail_dx_kernel<T>, s2)) return rc;
-  const int g2 = resident_grid(tail_dx_kernel<T>, kThreads, s2, ((rows + kRows - 1) / kRows) * 4);
-  tail_dx_kernel<T><<<g2, kThreads, s2, st>>>((const T*)g, (const T*)w, (T*)dx1, (T*)dx2,
-                                              (T*)dx3, (T*)dx4, rows, k);
+  const int rtiles = std::max(1, (p + kTile - 1) / kTile);
+  const float *fx1 = (const float*)x1, *fx2 = (const float*)x2, *fx3 = (const float*)x3,
+              *fx4 = (const float*)x4, *fw = (const float*)w;
+
+  if (int rc = allow_smem(tail_g_kernel, kRingBytes)) return rc;
+  const int g_groups = std::max(
+      1, resident_grid(tail_g_kernel, kThreads, kRingBytes, (long long)slices * o * rtiles) / slices);
+  tail_g_kernel<<<(unsigned)(slices * g_groups), kThreads, kRingBytes, st>>>(
+      fx1, fx2, fx3, fx4, fw, (const float*)mask, dpmax, dpmin, dsum, dsumsq, amax, amin,
+      (float*)g, o, p, k, g_groups);
   if (int rc = (int)cudaGetLastError()) return rc;
 
-  const size_t s3 = DwSmem<T>::bytes;
-  if (int rc = allow_smem(tail_dw_kernel<T>, s3)) return rc;
+  if (int rc = allow_smem(tail_dx_kernel, kRingBytes)) return rc;
+  const int dx_groups = std::max(
+      1, resident_grid(tail_dx_kernel, kThreads, kRingBytes, 4 * ((rows + kTile - 1) / kTile)) / 4);
+  tail_dx_kernel<<<(unsigned)(4 * dx_groups), kThreads, kRingBytes, st>>>(
+      (const float*)g, fw, (float*)dx1, (float*)dx2, (float*)dx3, (float*)dx4, rows, k,
+      dx_groups);
+  if (int rc = (int)cudaGetLastError()) return rc;
+
+  if (int rc = allow_smem(tail_dw_kernel, kRingBytes)) return rc;
+  // rows a split, rounded up to 64 as the first version's were: the same
+  // split boundaries give dW the same bits (a multiple of kBK)
   long long per = (rows + splits - 1) / splits;
-  per = (per + kRows - 1) / kRows * kRows;
-  tail_dw_kernel<T><<<4 * (k / kN) * splits, kThreads, s3, st>>>(
-      (const T*)x1, (const T*)x2, (const T*)x3, (const T*)x4, (const T*)g, scratch, rows, per, k);
+  per = (per + 63) / 64 * 64;
+  tail_dw_kernel<<<(unsigned)(4 * slices * splits), kThreads, kRingBytes, st>>>(
+      fx1, fx2, fx3, fx4, (const float*)g, scratch, rows, per, k);
   if (int rc = (int)cudaGetLastError()) return rc;
   return reduce_slices(scratch, (long long)4 * kC * k, splits, dw, 4 * kC * k, st);
 }
@@ -391,9 +486,8 @@ int sga_pct_tail_bwd(const void* x1, const void* x2, const void* x3, const void*
     return sga::launch_tail_bwd_sm90(x1, x2, x3, x4, w, mask, dpmax, dpmin, dsum, dsumsq, amax,
                                      amin, g, wt, dx1, dx2, dx3, dx4, scratch, splits, dw, o, p,
                                      k, st);
-  return sga::launch_tail_bwd<float>(x1, x2, x3, x4, w, mask, dpmax, dpmin, dsum, dsumsq, amax,
-                                     amin, g, dx1, dx2, dx3, dx4, scratch, splits, dw, o, p, k,
-                                     st);
+  return sga::launch_tail_bwd_f32(x1, x2, x3, x4, w, mask, dpmax, dpmin, dsum, dsumsq, amax,
+                                  amin, g, dx1, dx2, dx3, dx4, scratch, splits, dw, o, p, k, st);
 }
 
 }  // extern "C"

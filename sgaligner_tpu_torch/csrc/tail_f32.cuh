@@ -1,0 +1,162 @@
+// The f32 PCT tail's product mainloop (csrc/pct_tail.cu; timed alone by
+// scripts/tail_gemm_bench.cu): full f32 on the CUDA cores, no TF32.
+//
+// A block of 256 threads owns a 128 x 128 tile of C = A·B and keeps it in
+// registers for the whole reduction: thread (tx, ty) holds rows
+// 64·(i/4) + 4·ty + i%4 and columns 64·(j/4) + 4·tx + j%4 (i, j < 8), fed
+// per k by four 16-byte shared loads (two of A, two of B) into a second
+// register set while the previous k's 64 FMAs run. Each output is one fmaf
+// chain over k in ascending order, starting from 0.
+//
+// Operands reach shared memory through a kStages-deep cp.async ring of
+// k-steps of kBK: each stage holds A and B as [kBK][kLd] (k-major). A
+// row-major [rows, ld] operand whose k runs along its rows (x for z, g for
+// dx, W for dx's B) is staged transposed with 4-byte copies
+// (stage_rows_t); one whose k runs down its rows (W for z, x and g for dW)
+// with 16-byte copies (stage_rows). One __syncthreads per k-step: the
+// stage it frees is the one every thread finished with before it.
+//
+// A job walks the block's tiles as one flat run of k-steps (the ring runs on
+// across tile boundaries, so the next tile's loads are in flight during an
+// epilogue):
+//   int steps() const;            k-steps of the whole run
+//   int ksteps() const;           k-steps of one tile
+//   void stage(int s, float* st); issue k-step s's copies into a stage
+//   void epilogue(int tile, const float (&acc)[8][8], float* spare);
+// called by every thread of the block (epilogues may __syncthreads).
+// `spare` is the stage the tile's last k-step read (kStage floats): free
+// for the epilogue once every thread is past that product, and until the
+// next k-step's __syncthreads.
+#pragma once
+
+#include "common.cuh"
+
+namespace sga {
+namespace tail_f32 {
+
+constexpr int kTile = 128;           // rows and columns of a block tile
+constexpr int kBK = 16;              // k per stage
+constexpr int kStages = 3;           // depth of the cp.async ring
+constexpr int kThreads = 256;
+// row stride of a staged operand: 132 keeps the transposing 4-byte copies
+// of a warp (8 k x 4 rows) on 32 different banks and every row 16-byte
+// aligned
+constexpr int kLd = kTile + 4;
+constexpr int kOperand = kBK * kLd;  // floats of one staged operand
+constexpr int kStage = 2 * kOperand;
+constexpr size_t kRingBytes = sizeof(float) * kStages * kStage;
+
+// 4-byte asynchronous copy (cp.async.ca: .cg takes 16 bytes only); src-size
+// 0 writes a zero
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+// The thread's place in the 16 x 16 grid of 8 x 8 output blocks: a warp
+// covers 4 ty x 8 tx, so its A loads read 64 contiguous bytes and its B
+// loads 128
+__device__ __forceinline__ int lane_tx() { return 8 * ((threadIdx.x / 32) % 2) + threadIdx.x % 8; }
+__device__ __forceinline__ int lane_ty() { return 4 * (threadIdx.x / 64) + (threadIdx.x % 32) / 8; }
+// row (column) of the tile that register index i (j) of a thread maps to
+__device__ __forceinline__ int tile_row(int ty, int i) { return 64 * (i / 4) + 4 * ty + i % 4; }
+
+// Rows [0, 128) x columns [0, kBK) of a row-major matrix (src at row 0,
+// column k0; row stride ld floats), transposed into dst[k][m]; rows
+// >= valid are zero-filled (their source kept in bounds). A warp copies
+// 8 k x 4 rows: 32 bytes of each of 4 rows, one sector each
+__device__ __forceinline__ void stage_rows_t(float* dst, const float* __restrict__ src,
+                                             long long ld, int valid) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  const int k = 8 * (w % 2) + l % 8, m0 = 4 * (w / 2) + l / 8;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int m = m0 + 16 * j;
+    const bool in = m < valid;
+    cp_async4(dst + k * kLd + m, src + (in ? m * ld : 0) + k, in);
+  }
+}
+
+// Rows [0, kBK) x columns [0, 128) of a row-major matrix (src at row k0,
+// column n0; row stride ld floats) into dst[k][n]; rows >= valid are
+// zero-filled
+__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src,
+                                           long long ld, int valid) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int r = 8 * j + w;
+    const bool in = r < valid;
+    cp_async16(dst + r * kLd + 4 * l, src + (in ? r * ld : 0) + 4 * l, in);
+  }
+}
+
+__device__ __forceinline__ void frag(const float* as, const float* bs, int k, int tx, int ty,
+                                     float (&a)[8], float (&b)[8]) {
+  const float4 a0 = *reinterpret_cast<const float4*>(as + k * kLd + 4 * ty);
+  const float4 a1 = *reinterpret_cast<const float4*>(as + k * kLd + 64 + 4 * ty);
+  const float4 b0 = *reinterpret_cast<const float4*>(bs + k * kLd + 4 * tx);
+  const float4 b1 = *reinterpret_cast<const float4*>(bs + k * kLd + 64 + 4 * tx);
+  a[0] = a0.x, a[1] = a0.y, a[2] = a0.z, a[3] = a0.w;
+  a[4] = a1.x, a[5] = a1.y, a[6] = a1.z, a[7] = a1.w;
+  b[0] = b0.x, b[1] = b0.y, b[2] = b0.z, b[3] = b0.w;
+  b[4] = b1.x, b[5] = b1.y, b[6] = b1.z, b[7] = b1.w;
+}
+
+// acc += one staged k-step (kBK outer products)
+__device__ __forceinline__ void product(float (&acc)[8][8], const float* stage, int tx, int ty) {
+  const float* as = stage;
+  const float* bs = stage + kOperand;
+  float a[2][8], b[2][8];
+  frag(as, bs, 0, tx, ty, a[0], b[0]);
+#pragma unroll
+  for (int k = 0; k < kBK; ++k) {
+    if (k + 1 < kBK) frag(as, bs, k + 1, tx, ty, a[(k + 1) % 2], b[(k + 1) % 2]);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[k % 2][i], b[k % 2][j], acc[i][j]);
+  }
+}
+
+// The mainloop: every k-step of the job through the ring, an epilogue after
+// each tile's last one. `ring`: kRingBytes of dynamic shared memory
+template <class Job>
+__device__ __forceinline__ void run(Job& job, float* ring) {
+  const int steps = job.steps(), ksteps = job.ksteps();
+  const int tx = lane_tx(), ty = lane_ty();
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < steps) job.stage(s, ring + s * kStage);
+    cp_async_commit();
+  }
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  int ks = 0, tile = 0;
+#pragma unroll 1
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    const int next = s + kStages - 1;
+    if (next < steps) job.stage(next, ring + (next % kStages) * kStage);
+    cp_async_commit();
+    product(acc, ring + (s % kStages) * kStage, tx, ty);
+    if (++ks == ksteps) {
+      job.epilogue(tile, acc, ring + (s % kStages) * kStage);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+      ks = 0;
+      ++tile;
+    }
+  }
+  cp_async_wait<0>();
+}
+
+}  // namespace tail_f32
+}  // namespace sga

@@ -200,6 +200,16 @@ def check_cuda(name: str, tensors: dict, dtype: torch.dtype | None = None) -> No
                          "(float32 and bfloat16 only)")
 
 
+def check_aligned(name: str, tensors: dict, nbytes: int = 16) -> None:
+    """Raise unless every tensor starts at a multiple of ``nbytes`` (a
+    kernel that reads it ``nbytes`` at a time faults on a view at an odd
+    offset)."""
+    for key, t in tensors.items():
+        if t.data_ptr() % nbytes:
+            raise ValueError(f"{name}: {key} does not start at a {nbytes}-byte "
+                             "boundary (a view at an offset); pass a copy")
+
+
 def slice_stride(n: int) -> int:
     """Floats of one block's slice of a partial-sum scratch buffer
     (``slice_stride`` in csrc/common.cuh)."""

@@ -16,9 +16,10 @@ default there):
   ``m·(dssum + 2 z dssumsq)``, then ``dx_i = g·W_iᵀ`` and ``dW = Σ xᵀ·g``.
 * ``PctTail``: the ``torch.autograd.Function`` NaivePCT trains through.
 
-A CUDA tensor goes through ``csrc/pct_tail.cu`` (bf16 through the wgmma
-designs of ``csrc/pct_tail_sm90.cu`` and, the backward,
-``csrc/pct_tail_bwd_sm90.cu``); a CPU tensor through the plain versions.
+A CUDA tensor goes through ``csrc/pct_tail.cu`` (f32: the register-tiled
+CUDA-core mainloop of ``csrc/tail_f32.cuh``; bf16 through the wgmma designs
+of ``csrc/pct_tail_sm90.cu`` and, the backward, ``csrc/pct_tail_bwd_sm90.cu``);
+a CPU tensor through the plain versions.
 The forward is the custom op ``sgaligner::pct_tail`` (with the indices,
 ``sgaligner::pct_tail_indexed``; ``ops/library.py``), which
 ``torch.export`` keeps whole.
@@ -65,6 +66,9 @@ def pct_tail(x1, x2, x3, x4, w, mask, with_index=False):
 def _tail_cuda(x1, x2, x3, x4, w, mask, with_index=False):
     name = "pct_tail"
     o, p, k = _check(name, (x1, x2, x3, x4), w, mask)
+    if x1.dtype == torch.float32:
+        # the f32 kernel copies W 16 bytes at a time
+        _build.check_aligned(name, {"w": w})
     dev = x1.device
     pmax = torch.empty((o, k), dtype=torch.float32, device=dev)
     pmin = torch.empty_like(pmax)
@@ -111,8 +115,8 @@ def _tail_work(device, o: int, k: int, dtype):
     """Blocks per 128-column slice and the forward's work buffer
     (``sga_pct_tail`` in csrc/pct_tail.cu). bf16: one block of two
     objects-walking warpgroups per multiprocessor, a slice of sums per
-    warpgroup, after the transposed W; f32: two blocks per multiprocessor,
-    a slice each."""
+    warpgroup, after the transposed W; f32: two 128 x 128-tile blocks per
+    multiprocessor (the mainloop's occupancy), a slice each."""
     slices = k // 128
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     sums = _build.slice_stride(2 * k)
@@ -178,6 +182,11 @@ def pct_tail_bwd(x1, x2, x3, x4, w, mask, dpmax, dpmin, dsum, dsumsq, amax,
         _build.check_shape(name, key, t, shape)
     if amax.dtype != torch.int32 or amin.dtype != torch.int32:
         raise ValueError(f"{name}: amax / amin must be torch.int32")
+    if x1.dtype == torch.float32:
+        # the f32 kernels read these 16 bytes at a time
+        _build.check_aligned(name, {"x1": x1, "x2": x2, "x3": x3, "x4": x4, "w": w,
+                                    "dpmax": dpmax, "dpmin": dpmin, "dsum": dsum,
+                                    "dsumsq": dsumsq, "amax": amax, "amin": amin})
     dev = x1.device
     dxs = [torch.empty_like(x1) for _ in range(4)]
     dw = torch.zeros((512, k), dtype=torch.float32, device=dev)
@@ -185,9 +194,12 @@ def pct_tail_bwd(x1, x2, x3, x4, w, mask, dpmax, dpmin, dsum, dsumsq, amax,
         bf16 = x1.dtype == torch.bfloat16
         g = torch.empty((o * p, k), dtype=x1.dtype, device=dev)
         # bf16: W transposed for the g pass; the weight gradient's rows
-        # split over 32 blocks per 256 columns of K
+        # split over 32 blocks per 256 columns of K. f32: over as many
+        # splits as fill two blocks a multiprocessor with dW's 4 x K/128
+        # tiles of 128 x 128
         wt = torch.empty((k, 512), dtype=x1.dtype, device=dev) if bf16 else None
-        splits = 32 if bf16 else 8
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        splits = 32 if bf16 else max(1, 2 * sms // (4 * (k // 128)))
         part = torch.empty((splits, 512 * k), dtype=torch.float32, device=dev)
         _build.launch(name, "sga_pct_tail_bwd", dev,
                       *(t.data_ptr() if t is not None else None

@@ -726,10 +726,18 @@ def test_embed_first_bwd_stream(card, objects, points, dtype):
     _held_to_plain_twice(card, "embed_first_bwd", (x, w, mask, dh, ds1, ds2), dt_name, SA)
 
 
+# rows of object 0 that repeat its row 5. The bf16 kernel's 64-row tiles:
+# the first (9), the second (70, 100) and the third (170). The f32 kernel,
+# which pools each row parity in a thread of its own: the same parity in
+# its first 128-row tile (9), the other parity (70, 100), merged at the
+# object's end, and its second tile (170)
+TIED_ROWS = (9, 70, 100, 170)
+
+
 def _tail_with_ties_and_nans(dtype):
-    """Tail inputs (O=5, P=200) whose object 0 repeats row 5 at row 70
-    (another 64-row tile), scaled up so that every column's max or min lies
-    on that pair, and whose object 2 holds a NaN in rows 7 and 140."""
+    """Tail inputs (O=5, P=200) whose object 0 repeats row 5 at TIED_ROWS,
+    scaled up so that every column's max or min lies on those rows, and
+    whose object 2 holds a NaN in rows 7 and 140."""
     import chip_smoke
 
     x1, x2, x3, x4, w, mask = chip_smoke.op_inputs("pct_tail", 5, torch.float32, seed=3,
@@ -737,7 +745,8 @@ def _tail_with_ties_and_nans(dtype):
     xs = [x1, x2, x3, x4]
     for x in xs:
         x[0, 5] *= 8.0
-        x[0, 70] = x[0, 5]
+        for row in TIED_ROWS:
+            x[0, row] = x[0, 5]
     x1[2, 7, 3] = float("nan")
     x1[2, 140, 0] = float("nan")
     return [x.to(dtype) for x in xs] + [w.to(dtype), mask.to(dtype)]
@@ -745,20 +754,22 @@ def _tail_with_ties_and_nans(dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_pct_tail_first_index_and_nan(card, dtype):
-    """Ties go to the first row, across tiles; a NaN beats every number and
-    the first NaN wins; the max / min equal the plain version's."""
+    """Ties go to the first row, within a tile and across tiles; a NaN
+    beats every number and the first NaN wins; the max / min equal the
+    plain version's."""
     from sgaligner_tpu_torch.ops.pct_tail import pct_tail, pct_tail_plain
 
     args = _tail_with_ties_and_nans(dtype)
     pmax, pmin, _, _, amax, amin = pct_tail(*args, with_index=True)
     want = pct_tail_plain(*args, with_index=True)
     torch.cuda.synchronize()
-    # object 0: the repeated row's z is the same bits at rows 5 and 70, and
-    # it holds most columns' max or min
+    # object 0: the repeated row's z is the same bits at row 5 and at
+    # TIED_ROWS, and it holds most columns' max or min
     for got, ref in ((amax[0], want[4][0]), (amin[0], want[5][0])):
-        tied = (ref == 5) | (ref == 70)
+        tied = (ref == 5) | sum(ref == row for row in TIED_ROWS).bool()
         assert bool(tied.float().mean() > 0.2)
-        assert bool((got[tied] == 5).all()) and not bool((got == 70).any())
+        assert bool((got[tied] == 5).all())
+        assert not any(bool((got == row).any()) for row in TIED_ROWS)
     torch.testing.assert_close(pmax[0], want[0][0], rtol=1e-2, atol=1e-2)
     torch.testing.assert_close(pmin[0], want[1][0], rtol=1e-2, atol=1e-2)
     # object 2: every column's max and min are the NaN of row 7
@@ -781,6 +792,48 @@ def test_pct_tail_same_bits_twice(card, dtype, with_index):
     second = pct_tail(*args, with_index=with_index)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("points", [200, 512])
+@pytest.mark.parametrize("objects", [1, 67])
+@pytest.mark.parametrize("name,flags", [("pct_tail", None), ("pct_tail", "idx"),
+                                        ("pct_tail_bwd", None)],
+                         ids=["pct_tail", "pct_tail_idx", "pct_tail_bwd"])
+def test_pct_tail_f32_matches_plain_version(card, name, flags, objects, points):
+    """The f32 tail (csrc/tail_f32.cuh's mainloop) at one object (a single
+    column of blocks; at P = 200 one full and one ragged 128-row tile) and
+    at 67, P a multiple of its 128-row tile and ragged. The backward's dW
+    row splits (two blocks a multiprocessor) leave a short last split at
+    P = 200 and, at O = 1, empty ones, whose slices must be zero."""
+    from sgaligner_tpu_torch.ops import _build
+
+    args = card.op_inputs(name, objects, torch.float32, seed=17, p=points)
+    before = _build.LAUNCHES[name]
+    card.check_op(name, args, "f32", flags or SA)
+    assert _build.LAUNCHES[name] == before + 1
+
+
+@pytest.mark.parametrize("name,arg", [("pct_tail", 4), ("pct_tail_bwd", 1),
+                                      ("pct_tail_bwd", 4), ("pct_tail_bwd", 8),
+                                      ("pct_tail_bwd", 10)],
+                         ids=["pct_tail-w", "pct_tail_bwd-x2", "pct_tail_bwd-w",
+                              "pct_tail_bwd-dsum", "pct_tail_bwd-amax"])
+def test_pct_tail_f32_refuses_misaligned_views(card, name, arg):
+    """The f32 tail reads W (and in the backward the inputs, the cotangents
+    and the indices) 16 bytes at a time: a contiguous view that starts 4
+    bytes into its storage raises instead of faulting."""
+    from sgaligner_tpu_torch.ops import _build
+
+    args = list(card.op_inputs(name, 3, torch.float32, seed=5, p=200))
+    t = args[arg]
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    args[arg] = buf[1:].view(t.shape)
+    args[arg].copy_(t)
+    kern, _ = card.op_fns(name, SA)
+    before = _build.LAUNCHES[name]
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        kern(*args)
+    assert _build.LAUNCHES[name] == before
 
 
 BWD_CASES = [("pct_block_res_bwd", SA), ("pct_block_res_bwd", OA), ("pct_tail_bwd", None),

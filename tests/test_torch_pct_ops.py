@@ -350,3 +350,18 @@ def test_masked_batchnorm_forms_match_jax(x64, shape):
     # eval: the running-statistics fold, and the moments are ignored
     w_j, b_j = jbn.apply(jv, *to_jax(x), jnp.asarray(mask), False, return_fold=True)
     _close(list(_port_bn(v, c).eval().fold(torch.float64)), [w_j, b_j], "eval fold")
+
+
+@pytest.mark.parametrize("offset", [0, 1, 4])
+def test_check_aligned_refuses_offset_views(offset):
+    """The f32 tail's wrappers refuse a tensor that does not start at a
+    16-byte boundary (its kernels read it 16 bytes at a time)."""
+    from sgaligner_tpu_torch.ops import _build
+
+    buf = torch.zeros(4 * 128 + 4)
+    view = buf[offset:offset + 4 * 128].view(4, 128)
+    if offset % 4:
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            _build.check_aligned("pct_tail_bwd", {"dsum": view})
+    else:
+        _build.check_aligned("pct_tail_bwd", {"dsum": view})
