@@ -36,7 +36,9 @@ Phases, in order (every failure raises and exits non-zero):
                caught (at f32 also WIDE_F32_PLANTED in their weight
                gradients). At f32 the tail's faults of TAIL_F32_PLANTED
                (an argmax moved to the next point, a dW column x1.1, a dx
-               row tile zeroed) caught at P = 512 and 200
+               row tile zeroed) and the f32 C = 128 block and attention
+               forms' of NARROW_F32_PLANTED (a dx or t_out row tile zeroed,
+               dWqk, dWt, dWv or the sums x1.001) caught at P = 512 and 200
   parity       the pct serving path on the CPU (plain versions) against the
                card (kernels): same seeded weights, one pooled B=8 batch, f32;
                the card's launches in that request (the f32 serving form's row)
@@ -167,8 +169,9 @@ Phases, in order (every failure raises and exits non-zero):
                fscore over 8 scans, pointnet_fwd launched once an eval batch
                and once a mosaicked subscan (its first request held against
                its plain version); and on an 8 + 8 workspace of the same
-               seed with 2 scans, the card against the CPU within
-               tests/test_downstream_quality.py's tolerances
+               seed with 2 scans, the card's tables (the CPU's come from a
+               child process started at the phase's start; see
+               downstream_cpu)
   trainer      the EVA recipe of scripts/aligner_artifact.py (its train
                and val workspace, seeds 1001 and 2002; 40 epochs of Adam at
                1e-3, batch 8, f32, the tester's layout) retrained through
@@ -181,6 +184,11 @@ Phases, in order (every failure raises and exits non-zero):
                bucket 128) for 2 epochs through the same Trainer: finite
                losses, every kernel's launches the per-step and per-request
                counts, the final snapshot read back by the tester
+  downstream_cpu
+               the downstream cut's CPU tables, from the child process the
+               downstream phase started (this script with --downstream-cpu,
+               no card), against the card's within
+               tests/test_downstream_quality.py's tolerances
   dp           data parallel (parallel/mesh.py), two ranks started by
                parallel.launch.run_ranks: NCCL across two cards where the
                machine has them, else gloo with both ranks on the one card
@@ -219,8 +227,9 @@ Phases, in order (every failure raises and exits non-zero):
                times (F32_FIRST_MS) and their passes (O = 256 and 896),
                the other f32 forms at O = 896 beside their plain versions
                and their launches in the parity phases (time_f32_forms; the
-               tail's rows with the launches of the f32 serving request and
-               the f32 step windows, and with one torch.matmul of its
+               tail's rows and the f32 C = 128 block forms' (rows 5, 6, 9)
+               with the launches of the f32 serving request and the f32
+               step windows, the tail's with one torch.matmul of its
                product, row 13's dx and dW products as torch.matmul
                calls),
                with each bound
@@ -432,7 +441,9 @@ DOWNSTREAM_MAX_SCANS = 8
 # the card against the CPU (tests/test_downstream_quality.py's tolerances)
 # on an 8 + 8 workspace of the same seed and 2 scans: the CPU registers a
 # pair in seconds, so the full contract on the CPU would take many minutes
-# (a 16 + 16 cut took 190 s of the CPU's time on an H100's host)
+# (a 16 + 16 cut took 190 s of the CPU's time on an H100's host, an 8 + 8
+# cut 167 s), and the CPU's half runs in a child process (--downstream-cpu)
+# beside the card's phases from downstream to trainer
 DOWNSTREAM_CPU = dict(pairs=8, scans=2)
 # batched RANSAC over sets that repeat points, as the fine stage's do (the
 # mosaicking's object pairs: 337 matches of 178 source points): G sets of N
@@ -634,6 +645,32 @@ TAIL_F32_PLANTED = {
     "pct_tail/idx": (("one argmax moved to the next point", _one_amax_moved),),
     "pct_tail_bwd": (("one dW column x1.1", _dw_column_scaled),
                      ("one 128-row tile of a dx zeroed", _dx_tile_zeroed))}
+
+
+def _rows_zeroed(index: int, rows: int = 128):
+    """A planted fault: the ``rows`` flat rows of output ``index`` (one row
+    tile of an f32 C = 128 pass) holding its largest |value|, zeroed."""
+    def fault(outs, args):
+        outs = list(outs)
+        t = outs[index].clone()
+        flat = t.view(-1, t.shape[-1])
+        row = int(flat.abs().amax(dim=1).argmax()) // rows * rows
+        flat[row:row + rows] = 0
+        outs[index] = t
+        return tuple(outs)
+    return f"output {index}: one {rows}-row tile zeroed", fault
+
+
+# faults planted in the f32 C = 128 forms' outputs (kernels phase, P = 512
+# and 200), one a pass: a row tile of dx (the dx pass), dWqk x1.001 (the dq
+# pass), dWt x1.001 (the dz pass; not the attention op's), the training
+# forward's sums x1.001 (the slice sums) and a row tile of t_out (the trans
+# pass)
+NARROW_F32_PLANTED = {
+    "pct_block_res_bwd": (_rows_zeroed(0), _scaled(1, 1.001), _scaled(4, 1.001)),
+    "pct_block_bwd": (_rows_zeroed(0), _scaled(1, 1.001), _scaled(4, 1.001)),
+    "pct_attn_bwd": (_rows_zeroed(0), _scaled(1, 1.001), _scaled(2, 1.001)),
+    "pct_block_fwd": (_rows_zeroed(0), _scaled(2, 1.001))}
 
 
 def _padding_kept(outs, args):
@@ -1164,7 +1201,8 @@ def phase_kernels(state: dict) -> None:
                 err_abs, err_rel = check_op(name, args, dt_name, flags or SA, label)
                 if dt_name == "bf16" and p == P:
                     check_planted(name, args, flags or SA, label)
-                planted = TAIL_F32_PLANTED.get(name + ("/idx" if flags == "idx" else ""))
+                planted = (TAIL_F32_PLANTED.get(name + ("/idx" if flags == "idx" else ""))
+                           or NARROW_F32_PLANTED.get(name))
                 if dt_name == "f32" and planted:
                     check_planted(name, args, flags or SA, label, "f32", planted)
                 if name in TRAIN_KERNELS or name in OP_KERNELS or name in SAME_BITS:
@@ -3079,8 +3117,9 @@ def phase_downstream(state: dict) -> None:
     the card, held to tests/test_learned_reg.py's floors and to the port's
     CPU path on the 0.4 band; then the JAX package's downstream contract
     (overlap detection and mosaicking of the full snapshot, the learned
-    backend) through the port's two CLIs on the card, and on a cut of it,
-    the card against the CPU."""
+    backend) through the port's two CLIs on the card, and on a cut of it
+    the card's tables (the CPU's, from a child process started here, are
+    held to them in phase_downstream_cpu)."""
     import tempfile
 
     import numpy as np
@@ -3092,6 +3131,14 @@ def phase_downstream(state: dict) -> None:
     from sgaligner_tpu_torch.reg.synthetic_pairs import make_pair
 
     card = state["card"]
+    # the cut's CPU half, in a child process while the card runs on
+    q = snapshot_quality("full")
+    cut = tempfile.mkdtemp(prefix="sga_downstream_cut_")
+    state["downstream_cut"] = cut
+    make_synthetic_workspace(cut, split="val", n_pairs=DOWNSTREAM_CPU["pairs"],
+                             n_nonoverlap_pairs=DOWNSTREAM_CPU["pairs"], seed=q["val_seed"],
+                             **q["bench"])
+    state["downstream_cpu"] = start_downstream_cpu(cut)
     be = learned_backend("cuda")
 
     # (a) full SO(3), tests/test_learned_reg.py:95-112
@@ -3169,7 +3216,6 @@ def phase_downstream(state: dict) -> None:
     ransac_repeat_check(state)
 
     # (b) the downstream contract through the two CLIs
-    q = snapshot_quality("full")
     launches = 0
     with tempfile.TemporaryDirectory(prefix="sga_downstream_") as tmp:
         full = str(Path(tmp) / "full")
@@ -3189,34 +3235,91 @@ def phase_downstream(state: dict) -> None:
             f"(tol {tol('pointnet_fwd', 'f32'):g})")
         state["downstream"] = run
 
-        cut = str(Path(tmp) / "cut")
-        make_synthetic_workspace(cut, split="val", n_pairs=DOWNSTREAM_CPU["pairs"],
-                                 n_nonoverlap_pairs=DOWNSTREAM_CPU["pairs"],
-                                 seed=q["val_seed"], **q["bench"])
-        sides = {}
-        for dev in ("cuda", "cpu"):
-            sides[dev] = downstream_run(cut, dev, DOWNSTREAM_CPU["scans"])
-            log(_downstream_tables(f"cut ({DOWNSTREAM_CPU['pairs']} + {DOWNSTREAM_CPU['pairs']}"
-                                   f" pairs, {DOWNSTREAM_CPU['scans']} scans), {dev}",
-                                   sides[dev], state))
-        _check_downstream_launches("cut", cut, sides["cuda"], DOWNSTREAM_CPU["scans"])
-        launches += sum(r["pointnet_fwd"] for r in sides["cuda"]["launches"].values())
+    card_cut = downstream_run(cut, "cuda", DOWNSTREAM_CPU["scans"])
+    log(_downstream_tables(f"cut ({DOWNSTREAM_CPU['pairs']} + {DOWNSTREAM_CPU['pairs']} pairs, "
+                           f"{DOWNSTREAM_CPU['scans']} scans), cuda", card_cut, state))
+    _check_downstream_launches("cut", cut, card_cut, DOWNSTREAM_CPU["scans"])
+    launches += sum(r["pointnet_fwd"] for r in card_cut["launches"].values())
+    state["downstream_cut_card"] = {k: card_cut[k] for k in ("overlap", "mosaicking")}
+    state["launches_downstream"] = launches
+
+
+def start_downstream_cpu(root: str) -> subprocess.Popen:
+    """The downstream cut's CPU half (downstream_run on the CPU) in a child
+    process of this script with no card, writing its tables to
+    <root>/cpu_tables.json and its output to <root>/cpu.log."""
+    import os
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    with open(Path(root) / "cpu.log", "w") as out:
+        return subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--downstream-cpu", root,
+             str(DOWNSTREAM_CPU["scans"])], stdout=out, stderr=subprocess.STDOUT, env=env,
+            cwd=str(REPO))
+
+
+def downstream_cpu_main(root: str, scans: int) -> int:
+    """--downstream-cpu: downstream_run on the CPU over the workspace at
+    ``root``, its tables and seconds to <root>/cpu_tables.json."""
+    sys.path.insert(0, str(REPO))
+    run = downstream_run(root, "cpu", scans)
+    with open(Path(root) / "cpu_tables.json", "w") as f:
+        json.dump({k: run[k] for k in ("overlap", "mosaicking", "launches", "s")}, f,
+                  default=float)
+    return 0
+
+
+def stop_downstream_cpu(state: dict) -> None:
+    """Stop the downstream cut's child if it still runs and remove its
+    workspace."""
+    import shutil
+
+    proc = state.pop("downstream_cpu", None)
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    cut = state.pop("downstream_cut", None)
+    if cut:
+        shutil.rmtree(cut, ignore_errors=True)
+
+
+def phase_downstream_cpu(state: dict) -> None:
+    """The downstream cut's CPU tables (the child process) against the
+    card's, within tests/test_downstream_quality.py's tolerances."""
+    proc, cut = state["downstream_cpu"], state["downstream_cut"]
+    t0 = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        rc = None
+    waited = time.perf_counter() - t0
+    tail = (Path(cut) / "cpu.log").read_text(errors="replace")[-4000:]
+    if rc != 0:
+        stop_downstream_cpu(state)
+        raise AssertionError(f"downstream_cpu: the CPU's child process "
+                             f"{'ran past 900 s' if rc is None else f'exited {rc}'}:\n{tail}")
+    with open(Path(cut) / "cpu_tables.json") as f:
+        cpu = json.load(f)
+    stop_downstream_cpu(state)
+    log(_downstream_tables(f"cut ({DOWNSTREAM_CPU['pairs']} + {DOWNSTREAM_CPU['pairs']} pairs, "
+                           f"{DOWNSTREAM_CPU['scans']} scans), cpu (child process; waited "
+                           f"{waited:.1f} s for it here)", cpu, state))
+    card = state["downstream_cut_card"]
     off = {}
-    for key, m in sides["cpu"]["overlap"].items():
+    for key, m in cpu["overlap"].items():
         for k, v in m.items():
-            if not abs(sides["cuda"]["overlap"][key][k] - v) <= DOWNSTREAM_PRF_ABS:
-                off[f"{key}.{k}"] = (sides["cuda"]["overlap"][key][k], v)
-    for key, m in sides["cpu"]["mosaicking"].items():
+            if not abs(card["overlap"][key][k] - v) <= DOWNSTREAM_PRF_ABS:
+                off[f"{key}.{k}"] = (card["overlap"][key][k], v)
+    for key, m in cpu["mosaicking"].items():
         for k, v in m.items():
             limit = DOWNSTREAM_DIST_ABS if k in ("acc", "comp") else DOWNSTREAM_RATE_ABS
-            if not abs(sides["cuda"]["mosaicking"][key][k] - v) <= limit:
-                off[f"{key}.{k}"] = (sides["cuda"]["mosaicking"][key][k], v)
+            if not abs(card["mosaicking"][key][k] - v) <= limit:
+                off[f"{key}.{k}"] = (card["mosaicking"][key][k], v)
     if off:
         raise AssertionError(f"downstream: card against CPU beyond the tolerances: {off}")
-    log("[downstream] the cut's tables, card against CPU: within P/R/F1 "
+    log("[downstream_cpu] the cut's tables, card against CPU: within P/R/F1 "
         f"{DOWNSTREAM_PRF_ABS}, acc/comp {DOWNSTREAM_DIST_ABS} m, prec/recall/fscore "
         f"{DOWNSTREAM_RATE_ABS}")
-    state["launches_downstream"] = launches
 
 
 def build_train_workspace(root: str) -> None:
@@ -4330,12 +4433,14 @@ def time_f32_forms(state: dict) -> list[dict]:
     embed_first_bwd (whose f32 forms are timed beside their bf16 ones) at
     O = 896, P = 512: CUDA-event ms, the plain version's ms, the bound at the
     f32 rate, and the launches of each (every flag set) in the phases that
-    run them: parity, train_pct_parity and oa_parity. The tail pair
-    (redesigned on tail_f32.cuh's mainloop; the rest are first versions on
-    block_gemm) also gives rows of the {"kernels": ...} line, each with the
-    launches of the path that runs its form alone (the serving form: parity's
-    f32 serving request; the indexed form and the backward: train_pct's f32
-    step windows), held to its plain version: the forward with one
+    run them: parity, train_pct_parity and oa_parity. The tail pair and
+    the f32 C = 128 block forms of rows 5, 6 and 9 (all on tail_f32.cuh's
+    mainloop; rows 1, 3, 4 are first versions on block_gemm) also give rows
+    of the {"kernels": ...} line, each with the launches of the path that
+    runs its form alone (the serving forms: parity's f32 serving request;
+    the indexed tail, its backward and rows 6, 9: train_pct's f32 step
+    windows), held to its plain version (library null for the block
+    forms, whose function no single call computes): the tail forward with one
     torch.matmul of its product at f32 as its library time, the backward
     with its three products (z, dX = g·Wᵀ, dW = xᵀ·g) as torch.matmul calls
     logged as a yardstick (no single call computes it: library null)."""
@@ -4347,6 +4452,11 @@ def time_f32_forms(state: dict) -> list[dict]:
     path_launches = {"": state["launches_serve_f32"]["pct_tail"],
                      "idx": state["launches_train_pct_f32"]["pct_tail"],
                      "bwd": state["launches_train_pct_f32"]["pct_tail_bwd"]}
+    # the redesigned f32 C = 128 block forms on the paths that run them: the
+    # f32 serving request (row 5) and the f32 step windows (rows 6, 9)
+    block_paths = {"pct_block_eval": ("launches_serve_f32", "the f32 serving request"),
+                   "pct_block_fwd": ("launches_train_pct_f32", "the f32 step windows"),
+                   "pct_block_res_bwd": ("launches_train_pct_f32", "the f32 step windows")}
     rows = []
     for name in KERNELS:
         if name in (*POINT_KERNELS, "pct_epi_sums", "embed_first_bwd"):
@@ -4389,6 +4499,22 @@ def time_f32_forms(state: dict) -> list[dict]:
                              "launches": n, "max_abs_err": err_abs,
                              "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                              "bound_by": b_by, "library_ms": library_ms})
+            if name in block_paths and flags == SA:
+                # the backward on untied inputs: at O = 896 relu ties route
+                # either way (see untied)
+                held = untied(name, args, flags)
+                err_abs, err_rel = judge(name, "f32", flags, held, kern(*held), plain(*held),
+                                         plain, f"time: f32 {name} at O={o}")
+                del held
+                key, path = block_paths[name]
+                n = state[key][name]
+                err = (f"max_abs {err_abs:.3e} max_rel {err_rel:.3e} | launches {n} on its "
+                       f"path ({path}) | ")
+                rows.append({"name": f"{name}/SA/f32", "route": "cuda",
+                             "source": f32_source(name), "replaces": KERNELS[name][1],
+                             "launches": n, "max_abs_err": err_abs,
+                             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                             "bound_by": b_by, "library_ms": None})
             log(f"[time] f32 form {name}{'/' + tag if tag else ''} O={o}: kernel {ms:.3f} ms | "
                 f"plain {plain_ms:.3f} ms | {library}bound {b_ms:.4f} ms ({b_by}, the f32 rate) "
                 f"| {err}launches {launches.get(name, 0)} (parity, train_pct_parity, oa_parity; "
@@ -4399,7 +4525,8 @@ def time_f32_forms(state: dict) -> list[dict]:
 
 
 def f32_source(name: str) -> str:
-    """The file of a kernel's f32 form."""
+    """The file of a kernel's f32 form (the f32 C = 128 attention passes:
+    pct_attention.cu's launches of csrc/attn_f32.cuh's jobs)."""
     if name.startswith("embed"):
         return "sgaligner_tpu_torch/csrc/pct_embed.cu"
     return ("sgaligner_tpu_torch/csrc/pct_tail.cu" if name.startswith("pct_tail")
@@ -4444,6 +4571,8 @@ def time_attention_yardstick(state: dict) -> None:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--downstream-cpu"]:
+        return downstream_cpu_main(sys.argv[2], int(sys.argv[3]))
     import torch
 
     if not torch.cuda.is_available():
@@ -4459,6 +4588,20 @@ def main() -> int:
     t_start = time.perf_counter()
     state: dict = {}
     phase_device(state)
+    try:
+        run_phases(state)
+    finally:
+        stop_downstream_cpu(state)
+    log(f"[total] {time.perf_counter() - t_start:.1f} s")
+    log(state["card"])
+    print(json.dumps({"kernels": state["rows"]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": state["kind"],
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def run_phases(state: dict) -> None:
     for name, phase in (("build", phase_build), ("kernels", phase_kernels),
                         ("parity", phase_parity), ("train_parity", phase_train_parity),
                         ("train_pct_parity", phase_train_pct_parity),
@@ -4469,18 +4612,11 @@ def main() -> int:
                         ("spct", phase_spct), ("ops", phase_ops),
                         ("full_pct", phase_full_pct),
                         ("quality", phase_quality), ("downstream", phase_downstream),
-                        ("trainer", phase_trainer), ("dp", phase_dp),
-                        ("time", phase_time)):
+                        ("trainer", phase_trainer), ("downstream_cpu", phase_downstream_cpu),
+                        ("dp", phase_dp), ("time", phase_time)):
         t0 = time.perf_counter()
         phase(state)
         log(f"[{name}] done in {time.perf_counter() - t0:.1f} s")
-    log(f"[total] {time.perf_counter() - t_start:.1f} s")
-    log(state["card"])
-    print(json.dumps({"kernels": state["rows"]}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": state["kind"],
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

@@ -6,7 +6,7 @@ csrc/pct_tail.cu) on one NVIDIA GPU: times, pass split, and their outputs
 for a bit-for-bit comparison of two checkouts; with --step, the f32 pct
 train step.
 
-    python3 scripts/chip_f32_check.py [label] [--times-only | --bits-only]
+    python3 scripts/chip_f32_check.py [label] [--times-only | --bits-only | --narrow-only]
     python3 scripts/chip_f32_check.py [label] --step
     python3 scripts/chip_f32_check.py --compare DIR_A DIR_B
 
@@ -15,14 +15,20 @@ sgaligner_tpu_torch); running it from two checkouts on one card compares
 two designs on the same seeded inputs. Prints, per line and prefixed by
 ``label``:
 
-* the compiler's registers and spills of the f32 C = 256 kernels, and of
-  every kernel that spills (the build's ptxas notes);
+* the compiler's registers and spills of the f32 C = 256 kernels, of the
+  f32 C = 128 passes, and of every kernel that spills (the build's ptxas
+  notes);
 * rows 5, 6 and 9 at C = 256 (pct_block_eval, pct_block_fwd,
   pct_block_res_bwd; OA, FullPCT's O = 256, P = 256, f32): CUDA-event ms
   (median of 9), the plain version's ms, the bound at the f32 rate from
   chip_smoke.bound, and the device ms of each pass under torch.profiler
   (a fresh process, so the profiler counts every launch);
-* every f32 form chip_smoke.time_f32_forms times (the first versions and
+* rows 5, 6, 7, 9, 10 and 11 at C = 128 (f32, O = 896, P = 512, SA and
+  OA): CUDA-event ms (median of 5), the plain version's ms, the bound at the
+  f32 rate, and the device ms of each pass under torch.profiler (C128_PASSES:
+  the first versions' pass kernels and the redesign's, whichever the
+  checkout has);
+* every f32 form chip_smoke.time_f32_forms times (the block kernels and
   the tail pair) at O = 896, P = 512: kernel ms, plain ms and bound;
 * unless --times-only: the outputs of every f32 kernel on the inputs of
   chip_smoke.py's kernels phase (O = 67; P = 512 and 200 at C = 128, P =
@@ -55,6 +61,16 @@ import chip_smoke as cs  # noqa: E402
 C256_PASSES = ("::project_kernel", "::lse_kernel", "::apply_kernel", "::bwd_dz_kernel",
                "::bwd_dv_kernel", "::bwd_dq_kernel", "::bwd_dx_kernel",
                "::reduce_slices_kernel")
+# the C = 128 forms' passes: the first versions' (block_gemm) and the
+# redesign's (tail_f32.cuh's mainloop); a checkout shows the ones it has
+C128_PASSES = ("::project_kernel", "::lse_kernel", "::apply_kernel", "::attn_out_kernel",
+               "::attn_sc_kernel", "::bwd_dz_kernel", "::bwd_dv_kernel", "::bwd_dq_kernel",
+               "::bwd_dx_kernel", "::proj_kernel", "::lse128_kernel", "::attend_kernel",
+               "::trans_kernel", "::dy_kernel",
+               "::sc_kernel", "::dv_kernel", "::dd_kernel", "::dq_kernel", "::dx_kernel",
+               "::wgrad_kernel", "::colsum_kernel", "::reduce_slices_kernel")
+NARROW = ("pct_block_eval", "pct_block_fwd", "pct_block_res_bwd", "pct_block_bwd",
+          "pct_attn_fwd", "pct_attn_bwd")
 BITS = Path("build") / "f32_bits"
 WIDE_O = cs.FULL_PCT_PAIRS * 2 * cs.FULL_PCT_SLOTS
 
@@ -71,7 +87,8 @@ def registers(tag: str) -> None:
                  if "Used" in x or "spill" in x]
         spills = any("spill" in x and "0 bytes spill stores, 0 bytes spill loads" not in x
                      for x in notes)
-        if spills or ("c256" in line and "kernelIf" in line):
+        # the f32 C = 256 kernels and the f32 C = 128 passes (namespace f32)
+        if spills or ("c256" in line and "kernelIf" in line) or "3f32" in line:
             print(f"{tag} ptxas {line.split(chr(39))[1]}: {' | '.join(notes)}", flush=True)
 
 
@@ -91,6 +108,24 @@ def wide_times(tag: str) -> None:
               + f" | {cs.card_line()}", flush=True)
         del args
         torch.cuda.empty_cache()
+
+
+def narrow_times(tag: str) -> None:
+    o = 896
+    for name in NARROW:
+        for flag_tag, flags in (("SA", cs.SA), ("OA", cs.OA)):
+            kern, plain = cs.op_fns(name, flags)
+            args = cs.op_inputs(name, o, torch.float32, seed=2)
+            ms = cs.cuda_ms(lambda: kern(*args), warmup=2, reps=5)
+            plain_ms = cs.cuda_ms(lambda: plain(*args), warmup=1, reps=3)
+            b_ms, _ = cs.bound(name, o, oa=flags == cs.OA, f32=True)
+            split = cs.pass_split(lambda: kern(*args), C128_PASSES)
+            print(f"{tag} {name}/{flag_tag}/f32 O={o} P={cs.P}: {ms:.3f} ms, plain "
+                  f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_ms / ms:.1%}) | passes "
+                  + ", ".join(f"{k[2:]} {v:.3f}" for k, v in split.items())
+                  + f" (sum {sum(split.values()):.3f}) | {cs.card_line()}", flush=True)
+            del args
+            torch.cuda.empty_cache()
 
 
 def first_versions():
@@ -204,6 +239,9 @@ def main() -> int:
         return 0
     registers(tag)
     if "--bits-only" not in sys.argv:
+        narrow_times(tag)
+        if "--narrow-only" in sys.argv:
+            return 0
         wide_times(tag)
         f32_forms(tag)
     if "--times-only" not in sys.argv:

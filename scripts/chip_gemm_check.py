@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """The port's f32 CUDA-core products alone on one NVIDIA GPU: block_gemm's
 register-tiled product at each shape the C = 256 passes call it with, the
-f32 tail's mainloop (csrc/tail_f32.cuh) at the tail's three products, and
-the SM clock while block_gemm runs.
+f32 mainloop (csrc/tail_f32.cuh) on the kernels' own jobs, and the SM clock
+while block_gemm runs.
 
     python3 scripts/chip_gemm_check.py
 
@@ -12,11 +12,14 @@ shape launches one block an SM (132 on an H100) that multiplies tiles
 resident in shared memory over and over, times it with CUDA events and
 prints TFLOP/s beside the card's 67 TFLOP/s f32 rate (chip_smoke.F32_FLOPS),
 and the SM clock nvidia-smi reads during a longer run of the largest shape.
-Then builds scripts/tail_gemm_bench.cu and times the tail's mainloop over
-operands in device memory at O = 896, P = 512, K = 1024 (z = X·W, dX =
-G·Wᵀ, dW = Xᵀ·G), two blocks an SM, with an epilogue that only keeps a
-checksum. The passes' own times (scripts/chip_f32_check.py) sit at these
-rates, so they say how far a pass can go on this product.
+Then builds scripts/tail_gemm_bench.cu and times the mainloop over operands
+in device memory at O = 896, P = 512 on the kernels' own jobs: the tail's
+three products (K = 1024: z = x·W, dX = G·Wᵀ, dW = xᵀ·G) and three of the
+f32 C = 128 attention passes' (the apply pass's key loop with its prep, the
+dq pass's dual product, the projection), two blocks an SM, with an epilogue
+that only keeps a checksum. The passes' own times
+(scripts/chip_f32_check.py) sit at these rates, so they say how far a pass
+can go on this product.
 """
 
 from __future__ import annotations
@@ -39,10 +42,17 @@ F32_FLOPS = 67e12
 SMEM = 200 * 1024
 
 
-# the tail's products (scripts/tail_gemm_bench.cu modes) at O = 896, P = 512
-TAIL_ROWS, TAIL_K = 896 * 512, 1024
-TAIL_MODES = {"z = X·W [rows x 1024, K = 512]": 0, "dX = G·Wᵀ [rows x 512, K = 1024]": 1,
-              "dW = Xᵀ·G [512 x 1024, over the rows]": 2}
+# the mainloop's jobs (scripts/tail_gemm_bench.cu modes) at O = 896, P = 512:
+# the tail's three products (K = 1024) and three of the f32 C = 128
+# attention passes' products
+O, P = 896, 512
+TAIL_ROWS, TAIL_K = O * P, 1024
+TAIL_MODES = {"tail z = x·W [rows x 1024, K = 512]": 0,
+              "tail dX = G·Wᵀ [rows x 512, K = 1024]": 1,
+              "tail dW = xᵀ·G [512 x 1024, over the rows]": 2,
+              "attention key loop: S, G (prep) and y = G·v [P x 128 a tile, K = P]": 3,
+              "dq dual product: v_I·dŶ_Jᵀ beside dŶ_I·v_Jᵀ [128 x 64 each, K = 128]": 4,
+              "projection [rows x 160, K = 128]": 5}
 
 
 def build(name: str = "block_gemm_bench") -> ctypes.CDLL:
@@ -55,37 +65,68 @@ def build(name: str = "block_gemm_bench") -> ctypes.CDLL:
     return ctypes.CDLL(str(out))
 
 
+def _dq_pairs(p: int) -> int:
+    rtiles, chunks = -(-p // 128), -(-p // 64)
+    return sum(chunks - 2 * i for i in range(rtiles))
+
+
+def _flops(mode: int, splits: int) -> float:
+    if mode in (0, 1):
+        return 2 * TAIL_ROWS * 512 * TAIL_K
+    if mode == 2:
+        return 2 * (TAIL_ROWS + splits - 1) // splits * splits * 512 * TAIL_K
+    if mode == 3:
+        return 2 * O * P * P * (32 + 128)
+    if mode == 4:
+        return O * _dq_pairs(P) * 2 * 2 * 128 * 64 * 128
+    return 2 * TAIL_ROWS * 128 * 160
+
+
 def tail_rates(sms: int, card: str) -> None:
-    """The tail's mainloop at its three products' shapes, CUDA events over
-    one launch after a warm-up."""
+    """The mainloop on the kernels' own jobs (checksum epilogues), CUDA
+    events over one launch after a warm-up, two blocks an SM."""
     lib = build("tail_gemm_bench")
-    fn = lib.tail_gemm
+    fn, attn = lib.tail_gemm, lib.attn_gemm
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    attn.argtypes = [ctypes.c_int, *[ctypes.c_void_p] * 6, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_void_p]
     g = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.randn(TAIL_ROWS, 512, device="cuda", generator=g)
+    xs = [torch.randn(TAIL_ROWS, 128, device="cuda", generator=g) for _ in range(4)]
     gr = torch.randn(TAIL_ROWS, TAIL_K, device="cuda", generator=g)
     w = torch.randn(512, TAIL_K, device="cuda", generator=g)
+    q = torch.randn(TAIL_ROWS, 32, device="cuda", generator=g) * 0.1
+    lse = torch.randn(TAIL_ROWS, device="cuda", generator=g)
+    wqk = torch.randn(128, 32, device="cuda", generator=g)
+    wv = torch.randn(128, 128, device="cuda", generator=g)
     splits = max(1, 2 * sms // 32)
     out = torch.zeros(256 * max(2 * sms, 32 * splits), device="cuda")
     st = torch.cuda.current_stream().cuda_stream
     for label, mode in TAIL_MODES.items():
-        a, b = {0: (x, w), 1: (gr, w), 2: (x, gr)}[mode]
-        groups = 2 * sms // (8 if mode == 0 else 4)
+        if mode < 3:
+            ptrs = (ctypes.c_void_p * 4)(*[t.data_ptr() for t in ([gr] * 4 if mode == 1 else xs)])
+            b = gr if mode == 2 else w
+            groups = 2 * sms // (8 if mode == 0 else 4)
+
+            def call():
+                return fn(mode, ctypes.addressof(ptrs), b.data_ptr(), out.data_ptr(), TAIL_ROWS,
+                          groups, splits, st)
+        else:
+            def call():
+                return attn(mode, q.data_ptr(), xs[0].data_ptr(), lse.data_ptr(), wqk.data_ptr(),
+                            wv.data_ptr(), out.data_ptr(), O, P, st)
         ms = []
         for _ in range(3):
             e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             e0.record()
-            if fn(mode, a.data_ptr(), b.data_ptr(), out.data_ptr(), TAIL_ROWS, groups, splits,
-                  st) != 0:
-                raise RuntimeError(f"tail_gemm mode {mode}: launch failed")
+            if call() != 0:
+                raise RuntimeError(f"tail_gemm_bench mode {mode}: launch failed")
             e1.record()
             torch.cuda.synchronize()
             ms.append(e0.elapsed_time(e1))
-        rows = TAIL_ROWS if mode < 2 else splits * (TAIL_ROWS // splits // 16 * 16)
-        rate = 2 * rows * 512 * TAIL_K / min(ms[1:]) / 1e9
-        print(f"tail mainloop f32 {label}: {min(ms[1:]):.3f} ms, {rate:.1f} TFLOP/s "
-              f"({rate * 1e12 / F32_FLOPS:.0%} of 67), rows {rows} | {card}", flush=True)
+        rate = _flops(mode, splits) / min(ms[1:]) / 1e9
+        print(f"mainloop f32 {label}: {min(ms[1:]):.3f} ms, {rate:.1f} TFLOP/s "
+              f"({rate * 1e12 / F32_FLOPS:.0%} of 67) at O = {O}, P = {P} | {card}", flush=True)
 
 
 def clocks(samples: list, stop: threading.Event) -> None:

@@ -1,46 +1,30 @@
-// The f32 tail's mainloop alone (csrc/tail_f32.cuh), for
-// scripts/chip_gemm_check.py: the three products of csrc/pct_tail.cu at
-// their shapes, read from device memory through the cp.async ring, with an
-// epilogue that only folds each tile into one checksum a thread (so the
-// rate is the mainloop's). Two blocks an SM walk the output tiles:
-//   mode 0, z (the forward and the g pass): C[rows, 1024] = X[rows, 512] · W,
-//     X staged transposed, W as it is;
-//   mode 1, dx: C[rows, 512] = G[rows, 1024] · Wᵀ, both staged transposed;
-//   mode 2, dW: C[512, 1024] = Xᵀ · G over rows split `splits` ways, both as
-//     they are.
+// The port's f32 mainloop (csrc/tail_f32.cuh) alone, for
+// scripts/chip_gemm_check.py: the kernels' own jobs (csrc/tail_jobs.cuh,
+// csrc/attn_f32.cuh) with their staging, rings and products as the kernels
+// run them, and an epilogue that only folds each tile into one checksum a
+// thread, so the rate is the mainloop's. Two blocks an SM.
+// tail_gemm (the tail's products, O·P flat rows, K = 1024):
+//   mode 0, z: TailFwd's ZOperands staging, [rows, 1024] = x1..x4 · W;
+//   mode 1, dx: TailDx, [rows, 512] = G·Wᵀ;
+//   mode 2, dW: TailDw, [512, 1024] = Σ xᵀ·G over rows split `splits` ways.
+// attn_gemm (the f32 C = 128 attention passes, O objects of P points):
+//   mode 3, the apply pass's key loop (GJob: S, G in prep, y = G·v);
+//   mode 4, the dq pass's dual product (DqJob: v_I·dŶ_Jᵀ beside dŶ_I·v_Jᵀ);
+//   mode 5, the projection's 128 x 160 product (ProjJob).
 // Built with nvcc into a library with a plain C interface.
-#include "tail_f32.cuh"
+#include "attn_f32.cuh"
+#include "tail_jobs.cuh"
 
 namespace tail_bench {
 
 using namespace sga;
 using namespace sga::tail_f32;
+using sga::tail_f32::kThreads;
 
-template <int kMode>
-struct Bench {
-  const float *a, *b;
-  long long rows;
-  int n0, m0, tiles, k;
-  long long row_first, row_step, lo, hi;
+// a job with a checksum epilogue in place of its own
+template <class Job>
+struct Sum : Job {
   float sum = 0.f;
-
-  __device__ int steps() const { return kMode == 2 ? (int)((hi - lo) / kBK) : tiles * (k / kBK); }
-  __device__ int ksteps() const { return kMode == 2 ? steps() : k / kBK; }
-  __device__ void stage(int s, float* st) const {
-    if (kMode == 2) {
-      const long long r0 = lo + (long long)s * kBK;
-      stage_rows(st, a + r0 * 512 + m0, 512, kBK);
-      stage_rows(st + kOperand, b + r0 * 1024 + n0, 1024, kBK);
-      return;
-    }
-    const long long row0 = row_first + row_step * (s / (k / kBK));
-    const int k0 = (s % (k / kBK)) * kBK;
-    stage_rows_t(st, a + row0 * k + k0, k, (int)min((long long)kTile, rows - row0));
-    if (kMode == 0)
-      stage_rows(st + kOperand, b + (size_t)k0 * 1024 + n0, 1024, kBK);
-    else  // B[kk][n] = W[n0 + n][k0 + kk]: W's rows, transposed
-      stage_rows_t(st + kOperand, b + (size_t)n0 * 1024 + k0, 1024, kTile);
-  }
   __device__ void epilogue(int, const float (&acc)[8][8], float*) {
 #pragma unroll
     for (int i = 0; i < 8; ++i)
@@ -51,44 +35,126 @@ struct Bench {
 
 template <int kMode>
 __global__ void __launch_bounds__(kThreads, 2)
-bench(const float* a, const float* b, float* out, long long rows, int groups, int splits) {
+bench(const float* x1, const float* x2, const float* x3, const float* x4, const float* b,
+      float* out, long long rows, int groups, int splits) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int ncols = kMode == 1 ? 4 : 8;
-  Bench<kMode> job{a, b, rows, 0, 0, 0, kMode == 1 ? 1024 : 512, 0, 0, 0, 0};
-  if (kMode == 2) {
-    const int mt = blockIdx.x % 4, nt = (blockIdx.x / 4) % ncols, split = blockIdx.x / 32;
-    const long long per = rows / splits / kBK * kBK;
-    job.m0 = mt * kTile, job.n0 = nt * kTile, job.lo = split * per, job.hi = job.lo + per;
-  } else {
-    const int grp = blockIdx.x / ncols;
+  float* ring = reinterpret_cast<float*>(smem);
+  const int k = 1024, p = 512, slices = k / kTile;
+  float sum = 0.f;
+  if constexpr (kMode == 0) {
+    const int g = blockIdx.x / slices, o = (int)(rows / p);
+    Sum<TailFwd<false>> job{{{x1, x2, x3, x4, b, p, k, (int)(blockIdx.x % slices) * kTile},
+                             nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, g,
+                             groups, p / kTile, (o - g + groups - 1) / groups}};
+    run(job, ring);
+    sum = job.sum;
+  } else if constexpr (kMode == 1) {
+    const int ct = blockIdx.x % 4, grp = blockIdx.x / 4;
     const long long rtiles = (rows + kTile - 1) / kTile;
-    job.n0 = (blockIdx.x % ncols) * kTile;
-    job.row_first = (long long)grp * kTile, job.row_step = (long long)groups * kTile;
-    job.tiles = (int)((rtiles - grp + groups - 1) / groups);
+    Sum<TailDx> job{{x1, b, nullptr, rows, k, ct, grp, groups,
+                     (int)((rtiles - grp + groups - 1) / groups)}};
+    run(job, ring);
+    sum = job.sum;
+  } else {
+    const int i = blockIdx.x % 4, n0 = ((blockIdx.x / 4) % slices) * kTile;
+    const int split = blockIdx.x / (4 * slices);
+    const long long per = (rows + splits - 1) / splits / 64 * 64, lo = split * per;
+    Sum<TailDw> job{{i == 0 ? x1 : i == 1 ? x2 : i == 2 ? x3 : x4, b, nullptr, lo,
+                     lo + per < rows ? lo + per : rows, k, n0}};
+    if (job.steps() > 0) run(job, ring);
+    sum = job.sum;
   }
-  run(job, reinterpret_cast<float*>(smem));
-  out[blockIdx.x * kThreads + threadIdx.x] = job.sum;
+  out[blockIdx.x * kThreads + threadIdx.x] = sum;
 }
 
 template <int kMode>
-int launch(const float* a, const float* b, float* out, long long rows, int groups, int splits,
-           cudaStream_t st) {
+int launch(const float* const* x, const float* b, float* out, long long rows, int groups,
+           int splits, cudaStream_t st) {
   cudaFuncSetAttribute(bench<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)kRingBytes);
   const int blocks = kMode == 0 ? 8 * groups : kMode == 1 ? 4 * groups : 32 * splits;
-  bench<kMode><<<blocks, kThreads, kRingBytes, st>>>(a, b, out, rows, groups, splits);
+  bench<kMode><<<blocks, kThreads, kRingBytes, st>>>(x[0], x[1], x[2], x[3], b, out, rows,
+                                                     groups, splits);
+  return (int)cudaGetLastError();
+}
+
+template <class Job>
+__device__ void attn_run(Job job, float* out, int units) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);
+  f32::own_units(job, units);
+  job.res = ring + Job::kRing * Job::kStageFloats;
+  Sum<Job> s{job};
+  run(s, ring);
+  out[blockIdx.x * kThreads + threadIdx.x] = s.sum;
+}
+
+__global__ void __launch_bounds__(kThreads, 2) attend_bench(f32::GJob<false> job, float* out,
+                                                            int units) {
+  attn_run(job, out, units);
+}
+
+__global__ void __launch_bounds__(kThreads, 2) dq_bench(f32::DqJob job, float* out, int units) {
+  attn_run(job, out, units);
+}
+
+__global__ void __launch_bounds__(kThreads, 2) proj_bench(f32::ProjJob job, float* out,
+                                                          int units) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  f32::own_units(job, units);
+  Sum<f32::ProjJob> s{job};
+  run(s, reinterpret_cast<float*>(smem));
+  out[blockIdx.x * kThreads + threadIdx.x] = s.sum;
+}
+
+template <class Job>
+int launch_attn(void (*kernel)(Job, float*, int), Job job, size_t smem, long long units,
+                float* out, cudaStream_t st) {
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  job.groups = resident_grid(kernel, kThreads, smem, units);
+  kernel<<<job.groups, kThreads, smem, st>>>(job, out, (int)units);
   return (int)cudaGetLastError();
 }
 
 }  // namespace tail_bench
 
 // mode 0 / 1: `groups` blocks per column tile (8 / 4 column tiles); mode 2:
-// 32 tiles x `splits` row splits. b: W (modes 0, 1) or G (mode 2). out:
-// one float a thread
-extern "C" int tail_gemm(int mode, const float* a, const float* b, float* out, long long rows,
-                         int groups, int splits, void* st) {
+// 32 tiles x `splits` row splits. x: x1..x4 [rows, 128] each (mode 1: G
+// [rows, 1024] in x[0]); b: W (modes 0, 1) or G (mode 2). out: one float a
+// thread
+extern "C" int tail_gemm(int mode, const float* const* x, const float* b, float* out,
+                         long long rows, int groups, int splits, void* st) {
   auto s = (cudaStream_t)st;
-  if (mode == 0) return tail_bench::launch<0>(a, b, out, rows, groups, splits, s);
-  if (mode == 1) return tail_bench::launch<1>(a, b, out, rows, groups, splits, s);
-  return tail_bench::launch<2>(a, b, out, rows, groups, splits, s);
+  if (mode == 0) return tail_bench::launch<0>(x, b, out, rows, groups, splits, s);
+  if (mode == 1) return tail_bench::launch<1>(x, b, out, rows, groups, splits, s);
+  return tail_bench::launch<2>(x, b, out, rows, groups, splits, s);
+}
+
+// modes 3-5 on q [O·P, 32], v [O·P, 128], lse [O·P] (mode 4 also reads v as
+// dŶ and lse as D; mode 5 reads v as x, and w [128, 32] and wv [128, 128];
+// its q and v outputs are not written). out: one float a thread of the grid
+// (at most 2 x the SMs blocks)
+extern "C" int attn_gemm(int mode, const float* q, const float* v, const float* lse,
+                         const float* wqk, const float* wv, float* out, int o, int p, void* st) {
+  using namespace sga::f32;
+  auto s = (cudaStream_t)st;
+  const int rtiles = (p + kTile - 1) / kTile;
+  if (mode == 3) {
+    GJob<false> job{q, v, lse, v, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                    kAttendU, 0, p, rtiles, 0, 0, 0, (p + kBK - 1) / kBK};
+    return tail_bench::launch_attn(tail_bench::attend_bench, job, GJob<false>::kSmemBytes,
+                                   (long long)o * rtiles, out, s);
+  }
+  if (mode == 4) {
+    const int jchunks = (p + DqJob::kJ - 1) / DqJob::kJ;
+    int pairs = 0;
+    for (int it = 0; it < rtiles; ++it) pairs += jchunks - 2 * it;
+    DqJob job{q, v, v, lse, lse, nullptr, nullptr, nullptr, 0, p, rtiles, jchunks, pairs};
+    return tail_bench::launch_attn(tail_bench::dq_bench, job, DqJob::kSmemBytes, o, out, s);
+  }
+  const long long rows = (long long)o * p;
+  ProjJob job{v, wqk, wv, lse, nullptr, nullptr, rows};
+  return tail_bench::launch_attn(tail_bench::proj_bench, job,
+                                 sizeof(float) * kStages * ProjJob::kStageFloats,
+                                 (rows + kTile - 1) / kTile, out, s);
 }

@@ -1,12 +1,13 @@
 // The PCT attention passes that do not depend on how a width's weights are
 // staged, templated on the channels kC and the q/k width kDa: the
 // log-sum-exp pass, the apply loop of one row tile (attend_tile), the
-// attention op's output and OA sc passes, and the backward's dv pass.
-// pct_attention.cu instantiates them at C = 128, da = 32,
-// pct_attention_c256.cu at C = 256, da = 64; pct_attention.cu's header
-// comment sets out the notation and what each pass computes. Each loop over
-// key chunks fetches the next chunk with cp.async while the current one's
-// products and exponentials run.
+// attention op's output and OA sc passes, and the backward's dv pass, on
+// block_gemm's tiles. pct_attention_c256.cu instantiates them at C = 256,
+// da = 64 (the f32 C = 128 forms run attn_f32.cuh's passes instead, with
+// merge_lse and quad_sum from here); pct_attention.cu's header comment sets
+// out the notation and what each pass computes. Each loop over key chunks
+// fetches the next chunk with cp.async while the current one's products and
+// exponentials run.
 #pragma once
 
 #include "common.cuh"
@@ -17,22 +18,9 @@ namespace {
 constexpr int kRows = 64;     // rows per tile, keys per chunk
 constexpr int kThreads = 256;
 
-// Copy a [rows, cols] tile of dY, each row r scaled by scale[r] (1/s, OA's
-// dŶ) and rounded to T; rows >= valid_rows are zero-filled.
-template <typename T>
-__device__ __forceinline__ void load_rows_scaled(T* dst, int ld_s, const T* __restrict__ src,
-                                                 long long ld_g, int rows, int cols, int valid_rows,
-                                                 const float* __restrict__ scale) {
-  for (int idx = threadIdx.x; idx < rows * cols; idx += blockDim.x) {
-    const int r = idx / cols, c = idx % cols;
-    const float val = r < valid_rows ? to_f<T>(src[r * ld_g + c]) * scale[r] : 0.f;
-    dst[r * ld_s + c] = from_f<T>(val);
-  }
-}
-
 // Scale the rows r < valid of a tile that this thread copied with
-// load_tile_async by scale[r], rounded to T (load_rows_scaled's arithmetic
-// on its own 16-byte chunks, so no other thread's copy need be complete)
+// load_tile_async by scale[r], rounded to T (on its own 16-byte chunks, so
+// no other thread's copy need be complete)
 template <typename T>
 __device__ __forceinline__ void scale_own_rows(T* dst, int ld_s, int rows, int cols, int valid,
                                                const float* __restrict__ scale) {

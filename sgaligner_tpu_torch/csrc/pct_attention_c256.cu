@@ -969,8 +969,9 @@ int sga_pct_block_fwd_c256(const void* x, const void* wqk, const void* wv, const
                                       blocks, sums, o, p, oa, st);
 }
 
-// Bytes of sga_pct_block_res_bwd_c256's work buffer
-long long sga_pct_bwd_work_bytes_c256(int o, int p, int dtype) {
+// Bytes of sga_pct_block_res_bwd_c256's work buffer (the same for SA and
+// OA: oa is the C = 128 query's argument)
+long long sga_pct_bwd_work_bytes_c256(int o, int p, int /*oa*/, int dtype) {
   if (dtype == sga::kBF16) return (long long)sga::carve<sga::bf16>(nullptr, o, p, nullptr);
   return (long long)sga::carve<float>(nullptr, o, p, nullptr);
 }

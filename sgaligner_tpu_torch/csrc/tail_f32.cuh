@@ -1,5 +1,7 @@
-// The f32 PCT tail's product mainloop (csrc/pct_tail.cu; timed alone by
-// scripts/tail_gemm_bench.cu): full f32 on the CUDA cores, no TF32.
+// The port's f32 product mainloop: full f32 on the CUDA cores, no TF32. The
+// f32 PCT tail (csrc/pct_tail.cu) and the f32 C = 128 attention passes
+// (csrc/pct_attention.cu) run on it; scripts/tail_gemm_bench.cu times it
+// alone on the tail's jobs.
 //
 // A block of 256 threads owns a 128 x 128 tile of C = A·B and keeps it in
 // registers for the whole reduction: thread (tx, ty) holds rows
@@ -24,9 +26,20 @@
 //   void stage(int s, float* st); issue k-step s's copies into a stage
 //   void epilogue(int tile, const float (&acc)[8][8], float* spare);
 // called by every thread of the block (epilogues may __syncthreads).
-// `spare` is the stage the tile's last k-step read (kStage floats): free
-// for the epilogue once every thread is past that product, and until the
-// next k-step's __syncthreads.
+// `spare` is the stage the tile's last k-step read: free for the epilogue
+// once every thread is past that product, and until the next k-step's
+// __syncthreads.
+//
+// A job may shape its own ring (RingOf): kRing stages of kStageFloats
+// floats (A and B first, then what else its k-step copies), its product
+// `Mul` (`Mul`, `MulDual`, or its own), and with kPrep a hook that builds
+// a k-step's A operand in shared memory from what that k-step's copies
+// brought:
+//   void prep(int s, float* st);
+// The attention passes chain two products per key chunk this way: the
+// chunk's S = q·qᵀ and its exponentials in prep, G·v in the mainloop. A job
+// that declares none of these (the tail's) runs the plain product through
+// kStages stages of kStage floats.
 #pragma once
 
 #include "common.cuh"
@@ -62,16 +75,18 @@ __device__ __forceinline__ int lane_ty() { return 4 * (threadIdx.x / 64) + (thre
 // row (column) of the tile that register index i (j) of a thread maps to
 __device__ __forceinline__ int tile_row(int ty, int i) { return 64 * (i / 4) + 4 * ty + i % 4; }
 
-// Rows [0, 128) x columns [0, kBK) of a row-major matrix (src at row 0,
+// Rows [0, kRows) x columns [0, kBK) of a row-major matrix (src at row 0,
 // column k0; row stride ld floats), transposed into dst[k][m]; rows
 // >= valid are zero-filled (their source kept in bounds). A warp copies
 // 8 k x 4 rows: 32 bytes of each of 4 rows, one sector each
+template <int kRows = kTile>
 __device__ __forceinline__ void stage_rows_t(float* dst, const float* __restrict__ src,
                                              long long ld, int valid) {
+  static_assert(kRows % 16 == 0 && kRows <= kTile, "stage_rows_t: rows");
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
   const int k = 8 * (w % 2) + l % 8, m0 = 4 * (w / 2) + l / 8;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < kRows / 16; ++j) {
     const int m = m0 + 16 * j;
     const bool in = m < valid;
     cp_async4(dst + k * kLd + m, src + (in ? m * ld : 0) + k, in);
@@ -120,16 +135,95 @@ __device__ __forceinline__ void product(float (&acc)[8][8], const float* stage, 
   }
 }
 
+// n floats of a vector into dst (4-byte copies, so any offset); entries
+// >= valid are zero-filled
+__device__ __forceinline__ void stage_vec(float* dst, const float* __restrict__ src, int n,
+                                          int valid) {
+  for (int i = threadIdx.x; i < n; i += kThreads) cp_async4(dst + i, src + (i < valid ? i : 0), i < valid);
+}
+
+// Two products side by side in one 128 x 128 tile: columns 0-63 take A0's
+// rows, columns 64-127 A1's (the stage holds A0, A1, then B): thread (tx,
+// ty)'s acc[i][j < 4] and acc[i][4 + j] are the same row and column of the
+// two products. Each output is one fmaf chain over k in ascending order.
+__device__ __forceinline__ void product_dual(float (&acc)[8][8], const float* stage, int tx,
+                                             int ty) {
+  const float* a0s = stage;
+  const float* a1s = stage + kOperand;
+  const float* bs = stage + 2 * kOperand;
+#pragma unroll
+  for (int k = 0; k < kBK; ++k) {
+    const float4 p0 = *reinterpret_cast<const float4*>(a0s + k * kLd + 4 * ty);
+    const float4 p1 = *reinterpret_cast<const float4*>(a0s + k * kLd + 64 + 4 * ty);
+    const float4 q0 = *reinterpret_cast<const float4*>(a1s + k * kLd + 4 * ty);
+    const float4 q1 = *reinterpret_cast<const float4*>(a1s + k * kLd + 64 + 4 * ty);
+    const float4 b0 = *reinterpret_cast<const float4*>(bs + k * kLd + 4 * tx);
+    const float4 b1 = *reinterpret_cast<const float4*>(bs + k * kLd + 64 + 4 * tx);
+    const float a0[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+    const float a1[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+    const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(j < 4 ? a0[i] : a1[i], b[j], acc[i][j]);
+  }
+}
+
+// A job's product (Job::Mul): apply(job, acc, stage, tx, ty) multiplies
+// one staged k-step into the accumulators (a job may keep more of its own)
+struct Mul {
+  template <class Job>
+  __device__ __forceinline__ static void apply(Job&, float (&acc)[8][8], const float* st, int tx,
+                                               int ty) {
+    product(acc, st, tx, ty);
+  }
+};
+struct MulDual {
+  template <class Job>
+  __device__ __forceinline__ static void apply(Job&, float (&acc)[8][8], const float* st, int tx,
+                                               int ty) {
+    product_dual(acc, st, tx, ty);
+  }
+};
+
+// What run reads of a job's ring: the plain product through kStages stages
+// of kStage floats, or, where the job declares kStageFloats, its own kRing,
+// kStageFloats, kPrep and Mul
+template <class Job, class = void>
+struct RingOf {
+  static constexpr int kRing = kStages, kStageFloats = kStage;
+  static constexpr bool kPrep = false;
+  using Mul = tail_f32::Mul;
+};
+template <class Job>
+struct RingOf<Job, std::void_t<decltype(Job::kStageFloats)>> {
+  static constexpr int kRing = Job::kRing, kStageFloats = Job::kStageFloats;
+  static constexpr bool kPrep = Job::kPrep;
+  using Mul = typename Job::Mul;
+};
+
 // The mainloop: every k-step of the job through the ring, an epilogue after
-// each tile's last one. `ring`: kRingBytes of dynamic shared memory
+// each tile's last one; `ring` holds the job's kRing stages (kRingBytes of
+// dynamic shared memory for the plain ring). Iteration s waits for k-step
+// s + 1's copies (s's without prep), synchronises once, issues k-step
+// s + kRing - 1's copies into the stage k-step s - 1 used, builds k-step
+// s + 1's A (prep), and multiplies k-step s.
 template <class Job>
 __device__ __forceinline__ void run(Job& job, float* ring) {
+  using Ring = RingOf<Job>;
+  constexpr int R = Ring::kRing, SF = Ring::kStageFloats;
+  static_assert(R >= 3 && SF >= kStage && SF % 4 == 0, "run: ring");
   const int steps = job.steps(), ksteps = job.ksteps();
   const int tx = lane_tx(), ty = lane_ty();
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < steps) job.stage(s, ring + s * kStage);
+  for (int s = 0; s < R - 1; ++s) {
+    if (s < steps) job.stage(s, ring + s * SF);
     cp_async_commit();
+  }
+  if constexpr (Ring::kPrep) {
+    cp_async_wait<R - 2>();
+    __syncthreads();
+    if (steps > 0) job.prep(0, ring);
   }
   float acc[8][8];
 #pragma unroll
@@ -139,14 +233,19 @@ __device__ __forceinline__ void run(Job& job, float* ring) {
   int ks = 0, tile = 0;
 #pragma unroll 1
   for (int s = 0; s < steps; ++s) {
-    cp_async_wait<kStages - 2>();
+    if constexpr (Ring::kPrep)
+      cp_async_wait<R - 3>();
+    else
+      cp_async_wait<R - 2>();
     __syncthreads();
-    const int next = s + kStages - 1;
-    if (next < steps) job.stage(next, ring + (next % kStages) * kStage);
+    const int next = s + R - 1;
+    if (next < steps) job.stage(next, ring + (next % R) * SF);
     cp_async_commit();
-    product(acc, ring + (s % kStages) * kStage, tx, ty);
+    if constexpr (Ring::kPrep)
+      if (s + 1 < steps) job.prep(s + 1, ring + ((s + 1) % R) * SF);
+    Ring::Mul::apply(job, acc, ring + (s % R) * SF, tx, ty);
     if (++ks == ksteps) {
-      job.epilogue(tile, acc, ring + (s % kStages) * kStage);
+      job.epilogue(tile, acc, ring + (s % R) * SF);
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll

@@ -149,7 +149,7 @@ _SIGNATURES = {
     "sga_pointnet_bwd_work_bytes": [_I, _I, _I, _I],
     "sga_pct_epi_sums_rows_per_block": [_I],
     "sga_embed_first_bwd_rows_per_block": [_I],
-    "sga_pct_bwd_work_bytes": [_I, _I, _I],
+    "sga_pct_bwd_work_bytes": [_I, _I, _I, _I],
 }
 # the C = 256 forms take the C = 128 forms' arguments
 _SIGNATURES.update({f"{name}_c256": _SIGNATURES[name] for name in (

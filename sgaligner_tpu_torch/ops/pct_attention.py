@@ -148,6 +148,8 @@ def _block_eval_cuda(x, wqk, wv, bv, wt, bt, wbn, bbn, scale, double_norm):
         _build.check_shape(name, key, t, (c, c))
     for key, t in (("bv", bv), ("bt", bt), ("wbn", wbn32), ("bbn", bbn32)):
         _build.check_shape(name, key, t, (c,))
+    if _reads_16(x):
+        _build.check_aligned(name, {"x": x, "wqk": wqk_s, "wv": wv, "wt": wt})
     out = torch.empty_like(x)
     q, v, lse = _block_work(x)
     if o:
@@ -218,7 +220,15 @@ def _check_attn(name, x, wqk, wv, bv):
     _build.check_shape(name, "wqk", wqk, (c, c // 4))
     _build.check_shape(name, "wv", wv, (c, c))
     _build.check_shape(name, "bv", bv, (c,))
+    if _reads_16(x):
+        _build.check_aligned(name, {"x": x, "wqk": wqk, "wv": wv})
     return o, p, c
+
+
+def _reads_16(x) -> bool:
+    """The f32 C = 128 passes (csrc/pct_attention.cu on tail_f32.cuh) copy
+    x, the weights and the attention op's dy 16 bytes at a time."""
+    return x.dtype == torch.float32 and x.shape[-1] == 128
 
 
 def _check_block(name, x, wqk, wv, bv, wt, bt, mask):
@@ -227,6 +237,8 @@ def _check_block(name, x, wqk, wv, bv, wt, bt, mask):
     _build.check_shape(name, "wt", wt, (c, c))
     _build.check_shape(name, "bt", bt, (c,))
     _build.check_shape(name, "mask", mask, (o, 1))
+    if _reads_16(x):
+        _build.check_aligned(name, {"wt": wt})
     return o, p, c
 
 
@@ -397,13 +409,14 @@ def block_bwd_plain(x, wqk, wv, bv, wt, bt, mask, dt, dsum, dsumsq, scale=True,
     return (dx.to(x.dtype), *grads)
 
 
-def _bwd_work(x):
+def _bwd_work(x, oa):
     """The block and attention backwards' device buffers, one byte buffer
     the C entry carves (``sga_pct_bwd_work_bytes``, at C = 256
-    ``sga_pct_bwd_work_bytes_c256``)."""
+    ``sga_pct_bwd_work_bytes_c256``); ``oa``: the offset-attention form's
+    (the f32 C = 128 SA form carves less)."""
     o, p, c = x.shape
     query = getattr(_build.lib(), "sga_pct_bwd_work_bytes" + WIDTHS[c])
-    return torch.empty(query(o, p, _build.DTYPE_CODE[x.dtype]), dtype=torch.uint8,
+    return torch.empty(query(o, p, int(oa), _build.DTYPE_CODE[x.dtype]), dtype=torch.uint8,
                        device=x.device)
 
 
@@ -434,7 +447,7 @@ def _block_backward(name, fn_name, x, wqk, wv, bv, wt, bt, mask, cot, vecs,
     dx = torch.empty_like(x)
     if o:
         blocks = _build.grid_blocks(dev, o * ((p + 63) // 64), per_sm=1)
-        part, work = _build.scratch(dev, blocks, n_grad(c)), _bwd_work(x)
+        part, work = _build.scratch(dev, blocks, n_grad(c)), _bwd_work(x, double_norm)
         _build.launch(name, fn_name, dev,
                       *(t.data_ptr() for t in (x, wqk_s, wv, bv, wt, bt, mask, cot,
                                                *vecs.values(), work, dx, part)),
@@ -610,6 +623,8 @@ def attn_bwd(x, wqk, wv, bv, dy, scale=True, double_norm=False):
     o, p, _ = _check_attn(name, x, wqk_s, wv, bv)
     _build.check_cuda(name, {"x": x, "dy": dy}, x.dtype)
     _build.check_shape(name, "dy", dy, (o, p, c))
+    if _reads_16(x):
+        _build.check_aligned(name, {"dy": dy})
     dev = x.device
     # the first three of a block backward's gradient slices (the C entry
     # reduces only those): dWqk, dWv, dbv
@@ -617,7 +632,7 @@ def attn_bwd(x, wqk, wv, bv, dy, scale=True, double_norm=False):
     dx = torch.empty_like(x)
     if o:
         blocks = _build.grid_blocks(dev, o * ((p + 63) // 64), per_sm=1)
-        part, work = _build.scratch(dev, blocks, n_grad(c)), _bwd_work(x)
+        part, work = _build.scratch(dev, blocks, n_grad(c)), _bwd_work(x, double_norm)
         _build.launch(name, "sga_pct_attn_bwd" + suffix, dev,
                       *(t.data_ptr() for t in (x, wqk_s, wv, bv, dy, work, dx, part)),
                       blocks, grads.data_ptr(), o, p, int(double_norm),

@@ -836,6 +836,79 @@ def test_pct_tail_f32_refuses_misaligned_views(card, name, arg):
     assert _build.LAUNCHES[name] == before
 
 
+# the f32 C = 128 forms of rows 5, 6, 9, 7, 10 and 11 (csrc/attn_f32.cuh's
+# passes on tail_f32.cuh's mainloop), SA and OA
+NARROW_F32 = [(name, flags) for name in ("pct_block_eval", "pct_block_fwd", "pct_block_res_bwd",
+                                         "pct_block_bwd", "pct_attn_fwd", "pct_attn_bwd")
+              for flags in (SA, OA)]
+NARROW_F32_IDS = [f"{name[4:]}_{'SA' if flags == SA else 'OA'}" for name, flags in NARROW_F32]
+
+
+@pytest.mark.parametrize("points", [1, 200, 512])
+@pytest.mark.parametrize("objects", [1, 3, 67])
+@pytest.mark.parametrize("name,flags", NARROW_F32, ids=NARROW_F32_IDS)
+def test_attention_f32_c128_matches_plain_version(card, name, flags, objects, points):
+    """The f32 C = 128 forms against their plain versions within the f32
+    tolerance, one launch a call and the same bits twice, at one object (a
+    single tile of a pass, one object a block of the dq pass), 3 and 67,
+    and P of one point, ragged (200: one full and one short 128-row tile,
+    a last 64-key chunk of 8) and the main path's 512. At P = 200 and 512
+    the planted faults of chip_smoke.NARROW_F32_PLANTED (a dx or t_out row
+    tile zeroed: the dx and trans passes; dWqk x1.001: the dq pass; dWt
+    x1.001: the dz pass; the sums x1.001) must each be caught. At P = 1
+    the backwards' dWqk is analytically zero (see below)."""
+    from sgaligner_tpu_torch.ops import _build
+
+    args = card.op_inputs(name, objects, torch.float32, seed=23, p=points)
+    kern, plain = card.op_fns(name, flags)
+    before = _build.LAUNCHES[name]
+    got, again = card.as_tuple(kern(*args)), card.as_tuple(kern(*args))
+    want = card.as_tuple(plain(*args))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if points == 1 and name in ("pct_block_res_bwd", "pct_block_bwd", "pct_attn_bwd"):
+        # one key: the softmax is one-hot and dE = G·(dŶ·v − D) is zero, so
+        # the plain dWqk is exactly 0 and the kernel's f32 rounding noise:
+        # every other output by the usual rule, dWqk against dWv's scale
+        rest = [i for i in range(len(got)) if i != 1]
+        _, err_rel = card.compare(tuple(got[i] for i in rest), tuple(want[i] for i in rest))
+        assert err_rel <= card.tol(name, "f32", flags)
+        assert float(got[1].abs().max()) <= 1e-4 * float(want[2].abs().max())
+        return
+    card.judge(name, "f32", flags, args, got, want, plain)
+    if points > 1:
+        for what, fault in card.NARROW_F32_PLANTED.get(name, ()):
+            with pytest.raises(AssertionError):
+                card.judge(name, "f32", flags, args, fault(got, args), want, plain)
+
+
+@pytest.mark.parametrize("name,flags,arg", [("pct_block_eval", SA, 0), ("pct_block_eval", OA, 1),
+                                            ("pct_block_fwd", SA, 4),
+                                            ("pct_block_res_bwd", SA, 2),
+                                            ("pct_block_bwd", OA, 1), ("pct_attn_fwd", SA, 0),
+                                            ("pct_attn_bwd", SA, 4)],
+                         ids=["block_eval-x", "block_eval_OA-wqk", "block_fwd-wt",
+                              "block_res_bwd-wv", "block_bwd_OA-wqk", "attn_fwd-x",
+                              "attn_bwd-dy"])
+def test_attention_f32_c128_refuses_misaligned_views(card, name, flags, arg):
+    """The f32 C = 128 passes copy x, the weights and the attention op's dy
+    16 bytes at a time: a contiguous view that starts 4 bytes into its
+    storage raises instead of faulting, with no launch."""
+    from sgaligner_tpu_torch.ops import _build
+
+    args = list(card.op_inputs(name, 3, torch.float32, seed=5, p=200))
+    t = args[arg]
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    args[arg] = buf[1:].view(t.shape)
+    args[arg].copy_(t)
+    kern, _ = card.op_fns(name, flags)
+    before = _build.LAUNCHES[name]
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        kern(*args)
+    assert _build.LAUNCHES[name] == before
+
+
 BWD_CASES = [("pct_block_res_bwd", SA), ("pct_block_res_bwd", OA), ("pct_tail_bwd", None),
              ("pct_block_bwd", SA), ("pct_block_bwd", OA), ("pct_attn_bwd", SA),
              ("pct_attn_bwd", OA), ("embed_second_bwd", None)]

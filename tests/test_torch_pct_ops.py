@@ -352,6 +352,31 @@ def test_masked_batchnorm_forms_match_jax(x64, shape):
     _close(list(_port_bn(v, c).eval().fold(torch.float64)), [w_j, b_j], "eval fold")
 
 
+@pytest.mark.parametrize("dtype,width,reads", [(torch.float32, 128, True),
+                                               (torch.float32, 256, False),
+                                               (torch.bfloat16, 128, False)],
+                         ids=["f32-C128", "f32-C256", "bf16-C128"])
+def test_attention_alignment_rule_and_cpu_views(dtype, width, reads):
+    """The attention wrappers hold a tensor to a 16-byte start only where
+    the kernel copies it 16 bytes at a time (the f32 C = 128 passes); a CPU
+    tensor takes the plain version, offset view or not."""
+    from sgaligner_tpu_torch.ops import pct_attention as pa
+
+    x = torch.zeros(2, 8, width, dtype=dtype)
+    assert pa._reads_16(x) is reads
+    r = np.random.default_rng(3)
+    c = width
+    args = [torch.tensor(r.standard_normal(s) * 0.1, dtype=torch.float32)
+            for s in ((2, 8, c), (c, c // 4), (c, c), (c,), (c, c), (c,))]
+    buf = torch.zeros(args[0].numel() + 1)
+    view = buf[1:].view(args[0].shape)
+    view.copy_(args[0])
+    mask = torch.ones(2, 1)
+    got = pa.block_fwd(view, *args[1:], mask)
+    want = pa.block_fwd_plain(args[0], *args[1:], mask)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 @pytest.mark.parametrize("offset", [0, 1, 4])
 def test_check_aligned_refuses_offset_views(offset):
     """The f32 tail's wrappers refuse a tensor that does not start at a
@@ -365,3 +390,31 @@ def test_check_aligned_refuses_offset_views(offset):
             _build.check_aligned("pct_tail_bwd", {"dsum": view})
     else:
         _build.check_aligned("pct_tail_bwd", {"dsum": view})
+
+
+@pytest.mark.parametrize("width,oa", [(128, 0), (128, 1), (256, 1)],
+                         ids=["C128-SA", "C128-OA", "C256-OA"])
+def test_bwd_work_asks_for_the_form(monkeypatch, width, oa):
+    """The backwards' work buffer is sized by the C entry for the form that
+    runs: its width's query gets the object count, points, whether the form
+    is OA (the f32 C = 128 SA form carves no OA buffer) and the dtype, and
+    the buffer has the bytes it answers."""
+    from sgaligner_tpu_torch.ops import _build
+    from sgaligner_tpu_torch.ops import pct_attention as pa
+
+    asked = []
+
+    class Lib:
+        def __getattr__(self, name):
+            def query(*args):
+                asked.append((name, args))
+                return 1000 + 10 * args[2]
+            return query
+
+    monkeypatch.setattr(_build, "lib", lambda: Lib())
+    x = torch.zeros(3, 7, width)
+    work = pa._bwd_work(x, bool(oa))
+    suffix = "" if width == 128 else "_c256"
+    assert asked == [("sga_pct_bwd_work_bytes" + suffix,
+                      (3, 7, oa, _build.DTYPE_CODE[torch.float32]))]
+    assert work.dtype == torch.uint8 and work.numel() == 1000 + 10 * oa
