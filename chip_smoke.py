@@ -37,8 +37,10 @@ Phases, in order (every failure raises and exits non-zero):
                gradients). At f32 the tail's faults of TAIL_F32_PLANTED
                (an argmax moved to the next point, a dW column x1.1, a dx
                row tile zeroed) and the f32 C = 128 block and attention
-               forms' of NARROW_F32_PLANTED (a dx or t_out row tile zeroed,
-               dWqk, dWt, dWv or the sums x1.001) caught at P = 512 and 200
+               forms' and embed_second pair's of NARROW_F32_PLANTED (a dx,
+               t_out, h1 or dh0 row tile zeroed, dWqk, dWt, dWv, dW1, dwf
+               or the sums x1.001, the embeddings' KERNEL_PLANTED too)
+               caught at P = 512 and 200
   parity       the pct serving path on the CPU (plain versions) against the
                card (kernels): same seeded weights, one pooled B=8 batch, f32;
                the card's launches in that request (the f32 serving form's row)
@@ -227,11 +229,11 @@ Phases, in order (every failure raises and exits non-zero):
                times (F32_FIRST_MS) and their passes (O = 256 and 896),
                the other f32 forms at O = 896 beside their plain versions
                and their launches in the parity phases (time_f32_forms; the
-               tail's rows and the f32 C = 128 block forms' (rows 5, 6, 9)
-               with the launches of the f32 serving request and the f32
-               step windows, the tail's with one torch.matmul of its
-               product, row 13's dx and dW products as torch.matmul
-               calls),
+               tail's rows, the f32 C = 128 block forms' (rows 5, 6, 9) and
+               the f32 embed_second pair's (rows 3, 4) with the launches of
+               the f32 serving request and the f32 step windows, the tail's
+               and row 3's with one torch.matmul of the product, rows 13's
+               and 4's products as torch.matmul calls),
                with each bound
                from the shapes (the PointNet backward's from the rows and
                channels that carry gradient);
@@ -661,16 +663,22 @@ def _rows_zeroed(index: int, rows: int = 128):
     return f"output {index}: one {rows}-row tile zeroed", fault
 
 
-# faults planted in the f32 C = 128 forms' outputs (kernels phase, P = 512
-# and 200), one a pass: a row tile of dx (the dx pass), dWqk x1.001 (the dq
-# pass), dWt x1.001 (the dz pass; not the attention op's), the training
-# forward's sums x1.001 (the slice sums) and a row tile of t_out (the trans
-# pass)
+# faults planted in the f32 C = 128 forms' outputs and the f32 embed_second
+# pair's (kernels phase, P = 512 and 200), one a pass: a row tile of dx (the
+# dx pass), dWqk x1.001 (the dq pass), dWt x1.001 (the dz pass; not the
+# attention op's), the training forward's sums x1.001 (the slice sums) and a
+# row tile of t_out (the trans pass)
 NARROW_F32_PLANTED = {
     "pct_block_res_bwd": (_rows_zeroed(0), _scaled(1, 1.001), _scaled(4, 1.001)),
     "pct_block_bwd": (_rows_zeroed(0), _scaled(1, 1.001), _scaled(4, 1.001)),
     "pct_attn_bwd": (_rows_zeroed(0), _scaled(1, 1.001), _scaled(2, 1.001)),
-    "pct_block_fwd": (_rows_zeroed(0), _scaled(2, 1.001))}
+    "pct_block_fwd": (_rows_zeroed(0), _scaled(2, 1.001)),
+    # the f32 embed_second pair, with the faults of KERNEL_PLANTED: a 64-row
+    # tile of h1 (the product) or dh0 (the dx0 pass) zeroed, Σh² or dwf
+    # x1.001 (the epilogues' sums), dW1 x1.001 (the dW1 pass)
+    "embed_second": KERNEL_PLANTED["embed_second"] + (_rows_zeroed(0, 64), _scaled(2, 1.001)),
+    "embed_second_bwd": KERNEL_PLANTED["embed_second_bwd"] + (
+        _rows_zeroed(0, 64), _scaled(1, 1.001), _scaled(3, 1.001))}
 
 
 def _padding_kept(outs, args):
@@ -4433,17 +4441,19 @@ def time_f32_forms(state: dict) -> list[dict]:
     embed_first_bwd (whose f32 forms are timed beside their bf16 ones) at
     O = 896, P = 512: CUDA-event ms, the plain version's ms, the bound at the
     f32 rate, and the launches of each (every flag set) in the phases that
-    run them: parity, train_pct_parity and oa_parity. The tail pair and
-    the f32 C = 128 block forms of rows 5, 6 and 9 (all on tail_f32.cuh's
-    mainloop; rows 1, 3, 4 are first versions on block_gemm) also give rows
-    of the {"kernels": ...} line, each with the launches of the path that
-    runs its form alone (the serving forms: parity's f32 serving request;
-    the indexed tail, its backward and rows 6, 9: train_pct's f32 step
-    windows), held to its plain version (library null for the block
-    forms, whose function no single call computes): the tail forward with one
-    torch.matmul of its product at f32 as its library time, the backward
-    with its three products (z, dX = g·Wᵀ, dW = xᵀ·g) as torch.matmul calls
-    logged as a yardstick (no single call computes it: library null)."""
+    run them: parity, train_pct_parity and oa_parity. The tail pair, the
+    f32 C = 128 block forms of rows 5, 6 and 9 and the embed_second pair
+    (rows 3, 4; all on tail_f32.cuh's mainloop; row 1 is a first version)
+    also give rows of the {"kernels": ...} line, each with the launches of
+    the path that runs its form alone (the serving forms: parity's f32
+    serving request; the indexed tail, its backward, rows 6, 9, 3 and 4:
+    train_pct's f32 step windows), held to its plain version (library null
+    for the block forms, whose function no single call computes): the tail
+    forward and row 3 with one torch.matmul of their product at f32 as
+    their library time, the backwards (row 13: z, dX = g·Wᵀ, dW = xᵀ·g;
+    row 4: h, dW1 = x0ᵀ·dz, dx0 = dz·W1ᵀ) with their three products as
+    torch.matmul calls logged as a yardstick (no single call computes
+    them: library null)."""
     import torch
 
     o = state["train_o"]
@@ -4499,6 +4509,34 @@ def time_f32_forms(state: dict) -> list[dict]:
                              "launches": n, "max_abs_err": err_abs,
                              "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                              "bound_by": b_by, "library_ms": library_ms})
+            if name in ("embed_second", "embed_second_bwd"):
+                # rows 3, 4 on the f32 step windows' path (the forward also
+                # runs once in the f32 serving request)
+                err_abs, err_rel = judge(name, "f32", flags, args, kern(*args), plain(*args),
+                                         plain, f"time: f32 {name} at O={o}")
+                x0 = torch.relu(args[0] * args[1] + args[2]).reshape(o * P, C)
+                h_ms = cuda_ms(lambda: torch.matmul(x0, args[3]))
+                if name == "embed_second":
+                    library_ms = h_ms
+                    library = f"library {h_ms:.3f} ms (one torch.matmul of its product) | "
+                else:
+                    dz = torch.randn(o * P, C, device="cuda")
+                    w_t = args[3].t()
+                    dw_ms = cuda_ms(lambda: torch.matmul(x0.t(), dz))
+                    dx_ms = cuda_ms(lambda: torch.matmul(dz, w_t))
+                    library = (f"yardstick: its products as torch.matmul calls, h {h_ms:.3f} + "
+                               f"dW1 = x0ᵀ·dz {dw_ms:.3f} + dx0 = dz·W1ᵀ {dx_ms:.3f} = "
+                               f"{h_ms + dw_ms + dx_ms:.3f} ms | ")
+                    del dz
+                del x0
+                n = state["launches_train_pct_f32"][name]
+                served = state["launches_serve_f32"][name]
+                err = (f"max_abs {err_abs:.3e} max_rel {err_rel:.3e} | launches {n} on its "
+                       f"path (the f32 step windows; {served} in the f32 serving request) | ")
+                rows.append({"name": f"{name}/f32", "route": "cuda", "source": f32_source(name),
+                             "replaces": KERNELS[name][1], "launches": n,
+                             "max_abs_err": err_abs, "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms})
             if name in block_paths and flags == SA:
                 # the backward on untied inputs: at O = 896 relu ties route
                 # either way (see untied)

@@ -40,4 +40,3 @@ ENTRY(bc_64_256_32, true, false, 64, 256, 32)
 ENTRY(ac_256_32_64, false, true, 256, 32, 64)
 ENTRY(ac_256_256_64, false, true, 256, 256, 64)
 ENTRY(ac_64_256_64, false, true, 64, 256, 64)
-ENTRY(nn_64_128_128, false, false, 64, 128, 128)

@@ -68,9 +68,14 @@ C128_PASSES = ("::project_kernel", "::lse_kernel", "::apply_kernel", "::attn_out
                "::bwd_dx_kernel", "::proj_kernel", "::lse128_kernel", "::attend_kernel",
                "::trans_kernel", "::dy_kernel",
                "::sc_kernel", "::dv_kernel", "::dd_kernel", "::dq_kernel", "::dx_kernel",
-               "::wgrad_kernel", "::colsum_kernel", "::reduce_slices_kernel")
+               "::wgrad_kernel", "::colsum_kernel", "::reduce_slices_kernel",
+               # the f32 embed_second pair: the first versions' and the redesign's
+               "::embed_second_kernel", "::embed_second_bwd_kernel",
+               "::embed_second_f32_kernel", "::transpose128_kernel",
+               "::embed_second_dz_kernel", "::embed_second_wgrad_kernel")
 NARROW = ("pct_block_eval", "pct_block_fwd", "pct_block_res_bwd", "pct_block_bwd",
           "pct_attn_fwd", "pct_attn_bwd")
+E2 = ("embed_second", "embed_second_bwd")
 BITS = Path("build") / "f32_bits"
 WIDE_O = cs.FULL_PCT_PAIRS * 2 * cs.FULL_PCT_SLOTS
 
@@ -87,8 +92,10 @@ def registers(tag: str) -> None:
                  if "Used" in x or "spill" in x]
         spills = any("spill" in x and "0 bytes spill stores, 0 bytes spill loads" not in x
                      for x in notes)
-        # the f32 C = 256 kernels and the f32 C = 128 passes (namespace f32)
-        if spills or ("c256" in line and "kernelIf" in line) or "3f32" in line:
+        # the f32 C = 256 kernels, the f32 C = 128 passes (namespace f32) and
+        # the embed_second pair's
+        if (spills or ("c256" in line and "kernelIf" in line) or "3f32" in line
+                or "embed_second" in line):
             print(f"{tag} ptxas {line.split(chr(39))[1]}: {' | '.join(notes)}", flush=True)
 
 
@@ -112,20 +119,21 @@ def wide_times(tag: str) -> None:
 
 def narrow_times(tag: str) -> None:
     o = 896
-    for name in NARROW:
-        for flag_tag, flags in (("SA", cs.SA), ("OA", cs.OA)):
-            kern, plain = cs.op_fns(name, flags)
-            args = cs.op_inputs(name, o, torch.float32, seed=2)
-            ms = cs.cuda_ms(lambda: kern(*args), warmup=2, reps=5)
-            plain_ms = cs.cuda_ms(lambda: plain(*args), warmup=1, reps=3)
-            b_ms, _ = cs.bound(name, o, oa=flags == cs.OA, f32=True)
-            split = cs.pass_split(lambda: kern(*args), C128_PASSES)
-            print(f"{tag} {name}/{flag_tag}/f32 O={o} P={cs.P}: {ms:.3f} ms, plain "
-                  f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_ms / ms:.1%}) | passes "
-                  + ", ".join(f"{k[2:]} {v:.3f}" for k, v in split.items())
-                  + f" (sum {sum(split.values()):.3f}) | {cs.card_line()}", flush=True)
-            del args
-            torch.cuda.empty_cache()
+    forms = [(name, f"/{t}", flags) for name in NARROW for t, flags in (("SA", cs.SA),
+                                                                       ("OA", cs.OA))]
+    for name, flag_tag, flags in forms + [(name, "", cs.SA) for name in E2]:
+        kern, plain = cs.op_fns(name, flags)
+        args = cs.op_inputs(name, o, torch.float32, seed=2)
+        ms = cs.cuda_ms(lambda: kern(*args), warmup=2, reps=5)
+        plain_ms = cs.cuda_ms(lambda: plain(*args), warmup=1, reps=3)
+        b_ms, _ = cs.bound(name, o, oa=flags == cs.OA, f32=True)
+        split = cs.pass_split(lambda: kern(*args), C128_PASSES)
+        print(f"{tag} {name}{flag_tag}/f32 O={o} P={cs.P}: {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_ms / ms:.1%}) | passes "
+              + ", ".join(f"{k[2:]} {v:.3f}" for k, v in split.items())
+              + f" (sum {sum(split.values()):.3f}) | {cs.card_line()}", flush=True)
+        del args
+        torch.cuda.empty_cache()
 
 
 def first_versions():
@@ -206,7 +214,9 @@ def compare_bits(a: str, b: str) -> int:
             print(f"compare {a} {b}: {path.stem} output {i} differs, max abs {d:.3e}",
                   flush=True)
     print(f"compare {a} {b}: {same} outputs the same bits, {differ} not", flush=True)
-    return 0 if differ == 0 else 1
+    if same + differ == 0:
+        print(f"compare {a} {b}: no saved outputs under {a}", flush=True)
+    return 0 if differ == 0 and same > 0 else 1
 
 
 def f32_step(tag: str) -> None:

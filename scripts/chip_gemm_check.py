@@ -4,7 +4,7 @@ register-tiled product at each shape the C = 256 passes call it with, the
 f32 mainloop (csrc/tail_f32.cuh) on the kernels' own jobs, and the SM clock
 while block_gemm runs.
 
-    python3 scripts/chip_gemm_check.py
+    python3 scripts/chip_gemm_check.py [--embed-only]
 
 Run from the repo root. Builds scripts/block_gemm_bench.cu (which includes
 sgaligner_tpu_torch/csrc/common.cuh) with nvcc into build/, then for each
@@ -16,10 +16,12 @@ Then builds scripts/tail_gemm_bench.cu and times the mainloop over operands
 in device memory at O = 896, P = 512 on the kernels' own jobs: the tail's
 three products (K = 1024: z = x·W, dX = G·Wᵀ, dW = xᵀ·G) and three of the
 f32 C = 128 attention passes' (the apply pass's key loop with its prep, the
-dq pass's dual product, the projection), two blocks an SM, with an epilogue
-that only keeps a checksum. The passes' own times
-(scripts/chip_f32_check.py) sit at these rates, so they say how far a pass
-can go on this product.
+dq pass's dual product, the projection), two blocks an SM, and the f32
+embed_second pair's (the h product by both staging routes and through a
+4-stage ring, the backward's dW1 and dx0 products side by side; these alone
+with --embed-only), with an epilogue that only keeps a checksum. The
+passes' own times (scripts/chip_f32_check.py) sit at these rates, so they
+say how far a pass can go on this product.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ SHAPES = {"nn_64_32_256": (64, 32, 256), "bc_64_32_256": (64, 32, 256),
           "bc_64_64_64": (64, 64, 64), "nn_64_64_64": (64, 64, 64),
           "nn_64_256_64": (64, 256, 64), "bc_64_256_32": (64, 256, 32),
           "ac_256_32_64": (256, 32, 64), "ac_256_256_64": (256, 256, 64),
-          "ac_64_256_64": (64, 256, 64), "nn_64_128_128": (64, 128, 128)}
+          "ac_64_256_64": (64, 256, 64)}
 F32_FLOPS = 67e12
 SMEM = 200 * 1024
 
@@ -53,6 +55,13 @@ TAIL_MODES = {"tail z = x·W [rows x 1024, K = 512]": 0,
               "attention key loop: S, G (prep) and y = G·v [P x 128 a tile, K = P]": 3,
               "dq dual product: v_I·dŶ_Jᵀ beside dŶ_I·v_Jᵀ [128 x 64 each, K = 128]": 4,
               "projection [rows x 160, K = 128]": 5}
+# the f32 embed_second pair's products (e2_gemm modes, K = 128) at the same
+# O, P: the h product by its two staging routes and through a 4-stage ring,
+# and the backward's dW1 and dx0 products side by side
+E2_MODES = {"embed h = x0·W1, h0's rows 16 bytes a copy, prologue while transposing": 6,
+            "embed h = x0·W1, h0 copied transposed 4 bytes at a time, prologue in place": 7,
+            "embed h = x0·W1, 16-byte route, 4-stage ring": 8,
+            "embed dW1 = x0ᵀ·dz beside dx0 = dz·W1ᵀ (one launch, 2 x 132 slices)": 9}
 
 
 def build(name: str = "block_gemm_bench") -> ctypes.CDLL:
@@ -129,6 +138,40 @@ def tail_rates(sms: int, card: str) -> None:
               f"({rate * 1e12 / F32_FLOPS:.0%} of 67) at O = {O}, P = {P} | {card}", flush=True)
 
 
+def e2_rates(sms: int, card: str) -> None:
+    """The embed_second pair's products alone (checksum epilogues), CUDA
+    events over one launch after a warm-up: the forward's and the dz
+    pass's grid (two blocks an SM), the backward's dW1 / dx0 launch (one
+    slice a multiprocessor, each with a dW1 and a dx0 block)."""
+    lib = build("tail_gemm_bench")
+    fn = lib.e2_gemm
+    fn.argtypes = [ctypes.c_int, *[ctypes.c_void_p] * 5, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    h0 = torch.randn(O * P, 128, device="cuda", generator=g)
+    w = torch.randn(128, 128, device="cuda", generator=g) * 128 ** -0.5
+    wf, bf = torch.randn(128, device="cuda", generator=g), torch.randn(128, device="cuda") * 0.1
+    out = torch.zeros(256 * 2 * sms, device="cuda")
+    st = torch.cuda.current_stream().cuda_stream
+    tiles = -(-O * P // 64)
+    for label, mode in E2_MODES.items():
+        blocks = min(tiles, sms if mode == 9 else 2 * sms)
+        ms = []
+        for _ in range(4):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            if fn(mode, h0.data_ptr(), w.data_ptr(), wf.data_ptr(), bf.data_ptr(),
+                  out.data_ptr(), O, P, blocks, st) != 0:
+                raise RuntimeError(f"tail_gemm_bench e2 mode {mode}: launch failed")
+            e1.record()
+            torch.cuda.synchronize()
+            ms.append(e0.elapsed_time(e1))
+        flops = 2 * O * P * 128 * 128 * (2 if mode == 9 else 1)
+        rate = flops / min(ms[1:]) / 1e9
+        print(f"mainloop f32 {label}: {min(ms[1:]):.3f} ms, {rate:.1f} TFLOP/s "
+              f"({rate * 1e12 / F32_FLOPS:.0%} of 67) at O = {O}, P = {P} | {card}", flush=True)
+
+
 def clocks(samples: list, stop: threading.Event) -> None:
     while not stop.is_set():
         r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
@@ -141,13 +184,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_gemm_check: needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    lib = build()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    if "--embed-only" in sys.argv:
+        e2_rates(sms, card)
+        return 0
+    lib = build()
     out = torch.zeros(sms, device="cuda")
     gc = torch.zeros(sms * 256 * 260, device="cuda")
     st = torch.cuda.current_stream().cuda_stream
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True).stdout.strip()
 
     def run(name: str, reps: int) -> float:
         fn = getattr(lib, name)
@@ -179,6 +225,7 @@ def main() -> int:
     print(f"block_gemm f32 nn_64_256_64 for {ms:.0f} ms: nvidia-smi clocks.sm, power.draw "
           f"samples {samples[1:-1] or samples} | {card}", flush=True)
     tail_rates(sms, card)
+    e2_rates(sms, card)
     return 0
 
 

@@ -11,8 +11,18 @@
 //   mode 3, the apply pass's key loop (GJob: S, G in prep, y = G·v);
 //   mode 4, the dq pass's dual product (DqJob: v_I·dŶ_Jᵀ beside dŶ_I·v_Jᵀ);
 //   mode 5, the projection's 128 x 160 product (ProjJob).
+// e2_gemm (the f32 embed_second pair's products, O·P flat rows, K = 128):
+//   mode 6, h = x0·W1 (HJob: h0's rows 16 bytes a copy, the prologue applied
+//     by prep while it transposes them);
+//   mode 7, the same product with A copied transposed 4 bytes at a time
+//     (stage_rows_t, the tail's z route) and the prologue applied in place
+//     by prep;
+//   mode 8, mode 6 through a 4-stage ring;
+//   mode 9, the dW1 and dx0 products side by side, as the backward's third
+//     launch runs them (DwJob on blocks < `blocks`, DxJob on the rest).
 // Built with nvcc into a library with a plain C interface.
 #include "attn_f32.cuh"
+#include "embed_f32.cuh"
 #include "tail_jobs.cuh"
 
 namespace tail_bench {
@@ -116,7 +126,108 @@ int launch_attn(void (*kernel)(Job, float*, int), Job job, size_t smem, long lon
   return (int)cudaGetLastError();
 }
 
+// mode 7's job: A copied transposed by stage_rows_t, the prologue in place
+struct HJobT : e2f32::HJob<e2f32::kDz> {
+  static constexpr int kStageFloats = kStage;
+  __device__ void stage(int s, float* st) const {
+    const int k0 = (s % e2f32::kKSteps) * kBK;
+    const e2f32::Pair q = e2f32::pair_of(sl, n, s / e2f32::kKSteps);
+    stage_rows_t<64>(st, h0 + q.row0[0] * e2f32::kC + k0, e2f32::kC, q.valid[0]);
+    stage_rows_t<64>(st + 64, h0 + q.row0[1] * e2f32::kC + k0, e2f32::kC, q.valid[1]);
+    stage_rows(st + kOperand, w + (size_t)k0 * e2f32::kC, e2f32::kC, kBK);
+  }
+  __device__ void prep(int s, float* st) const {
+    const int k0 = (s % e2f32::kKSteps) * kBK, m = threadIdx.x % kTile;
+#pragma unroll
+    for (int j = 0; j < kBK / 2; ++j) {
+      const int k = threadIdx.x / kTile + 2 * j;
+      float* a = st + k * kLd + m;
+      *a = fmaxf(__fmaf_rn(*a, swf[k0 + k], sbf[k0 + k]), 0.f);
+    }
+  }
+};
+
+template <class Job>
+struct Ring4 : Job {
+  static constexpr int kRing = 4;
+};
+
+template <class Job>
+__global__ void __launch_bounds__(kThreads, 2)
+e2_h_bench(Job job, const float* wf, const float* bf, float* out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float swf[128], sbf[128];
+  if (threadIdx.x < 128) {
+    swf[threadIdx.x] = wf[threadIdx.x];
+    sbf[threadIdx.x] = bf[threadIdx.x];
+  }
+  job.swf = swf;
+  job.sbf = sbf;
+  job.sl.slice = (int)blockIdx.x;
+  job.n = job.sl.count();
+  Sum<Job> s{job};
+  run(s, reinterpret_cast<float*>(smem));
+  out[blockIdx.x * kThreads + threadIdx.x] = s.sum;
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+e2_wgrad_bench(const float* h0, const float* dz, const float* wt, const float* wf,
+               const float* bf, float* out, long long rows, int p, int blocks) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);
+  const int c = threadIdx.x % 128, b = (int)blockIdx.x % blocks;
+  const Slice sl{rows, p, blocks, b, 1};
+  float sum;
+  if ((int)blockIdx.x < blocks) {
+    Sum<e2f32::DwJob> s{{h0, dz, nullptr, sl, sl.count(), wf[c], bf[c]}};
+    run(s, ring);
+    sum = s.sum;
+  } else {
+    Sum<e2f32::DxJob> s{{dz, wt, h0, nullptr, sl, sl.count(), wf[c], bf[c]}};
+    run(s, ring);
+    sum = s.sum;
+  }
+  out[blockIdx.x * kThreads + threadIdx.x] = sum;
+}
+
+template <class Job>
+int launch_e2(Job job, const float* wf, const float* bf, float* out, int blocks,
+              cudaStream_t st) {
+  constexpr size_t smem = sizeof(float) * RingOf<Job>::kRing * RingOf<Job>::kStageFloats;
+  cudaFuncSetAttribute(e2_h_bench<Job>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  e2_h_bench<Job><<<blocks, kThreads, smem, st>>>(job, wf, bf, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace tail_bench
+
+// modes 6-9 on h0 [O·P, 128] (also dz for mode 9), w [128, 128] (W1, or
+// W1ᵀ for mode 9), wf, bf [128]; `blocks` slices (mode 9: 2·blocks
+// blocks). out: one float a thread of the grid
+extern "C" int e2_gemm(int mode, const float* h0, const float* w, const float* wf,
+                       const float* bf, float* out, int o, int p, int blocks, void* st) {
+  using namespace sga::e2f32;
+  using tail_bench::Ring4;
+  auto s = (cudaStream_t)st;
+  const long long rows = (long long)o * p;
+  const sga::tail_f32::Slice sl{rows, p, blocks, 0, 1};
+  HJob<kDz> job{h0, w, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                sl, 0, p};
+  if (mode == 6) return tail_bench::launch_e2(job, wf, bf, out, blocks, s);
+  if (mode == 7) {
+    tail_bench::HJobT t{job};
+    return tail_bench::launch_e2(t, wf, bf, out, blocks, s);
+  }
+  if (mode == 8) {
+    Ring4<HJob<kDz>> r{job};
+    return tail_bench::launch_e2(r, wf, bf, out, blocks, s);
+  }
+  cudaFuncSetAttribute(tail_bench::e2_wgrad_bench, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)kRawRingBytes);
+  tail_bench::e2_wgrad_bench<<<2 * blocks, sga::tail_f32::kThreads, kRawRingBytes, s>>>(
+      h0, h0, w, wf, bf, out, rows, p, blocks);
+  return (int)cudaGetLastError();
+}
 
 // mode 0 / 1: `groups` blocks per column tile (8 / 4 column tiles); mode 2:
 // 32 tiles x `splits` row splits. x: x1..x4 [rows, 128] each (mode 1: G

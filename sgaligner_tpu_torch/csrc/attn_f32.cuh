@@ -343,36 +343,6 @@ __global__ void __launch_bounds__(kThreads, 2) dx_kernel(RowJob<kDx> job, int un
   run(job, reinterpret_cast<float*>(smem));
 }
 
-// The 64-row tiles of one `blocks` slice, as the first version's grid-stride
-// loops gave them to its block: tile t = slice, slice + blocks, ... of the
-// per-object tiles (the apply and dz passes; rows r0.. of object t / per_obj)
-// or of the flat rows (the dx pass)
-struct Slice {
-  long long rows;
-  int p, blocks, slice, flat;
-  __device__ int per_obj() const { return (p + 63) / 64; }
-  __device__ long long ntiles() const {
-    return flat ? (rows + 63) / 64 : rows / p * per_obj();
-  }
-  __device__ int count() const {
-    const long long n = ntiles();
-    return slice < n ? (int)((n - slice + blocks - 1) / blocks) : 0;
-  }
-  // first flat row and valid rows of the slice's k-th tile
-  __device__ void tile(int k, long long& row0, int& valid) const {
-    const long long t = slice + (long long)k * blocks;
-    if (flat) {
-      row0 = t * 64;
-      valid = (int)min(64LL, rows - row0);
-    } else {
-      const long long obj = t / per_obj();
-      const int r0 = (int)(t % per_obj()) * 64;
-      row0 = obj * p + r0;
-      valid = min(64, p - r0);
-    }
-  }
-};
-
 // A 128 x 160 product: B's 128 columns in acc (8 x 8 a thread, as
 // product) and 32 more columns (B2, [kBK][kQLd] after A and B in the stage)
 // in the job's acc2 (8 x 2 a thread: the same rows, columns 2·tx, 2·tx + 1).
@@ -575,16 +545,6 @@ struct WgradJob {
     }
   }
 };
-
-template <class Job>
-__device__ __forceinline__ void run_slice(Job& job, float* ring) {
-  if (job.steps() > 0) {
-    run(job, ring);
-  } else {  // a slice with no tile: its share is zero
-    const float zero[8][8] = {};
-    job.epilogue(0, zero, nullptr);
-  }
-}
 
 // block b: slice b / n of the gradients b % n + (2 - n): 0, dWt from (u,
 // dz) over the per-object tiles; 1, dWv and dWqk from (x, dv, dq) over the

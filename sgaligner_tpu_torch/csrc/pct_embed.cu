@@ -19,25 +19,30 @@
 // _e2_fwd_kernel): prologue x0 = relu(h0·wf0 + bf0) at f32, rounded (layer 0's
 // BN folded from running stats), then h1 = x0·W1 [128, 128] with f32
 // accumulation, rounded, plus the masked sums of h1.
-//   Bound on the H100: bytes (256 FLOP per 4 bytes of bf16 traffic is below
-//   the card's ~295 FLOP/B ridge).
+//   Bound on the H100: bytes at bf16 (256 FLOP per 4 bytes of traffic is
+//   below the card's ~295 FLOP/B ridge); operations at f32 (full f32 on the
+//   CUDA cores, 67 TFLOP/s).
 //   bf16 runs the Hopper design of pct_embed_sm90.cu (TMA ring, wgmma with
 //   the prologue applied on the register-A fragments, sums from the
-//   accumulators). f32: grid-stride over 64-row tiles of the flat [O·P, 128]
-//   activation; W1 stays resident in shared memory for all of a block's
-//   tiles; the prologue is applied while the tile is staged; the product
-//   is block_gemm's register-tiled f32 FMA product; sums as in embed_first.
-//   Tiles may straddle objects: each row looks up its own object's mask.
-//   Both kernels take a fixed grid (`blocks`, chosen by the wrapper) so that
-//   the scratch holds one slice per block.
-#include "common.cuh"
+//   accumulators). f32 runs one job on tail_f32.cuh's mainloop
+//   (embed_f32.cuh, HJob<kFwd>): block b of `blocks` takes the flat 64-row
+//   tiles b, b + blocks, ... two at a time as one 128 x 128 tile; each
+//   k-step copies 16 columns of h0's rows with 16-byte copies and its prep
+//   hook applies the prologue while transposing them into the k-major A;
+//   W1's rows are B. The epilogue writes h1 from the registers and passes
+//   the tile through the ring's spare stage to a thread per (channel, row
+//   parity), which adds m·h and m·h² over its rows in the first version's
+//   order. Tiles straddle objects: each row takes its own object's mask.
+//   Both dtypes keep one sum slice per block (bf16: per consumer
+//   warpgroup); reduce_slices adds them in order, no atomics.
+
+#include "embed_f32.cuh"
 
 namespace sga {
 namespace {
 
 constexpr int kC = 128;       // embedding width
 constexpr int kThreads = 256;  // 2 row lanes x 128 channels
-constexpr int kRows = 64;      // rows per tile in embed_second
 
 constexpr long long kSumStride = slice_stride(2 * kC);  // Σh, Σh² of one block
 
@@ -74,59 +79,25 @@ embed_first_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __
   write_channel_sums(a1, a2, scratch);
 }
 
-template <typename T>
-struct E2Smem {
-  static constexpr int ldw = pad_ld<T>(kC), lda = pad_ld<T>(kC), ldc = pad_ldf(kC);
-  static constexpr size_t w_off = 0;
-  static constexpr size_t a_off = align128(w_off + sizeof(T) * kC * ldw);
-  static constexpr size_t c_off = align128(a_off + sizeof(T) * kRows * lda);
-  static constexpr size_t bytes = align128(c_off + sizeof(float) * kRows * ldc);
-};
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-embed_second_kernel(const T* __restrict__ h0, const T* __restrict__ wf, const T* __restrict__ bf,
-                    const T* __restrict__ w, const T* __restrict__ mask, T* __restrict__ h1,
-                    float* __restrict__ scratch, int o, int p) {
-  using L = E2Smem<T>;
+// The f32 forward: slice blockIdx.x of gridDim.x, its masked sums into the
+// block's slice of the scratch
+__global__ void __launch_bounds__(kThreads, 2)
+embed_second_f32_kernel(const float* __restrict__ h0, const float* __restrict__ wf,
+                        const float* __restrict__ bf, const float* __restrict__ w,
+                        const float* __restrict__ mask, float* __restrict__ h1,
+                        float* __restrict__ scratch, int o, int p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  T* sw = reinterpret_cast<T*>(smem + L::w_off);
-  T* sa = reinterpret_cast<T*>(smem + L::a_off);
-  float* sc = reinterpret_cast<float*>(smem + L::c_off);
-
-  load_tile<T>(sw, L::ldw, w, kC, kC, kC, kC);
-  const long long rows = (long long)o * p;
-  const long long tiles = (rows + kRows - 1) / kRows;
-  const int c = threadIdx.x % kC, half = threadIdx.x / kC;
-  float a1 = 0.f, a2 = 0.f;
-
-  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const long long row0 = t * kRows;
-    const int valid = (int)min((long long)kRows, rows - row0);
-    // stage x0 = relu(h0·wf + bf) rounded to T (the layer-0 BN fold)
-    for (int idx = threadIdx.x; idx < kRows * kC; idx += blockDim.x) {
-      const int r = idx / kC, k = idx % kC;
-      float v = 0.f;
-      if (r < valid) {
-        const float pre = to_f<T>(h0[(row0 + r) * kC + k]) * to_f<T>(wf[k]) + to_f<T>(bf[k]);
-        v = fmaxf(pre, 0.f);
-      }
-      sa[r * L::lda + k] = from_f<T>(v);
-    }
-    __syncthreads();
-    block_gemm<T, false, false, kRows, kC, kC>(sa, L::lda, sw, L::ldw, sc, L::ldc, false);
-    __syncthreads();
-    for (int r = half; r < valid; r += 2) {
-      const T hv = from_f<T>(sc[r * L::ldc + c]);
-      h1[(row0 + r) * kC + c] = hv;
-      const float hf = to_f<T>(hv);
-      const float m = to_f<T>(mask[(row0 + r) / p]);
-      a1 += m * hf;
-      a2 += m * hf * hf;
-    }
-    __syncthreads();
+  __shared__ float swf[kC], sbf[kC], mrow[kC];
+  if (threadIdx.x < kC) {
+    swf[threadIdx.x] = wf[threadIdx.x];
+    sbf[threadIdx.x] = bf[threadIdx.x];
   }
-  write_channel_sums(a1, a2, scratch);
+  const tail_f32::Slice sl{(long long)o * p, p, (int)gridDim.x, (int)blockIdx.x, 1};
+  e2f32::HJob<e2f32::kFwd> job{h0, w, mask, nullptr, nullptr, nullptr, h1,
+                               swf, sbf, mrow, sl, sl.count(), p};
+  // run's first __syncthreads (before the first prep) publishes swf, sbf
+  tail_f32::run(job, reinterpret_cast<float*>(smem));
+  write_channel_sums(job.a1, job.a2, scratch);
 }
 
 // ------------------------------- backward ----------------------------------
@@ -139,112 +110,94 @@ embed_second_kernel(const T* __restrict__ h0, const T* __restrict__ wf, const T*
 // h = x0·W1 rounded; dz = dh + m·ds1 + 2·h·m·ds2 rounded; then
 //   dW1 = Σ x0ᵀ·dz, dx0 = dz·W1ᵀ (f32), g0 = dx0 where pre > 0,
 //   dh0 = g0·wf (rounded), dwf = Σ g0·h0, dbf = Σ g0 (f32).
-//   Bound on the H100: bytes (h0 and dh read, dh0 written; 768 FLOP per
-//   row of 256 bytes in bf16, below the ridge).
+//   Bound on the H100: bytes at bf16 (h0 and dh read, dh0 written; 768
+//   FLOP per row of 256 bytes, below the ridge); operations at f32 (three
+//   128-deep products a row).
 //   bf16 runs the Hopper design of pct_embed_bwd_sm90.cu (two warpgroups,
-//   each with its own TMA ring and all of its dW1 in registers). f32: the forward's grid-stride walk over
-//   64-row tiles with W1 resident in shared memory; the recomputed x0 and
-//   dz tiles stay in shared memory for the three products (h, dW1 with the
-//   transposed-A block_gemm straight into the block's scratch slice, dx0);
-//   dwf and dbf are per-thread channel sums. Slices are summed by
-//   reduce_slices.
+//   each with its own TMA ring and all of its dW1 in registers). f32 runs
+//   tail_f32.cuh's mainloop in passes (embed_f32.cuh), with dz [O·P, 128]
+//   and W1ᵀ in a work buffer:
+//     1. W1ᵀ (a 128 x 128 transpose, so the dx0 pass copies B's rows 16
+//        bytes at a time);
+//     2. dz: the forward's product (HJob<kDz>) over as many slices as stay
+//        resident, dz formed from h in the epilogue;
+//     3. one launch of 2·blocks: block b < blocks forms slice b's dW1 =
+//        x0ᵀ·dz (DwJob: h0's rows through a prep that applies the prologue,
+//        its 128 x 128 share in registers over all its rows), block
+//        blocks + b slice b's dx0 = dz·W1ᵀ with g0, dh0 and the dwf, dbf
+//        sums in the epilogue in the first version's order (DxJob);
+//     4. reduce_slices adds the slices (dW1, dwf, dbf) in order.
 
 constexpr int kE2Grad = kC * kC + 2 * kC;              // dW1, dwf, dbf
 
-template <typename T>
-struct E2BwdSmem {
-  static constexpr int ldw = pad_ld<T>(kC), lda = pad_ld<T>(kC), ldc = pad_ldf(kC);
-  static constexpr size_t w_off = 0;
-  static constexpr size_t a_off = align128(w_off + sizeof(T) * kC * ldw);   // x0 tile
-  static constexpr size_t z_off = align128(a_off + sizeof(T) * kRows * lda);  // dz tile
-  static constexpr size_t c_off = align128(z_off + sizeof(T) * kRows * lda);  // h, then dx0
-  static constexpr size_t bytes = align128(c_off + sizeof(float) * kRows * ldc);
-};
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-embed_second_bwd_kernel(const T* __restrict__ h0, const T* __restrict__ wf,
-                        const T* __restrict__ bf, const T* __restrict__ w,
-                        const T* __restrict__ mask, const T* __restrict__ dh,
-                        const float* __restrict__ ds1, const float* __restrict__ ds2,
-                        T* __restrict__ dh0, float* __restrict__ scratch, long long stride,
-                        int o, int p) {
-  using L = E2BwdSmem<T>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* sw = reinterpret_cast<T*>(smem + L::w_off);
-  T* sa = reinterpret_cast<T*>(smem + L::a_off);
-  T* sz = reinterpret_cast<T*>(smem + L::z_off);
-  float* sc = reinterpret_cast<float*>(smem + L::c_off);
-
-  float* part = scratch + (size_t)blockIdx.x * stride;   // dW1 [128, 128], dwf, dbf
-  for (int i = threadIdx.x; i < kC * kC; i += blockDim.x) part[i] = 0.f;
-  load_tile<T>(sw, L::ldw, w, kC, kC, kC, kC);
-  const int c = threadIdx.x % kC;
-  const float wfc = to_f<T>(wf[c]), bfc = to_f<T>(bf[c]), d1 = ds1[c], d2 = ds2[c];
-  const long long rows = (long long)o * p;
-  const long long tiles = (rows + kRows - 1) / kRows;
-  float rwf = 0.f, rbf = 0.f;
-  __syncthreads();
-
-  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const long long row0 = t * kRows;
-    const int valid = (int)min((long long)kRows, rows - row0);
-    // x0 = relu(h0·wf + bf) rounded: the forward's prologue, same expression
-    for (int idx = threadIdx.x; idx < kRows * kC; idx += blockDim.x) {
-      const int r = idx / kC, k = idx % kC;
-      float v = 0.f;
-      if (r < valid) {
-        const float pre = to_f<T>(h0[(row0 + r) * kC + k]) * to_f<T>(wf[k]) + to_f<T>(bf[k]);
-        v = fmaxf(pre, 0.f);
-      }
-      sa[r * L::lda + k] = from_f<T>(v);
-    }
-    __syncthreads();
-    block_gemm<T, false, false, kRows, kC, kC>(sa, L::lda, sw, L::ldw, sc, L::ldc, false);
-    __syncthreads();
-    // dz = dh + m·ds1 + 2·h·m·ds2, rounded (thread owns channel c throughout)
-    for (int idx = threadIdx.x; idx < kRows * kC; idx += blockDim.x) {
-      const int r = idx / kC;
-      float dz = 0.f;
-      if (r < valid) {
-        const float h = round_to<T>(sc[r * L::ldc + c]);
-        const float m = to_f<T>(mask[(row0 + r) / p]);
-        dz = round_to<T>(to_f<T>(dh[(row0 + r) * kC + c]) + m * d1 + 2.f * h * (m * d2));
-      }
-      sz[r * L::lda + c] = from_f<T>(dz);
-    }
-    __syncthreads();
-    // dW1 += x0ᵀ·dz into this block's slice; dx0 = dz·W1ᵀ
-    block_gemm<T, false, true, kC, kC, kRows>(sa, L::lda, sz, L::lda, part, kC, true);
-    block_gemm<T, true, false, kRows, kC, kC>(sz, L::lda, sw, L::ldw, sc, L::ldc, false);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < valid * kC; idx += blockDim.x) {
-      const int r = idx / kC;
-      const size_t at = (row0 + r) * kC + c;
-      const float hv = to_f<T>(h0[at]);
-      const float pre = hv * wfc + bfc;
-      const float g0 = pre > 0.f ? sc[r * L::ldc + c] : 0.f;
-      dh0[at] = from_f<T>(g0 * wfc);
-      rwf = fmaf(g0, hv, rwf);
-      rbf += g0;
-    }
-    __syncthreads();
-  }
-  store_channel_sums(rwf, part + kC * kC);
-  store_channel_sums(rbf, part + kC * kC + kC);
+__global__ void transpose128_kernel(const float* __restrict__ w, float* __restrict__ wt) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;  // w[n][k], n = i / 128
+  if (i < kC * kC) wt[(i % kC) * kC + i / kC] = w[i];
 }
 
-template <typename T>
-int launch_second_bwd(const void* h0, const void* wf, const void* bf, const void* w,
-                      const void* mask, const void* dh, const float* ds1, const float* ds2,
-                      void* dh0, float* scratch, int blocks, float* grads, int o, int p,
-                      cudaStream_t st) {
-  const size_t smem = E2BwdSmem<T>::bytes;
-  if (int rc = allow_smem(embed_second_bwd_kernel<T>, smem)) return rc;
+__global__ void __launch_bounds__(kThreads, 2)
+embed_second_dz_kernel(const float* __restrict__ h0, const float* __restrict__ wf,
+                       const float* __restrict__ bf, const float* __restrict__ w,
+                       const float* __restrict__ mask, const float* __restrict__ dh,
+                       const float* __restrict__ ds1, const float* __restrict__ ds2,
+                       float* __restrict__ dz, int o, int p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float swf[kC], sbf[kC];
+  if (threadIdx.x < kC) {
+    swf[threadIdx.x] = wf[threadIdx.x];
+    sbf[threadIdx.x] = bf[threadIdx.x];
+  }
+  const tail_f32::Slice sl{(long long)o * p, p, (int)gridDim.x, (int)blockIdx.x, 1};
+  e2f32::HJob<e2f32::kDz> job{h0, w, mask, dh, ds1, ds2, dz,
+                              swf, sbf, nullptr, sl, sl.count(), p};
+  tail_f32::run(job, reinterpret_cast<float*>(smem));
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+embed_second_wgrad_kernel(const float* __restrict__ h0, const float* __restrict__ wf,
+                          const float* __restrict__ bf, const float* __restrict__ dz,
+                          const float* __restrict__ wt, float* __restrict__ dh0,
+                          float* __restrict__ scratch, long long stride, int o, int p,
+                          int blocks) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);
+  const int c = threadIdx.x % kC, b = (int)blockIdx.x % blocks;
+  const tail_f32::Slice sl{(long long)o * p, p, blocks, b, 1};
+  float* part = scratch + (size_t)b * stride;  // dW1 [128, 128], dwf, dbf
+  if ((int)blockIdx.x < blocks) {
+    e2f32::DwJob job{h0, dz, part, sl, sl.count(), wf[c], bf[c]};
+    tail_f32::run_slice(job, ring);
+  } else {
+    e2f32::DxJob job{dz, wt, h0, dh0, sl, sl.count(), wf[c], bf[c]};
+    tail_f32::run(job, ring);
+    store_channel_sums(job.rwf, part + kC * kC);
+    store_channel_sums(job.rbf, part + kC * kC + kC);
+  }
+}
+
+int launch_second_bwd_f32(const void* h0, const void* wf, const void* bf, const void* w,
+                          const void* mask, const void* dh, const float* ds1, const float* ds2,
+                          void* dh0, float* work, float* scratch, int blocks, float* grads,
+                          int o, int p, cudaStream_t st) {
+  const long long rows = (long long)o * p;
+  float* dz = work;
+  float* wt = work + rows * kC;
+  const float *fh0 = (const float*)h0, *fwf = (const float*)wf, *fbf = (const float*)bf;
+  transpose128_kernel<<<kC * kC / kThreads, kThreads, 0, st>>>((const float*)w, wt);
+  if (int rc = (int)cudaGetLastError()) return rc;
+
+  const size_t smem = e2f32::kRawRingBytes;
+  if (int rc = allow_smem(embed_second_dz_kernel, smem)) return rc;
+  const int dz_blocks =
+      resident_grid(embed_second_dz_kernel, kThreads, smem, ((rows + 63) / 64 + 1) / 2);
+  embed_second_dz_kernel<<<dz_blocks, kThreads, smem, st>>>(
+      fh0, fwf, fbf, (const float*)w, (const float*)mask, (const float*)dh, ds1, ds2, dz, o, p);
+  if (int rc = (int)cudaGetLastError()) return rc;
+
+  if (int rc = allow_smem(embed_second_wgrad_kernel, smem)) return rc;
   const long long stride = slice_stride(kE2Grad);
-  embed_second_bwd_kernel<T><<<blocks, kThreads, smem, st>>>(
-      (const T*)h0, (const T*)wf, (const T*)bf, (const T*)w, (const T*)mask, (const T*)dh, ds1,
-      ds2, (T*)dh0, scratch, stride, o, p);
+  embed_second_wgrad_kernel<<<2 * blocks, kThreads, smem, st>>>(
+      fh0, fwf, fbf, dz, wt, (float*)dh0, scratch, stride, o, p, blocks);
   if (int rc = (int)cudaGetLastError()) return rc;
   return reduce_slices(scratch, stride, blocks, grads, kE2Grad, st);
 }
@@ -258,15 +211,14 @@ int launch_first(const void* x, const void* w, const void* mask, void* h, float*
   return reduce_slices(scratch, kSumStride, blocks, sums, 2 * kC, st);
 }
 
-template <typename T>
-int launch_second(const void* h0, const void* wf, const void* bf, const void* w, const void* mask,
-                  void* h1, float* scratch, int blocks, float* sums, int o, int p,
-                  cudaStream_t st) {
-  const size_t smem = E2Smem<T>::bytes;
-  if (int rc = allow_smem(embed_second_kernel<T>, smem)) return rc;
-  embed_second_kernel<T><<<blocks, kThreads, smem, st>>>(
-      (const T*)h0, (const T*)wf, (const T*)bf, (const T*)w, (const T*)mask, (T*)h1, scratch, o,
-      p);
+int launch_second_f32(const void* h0, const void* wf, const void* bf, const void* w,
+                      const void* mask, void* h1, float* scratch, int blocks, float* sums, int o,
+                      int p, cudaStream_t st) {
+  const size_t smem = e2f32::kRawRingBytes;
+  if (int rc = allow_smem(embed_second_f32_kernel, smem)) return rc;
+  embed_second_f32_kernel<<<blocks, kThreads, smem, st>>>(
+      (const float*)h0, (const float*)wf, (const float*)bf, (const float*)w, (const float*)mask,
+      (float*)h1, scratch, o, p);
   if (int rc = (int)cudaGetLastError()) return rc;
   return reduce_slices(scratch, kSumStride, blocks, sums, 2 * kC, st);
 }
@@ -305,22 +257,23 @@ int sga_embed_second(const void* h0, const void* wf, const void* bf, const void*
   if (dtype == sga::kBF16)
     return sga::launch_embed_second_sm90(h0, wf, bf, w, mask, h1, scratch, blocks, sums, o, p,
                                          st);
-  return sga::launch_second<float>(h0, wf, bf, w, mask, h1, scratch, blocks, sums, o, p, st);
+  return sga::launch_second_f32(h0, wf, bf, w, mask, h1, scratch, blocks, sums, o, p, st);
 }
 
-// grads: dW1 [128, 128], dwf [128], dbf [128] back to back, f32; bf16 takes
-// the wgmma design (pct_embed_bwd_sm90.cu), with `blocks` even: one slice
-// per warpgroup of blocks / 2 persistent blocks
+// grads: dW1 [128, 128], dwf [128], dbf [128] back to back, f32; work:
+// f32 only, O·P·128 + 128·128 floats (dz, then W1ᵀ); bf16 takes the wgmma
+// design (pct_embed_bwd_sm90.cu), with `blocks` even: one slice per
+// warpgroup of blocks / 2 persistent blocks
 int sga_embed_second_bwd(const void* h0, const void* wf, const void* bf, const void* w,
                          const void* mask, const void* dh, const float* ds1, const float* ds2,
-                         void* dh0, float* scratch, int blocks, float* grads, int o, int p,
-                         int dtype, void* stream) {
+                         void* dh0, float* work, float* scratch, int blocks, float* grads, int o,
+                         int p, int dtype, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == sga::kBF16)
     return sga::launch_embed_second_bwd_sm90(h0, wf, bf, w, mask, dh, ds1, ds2, dh0, scratch,
                                              blocks, grads, o, p, st);
-  return sga::launch_second_bwd<float>(h0, wf, bf, w, mask, dh, ds1, ds2, dh0, scratch, blocks,
-                                       grads, o, p, st);
+  return sga::launch_second_bwd_f32(h0, wf, bf, w, mask, dh, ds1, ds2, dh0, work, scratch,
+                                    blocks, grads, o, p, st);
 }
 
 const char* sga_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

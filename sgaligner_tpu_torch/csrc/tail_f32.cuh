@@ -1,7 +1,7 @@
 // The port's f32 product mainloop: full f32 on the CUDA cores, no TF32. The
-// f32 PCT tail (csrc/pct_tail.cu) and the f32 C = 128 attention passes
-// (csrc/pct_attention.cu) run on it; scripts/tail_gemm_bench.cu times it
-// alone on the tail's jobs.
+// f32 PCT tail (csrc/pct_tail.cu), the f32 C = 128 attention passes
+// (csrc/pct_attention.cu) and the f32 embed_second pair (csrc/pct_embed.cu)
+// run on it; scripts/tail_gemm_bench.cu times it alone on their jobs.
 //
 // A block of 256 threads owns a 128 x 128 tile of C = A·B and keeps it in
 // registers for the whole reduction: thread (tx, ty) holds rows
@@ -169,6 +169,22 @@ __device__ __forceinline__ void product_dual(float (&acc)[8][8], const float* st
   }
 }
 
+// Rows 32·qr .. 32·qr + 31 of the block's accumulator tile into spare
+// [32][kLd] (an epilogue's pass through the spare stage): registers
+// 4·(qr/2) .. +3 of the threads ty = 8·(qr%2) .. +7
+__device__ __forceinline__ void spill_quarter(const float (&acc)[8][8], float* spare, int qr,
+                                              int tx, int ty) {
+  if (ty / 8 != qr % 2) return;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int i = 4 * (qr / 2) + e, row = 4 * (ty % 8) + e;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      store4<float>(spare + row * kLd + 64 * h + 4 * tx, acc[i][4 * h], acc[i][4 * h + 1],
+                    acc[i][4 * h + 2], acc[i][4 * h + 3]);
+  }
+}
+
 // A job's product (Job::Mul): apply(job, acc, stage, tx, ty) multiplies
 // one staged k-step into the accumulators (a job may keep more of its own)
 struct Mul {
@@ -255,6 +271,47 @@ __device__ __forceinline__ void run(Job& job, float* ring) {
     }
   }
   cp_async_wait<0>();
+}
+
+// The 64-row tiles of one `blocks` slice, as the first version's grid-stride
+// loops gave them to its block: tile t = slice, slice + blocks, ... of the
+// per-object tiles (the attention apply and dz passes; rows r0.. of object
+// t / per_obj) or of the flat rows (the attention dx pass, the embed_second
+// pair)
+struct Slice {
+  long long rows;
+  int p, blocks, slice, flat;
+  __device__ int per_obj() const { return (p + 63) / 64; }
+  __device__ long long ntiles() const {
+    return flat ? (rows + 63) / 64 : rows / p * per_obj();
+  }
+  __device__ int count() const {
+    const long long n = ntiles();
+    return slice < n ? (int)((n - slice + blocks - 1) / blocks) : 0;
+  }
+  // first flat row and valid rows of the slice's k-th tile
+  __device__ void tile(int k, long long& row0, int& valid) const {
+    const long long t = slice + (long long)k * blocks;
+    if (flat) {
+      row0 = t * 64;
+      valid = (int)min(64LL, rows - row0);
+    } else {
+      const long long obj = t / per_obj();
+      const int r0 = (int)(t % per_obj()) * 64;
+      row0 = obj * p + r0;
+      valid = min(64, p - r0);
+    }
+  }
+};
+
+template <class Job>
+__device__ __forceinline__ void run_slice(Job& job, float* ring) {
+  if (job.steps() > 0) {
+    run(job, ring);
+  } else {  // a slice with no tile: its share is zero
+    const float zero[8][8] = {};
+    job.epilogue(0, zero, nullptr);
+  }
 }
 
 }  // namespace tail_f32

@@ -71,17 +71,7 @@ struct TailFwd {
     __syncthreads();  // every thread is past the product that read `spare`
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      // rows 32·q .. 32·q + 31: registers 4·(q/2) .. +3 of threads ty = 8·(q%2) .. +7
-      if (ty / 8 == q % 2) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = 4 * (q / 2) + e, row = 4 * (ty % 8) + e;
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            store4<float>(spare + row * kLd + 64 * h + 4 * tx, acc[i][4 * h],
-                          acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
-        }
-      }
+      spill_quarter(acc, spare, q, tx, ty);
       __syncthreads();
       // this parity's 16 rows of the quarter, loaded together; the rows
       // past `valid` (zero-filled) are read and skipped

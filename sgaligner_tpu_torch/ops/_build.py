@@ -130,8 +130,8 @@ _SIGNATURES = {
                          _I, _I, _P],
     "sga_embed_first_bwd": [_P, _P, _P, _P, _F, _F, _F, _I, _F, _I, _I, _I,
                             _P],
-    "sga_embed_second_bwd": [_P, _P, _P, _P, _P, _P, _F, _F, _P, _F, _I, _F,
-                             _I, _I, _I, _P],
+    "sga_embed_second_bwd": [_P, _P, _P, _P, _P, _P, _F, _F, _P, _F, _F, _I,
+                             _F, _I, _I, _I, _P],
     "sga_pct_block_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _P, _F, _I,
                           _F, _I, _I, _I, _I, _P],
     "sga_pct_epi_sums": [_P, _F, _F, _P, _F, _I, _F, _L, _I, _P],

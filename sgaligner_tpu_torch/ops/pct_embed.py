@@ -18,12 +18,14 @@ Counterpart of ``sgaligner_tpu/ops/pct_embed.py`` (``embed_first_fused``,
 
 A CUDA tensor goes through the kernels of ``csrc/pct_embed.cu`` (the bf16
 ``embed_second`` through ``csrc/pct_embed_sm90.cu``, its backward through
-``csrc/pct_embed_bwd_sm90.cu``; ``embed_first_bwd`` at both dtypes through
-the streaming reduction of ``csrc/pct_embed_first_bwd.cu``); a CPU tensor
-through the plain versions below, which repeat the kernels' arithmetic
-(f64 accumulation for f64 inputs, f32 otherwise). The two forwards are the
-custom ops ``sgaligner::embed_first`` and ``sgaligner::embed_second``
-(``ops/library.py``), which ``torch.export`` keeps whole.
+``csrc/pct_embed_bwd_sm90.cu``; the f32 pair on ``csrc/tail_f32.cuh``'s
+mainloop, its jobs in ``csrc/embed_f32.cuh``; ``embed_first_bwd`` at both
+dtypes through the streaming reduction of ``csrc/pct_embed_first_bwd.cu``);
+a CPU tensor through the plain versions below, which repeat the kernels'
+arithmetic (f64 accumulation for f64 inputs, f32 otherwise). The two
+forwards are the custom ops ``sgaligner::embed_first`` and
+``sgaligner::embed_second`` (``ops/library.py``), which ``torch.export``
+keeps whole.
 """
 
 from __future__ import annotations
@@ -140,7 +142,8 @@ def _embed_second_cuda(h0, wf, bf, w, mask):
     tiles = (o * p + 63) // 64
     if h0.dtype == torch.bfloat16:   # the wgmma design: persistent, 2 slices a block
         slices = _build.warpgroup_slices(h0.device, tiles)
-    else:
+    else:   # the first version's slices of 64-row tiles: the sums' order
+        _build.check_aligned(name, {"h0": h0, "w": w})
         slices = _build.grid_blocks(h0.device, tiles, per_sm=2)
     sums = _launch_with_sums(name, "sga_embed_second", h0.device, o, slices,
                              h0, wf, bf, w, mask, h1, p=p, dtype=h0.dtype)
@@ -247,16 +250,20 @@ def embed_second_bwd(h0, wf, bf, w, mask, dh, ds1, ds2):
     grads = torch.zeros(128 * 128 + 2 * 128, dtype=torch.float32, device=dev)
     if o:
         tiles = (o * p + 63) // 64
+        work = None
         if h0.dtype == torch.bfloat16:   # the wgmma design: persistent, 2 slices a block
             blocks = _build.warpgroup_slices(dev, tiles)
-        else:
+        else:   # the first version's slices of 64-row tiles: the sums' order
+            _build.check_aligned(name, {"h0": h0, "w": w, "dh": dh, "ds1": ds1, "ds2": ds2})
             blocks = _build.grid_blocks(dev, tiles, per_sm=1)
+            work = torch.empty(o * p * 128 + 128 * 128, dtype=torch.float32, device=dev)
         part = _build.scratch(dev, blocks, grads.numel())
         _build.launch(name, "sga_embed_second_bwd", dev,
                       h0.data_ptr(), wf.data_ptr(), bf.data_ptr(), w.data_ptr(),
                       mask.data_ptr(), dh.data_ptr(), ds1.data_ptr(),
-                      ds2.data_ptr(), dh0.data_ptr(), part.data_ptr(), blocks,
-                      grads.data_ptr(), o, p, _build.DTYPE_CODE[h0.dtype])
+                      ds2.data_ptr(), dh0.data_ptr(),
+                      None if work is None else work.data_ptr(), part.data_ptr(),
+                      blocks, grads.data_ptr(), o, p, _build.DTYPE_CODE[h0.dtype])
     dw, dwf, dbf = torch.split(grads, (128 * 128, 128, 128))
     return dh0, dwf.view(1, 128), dbf.view(1, 128), dw.view(128, 128)
 

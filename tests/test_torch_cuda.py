@@ -909,6 +909,65 @@ def test_attention_f32_c128_refuses_misaligned_views(card, name, flags, arg):
     assert _build.LAUNCHES[name] == before
 
 
+# the f32 embed_second pair (csrc/embed_f32.cuh's passes on tail_f32.cuh's
+# mainloop): (objects, points, masks alternating 0 / 1)
+E2_F32_CASES = [(67, 200, True), (67, 72, False), (67, 512, False), (3, 200, False),
+                (1, 5, False)]
+E2_F32_IDS = ["straddling-alternating", "O67-P72", "O67-P512", "O3-P200", "O1-P5"]
+
+
+@pytest.mark.parametrize("objects,points,alternate", E2_F32_CASES, ids=E2_F32_IDS)
+@pytest.mark.parametrize("name", ["embed_second", "embed_second_bwd"])
+def test_embed_second_f32_matches_plain_version(card, name, objects, points, alternate):
+    """The f32 embed_second pair against its plain versions within the f32
+    tolerance, one launch a call and the same bits twice: at P = 200 with
+    object masks alternating 0 / 1 (the 128-row product tiles, two 64-row
+    tiles of a slice, straddle objects and every row takes its own
+    object's mask), at O = 67 with O·P not a multiple of 128 (a short last
+    64-row tile, and slices with an odd count of tiles), at the main path's
+    P = 512, and at a few rows (one tile, slices with none). At O = 67 the
+    planted faults of chip_smoke.NARROW_F32_PLANTED must each be caught."""
+    from sgaligner_tpu_torch.ops import _build
+
+    args = list(card.op_inputs(name, objects, torch.float32, seed=29, p=points))
+    if alternate:
+        args[4] = (torch.arange(objects, device="cuda") % 2).float().reshape(objects, 1)
+    kern, plain = card.op_fns(name)
+    before = _build.LAUNCHES[name]
+    got, again = card.as_tuple(kern(*args)), card.as_tuple(kern(*args))
+    want = card.as_tuple(plain(*args))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    card.judge(name, "f32", SA, args, got, want, plain)
+    if objects > 3:   # some object masked out, so an unmasked sum shows
+        for what, fault in card.NARROW_F32_PLANTED[name]:
+            with pytest.raises(AssertionError):
+                card.judge(name, "f32", SA, args, fault(got, args), want, plain)
+
+
+@pytest.mark.parametrize("name,arg", [("embed_second", 0), ("embed_second", 3),
+                                      ("embed_second_bwd", 0), ("embed_second_bwd", 5),
+                                      ("embed_second_bwd", 6)],
+                         ids=["fwd-h0", "fwd-w", "bwd-h0", "bwd-dh", "bwd-ds1"])
+def test_embed_second_f32_refuses_misaligned_views(card, name, arg):
+    """The f32 embed_second pair copies h0, W1 and dh 16 bytes at a time and
+    reads ds1, ds2 as 16-byte vectors: a contiguous view that starts 4
+    bytes into its storage raises instead of faulting, with no launch."""
+    from sgaligner_tpu_torch.ops import _build
+
+    args = list(card.op_inputs(name, 3, torch.float32, seed=5, p=200))
+    t = args[arg]
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    args[arg] = buf[1:].view(t.shape)
+    args[arg].copy_(t)
+    kern, _ = card.op_fns(name)
+    before = _build.LAUNCHES[name]
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        kern(*args)
+    assert _build.LAUNCHES[name] == before
+
+
 BWD_CASES = [("pct_block_res_bwd", SA), ("pct_block_res_bwd", OA), ("pct_tail_bwd", None),
              ("pct_block_bwd", SA), ("pct_block_bwd", OA), ("pct_attn_bwd", SA),
              ("pct_attn_bwd", OA), ("embed_second_bwd", None)]

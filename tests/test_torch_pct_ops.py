@@ -173,6 +173,39 @@ def test_embed_second_bwd_plain_ragged_alternating_masks(x64):
     _close(got, want, "embed_second_bwd_plain (dh0, dwf, dbf, dw)")
 
 
+def test_embed_second_f32_plain_matches_jax_kernels():
+    """x64 off: embed_second's f32 plain versions, forward and backward (what
+    the card's f32 kernels are held to), at a ragged P (25) with object masks
+    alternating 0 / 1, against the Pallas kernels _e2_fwd_kernel and
+    _e2_bwd_kernel at f32 (interpret mode): normwise (max |error| / max
+    |value| per output) within 1e-5, f32 sums of up to O·P = 400 products in
+    another order."""
+    assert not jax.config.jax_enable_x64
+    rng = np.random.default_rng(8)
+    o, p = 16, 25
+    f32 = np.float32
+    h0 = rng.normal(size=(o, p, C)).astype(f32)
+    wf, bf = rng.normal(size=(1, C)).astype(f32), (rng.normal(size=(1, C)) * 0.1).astype(f32)
+    w = (rng.normal(size=(C, C)) / np.sqrt(C)).astype(f32)
+    m = (np.arange(o) % 2).astype(f32).reshape(o, 1)
+    cts = (rng.normal(size=(o, p, C)).astype(f32), rng.normal(size=(1, C)).astype(f32),
+           (rng.normal(size=(1, C)) * 0.1).astype(f32))
+    for bwd in (False, True):
+        assert jpe._pick_tile_e(o, p, C, 4, bwd=bwd) is not None      # both Pallas kernels
+    mj = jnp.asarray(m)
+    want, vjp = jax.vjp(lambda *a: jpe.embed_second_fused(*a, mj, True),
+                        *(jnp.asarray(a) for a in (h0, wf, bf, w)))
+    want_g = vjp(tuple(jnp.asarray(c) for c in cts))
+    expect_dtype([want, want_g], jnp.float32, what="JAX f32 embed_second")
+    got = EmbedSecond.apply(*(torch.from_numpy(a) for a in (h0, wf, bf, w, m)))
+    got_g = embed_second_bwd_plain(*(torch.from_numpy(a) for a in (h0, wf, bf, w, m, *cts)))
+    for name, g, wv in zip(("h1", "ssum", "ssumsq", "dh0", "dwf", "dbf", "dw"),
+                           (*got, *got_g), (*want, *want_g)):
+        assert g.dtype == torch.float32, name
+        err = _normwise(g, wv)
+        assert err <= F32_NORMWISE, (name, err)
+
+
 # ------------------------------------ tail -----------------------------------
 
 def _tail_inputs(rng, p=P):
