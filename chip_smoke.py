@@ -34,7 +34,10 @@ Phases, in order (every failure raises and exits non-zero):
                bf16, SA and OA, each launching its C = 256 kernel once, the
                same bits twice, the three backwards' KERNEL_PLANTED faults
                caught (at f32 also WIDE_F32_PLANTED in their weight
-               gradients). At f32 the tail's faults of TAIL_F32_PLANTED
+               gradients; at bf16 wide_bf16_planted's, one a wgmma pass: a
+               dx row tile zeroed, a dWt or dWv column x2, dWqk x1.5, a key
+               chunk left out of the forwards' y, the BN sums unmasked). At
+               f32 the tail's faults of TAIL_F32_PLANTED
                (an argmax moved to the next point, a dW column x1.1, a dx
                row tile zeroed) and the f32 C = 128 block and attention
                forms' and embed_second pair's of NARROW_F32_PLANTED (a dx,
@@ -221,7 +224,9 @@ Phases, in order (every failure raises and exits non-zero):
                the ops' kernels and the OA variants at O=896, the C = 256
                block kernels (OA) at FullPCT's O = 256, bf16 and f32, the
                ops' C = 256 kernels (SA and OA) at O = 256, P = 256, bf16
-               and f32, with their launches in ops, the PointNet
+               and f32, with their launches in ops (the bf16 ones beside
+               their WMMA design's times, WIDE_WMMA_MS, and their wgmma
+               passes under torch.profiler), the PointNet
                forward at EVA's C3 = 200 (O = 896 and 13,440; the quality
                runs' request times beside it), the bf16 PointNet backward at
                C3 = 200 beside 208 and 256, and the f32 forms of both PointNet
@@ -495,8 +500,9 @@ KERNELS = {
     "pct_block_bwd": ("sgaligner_tpu_torch/csrc/pct_block_bwd_sm90.cu",
                       "sgaligner_tpu/ops/pct_attention.py:341"),
 }
-# The kernels at C = 256, da = 64 (csrc/pct_attention_c256.cu; the epilogue
-# sums csrc/pct_epi_sums.cu): the four block kernels FullPCT's OA blocks run,
+# The kernels at C = 256, da = 64 (csrc/pct_attention_c256.cu, at bf16 its
+# wgmma passes in csrc/pct_block_c256_sm90.cu and pct_block_bwd_c256_sm90.cu;
+# the epilogue sums csrc/pct_epi_sums.cu): the four block kernels FullPCT's OA blocks run,
 # and the two ops' three. Each launch count's name and the wrapper
 # (ATTN_FNS, TRAIN_KERNELS) that launches it for a 256-wide input. Their
 # tolerances are the C = 128 forms' (TOL)
@@ -612,6 +618,77 @@ def _columns_zeroed(index: int, n0: int, width: int):
 WIDE_F32_PLANTED = {"pct_block_res_bwd": (_columns_zeroed(4, 32, 32), _scaled(1, 1.001)),
                     "pct_block_bwd": (_columns_zeroed(4, 32, 32), _scaled(1, 1.001)),
                     "pct_attn_bwd": (_columns_zeroed(2, 32, 32), _scaled(1, 1.001))}
+
+
+def _column_scaled(index: int, factor: float):
+    """A planted fault: the column of output ``index`` (a weight gradient)
+    holding its largest |value|, times ``factor`` (one column of a wgrad
+    tile gone wrong)."""
+    def fault(outs, args):
+        outs = list(outs)
+        w = outs[index].clone()
+        w[:, int(w.abs().amax(dim=0).argmax())] *= factor
+        outs[index] = w
+        return tuple(outs)
+    return f"output {index}'s largest column x{factor}", fault
+
+
+def _chunk_dropped(name: str, flags):
+    """A planted fault of the bf16 C = 256 apply pass (forms ``name`` with
+    ``flags``): the second 64-key chunk (keys 64..127) left out of y = G·v in
+    every row, G and OA's row sums keeping it (the plain version on v with
+    those keys' rows zeroed)."""
+    def fault(outs, args):
+        import torch
+
+        from sgaligner_tpu_torch.ops import pct_attention as pa
+
+        scale, double_norm = flags
+        x, wqk, wv, bv = args[:4]
+        q, v = pa.project(x, wqk, wv, bv, scale)
+        v = v.clone()
+        v[:, 64:128] = 0
+        y = pa.attn_core(q, v, double_norm).to(x.dtype)
+        if name == "pct_attn_fwd":
+            return (y,)
+        acc = pa.acc_dtype(x.dtype)
+        u = (x - y) if double_norm else y
+        t_out = (torch.matmul(u.to(acc), args[4].to(acc)) + args[5].to(acc)).to(x.dtype)
+        if name == "pct_block_fwd":
+            return (t_out, *pa.masked_sums(t_out, args[6]))
+        z = t_out.to(acc) * args[6].to(acc) + args[7].to(acc)
+        return ((x.to(acc) + torch.relu(z)).to(x.dtype),)
+    return "key chunk 1 (keys 64..127) left out of y", fault
+
+
+def _block_sums_unmasked(outs, args):
+    """A planted fault of the training forward's epilogue: the BN sums of
+    the kernel's own t_out taken over every object, the mask ignored."""
+    import torch
+
+    from sgaligner_tpu_torch.ops.pct_embed import masked_sums
+
+    return (outs[0], *masked_sums(outs[0], torch.ones_like(args[6])))
+
+
+def wide_bf16_planted(name: str, flags) -> tuple:
+    """Faults planted in the bf16 C = 256 wgmma passes' outputs (kernels
+    phase, P = 256, besides KERNEL_PLANTED's), one for each pass the output
+    shows: the dx pass's 64-row tile, a wgrad column (dWt over the dz pass's
+    dz, dWv over the dv pass's dv), dWqk (the dq pass's dq), the apply
+    pass's y and its training epilogue's masked sums. The eval block's
+    output x + relu(·) holds its y under the residual: SA's moves by 4e-2
+    of its largest value at O = 6 on the CPU, under the 5e-2 tolerance, so
+    only OA's is planted (the training forward catches the pass's fault)."""
+    eval_oa = (_chunk_dropped(name, flags),) if flags == OA else ()
+    return {"pct_block_res_bwd": (_rows_zeroed(0, 64), _column_scaled(4, 2.0),
+                                  _scaled(1, 1.5)),
+            "pct_block_bwd": (_rows_zeroed(0, 64), _column_scaled(4, 2.0), _scaled(1, 1.5)),
+            "pct_attn_bwd": (_rows_zeroed(0, 64), _column_scaled(2, 2.0), _scaled(1, 1.5)),
+            "pct_block_fwd": (_chunk_dropped(name, flags),
+                              ("the BN sums with the mask ignored", _block_sums_unmasked)),
+            "pct_block_eval": eval_oa,
+            "pct_attn_fwd": (_chunk_dropped(name, flags),)}.get(name, ())
 def _one_amax_moved(outs, args):
     """A planted fault of the tail's indexed forward: the argmax of the
     channel with the largest |max| moved to the next point."""
@@ -862,6 +939,47 @@ POINTNET_F32_BWD_PASSES = ("::transpose_w3_kernel", "::pointnet_bwd_f32_kernel",
                            "::pointnet_dw3_f32_kernel", "::pointnet_reduce_f32_kernel")
 EMBED_FIRST_BWD_PASSES = ("::embed_first_bwd_stream_kernel", "::reduce_slices_kernel")
 ATTN_FWD_PASSES = ("::project_wgmma_kernel", "::lse_wgmma_kernel", "::apply_wgmma_kernel")
+# The bf16 C = 256 forms' earlier design (block_gemm's shared-memory WMMA
+# tiles, csrc/pct_attention_c256.cu) at FullPCT's O = 256, P = 256 (NVIDIA
+# H100 80GB HBM3, 700.00 W; CUDA events, median of 5, the mean of the two
+# readings of scripts/chip_fwd_check.py and scripts/chip_bwd_check.py
+# --wide-only from the earlier design's checkout in one call with the
+# wgmma design's, in the order earlier, wgmma, wgmma, earlier), and the
+# kernel names of the wgmma design's passes (pass_split)
+WIDE_WMMA_MS = {"pct_block_eval_c256": 0.798, "pct_block_eval_c256/OA": 1.052,
+                "pct_block_fwd_c256": 0.774, "pct_block_fwd_c256/OA": 0.970,
+                "pct_attn_fwd_c256": 0.551, "pct_attn_fwd_c256/OA": 0.534,
+                "pct_block_res_bwd_c256": 2.883, "pct_block_res_bwd_c256/OA": 3.446,
+                "pct_block_bwd_c256": 2.622, "pct_block_bwd_c256/OA": 3.360,
+                "pct_attn_bwd_c256": 1.741, "pct_attn_bwd_c256/OA": 2.411}
+WIDE_PASSES = ("::project256_wgmma_kernel", "::lse256_wgmma_kernel",
+               "::apply256_wgmma_kernel", "::dz256_wgmma_kernel", "::dv256_wgmma_kernel",
+               "::dq256_wgmma_kernel", "::dx256_wgmma_kernel", "::wgrad_wgmma_kernel",
+               "::reduce_slices_kernel")
+WIDE_SOURCES = {"pct_block_eval": "sgaligner_tpu_torch/csrc/pct_block_c256_sm90.cu",
+                "pct_block_fwd": "sgaligner_tpu_torch/csrc/pct_block_c256_sm90.cu",
+                "pct_attn_fwd": "sgaligner_tpu_torch/csrc/pct_block_c256_sm90.cu",
+                "pct_block_res_bwd": "sgaligner_tpu_torch/csrc/pct_block_bwd_c256_sm90.cu",
+                "pct_block_bwd": "sgaligner_tpu_torch/csrc/pct_block_bwd_c256_sm90.cu",
+                "pct_attn_bwd": "sgaligner_tpu_torch/csrc/pct_block_bwd_c256_sm90.cu",
+                "pct_epi_sums": "sgaligner_tpu_torch/csrc/pct_epi_sums.cu"}
+
+
+def wide_source(name: str, dt_name: str) -> str:
+    """The source of a C = 256 kernel: bf16 on the wgmma passes, f32 on
+    csrc/pct_attention_c256.cu (the epilogue sums at both dtypes on
+    csrc/pct_epi_sums.cu)."""
+    if dt_name == "f32" and name != "pct_epi_sums":
+        return "sgaligner_tpu_torch/csrc/pct_attention_c256.cu"
+    return WIDE_SOURCES[name]
+
+
+def wide_split(label: str, kern, args) -> str:
+    """A bf16 C = 256 kernel's earlier design's time and the device ms of
+    each of its wgmma passes under torch.profiler, for a log line."""
+    split = pass_split(lambda: kern(*args), WIDE_PASSES)
+    return (f" | earlier design (WMMA) {WIDE_WMMA_MS[label]:.3f} ms | passes "
+            + ", ".join(f"{k[2:]} {v:.4f}" for k, v in split.items()))
 
 
 def log(msg: str) -> None:
@@ -1283,10 +1401,11 @@ def check_wide_kernels() -> None:
                     if _build.LAUNCHES[wide] != before + 1:
                         raise AssertionError(f"{label}: {_build.LAUNCHES[wide] - before} "
                                              "launches of the C = 256 kernel, expected 1")
-                    if name in WIDE_F32_PLANTED and p == WIDE_P:
+                    extra = (WIDE_F32_PLANTED.get(name, ()) if dt_name == "f32"
+                             else wide_bf16_planted(name, flags))
+                    if extra and p == WIDE_P:
                         check_planted(name, args, flags, label, dt_name,
-                                      KERNEL_PLANTED[name]
-                                      + (WIDE_F32_PLANTED[name] if dt_name == "f32" else ()))
+                                      KERNEL_PLANTED.get(name, ()) + extra)
                     first, second = as_tuple(kern(*args)), as_tuple(kern(*args))
                     if not all(torch.equal(a, b) for a, b in zip(first, second)):
                         raise AssertionError(f"{label}: two runs on the same inputs differ "
@@ -4382,13 +4501,12 @@ def time_full_pct(state: dict) -> list[dict]:
             plain_ms = cuda_ms(lambda: plain(*args), warmup=1, reps=3)
             b_ms, b_by = bound(name, o, WIDE_P, oa=flags == OA, f32=dt_name == "f32", c=WIDE_C)
             launches = counted["eval" if name == "pct_block_eval" else "train"][wide]
+            split = (wide_split(label, kern, args) if label in WIDE_WMMA_MS else "")
             log(f"[time] {label:28s} O={o} P={WIDE_P} C={WIDE_C} kernel {ms:.3f} ms | plain "
                 f"{plain_ms:.3f} ms | bound {b_ms:.4f} ms ({b_by}) | library None | launches "
                 f"{launches} (full_pct, {FULL_PCT_CALLS} calls) | max_abs {err_abs:.3e} "
-                f"max_rel {err_rel:.3e} | {state['card']}")
-            source = ("sgaligner_tpu_torch/csrc/pct_epi_sums.cu" if name == "pct_epi_sums"
-                      else "sgaligner_tpu_torch/csrc/pct_attention_c256.cu")
-            rows.append({"name": label, "route": "cuda", "source": source,
+                f"max_rel {err_rel:.3e}{split} | {state['card']}")
+            rows.append({"name": label, "route": "cuda", "source": wide_source(name, dt_name),
                          "replaces": KERNELS[name][1], "launches": launches,
                          "max_abs_err": err_abs, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
@@ -4422,12 +4540,12 @@ def time_wide_ops(state: dict) -> list[dict]:
                 b_ms, b_by = bound(name, WIDE_O, WIDE_P, oa=flags == OA, f32=dt_name == "f32",
                                    c=WIDE_C)
                 launches = state["launches_ops_c256"][dt_name][tag][wide]
+                split = (wide_split(label, kern, args) if label in WIDE_WMMA_MS else "")
                 log(f"[time] {label:28s} O={WIDE_O} P={WIDE_P} C={WIDE_C} kernel {ms:.3f} ms | "
                     f"plain {plain_ms:.3f} ms | bound {b_ms:.4f} ms ({b_by}) | library None | "
                     f"launches {launches} (ops, one call) | max_abs {err_abs:.3e} max_rel "
-                    f"{err_rel:.3e} | {state['card']}")
-                rows.append({"name": label, "route": "cuda",
-                             "source": "sgaligner_tpu_torch/csrc/pct_attention_c256.cu",
+                    f"{err_rel:.3e}{split} | {state['card']}")
+                rows.append({"name": label, "route": "cuda", "source": wide_source(name, dt_name),
                              "replaces": KERNELS[name][1], "launches": launches,
                              "max_abs_err": err_abs, "ms": ms, "plain_ms": plain_ms,
                              "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})

@@ -20,7 +20,7 @@ __global__ void __launch_bounds__(256) bench(float* out, float* gc, int reps) {
   for (int i = threadIdx.x; i < brows * ldb; i += 256) B[i] = 1e-3f * (i % 13);
   __syncthreads();
   for (int r = 0; r < reps; ++r) {
-    block_gemm<float, B_COL, A_COL, M, N, K>(A, lda, B, ldb, C, ldc, r > 0);
+    block_gemm<B_COL, A_COL, M, N, K>(A, lda, B, ldb, C, ldc, r > 0);
     __syncthreads();
   }
   if (threadIdx.x == 0) out[blockIdx.x] = C[0];

@@ -3,7 +3,7 @@
 op, embed_second and the PointNet encoder, and the f32 PointNet forward, on
 one NVIDIA GPU: times at the training and serving O.
 
-    python3 scripts/chip_fwd_check.py [label] [--f32-pointnet]
+    python3 scripts/chip_fwd_check.py [label] [--f32-pointnet] [--wide-only]
 
 Run from a checkout's root (it imports that checkout's chip_smoke.py and
 sgaligner_tpu_torch); running it from two checkouts on one card compares
@@ -22,8 +22,15 @@ two designs on the same seeded inputs. Prints, per line and prefixed by
   argmax at O = 256 and 896, C3 = 200 and 256: the same readings;
 * the point configuration's four B = 512 requests, as chip_smoke.py's
   serve_point phase serves them (after its serve phase, which makes the
-  requests), with their host-clock times.
-With --f32-pointnet only the ptxas notes and the f32 PointNet lines.
+  requests), with their host-clock times;
+* the bf16 forwards at C = 256 (pct_block_fwd, pct_block_eval,
+  pct_attn_fwd, SA and OA) at FullPCT's O = 256, P = 256: the same
+  readings (CUDA events, median of 5), and the ptxas notes of their
+  kernels; then a bf16 FullPCT eval call and train call (forward and
+  backward) at chip_smoke.py's full_pct size (O = 256, N = 1,024), CUDA
+  events, median of 5, with the C = 256 kernels' launches a call.
+With --f32-pointnet only the ptxas notes and the f32 PointNet lines; with
+--wide-only only the C = 256 lines.
 """
 
 from __future__ import annotations
@@ -43,6 +50,11 @@ PASSES = ("project_wgmma_kernel", "lse_wgmma_kernel", "apply_wgmma_kernel",
           "embed_second_wgmma_kernel", "project_kernel", "lse_kernel", "apply_kernel",
           "attn_out_kernel", "embed_second_kernel", "pointnet_fwd_wgmma_kernel",
           "pointnet_fwd_kernel", "pointnet_fwd_f32_kernel", "reduce_slices_kernel")
+# the C = 256 forms' passes: the wgmma design's, then the shared-memory WMMA
+# design's (csrc/pct_attention_c256.cu) that it replaced
+WIDE_PASSES = ("project256_wgmma_kernel", "lse256_wgmma_kernel", "apply256_wgmma_kernel",
+               "project_kernel", "lse_kernel", "apply_kernel", "attn_out_kernel",
+               "reduce_slices_kernel")
 
 
 def registers(tag: str) -> None:
@@ -51,7 +63,7 @@ def registers(tag: str) -> None:
     _build.lib()
     lines = (Path(_build.build_info["path"]).parent / "build.log").read_text().splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry" in line and any(k in line for k in ("apply_wgmma", "attn_out",
+        if "Compiling entry" in line and any(k in line for k in ("apply", "attn_out", "256",
                                                                  "embed_second", "pointnet_fwd")):
             name = line.split("'")[1]
             notes = " | ".join(x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
@@ -80,6 +92,55 @@ def times(tag: str) -> None:
         torch.cuda.empty_cache()
 
 
+def wide(tag: str) -> None:
+    o, p, c = cs.WIDE_O, cs.WIDE_P, cs.WIDE_C
+    for name in ("pct_block_fwd", "pct_block_eval", "pct_attn_fwd"):
+        for flags in (cs.SA, cs.OA):
+            args = cs.op_inputs(name, o, torch.bfloat16, seed=2, p=p, c=c)
+            kern, _ = cs.op_fns(name, flags)
+            err = cs.check_op(name, args, "bf16", flags, what=name)[1]
+            ms = cs.cuda_ms(lambda: kern(*args), warmup=3, reps=5)
+            b_ms, _ = cs.bound(name, o, p, oa=flags == cs.OA, c=c)
+            split = cs.pass_split(lambda: kern(*args), tuple(f"::{k}" for k in WIDE_PASSES))
+            print(f"{tag} {name}_c256{'/OA' if flags == cs.OA else ''} O={o} P={p}: {ms:.3f} "
+                  f"ms, bound {b_ms:.4f} ms ({b_ms / ms:.1%}), max_rel {err:.2e} | passes "
+                  + ", ".join(f"{k[2:]} {v:.4f}" for k, v in split.items())
+                  + f" | {cs.card_line()}", flush=True)
+            del args
+            torch.cuda.empty_cache()
+
+
+def full_pct(tag: str) -> None:
+    from sgaligner_tpu_torch.engine.factory import build_full_pct
+    from sgaligner_tpu_torch.ops import _build
+
+    pts, mask = cs.full_pct_batch(cs.FULL_PCT_PAIRS, seed=22)
+    pts, mask = pts.cuda(), mask.cuda()
+    net = build_full_pct("cuda", torch.bfloat16, seed=11, samples=cs.FULL_PCT_SAMPLES)
+    net.eval()
+    with torch.inference_mode():
+        _build.reset_launches()
+        eval_ms = cs.cuda_ms(lambda: net(pts, mask), warmup=2, reps=5)
+        eval_launches = {k: v for k, v in _build.LAUNCHES.items() if k.endswith("_c256") and v}
+    net.train()
+    drop = torch.Generator(device="cuda").manual_seed(7)
+    ct = torch.randn(pts.shape[0], 256, generator=torch.Generator().manual_seed(5)).to(
+        "cuda", torch.bfloat16)
+
+    def fwd_bwd():
+        net.zero_grad(set_to_none=True)
+        out = net(pts, mask, drop)
+        out.backward(ct)
+        return out
+
+    _build.reset_launches()
+    train_ms = cs.cuda_ms(fwd_bwd, warmup=2, reps=5)
+    train_launches = {k: v for k, v in _build.LAUNCHES.items() if k.endswith("_c256") and v}
+    print(f"{tag} full_pct bf16 O={pts.shape[0]} N={cs.FULL_PCT_N}: eval {eval_ms:.2f} ms, "
+          f"train {train_ms:.2f} ms a call | launches over 7 calls: eval {eval_launches}, "
+          f"train {train_launches} | {cs.card_line()}", flush=True)
+
+
 def f32_pointnet(tag: str) -> None:
     kern, _ = cs.op_fns("pointnet_fwd")
     for o in (cs.EVA_TRAIN_O, 896):
@@ -105,10 +166,16 @@ def main() -> int:
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     tag = args[0] if args else "this"
     registers(tag)
+    if "--wide-only" in sys.argv:
+        wide(tag)
+        full_pct(tag)
+        return 0
     if "--f32-pointnet" in sys.argv:
         f32_pointnet(tag)
         return 0
     times(tag)
+    wide(tag)
+    full_pct(tag)
     f32_pointnet(tag)
     print(f"{tag} serve_point:", flush=True)
     state: dict = {}

@@ -1,17 +1,16 @@
 // Shared device helpers for the port's kernels (sm_90a).
 //
-// Every first-version kernel keeps its operand tiles in shared memory and
-// multiplies them with `block_gemm`: bf16 tiles go through the tensor cores
-// as WMMA 16x16x16 fragments with f32 accumulators; f32 tiles take a
-// register-tiled FMA product (each thread a TM x TN block of outputs in
-// registers, fed by 16-byte shared loads), in full f32 (no TF32), like
-// torch's f32 matmul with allow_tf32=False. Accumulators land in shared (or
-// global) memory as f32, and the kernels' epilogues read them from there.
+// The f32 C = 256 attention kernels (pct_attention_c256.cu,
+// pct_attention.cuh) keep their operand tiles in shared memory and multiply
+// them with `block_gemm`, a register-tiled FMA product (each thread a
+// TM x TN block of outputs in registers, fed by 16-byte shared loads), in
+// full f32 (no TF32), like torch's f32 matmul with allow_tf32=False.
+// Accumulators land in shared (or global) memory as f32, and the kernels'
+// epilogues read them from there.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cmath>
 #include <cstdint>
@@ -44,9 +43,8 @@ template <typename T>
 __device__ __forceinline__ float round_to(float v) { return to_f<T>(from_f<T>(v)); }
 
 // Row stride of a shared-memory tile `cols` wide: padded by 16 bytes so
-// neighbouring rows start in other banks. Keeps every WMMA tile pointer
-// 32-byte aligned (16 rows x stride is a multiple of 32 bytes) and every row
-// 16-byte aligned for vector copies.
+// neighbouring rows start in other banks; every row stays 16-byte aligned
+// for vector copies.
 template <typename T>
 __host__ __device__ constexpr int pad_ld(int cols) { return cols + 16 / (int)sizeof(T); }
 __host__ __device__ constexpr int pad_ldf(int cols) { return cols + 4; }
@@ -205,120 +203,86 @@ __device__ __forceinline__ void f32_fma(float (&acc)[TM][TN], const float (&a)[T
       for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i][kk], b[kk][j], acc[i][j]);
 }
 
-// C[M,N] (f32, row stride ldc) = (accumulate ? C : 0) + A[M,K] * B.
-// A is M x K row-major (lda) or, with A_COL, given as its transpose: K x M
-// row-major (lda), i.e. C = Aᵀ * B for a stored [K, M] A (a weight gradient
-// hᵀ·g). B is K x N row-major (ldb) or, with B_COL, given as its transpose:
-// N x K row-major (ldb), i.e. C = A * Bᵀ.
-// Operands and C are generic pointers: shared memory, or global memory (the
-// bf16 path then needs 32-byte aligned tile pointers: base aligned and every
-// leading dimension a multiple of 16 elements; the f32 path 16-byte aligned
-// pointers and leading dimensions that are multiples of 4). M, N, K must be
-// multiples of 16 (K of 8 at f32). Called by every thread of a block of
-// kGemmThreads; the caller synchronises before (operands ready) and after
-// (C complete).
-// bf16: WMMA 16x16x16 fragments with f32 accumulators, a warp a tile.
-// f32: a register-tiled FMA product (F32Tile): each thread's TM x TN
+// C[M,N] (f32, row stride ldc) = (accumulate ? C : 0) + A[M,K] * B, all
+// f32. A is M x K row-major (lda) or, with A_COL, given as its transpose:
+// K x M row-major (lda), i.e. C = Aᵀ * B for a stored [K, M] A (a weight
+// gradient hᵀ·g). B is K x N row-major (ldb) or, with B_COL, given as its
+// transpose: N x K row-major (ldb), i.e. C = A * Bᵀ.
+// Operands and C are generic pointers: shared memory, or global memory
+// (16-byte aligned pointers and leading dimensions that are multiples of
+// 4). M, N must be multiples of 16, K of 8. Called by every thread of a
+// block of kGemmThreads; the caller synchronises before (operands ready)
+// and after (C complete).
+// A register-tiled FMA product (F32Tile): each thread's TM x TN
 // accumulators in registers, fed per k-step of four by TM + TN 16-byte
 // loads, the next step's fragments loaded while this one multiplies. Each
 // output is one fmaf chain over k in ascending order, from 0 or from C: the
 // bits of the one-output-a-thread loop this replaced.
-template <typename T, bool B_COL, bool A_COL, int M, int N, int K>
-__device__ void block_gemm(const T* A, int lda, const T* B, int ldb, float* C, int ldc,
+template <bool B_COL, bool A_COL, int M, int N, int K>
+__device__ void block_gemm(const float* A, int lda, const float* B, int ldb, float* C, int ldc,
                            bool accumulate) {
   static_assert(M % 16 == 0 && N % 16 == 0 && K % 8 == 0, "block_gemm: shape");
-  if constexpr (std::is_same<T, bf16>::value) {
-    using namespace nvcuda;
-    const int warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
-    const int tn = N / 16, tiles = (M / 16) * tn;
-    using ALayout = typename std::conditional<A_COL, wmma::col_major, wmma::row_major>::type;
-    using BLayout = typename std::conditional<B_COL, wmma::col_major, wmma::row_major>::type;
-    for (int t = warp; t < tiles; t += nwarps) {
-      const int i = t / tn, j = t % tn;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      float* ct = C + i * 16 * ldc + j * 16;
-      if (accumulate)
-        wmma::load_matrix_sync(acc, ct, ldc, wmma::mem_row_major);
-      else
-        wmma::fill_fragment(acc, 0.0f);
-      for (int k = 0; k < K; k += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, ALayout> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> b;
-        if constexpr (A_COL)
-          wmma::load_matrix_sync(a, A + k * lda + i * 16, lda);
-        else
-          wmma::load_matrix_sync(a, A + i * 16 * lda + k, lda);
-        if constexpr (B_COL)
-          wmma::load_matrix_sync(b, B + j * 16 * ldb + k, ldb);
-        else
-          wmma::load_matrix_sync(b, B + k * ldb + j * 16, ldb);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(ct, acc, ldc, wmma::mem_row_major);
-    }
-  } else {
-    using F = F32Tile<M, N, A_COL, B_COL>;
-    constexpr int TM = F::TM, TN = F::TN, nx = F::nx, ny = F::ny;
-    const int tx = threadIdx.x % nx, ty = threadIdx.x / nx;
+  using F = F32Tile<M, N, A_COL, B_COL>;
+  constexpr int TM = F::TM, TN = F::TN, nx = F::nx, ny = F::ny;
+  const int tx = threadIdx.x % nx, ty = threadIdx.x / nx;
 #pragma unroll 1
-    for (int ch = 0; ch < F::kChunks; ++ch) {
-      // this chunk's columns: B's and C's first column moves by NC
-      const float* Bc = B_COL ? B + ch * F::NC * ldb : B + ch * F::NC;
-      float* Cc = C + ch * F::NC;
-      auto c_at = [&](int i, int j) -> float* {
-        const int m = A_COL ? 4 * (ty + ny * (i / 4)) + i % 4 : ty + i * ny;
-        const int n = B_COL ? tx + j * nx : 4 * (tx + nx * (j / 4)) + j % 4;
-        return Cc + m * ldc + n;
-      };
-      float acc[TM][TN];
+  for (int ch = 0; ch < F::kChunks; ++ch) {
+    // this chunk's columns: B's and C's first column moves by NC
+    const float* Bc = B_COL ? B + ch * F::NC * ldb : B + ch * F::NC;
+    float* Cc = C + ch * F::NC;
+    auto c_at = [&](int i, int j) -> float* {
+      const int m = A_COL ? 4 * (ty + ny * (i / 4)) + i % 4 : ty + i * ny;
+      const int n = B_COL ? tx + j * nx : 4 * (tx + nx * (j / 4)) + j % 4;
+      return Cc + m * ldc + n;
+    };
+    float acc[TM][TN];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        if constexpr (B_COL) {
+    for (int i = 0; i < TM; ++i) {
+      if constexpr (B_COL) {
 #pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = accumulate ? *c_at(i, j) : 0.f;
-        } else {
-#pragma unroll
-          for (int g = 0; g < TN / 4; ++g) {
-            const float4 v = accumulate ? *reinterpret_cast<const float4*>(c_at(i, 4 * g))
-                                        : make_float4(0.f, 0.f, 0.f, 0.f);
-            acc[i][4 * g] = v.x, acc[i][4 * g + 1] = v.y, acc[i][4 * g + 2] = v.z,
-            acc[i][4 * g + 3] = v.w;
-          }
-        }
-      }
-      float a0[TM][4], b0[4][TN];
-      f32_frag<TM, TN, nx, ny, A_COL, B_COL>(A, lda, Bc, ldb, tx, ty, 0, a0, b0);
-      if constexpr (TM * TN <= 32) {
-        // the next k-step's fragments in a second register set
-        float a1[TM][4], b1[4][TN];
-#pragma unroll 1
-        for (int k = 0; k < K; k += 8) {
-          f32_frag<TM, TN, nx, ny, A_COL, B_COL>(A, lda, Bc, ldb, tx, ty, k + 4, a1, b1);
-          f32_fma<TM, TN>(acc, a0, b0);
-          if (k + 8 < K)
-            f32_frag<TM, TN, nx, ny, A_COL, B_COL>(A, lda, Bc, ldb, tx, ty, k + 8, a0, b0);
-          f32_fma<TM, TN>(acc, a1, b1);
-        }
+        for (int j = 0; j < TN; ++j) acc[i][j] = accumulate ? *c_at(i, j) : 0.f;
       } else {
-        // 64 accumulators: 256 FMAs a k-step hide the loads (a second
-        // register set measured no faster on an H100)
-#pragma unroll 2
-        for (int k = 0; k < K; k += 4) {
-          if (k > 0) f32_frag<TM, TN, nx, ny, A_COL, B_COL>(A, lda, Bc, ldb, tx, ty, k, a0, b0);
-          f32_fma<TM, TN>(acc, a0, b0);
+#pragma unroll
+        for (int g = 0; g < TN / 4; ++g) {
+          const float4 v = accumulate ? *reinterpret_cast<const float4*>(c_at(i, 4 * g))
+                                      : make_float4(0.f, 0.f, 0.f, 0.f);
+          acc[i][4 * g] = v.x, acc[i][4 * g + 1] = v.y, acc[i][4 * g + 2] = v.z,
+          acc[i][4 * g + 3] = v.w;
         }
       }
+    }
+    float a0[TM][4], b0[4][TN];
+    f32_frag<TM, TN, nx, ny, A_COL, B_COL>(A, lda, Bc, ldb, tx, ty, 0, a0, b0);
+    if constexpr (TM * TN <= 32) {
+      // the next k-step's fragments in a second register set
+      float a1[TM][4], b1[4][TN];
+#pragma unroll 1
+      for (int k = 0; k < K; k += 8) {
+        f32_frag<TM, TN, nx, ny, A_COL, B_COL>(A, lda, Bc, ldb, tx, ty, k + 4, a1, b1);
+        f32_fma<TM, TN>(acc, a0, b0);
+        if (k + 8 < K)
+          f32_frag<TM, TN, nx, ny, A_COL, B_COL>(A, lda, Bc, ldb, tx, ty, k + 8, a0, b0);
+        f32_fma<TM, TN>(acc, a1, b1);
+      }
+    } else {
+      // 64 accumulators: 256 FMAs a k-step hide the loads (a second
+      // register set measured no faster on an H100)
+#pragma unroll 2
+      for (int k = 0; k < K; k += 4) {
+        if (k > 0) f32_frag<TM, TN, nx, ny, A_COL, B_COL>(A, lda, Bc, ldb, tx, ty, k, a0, b0);
+        f32_fma<TM, TN>(acc, a0, b0);
+      }
+    }
 #pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        if constexpr (B_COL) {
+    for (int i = 0; i < TM; ++i) {
+      if constexpr (B_COL) {
 #pragma unroll
-          for (int j = 0; j < TN; ++j) *c_at(i, j) = acc[i][j];
-        } else {
+        for (int j = 0; j < TN; ++j) *c_at(i, j) = acc[i][j];
+      } else {
 #pragma unroll
-          for (int g = 0; g < TN / 4; ++g)
-            *reinterpret_cast<float4*>(c_at(i, 4 * g)) =
-                make_float4(acc[i][4 * g], acc[i][4 * g + 1], acc[i][4 * g + 2], acc[i][4 * g + 3]);
-        }
+        for (int g = 0; g < TN / 4; ++g)
+          *reinterpret_cast<float4*>(c_at(i, 4 * g)) =
+              make_float4(acc[i][4 * g], acc[i][4 * g + 1], acc[i][4 * g + 2], acc[i][4 * g + 3]);
       }
     }
   }
@@ -360,7 +324,7 @@ inline int allow_smem(K kernel, size_t bytes) {
 }
 
 // Floats of one block's slice of a partial-sum scratch buffer: rounded up to
-// 64, so every slice starts 256-byte aligned (WMMA accumulates into them).
+// 64, so every slice starts 256-byte aligned.
 __host__ __device__ constexpr long long slice_stride(long long n) { return (n + 63) & ~63LL; }
 
 // The training kernels keep no atomics: each block adds its share of a

@@ -161,6 +161,17 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// Move this warpgroup's registers a thread to N (every thread of the
+// warpgroup runs it): a producer gives registers up, the consumers take them
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // named barrier over `threads` threads (id 0 is __syncthreads)
 __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");

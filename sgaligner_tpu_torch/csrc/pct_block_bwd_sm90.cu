@@ -1046,13 +1046,21 @@ int map_vec(CUtensorMap* m, const float* base, int o, int p) {
 }  // namespace
 
 // Aᵀ·B over row ranges into per-split scratch slices (see wgrad_wgmma_kernel):
-// A [rows, 128], B [rows, ldb] bf16; nb: 32 (ldb = 32), 128 or 256 columns
-// per block; grid tiles_n × splits
-int launch_wgrad_sm90(const void* a, const void* bmat, int ldb, int nb, int bias,
+// A [rows, 128] (row stride lda: 128, or 256 for one half of a C = 256
+// activation), B [rows, ldb] bf16; nb: 32 (ldb = 32), 64 (ldb = 64), 128 or
+// 256 columns per block; grid tiles_n × splits
+int launch_wgrad_sm90(const void* a, int lda, const void* bmat, int ldb, int nb, int bias,
                       long long rows, float* scratch, long long slice, int ld, int m_off,
                       int bias_off, int splits, cudaStream_t st) {
   CUtensorMap am, bm;
-  if (int rc = map_2d(&am, a, rows, kC, kTile)) return rc;
+  {
+    const uint64_t dims[2] = {kC, (uint64_t)rows};
+    const uint64_t strides[1] = {(uint64_t)lda * 2};
+    const uint32_t box[2] = {64, kTile};
+    if (int rc = make_map(&am, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a, dims, strides, box,
+                          CU_TENSOR_MAP_SWIZZLE_128B))
+      return rc;
+  }
   if (int rc = map_2d(&bm, bmat, rows, ldb, kTile)) return rc;
   const int tiles_n = nb == 32 ? 1 : ldb / nb;
   long long per = (rows + splits - 1) / splits;
@@ -1067,6 +1075,7 @@ int launch_wgrad_sm90(const void* a, const void* bmat, int ldb, int nb, int bias
     return (int)cudaGetLastError();                                                           \
   }
   if (nb == 32) SGA_WGRAD(32, false);
+  if (nb == 64) SGA_WGRAD(64, false);
   if (nb == 128) {
     if (bias) SGA_WGRAD(128, true);
     SGA_WGRAD(128, false);
@@ -1169,15 +1178,15 @@ int launch_block_bwd_sm90(int kind, const void* x, const void* wqk, const void* 
   if (rc) return rc;
 
   const long long slice = slice_stride(kBwdGrad);
-  if (int rc2 = launch_wgrad_sm90(x, w.dq, kDa, 32, 0, rows, scratch + kOffDwqk, slice, kDa, 0, 0,
-                                  blocks, st))
+  if (int rc2 = launch_wgrad_sm90(x, kC, w.dq, kDa, 32, 0, rows, scratch + kOffDwqk, slice, kDa,
+                                  0, 0, blocks, st))
     return rc2;
-  if (int rc2 = launch_wgrad_sm90(x, w.dv, kC, 128, 1, rows, scratch + kOffDwv, slice, kC, 0,
+  if (int rc2 = launch_wgrad_sm90(x, kC, w.dv, kC, 128, 1, rows, scratch + kOffDwv, slice, kC, 0,
                                   kOffDbv - kOffDwv, blocks, st))
     return rc2;
   if (kind != 2)
-    if (int rc2 = launch_wgrad_sm90(w.u, w.dz, kC, 128, 1, rows, scratch + kOffDwt, slice, kC, 0,
-                                    kOffDbt - kOffDwt, blocks, st))
+    if (int rc2 = launch_wgrad_sm90(w.u, kC, w.dz, kC, 128, 1, rows, scratch + kOffDwt, slice, kC,
+                                    0, kOffDbt - kOffDwt, blocks, st))
       return rc2;
   return reduce_slices(scratch, slice, blocks, grads, kind == 2 ? kOffDwt : kBwdGrad, st);
 }

@@ -26,7 +26,7 @@
 namespace sga {
 
 int launch_transpose_w_sm90(const void* w, void* wt, int k, cudaStream_t st);
-int launch_wgrad_sm90(const void* a, const void* bmat, int ldb, int nb, int bias,
+int launch_wgrad_sm90(const void* a, int lda, const void* bmat, int ldb, int nb, int bias,
                       long long rows, float* scratch, long long slice, int ld, int m_off,
                       int bias_off, int splits, cudaStream_t st);
 
@@ -326,7 +326,7 @@ int launch_tail_bwd_sm90(const void* x1, const void* x2, const void* x3, const v
 
   const long long slice = (long long)kKin * k;
   for (int i = 0; i < 4; ++i)
-    if (int rc = launch_wgrad_sm90(xs[i], g, k, 256, 0, rows, scratch, slice, k, 128 * i, 0,
+    if (int rc = launch_wgrad_sm90(xs[i], 128, g, k, 256, 0, rows, scratch, slice, k, 128 * i, 0,
                                    splits, st))
       return rc;
   return reduce_slices(scratch, slice, splits, dw, kKin * k, st);

@@ -26,7 +26,9 @@ too, as the JAX ops do; ``pct_block_eval`` also the mixed pairs, and
 ``BlockEval`` makes it differentiable. A CUDA tensor goes through
 ``csrc/pct_attention.cu`` (in bf16, ``pct_block_eval``, ``block_fwd`` and
 ``attn_fwd`` through ``csrc/pct_block_eval_sm90.cu`` and the three backwards
-through ``csrc/pct_block_bwd_sm90.cu``; ``epi_sums`` at both dtypes through
+through ``csrc/pct_block_bwd_sm90.cu``, at C = 256 through
+``csrc/pct_block_c256_sm90.cu``, ``csrc/pct_block_dz_c256_sm90.cu`` and
+``csrc/pct_block_bwd_c256_sm90.cu``; ``epi_sums`` at both dtypes through
 the streaming reduction of ``csrc/pct_epi_sums.cu``); a CPU tensor through the
 plain versions (``block_eval_plain``, ``block_fwd_plain``,
 ``epi_sums_plain``, ``block_res_bwd_plain``, ``block_bwd_plain``,
@@ -175,14 +177,14 @@ _block_eval_op = library.define(
 
 def _block_work(x):
     """The work buffers q [O, P, da], v, lse of the block kernels and the
-    attention forward. bf16 at C = 128 (the wgmma design): vᵀ [O, 128, pp]
-    and lse [O, pp], the key axis padded to a multiple of 8 (16-byte rows for
-    TMA); otherwise v [O, P, C], lse [O, P]."""
+    attention forward. bf16 (the wgmma designs, C = 128 and 256): vᵀ
+    [O, C, pp] and lse [O, pp], the key axis padded to a multiple of 8
+    (16-byte rows for TMA); f32: v [O, P, C], lse [O, P]."""
     o, p, c = x.shape
     q = torch.empty((o, p, c // 4), dtype=x.dtype, device=x.device)
-    if x.dtype == torch.bfloat16 and c == 128:
+    if x.dtype == torch.bfloat16:
         pp = (p + 7) // 8 * 8
-        return (q, torch.empty((o, 128, pp), dtype=x.dtype, device=x.device),
+        return (q, torch.empty((o, c, pp), dtype=x.dtype, device=x.device),
                 torch.empty((o, pp), dtype=torch.float32, device=x.device))
     return (q, torch.empty_like(x),
             torch.empty((o, p), dtype=torch.float32, device=x.device))

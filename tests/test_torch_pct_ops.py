@@ -387,8 +387,9 @@ def test_masked_batchnorm_forms_match_jax(x64, shape):
 
 @pytest.mark.parametrize("dtype,width,reads", [(torch.float32, 128, True),
                                                (torch.float32, 256, False),
-                                               (torch.bfloat16, 128, False)],
-                         ids=["f32-C128", "f32-C256", "bf16-C128"])
+                                               (torch.bfloat16, 128, False),
+                                               (torch.bfloat16, 256, False)],
+                         ids=["f32-C128", "f32-C256", "bf16-C128", "bf16-C256"])
 def test_attention_alignment_rule_and_cpu_views(dtype, width, reads):
     """The attention wrappers hold a tensor to a 16-byte start only where
     the kernel copies it 16 bytes at a time (the f32 C = 128 passes); a CPU
@@ -408,6 +409,26 @@ def test_attention_alignment_rule_and_cpu_views(dtype, width, reads):
     got = pa.block_fwd(view, *args[1:], mask)
     want = pa.block_fwd_plain(args[0], *args[1:], mask)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype,width", [(torch.bfloat16, 128), (torch.bfloat16, 256),
+                                         (torch.float32, 256)],
+                         ids=["bf16-C128", "bf16-C256", "f32-C256"])
+def test_block_work_layout(dtype, width):
+    """The block kernels' work buffers: q [O, P, C / 4] in x's dtype; bf16
+    (the wgmma passes, which read v and lse by TMA) vᵀ [O, C, pp] and lse
+    [O, pp] f32 with pp = P rounded up to a multiple of 8; f32 v [O, P, C]
+    and lse [O, P]."""
+    from sgaligner_tpu_torch.ops import pct_attention as pa
+
+    o, p = 3, 250
+    q, v, lse = pa._block_work(torch.zeros(o, p, width, dtype=dtype))
+    assert q.shape == (o, p, width // 4) and q.dtype == dtype
+    assert v.dtype == dtype and lse.dtype == torch.float32
+    if dtype == torch.bfloat16:
+        assert v.shape == (o, width, 256) and lse.shape == (o, 256)
+    else:
+        assert v.shape == (o, p, width) and lse.shape == (o, p)
 
 
 @pytest.mark.parametrize("offset", [0, 1, 4])
